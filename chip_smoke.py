@@ -23,14 +23,30 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    generating truth (>= 0.99); repeated fits must be byte-identical;
 5. the kernels alone at the 1M fit's own inputs (the first B1 pass and
    the first B2 pass): equality with the plain versions, CUDA-event
-   times (median) beside the plain versions' times and the bound.
+   times (median) beside the plain versions' times and the bound;
+6. serving at full size on phase 4's first 1M host-input model (no
+   refit): ``model.query_engine()`` with its defaults builds the
+   core-point index; 65,536 queries (half jittered training points, a
+   quarter exact core points, a quarter uniform over the data's box) go
+   in as 16 ``submit`` calls of 4,096 and one ``drain``, then one sync
+   ``predict`` of 4,096.  Checks: (a) B5 equals its plain version on
+   the card, bitwise, on the first two batches and the timed batch;
+   (b) 512 queries equal the numpy brute-force oracle over all cores;
+   (c) every exact core point predicts its own training label; (d) a
+   ``save``/``load`` round trip (no training data) predicts
+   byte-identically; (e) B5 launched once per dispatched batch.  Prints
+   the index geometry, queries/s, p50/p99 request ms, batch fill, the
+   host's waits on the card, warm drains against as many sync predicts
+   (ms per batch), one batch's stage times, and B5's CUDA-event time
+   per 4,096-query batch beside its plain version and its bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and
-profiles one 1M-point fit (``torch.profiler``; see :func:`profile_fit`).
+profiles one 1M-point fit and one serving drain (``torch.profiler``,
+then ``cProfile`` for the drain's host side; see :func:`profile_fit`).
 """
 
 from __future__ import annotations
@@ -102,52 +118,336 @@ def guard_banded_blobs(d, n=8192, eps=2.0, band=1e-3, seed=7):
     return X
 
 
-def profile_fit(torch, DBSCAN, make_blob_data):
-    """``--profile``: where one 1M x 16-D main-path fit spends its time,
-    from ``torch.profiler`` (after a warm fit): device time by kernel,
-    the device's busy and idle share of the wall, and host time by op.
-    The profiler's own overhead inflates the wall it measures."""
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def _on_device(e):
+    """Kernels and copies themselves, not the aten ops that launched
+    them (those carry the same device time again) nor the profiler's own
+    buffer requests."""
     from torch.autograd import DeviceType
+
+    return (getattr(e, "device_type", None) == DeviceType.CUDA
+            and not e.key.startswith("Activity Buffer"))
+
+
+def _profiled(torch, what, run):
+    """Run ``run()`` under ``torch.profiler`` and print the wall, the
+    device's busy and idle share, device time by kernel and host time by
+    op.  The profiler's own overhead inflates the wall it measures."""
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    events = [e for e in prof.key_averages() if _on_device(e)]
+    busy = sum(_dev_us(e) for e in events)
+    log(f"profile {what}: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.4f}")
+    for e in sorted(events, key=_dev_us, reverse=True)[:12]:
+        if _dev_us(e) <= 0:
+            break
+        log(f"  device {_dev_us(e) / 1e3:10.3f} ms x{e.count:<6d} "
+            f"{e.key[:100]}")
+    host = [e for e in prof.key_averages() if not _on_device(e)]
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:8]:
+        log(f"  host   {e.self_cpu_time_total / 1e3:10.3f} ms "
+            f"x{e.count:<6d} {e.key[:100]}")
 
-    def on_device(e):
-        # Kernels and copies themselves, not the aten ops that launched
-        # them (those carry the same device time again) nor the
-        # profiler's own buffer requests.
-        return (getattr(e, "device_type", None) == DeviceType.CUDA
-                and not e.key.startswith("Activity Buffer"))
 
+def profile_fit(torch, DBSCAN, make_blob_data):
+    """``--profile``: where one 1M x 16-D main-path fit spends its time
+    (after a warm fit), from host input and from a CUDA tensor; then
+    where one serving drain of 16 batches of 4,096 queries spends its
+    time on the host-input model's index."""
     X, _ = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
     for source in ("host", "cuda"):
         Xin = X if source == "host" else torch.from_numpy(X).cuda()
         model = DBSCAN(eps=2.4, min_samples=10, block=2048)
         model.fit(Xin)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        _profiled(torch, f"n=1000000 fit from {source}",
+                  lambda: model.fit(Xin))
+        if source == "host":
+            served = model
+    eng = served.query_engine()
+    rng = np.random.default_rng(12)
+    batches = [
+        X[rng.integers(0, len(X), 4096)]
+        + rng.normal(scale=0.3, size=(4096, X.shape[1])).astype(X.dtype)
+        for _ in range(16)
+    ]
+
+    def drain():
+        for b in batches:
+            eng.submit(b)
+        eng.drain()
+
+    drain()
+    _profiled(torch, "serving drain of 16 x 4096 queries", drain)
+    # The host side of a drain by Python function (torch.profiler sees
+    # only the torch ops; the routing, assembly and fold are numpy).
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(drain)
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof)
+    total = sum(v[2] for v in stats.stats.values())
+    log(f"cProfile serving drain: {total * 1e3:.2f} ms of host time "
+        f"(profiler overhead included); by own time:")
+    for (file, line, fn), v in sorted(stats.stats.items(),
+                                      key=lambda kv: kv[1][2],
+                                      reverse=True)[:14]:
+        log(f"  {v[2] * 1e3:9.3f} ms own {v[3] * 1e3:9.3f} ms with callees "
+            f"x{v[1]:<6d} {os.path.basename(file)}:{line} {fn}")
+
+
+def serve_phase(torch, model, X, median_ms):
+    """Phase 6 (see the module docstring); returns B5's JSON record."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.query import (
+        brute_force_query, query_min_core_plain,
+    )
+
+    dev = model.device
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng = model.query_engine()
+    torch.cuda.synchronize()
+    idx = eng.index
+    log(f"  index build {time.perf_counter() - t:.3f} s: "
+        f"{idx.n_core} cores, {idx.n_leaves} leaves, leaf_cap "
+        f"{idx.leaf_cap}, block {idx.block}, qblock {idx.qblock}, "
+        f"{idx.stats['index_bytes'] / 1e6:.1f} MB "
+        f"({idx.index_device_bytes} bytes on the card), pad waste "
+        f"{idx.stats['pad_waste']}")
+
+    # Traffic, made with numpy from a fixed seed and shuffled.
+    rng = np.random.default_rng(12)
+    n_q, per = 65_536 + 4096, 4096
+    core_rows = np.flatnonzero(model.core_sample_mask_)
+    src = np.concatenate([
+        rng.integers(0, len(X), n_q // 2),
+        core_rows[rng.integers(0, len(core_rows), n_q // 4)],
+    ])
+    Q = np.concatenate([
+        X[src[:n_q // 2]] + rng.normal(scale=0.3, size=(n_q // 2, X.shape[1])),
+        X[src[n_q // 2:]],
+        rng.uniform(X.min(axis=0), X.max(axis=0),
+                    size=(n_q - len(src), X.shape[1])),
+    ]).astype(X.dtype)
+    kind = np.repeat([0, 1, 2], [n_q // 2, n_q // 4, n_q - len(src)])
+    perm = rng.permutation(n_q)
+    Q, kind = Q[perm], kind[perm]
+    src = np.concatenate([src, np.full(n_q - len(src), -1)])[perm]
+    batches = [Q[s:s + per] for s in range(0, 65_536, per)]
+    sync_q = Q[65_536:]
+
+    coords, labels, _blo, _bhi = idx.device_tensors()
+    err = 0
+
+    def tiles(qs):
+        qbuf, tile_leaf, rowmap = idx.assemble(idx.prepare_queries(qs))
+        return (torch.from_numpy(qbuf).to(dev),
+                torch.from_numpy(tile_leaf).to(dev), rowmap)
+
+    def hold(b):
+        nonlocal err
+        q, tl, rowmap = tiles(batches[b])
+        args = (q, tl, coords, labels)
+        kern = ck.query_leaf(*args, block=idx.block, nb=idx.nb)
+        plain = query_min_core_plain(*args, block=idx.block, nb=idx.nb)
+        diff = (kern.long() - plain.long()).abs()
+        err = max(err, int(diff.max()))
+        bad = int((diff != 0).sum())
+        rows = sum(len(a) for a in rowmap)
+        log(f"  B5 batch {b}: {rows} routed rows in {len(rowmap)} tiles "
+            f"(nqt {q.shape[0]}); max|kernel-plain| = {int(diff.max())}, "
+            f"mismatches = {bad}")
+        if bad:
+            fail(f"query_leaf disagrees with its plain version on batch {b}")
+        return args, rowmap
+
+    hold(0)
+    hold(1)
+
+    # The main path: counts from 0, 16 submits, one drain, one predict.
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tickets = [eng.submit(b) for b in batches]
+    done = eng.drain()
+    drain_wait_s = eng.device_wait_s
+    sync_lab, sync_dist = eng.predict(sync_q, return_distance=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = ck.LAUNCHES["query_leaf"]
+    st = eng.serving_stats()
+    log(f"  served {done} + {len(sync_q)} queries in {wall:.4f} s: "
+        f"{st['batches']} batches, {launches} B5 launches; queries/s "
+        f"{st['qps']}, p50 {st['p50_ms']} ms, p99 {st['p99_ms']} ms, "
+        f"batch fill {st['batch_fill']}; the host waited on the card "
+        f"{drain_wait_s * 1e3:.3f} ms in the drain of {len(batches)} "
+        f"batches, {(eng.device_wait_s - drain_wait_s) * 1e3:.3f} ms in "
+        f"the sync predict")
+    if launches < 1 or launches != st["batches"]:
+        fail(f"B5 launches {launches} != batches {st['batches']}")
+    lab = np.concatenate([tk.result() for tk in tickets] + [sync_lab])
+    d2 = np.concatenate([tk.d2 for tk in tickets])
+
+    # (b) the numpy oracle over all cores, on 512 queries (threads: numpy
+    # releases the GIL in its ufuncs).
+    sel = idx.labels != np.iinfo(np.int32).max
+    cores = np.ascontiguousarray(idx.coords[:, sel].T)
+    qf = idx.prepare_queries(Q[:512])
+    t = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(
+            lambda s: brute_force_query(qf[s:s + 64], cores, idx.labels[sel],
+                                        idx.eps),
+            range(0, 512, 64),
+        ))
+    olab = np.concatenate([p[0] for p in parts])
+    od2 = np.concatenate([p[1] for p in parts])
+    same = (np.array_equal(olab, lab[:512])
+            and np.array_equal(od2.view(np.int32), d2[:512].view(np.int32)))
+    log(f"  (b) 512 queries vs the numpy oracle over {len(cores)} cores "
+        f"({time.perf_counter() - t:.1f} s): labels and d2 bits equal: "
+        f"{same}; noise {int((olab < 0).sum())}")
+    if not same:
+        fail("predict differs from the brute-force oracle")
+    # (c) exact core points keep their training label.
+    c = kind == 1
+    own = np.array_equal(lab[c], model.labels_[src[c]])
+    log(f"  (c) {int(c.sum())} exact core points predict their own label: "
+        f"{own}")
+    if not own:
+        fail("a core point predicted another label than its own")
+    # (d) checkpoint round trip, served without the training data.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.npz")
+        model.save(path)
+        loaded = DBSCAN.load(path)
+    got_lab, got_dist = loaded.query_engine().predict(
+        sync_q, return_distance=True
+    )
+    same = (loaded.data is None and np.array_equal(got_lab, sync_lab)
+            and np.array_equal(got_dist, sync_dist))
+    log(f"  (d) save -> load (no training data) -> predict byte-identical: "
+        f"{same}")
+    if not same:
+        fail("the loaded model predicts differently")
+
+    # Steady state on the warm engine (the first drain above also
+    # allocates pinned buffers): the same 16 batches as one drain, where
+    # B5 of a batch runs while the host folds the one before and
+    # assembles the next, against 16 sync predicts, where each batch's
+    # B5 sits between its assembly and its fold; interleaved, five each.
+    modes = {"drain": [], "sync": []}
+    waits = {"drain": [], "sync": []}
+    for _ in range(5):
+        for mode in modes:
+            w0 = eng.device_wait_s
             t = time.perf_counter()
-            model.fit(Xin)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t) * 1e6
-        events = [e for e in prof.key_averages() if on_device(e)]
-        busy = sum(dev_us(e) for e in events)
-        log(f"profile n=1000000 from {source}: wall {wall_us / 1e3:.2f} ms, "
-            f"device busy {busy / 1e3:.2f} ms, idle share "
-            f"{1 - busy / wall_us:.4f}")
-        for e in sorted(events, key=dev_us, reverse=True)[:12]:
-            if dev_us(e) <= 0:
-                break
-            log(f"  device {dev_us(e) / 1e3:10.3f} ms x{e.count:<6d} "
-                f"{e.key[:100]}")
-        host = [e for e in prof.key_averages() if not on_device(e)]
-        for e in sorted(host, key=lambda e: e.self_cpu_time_total,
-                        reverse=True)[:8]:
-            log(f"  host   {e.self_cpu_time_total / 1e3:10.3f} ms "
-                f"x{e.count:<6d} {e.key[:100]}")
+            if mode == "drain":
+                for b in batches:
+                    eng.submit(b)
+                eng.drain()
+            else:
+                for b in batches:
+                    eng.predict(b)
+            modes[mode].append((time.perf_counter() - t) * 1e3
+                               / len(batches))
+            waits[mode].append((eng.device_wait_s - w0) * 1e3)
+    for mode, ms_b in modes.items():
+        log(f"  warm {mode} of {len(batches)} x {per}: ms per batch "
+            f"{[round(x, 3) for x in ms_b]} (median {np.median(ms_b):.3f},"
+            f" {per / np.median(ms_b) * 1e3:.1f} queries/s); host waits "
+            f"on the card, ms per {len(batches)} batches "
+            f"{[round(x, 3) for x in waits[mode]]}")
+
+    # Where one batch's time goes: the stages of batch 3, each on its
+    # own and synchronised (host clock).
+    from pypardis_tpu_torch.ops.query import unpack_query_result
+    from pypardis_tpu_torch.serve.engine import fold_leaves
+
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    qf = stage("prepare", lambda: idx.prepare_queries(batches[3]))
+    stage("route", lambda: idx.route(qf))
+    qbuf, tl_np, rowmap = stage("assemble (with route)",
+                                lambda: idx.assemble(qf))
+    q, tl = stage("H2D", lambda: (torch.from_numpy(qbuf).to(dev),
+                                  torch.from_numpy(tl_np).to(dev)))
+    packed = stage("B5", lambda: ck.query_leaf(
+        q, tl, coords, labels, block=idx.block, nb=idx.nb))
+    labs, d2r = stage("D2H", lambda: unpack_query_result(packed))
+    stage("fold", lambda: fold_leaves(len(qf), rowmap, labs, d2r))
+    log("  batch 3 stages (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # B5 alone on batch 2's tiles (also held against its plain version).
+    args, rowmap = hold(2)
+    kw = dict(block=idx.block, nb=idx.nb)
+    ms = median_ms(lambda: ck.query_leaf(*args, **kw), 10)
+    plain_ms = median_ms(lambda: query_min_core_plain(*args, **kw), 3)
+    d = args[0].shape[1]
+    # The work the answer needs: each real tile's real rows against the
+    # core (non-pad) slots of its leaf; pad rows and pad slots never
+    # change a result.
+    per_leaf = (idx.labels.reshape(idx.n_leaves, idx.leaf_cap)
+                != np.iinfo(np.int32).max).sum(1)
+    tile_leaf = args[1][:len(rowmap)].cpu().numpy()
+    tile_rows = np.array([len(a) for a in rowmap])
+    rows = int(tile_rows.sum())
+    pairs = int((tile_rows * per_leaf[tile_leaf]).sum())
+    # Operations: 3d FP32 operations per pair (sub, mul, add per axis)
+    # plus the compare.
+    ops = pairs * (3 * d + 1)
+    # Bytes: the real query rows, the core slots (coordinates and labels)
+    # of each referenced leaf and the leaf ids once, and a (label, d^2)
+    # per real row.
+    nbytes = (rows * d * 4 + int(per_leaf[np.unique(tile_leaf)].sum())
+              * (d + 1) * 4 + len(rowmap) * 4 + 2 * rows * 4)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"  query_leaf: {ms:.4f} ms per 4096-query batch (plain "
+        f"{plain_ms:.2f} ms), bound {bound_ms:.4f} ms by {bound_by}; "
+        f"{rows} real rows in {len(rowmap)} tiles, {pairs} row x core "
+        f"pairs, {nbytes} bytes; {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
+        f"of needed work")
+    return {
+        "name": "query_leaf", "route": "cuda",
+        "source": "pypardis_tpu_torch/csrc/query_kernels.cu",
+        "replaces": "pypardis_tpu/ops/pallas_kernels.py:1107",
+        "launches": launches // st["batches"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        # No single PyTorch call computes (min d^2, min label among
+        # ties) over a leaf slab.
+        "library_ms": None,
+    }
 
 
 def main() -> None:
@@ -276,6 +576,7 @@ def main() -> None:
     log("phase 4: main path DBSCAN(eps=2.4, min_samples=10, block=2048)")
     fits = {}
     main_launches = None
+    serve_model = serve_X = None
     for n in (200_000, 1_000_000):
         X, truth = make_blob_data(n, 16, n_centers=32, std=0.4)
         Xd = torch.from_numpy(X).to(dev)
@@ -308,6 +609,7 @@ def main() -> None:
                 fail(f"ARI {a} < 0.99 at n={n}")
             if n == 1_000_000 and main_launches is None:
                 main_launches = launches
+                serve_model, serve_X = model, X
             runs.append((source, wall, model.labels_.copy(),
                          model.core_sample_mask_.copy()))
         for i in (1, 3):
@@ -398,6 +700,9 @@ def main() -> None:
             # min-label over a tile-pair list.
             "library_ms": None,
         })
+
+    log("phase 6: serving on the 1M host-input model")
+    kernels.append(serve_phase(torch, serve_model, serve_X, median_ms))
     log(f"fit seconds (host, host, cuda, cuda): {json.dumps(fits)}")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

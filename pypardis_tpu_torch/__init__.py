@@ -7,8 +7,15 @@ caller passes ``device="cpu"``, which runs the kernels' plain PyTorch
 versions.
 """
 
+from .checkpoint import load_index, load_model, save_index, save_model
 from .config import DBSCANConfig
 from .dbscan import DBSCAN
 from .geometry import BoundingBox
+from .partition import KDPartitioner
+from .serve import CorePointIndex, QueryEngine
 
-__all__ = ["DBSCAN", "BoundingBox", "DBSCANConfig"]
+__all__ = [
+    "DBSCAN", "BoundingBox", "DBSCANConfig", "CorePointIndex",
+    "QueryEngine", "KDPartitioner", "save_model", "load_model",
+    "save_index", "load_index",
+]

@@ -1,0 +1,251 @@
+"""Checkpoints in the JAX package's ``.npz`` format, key for key
+(counterpart of ``pypardis_tpu/checkpoint.py``).
+
+A file written by either package loads in the other:
+
+* ``save_model`` / ``load_model``: hyperparameters, labels, core mask,
+  record keys, boxes, metrics and the core-point coordinates, so a
+  loaded model serves ``predict`` without its training data;
+* ``save_index`` / ``load_index``: a serving index's padded slabs,
+  labels, per-block bounds, split tree and frame, byte for byte;
+* ``save_partitioner`` / ``load_partitioner``: a KD split tree and its
+  boxes.
+
+The JAX package accepts only its own kernel backends (``auto``/``xla``/
+``pallas``), so the port writes ``"auto"`` and reads any of them as
+``"auto"``.  A JAX model whose precision, metric or eps mode the port
+has not ported raises ``NotImplementedError`` naming its ROADMAP item;
+it is never served through a substitute.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+
+from .geometry import BoundingBox
+from .partition import KDPartitioner, route_tree
+from .utils.validate import check_query_points
+
+
+def _norm_npz(path: str) -> str:
+    """``np.savez`` appends ``.npz`` when it is missing and ``np.load``
+    does not; normalize both ways so ``save("m")``/``load("m")`` pair."""
+    return path if str(path).endswith(".npz") else f"{path}.npz"
+
+
+def save_partitioner(part: KDPartitioner, path: str) -> None:
+    """Persist the split tree and boxes (not the points)."""
+    labels = sorted(part.bounding_boxes)
+    np.savez(
+        _norm_npz(path),
+        kind="kd_partition_tree",
+        k=part.k,
+        split_method=part.split_method,
+        labels=np.asarray(labels),
+        lower=np.stack([part.bounding_boxes[l].lower for l in labels]),
+        upper=np.stack([part.bounding_boxes[l].upper for l in labels]),
+        tree=np.asarray(part.tree, dtype=np.float64).reshape(-1, 5),
+    )
+
+
+class PartitionTree:
+    """A loaded partition tree: routing and boxes without the data."""
+
+    def __init__(self, k, split_method, labels, lower, upper, tree):
+        self.k = int(k)
+        self.split_method = str(split_method)
+        self.bounding_boxes = {
+            int(l): BoundingBox(lower=lo, upper=up)
+            for l, lo, up in zip(labels, lower, upper)
+        }
+        self.tree = [
+            (int(p), int(a), float(b), int(lf), int(rt))
+            for p, a, b, lf, rt in tree
+        ]
+
+    @property
+    def n_partitions(self) -> int:
+        return len(self.bounding_boxes)
+
+    def route(self, points: np.ndarray) -> np.ndarray:
+        """Replay the split tree (validated against ``k``)."""
+        check_query_points(points, self.k)
+        return route_tree(self.tree, points)
+
+
+def load_partitioner(path: str) -> PartitionTree:
+    with np.load(_norm_npz(path), allow_pickle=False) as z:
+        if str(z["kind"]) != "kd_partition_tree":
+            raise ValueError(f"{path} is not a partition-tree checkpoint")
+        return PartitionTree(
+            z["k"], z["split_method"], z["labels"], z["lower"], z["upper"],
+            z["tree"],
+        )
+
+
+def save_model(model, path: str) -> None:
+    """Persist a fitted ``DBSCAN``: results, hyperparameters and the
+    core-point coordinates (in the data's own dtype)."""
+    from .serve.index import _core_rows
+
+    if model.labels_ is None:
+        raise ValueError("model is untrained; nothing to checkpoint")
+    boxes = model.bounding_boxes or {}
+    labels = sorted(boxes)
+    params = {
+        "eps": model.eps,
+        "min_samples": model.min_samples,
+        "metric": model.metric
+        if isinstance(model.metric, str)
+        else getattr(model.metric, "__name__", "euclidean"),
+        # The JAX constructor's sharding knobs, at its defaults: the
+        # port's fit is single-device (ROADMAP A11).
+        "max_partitions": None,
+        "split_method": "min_var",
+        "block": model.block,
+        "precision": model.precision,
+        # The JAX package validates this against its own backends.
+        "kernel_backend": "auto",
+    }
+    keys = np.asarray(model._keys)
+    if keys.dtype == object:
+        # Object keys would need pickle, which loading refuses.
+        keys = keys.astype(str)
+    cores = getattr(model, "_serve_core_points", None)
+    if cores is None and model.data is not None:
+        cores = _core_rows(
+            model.data, np.asarray(model.core_sample_mask_, bool)
+        )
+    np.savez(
+        _norm_npz(path),
+        kind="dbscan_model",
+        params=json.dumps(params),
+        labels_=model.labels_,
+        core_sample_mask_=model.core_sample_mask_,
+        core_points=(
+            cores if cores is not None else np.zeros((0, 0), np.float32)
+        ),
+        keys=keys,
+        box_labels=np.asarray(labels, dtype=np.int64),
+        box_lower=np.stack([boxes[l].lower for l in labels])
+        if labels else np.zeros((0, 0)),
+        box_upper=np.stack([boxes[l].upper for l in labels])
+        if labels else np.zeros((0, 0)),
+        metrics=json.dumps(model.metrics_),
+    )
+
+
+def load_model(path: str, device=None):
+    """Rebuild a fitted ``DBSCAN`` from either package's checkpoint;
+    ``assignments()`` and ``predict`` work without retraining.
+    ``device``: where the model serves and refits (default the card)."""
+    from .dbscan import DBSCAN
+
+    with np.load(_norm_npz(path), allow_pickle=False) as z:
+        if str(z["kind"]) != "dbscan_model":
+            raise ValueError(f"{path} is not a DBSCAN model checkpoint")
+        params = json.loads(str(z["params"]))
+        if params["eps"] is None:
+            raise NotImplementedError(
+                "this checkpoint holds an eps=None (density hierarchy) "
+                "fit, which is not ported to the GPU package yet "
+                "(ROADMAP A14)"
+            )
+        model = DBSCAN(
+            eps=params["eps"],
+            min_samples=params["min_samples"],
+            metric=params["metric"],
+            block=params["block"],
+            precision=params["precision"],
+            # The stored backend names a JAX route ("auto"/"xla"/
+            # "pallas"); the port picks its own.
+            kernel_backend="auto",
+            device=device,
+        )
+        model.labels_ = z["labels_"]
+        model.core_sample_mask_ = z["core_sample_mask_"]
+        model._keys = z["keys"]
+        model.bounding_boxes = {
+            int(l): BoundingBox(lower=lo, upper=up)
+            for l, lo, up in zip(
+                z["box_labels"], z["box_lower"], z["box_upper"]
+            )
+        }
+        model.expanded_boxes = {
+            l: b.expand(2 * model.eps)
+            for l, b in model.bounding_boxes.items()
+        }
+        model.metrics_ = json.loads(str(z["metrics"]))
+        if "core_points" in z.files and z["core_points"].size:
+            model._serve_core_points = z["core_points"]
+        # The live_*/index_* payload of the JAX LiveModel.save (ROADMAP
+        # A15) is not read: the port has no live model to hand it to,
+        # and the fitted result above serves on its own.
+    return model
+
+
+def save_index(index, path: str) -> None:
+    """Persist a serving index: padded slabs, labels, per-block bounds,
+    split tree and frame — a restarted process serves it without the
+    model, the dataset or a rebuild."""
+    np.savez(
+        _norm_npz(path),
+        kind="serve_index",
+        params=json.dumps({
+            "eps": index.eps,
+            "block": index.block,
+            "qblock": index.qblock,
+            "n_core": index.n_core,
+            "leaf_cap": int(index.stats.get("leaf_cap", 0)),
+            "n_leaves": int(index.stats.get("n_leaves", 0)),
+            "unit_norm": bool(index.unit_norm),
+            "projection": str(index.projection),
+        }),
+        center=index.center,
+        tree=np.asarray(index.tree, np.float64).reshape(-1, 5),
+        coords=index.coords,
+        labels=index.labels,
+        blo=index.blo,
+        bhi=index.bhi,
+    )
+
+
+def load_index(path: str, device=None):
+    """Restore a serving index saved by either package (slabs load byte
+    for byte, so it serves identical answers) onto ``device`` (default
+    the card)."""
+    from .serve import CorePointIndex
+
+    with np.load(_norm_npz(path), allow_pickle=False) as z:
+        if str(z["kind"]) != "serve_index":
+            raise ValueError(f"{path} is not a serving-index checkpoint")
+        params = json.loads(str(z["params"]))
+        idx = CorePointIndex(
+            eps=params["eps"],
+            center=z["center"],
+            tree=z["tree"],
+            coords=z["coords"],
+            labels=z["labels"],
+            blo=z["blo"],
+            bhi=z["bhi"],
+            block=params["block"],
+            qblock=params["qblock"],
+            n_core=params["n_core"],
+            stats={
+                "n_core": params["n_core"],
+                "n_leaves": params["n_leaves"],
+                "leaf_cap": params["leaf_cap"],
+                "index_bytes": int(
+                    z["coords"].nbytes + z["labels"].nbytes
+                    + z["blo"].nbytes + z["bhi"].nbytes
+                ),
+            },
+            device=device,
+        )
+        idx.unit_norm = bool(params.get("unit_norm", False))
+        idx.projection = str(
+            params.get("projection", "unit" if idx.unit_norm else "none")
+        )
+    return idx

@@ -4,7 +4,11 @@ a plain C interface, loaded with ctypes.
 The library is compiled at first use from the sources beside this file,
 into ``build/pypardis_tpu_torch/`` at the root of the checkout (or
 ``$PPTORCH_BUILD_DIR``), under a name keyed by the sources' content and
-the flags, so an edited source never loads a stale build.  ``nvcc`` is
+the flags, so an edited source never loads a stale build.  Each source
+compiles to an object in its own ``nvcc`` process, all started
+together, so the build takes as long as its slowest source rather than
+their sum as kernel sources are added; one more ``nvcc`` links the
+objects into the library.  ``nvcc`` is
 taken from ``$CUDA_HOME/bin``, the ``PATH``, or ``/usr/local/cuda/bin``.
 Nothing here runs at import time: the CPU tests import every module on
 a machine without a compiler.
@@ -21,10 +25,11 @@ import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("pair_kernels.cu",)
+SOURCES = ("pair_kernels.cu", "query_kernels.cu")
+# Compile flags of every source; the link adds ``-shared``.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -70,18 +75,37 @@ def _library_path() -> str:
 def _compile(out: str) -> None:
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-        os.path.join(_HERE, s) for s in SOURCES
-    ]
+    nvcc = find_nvcc()
+    objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{BUILD_INFO['log']}"
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(_HERE, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    BUILD_INFO["log"] = "".join(logs)
+    try:
+        for src, proc, log in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src} ({proc.returncode}):\n{log}"
+                )
+        link = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        BUILD_INFO["log"] += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
     os.replace(tmp, out)
 
 
@@ -93,6 +117,12 @@ def _bind(lib) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, f, i64, i32, i32, i32, p, p]
         fn.restype = i32
+    lib.pp_query_splits.argtypes = [i32, i32, i32]
+    lib.pp_query_splits.restype = i32
+    lib.pp_query_leaf.argtypes = [
+        p, p, p, p, i64, i32, i32, i32, i32, i32, p, p, p,
+    ]
+    lib.pp_query_leaf.restype = i32
 
 
 def load():

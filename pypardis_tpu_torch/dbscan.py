@@ -8,12 +8,15 @@ the un-permutation run on the device (:mod:`.ops.pipeline`); the host
 densifies the labels.  The reference's keyed-record surface (``train``
 / ``assignments`` / ``result`` / ``bounding_boxes`` / ``cluster_dict``)
 and the sklearn conveniences (``fit`` / ``fit_predict``) are kept.
+A fitted model serves out-of-sample queries (``predict`` /
+``query_engine``, :mod:`.serve`, kernel B5) and checkpoints in the JAX
+package's format (``save`` / ``load``, :mod:`.checkpoint`).
 
 The device is the card (``"cuda"``) unless the caller asks for
 ``device="cpu"``, which runs the kernels' plain PyTorch versions; with
 no CUDA device and no ``device="cpu"`` the constructor raises.
-Sharded fits, sweeps, serving, telemetry and checkpoints are later
-slices of the port (ROADMAP A7-A16).
+Sharded fits, sweeps, live serving and telemetry are later slices of
+the port (ROADMAP A9-A16).
 """
 
 from __future__ import annotations
@@ -190,6 +193,17 @@ class DBSCAN:
         self.labels_: Optional[np.ndarray] = None
         self.core_sample_mask_: Optional[np.ndarray] = None
         self.metrics_: Dict[str, float] = {}
+        # Serving state: the cached query engine, the core-point
+        # coordinates of a loaded or carried-across model, and the fit
+        # generation a held engine checks itself against.
+        self._serve_engine = None
+        self._serve_core_points = None
+        self._fit_generation = 0
+
+    @property
+    def kernel_eps(self) -> float:
+        """eps in the kernels' frame (the Euclidean metric: eps)."""
+        return self.eps
 
     # -- training ---------------------------------------------------------
 
@@ -201,6 +215,11 @@ class DBSCAN:
         self.data = points
         self._result_cache = None
         self.metrics_ = {}
+        # A refit invalidates the serving surface; a held engine sees
+        # the generation move and raises instead of serving the old fit.
+        self._serve_engine = None
+        self._serve_core_points = None
+        self._fit_generation += 1
         if len(points) == 0:
             self.labels_ = np.empty(0, np.int32)
             self.core_sample_mask_ = np.empty(0, bool)
@@ -271,10 +290,51 @@ class DBSCAN:
             )
         return self._result_cache
 
-    def assignments(self):
-        """``[(key, global cluster id)]`` — the reference's result."""
+    def _require_fitted(self) -> None:
         if self.labels_ is None:
             raise RuntimeError(
                 "this DBSCAN model is not fitted; call fit()/train() first"
             )
+
+    def assignments(self):
+        """``[(key, global cluster id)]`` — the reference's result."""
+        self._require_fitted()
         return self.result
+
+    # -- serving ----------------------------------------------------------
+
+    def predict(self, X) -> np.ndarray:
+        """Out-of-sample cluster assignment: (N,) int32 labels.  A query
+        takes the label of its nearest core point within eps (ties: the
+        smallest label), else -1; exact against the brute-force
+        core-point oracle.  Runs through the cached
+        :meth:`query_engine`."""
+        return self.query_engine().predict(X)
+
+    def query_engine(self, **kw):
+        """The cached serving engine over this model's core-point index,
+        built on first use on the model's device; kwargs (``leaves``,
+        ``block``, ``qblock``, ``backend``, ``batch_capacity``, ...)
+        force a rebuild.  Works on a loaded model without its training
+        data."""
+        self._require_fitted()
+        if self._serve_engine is None or kw:
+            from .serve import QueryEngine
+
+            self._serve_engine = QueryEngine.from_model(self, **kw)
+        return self._serve_engine
+
+    # -- checkpoints ------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Checkpoint the fitted model in the JAX package's format."""
+        from .checkpoint import save_model
+
+        save_model(self, path)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "DBSCAN":
+        """Restore a model checkpointed by either package."""
+        from .checkpoint import load_model
+
+        return load_model(path, device=device)

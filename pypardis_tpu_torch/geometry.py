@@ -1,4 +1,5 @@
-"""Axis-aligned bounding boxes (counterpart of ``pypardis_tpu/geometry.py``).
+"""Axis-aligned bounding boxes and the haversine frame (counterpart of
+``pypardis_tpu/geometry.py``).
 
 Host-side numpy, re-typed so the port imports nothing of the JAX
 package.  ``all_space`` and empty boxes use +-inf (the reference's
@@ -97,3 +98,32 @@ class BoundingBox:
 
     def __repr__(self):
         return f"BoundingBox(lower={self.lower}\n\tupper={self.upper})"
+
+
+def latlon_to_unit_sphere(points) -> np.ndarray:
+    """(N, 2) [lat, lon] radians -> (N, 3) unit-sphere embedding, the
+    haversine kernel frame: the chord ``2 sin(theta / 2)`` is monotone
+    in the great-circle angle, so L2 kernels answer haversine
+    thresholds after it.  Trigonometry runs in float64; float32 input
+    comes back float32.  A serving index loaded with
+    ``projection="latlon"`` replays this on every query."""
+    pts = np.asarray(points)
+    if pts.ndim != 2 or pts.shape[1] != 2:
+        raise ValueError(
+            f"metric='haversine' needs (N, 2) [lat, lon] input in "
+            f"radians, got shape {pts.shape}"
+        )
+    out_dtype = np.float32 if pts.dtype == np.float32 else np.float64
+    out = np.empty((len(pts), 3), out_dtype)
+    chunk = 1 << 20
+    for s in range(0, len(pts), chunk):
+        e = min(s + chunk, len(pts))
+        sub = np.asarray(pts[s:e], np.float64)
+        if not np.isfinite(sub).all():
+            raise ValueError("input contains NaN or infinite coordinates")
+        lat, lon = sub[:, 0], sub[:, 1]
+        clat = np.cos(lat)
+        out[s:e, 0] = (clat * np.cos(lon)).astype(out_dtype)
+        out[s:e, 1] = (clat * np.sin(lon)).astype(out_dtype)
+        out[s:e, 2] = np.sin(lat).astype(out_dtype)
+    return out

@@ -1,17 +1,19 @@
-"""The fit's two hand-written Hopper kernels and the tile geometry they run
-on (counterpart of ``pypardis_tpu/ops/pallas_kernels.py``).
+"""The hand-written Hopper kernels and the tile geometry they run on
+(counterpart of ``pypardis_tpu/ops/pallas_kernels.py``).
 
 * B1 :func:`count_pairs` replaces ``_count_pairs_kernel``;
-* B2 :func:`minlab_pairs` replaces ``_minlab_pairs_kernel``.
+* B2 :func:`minlab_pairs` replaces ``_minlab_pairs_kernel``;
+* B5 :func:`query_leaf` replaces ``_query_leaf_kernel``.
 
-Both are CUDA C++ for ``sm_90a`` (``csrc/pair_kernels.cu``, built by
-``csrc/_build.py`` at first use).  Each wrapper checks its inputs,
-allocates its output with ``torch.empty``, launches on the current
-stream and adds one to its entry of :data:`LAUNCHES`.  For a tensor on
-the CPU it runs the plain PyTorch version (``ops/distances``
-``counts_over_pairs`` / ``minlab_over_pairs``, bitwise the kernels'
-arithmetic); for a CUDA tensor it launches the kernel or raises — it
-never tries the kernel and falls back.
+All are CUDA C++ for ``sm_90a`` (``csrc/pair_kernels.cu``,
+``csrc/query_kernels.cu``, built by ``csrc/_build.py`` at first use).
+Each wrapper checks its inputs, allocates its output with
+``torch.empty``, launches on the current stream and adds one to its
+entry of :data:`LAUNCHES`.  For a tensor on the CPU it runs the plain
+PyTorch version (``ops/distances`` ``counts_over_pairs`` /
+``minlab_over_pairs``, ``ops/query.query_min_core_plain``, bitwise the
+kernels' arithmetic); for a CUDA tensor it launches the kernel or
+raises — it never tries the kernel and falls back.
 
 The entry points :func:`neighbor_counts_cuda` and
 :func:`min_neighbor_label_cuda` mirror ``neighbor_counts_pallas`` and
@@ -34,12 +36,17 @@ from .distances import (
     tile_bounds,
 )
 from .precision import norm_precision_mode, require_ported
+from .query import query_min_core_plain
 
 # Launches per kernel since the last reset_launch_counts(); bumped only
 # where a wrapper launches its CUDA kernel.
-LAUNCHES = {"count_pairs": 0, "minlab_pairs": 0}
+LAUNCHES = {"count_pairs": 0, "minlab_pairs": 0, "query_leaf": 0}
 
-PLAIN = {"count_pairs": counts_over_pairs, "minlab_pairs": minlab_over_pairs}
+PLAIN = {
+    "count_pairs": counts_over_pairs,
+    "minlab_pairs": minlab_over_pairs,
+    "query_leaf": query_min_core_plain,
+}
 
 
 def reset_launch_counts() -> None:
@@ -225,3 +232,72 @@ def min_neighbor_label_cuda(points_dn, labels, eps, src_mask,
         cols.contiguous(), eps2_f32(eps), tile,
     )
     return torch.full_like(best, -(2**31)) if poison else best
+
+
+def _check_query(q, tile_leaf, coords, labels, block, nb):
+    if q.dtype != torch.float32 or not q.is_contiguous() or q.dim() != 3:
+        raise ValueError("queries must be a contiguous (nqt, d, qb) float32 "
+                         "tensor")
+    nqt, d, qb = q.shape
+    if (coords.dtype != torch.float32 or not coords.is_contiguous()
+            or coords.dim() != 2 or coords.shape[0] != d):
+        raise ValueError(
+            f"coords must be a contiguous (d={d}, L*C) float32 tensor, got "
+            f"{coords.dtype} {tuple(coords.shape)}"
+        )
+    for name, t, n in (("tile_leaf", tile_leaf, nqt),
+                       ("labels", labels, coords.shape[1])):
+        if (t.dtype != torch.int32 or not t.is_contiguous() or t.dim() != 1
+                or t.shape[0] != n):
+            raise ValueError(
+                f"{name} must be a contiguous ({n},) int32 tensor, got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+    for name, t in (("tile_leaf", tile_leaf), ("coords", coords),
+                    ("labels", labels)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, queries on {q.device}")
+    C = block * nb
+    if block <= 0 or nb <= 0 or coords.shape[1] % C != 0:
+        raise ValueError(
+            f"the slab width {coords.shape[1]} is not a multiple of the "
+            f"leaf capacity C = nb * block = {nb} * {block}"
+        )
+
+
+def query_leaf(q, tile_leaf, coords, labels, *, block, nb):
+    """B5: per query row, ``(min d2, min label among ties)`` over every
+    slot of its tile's leaf slab (``C = nb * block`` slots per leaf).
+
+    ``q`` (nqt, d, qb) float32 centred query tiles; ``tile_leaf``
+    (nqt,) int32; ``coords`` (d, L*C) float32; ``labels`` (L*C,) int32.
+    Returns the packed (2, nqt, qb) int32 ``[labels, bitcast(d2)]``."""
+    _check_query(q, tile_leaf, coords, labels, block, nb)
+    if q.device.type == "cpu":
+        return query_min_core_plain(q, tile_leaf, coords, labels,
+                                    block=block, nb=nb)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    from ..csrc import _build
+
+    lib = _build.load()
+    nqt, d, qb = q.shape
+    C = block * nb
+    out = torch.empty((2, nqt, qb), dtype=torch.int32, device=q.device)
+    splits = int(lib.pp_query_splits(nqt, qb, C))
+    keys = torch.empty(splits * nqt * qb, dtype=torch.int64, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pp_query_leaf(
+            q.data_ptr(), tile_leaf.data_ptr(), coords.data_ptr(),
+            labels.data_ptr(), coords.shape[1], nqt, d, qb, C, splits,
+            keys.data_ptr(), out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"query_leaf kernel launch failed: cudaError {rc}")
+    LAUNCHES["query_leaf"] += 1
+    return out
+
+
+# The counterpart of ``query_min_core_pallas`` in its exact modes.
+query_min_core_cuda = query_leaf

@@ -24,6 +24,28 @@ _UNPORTED_METRICS = {
 }
 
 
+def check_query_points(points, k=None) -> np.ndarray:
+    """Validate out-of-sample query points (or points routed through a
+    split tree): a 2-D array, ``k`` columns when given, finite.  A wrong
+    width would route through split axes that mean something else, and
+    a NaN fails every ``>=`` and slides down the tree's left spine.
+    Returns the array as numpy; raises ValueError otherwise."""
+    points = np.asarray(points)
+    if points.ndim != 2:
+        raise ValueError(
+            f"query points must be a 2-D (N, k) array, got shape "
+            f"{points.shape}"
+        )
+    if k is not None and points.shape[1] != int(k):
+        raise ValueError(
+            f"query dimensionality {points.shape[1]} does not match the "
+            f"fitted tree's k={int(k)}"
+        )
+    if points.dtype.kind in "fc" and not np.isfinite(points).all():
+        raise ValueError("query points contain NaN or infinite coordinates")
+    return points
+
+
 def check_precision(precision) -> str:
     """Validate a precision spec; returns the canonical mode."""
     return norm_precision_mode(precision)

@@ -1,5 +1,6 @@
 """Card-only tests of the GPU package: the CUDA kernels against their
-plain versions, and a fit on the card against the same fit on the CPU.
+plain versions, a fit on the card against the same fit on the CPU, and
+serving on the card against the same serving on the CPU.
 
 They need a CUDA device and skip without one.  They import neither JAX
 nor the JAX package, so on a machine without JAX they run with
@@ -18,6 +19,7 @@ from pypardis_tpu_torch.ops.distances import (
     INT_INF, counts_over_pairs, eps2_f32, minlab_over_pairs, row_offsets,
 )
 from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
+from pypardis_tpu_torch.ops.query import PAD_COORD, query_min_core_plain
 
 
 def _need_card():
@@ -80,3 +82,111 @@ def test_wrapper_rejects_mixed_devices():
     cols = torch.zeros(1, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="colval"):
         ck.count_pairs(pts, colval, row_ptr, cols, 1.0, 128)
+
+
+def _query_inputs(d, nqt, qb, L, C, seed, integer):
+    """Random B5 inputs: L leaf slabs of C slots with a padded tail (the
+    last leaf's last 64 slots, at least one whole block, are pads),
+    duplicated cores under other labels, queries equal to core points
+    and whole pad rows.  ``integer`` coordinates make exact d^2 ties
+    between different labels common."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        coords = rng.integers(-3, 4, size=(d, L * C)).astype(np.float32)
+    else:
+        coords = rng.normal(size=(d, L * C)).astype(np.float32)
+    labels = rng.integers(0, 50, L * C).astype(np.int32)
+    coords[:, 5:15] = coords[:, 20:30]  # same point, other labels
+    coords[:, L * C - 64:] = PAD_COORD
+    labels[L * C - 64:] = INT_INF
+    tile_leaf = rng.integers(0, L, nqt).astype(np.int32)
+    tile_leaf[0] = L - 1
+    if integer:
+        q = rng.integers(-3, 4, size=(nqt, d, qb)).astype(np.float32)
+    else:
+        q = rng.normal(size=(nqt, d, qb)).astype(np.float32)
+    for i in range(nqt):  # some rows sit exactly on a core of the leaf
+        cols = tile_leaf[i] * C + rng.integers(0, C - 64, 4)
+        q[i, :, :4] = coords[:, cols]
+    q[:, :, qb - 3:] = PAD_COORD
+    return [torch.from_numpy(a).cuda() for a in (q, tile_leaf, coords, labels)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3, 16, 64, 96])
+@pytest.mark.parametrize("shape", [
+    # (nqt, qb, L, C, block, integer coordinates)
+    (5, 48, 3, 128, 32, True),
+    (2, 300, 2, 4096, 256, False),
+    (16, 128, 4, 512, 64, False),
+])
+def test_query_kernel_equals_plain_version_on_card(d, shape):
+    """B5 against its plain version on the card, bitwise on labels and
+    d^2 bits, pad rows included: exact ties between labels, all-pad
+    blocks, pad query rows, queries equal to a core point (d^2 = 0),
+    several splits per tile and several row groups per tile."""
+    _need_card()
+    nqt, qb, L, C, block, integer = shape
+    q, tl, coords, labels = _query_inputs(d, nqt, qb, L, C, d, integer)
+    before = ck.LAUNCHES["query_leaf"]
+    got = ck.query_leaf(q, tl, coords, labels, block=block, nb=C // block)
+    want = query_min_core_plain(q, tl, coords, labels, block=block,
+                                nb=C // block)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["query_leaf"] == before + 1
+    assert torch.equal(got, want)
+    d2 = got[1].view(torch.float32)
+    assert bool((d2[:, :4] == 0).all())  # rows on a core point
+    if integer:
+        assert bool((d2[:, :qb - 3] == 0).any())
+
+
+@pytest.mark.cuda
+def test_card_serving_equals_cpu_serving():
+    _need_card()
+    X, _ = make_blob_data(8000, 16, n_centers=8, std=0.4, seed=3)
+    gpu = DBSCAN(eps=2.4, min_samples=10, block=256).fit(X)
+    cpu = DBSCAN(eps=2.4, min_samples=10, block=256, device="cpu").fit(X)
+    rng = np.random.default_rng(1)
+    Q = np.concatenate([
+        X[:500] + rng.normal(scale=0.3, size=(500, 16)),
+        rng.uniform(X.min(), X.max(), size=(100, 16)),
+    ])
+    before = ck.LAUNCHES["query_leaf"]
+    eng = gpu.query_engine(leaves=8, block=64, qblock=64)
+    got = eng.predict(Q, return_distance=True)
+    assert ck.LAUNCHES["query_leaf"] == before + 1
+    want = cpu.query_engine(leaves=8, block=64, qblock=64).predict(
+        Q, return_distance=True
+    )
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    olab, od2 = eng.index.oracle_predict(Q)
+    assert np.array_equal(got[0], olab)
+    assert np.array_equal(got[1], np.sqrt(od2))
+    assert eng.serving_stats()["index_device_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_card_double_buffered_drain_equals_cpu_drain():
+    """Many small batches through the pinned result copies and their
+    events: every ticket equals the CPU engine's, one B5 per batch."""
+    _need_card()
+    X, _ = make_blob_data(8000, 16, n_centers=8, std=0.4, seed=3)
+    gpu = DBSCAN(eps=2.4, min_samples=10, block=256).fit(X)
+    cpu = DBSCAN(eps=2.4, min_samples=10, block=256, device="cpu").fit(X)
+    rng = np.random.default_rng(2)
+    reqs = [X[rng.integers(0, len(X), 200)]
+            + rng.normal(scale=0.3, size=(200, 16)) for _ in range(12)]
+    kw = dict(leaves=8, block=64, qblock=64, batch_capacity=400)
+    eng, ref = gpu.query_engine(**kw), cpu.query_engine(**kw)
+    before = ck.LAUNCHES["query_leaf"]
+    got = [eng.submit(r) for r in reqs]
+    want = [ref.submit(r) for r in reqs]
+    assert eng.drain() == ref.drain() == 2400
+    assert eng.serving_stats()["batches"] == 6
+    assert ck.LAUNCHES["query_leaf"] == before + 6
+    assert eng.device_wait_s >= 0.0 and ref.device_wait_s == 0.0
+    for g, w in zip(got, want):
+        assert np.array_equal(g.result(), w.result())
+        assert np.array_equal(g.d2, w.d2)

@@ -203,7 +203,8 @@ def test_wrappers_use_plain_versions_on_cpu_without_launching():
     got = ck.count_pairs(pts, mi, rp, cols, eps2_f32(EPS), 128)
     want = counts_over_pairs(pts, mi, rp, cols, eps2_f32(EPS), 128)
     assert torch.equal(got, want)
-    assert ck.LAUNCHES == {"count_pairs": 0, "minlab_pairs": 0}
+    assert ck.LAUNCHES == {"count_pairs": 0, "minlab_pairs": 0,
+                           "query_leaf": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "tile", "row_ptr"])
