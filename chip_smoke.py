@@ -38,15 +38,35 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    the index geometry, queries/s, p50/p99 request ms, batch fill, the
    host's waits on the card, warm drains against as many sync predicts
    (ms per batch), one batch's stage times, and B5's CUDA-event time
-   per 4,096-query batch beside its plain version and its bound.
+   per 4,096-query batch beside its plain version and its bound;
+7. high-dimensional fits through the sketch kernels (B3
+   ``count_pairs_sketch``, B4 ``minlab_pairs_sketch``) on
+   ``make_embedding_data(n, 512)`` with eps 2.0, min_samples 10, block
+   2048: (1) both kernels against their plain versions, exactly (counts,
+   ``band_pairs``, ``rescored_tiles``, min labels), at 20,000 points for
+   d=256 and d=512, on the noise-dominated geometry and with a pinned k
+   whose k+1 is not a multiple of 8; (2) at 100,000 x 512 the sketched
+   and the unsketched fit byte-identical, with their live pairs, walls
+   and launches (B3 once and B4 per round and never B1/B2, and the
+   reverse); (3) the slice's path at 1,000,000 x 512, one fit from host
+   input and two from a CUDA tensor (byte-identical), each with its
+   wall, launches (summing to its passes), ``sketch_k`` 128,
+   ``band_pairs`` (past 2^31), ``rescored_tiles``, live pairs, clusters
+   and ARI >= 0.99; (5) one more fit under a global
+   ``torch.set_float32_matmul_precision("high")``, byte-identical; (4)
+   B3 and B4 alone at the 1M inputs: equality with the plain versions
+   over the first 64 row tiles, CUDA-event times (median), the plain
+   versions' times on that sub-list, and the bound.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-exits non-zero and prints no result.
+Phase 1 also times one ``nvcc -shared`` over all sources beside the
+parallel build.  The line before the last is the kernels' JSON record;
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device the script exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and
-profiles one 1M-point fit and one serving drain (``torch.profiler``,
-then ``cProfile`` for the drain's host side; see :func:`profile_fit`).
+profiles a 1M x 16-D fit, one serving drain (``torch.profiler``, then
+``cProfile`` for the drain's host side) and a 1M x 512 sketched fit;
+see :func:`profile_fit`.
 """
 
 from __future__ import annotations
@@ -164,9 +184,10 @@ def _profiled(torch, what, run):
 
 def profile_fit(torch, DBSCAN, make_blob_data):
     """``--profile``: where one 1M x 16-D main-path fit spends its time
-    (after a warm fit), from host input and from a CUDA tensor; then
-    where one serving drain of 16 batches of 4,096 queries spends its
-    time on the host-input model's index."""
+    (after a warm fit), from host input and from a CUDA tensor; where
+    one serving drain of 16 batches of 4,096 queries spends its time on
+    the host-input model's index; and where one sketched 1M x 512 fit
+    (phase 7's geometry) spends its time, from a CUDA tensor."""
     X, _ = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
     for source in ("host", "cuda"):
         Xin = X if source == "host" else torch.from_numpy(X).cuda()
@@ -208,6 +229,17 @@ def profile_fit(torch, DBSCAN, make_blob_data):
                                       reverse=True)[:14]:
         log(f"  {v[2] * 1e3:9.3f} ms own {v[3] * 1e3:9.3f} ms with callees "
             f"x{v[1]:<6d} {os.path.basename(file)}:{line} {fn}")
+    # The sketched 1M x 512 fit from a CUDA tensor, after a warm fit.
+    from benchdata import make_embedding_data
+
+    del served, eng, X
+    X, _ = make_embedding_data(1_000_000, 512)
+    Xd = torch.from_numpy(X).cuda()
+    del X
+    model = DBSCAN(eps=2.0, min_samples=10, block=2048)
+    model.fit(Xd)
+    _profiled(torch, "n=1000000 d=512 sketched fit from cuda",
+              lambda: model.fit(Xd))
 
 
 def serve_phase(torch, model, X, median_ms):
@@ -450,6 +482,286 @@ def serve_phase(torch, model, X, median_ms):
     }
 
 
+def noise_dominated(n, dim, n_centers=8, seed=0, sigma=0.5):
+    """The sketch's noise-dominated geometry (the JAX package's
+    tests/test_sketch.py): equidistant centres on a scaled orthonormal
+    basis plus full-rank noise that dominates every axis."""
+    rng = np.random.default_rng(seed)
+    eps = round(1.06 * sigma * np.sqrt(2.0 * dim), 2)
+    basis = np.linalg.qr(rng.normal(size=(dim, n_centers)))[0]
+    centers = (3.5 * eps / np.sqrt(2.0)) * basis.T
+    truth = rng.integers(0, n_centers, size=n)
+    X = centers[truth] + rng.normal(scale=sigma, size=(n, dim))
+    return X.astype(np.float32), eps
+
+
+# Sizes of phase 7; tests rehearse the phase at small ones on the CPU.
+SKETCH_SIZES = {"check_n": 20_000, "onoff_n": 100_000,
+                "main_n": 1_000_000, "sub_tiles": 64, "reps": 3}
+
+
+def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
+    """Phase 7 (high-dimensional fits, the sketch kernels B3/B4); see the
+    module docstring.  Returns the kernels' JSON records."""
+    from benchdata import make_embedding_data
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.dbscan import _stage
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import (
+        INT_INF, eps2_f32, row_offsets,
+    )
+    from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
+
+    names = ("count_pairs_sketch", "minlab_pairs_sketch")
+    max_err = dict.fromkeys(names, 0)
+    eps, ms, block = 2.0, 10, 2048
+
+    def staged(X, eps, block):
+        pts, n, block = _stage(X, block, dev)
+        xs, mask, _owner = _pipeline_layout(pts, eps, n, block, sort=True)
+        return xs, mask, block
+
+    def sketch_inputs(xs, mask, eps, block, k, min_samples):
+        """B3's inputs and the first B4 inputs a sketched fit builds."""
+        slab = ck.sketch_stage(xs, mask, k)
+        (rows, cols), (total, budget) = ck.kernel_pair_list(
+            xs, eps, mask, block, "high", sketch=k, slab=slab)
+        if total > budget:
+            (rows, cols), (total, budget) = ck.kernel_pair_list(
+                xs, eps, mask, block, "high", budget=total, sketch=k,
+                slab=slab)
+        d, N = xs.shape
+        tile = ck._pallas_block(block, N, d, "high")
+        rp = row_offsets(rows, N // tile)
+        mi = mask.to(torch.int32)
+        e2 = eps2_f32(eps)
+        a = (xs, mi, rp, cols, slab[0], k, e2, slab[1], tile)
+        counts, _stats = ck.count_pairs_sketch(*a)
+        core = (torch.clamp_min(torch.where(mask, counts, 0), 1)
+                >= min_samples) & mask
+        lab = torch.where(core, torch.arange(N, device=dev,
+                                             dtype=torch.int32),
+                          INT_INF).contiguous()
+        return dict(a=a, b=(xs, lab, rp, cols, slab[0], k, e2, slab[1], tile),
+                    total=total, core=core, mask=mask, tile=tile, k=k)
+
+    def hold(inp, what):
+        """Kernel == plain version, exactly: counts, both stats, labels."""
+        kc, kst = ck.count_pairs_sketch(*inp["a"])
+        pc, pst = ck.PLAIN["count_pairs_sketch"](*inp["a"])
+        km = ck.minlab_pairs_sketch(*inp["b"])
+        pm = ck.PLAIN["minlab_pairs_sketch"](*inp["b"])
+        sync()
+        errs = {
+            "count_pairs_sketch": max(
+                int((kc.long() - pc.long()).abs().max()),
+                int((kst - pst).abs().max())),
+            "minlab_pairs_sketch": int((km.long() - pm.long()).abs().max()),
+        }
+        bad = int((kc != pc).sum()) + int((kst != pst).sum()) + int(
+            (km != pm).sum())
+        for name in names:
+            max_err[name] = max(max_err[name], errs[name])
+        log(f"  {what}: k={inp['k']} tile {inp['tile']}, {inp['total']} "
+            f"live tile pairs; B3 stats kernel {kst.tolist()} plain "
+            f"{pst.tolist()}; max|kernel-plain| B3 "
+            f"{errs['count_pairs_sketch']}, B4 "
+            f"{errs['minlab_pairs_sketch']}; mismatches {bad}")
+        if bad:
+            fail(f"a sketch kernel disagrees with its plain version on {what}")
+        return kst
+
+    # 7.1: the kernels against their plain versions.
+    n = sizes["check_n"]
+    for d, k in ((256, 64), (512, 128), (256, 33)):
+        X, _t = make_embedding_data(n, d)
+        xs, mask, blk = staged(X, eps, block)
+        hold(sketch_inputs(xs, mask, eps, blk, k, ms),
+             f"embedding n={n} d={d}"
+             + (" (pinned k, k+1 not a multiple of 8)" if k == 33 else ""))
+    X, eps_n = noise_dominated(n, 256, seed=1)
+    xs, mask, blk = staged(X, eps_n, block)
+    hold(sketch_inputs(xs, mask, eps_n, blk, 64, 5),
+         f"noise-dominated n={n} d=256 eps={eps_n}")
+
+    def fit(X, sketch, what, tf32=False):
+        model = DBSCAN(eps=eps, min_samples=ms, block=block, sketch=sketch,
+                       device=dev)
+        prev = torch.get_float32_matmul_precision()
+        if tf32:
+            torch.set_float32_matmul_precision("high")
+        try:
+            ck.reset_launch_counts()
+            sync()
+            t = time.perf_counter()
+            model.fit(X)
+            sync()
+            wall = time.perf_counter() - t
+            launches = dict(ck.LAUNCHES)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        m = model.metrics_
+        log(f"  {what}: {wall:.4f} s, launches B1={launches['count_pairs']} "
+            f"B2={launches['minlab_pairs']} "
+            f"B3={launches['count_pairs_sketch']} "
+            f"B4={launches['minlab_pairs_sketch']}, passes "
+            f"{m['kernel_passes']}, sketch_k {m['sketch_k']}, live pairs "
+            f"{m['live_pairs']} (budget {m['pair_budget']}), band_pairs "
+            f"{m['band_pairs']}, rescored_tiles {m['rescored_tiles']}, "
+            f"clusters {int(model.labels_.max()) + 1}")
+        if sum(launches.values()) != m["kernel_passes"]:
+            fail(f"kernel launches do not sum to the passes ({what})")
+        sk = m["sketch_k"] > 0
+        on = launches["count_pairs_sketch"] + launches["minlab_pairs_sketch"]
+        off = launches["count_pairs"] + launches["minlab_pairs"]
+        if (launches["count_pairs_sketch" if sk else "count_pairs"] != 1
+                or launches["minlab_pairs_sketch" if sk else "minlab_pairs"]
+                < 1 or (off if sk else on) != 0):
+            fail(f"the fit did not run the kernels of its path ({what})")
+        return model, wall, launches
+
+    # 7.2: sketch on against off.
+    n = sizes["onoff_n"]
+    X, truth = make_embedding_data(n, 512)
+    on, w_on, _l = fit(X, "auto", f"n={n} d=512 sketch auto")
+    off, w_off, _l = fit(X, 0, f"n={n} d=512 sketch off")
+    same = (np.array_equal(on.labels_, off.labels_)
+            and np.array_equal(on.core_sample_mask_, off.core_sample_mask_))
+    log(f"  n={n}: sketch on/off labels and core byte-identical: {same}; "
+        f"live pairs {on.metrics_['live_pairs']} / "
+        f"{off.metrics_['live_pairs']}, wall {w_on:.4f} / {w_off:.4f} s; "
+        f"ARI vs truth {ari(on.labels_, truth):.6f}")
+    if not same:
+        fail("the sketched fit differs from the unsketched fit")
+
+    # 7.3: the slice's path at full size.
+    n = sizes["main_n"]
+    X, truth = make_embedding_data(n, 512)
+    Xd = torch.from_numpy(X).to(dev)
+    runs = [fit(X, None, f"n={n} d=512 from host")]
+    runs += [fit(Xd, None, f"n={n} d=512 from cuda ({i})") for i in (1, 2)]
+    for model, _w, _l in runs:
+        m = model.metrics_
+        a = ari(model.labels_, truth)
+        log(f"    ARI vs truth {a:.6f}; band_pairs past 2^31: "
+            f"{m['band_pairs'] > 2**31}")
+        if a < 0.99:
+            fail(f"ARI {a} < 0.99 at n={n} x 512")
+        if m["sketch_k"] != 128:
+            fail(f"sketch_k {m['sketch_k']} != 128 at d=512")
+    (m1, _w, _l), (m2, _w2, _l2) = runs[1], runs[2]
+    if not (np.array_equal(m1.labels_, m2.labels_)
+            and np.array_equal(m1.core_sample_mask_, m2.core_sample_mask_)):
+        fail("repeated cuda-tensor fits differ at 512-D")
+    log(f"  n={n}: repeated fits byte-identical; host vs cuda-tensor labels "
+        f"identical: {np.array_equal(runs[0][0].labels_, m1.labels_)}")
+    # 7.5: a global TF32 setting must not reach the slab's product.
+    tf, _w, _l = fit(Xd, None, f"n={n} d=512 from cuda under "
+                     f"set_float32_matmul_precision('high')", tf32=True)
+    if not np.array_equal(tf.labels_, m1.labels_):
+        fail("a global TF32 setting changed the labels")
+    log("    labels byte-identical to the default fit")
+    main_launches = runs[0][2]
+    del Xd
+
+    # 7.4: B3 and B4 alone at the 1M fit's own inputs.
+    xs, mask, blk = staged(X, eps, block)
+    del X
+    inp = sketch_inputs(xs, mask, eps, blk, 128, ms)
+    d, N = xs.shape
+    tile, k = inp["tile"], inp["k"]
+    nt = N // tile
+    rp = inp["a"][2]
+    cols = inp["a"][3]
+    # The work each kernel cannot skip on this data: every row of a live
+    # tile pair against its valid (B3) or source (B4) columns through the
+    # gate, 3 (k + 1) + 3 operations each (the slab distance over the
+    # k + 1 rows, the residual product and the two gate tests; the zero
+    # pad rows up to a multiple of 8 are the kernel's own choice), and
+    # every in-band pair through the exact d^2, 3d + 1 more.  B4's
+    # in-band pairs are B3's gate run over the source columns.
+    rows_t = torch.repeat_interleave(torch.arange(nt, device=dev),
+                                     (rp[1:] - rp[:-1]).long())
+    cols_t = cols[:int(rp[-1])].long()
+    band_b3 = ck.count_pairs_sketch(*inp["a"])[1]
+    a_src = (xs, inp["core"].to(torch.int32)) + inp["a"][2:]
+    band_b4 = ck.count_pairs_sketch(*a_src)[1]
+    sync()
+    per_tile = {
+        "count_pairs_sketch": inp["mask"].view(nt, tile).sum(1),
+        "minlab_pairs_sketch": inp["core"].view(nt, tile).sum(1),
+    }
+    in_band = {"count_pairs_sketch": int(band_b3[0]),
+               "minlab_pairs_sketch": int(band_b4[0])}
+    nbytes = ((d + k + 1 + 2) * N * 4 + rp.numel() * 4 + cols.numel() * 4)
+    # The 64-row-tile sub-list: the plain versions over the whole list
+    # would take minutes.
+    sub = min(sizes["sub_tiles"], nt)
+    rp_sub = torch.cat([rp[:sub + 1], rp[sub].repeat(nt - sub)])
+    sub_inp = dict(inp, a=inp["a"][:2] + (rp_sub,) + inp["a"][3:],
+                   b=inp["b"][:2] + (rp_sub,) + inp["b"][3:])
+    hold(sub_inp, f"the {n} x 512 fit's inputs, first {sub} of {nt} row "
+         f"tiles")
+    kernels = []
+    for name, args, replaces in (
+        ("count_pairs_sketch", inp["a"],
+         "pypardis_tpu/ops/pallas_kernels.py:341"),
+        ("minlab_pairs_sketch", inp["b"],
+         "pypardis_tpu/ops/pallas_kernels.py:393"),
+    ):
+        kern = getattr(ck, name)
+        plain = ck.PLAIN[name]
+        sub_args = sub_inp["a" if name == "count_pairs_sketch" else "b"]
+        kern_ms = median_ms(lambda: kern(*args), sizes["reps"])
+        sub_ms = median_ms(lambda: kern(*sub_args), sizes["reps"])
+        plain_ms = median_ms(lambda: plain(*sub_args), 2)
+        gated = int(per_tile[name][cols_t].sum()) * tile
+        ops = gated * (3 * (k + 1) + 3) + in_band[name] * (3 * d + 1)
+        out_bytes = N * 4 + (cols.numel() * 4 + 8
+                             if name == "count_pairs_sketch" else 0)
+        t_ops = ops / PEAK_FP32_FLOPS
+        t_bytes = (nbytes + out_bytes) / PEAK_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"  {name}: {kern_ms:.3f} ms (on the {sub}-tile sub-list "
+            f"{sub_ms:.3f} ms, plain {plain_ms:.2f} ms), bound "
+            f"{bound_ms:.3f} ms by {bound_by}; {gated} gated pairs over "
+            f"{len(cols_t)} live tile pairs, {in_band[name]} in band, "
+            f"{nbytes + out_bytes} bytes; "
+            f"{ops / (kern_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pypardis_tpu_torch/csrc/sketch_kernels.cu",
+            "replaces": replaces,
+            "launches": int(main_launches[name]),
+            "max_abs_err": max_err[name],
+            "ms": kern_ms, "plain_ms": plain_ms,
+            "plain_scope": f"first {sub} of {nt} row tiles",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # No single PyTorch call computes a gated thresholded count
+            # or min-label over a tile-pair list.
+            "library_ms": None,
+        })
+    return kernels
+
+
+def single_call_build_seconds(_build) -> float:
+    """Seconds of one ``nvcc -shared`` over every source into a scratch
+    file: the single-process build ``csrc/_build.py`` does not use, timed
+    beside its parallel one."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+               os.path.join(tmp, "lib.so"),
+               *(os.path.join(_build._HERE, src) for src in _build.SOURCES)]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            fail(f"nvcc -shared over all sources failed:\n{proc.stderr}")
+        return time.perf_counter() - t
+
+
 def main() -> None:
     import torch
 
@@ -485,7 +797,10 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load()
     log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.BUILD_INFO.get('seconds', 0.0):.2f} s)")
+        f"(nvcc {_build.BUILD_INFO.get('seconds', 0.0):.2f} s, one process "
+        f"per source of {len(_build.SOURCES)}, in parallel); one nvcc "
+        f"-shared over all sources for comparison: "
+        f"{single_call_build_seconds(_build):.2f} s")
     for line in _build.BUILD_INFO.get("log", "").splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
@@ -703,6 +1018,9 @@ def main() -> None:
 
     log("phase 6: serving on the 1M host-input model")
     kernels.append(serve_phase(torch, serve_model, serve_X, median_ms))
+    del serve_model, serve_X
+    log("phase 7: high-dimensional fits, the sketch kernels B3/B4")
+    kernels += sketch_phase(torch, dev, median_ms, torch.cuda.synchronize)
     log(f"fit seconds (host, host, cuda, cuda): {json.dumps(fits)}")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -25,6 +25,8 @@ class DBSCANConfig:
     kernel_backend: str = "auto"
     # None = the card ("cuda"); "cpu" runs the plain torch versions.
     device: Optional[str] = None
+    # None defers to PPTORCH_SKETCH; "auto", "off"/0 or a pinned k.
+    sketch: Any = None
 
     def build(self):
         from .dbscan import DBSCAN

@@ -24,7 +24,8 @@ def dbscan_from_reference(params: dict, X, labels, core, *, keys=None,
     """A fitted port ``DBSCAN`` holding the JAX model's fit.
 
     ``params``: the JAX model's parameters (unknown keys are ignored;
-    its ``kernel_backend`` names a JAX backend and is dropped).  ``X``:
+    its ``kernel_backend`` names a JAX backend and is dropped; its
+    ``sketch`` spec carries over, so a refit sketches as it did).  ``X``:
     the (N, d) training points; ``labels`` / ``core``: its ``labels_``
     and ``core_sample_mask_``; ``keys``: its record keys (default
     ``arange(N)``); ``device``: where a refit of the returned model

@@ -25,7 +25,7 @@ import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("pair_kernels.cu", "query_kernels.cu")
+SOURCES = ("pair_kernels.cu", "sketch_kernels.cu", "query_kernels.cu")
 # Compile flags of every source; the link adds ``-shared``.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -116,6 +116,12 @@ def _bind(lib) -> None:
     for name in ("pp_count_pairs", "pp_minlab_pairs"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, f, i64, i32, i32, i32, p, p]
+        fn.restype = i32
+    for name in ("pp_count_pairs_sketch", "pp_minlab_pairs_sketch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            p, p, p, p, p, f, f, i64, i32, i32, i32, i32, i32, p, p, p, p,
+        ]
         fn.restype = i32
     lib.pp_query_splits.argtypes = [i32, i32, i32]
     lib.pp_query_splits.restype = i32

@@ -1,0 +1,319 @@
+// Sketch-prefiltered eps-neighbourhood pair kernels for Hopper (sm_90a),
+// plain C interface.
+//
+// Replaces the TPU's Pallas kernels _count_pairs_sketch_kernel (B3) and
+// _minlab_pairs_sketch_kernel (B4) in pypardis_tpu/ops/pallas_kernels.py.
+// They compute what B1/B2 (pair_kernels.cu) compute - per point, the count
+// of valid columns within eps (MODE 0) or the minimum source label within
+// eps (MODE 1) over the live column tiles of its row tile - but decide most
+// pairs from the (skp, N) sketch slab of ops/cuda_kernels.sketch_stage:
+// rows 0..k-1 the projection Q^T x, row k the residual norm r, zero rows
+// up to skp.  Per pair, with t2 the slab distance:
+//   t2 - band > eps2             -> certainly out;
+//   t2 + (4 rx) ry <= eps2 - band -> certainly in;
+//   anything else                -> in band: the exact d2 decides.
+// The band certifies both gates against the exact d2, so the results equal
+// B1/B2's on any data.  B3 also counts the in-band pairs whose column is
+// valid (every row, as the JAX kernel counts them) and flags each pair-list
+// entry that holds one.
+//
+// Design.  As in B1/B2, one block owns 256 rows of a row tile and walks its
+// CSR list of live column tiles; each thread owns one output row; no atomics
+// on the outputs.  Columns go in chunks of 32, one bit each in a 32-bit mask:
+//   1. stage the chunk's slab columns and column values in shared memory
+//      with cp.async, and start the copy of its full-d columns (the first
+//      512 axes) behind them;
+//   2. each thread computes t2 for its row against the 32 columns (32
+//      accumulators in registers, its row's slab values read from global
+//      memory eight axes at a time, the columns as float4 broadcasts from
+//      shared memory) and classifies them;
+//   3. the in-band bits are OR-reduced over the warp and the block; if any
+//      row of the block needs the exact d2, the block waits for the full-d
+//      columns (further slices of 512 axes are staged in turn, so any d
+//      fits), and a warp computes the exact d2 only for the groups of 8
+//      columns its own rows need.  So the rescore
+//      runs per pair group, not per 512 x 512 tile as on the TPU: sure-out
+//      pairs of a mixed tile cost the gate only.
+// Every distance is the axis-ordered sum of (x_a - y_a)^2 with __fsub_rn /
+// __fmul_rn / __fadd_rn (no contraction into FMA): the exact d2 is B1's own
+// arithmetic, t2 and up are the plain version's (ops/distances.
+// _sketch_over_pairs) in its order, so kernel and plain version are bitwise
+// equal, stats included.  Zero-padded axes add +0 and change nothing.
+//
+// Bound.  Per pair the gate spends 3 skp FP32 operations (3 (k + 1) of
+// them the function's own, the rest on zero pad rows) and the in-band
+// pairs 3d more; the bytes (coordinates, slab and CSR once) are far below,
+// so the kernels are bound by FP32 SIMT issue.  The 32 independent
+// accumulators give each thread the instruction-level parallelism to keep
+// its FP32 pipe busy at the low occupancy the shared-memory staging allows
+// (two blocks per SM); the full-d copy overlaps the gate, the slab copy
+// does not (later work: double buffering across chunks, and a tensor-core
+// form of the rescore).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define SK_INT_INF 2147483647
+#define SK_THREADS 256
+#define SK_CH 32    // columns per chunk: one bit each in a 32-bit mask
+#define SK_AX 8     // axes per register step
+#define SK_AXMAX 512  // full-d axes staged per slice
+
+// acc[c] += (x - y_c)^2 for the 8 columns of y (two float4s), rounded
+// separately.
+__device__ __forceinline__ void sk_acc8(float* acc, float x, float4 ya,
+                                        float4 yb) {
+  float df;
+  df = __fsub_rn(x, ya.x); acc[0] = __fadd_rn(acc[0], __fmul_rn(df, df));
+  df = __fsub_rn(x, ya.y); acc[1] = __fadd_rn(acc[1], __fmul_rn(df, df));
+  df = __fsub_rn(x, ya.z); acc[2] = __fadd_rn(acc[2], __fmul_rn(df, df));
+  df = __fsub_rn(x, ya.w); acc[3] = __fadd_rn(acc[3], __fmul_rn(df, df));
+  df = __fsub_rn(x, yb.x); acc[4] = __fadd_rn(acc[4], __fmul_rn(df, df));
+  df = __fsub_rn(x, yb.y); acc[5] = __fadd_rn(acc[5], __fmul_rn(df, df));
+  df = __fsub_rn(x, yb.z); acc[6] = __fadd_rn(acc[6], __fmul_rn(df, df));
+  df = __fsub_rn(x, yb.w); acc[7] = __fadd_rn(acc[7], __fmul_rn(df, df));
+}
+
+// Asynchronous 4-byte global -> shared copy; bytes past src_size (0 or 4)
+// are zero-filled.
+__device__ __forceinline__ void sk_cp4(void* dst, const void* src,
+                                      int src_size) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_size));
+}
+__device__ __forceinline__ void sk_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void sk_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copies axes [s0, s0 + as) of the chunk's full-d columns into ys.
+__device__ __forceinline__ void sk_stage_full(
+    float* ys, const float* __restrict__ pts, long long n, int d, int s0,
+    int as, long long col0, int w) {
+  for (int e = threadIdx.x; e < as * SK_CH; e += blockDim.x) {
+    const int a = s0 + e / SK_CH;
+    const int t = e % SK_CH;
+    const bool in = t < w && a < d;
+    sk_cp4(ys + e, in ? pts + a * n + col0 + t : pts, in ? 4 : 0);
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
+    const float* __restrict__ pts, const float* __restrict__ slab,
+    const int* __restrict__ colval, const int* __restrict__ row_ptr,
+    const int* __restrict__ cols, float eps2, float band, long long n,
+    int d, int dp, int ax, int skp, int k, int tile,
+    int* __restrict__ out, unsigned long long* __restrict__ band_pairs,
+    int* __restrict__ flags) {
+  extern __shared__ float4 smem4[];
+  float* ys = reinterpret_cast<float*>(smem4);           // ax x SK_CH
+  float* ss = ys + (size_t)ax * SK_CH;                    // skp x SK_CH
+  int* sv = reinterpret_cast<int*>(ss + (size_t)skp * SK_CH);  // SK_CH
+  __shared__ unsigned block_band;
+  __shared__ unsigned long long warp_sum[SK_THREADS / 32];
+
+  const int r = blockIdx.x;
+  const int local = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool active = local < tile;
+  const long long row = (long long)r * tile + (active ? local : 0);
+  const int lane = threadIdx.x & 31;
+  const float lo = __fsub_rn(eps2, band);
+  const float rx4 = __fmul_rn(4.f, slab[(long long)k * n + row]);
+  const int inval = MODE == 0 ? 0 : SK_INT_INF;
+
+  int res = MODE == 0 ? 0 : SK_INT_INF;
+  unsigned n_band = 0;
+  const int p0 = row_ptr[r];
+  const int p1 = row_ptr[r + 1];
+  for (int p = p0; p < p1; ++p) {
+    const long long c0 = (long long)cols[p] * tile;
+    for (int j0 = 0; j0 < tile; j0 += SK_CH) {
+      const int w = min(SK_CH, tile - j0);
+      const long long col0 = c0 + j0;
+      sk_wait<0>();     // no copy of the previous chunk is in flight
+      __syncthreads();  // and no thread reads its shared memory any more
+      if (threadIdx.x == 0) block_band = 0u;
+      // Group 1: the column values and the slab columns.
+      if (threadIdx.x < SK_CH) {
+        if (threadIdx.x < w)
+          sk_cp4(sv + threadIdx.x, colval + col0 + threadIdx.x, 4);
+        else
+          sv[threadIdx.x] = inval;
+      }
+      for (int e = threadIdx.x; e < skp * SK_CH; e += blockDim.x) {
+        const int a = e / SK_CH;
+        const int t = e % SK_CH;
+        sk_cp4(ss + e, t < w ? slab + a * n + col0 + t : slab, t < w ? 4 : 0);
+      }
+      sk_commit();
+      // Group 2: the first full-d slice, in flight during the gate (most
+      // chunks of a cluster need it; a chunk that does not waits for it
+      // at the next chunk's top).
+      sk_stage_full(ys, pts, n, d, 0, ax, col0, w);
+      sk_commit();
+      sk_wait<1>();
+      __syncthreads();
+
+      // The gate: t2 over the slab rows for 32 columns.
+      float acc[SK_CH];
+#pragma unroll
+      for (int c = 0; c < SK_CH; ++c) acc[c] = 0.f;
+      for (int a0 = 0; a0 < skp; a0 += SK_AX) {
+        float xr[SK_AX];
+#pragma unroll
+        for (int i = 0; i < SK_AX; ++i)
+          xr[i] = __ldg(slab + (a0 + i) * n + row);
+#pragma unroll
+        for (int i = 0; i < SK_AX; ++i) {
+          const float4* y4 =
+              reinterpret_cast<const float4*>(ss + (a0 + i) * SK_CH);
+#pragma unroll
+          for (int g = 0; g < SK_CH / 8; ++g)
+            sk_acc8(acc + 8 * g, xr[i], y4[2 * g], y4[2 * g + 1]);
+        }
+      }
+      unsigned in_m = 0u, band_m = 0u;
+#pragma unroll
+      for (int c = 0; c < SK_CH; ++c) {
+        const int v = sv[c];
+        const bool valid = MODE == 0 ? v != 0 : v != SK_INT_INF;
+        const float up = __fadd_rn(acc[c], __fmul_rn(rx4, ss[k * SK_CH + c]));
+        if (active && valid) {
+          if (up <= lo)
+            in_m |= 1u << c;
+          else if (!(__fsub_rn(acc[c], band) > eps2))
+            band_m |= 1u << c;
+        }
+      }
+      n_band += __popc(band_m);
+      const unsigned warp_m = __reduce_or_sync(0xffffffffu, band_m);
+      if (lane == 0 && warp_m) atomicOr(&block_band, warp_m);
+      __syncthreads();
+      const unsigned bm = block_band;  // uniform over the block
+
+      // The rescore: exact d2 for the 8-column groups a warp needs.
+      if (bm) {
+        if (MODE == 0 && threadIdx.x == 0 && flags) flags[p] = 1;
+#pragma unroll
+        for (int c = 0; c < SK_CH; ++c) acc[c] = 0.f;
+        for (int s0 = 0; s0 < dp; s0 += ax) {
+          const int as = min(ax, dp - s0);
+          if (s0 > 0) {
+            __syncthreads();  // the previous slice is consumed
+            sk_stage_full(ys, pts, n, d, s0, as, col0, w);
+            sk_commit();
+          }
+          sk_wait<0>();
+          __syncthreads();
+          if (warp_m) {
+            for (int a0 = 0; a0 < as; a0 += SK_AX) {
+              float xr[SK_AX];
+#pragma unroll
+              for (int i = 0; i < SK_AX; ++i)
+                xr[i] = s0 + a0 + i < d ? __ldg(pts + (s0 + a0 + i) * n + row)
+                                        : 0.f;
+#pragma unroll
+              for (int i = 0; i < SK_AX; ++i) {
+                const float4* y4 =
+                    reinterpret_cast<const float4*>(ys + (a0 + i) * SK_CH);
+#pragma unroll
+                for (int g = 0; g < SK_CH / 8; ++g)
+                  if ((warp_m >> (8 * g)) & 0xffu)
+                    sk_acc8(acc + 8 * g, xr[i], y4[2 * g], y4[2 * g + 1]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < SK_CH; ++c)
+          if (((band_m >> c) & 1u) && acc[c] <= eps2) in_m |= 1u << c;
+      }
+
+      if (MODE == 0) {
+        res += __popc(in_m);
+      } else {
+#pragma unroll
+        for (int c = 0; c < SK_CH; ++c)
+          if ((in_m >> c) & 1u) res = min(res, sv[c]);
+      }
+    }
+  }
+  sk_wait<0>();  // a chunk without a rescore leaves its full-d copy in flight
+  if (active) out[row] = res;
+  if (MODE == 0 && band_pairs) {
+    unsigned long long v = n_band;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) warp_sum[threadIdx.x / 32] = v;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long tot = 0;
+      for (int i = 0; i < (int)(blockDim.x / 32); ++i) tot += warp_sum[i];
+      if (tot) atomicAdd(band_pairs, tot);
+    }
+  }
+}
+
+template <int MODE>
+static int launch(const float* pts, const float* slab, const int* colval,
+                  const int* row_ptr, const int* cols, float eps2,
+                  float band, long long n, int d, int skp, int k, int tile,
+                  int nt, int* out, unsigned long long* band_pairs,
+                  int* flags, void* stream) {
+  if (nt <= 0 || tile <= 0) return 0;
+  if (skp % SK_AX != 0 || k < 0 || k >= skp)
+    return (int)cudaErrorInvalidValue;
+  const int dp = (d + SK_AX - 1) / SK_AX * SK_AX;
+  const int ax = dp < SK_AXMAX ? dp : SK_AXMAX;
+  const size_t smem = ((size_t)ax * SK_CH + (size_t)skp * SK_CH) * 4 +
+                      (size_t)SK_CH * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      sketch_pair_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nt, (tile + SK_THREADS - 1) / SK_THREADS);
+  sketch_pair_kernel<MODE><<<grid, SK_THREADS, smem,
+                             reinterpret_cast<cudaStream_t>(stream)>>>(
+      pts, slab, colval, row_ptr, cols, eps2, band, n, d, dp, ax, skp, k,
+      tile, out, band_pairs, flags);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// B3: per-point neighbour counts through the sketch gate.  pts (d, n) and
+// slab (skp, n) float32; mask (n,) int32; row_ptr (nt + 1,) int32; cols
+// int32; out (n,) int32; band_pairs one uint64 counter and flags one int32
+// per pair-list entry, both zeroed by the caller (either may be NULL).
+// Returns the cudaError_t of the launch.
+int pp_count_pairs_sketch(const float* pts, const float* slab,
+                          const int* mask, const int* row_ptr,
+                          const int* cols, float eps2, float band,
+                          long long n, int d, int skp, int k, int tile,
+                          int nt, int* out, unsigned long long* band_pairs,
+                          int* flags, void* stream) {
+  return launch<0>(pts, slab, mask, row_ptr, cols, eps2, band, n, d, skp, k,
+                   tile, nt, out, band_pairs, flags, stream);
+}
+
+// B4: per-point minimum source label within eps through the sketch gate
+// (labels INT32_MAX for non-source points).  Same layout as B3; no stats
+// (band_pairs and flags are ignored).
+int pp_minlab_pairs_sketch(const float* pts, const float* slab,
+                           const int* labels, const int* row_ptr,
+                           const int* cols, float eps2, float band,
+                           long long n, int d, int skp, int k, int tile,
+                           int nt, int* out, unsigned long long* band_pairs,
+                           int* flags, void* stream) {
+  (void)band_pairs;
+  (void)flags;
+  return launch<1>(pts, slab, labels, row_ptr, cols, eps2, band, n, d, skp,
+                   k, tile, nt, out, nullptr, nullptr, stream);
+}
+
+}  // extern "C"

@@ -5,7 +5,10 @@
 the host centres the data on a float64 mean and pads it to the tile
 grid; Morton layout, the pair-list extraction, the B1/B2 kernels and
 the un-permutation run on the device (:mod:`.ops.pipeline`); the host
-densifies the labels.  The reference's keyed-record surface (``train``
+densifies the labels.  At d >= 128 the default ``sketch`` ("auto")
+decides most pairs from a k = d/4 random-projection slab and rescores
+the rest exactly (B3/B4): labels are byte-identical to the unsketched
+fit.  The reference's keyed-record surface (``train``
 / ``assignments`` / ``result`` / ``bounding_boxes`` / ``cluster_dict``)
 and the sklearn conveniences (``fit`` / ``fit_predict``) are kept.
 A fitted model serves out-of-sample queries (``predict`` /
@@ -32,6 +35,7 @@ from .ops.cuda_kernels import _pallas_block
 from .ops.labels import densify_labels, resolve_backend
 from .ops.pipeline import dbscan_device_pipeline, unpack_pipeline_result
 from .ops.precision import require_ported
+from .ops.sketch import check_sketch_spec, effective_k
 from .utils.budget import run_pair_ladder
 from .utils.shaping import clamp_block, round_up
 from .utils.validate import (
@@ -123,24 +127,27 @@ def _stage(points, block: int, device: torch.device):
 
 
 def _pad_and_run(points, eps, min_samples, block, precision="high",
-                 backend="auto", device=None):
+                 backend="auto", device=None, sketch=None):
     """Centre, pad to a tile multiple, run the device pipeline through
     the pair-budget ladder, and return ``(roots, core, info)`` in input
-    order (roots are root point indices, -1 for noise)."""
+    order (roots are root point indices, -1 for noise).  ``sketch`` is
+    resolved once here (None reads ``PPTORCH_SKETCH``) and every rung of
+    the ladder runs that k."""
     points_t, n, block = _stage(points, block, resolve_device(device))
     k, cap = points_t.shape
+    sketch_k = effective_k(sketch, k)
 
     def run_step(pair_budget):
         packed = dbscan_device_pipeline(
             points_t, eps, n, min_samples, block=block,
             precision=precision, backend=backend, sort=n > 2 * block,
-            pair_budget=pair_budget,
+            pair_budget=pair_budget, sketch=sketch_k,
         )
         _r, _c, total, budget, *_ = unpack_pipeline_result(packed)
         return packed, total, budget
 
     packed = run_pair_ladder(run_step)
-    roots, core, total, budget, passes, _band, _resc = (
+    roots, core, total, budget, passes, band_pairs, rescored = (
         unpack_pipeline_result(packed)
     )
     info = {
@@ -148,6 +155,13 @@ def _pad_and_run(points, eps, min_samples, block, precision="high",
         "pair_budget": int(budget),
         "kernel_passes": int(passes),
         "kernel_block": int(_pallas_block(block, cap, k, precision)),
+        # The sketch gate's counts-pass telemetry (zeros with it off):
+        # pairs whose slab verdict fell in the band and went to the
+        # exact d^2, and pair-list entries holding such a pair.
+        "band_pairs": int(band_pairs),
+        "rescored_tiles": int(rescored),
+        # The resolved random-projection width (0 = off).
+        "sketch_k": int(sketch_k),
     }
     return roots[:n], core[:n], info
 
@@ -159,7 +173,10 @@ class DBSCAN:
     ``metric``) plus the tile ``block``, the kernel ``precision``
     (``"high"`` and ``"highest"`` both run exact FP32), the
     ``kernel_backend`` (``"auto"`` picks the CUDA kernels on the card
-    and their plain versions on the CPU) and the ``device``.
+    and their plain versions on the CPU), the ``device`` and the
+    ``sketch`` prefilter (None defers to ``PPTORCH_SKETCH``, default
+    ``"auto"``: k = d/4 at d >= 128; ``"off"``/0; or a pinned k),
+    which leaves the labels byte-identical.
     """
 
     def __init__(
@@ -171,6 +188,7 @@ class DBSCAN:
         precision: str = "high",
         kernel_backend: str = "auto",
         device=None,
+        sketch=None,
     ):
         validate_params(eps, min_samples)
         self.eps = float(eps)
@@ -180,6 +198,7 @@ class DBSCAN:
         self.block = int(block)
         self.precision = require_ported(check_precision(precision))
         self.kernel_backend = check_kernel_backend(kernel_backend)
+        self.sketch = check_sketch_spec(sketch)
         self.device = resolve_device(device)
         resolve_backend(self.kernel_backend, self.device)
         # Reference attribute surface.
@@ -240,7 +259,7 @@ class DBSCAN:
         roots, core, info = _pad_and_run(
             points, self.eps, self.min_samples, self.block,
             precision=self.precision, backend=self.kernel_backend,
-            device=self.device,
+            device=self.device, sketch=self.sketch,
         )
         self.metrics_["n_partitions"] = 1
         self.metrics_.update(info)

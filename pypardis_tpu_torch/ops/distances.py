@@ -12,8 +12,11 @@ are the kernels' plain PyTorch versions: the same pair list, the same
 d^2 arithmetic — ``(x_a - y_a)^2`` summed over the axes in index order,
 each operation rounded on its own (no fused multiply-add) — so they are
 bitwise equal to the CUDA kernels in ``csrc/pair_kernels.cu`` on any
-data.  The CPU path runs them; on the card they are only the yardstick
-the kernels are held against.
+data.  The sketch passes (:func:`counts_over_pairs_sketch`,
+:func:`minlab_over_pairs_sketch`) add the slab gate of
+``csrc/sketch_kernels.cu`` in the same operation order, stats included.
+The CPU path runs them; on the card they are only the yardstick the
+kernels are held against.
 """
 
 from __future__ import annotations
@@ -239,3 +242,80 @@ def minlab_over_pairs(pts, labels, row_ptr, cols, eps2, tile):
     minimum ``labels[j]`` over columns within eps (non-source columns
     carry INT32_MAX, so they never win); INT32_MAX where none is."""
     return _over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min")
+
+
+def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
+                       tile, combine):
+    """The sketch kernels' arithmetic over the pair list.  Per pair:
+    ``t2`` the axis-ordered (skp)-row slab distance, ``up = t2 + (4 rx)
+    ry``; sure-out ``t2 - band > eps2``, sure-in ``up <= eps2 - band``,
+    every other pair the exact ``_pair_d2`` against eps2.  Stats count
+    the in-band pairs whose column is valid (rows unmasked) and the
+    pair-list entries holding one."""
+    d, n = pts.shape
+    skp = slab.shape[0]
+    nt = n // tile
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    rows = torch.repeat_interleave(
+        torch.arange(nt, device=pts.device), counts
+    )
+    cols = cols[:int(row_ptr[-1])].long()
+    tiles = pts.reshape(d, nt, tile)
+    stiles = slab.reshape(skp, nt, tile)
+    vals = colval.reshape(nt, tile)
+    out = torch.full(
+        (nt, tile), 0 if combine == "sum" else INT_INF, dtype=torch.int32,
+        device=pts.device,
+    )
+    lo = float(np.float32(eps2) - np.float32(band))
+    n_band = torch.zeros((), dtype=torch.int64, device=pts.device)
+    n_resc = torch.zeros((), dtype=torch.int64, device=pts.device)
+    elems = _CHUNK_ELEMS if pts.is_cuda else _CHUNK_ELEMS // 4
+    chunk = max(1, elems // (tile * tile))
+    for s in range(0, int(rows.numel()), chunk):
+        r, c = rows[s:s + chunk], cols[s:s + chunk]
+        sx, sy = stiles[:, r], stiles[:, c]
+        t2 = _pair_d2(sx, sy)
+        up = t2 + (4.0 * sx[k])[:, :, None] * sy[k][:, None, :]
+        sure_in = up <= lo
+        v = vals[c][:, None, :]
+        valid = (v != 0) if combine == "sum" else (v != INT_INF)
+        amb = ~(sure_in | ((t2 - band) > eps2)) & valid
+        n_band += amb.sum()
+        need = amb.flatten(1).any(dim=1)
+        n_resc += need.sum()
+        adj = sure_in
+        if bool(need.any()):
+            # Exact d2 only where a tile holds an in-band pair: the
+            # verdict is the same at any granularity.
+            d2 = _pair_d2(tiles[:, r[need]], tiles[:, c[need]])
+            adj[need] = torch.where(amb[need], d2 <= eps2, sure_in[need])
+        if combine == "sum":
+            part = (adj & valid).sum(dim=-1, dtype=torch.int32)
+            out.index_add_(0, r, part)
+        else:
+            cand = torch.where(adj, v, INT_INF).amin(dim=-1)
+            out.scatter_reduce_(
+                0, r[:, None].expand(-1, tile), cand, reduce="amin"
+            )
+    return out.reshape(-1), torch.stack([n_band, n_resc])
+
+
+def counts_over_pairs_sketch(pts, mask, row_ptr, cols, slab, k, eps2,
+                             band, tile):
+    """Plain version of the sketch count kernel (B3): the counts of
+    :func:`counts_over_pairs` (equal to them on any data), decided
+    through the slab gate.  ``slab`` (skp, N) float32 with row ``k``
+    the residual norm; ``band`` the gate's float32 halfwidth.  Returns
+    ``(counts, stats)``, ``stats`` a (2,) int64 tensor ``[band_pairs,
+    rescored_tiles]``."""
+    return _sketch_over_pairs(pts, slab, k, mask, row_ptr, cols, eps2,
+                              band, tile, "sum")
+
+
+def minlab_over_pairs_sketch(pts, labels, row_ptr, cols, slab, k, eps2,
+                             band, tile):
+    """Plain version of the sketch min-label kernel (B4): the result of
+    :func:`minlab_over_pairs` through the slab gate (no stats)."""
+    return _sketch_over_pairs(pts, slab, k, labels, row_ptr, cols, eps2,
+                              band, tile, "min")[0]

@@ -7,8 +7,8 @@ under the eps relation; a border point attaches to the minimum root of
 its core neighbours; the rest is noise.  Components come from min-label
 propagation with pointer jumping: every core point starts with its own
 index, each round takes the minimum label among its core eps-neighbours
-(one B2 pass) and chases labels to the current root, until nothing
-changes.  PyTorch runs eagerly, so the JAX ``while_loop``s are Python
+(one B2 pass, or B4 with the sketch on) and chases labels to the
+current root, until nothing changes.  PyTorch runs eagerly, so the JAX ``while_loop``s are Python
 loops that read one bool from the device per iteration.
 """
 
@@ -25,9 +25,11 @@ from .cuda_kernels import (
     kernel_pair_list,
     min_neighbor_label_cuda,
     neighbor_counts_cuda,
+    sketch_stage,
 )
 from .distances import INT_INF
 from .precision import require_ported
+from .sketch import check_sketch_spec, effective_k
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
@@ -76,6 +78,7 @@ def dbscan_fixed_size(
     precision: str = "high",
     backend: str = "auto",
     pair_budget: int | None = None,
+    sketch=None,
 ):
     """DBSCAN over a fixed-capacity padded point set.
 
@@ -84,10 +87,19 @@ def dbscan_fixed_size(
     pair_stats)``: ``labels`` (N,) int32, the root point index of each
     point's cluster (min index over its core points) or -1; ``core`` (N,)
     bool; ``pair_stats`` a (5,) int64 CPU tensor ``[live_pairs_total,
-    budget, kernel_passes, 0, 0]`` — when ``total > budget`` the labels
-    are INVALID and the caller reruns with ``pair_budget >= total``.
-    ``kernel_passes`` counts the B1 pass, one B2 pass per round and the
-    border recompute when the loop stopped at ``max_rounds``.
+    budget, kernel_passes, band_pairs, rescored_tiles]`` — when ``total
+    > budget`` the labels are INVALID (no pass ran: labels -1, passes 0)
+    and the caller reruns with ``pair_budget >= total``.
+    ``kernel_passes`` counts the counts pass, one min-label pass per
+    round and the border recompute when the loop stopped at
+    ``max_rounds``.
+
+    ``sketch``: a spec (None reads ``PPTORCH_SKETCH``, default
+    ``"auto"``: on at d >= 128).  With k > 0 the slab and its band are
+    staged once, the pair list is extracted over the slab boxes, B3 runs
+    the counts pass and B4 every other pass, and ``band_pairs`` /
+    ``rescored_tiles`` carry the counts pass's gate telemetry (zero
+    with the sketch off).  Labels are byte-identical either way.
     """
     validate_params(eps, min_samples)
     mode = require_ported(check_precision(precision))
@@ -97,14 +109,31 @@ def dbscan_fixed_size(
     if n % tile != 0:
         raise ValueError(f"tile {tile} does not divide n={n}")
     points = points.contiguous()
+    k = effective_k(check_sketch_spec(sketch), d)
+    # One slab for every pass: each pass's band mask is the validity
+    # mask (the core mask lies inside it), so one band serves all.
+    slab = sketch_stage(points, mask, k, mode) if k else None
     # One live tile-pair list for every pass: it covers the validity
     # boxes, a superset of any pass's source subset (the core mask).
     pairs, (total, budget) = kernel_pair_list(
-        points, eps, mask, block, mode, budget=pair_budget
+        points, eps, mask, block, mode, budget=pair_budget, sketch=k,
+        slab=slab,
     )
+    if total > budget:
+        # The list is truncated: the caller reruns with the exact total,
+        # so no pass runs on it.
+        return (
+            torch.full((n,), -1, dtype=torch.int32, device=points.device),
+            torch.zeros(n, dtype=torch.bool, device=points.device),
+            torch.tensor([total, budget, 0, 0, 0], dtype=torch.int64),
+        )
     counts = neighbor_counts_cuda(
-        points, eps, mask, block=block, precision=mode, pairs=pairs
+        points, eps, mask, block=block, precision=mode, pairs=pairs,
+        sketch=k, slab=slab,
     )
+    band = torch.zeros(2, dtype=torch.int64)
+    if k:
+        counts, band = counts
     # A valid point always counts itself; the clamp keeps that exact
     # when eps^2 sinks below the self-pair's rounding (kept from the JAX
     # package, where the matmul expansion can miss it).
@@ -114,10 +143,13 @@ def dbscan_fixed_size(
     f = torch.where(core, idx, INT_INF)
 
     def minlab(lab):
-        return min_neighbor_label_cuda(
+        best = min_neighbor_label_cuda(
             points, lab, eps, core, block=block, precision=mode,
-            row_mask=mask, pairs=pairs,
+            row_mask=mask, pairs=pairs, sketch=k, slab=slab,
         )
+        # B4's stats are zeros, as the JAX kernel's: the counts pass
+        # measured the band.
+        return best[0] if k else best
 
     g = f
     changed = True
@@ -134,9 +166,10 @@ def dbscan_fixed_size(
     border = minlab(f) if changed else g
     labels = finish_labels(f, border, core, mask)
     passes = 1 + rounds + int(changed)
-    pair_stats = torch.tensor(
-        [total, budget, passes, 0, 0], dtype=torch.int64
-    )
+    pair_stats = torch.cat([
+        torch.tensor([total, budget, passes], dtype=torch.int64),
+        band.cpu(),
+    ])
     return labels, core, pair_stats
 
 

@@ -12,7 +12,9 @@ staging copy and the packed result runs on the device:
 * segment-break padding, so spatially distant runs never share a tile;
 * :func:`~pypardis_tpu_torch.ops.labels.dbscan_fixed_size`;
 * map kernel-slot root indices back to input order and pack ``(root,
-  core)`` plus the five pair stats into one int32 row, fetched once.
+  core)`` into one int32 row, fetched once beside the five int64 pair
+  stats (``band_pairs`` passes 2^31 on a 1M x 512 fit, so the stats do
+  not ride in the int32 row as they do in the JAX package).
 
 The layout fixes the cluster numbering (ids follow the minimum core
 index in kernel-slot order), so it is ported operation for operation.
@@ -161,8 +163,10 @@ def _pipeline_layout(points_t, eps, n, block: int, sort: bool,
 
 
 def _pipeline_pack(roots_s, core_s, pair_stats, owner, *, cap):
-    """Kernel-slot results -> one (cap + 5,) int32 row in input order:
-    ``(root + 1) | core << 30`` per point, then the pair stats."""
+    """Kernel-slot results -> ``(row, stats)`` on the host: ``row`` the
+    (cap,) int32 ``(root + 1) | core << 30`` per point in input order
+    (the JAX package's row without its stats tail), ``stats`` the (5,)
+    int64 pair stats."""
     if cap >= 1 << 30:
         raise ValueError(f"cap {cap} overflows the packed-label encoding")
     capk = roots_s.shape[0]
@@ -172,18 +176,21 @@ def _pipeline_pack(roots_s, core_s, pair_stats, owner, *, cap):
     packed = ((roots_g + 1) | (core_s.to(torch.int64) << 30)).to(torch.int32)
     out = torch.zeros(cap + 1, dtype=torch.int32, device=roots_s.device)
     out[torch.clamp(owner, 0, cap)] = packed
-    return torch.cat([out[:cap].cpu(), pair_stats.to(torch.int32)])
+    return out[:cap].cpu(), pair_stats.to(torch.int64).cpu()
 
 
 def unpack_pipeline_result(packed):
-    """Host-side decode of :func:`_pipeline_pack`'s row: ``(roots, core,
-    total, budget, passes, band_pairs, rescored_tiles)``."""
-    packed = np.asarray(packed)
-    body = packed[:-PAIR_STATS_WIDTH]
+    """Host-side decode of :func:`_pipeline_pack`'s ``(row, stats)``:
+    ``(roots, core, total, budget, passes, band_pairs,
+    rescored_tiles)``, the stats as Python ints."""
+    row, stats = packed
+    body = np.asarray(row)
     roots = (body & 0x3FFFFFFF) - 1
     core = (body >> 30) > 0
-    stats = tuple(int(v) for v in packed[-PAIR_STATS_WIDTH:])
-    return (roots, core) + stats
+    stats = np.asarray(stats, dtype=np.int64)
+    if stats.shape != (PAIR_STATS_WIDTH,):
+        raise ValueError(f"pair stats of shape {stats.shape}")
+    return (roots, core) + tuple(int(v) for v in stats)
 
 
 def dbscan_device_pipeline(
@@ -196,17 +203,20 @@ def dbscan_device_pipeline(
     backend: str = "auto",
     sort: bool = True,
     pair_budget: int | None = None,
+    sketch=None,
 ):
     """``points_t``: (d, cap) float32, centred, zero-padded past ``n``,
-    on the device that runs the fit.  Returns the host (cap + 5,) int32
-    row of :func:`_pipeline_pack` (decode with
-    :func:`unpack_pipeline_result`)."""
+    on the device that runs the fit.  ``sketch``: the spec handed to
+    :func:`~pypardis_tpu_torch.ops.labels.dbscan_fixed_size`.  Returns
+    the host ``(row, stats)`` numpy pair of :func:`_pipeline_pack`
+    (decode with :func:`unpack_pipeline_result`)."""
     cap = points_t.shape[1]
     xs, mask, owner = _pipeline_layout(
         points_t, eps, n, block=block, sort=sort, precision=precision
     )
     roots_s, core_s, pair_stats = dbscan_fixed_size(
         xs, eps, min_samples, mask, block=block, precision=precision,
-        backend=backend, pair_budget=pair_budget,
+        backend=backend, pair_budget=pair_budget, sketch=sketch,
     )
-    return _pipeline_pack(roots_s, core_s, pair_stats, owner, cap=cap).numpy()
+    row, stats = _pipeline_pack(roots_s, core_s, pair_stats, owner, cap=cap)
+    return row.numpy(), stats.numpy()

@@ -1,6 +1,7 @@
 """Card-only tests of the GPU package: the CUDA kernels against their
-plain versions, a fit on the card against the same fit on the CPU, and
-serving on the card against the same serving on the CPU.
+plain versions, a fit on the card against the same fit on the CPU (and
+a sketched fit against an unsketched one), and serving on the card
+against the same serving on the CPU.
 
 They need a CUDA device and skip without one.  They import neither JAX
 nor the JAX package, so on a machine without JAX they run with
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchdata import make_blob_data
+from benchdata import make_blob_data, make_embedding_data
 from pypardis_tpu_torch import DBSCAN
 from pypardis_tpu_torch.dbscan import _stage
 from pypardis_tpu_torch.ops import cuda_kernels as ck
@@ -190,3 +191,86 @@ def test_card_double_buffered_drain_equals_cpu_drain():
     for g, w in zip(got, want):
         assert np.array_equal(g.result(), w.result())
         assert np.array_equal(g.d2, w.d2)
+
+
+def _sketch_inputs(d, k, seed):
+    """B3/B4 inputs on the card: embedding data with near-eps pairs
+    planted at 2.0 * (1 +- 1e-4) (in the band, so the rescore runs), every
+    97th column masked, pad rows past n, and row tile 0 stripped of its
+    live pairs (its rows must get the identity)."""
+    X, _ = make_embedding_data(12_000, d, seed=seed)
+    rng = np.random.default_rng(seed)
+    for i, anchor in enumerate(range(0, 400, 20)):
+        v = rng.normal(size=d)
+        v /= np.linalg.norm(v)
+        X[5000 + 2 * i] = X[anchor] + (2.0 * (1 - 1e-4)) * v
+        X[5001 + 2 * i] = X[anchor] + (2.0 * (1 + 1e-4)) * v
+    pts, n, block = _stage(X, 1024, torch.device("cuda"))
+    xs, mask, _owner = _pipeline_layout(pts, 2.0, n, block, sort=True)
+    assert xs.shape[1] > n
+    mask = mask & (torch.arange(xs.shape[1], device="cuda") % 97 != 0)
+    slab, band = ck.sketch_stage(xs, mask, k)
+    (rows, cols), (total, budget) = ck.kernel_pair_list(
+        xs, 2.0, mask, block, "high", sketch=k, slab=(slab, band))
+    assert total <= budget
+    tile = ck._pallas_block(block, xs.shape[1], d, "high")
+    rp = row_offsets(rows, xs.shape[1] // tile)
+    start = int(rp[1])
+    assert start > 0
+    rp, cols = (rp - start).clamp_min(0).to(torch.int32), cols[start:]
+    return xs, mask, slab, band, rp, cols.contiguous(), tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(130, 16), (130, 33), (130, 64), (256, 16),
+                                 (256, 33), (256, 64), (256, 128), (512, 16),
+                                 (512, 33), (512, 64), (512, 128)])
+def test_sketch_kernels_equal_plain_versions_on_card(d, k):
+    """B3/B4 against their plain versions, bitwise (counts, band_pairs,
+    rescored_tiles, min labels), and against B1/B2 on the same list."""
+    _need_card()
+    xs, mask, slab, band, rp, cols, tile = _sketch_inputs(d, k, d + k)
+    mi = mask.to(torch.int32)
+    e2 = eps2_f32(2.0)
+    a = (xs, mi, rp, cols, slab, k, e2, band, tile)
+    before = dict(ck.LAUNCHES)
+    got, stats = ck.count_pairs_sketch(*a)
+    want, wstats = ck.PLAIN["count_pairs_sketch"](*a)
+    assert torch.equal(got, want) and torch.equal(stats, wstats)
+    assert torch.equal(got, ck.count_pairs(xs, mi, rp, cols, e2, tile))
+    assert int(stats[0]) > 0 and int(stats[1]) > 0
+    assert not got[:tile].any()  # row tile 0 has no live pair
+    core = (torch.where(mask, got, 0) >= 10) & mask
+    lab = torch.where(
+        core, torch.arange(len(got), device="cuda", dtype=torch.int32),
+        INT_INF,
+    ).contiguous()
+    b = (xs, lab, rp, cols, slab, k, e2, band, tile)
+    best = ck.minlab_pairs_sketch(*b)
+    assert torch.equal(best, ck.PLAIN["minlab_pairs_sketch"](*b))
+    assert torch.equal(best, ck.minlab_pairs(xs, lab, rp, cols, e2, tile))
+    assert (best[:tile] == INT_INF).all()
+    assert ck.LAUNCHES["count_pairs_sketch"] == before[
+        "count_pairs_sketch"] + 1
+    assert ck.LAUNCHES["minlab_pairs_sketch"] == before[
+        "minlab_pairs_sketch"] + 1
+
+
+@pytest.mark.cuda
+def test_card_sketched_fit_equals_unsketched_fit():
+    _need_card()
+    # Small enough for the plain versions on the CPU (tile 512, 6 tiles).
+    X, _truth = make_embedding_data(3000, 256, seed=5)
+    kw = dict(eps=2.0, min_samples=10, block=512)
+    ck.reset_launch_counts()
+    on = DBSCAN(sketch="auto", **kw).fit(X)
+    assert ck.LAUNCHES["count_pairs_sketch"] == 1
+    assert ck.LAUNCHES["count_pairs"] == ck.LAUNCHES["minlab_pairs"] == 0
+    off = DBSCAN(sketch=0, **kw).fit(X)
+    cpu = DBSCAN(sketch="auto", device="cpu", **kw).fit(X)
+    for other in (off, cpu):
+        assert np.array_equal(on.labels_, other.labels_)
+        assert np.array_equal(on.core_sample_mask_, other.core_sample_mask_)
+    assert on.metrics_["sketch_k"] == 64 and off.metrics_["sketch_k"] == 0
+    assert on.metrics_["band_pairs"] == cpu.metrics_["band_pairs"] > 0
+    assert on.metrics_["rescored_tiles"] == cpu.metrics_["rescored_tiles"]

@@ -204,7 +204,8 @@ def test_wrappers_use_plain_versions_on_cpu_without_launching():
     want = counts_over_pairs(pts, mi, rp, cols, eps2_f32(EPS), 128)
     assert torch.equal(got, want)
     assert ck.LAUNCHES == {"count_pairs": 0, "minlab_pairs": 0,
-                           "query_leaf": 0}
+                           "count_pairs_sketch": 0,
+                           "minlab_pairs_sketch": 0, "query_leaf": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "tile", "row_ptr"])

@@ -125,7 +125,10 @@ def test_pipeline_layout_gate_and_pack_equal():
         jnp.asarray(roots), jnp.asarray(core), jnp.asarray(stats),
         jowner, cap=cap,
     ))
-    assert np.array_equal(got.numpy(), want)
-    for g, w in zip(tpipe.unpack_pipeline_result(got.numpy()),
+    # The port carries the stats as int64 beside the row, not in it.
+    row, st = got
+    assert np.array_equal(row.numpy(), want[:-5])
+    assert st.dtype == torch.int64 and np.array_equal(st.numpy(), want[-5:])
+    for g, w in zip(tpipe.unpack_pipeline_result((row.numpy(), st.numpy())),
                     jpipe.unpack_pipeline_result(want)):
         assert np.array_equal(np.asarray(g), np.asarray(w))
