@@ -56,7 +56,32 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ``torch.set_float32_matmul_precision("high")``, byte-identical; (4)
    B3 and B4 alone at the 1M inputs: equality with the plain versions
    over the first 64 row tiles, CUDA-event times (median), the plain
-   versions' times on that sub-list, and the bound.
+   versions' times on that sub-list, and the bound;
+8. the precision modes (the bf16 tensor-core kernels): (1) B1/B2 under
+   ``"mixed"`` and ``"default"`` against their plain versions at
+   d = 3, 16, 64, 96 (20,000 points, the adversarial geometry with
+   near-eps pairs, duplicates and a 1e3 offset, and natural blobs):
+   ``"mixed"`` counts and min labels bitwise the plain version's and the
+   FP32 kernel's, band stats within 1e-3 relative of the plain
+   version's; ``"default"`` between the plain version at eps^2 (1 -+
+   2^-12), its differing points counted; B3/B4 under both modes at
+   20,000 x 512 likewise; (2) ``DBSCAN(..., precision="mixed")`` at
+   1M x 16-D, once from host input and twice from a CUDA tensor,
+   byte-identical to phase 4's ``"high"`` fit, the mixed B1 once and
+   the mixed B2 per round and nothing else; (3) one ``"default"`` fit
+   (ARI >= 0.99, labels differing from ``"high"`` counted); (4) the four
+   B1/B2 kernels at phase 5's inputs: against their plain versions (and
+   the mixed ones against the FP32 kernels) over the first 64 row tiles,
+   as in (1), then timed beside the FP32 times, the plain versions' and
+   the bound; (5) a ``"mixed"`` engine on phase 6's
+   index over phase 6's batches: answers bitwise the exact engine's and
+   the oracle's, one mixed B5 per batch, its time beside exact B5 and
+   the kept share of chunks; (6) 100,000 x 512 fits under both modes
+   through B3/B4 (``"mixed"`` byte-identical to ``"high"``,
+   ``"default"`` ARI >= 0.99 at tile 1024), then those kernels at the
+   fits' inputs against their plain versions over the first 64 row
+   tiles, as in (1), and timed.  The kernels line's ``max_abs_err`` of
+   each bf16 B1-B4 kernel is its largest difference in (4) or (6).
 
 Phase 1 also times one ``nvcc -shared`` over all sources beside the
 parallel build.  The line before the last is the kernels' JSON record;
@@ -243,7 +268,10 @@ def profile_fit(torch, DBSCAN, make_blob_data):
 
 
 def serve_phase(torch, model, X, median_ms):
-    """Phase 6 (see the module docstring); returns B5's JSON record."""
+    """Phase 6 (see the module docstring); returns B5's JSON record and
+    what phase 8 reuses: the engine, the batches, the drain's answers,
+    the oracle's answers on the first 512 queries and batch 2's
+    tiles."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -469,7 +497,7 @@ def serve_phase(torch, model, X, median_ms):
         f"{rows} real rows in {len(rowmap)} tiles, {pairs} row x core "
         f"pairs, {nbytes} bytes; {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
         f"of needed work")
-    return {
+    record = {
         "name": "query_leaf", "route": "cuda",
         "source": "pypardis_tpu_torch/csrc/query_kernels.cu",
         "replaces": "pypardis_tpu/ops/pallas_kernels.py:1107",
@@ -480,6 +508,10 @@ def serve_phase(torch, model, X, median_ms):
         # ties) over a leaf slab.
         "library_ms": None,
     }
+    ctx = dict(engine=eng, batches=batches, lab=lab[:len(d2)], d2=d2,
+               olab=olab, od2=od2, Q512=Q[:512], tiles=args, rowmap=rowmap,
+               ops_per_pair=3 * d + 1, pairs=pairs, nbytes=nbytes)
+    return record, ctx
 
 
 def noise_dominated(n, dim, n_centers=8, seed=0, sigma=0.5):
@@ -502,7 +534,8 @@ SKETCH_SIZES = {"check_n": 20_000, "onoff_n": 100_000,
 
 def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     """Phase 7 (high-dimensional fits, the sketch kernels B3/B4); see the
-    module docstring.  Returns the kernels' JSON records."""
+    module docstring.  Returns the kernels' JSON records and the 100k
+    sketched fit (its data, truth and model) for phase 8."""
     from benchdata import make_embedding_data
     from pypardis_tpu_torch import DBSCAN
     from pypardis_tpu_torch.dbscan import _stage
@@ -633,6 +666,7 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
         f"ARI vs truth {ari(on.labels_, truth):.6f}")
     if not same:
         fail("the sketched fit differs from the unsketched fit")
+    onoff = dict(X=X, truth=truth, model=on)
 
     # 7.3: the slice's path at full size.
     n = sizes["main_n"]
@@ -742,6 +776,581 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
             # or min-label over a tile-pair list.
             "library_ms": None,
         })
+    return kernels, onoff
+
+
+PRECISION_SIZES = {"check_n": 20_000, "sketch_n": 20_000, "sub_tiles": 64,
+                   "reps": 5, "dims": (3, 16, 64, 96)}
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
+PEAK_BF16_FLOPS = 989e12
+# FP32 operations per pair of the fast pass's epilogue: d2f (add, mul,
+# sub) and the compare, plus the band test (sub, abs-compare) in "mixed".
+EPILOGUE_OPS = {"mixed": 6, "default": 4}
+
+
+def adversarial(n, d, eps, seed=3, offset=1e3):
+    """tests/test_mixed_precision.py's adversarial geometry in numpy:
+    12 blobs (std 0.25), duplicate points, and pairs planted at
+    eps * (1 -+ 1e-4) from ten anchors, all shifted by ``offset`` (the
+    fit centres it away; the kernels' recentring then works at the
+    blobs' own scale)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-10, 10, size=(12, d))
+    X = centers[rng.integers(0, 12, n)] + rng.normal(scale=0.25, size=(n, d))
+    X[10] = X[11]
+    X[12] = X[13] = X[14]
+    for i, anchor in enumerate(range(0, 50, 5)):
+        v = rng.normal(size=d)
+        v /= np.linalg.norm(v)
+        X[100 + 2 * i] = X[anchor] + (eps * (1 - 1e-4)) * v
+        X[101 + 2 * i] = X[anchor] + (eps * (1 + 1e-4)) * v
+    return (X + offset).astype(np.float32)
+
+
+def eps2_bracket(e2, rel=2.0 ** -12):
+    """float32 eps^2 values ``rel`` below and above ``e2``: a bf16
+    kernel differs from its plain version only in the order of the d2f
+    sum, far less than ``rel * eps^2``, and every verdict is monotone in
+    eps^2, so the kernel's counts (labels) lie between the plain
+    version's at the two."""
+    return (float(np.float32(e2 * (1 - rel))),
+            float(np.float32(e2 * (1 + rel))))
+
+
+def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
+                    fp32_ms, sizes=PRECISION_SIZES):
+    """Phase 8 (the precision modes); see the module docstring.
+
+    ``main``: phase 4's 1M x 16-D data, truth and first host-input
+    "high" model, and phase 5's staged inputs; ``served``: phase 6's
+    context; ``onoff``: phase 7's 100k x 512 sketched fit; ``fp32_ms``:
+    phase 5's B1/B2 times.  Returns the new kernels' JSON records."""
+    from benchdata import make_blob_data, make_embedding_data
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.dbscan import _stage
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import (
+        INT_INF, eps2_f32, row_offsets,
+    )
+    from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
+    from pypardis_tpu_torch.ops.query import query_min_core_plain
+    from pypardis_tpu_torch.serve import QueryEngine
+
+    err = {}
+    stat_rel = [0.0]
+    diffs = {}
+    # max_abs_err of each kernel on its main path's inputs.
+    main_err = {}
+
+    def note(name, e):
+        err[name] = max(err.get(name, 0), int(e))
+
+    def hold_main(name, mode, out, plain_at, e2, m, what, stat_tol=0.0,
+                  exact=None):
+        """A kernel's ``out`` on the main path's (sub-list) inputs against
+        its plain version there, ``plain_at(eps2)``: ``"mixed"`` bitwise
+        (and bitwise ``exact``, the FP32 kernel's output, if given),
+        ``"default"`` between the plain version at the two ends of
+        :func:`eps2_bracket`; band stats within ``stat_tol`` relative.
+        Compares the rows of ``m``, records their largest difference as
+        the kernel's ``max_abs_err`` and fails on any mismatch."""
+        def split(r):
+            return r if isinstance(r, tuple) else (r, None)
+
+        out, kst = split(out)
+        po, pst = split(plain_at(e2))
+        k_m, p_m = out[m], po[m]
+        nd = int((k_m != p_m).sum())
+        main_err[name] = int((k_m.long() - p_m.long()).abs().max())
+        if mode == "mixed":
+            ok = nd == 0 and (exact is None or torch.equal(k_m, exact[m]))
+        else:
+            below, above = (split(plain_at(x))[0][m]
+                            for x in eps2_bracket(e2))
+            if name.startswith("minlab"):
+                # More sources within a wider eps: smaller minima.
+                below, above = above, below
+            ok = bool((below <= k_m).all()) and bool((k_m <= above).all())
+        rel = 0.0
+        if kst is not None:
+            rel = float((kst - pst).abs().max()) / max(float(pst.max()), 1.0)
+            ok = ok and rel <= stat_tol
+        log(f"    {name} on {what}: {nd} of {int(m.sum())} points differ "
+            f"from the plain version"
+            + ("" if kst is None else f", stats kernel {kst.tolist()} plain "
+               f"{pst.tolist()} (rel {rel:.2e})")
+            + f"; {'bitwise' if mode == 'mixed' else 'bracketed'}: {ok}")
+        if not ok:
+            fail(f"{name} disagrees with its plain version on {what}")
+
+    def fast_inputs(xs, mask, eps, block, min_samples):
+        (rows, cols), (total, budget) = ck.kernel_pair_list(
+            xs, eps, mask, block, "mixed")
+        if total > budget:
+            (rows, cols), (total, budget) = ck.kernel_pair_list(
+                xs, eps, mask, block, "mixed", budget=total)
+        d, N = xs.shape
+        tile = ck._pallas_block(block, N, d, "mixed")
+        rp = row_offsets(rows, N // tile)
+        mi = mask.to(torch.int32)
+        e2 = eps2_f32(eps)
+        counts = ck.count_pairs(xs, mi, rp, cols, e2, tile)
+        core = (torch.clamp_min(torch.where(mask, counts, 0), 1)
+                >= min_samples) & mask
+        lab = torch.where(core, torch.arange(N, device=xs.device,
+                                             dtype=torch.int32),
+                          INT_INF).contiguous()
+        centers, rnorm = ck.tile_frames(xs, mask, tile)
+        return dict(xs=xs, mask=mask, mi=mi, lab=lab, core=core, rp=rp,
+                    cols=cols, e2=e2, tile=tile, centers=centers,
+                    rnorm=rnorm, total=total)
+
+    def hold(inp, what):
+        """Mixed: bitwise the plain version and the FP32 kernel on valid
+        rows, stats within the stated tolerance; default: bracketed by
+        the plain version, differing points counted."""
+        m = inp["mask"]
+        a = (inp["xs"], inp["mi"], inp["rp"], inp["cols"])
+        b = (inp["xs"], inp["lab"], inp["rp"], inp["cols"])
+        e2, tile = inp["e2"], inp["tile"]
+        fr = (inp["centers"], inp["rnorm"])
+        kc, kst = ck.count_pairs_mixed(*a, e2, tile, *fr)
+        pc, pst = ck.PLAIN["count_pairs_mixed"](*a, e2, tile, *fr)
+        fc = ck.count_pairs(*a, e2, tile)
+        kb = ck.minlab_pairs_mixed(*b, e2, tile, *fr)
+        pb = ck.PLAIN["minlab_pairs_mixed"](*b, e2, tile, *fr)
+        fb = ck.minlab_pairs(*b, e2, tile)
+        sync()
+        bad = (int((kc[m] != pc[m]).sum()) + int((kc[m] != fc[m]).sum())
+               + int((kb[m] != pb[m]).sum()) + int((kb[m] != fb[m]).sum()))
+        note("count_pairs_mixed", (kc[m].long() - pc[m].long()).abs().max())
+        note("minlab_pairs_mixed", (kb[m].long() - pb[m].long()).abs().max())
+        rel = float((kst - pst).abs().max()) / max(float(pst.max()), 1.0)
+        stat_rel[0] = max(stat_rel[0], rel)
+        lo, hi = eps2_bracket(e2)
+        cen = inp["centers"]
+        kd = ck.count_pairs_default(*a, e2, tile, cen)
+        pd = ck.PLAIN["count_pairs_default"](*a, e2, tile, cen)
+        kdb = ck.minlab_pairs_default(*b, e2, tile, cen)
+        pdb = ck.PLAIN["minlab_pairs_default"](*b, e2, tile, cen)
+        pl = ck.PLAIN["count_pairs_default"]
+        pm = ck.PLAIN["minlab_pairs_default"]
+        bracket = (bool((pl(*a, lo, tile, cen) <= kd).all())
+                   and bool((kd <= pl(*a, hi, tile, cen)).all())
+                   and bool((pm(*b, hi, tile, cen) <= kdb).all())
+                   and bool((kdb <= pm(*b, lo, tile, cen)).all()))
+        nd = int((kd[m] != pd[m]).sum()) + int((kdb[m] != pdb[m]).sum())
+        note("count_pairs_default", (kd[m].long() - pd[m].long()).abs().max())
+        note("minlab_pairs_default",
+             (kdb[m].long() - pdb[m].long()).abs().max())
+        diffs[what] = nd
+        exact_d = int((kd[m] != fc[m]).sum())
+        log(f"  {what}: tile {tile}, {inp['total']} live tile pairs; mixed "
+            f"B1 stats kernel {kst.tolist()} plain {pst.tolist()} (rel "
+            f"{rel:.2e}); mixed mismatches vs plain and FP32: {bad}; "
+            f"default: {nd} points differ from the plain version "
+            f"(bracketed: {bracket}), {exact_d} counts differ from FP32")
+        if bad:
+            fail(f"a mixed kernel disagrees on {what}")
+        if not bracket:
+            fail(f"a default kernel leaves its bracket on {what}")
+        if int(kst[0]) <= 0:
+            fail(f"no pair fell in the mixed band on {what}")
+
+    # 8.1: B1/B2 against their plain versions.
+    n = sizes["check_n"]
+    for d in sizes["dims"]:
+        eps_a = round(0.9 * np.sqrt(d / 8.0), 3)
+        pts, nn, block = _stage(adversarial(n, d, eps_a), 1024, dev)
+        xs, mask, _o = _pipeline_layout(pts, eps_a, nn, block, sort=True)
+        hold(fast_inputs(xs, mask, eps_a, block, 6),
+             f"adversarial d={d} eps={eps_a} offset 1e3")
+        eps_b = {3: 1.2, 16: 2.4, 64: 4.8, 96: 6.0}.get(d, 0.6 * np.sqrt(d))
+        Xb, _ = make_blob_data(n, d, n_centers=8, std=0.4, seed=d)
+        pts, nn, block = _stage(Xb, 1024, dev)
+        xs, mask, _o = _pipeline_layout(pts, eps_b, nn, block, sort=True)
+        hold(fast_inputs(xs, mask, eps_b, block, 10),
+             f"natural blobs d={d} eps={eps_b}")
+    if stat_rel[0] > 1e-3:
+        fail(f"mixed band stats differ from the plain version by "
+             f"{stat_rel[0]:.2e} > 1e-3")
+    log(f"  mixed band stats: kernel vs plain within {stat_rel[0]:.2e} "
+        f"(tolerance 1e-3 relative)")
+
+    # B3/B4 at 20k x 512 against their plain versions.
+    eps_s, k = 2.0, 128
+    Xs, _ = make_embedding_data(sizes["sketch_n"], 512)
+    pts, nn, block = _stage(Xs, 2048, dev)
+    xs, mask, _o = _pipeline_layout(pts, eps_s, nn, block, sort=True)
+    e2 = eps2_f32(eps_s)
+    lo, hi = eps2_bracket(e2)
+    for mode in ("mixed", "default"):
+        slab, band = ck.sketch_stage(xs, mask, k, mode)
+        (rows, cols), (total, budget) = ck.kernel_pair_list(
+            xs, eps_s, mask, block, mode, budget=1 << 22, sketch=k,
+            slab=(slab, band))
+        tile = ck._pallas_block(block, xs.shape[1], 512, mode)
+        rp = row_offsets(rows, xs.shape[1] // tile)
+        mi = mask.to(torch.int32)
+        cen = ck.tile_frames(xs, mask, tile)[0] if mode == "default" else None
+        a = (xs, mi, rp, cols, slab, k)
+        kc, kst = ck.count_pairs_sketch(*a, e2, band, tile, mode, cen)
+        pc, pst = ck.PLAIN["count_pairs_sketch"](*a, e2, band, tile, cen)
+        core = (torch.clamp_min(torch.where(mask, kc, 0), 1) >= 10) & mask
+        lab = torch.where(core, torch.arange(len(kc), device=dev,
+                                             dtype=torch.int32),
+                          INT_INF).contiguous()
+        b = (xs, lab, rp, cols, slab, k)
+        kb = ck.minlab_pairs_sketch(*b, e2, band, tile, mode, cen)
+        pb = ck.PLAIN["minlab_pairs_sketch"](*b, e2, band, tile, cen)
+        sync()
+        nb3 = f"count_pairs_sketch_{mode}"
+        nb4 = f"minlab_pairs_sketch_{mode}"
+        note(nb3, max(int((kc.long() - pc.long()).abs().max()),
+                      int((kst - pst).abs().max())))
+        note(nb4, (kb.long() - pb.long()).abs().max())
+        nd = int((kc != pc).sum()) + int((kb != pb).sum())
+        if mode == "mixed":
+            ok = nd == 0 and torch.equal(kst, pst) and torch.equal(
+                kc, ck.count_pairs(xs, mi, rp, cols, e2, tile))
+        else:
+            pl, pm = ck.PLAIN["count_pairs_sketch"], ck.PLAIN[
+                "minlab_pairs_sketch"]
+            ok = (torch.equal(kst, pst)
+                  and bool((pl(*a, lo, band, tile, cen)[0] <= kc).all())
+                  and bool((kc <= pl(*a, hi, band, tile, cen)[0]).all())
+                  and bool((pm(*b, hi, band, tile, cen) <= kb).all())
+                  and bool((kb <= pm(*b, lo, band, tile, cen)).all()))
+        log(f"  B3/B4 {mode} at {sizes['sketch_n']} x 512 (k={k}, tile "
+            f"{tile}, {total} live tile pairs): stats kernel {kst.tolist()} "
+            f"plain {pst.tolist()}; {nd} points differ from the plain "
+            f"version; {'bitwise' if mode == 'mixed' else 'bracketed'}: "
+            f"{ok}")
+        if not ok:
+            fail(f"the sketch kernels disagree under {mode}")
+
+    # 8.2 / 8.3: the 1M x 16-D fits.
+    X, truth, ref = main["X"], main["truth"], main["model"]
+    Xd = torch.from_numpy(X).to(dev)
+
+    def fit(src, mode, what):
+        model = DBSCAN(eps=2.4, min_samples=10, block=2048, precision=mode)
+        ck.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        model.fit(src)
+        sync()
+        wall = time.perf_counter() - t
+        launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+        m = model.metrics_
+        log(f"  {what}: {wall:.4f} s, launches {launches}, passes "
+            f"{m['kernel_passes']}, live pairs {m['live_pairs']}, band_pairs "
+            f"{m['band_pairs']}, rescored_tiles {m['rescored_tiles']}, "
+            f"clusters {int(model.labels_.max()) + 1}")
+        if sum(launches.values()) != m["kernel_passes"]:
+            fail(f"kernel launches do not sum to the passes ({what})")
+        if (launches.get(f"count_pairs_{mode}") != 1
+                or launches.get(f"minlab_pairs_{mode}", 0) < 1
+                or len(launches) != 2):
+            fail(f"the fit did not run its mode's kernels alone ({what})")
+        return model, wall, launches
+
+    runs = [fit(X, "mixed", f"n={len(X)} mixed from host")]
+    runs += [fit(Xd, "mixed", f"n={len(X)} mixed from cuda ({i})")
+             for i in (1, 2)]
+    for model, _w, _l in runs:
+        if not (np.array_equal(model.labels_, ref.labels_)
+                and np.array_equal(model.core_sample_mask_,
+                                   ref.core_sample_mask_)):
+            fail("a mixed 1M fit differs from phase 4's high fit")
+    log("    the three mixed fits are byte-identical to phase 4's high fit")
+    mixed_launches = runs[0][2]
+    dm, _w, default_launches = fit(Xd, "default",
+                                   f"n={len(X)} default from cuda")
+    a_t, a_h = ari(dm.labels_, truth), ari(dm.labels_, ref.labels_)
+    n_diff = int((dm.labels_ != ref.labels_).sum())
+    n_core = int((dm.core_sample_mask_ != ref.core_sample_mask_).sum())
+    log(f"    default: ARI vs truth {a_t:.6f}, vs high {a_h:.6f}; {n_diff} "
+        f"labels and {n_core} core flags differ from high")
+    if a_t < 0.99:
+        fail(f"default fit ARI {a_t} < 0.99")
+    del Xd
+
+    # 8.4: B1/B2 mixed and default alone at phase 5's 1M inputs.
+    xs, mask = main["xs"], main["mask"]
+    inp = fast_inputs(xs, mask, 2.4, 2048, 10)
+    d, N = xs.shape
+    tile = inp["tile"]
+    nt = N // tile
+    rp, cols = inp["rp"], inp["cols"]
+    cols_t = cols[:int(rp[-1])].long()
+    need = {"count_pairs": int(mask.view(nt, tile).sum(1)[cols_t].sum())
+            * tile,
+            "minlab_pairs": int(inp["core"].view(nt, tile).sum(1)[cols_t]
+                                .sum()) * tile}
+    fr = (inp["centers"], inp["rnorm"])
+    a = (xs, inp["mi"], rp, cols, inp["e2"], tile)
+    b = (xs, inp["lab"], rp, cols, inp["e2"], tile)
+    # In-band pairs of each pass: B1's band stats over valid rows and
+    # columns; for B2 the stats of the band over the source columns,
+    # which count core rows only (B2 rescores every row's pairs: a lower
+    # count, so its bound stays a lower bound).
+    band_b1 = ck.count_pairs_mixed(*a, *fr)[1]
+    band_b2 = ck.count_pairs_mixed(xs, inp["core"].to(torch.int32), rp,
+                                   cols, inp["e2"], tile, *fr)[1]
+    in_band = {"count_pairs": int(band_b1[0]), "minlab_pairs": int(band_b2[0])}
+    sub = min(sizes["sub_tiles"], nt)
+    rp_sub = torch.cat([rp[:sub + 1], rp[sub].repeat(nt - sub)])
+    # The rows the sub-list covers.
+    m_sub = mask & (torch.arange(N, device=dev) < sub * tile)
+    in_bytes = (d * N * 4 + N * 4 + rp.numel() * 4 + cols.numel() * 4
+                + inp["centers"].numel() * 4 + inp["rnorm"].numel() * 4)
+    K = -(-d // 16) * 16
+    kernels = []
+    for base, args, replaces in (
+        ("count_pairs", a, "pypardis_tpu/ops/pallas_kernels.py:202"),
+        ("minlab_pairs", b, "pypardis_tpu/ops/pallas_kernels.py:264"),
+    ):
+        sub_args = args[:2] + (rp_sub,) + args[3:]
+        fp32_sub = getattr(ck, base)(*sub_args)
+        for mode in ("mixed", "default"):
+            name = f"{base}_{mode}"
+            extra = fr if mode == "mixed" else fr[:1]
+            kern = getattr(ck, name)
+            plain = ck.PLAIN[name]
+            hold_main(
+                name, mode, kern(*sub_args, *extra),
+                lambda e: plain(*sub_args[:4], e, tile, *extra), inp["e2"],
+                m_sub, f"the 1M main-path inputs, first {sub} of {nt} row "
+                f"tiles", stat_tol=1e-3,
+                exact=fp32_sub if mode == "mixed" else None)
+            kern_ms = median_ms(lambda: kern(*args, *extra), sizes["reps"])
+            sub_ms = median_ms(lambda: kern(*sub_args, *extra), 3)
+            plain_ms = median_ms(lambda: plain(*sub_args, *extra), 1)
+            pairs = need[base]
+            t_tc = 2 * K * pairs / PEAK_BF16_FLOPS
+            simt = pairs * EPILOGUE_OPS[mode] + (
+                in_band[base] * (3 * d + 1) if mode == "mixed" else 0)
+            t_ops = t_tc + simt / PEAK_FP32_FLOPS
+            t_bytes = (in_bytes + N * 4) / PEAK_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            launches = (mixed_launches if mode == "mixed"
+                        else default_launches).get(name, 0)
+            log(f"  {name}: {kern_ms:.4f} ms (FP32 {base} "
+                f"{fp32_ms[base]:.4f} ms; on the {sub}-tile sub-list "
+                f"{sub_ms:.4f} ms, plain {plain_ms:.2f} ms), bound "
+                f"{bound_ms:.4f} ms by {bound_by} ({t_tc * 1e3:.4f} ms "
+                f"tensor cores + {simt / PEAK_FP32_FLOPS * 1e3:.4f} ms FP32); "
+                f"{pairs} point pairs, {in_band[base]} in the mixed band "
+                f"({in_band[base] / max(pairs, 1):.4%})")
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "pypardis_tpu_torch/csrc/pair_kernels.cu",
+                "replaces": replaces, "launches": int(launches),
+                "max_abs_err": main_err[name], "ms": kern_ms,
+                "plain_ms": plain_ms,
+                "plain_scope": f"first {sub} of {nt} row tiles",
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                # No single PyTorch call computes a thresholded count or
+                # min-label over a tile-pair list.
+                "library_ms": None,
+            })
+
+    # 8.5: serving through the mixed prefilter on phase 6's index.
+    exact_eng = served["engine"]
+    idx = exact_eng.index
+    eng = QueryEngine(idx, precision="mixed")
+    ck.reset_launch_counts()
+    sync()
+    t = time.perf_counter()
+    tickets = [eng.submit(q) for q in served["batches"]]
+    done = eng.drain()
+    sync()
+    wall = time.perf_counter() - t
+    q_launches = ck.LAUNCHES["query_leaf_mixed"]
+    lab = np.concatenate([tk.result() for tk in tickets])
+    d2 = np.concatenate([tk.d2 for tk in tickets])
+    same = (np.array_equal(lab, served["lab"])
+            and np.array_equal(d2.view(np.int32), served["d2"].view(np.int32)))
+    o_same = (np.array_equal(lab[:512], served["olab"])
+              and np.array_equal(d2[:512].view(np.int32),
+                                 served["od2"].view(np.int32)))
+    st = eng.serving_stats()
+    log(f"  mixed engine: {done} queries in {wall:.4f} s, {st['batches']} "
+        f"batches, {q_launches} mixed B5 launches, queries/s {st['qps']}; "
+        f"answers bitwise the exact engine's: {same}; first 512 bitwise "
+        f"the oracle's: {o_same}; precision {st['precision']}")
+    if not (same and o_same):
+        fail("mixed serving differs from the exact engine or the oracle")
+    if q_launches != st["batches"] or ck.LAUNCHES["query_leaf"]:
+        fail("the mixed engine did not run the mixed B5 alone")
+    q, tl, coords, labels = served["tiles"]
+    kw = dict(block=idx.block, nb=idx.nb)
+    keep = torch.zeros(2, dtype=torch.int64, device=dev)
+    km = ck.query_leaf(q, tl, coords, labels, **kw, precision="mixed",
+                       eps2=idx.eps2, keep_stats=keep)
+    pm = query_min_core_plain(q, tl, coords, labels, **kw, precision="mixed",
+                              eps2=idx.eps2)
+    ex = ck.query_leaf(q, tl, coords, labels, **kw)
+    sync()
+
+    def verdict(p):
+        dd = p[1].view(torch.float32)
+        ok = dd <= idx.eps2
+        return torch.where(ok, p[0], -1), torch.where(ok, dd, float("inf"))
+
+    # Rows a tile answers for (pad rows are dropped by the engine; the
+    # exact pass gives them d2 = 0 against pad slots, a skipped chunk
+    # +inf).
+    real = torch.zeros(q.shape[0], q.shape[2], dtype=torch.bool, device=dev)
+    for t, rows in enumerate(served["rowmap"]):
+        real[t, :len(rows)] = True
+    vk, vp, ve = verdict(km), verdict(pm), verdict(ex)
+    q_bad = sum(int((x[0] != vk[0])[real].sum()) + int(
+        (x[1].view(torch.int32) != vk[1].view(torch.int32))[real].sum())
+        for x in (vp, ve))
+    kept = int(keep[0]) / max(int(keep[1]), 1)
+    note("query_leaf_mixed", q_bad)
+    ms_m = median_ms(lambda: ck.query_leaf(
+        q, tl, coords, labels, **kw, precision="mixed", eps2=idx.eps2), 10)
+    ms_e = median_ms(lambda: ck.query_leaf(q, tl, coords, labels, **kw), 10)
+    plain_ms = median_ms(lambda: query_min_core_plain(
+        q, tl, coords, labels, **kw, precision="mixed", eps2=idx.eps2), 3)
+    pairs = served["pairs"]
+    t_tc = 2 * K * pairs / PEAK_BF16_FLOPS
+    # The prefilter's epilogue (d2f, the per-element band, the test: ~17
+    # FP32 operations per pair) over every pair, the exact pass over the
+    # kept share.
+    simt = pairs * 17 + kept * pairs * served["ops_per_pair"]
+    t_ops = t_tc + simt / PEAK_FP32_FLOPS
+    t_bytes = served["nbytes"] / PEAK_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    log(f"  query_leaf_mixed on batch 2: {ms_m:.4f} ms per batch (exact B5 "
+        f"{ms_e:.4f} ms, plain {plain_ms:.2f} ms), bound {bound_ms:.4f} ms; "
+        f"kept {int(keep[0])} of {int(keep[1])} chunks ({kept:.4f}); after "
+        f"the verdict {q_bad} mismatches on the {int(real.sum())} real rows "
+        f"against the plain version and the exact kernel")
+    if q_bad:
+        fail("the mixed B5 disagrees after the verdict")
+    kernels.append({
+        "name": "query_leaf_mixed", "route": "cuda",
+        "source": "pypardis_tpu_torch/csrc/query_kernels.cu",
+        "replaces": "pypardis_tpu/ops/pallas_kernels.py:1107",
+        "launches": q_launches // st["batches"], "max_abs_err": q_bad,
+        "ms": ms_m, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    })
+
+    # 8.6: 100k x 512 through B3/B4 under both modes.
+    X5, truth5, high5 = onoff["X"], onoff["truth"], onoff["model"]
+    s_launch = {}
+    for mode in ("mixed", "default"):
+        model = DBSCAN(eps=2.0, min_samples=10, block=2048, precision=mode)
+        ck.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        model.fit(X5)
+        sync()
+        wall = time.perf_counter() - t
+        launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+        s_launch.update(launches)
+        m = model.metrics_
+        a5 = ari(model.labels_, truth5)
+        same = (np.array_equal(model.labels_, high5.labels_)
+                and np.array_equal(model.core_sample_mask_,
+                                   high5.core_sample_mask_))
+        log(f"  n={len(X5)} d=512 {mode}: {wall:.4f} s, tile "
+            f"{m['kernel_block']}, launches {launches}, passes "
+            f"{m['kernel_passes']}, band_pairs {m['band_pairs']}, ARI vs "
+            f"truth {a5:.6f}, byte-identical to high: {same}")
+        if (launches.get(f"count_pairs_sketch_{mode}") != 1
+                or len(launches) != 2
+                or sum(launches.values()) != m["kernel_passes"]):
+            fail(f"the {mode} 512-D fit did not run its sketch kernels")
+        if mode == "mixed" and not same:
+            fail("the mixed 512-D fit differs from the high fit")
+        if mode == "default" and (a5 < 0.99 or m["kernel_block"] != 1024):
+            fail(f"default 512-D fit: ARI {a5}, tile {m['kernel_block']}")
+
+    # B3/B4 mixed and default alone at the 100k inputs.
+    pts, nn, block = _stage(X5, 2048, dev)
+    xs, mask, _o = _pipeline_layout(pts, 2.0, nn, block, sort=True)
+    for mode in ("mixed", "default"):
+        slab, band = ck.sketch_stage(xs, mask, k, mode)
+        (rows, cols), (total, budget) = ck.kernel_pair_list(
+            xs, 2.0, mask, block, mode, budget=1 << 22, sketch=k,
+            slab=(slab, band))
+        tile = ck._pallas_block(block, xs.shape[1], 512, mode)
+        nt = xs.shape[1] // tile
+        rp = row_offsets(rows, nt)
+        cen = ck.tile_frames(xs, mask, tile)[0] if mode == "default" else None
+        mi = mask.to(torch.int32)
+        a = (xs, mi, rp, cols, slab, k, e2, band, tile, mode, cen)
+        counts, st3 = ck.count_pairs_sketch(*a)
+        core = (torch.clamp_min(torch.where(mask, counts, 0), 1) >= 10) & mask
+        lab = torch.where(core, torch.arange(len(counts), device=dev,
+                                             dtype=torch.int32),
+                          INT_INF).contiguous()
+        b = (xs, lab) + a[2:]
+        st4 = ck.count_pairs_sketch(xs, core.to(torch.int32), *a[2:])[1]
+        cols_t = cols[:int(rp[-1])].long()
+        sub = min(sizes["sub_tiles"], nt)
+        rp_sub = torch.cat([rp[:sub + 1], rp[sub].repeat(nt - sub)])
+        m_sub = mask & (torch.arange(len(mask), device=dev) < sub * tile)
+        nbytes = ((512 + slab.shape[0] + 2) * xs.shape[1] * 4
+                  + rp.numel() * 4 + cols.numel() * 4)
+        for base, args, st, per_tile, replaces in (
+            ("count_pairs_sketch", a, st3, mask,
+             "pypardis_tpu/ops/pallas_kernels.py:341"),
+            ("minlab_pairs_sketch", b, st4, core,
+             "pypardis_tpu/ops/pallas_kernels.py:393"),
+        ):
+            name = f"{base}_{mode}"
+            kern = getattr(ck, base)
+            plain = ck.PLAIN[base]
+            sub_args = args[:2] + (rp_sub,) + args[3:]
+            # The plain versions take no mode: (..., eps2, band, tile,
+            # centers).
+            hold_main(
+                name, mode, kern(*sub_args),
+                lambda e: plain(*sub_args[:6], e, *sub_args[7:9],
+                                sub_args[10]),
+                e2, m_sub, f"the {len(X5)} x 512 fit's inputs, first {sub} "
+                f"of {nt} row tiles")
+            kern_ms = median_ms(lambda: kern(*args), 3)
+            plain_ms = median_ms(lambda: plain(*sub_args[:9],
+                                               sub_args[10]), 1)
+            gated = int(per_tile.view(nt, tile).sum(1)[cols_t].sum()) * tile
+            inb = int(st[0])
+            if mode == "mixed":
+                simt, t_tc = gated * (3 * (k + 1) + 3) + inb * (3 * 512 + 1), 0.0
+            else:
+                simt = gated * (3 * (k + 1) + 3) + inb * EPILOGUE_OPS[mode]
+                t_tc = 2 * 512 * inb / PEAK_BF16_FLOPS
+            t_ops = t_tc + simt / PEAK_FP32_FLOPS
+            t_bytes = (nbytes + xs.shape[1] * 4) / PEAK_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            log(f"  {name} at {len(X5)} x 512 (tile {tile}): {kern_ms:.3f} ms "
+                f"(plain {plain_ms:.2f} ms on the first {sub} of {nt} row "
+                f"tiles), bound {bound_ms:.3f} ms; {gated} gated pairs, {inb} "
+                f"in band")
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "pypardis_tpu_torch/csrc/sketch_kernels.cu",
+                "replaces": replaces,
+                "launches": int(s_launch.get(name, 0)),
+                "max_abs_err": main_err[name], "ms": kern_ms,
+                "plain_ms": plain_ms,
+                "plain_scope": f"first {sub} of {nt} row tiles at {len(X5)} x 512",
+                "bound_ms": bound_ms,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None,
+            })
+    log(f"  default kernels, points differing from their plain versions: "
+        f"{diffs}")
     return kernels
 
 
@@ -940,7 +1549,7 @@ def main() -> None:
     # Phase 5: the kernels alone at the 1M fit's own inputs (staged as
     # a host-input fit stages them).
     log("phase 5: kernels at the 1M main-path inputs")
-    X, _truth = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
+    X, truth = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
     pts, n, block = _stage(X, 2048, dev)
     xs, mask, _owner = _pipeline_layout(pts, 2.4, n, block, sort=True)
     inp = kernel_inputs(xs, mask, 2.4, block, 10)
@@ -1017,10 +1626,19 @@ def main() -> None:
         })
 
     log("phase 6: serving on the 1M host-input model")
-    kernels.append(serve_phase(torch, serve_model, serve_X, median_ms))
-    del serve_model, serve_X
+    record, served = serve_phase(torch, serve_model, serve_X, median_ms)
+    kernels.append(record)
     log("phase 7: high-dimensional fits, the sketch kernels B3/B4")
-    kernels += sketch_phase(torch, dev, median_ms, torch.cuda.synchronize)
+    records, onoff = sketch_phase(torch, dev, median_ms,
+                                  torch.cuda.synchronize)
+    kernels += records
+    log("phase 8: precision modes, the bf16 tensor-core kernels")
+    main_fit = dict(X=X, truth=truth, model=serve_model, xs=xs, mask=mask)
+    fp32_ms = {k["name"]: k["ms"] for k in kernels[:2]}
+    kernels += precision_phase(torch, dev, median_ms,
+                               torch.cuda.synchronize, main_fit, served,
+                               onoff, fp32_ms)
+    del serve_model, serve_X, served, onoff, main_fit
     log(f"fit seconds (host, host, cuda, cuda): {json.dumps(fits)}")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -13,9 +13,11 @@ A file written by either package loads in the other:
 
 The JAX package accepts only its own kernel backends (``auto``/``xla``/
 ``pallas``), so the port writes ``"auto"`` and reads any of them as
-``"auto"``.  A JAX model whose precision, metric or eps mode the port
-has not ported raises ``NotImplementedError`` naming its ROADMAP item;
-it is never served through a substitute.
+``"auto"``.  Every precision mode loads with its meaning (a
+``"mixed"`` model serves through B5's bf16 prefilter).  A JAX model
+whose metric or eps mode the port has not ported raises
+``NotImplementedError`` naming its ROADMAP item; it is never served
+through a substitute.
 """
 
 from __future__ import annotations

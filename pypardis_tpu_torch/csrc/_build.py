@@ -3,8 +3,9 @@ a plain C interface, loaded with ctypes.
 
 The library is compiled at first use from the sources beside this file,
 into ``build/pypardis_tpu_torch/`` at the root of the checkout (or
-``$PPTORCH_BUILD_DIR``), under a name keyed by the sources' content and
-the flags, so an edited source never loads a stale build.  Each source
+``$PPTORCH_BUILD_DIR``), under a name keyed by the content of the sources
+and the headers they include and by the flags, so an edited source or
+header never loads a stale build.  Each source
 compiles to an object in its own ``nvcc`` process, all started
 together, so the build takes as long as its slowest source rather than
 their sum as kernel sources are added; one more ``nvcc`` links the
@@ -26,6 +27,9 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("pair_kernels.cu", "sketch_kernels.cu", "query_kernels.cu")
+# Headers the sources include: part of the build's key, so an edit to one
+# rebuilds every source.
+HEADERS = ("bf16_tile.cuh",)
 # Compile flags of every source; the link adds ``-shared``.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -66,7 +70,7 @@ def find_nvcc() -> str:
 
 def _library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(_HERE, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return os.path.join(build_dir(), f"libpp_kernels_{h.hexdigest()[:16]}.so")
@@ -117,16 +121,21 @@ def _bind(lib) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, f, i64, i32, i32, i32, p, p]
         fn.restype = i32
+    fast = [p, p, p, p, p, p, f, i64, i32, i32, i32, i32, p]
+    lib.pp_count_pairs_fast.argtypes = fast + [p, p, p]
+    lib.pp_count_pairs_fast.restype = i32
+    lib.pp_minlab_pairs_fast.argtypes = fast + [p]
+    lib.pp_minlab_pairs_fast.restype = i32
     for name in ("pp_count_pairs_sketch", "pp_minlab_pairs_sketch"):
         fn = getattr(lib, name)
         fn.argtypes = [
-            p, p, p, p, p, f, f, i64, i32, i32, i32, i32, i32, p, p, p, p,
+            p, p, p, p, p, p, f, f, i64, i32, i32, i32, i32, i32, p, p, p, p,
         ]
         fn.restype = i32
     lib.pp_query_splits.argtypes = [i32, i32, i32]
     lib.pp_query_splits.restype = i32
     lib.pp_query_leaf.argtypes = [
-        p, p, p, p, i64, i32, i32, i32, i32, i32, p, p, p,
+        p, p, p, p, i64, i32, i32, i32, i32, i32, f, i32, p, p, p, p,
     ]
     lib.pp_query_leaf.restype = i32
 

@@ -47,11 +47,24 @@
 // accumulators give each thread the instruction-level parallelism to keep
 // its FP32 pipe busy at the low occupancy the shared-memory staging allows
 // (two blocks per SM); the full-d copy overlaps the gate, the slab copy
-// does not (later work: double buffering across chunks, and a tensor-core
-// form of the rescore).
+// does not (later work: double buffering across chunks).
+//
+// Precision modes.  "mixed" is this kernel as it stands (the TPU kernels
+// rescore at "high" there); the band comes from sketch_gate_band in that
+// mode.  "default" (FAST = 1, with the row tiles' box centres) decides
+// the in-band pairs with the bf16 tile routine of bf16_tile.cuh instead
+// of the exact d2, as the TPU kernel's single bf16 dot does: a warp that
+// needs a rescore runs mma.sync over its 32 rows x the 8-column groups it
+// needs, K = d padded to 16, the rows recentred on the row tile's centre
+// and read from global memory, the columns converted from the same staged
+// FP32 slices the exact rescore reads; the squared norms are FP32 sums,
+// and each row's verdict bits are folded across the quad that holds them
+// and handed to the lane that owns the row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16_tile.cuh"
 
 #define SK_INT_INF 2147483647
 #define SK_THREADS 256
@@ -102,14 +115,14 @@ __device__ __forceinline__ void sk_stage_full(
   }
 }
 
-template <int MODE>
+template <int MODE, int FAST>
 __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
     const float* __restrict__ pts, const float* __restrict__ slab,
     const int* __restrict__ colval, const int* __restrict__ row_ptr,
-    const int* __restrict__ cols, float eps2, float band, long long n,
-    int d, int dp, int ax, int skp, int k, int tile,
-    int* __restrict__ out, unsigned long long* __restrict__ band_pairs,
-    int* __restrict__ flags) {
+    const int* __restrict__ cols, const float* __restrict__ centers,
+    float eps2, float band, long long n, int d, int dp, int ax, int skp,
+    int k, int tile, int* __restrict__ out,
+    unsigned long long* __restrict__ band_pairs, int* __restrict__ flags) {
   extern __shared__ float4 smem4[];
   float* ys = reinterpret_cast<float*>(smem4);           // ax x SK_CH
   float* ss = ys + (size_t)ax * SK_CH;                    // skp x SK_CH
@@ -128,6 +141,19 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
 
   int res = MODE == 0 ? 0 : SK_INT_INF;
   unsigned n_band = 0;
+  // "default": the row tile's centre and this row's |x - c|^2.
+  const float* ctr = FAST ? centers + (long long)r * d : nullptr;
+  float xxr = 0.f;
+  if (FAST) {
+    for (int a = 0; a < d; ++a) {
+      const float df = __fsub_rn(__ldg(pts + a * n + row), __ldg(ctr + a));
+      xxr = __fadd_rn(xxr, __fmul_rn(df, df));
+    }
+  }
+  const long long wrow0 = (long long)r * tile + blockIdx.y * blockDim.x +
+                          (threadIdx.x & ~31);  // the warp's first row
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
   const int p0 = row_ptr[r];
   const int p1 = row_ptr[r + 1];
   for (int p = p0; p < p1; ++p) {
@@ -196,11 +222,13 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
       __syncthreads();
       const unsigned bm = block_band;  // uniform over the block
 
-      // The rescore: exact d2 for the 8-column groups a warp needs.
+      // The rescore: exact d2 (or, FAST, the bf16 d2f) for the 8-column
+      // groups a warp needs.
       if (bm) {
         if (MODE == 0 && threadIdx.x == 0 && flags) flags[p] = 1;
 #pragma unroll
         for (int c = 0; c < SK_CH; ++c) acc[c] = 0.f;
+        float yyc = 0.f;  // FAST: |y - c|^2 of column `lane`
         for (int s0 = 0; s0 < dp; s0 += ax) {
           const int as = min(ax, dp - s0);
           if (s0 > 0) {
@@ -210,7 +238,50 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
           }
           sk_wait<0>();
           __syncthreads();
-          if (warp_m) {
+          if (FAST && warp_m) {
+            for (int a = 0; a < as && s0 + a < d; ++a) {
+              const float df = __fsub_rn(ys[a * SK_CH + lane],
+                                         __ldg(ctr + s0 + a));
+              yyc = __fadd_rn(yyc, __fmul_rn(df, df));
+            }
+            for (int k0 = 0; k0 < as; k0 += 16) {
+              unsigned af[2][4];
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                const long long ra = wrow0 + mt * 16 + g;
+                float v[8];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                  const int a = s0 + k0 + t4 * 2 + (i & 1) + (i >> 2) * 8;
+                  const long long rr = ra + ((i >> 1) & 1) * 8;
+                  v[i] = (a < d && rr - (long long)r * tile < tile)
+                             ? __fsub_rn(__ldg(pts + a * n + rr),
+                                         __ldg(ctr + a))
+                             : 0.f;
+                }
+                af[mt][0] = bt_pack(v[0], v[1]);
+                af[mt][1] = bt_pack(v[2], v[3]);
+                af[mt][2] = bt_pack(v[4], v[5]);
+                af[mt][3] = bt_pack(v[6], v[7]);
+              }
+#pragma unroll
+              for (int j = 0; j < SK_CH / 8; ++j) {
+                if (!((warp_m >> (8 * j)) & 0xffu)) continue;
+                const int col = j * 8 + g;
+                float v[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  const int al = k0 + t4 * 2 + (i & 1) + (i >> 1) * 8;
+                  v[i] = s0 + al < d ? __fsub_rn(ys[al * SK_CH + col],
+                                                 __ldg(ctr + s0 + al))
+                                     : 0.f;
+                }
+                unsigned b[2] = {bt_pack(v[0], v[1]), bt_pack(v[2], v[3])};
+                bt_mma(acc + (0 * 4 + j) * 4, af[0], b);
+                bt_mma(acc + (1 * 4 + j) * 4, af[1], b);
+              }
+            }
+          } else if (!FAST && warp_m) {
             for (int a0 = 0; a0 < as; a0 += SK_AX) {
               float xr[SK_AX];
 #pragma unroll
@@ -229,9 +300,44 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
             }
           }
         }
+        if (FAST) {
+          // acc[(mt * 4 + j) * 4 + e] holds row mt*16 + g (+8 for e >= 2)
+          // of the warp against column j*8 + 2*t4 (+1 for odd e).
+          unsigned rm[2][2] = {{0u, 0u}, {0u, 0u}};
 #pragma unroll
-        for (int c = 0; c < SK_CH; ++c)
-          if (((band_m >> c) & 1u) && acc[c] <= eps2) in_m |= 1u << c;
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float xr = __shfl_sync(0xffffffffu, xxr, mt * 16 + h * 8 + g);
+#pragma unroll
+              for (int j = 0; j < SK_CH / 8; ++j) {
+#pragma unroll
+                for (int o = 0; o < 2; ++o) {
+                  const int c = j * 8 + t4 * 2 + o;
+                  const float yc = __shfl_sync(0xffffffffu, yyc, c);
+                  const float d2f =
+                      bt_d2f(xr, yc, acc[(mt * 4 + j) * 4 + h * 2 + o]);
+                  if (d2f <= eps2) rm[mt][h] |= 1u << c;
+                }
+              }
+              rm[mt][h] |= __shfl_xor_sync(0xffffffffu, rm[mt][h], 1);
+              rm[mt][h] |= __shfl_xor_sync(0xffffffffu, rm[mt][h], 2);
+            }
+          }
+          const int src = (lane & 7) * 4;
+          const unsigned v00 = __shfl_sync(0xffffffffu, rm[0][0], src);
+          const unsigned v01 = __shfl_sync(0xffffffffu, rm[0][1], src);
+          const unsigned v10 = __shfl_sync(0xffffffffu, rm[1][0], src);
+          const unsigned v11 = __shfl_sync(0xffffffffu, rm[1][1], src);
+          const int sel = lane >> 3;
+          const unsigned fb = sel == 0 ? v00 : sel == 1 ? v01
+                              : sel == 2 ? v10 : v11;
+          in_m |= band_m & fb;
+        } else {
+#pragma unroll
+          for (int c = 0; c < SK_CH; ++c)
+            if (((band_m >> c) & 1u) && acc[c] <= eps2) in_m |= 1u << c;
+        }
       }
 
       if (MODE == 0) {
@@ -259,61 +365,83 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
   }
 }
 
-template <int MODE>
-static int launch(const float* pts, const float* slab, const int* colval,
-                  const int* row_ptr, const int* cols, float eps2,
-                  float band, long long n, int d, int skp, int k, int tile,
-                  int nt, int* out, unsigned long long* band_pairs,
-                  int* flags, void* stream) {
-  if (nt <= 0 || tile <= 0) return 0;
-  if (skp % SK_AX != 0 || k < 0 || k >= skp)
-    return (int)cudaErrorInvalidValue;
-  const int dp = (d + SK_AX - 1) / SK_AX * SK_AX;
+template <int MODE, int FAST>
+static int launch_mode(const float* pts, const float* slab, const int* colval,
+                       const int* row_ptr, const int* cols,
+                       const float* centers, float eps2, float band,
+                       long long n, int d, int skp, int k, int tile, int nt,
+                       int* out, unsigned long long* band_pairs, int* flags,
+                       void* stream) {
+  // FAST stages whole k-steps of 16 axes.
+  const int al = FAST ? 16 : SK_AX;
+  const int dp = (d + al - 1) / al * al;
   const int ax = dp < SK_AXMAX ? dp : SK_AXMAX;
   const size_t smem = ((size_t)ax * SK_CH + (size_t)skp * SK_CH) * 4 +
                       (size_t)SK_CH * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      sketch_pair_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      sketch_pair_kernel<MODE, FAST>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nt, (tile + SK_THREADS - 1) / SK_THREADS);
-  sketch_pair_kernel<MODE><<<grid, SK_THREADS, smem,
-                             reinterpret_cast<cudaStream_t>(stream)>>>(
-      pts, slab, colval, row_ptr, cols, eps2, band, n, d, dp, ax, skp, k,
-      tile, out, band_pairs, flags);
+  sketch_pair_kernel<MODE, FAST><<<grid, SK_THREADS, smem,
+                                   reinterpret_cast<cudaStream_t>(stream)>>>(
+      pts, slab, colval, row_ptr, cols, centers, eps2, band, n, d, dp, ax,
+      skp, k, tile, out, band_pairs, flags);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+static int launch(const float* pts, const float* slab, const int* colval,
+                  const int* row_ptr, const int* cols, const float* centers,
+                  float eps2, float band, long long n, int d, int skp, int k,
+                  int tile, int nt, int* out, unsigned long long* band_pairs,
+                  int* flags, void* stream) {
+  if (nt <= 0 || tile <= 0) return 0;
+  if (skp % SK_AX != 0 || k < 0 || k >= skp)
+    return (int)cudaErrorInvalidValue;
+  if (centers)
+    return launch_mode<MODE, 1>(pts, slab, colval, row_ptr, cols, centers,
+                                eps2, band, n, d, skp, k, tile, nt, out,
+                                band_pairs, flags, stream);
+  return launch_mode<MODE, 0>(pts, slab, colval, row_ptr, cols, nullptr,
+                              eps2, band, n, d, skp, k, tile, nt, out,
+                              band_pairs, flags, stream);
 }
 
 extern "C" {
 
 // B3: per-point neighbour counts through the sketch gate.  pts (d, n) and
 // slab (skp, n) float32; mask (n,) int32; row_ptr (nt + 1,) int32; cols
-// int32; out (n,) int32; band_pairs one uint64 counter and flags one int32
-// per pair-list entry, both zeroed by the caller (either may be NULL).
-// Returns the cudaError_t of the launch.
+// int32; centers NULL (the exact rescore: "high", "highest", "mixed") or
+// (nt, d) float32, the row tiles' box centres over the mask (the bf16
+// rescore of "default"); out (n,) int32; band_pairs one uint64 counter and
+// flags one int32 per pair-list entry, both zeroed by the caller (either
+// may be NULL).  Returns the cudaError_t of the launch.
 int pp_count_pairs_sketch(const float* pts, const float* slab,
                           const int* mask, const int* row_ptr,
-                          const int* cols, float eps2, float band,
-                          long long n, int d, int skp, int k, int tile,
-                          int nt, int* out, unsigned long long* band_pairs,
-                          int* flags, void* stream) {
-  return launch<0>(pts, slab, mask, row_ptr, cols, eps2, band, n, d, skp, k,
-                   tile, nt, out, band_pairs, flags, stream);
+                          const int* cols, const float* centers, float eps2,
+                          float band, long long n, int d, int skp, int k,
+                          int tile, int nt, int* out,
+                          unsigned long long* band_pairs, int* flags,
+                          void* stream) {
+  return launch<0>(pts, slab, mask, row_ptr, cols, centers, eps2, band, n, d,
+                   skp, k, tile, nt, out, band_pairs, flags, stream);
 }
 
 // B4: per-point minimum source label within eps through the sketch gate
-// (labels INT32_MAX for non-source points).  Same layout as B3; no stats
-// (band_pairs and flags are ignored).
+// (labels INT32_MAX for non-source points).  Same layout as B3 (centers
+// over the row mask); no stats (band_pairs and flags are ignored).
 int pp_minlab_pairs_sketch(const float* pts, const float* slab,
                            const int* labels, const int* row_ptr,
-                           const int* cols, float eps2, float band,
-                           long long n, int d, int skp, int k, int tile,
-                           int nt, int* out, unsigned long long* band_pairs,
-                           int* flags, void* stream) {
+                           const int* cols, const float* centers,
+                           float eps2, float band, long long n, int d,
+                           int skp, int k, int tile, int nt, int* out,
+                           unsigned long long* band_pairs, int* flags,
+                           void* stream) {
   (void)band_pairs;
   (void)flags;
-  return launch<1>(pts, slab, labels, row_ptr, cols, eps2, band, n, d, skp,
-                   k, tile, nt, out, nullptr, nullptr, stream);
+  return launch<1>(pts, slab, labels, row_ptr, cols, centers, eps2, band, n,
+                   d, skp, k, tile, nt, out, nullptr, nullptr, stream);
 }
 
 }  // extern "C"

@@ -19,7 +19,7 @@ The device is the card (``"cuda"``) unless the caller asks for
 ``device="cpu"``, which runs the kernels' plain PyTorch versions; with
 no CUDA device and no ``device="cpu"`` the constructor raises.
 Sharded fits, sweeps, live serving and telemetry are later slices of
-the port (ROADMAP A9-A16).
+the port (ROADMAP A10-A16).
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from .geometry import BoundingBox
 from .ops.cuda_kernels import _pallas_block
 from .ops.labels import densify_labels, resolve_backend
 from .ops.pipeline import dbscan_device_pipeline, unpack_pipeline_result
-from .ops.precision import require_ported
 from .ops.sketch import check_sketch_spec, effective_k
 from .utils.budget import run_pair_ladder
 from .utils.shaping import clamp_block, round_up
@@ -155,9 +154,10 @@ def _pad_and_run(points, eps, min_samples, block, precision="high",
         "pair_budget": int(budget),
         "kernel_passes": int(passes),
         "kernel_block": int(_pallas_block(block, cap, k, precision)),
-        # The sketch gate's counts-pass telemetry (zeros with it off):
-        # pairs whose slab verdict fell in the band and went to the
-        # exact d^2, and pair-list entries holding such a pair.
+        # The counts pass's telemetry: the sketch gate's with it on,
+        # else the bf16 band's under "mixed", else zeros.  Pairs whose
+        # verdict fell in the band and were rescored, and pair-list
+        # entries holding such a pair.
         "band_pairs": int(band_pairs),
         "rescored_tiles": int(rescored),
         # The resolved random-projection width (0 = off).
@@ -171,9 +171,12 @@ class DBSCAN:
 
     Hyperparameters follow the reference (``eps``, ``min_samples``,
     ``metric``) plus the tile ``block``, the kernel ``precision``
-    (``"high"`` and ``"highest"`` both run exact FP32), the
-    ``kernel_backend`` (``"auto"`` picks the CUDA kernels on the card
-    and their plain versions on the CPU), the ``device`` and the
+    (``"high"`` and ``"highest"`` both run exact FP32; ``"mixed"`` runs
+    a bf16 tensor-core pass and rescores the pairs near eps exactly,
+    labels byte-identical to ``"high"``; ``"default"`` the bf16 pass
+    alone, lossy), the ``kernel_backend`` (``"auto"`` picks the CUDA
+    kernels on the card and their plain versions on the CPU), the
+    ``device`` and the
     ``sketch`` prefilter (None defers to ``PPTORCH_SKETCH``, default
     ``"auto"``: k = d/4 at d >= 128; ``"off"``/0; or a pinned k),
     which leaves the labels byte-identical.
@@ -196,7 +199,7 @@ class DBSCAN:
         self.metric = metric
         self._metric_norm = check_metric(metric)
         self.block = int(block)
-        self.precision = require_ported(check_precision(precision))
+        self.precision = check_precision(precision)
         self.kernel_backend = check_kernel_backend(kernel_backend)
         self.sketch = check_sketch_spec(sketch)
         self.device = resolve_device(device)

@@ -7,21 +7,30 @@
 * B4 :func:`minlab_pairs_sketch` replaces ``_minlab_pairs_sketch_kernel``;
 * B5 :func:`query_leaf` replaces ``_query_leaf_kernel``.
 
+Each has a kernel per precision mode where the TPU kernel has a mode
+branch: B1/B2 under ``"mixed"`` (:func:`count_pairs_mixed`,
+:func:`minlab_pairs_mixed`: a bf16 tensor-core fast pass, a band, and
+an exact rescore per in-band pair) and ``"default"``
+(:func:`count_pairs_default`, :func:`minlab_pairs_default`: the bf16
+pass alone); B3/B4 rescore in bf16 under ``"default"``; B5 adds the
+bf16 chunk prefilter under ``"mixed"``.
+
 All are CUDA C++ for ``sm_90a`` (``csrc/pair_kernels.cu``,
-``csrc/sketch_kernels.cu``, ``csrc/query_kernels.cu``, built by
-``csrc/_build.py`` at first use).  Each wrapper checks its inputs,
-allocates its output with ``torch.empty``, launches on the current
-stream and adds one to its entry of :data:`LAUNCHES`.  For a tensor on
-the CPU it runs the plain PyTorch version (:data:`PLAIN`, bitwise the
-kernels' arithmetic); for a CUDA tensor it launches the kernel or
-raises — it never tries the kernel and falls back.
+``csrc/sketch_kernels.cu``, ``csrc/query_kernels.cu`` and their shared
+bf16 tile routine ``csrc/bf16_tile.cuh``, built by ``csrc/_build.py``
+at first use).  Each wrapper checks its inputs, allocates its output
+with ``torch.empty``, launches on the current stream and adds one to
+its entry of :data:`LAUNCHES` (one per kernel and mode).  For a tensor
+on the CPU it runs the plain PyTorch version (:data:`PLAIN`); for a
+CUDA tensor it launches the kernel or raises — it never tries the
+kernel and falls back.
 
 The entry points :func:`neighbor_counts_cuda` and
 :func:`min_neighbor_label_cuda` mirror ``neighbor_counts_pallas`` and
 ``min_neighbor_label_pallas`` on the ``(d, N)`` layout: the same tile
-rule, the same live tile-pair list, the same masking contract and the
-same ``sketch=`` resolution.  :func:`sketch_stage` stages the sketch
-slab (``_sketch_stage``).
+rule, the same live tile-pair list, the same masking contract, the same
+``sketch=`` resolution and the same widened returns under ``"mixed"``.
+:func:`sketch_stage` stages the sketch slab (``_sketch_stage``).
 """
 
 from __future__ import annotations
@@ -32,27 +41,45 @@ import torch
 from .distances import (
     INT_INF,
     counts_over_pairs,
+    counts_over_pairs_default,
+    counts_over_pairs_mixed,
     counts_over_pairs_sketch,
     default_pair_budget,
     eps2_f32,
     live_tile_pairs,
     minlab_over_pairs,
+    minlab_over_pairs_default,
+    minlab_over_pairs_mixed,
     minlab_over_pairs_sketch,
     row_offsets,
     tile_bounds,
+    tile_norms,
 )
-from .precision import norm_precision_mode, require_ported
+from .precision import norm_precision_mode
 from .query import query_min_core_plain
 from .sketch import effective_k, sketch_gate_band, sketch_matrix
 
-# Launches per kernel since the last reset_launch_counts(); bumped only
-# where a wrapper launches its CUDA kernel.
-LAUNCHES = {"count_pairs": 0, "minlab_pairs": 0, "count_pairs_sketch": 0,
-            "minlab_pairs_sketch": 0, "query_leaf": 0}
+# Launches per kernel and mode since the last reset_launch_counts();
+# bumped only where a wrapper launches its CUDA kernel.  The plain
+# names run "high"/"highest"; B3/B4 under "mixed" are the exact kernels,
+# counted under their mode.
+LAUNCHES = dict.fromkeys((
+    "count_pairs", "minlab_pairs",
+    "count_pairs_mixed", "minlab_pairs_mixed",
+    "count_pairs_default", "minlab_pairs_default",
+    "count_pairs_sketch", "minlab_pairs_sketch",
+    "count_pairs_sketch_mixed", "minlab_pairs_sketch_mixed",
+    "count_pairs_sketch_default", "minlab_pairs_sketch_default",
+    "query_leaf", "query_leaf_mixed",
+), 0)
 
 PLAIN = {
     "count_pairs": counts_over_pairs,
     "minlab_pairs": minlab_over_pairs,
+    "count_pairs_mixed": counts_over_pairs_mixed,
+    "minlab_pairs_mixed": minlab_over_pairs_mixed,
+    "count_pairs_default": counts_over_pairs_default,
+    "minlab_pairs_default": minlab_over_pairs_default,
     "count_pairs_sketch": counts_over_pairs_sketch,
     "minlab_pairs_sketch": minlab_over_pairs_sketch,
     "query_leaf": query_min_core_plain,
@@ -96,6 +123,36 @@ def _bounds_dn(pts_dn, mask, nt, block):
         pts_dn.reshape(d, nt, block).transpose(0, 1),
         mask.reshape(nt, block),
     )
+
+
+def _centers_dn(pts_dn, mask, nt, block):
+    """(nt, d) per-tile recentring points: box centres of the valid
+    coordinates; empty tiles carry inverted bounds whose midpoint is 0
+    (the JAX package's ``_centers_dn`` without its trailing axis)."""
+    lo, hi = _bounds_dn(pts_dn, mask, nt, block)
+    return (0.5 * (lo + hi)).contiguous()
+
+
+def tile_frames(pts_dn, mask, tile):
+    """``(centers, rnorm)`` of the bf16 passes' row tiles over
+    ``mask``: :func:`_centers_dn` and the (nt, 2) ``[nx, gx]`` norm
+    maxima of :func:`~.distances.tile_norms`."""
+    nt = pts_dn.shape[1] // tile
+    centers = _centers_dn(pts_dn, mask, nt, tile)
+    return centers, tile_norms(pts_dn, mask, tile, centers)
+
+
+def pass_frames(pts_dn, mask, tile, mode, k=0):
+    """The row frames a pass of ``mode`` needs over its rows ``mask``:
+    ``(centers, rnorm)`` of :func:`tile_frames` under ``"mixed"``
+    without the sketch (k = 0), ``(centers, None)`` under ``"default"``
+    (the bf16 pass or the sketch's bf16 rescore), else ``(None,
+    None)``."""
+    if mode == "default":
+        return _centers_dn(pts_dn, mask, pts_dn.shape[1] // tile, tile), None
+    if mode == "mixed" and not k:
+        return tile_frames(pts_dn, mask, tile)
+    return None, None
 
 
 def _round8(v: int) -> int:
@@ -255,6 +312,109 @@ def minlab_pairs(pts, labels, row_ptr, cols, eps2, tile):
     return _launch("minlab_pairs", pts, labels, row_ptr, cols, eps2, tile)
 
 
+def _check_frames(pts, tile, centers, rnorm):
+    d, n = pts.shape
+    nt = n // tile
+    for name, t, shape in (("centers", centers, (nt, d)),
+                           ("rnorm", rnorm, (nt, 2))):
+        if t is None:
+            continue
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(
+                f"{name} must be a contiguous {shape} float32 tensor, got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+        if t.device != pts.device:
+            raise ValueError(f"{name} is on {t.device}, points on {pts.device}")
+
+
+def _launch_fast(name, mode, pts, colval, row_ptr, cols, eps2, tile,
+                 centers, rnorm=None):
+    """The bf16 pair kernels: ``count_pairs`` under ``"mixed"`` returns
+    ``(counts, stats)``, every other one its (N,) int32 result."""
+    _check(pts, colval, row_ptr, cols, tile)
+    if mode == "mixed" and rnorm is None:
+        raise ValueError("precision='mixed' needs the row tiles' rnorm")
+    _check_frames(pts, tile, centers, rnorm)
+    key = f"{name}_{mode}"
+    mixed = mode == "mixed"
+    if pts.device.type == "cpu":
+        extra = (rnorm,) if mixed else ()
+        return PLAIN[key](pts, colval, row_ptr, cols, eps2, tile, centers,
+                          *extra)
+    if pts.device.type != "cuda":
+        raise ValueError(f"unsupported device {pts.device}")
+    from ..csrc import _build
+
+    lib = _build.load()
+    d, n = pts.shape
+    out = torch.empty(n, dtype=torch.int32, device=pts.device)
+    counting = name == "count_pairs" and mixed
+    if counting:
+        n_band = torch.zeros(1, dtype=torch.int64, device=pts.device)
+        flags = torch.zeros(max(cols.shape[0], 1), dtype=torch.int32,
+                            device=pts.device)
+    # B1's stats pointers (NULL under "default"); B2 takes none.
+    stats = (
+        (n_band.data_ptr() if counting else None,
+         flags.data_ptr() if counting else None)
+        if name == "count_pairs" else ()
+    )
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, f"pp_{name}_fast")(
+            pts.data_ptr(), colval.data_ptr(), row_ptr.data_ptr(),
+            cols.data_ptr(), centers.data_ptr(),
+            rnorm.data_ptr() if mixed else None, float(eps2), n, d, tile,
+            n // tile, 0 if mixed else 1, out.data_ptr(), *stats, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
+    LAUNCHES[key] += 1
+    if counting:
+        return out, torch.cat([n_band, flags.sum(dtype=torch.int64)[None]])
+    return out
+
+
+def count_pairs_mixed(pts, mask, row_ptr, cols, eps2, tile, centers,
+                      rnorm):
+    """B1 under ``precision="mixed"``: the bf16 tensor-core pass
+    classifies every pair against ``eps2 +- band`` (band per pair-list
+    entry: :func:`~.distances.fast_band` at the row tile's ``rnorm`` and
+    the entry's valid columns' norms about the row tile's centre), and
+    each in-band pair with a valid column takes B1's exact verdict.
+    ``centers`` (nt, d) / ``rnorm`` (nt, 2) from :func:`tile_frames`
+    over ``mask``.  Returns ``(counts, stats)``: counts equal to
+    :func:`count_pairs` on the rows of ``mask``; ``stats`` the (2,)
+    int64 ``[band_pairs, rescored_tiles]`` over valid rows and
+    columns."""
+    return _launch_fast("count_pairs", "mixed", pts, mask, row_ptr, cols,
+                        eps2, tile, centers, rnorm)
+
+
+def minlab_pairs_mixed(pts, labels, row_ptr, cols, eps2, tile, centers,
+                       rnorm):
+    """B2 under ``precision="mixed"`` (the band over source columns, no
+    stats): equal to :func:`minlab_pairs` on the rows ``rnorm``
+    covers."""
+    return _launch_fast("minlab_pairs", "mixed", pts, labels, row_ptr,
+                        cols, eps2, tile, centers, rnorm)
+
+
+def count_pairs_default(pts, mask, row_ptr, cols, eps2, tile, centers):
+    """B1 under ``precision="default"``: the bf16 pass decides every
+    pair (lossy; no band, no rescore)."""
+    return _launch_fast("count_pairs", "default", pts, mask, row_ptr, cols,
+                        eps2, tile, centers)
+
+
+def minlab_pairs_default(pts, labels, row_ptr, cols, eps2, tile, centers):
+    """B2 under ``precision="default"``."""
+    return _launch_fast("minlab_pairs", "default", pts, labels, row_ptr,
+                        cols, eps2, tile, centers)
+
+
 def _check_slab(pts, slab, k):
     d, n = pts.shape
     if (slab.dtype != torch.float32 or not slab.is_contiguous()
@@ -274,14 +434,21 @@ def _check_slab(pts, slab, k):
 
 
 def _launch_sketch(name, pts, colval, row_ptr, cols, slab, k, eps2, band,
-                   tile):
+                   tile, mode="high", centers=None):
     """Both sketch kernels: B3 returns ``(counts, stats)``, B4 the
-    minimum labels."""
+    minimum labels.  ``mode="default"`` rescores in bf16 about the row
+    tiles' ``centers``; every other mode exactly."""
     _check(pts, colval, row_ptr, cols, tile)
     _check_slab(pts, slab, k)
+    mode = norm_precision_mode(mode)
+    if (mode == "default") != (centers is not None):
+        raise ValueError("the row tiles' centers go with precision="
+                         "'default' (its bf16 rescore), and only with it")
+    _check_frames(pts, tile, centers, None)
+    key = name if mode in ("high", "highest") else f"{name}_{mode}"
     if pts.device.type == "cpu":
         return PLAIN[name](pts, colval, row_ptr, cols, slab, k, eps2, band,
-                           tile)
+                           tile, centers)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
     from ..csrc import _build
@@ -300,43 +467,46 @@ def _launch_sketch(name, pts, colval, row_ptr, cols, slab, k, eps2, band,
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"pp_{name}")(
             pts.data_ptr(), slab.data_ptr(), colval.data_ptr(),
-            row_ptr.data_ptr(), cols.data_ptr(), float(eps2), float(band),
-            n, d, slab.shape[0], k, tile, n // tile, out.data_ptr(),
-            n_band.data_ptr() if counting else None,
+            row_ptr.data_ptr(), cols.data_ptr(),
+            None if centers is None else centers.data_ptr(), float(eps2),
+            float(band), n, d, slab.shape[0], k, tile, n // tile,
+            out.data_ptr(), n_band.data_ptr() if counting else None,
             flags.data_ptr() if counting else None, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
+    LAUNCHES[key] += 1
     if counting:
         return out, torch.cat([n_band, flags.sum(dtype=torch.int64)[None]])
     return out
 
 
-def count_pairs_sketch(pts, mask, row_ptr, cols, slab, k, eps2, band, tile):
+def count_pairs_sketch(pts, mask, row_ptr, cols, slab, k, eps2, band, tile,
+                       mode="high", centers=None):
     """B3: :func:`count_pairs` through the slab gate.  ``slab`` (skp, N)
     float32 from :func:`sketch_stage` (row ``k`` the residual norm);
     ``band`` its float32 halfwidth.  Returns ``(counts, stats)``, equal
     to :func:`count_pairs` on any data, with ``stats`` a (2,) int64
     tensor ``[band_pairs, rescored_tiles]``: pairs neither certainly in
     nor certainly out whose column is valid (every row counted), and
-    pair-list entries holding one."""
+    pair-list entries holding one.  ``mode="default"`` (with the row
+    tiles' ``centers`` over ``mask``) decides the in-band pairs by the
+    bf16 pass instead (lossy, as that mode's band is)."""
     return _launch_sketch("count_pairs_sketch", pts, mask, row_ptr, cols,
-                          slab, k, eps2, band, tile)
+                          slab, k, eps2, band, tile, mode, centers)
 
 
 def minlab_pairs_sketch(pts, labels, row_ptr, cols, slab, k, eps2, band,
-                        tile):
-    """B4: :func:`minlab_pairs` through the slab gate (no stats)."""
+                        tile, mode="high", centers=None):
+    """B4: :func:`minlab_pairs` through the slab gate (no stats);
+    ``mode``/``centers`` as in :func:`count_pairs_sketch`."""
     return _launch_sketch("minlab_pairs_sketch", pts, labels, row_ptr,
-                          cols, slab, k, eps2, band, tile)
+                          cols, slab, k, eps2, band, tile, mode, centers)
 
 
-def _grid(points_dn, block, precision):
+def _grid(points_dn, block, mode):
     d, n = points_dn.shape
-    tile = _pallas_block(
-        block, n, d, require_ported(norm_precision_mode(precision))
-    )
+    tile = _pallas_block(block, n, d, mode)
     if n % tile != 0:
         raise ValueError(f"tile {tile} does not divide n={n}")
     return tile, n // tile
@@ -344,64 +514,80 @@ def _grid(points_dn, block, precision):
 
 def neighbor_counts_cuda(points_dn, eps, mask, block: int = 1024,
                          precision: str = "high", pairs=None, sketch=None,
-                         slab=None):
+                         slab=None, frames=None):
     """Counterpart of ``neighbor_counts_pallas`` (layout ``"dn"``):
     per-point eps-neighbour counts, 0 on invalid rows.  ``pairs``: a
     shared ``(rows, cols)`` list from :func:`kernel_pair_list`; None
     extracts here, and a truncated list makes every count -1.
+    ``frames``: the staged :func:`pass_frames` over ``mask`` (None
+    computes them here).
 
     ``sketch``: a spec (None reads ``PPTORCH_SKETCH``); a resolved k > 0
     runs B3 over the slab (``slab``: a staged ``(slab, band)`` pair, or
-    None to stage it over ``mask``) and returns ``(counts, stats)``,
-    stats the (2,) int64 ``[band_pairs, rescored_tiles]``."""
-    tile, nt = _grid(points_dn, block, precision)
+    None to stage it over ``mask``).  ``precision="mixed"`` runs the
+    bf16 B1 with its rescore, ``"default"`` the bf16 B1 alone.  With
+    k > 0 or under ``"mixed"`` the return is ``(counts, stats)``, stats
+    the (2,) int64 ``[band_pairs, rescored_tiles]`` of the sketch gate
+    (the sketch wins) or of the bf16 band."""
+    mode = norm_precision_mode(precision)
+    tile, nt = _grid(points_dn, block, mode)
     k = effective_k(sketch, points_dn.shape[0])
     if k:
-        slab = _staged(points_dn, mask, k, norm_precision_mode(precision),
-                       slab)
+        slab = _staged(points_dn, mask, k, mode, slab)
     poison = False
     if pairs is None:
         pairs, (total, budget) = kernel_pair_list(
-            points_dn, eps, mask, block, precision, sketch=k, slab=slab
+            points_dn, eps, mask, block, mode, sketch=k, slab=slab
         )
         poison = total > budget
     rows, cols = pairs
     args = (points_dn, mask.to(torch.int32), row_offsets(rows, nt),
             cols.contiguous())
+    e2 = eps2_f32(eps)
+    stats = None
+    # The bf16 passes' row frames, over the rows they count for.
+    centers, rnorm = (pass_frames(points_dn, mask, tile, mode, k)
+                      if frames is None else frames)
     if k:
         counts, stats = count_pairs_sketch(
-            *args, slab[0], k, eps2_f32(eps), slab[1], tile
+            *args, slab[0], k, e2, slab[1], tile, mode, centers
         )
+    elif mode == "mixed":
+        counts, stats = count_pairs_mixed(*args, e2, tile, centers, rnorm)
+    elif mode == "default":
+        counts = count_pairs_default(*args, e2, tile, centers)
     else:
-        counts = count_pairs(*args, eps2_f32(eps), tile)
+        counts = count_pairs(*args, e2, tile)
     counts = torch.where(mask, counts, 0)
     if poison:
         counts = torch.full_like(counts, -1)
-    return (counts, stats) if k else counts
+    return counts if stats is None else (counts, stats)
 
 
 def min_neighbor_label_cuda(points_dn, labels, eps, src_mask,
                             block: int = 1024, precision: str = "high",
                             row_mask=None, pairs=None, sketch=None,
-                            slab=None):
+                            slab=None, frames=None):
     """Counterpart of ``min_neighbor_label_pallas`` (layout ``"dn"``):
     per-point minimum label over ``src_mask`` points within eps.  Rows
     outside ``row_mask`` return arbitrary values the caller masks;
-    ``row_mask`` only tightens the tile boxes of a self-extracted list,
-    and a truncated one poisons every row to INT32_MIN.  ``sketch`` and
-    ``slab`` as in :func:`neighbor_counts_cuda` (the slab staged over
-    ``row_mask | src_mask``); with k > 0 B4 runs and the return is
-    ``(best, zeros(2))``, as the JAX entry point's."""
-    tile, nt = _grid(points_dn, block, precision)
+    ``row_mask`` tightens the tile boxes of a self-extracted list and
+    the bf16 passes' row frames, and a truncated list poisons every row
+    to INT32_MIN.  ``sketch``, ``slab`` and ``precision`` as in
+    :func:`neighbor_counts_cuda` (the slab staged over ``row_mask |
+    src_mask``, ``frames`` over ``row_mask``); with k > 0 or under
+    ``"mixed"`` the return is ``(best, zeros(2))``, as the JAX entry
+    point's."""
+    mode = norm_precision_mode(precision)
+    tile, nt = _grid(points_dn, block, mode)
     k = effective_k(sketch, points_dn.shape[0])
     rm = torch.ones_like(src_mask) if row_mask is None else row_mask
     if k:
-        slab = _staged(points_dn, rm, k, norm_precision_mode(precision),
-                       slab, src_mask)
+        slab = _staged(points_dn, rm, k, mode, slab, src_mask)
     poison = False
     if pairs is None:
         pairs, (total, budget) = kernel_pair_list(
-            points_dn, eps, rm, block, precision, src_mask=src_mask,
+            points_dn, eps, rm, block, mode, src_mask=src_mask,
             sketch=k, slab=slab,
         )
         poison = total > budget
@@ -409,15 +595,22 @@ def min_neighbor_label_cuda(points_dn, labels, eps, src_mask,
     labi = torch.where(src_mask, labels.to(torch.int32), INT_INF)
     args = (points_dn, labi.contiguous(), row_offsets(rows, nt),
             cols.contiguous())
+    e2 = eps2_f32(eps)
+    centers, rnorm = (pass_frames(points_dn, rm, tile, mode, k)
+                      if frames is None else frames)
     if k:
         best = minlab_pairs_sketch(
-            *args, slab[0], k, eps2_f32(eps), slab[1], tile
+            *args, slab[0], k, e2, slab[1], tile, mode, centers
         )
+    elif mode == "mixed":
+        best = minlab_pairs_mixed(*args, e2, tile, centers, rnorm)
+    elif mode == "default":
+        best = minlab_pairs_default(*args, e2, tile, centers)
     else:
-        best = minlab_pairs(*args, eps2_f32(eps), tile)
+        best = minlab_pairs(*args, e2, tile)
     if poison:
         best = torch.full_like(best, -(2**31))
-    if k:
+    if k or mode == "mixed":
         return best, torch.zeros(2, dtype=torch.int64, device=best.device)
     return best
 
@@ -453,19 +646,37 @@ def _check_query(q, tile_leaf, coords, labels, block, nb):
         )
 
 
-def query_leaf(q, tile_leaf, coords, labels, *, block, nb):
+def query_leaf(q, tile_leaf, coords, labels, *, block, nb,
+               precision="high", eps2=None, keep_stats=None):
     """B5: per query row, ``(min d2, min label among ties)`` over every
     slot of its tile's leaf slab (``C = nb * block`` slots per leaf).
 
     ``q`` (nqt, d, qb) float32 centred query tiles; ``tile_leaf``
     (nqt,) int32; ``coords`` (d, L*C) float32; ``labels`` (L*C,) int32.
-    Returns the packed (2, nqt, qb) int32 ``[labels, bitcast(d2)]``."""
+    Returns the packed (2, nqt, qb) int32 ``[labels, bitcast(d2)]``.
+
+    ``precision="mixed"`` (with the float32 ``eps2``) skips every column
+    chunk whose bf16 lower bound clears eps2 for all of its real (query
+    row, core slot) pairs; the kept chunks run the exact pass unchanged,
+    so a row with a core within eps gets the exact answer, and a row
+    without one may keep +inf.  ``keep_stats``: an optional (2,) int64
+    tensor on the card, zeroed by the caller, to which the kernel adds
+    ``[kept chunks, visited chunks]`` (its row groups count apart)."""
     _check_query(q, tile_leaf, coords, labels, block, nb)
+    mixed = norm_precision_mode(precision) == "mixed"
+    if mixed and eps2 is None:
+        raise ValueError("precision='mixed' needs eps2 for its prefilter")
     if q.device.type == "cpu":
-        return query_min_core_plain(q, tile_leaf, coords, labels,
-                                    block=block, nb=nb)
+        return query_min_core_plain(
+            q, tile_leaf, coords, labels, block=block, nb=nb,
+            precision="mixed" if mixed else "high", eps2=eps2,
+        )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if keep_stats is not None and (
+            keep_stats.dtype != torch.int64 or keep_stats.shape != (2,)
+            or keep_stats.device != q.device):
+        raise ValueError("keep_stats must be a (2,) int64 tensor beside q")
     from ..csrc import _build
 
     lib = _build.load()
@@ -479,13 +690,16 @@ def query_leaf(q, tile_leaf, coords, labels, *, block, nb):
         rc = lib.pp_query_leaf(
             q.data_ptr(), tile_leaf.data_ptr(), coords.data_ptr(),
             labels.data_ptr(), coords.shape[1], nqt, d, qb, C, splits,
+            float(eps2) if mixed else 0.0, int(mixed),
+            None if keep_stats is None else keep_stats.data_ptr(),
             keys.data_ptr(), out.data_ptr(), stream,
         )
+    key = "query_leaf_mixed" if mixed else "query_leaf"
     if rc != 0:
-        raise RuntimeError(f"query_leaf kernel launch failed: cudaError {rc}")
-    LAUNCHES["query_leaf"] += 1
+        raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
+    LAUNCHES[key] += 1
     return out
 
 
-# The counterpart of ``query_min_core_pallas`` in its exact modes.
+# The counterpart of ``query_min_core_pallas``.
 query_min_core_cuda = query_leaf

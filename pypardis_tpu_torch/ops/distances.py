@@ -15,6 +15,14 @@ bitwise equal to the CUDA kernels in ``csrc/pair_kernels.cu`` on any
 data.  The sketch passes (:func:`counts_over_pairs_sketch`,
 :func:`minlab_over_pairs_sketch`) add the slab gate of
 ``csrc/sketch_kernels.cu`` in the same operation order, stats included.
+The bf16 passes of ``precision="mixed"`` / ``"default"``
+(:func:`counts_over_pairs_mixed`, :func:`minlab_over_pairs_mixed`,
+:func:`counts_over_pairs_default`, :func:`minlab_over_pairs_default`)
+recentre on the row tile's centre, round the operands to bf16 once and
+take the cross term as an FP32 product of the rounded values (exact
+products, so only the order of the sum differs from the kernels'
+tensor-core accumulation); the squared norms, the band and the exact
+rescore are the kernels' own operations.
 The CPU path runs them; on the card they are only the yardstick the
 kernels are held against.
 """
@@ -194,14 +202,17 @@ def _pair_d2(x, y):
     return d2
 
 
+def _entries(row_ptr, cols, nt, device):
+    """The CSR pair list as (row tile, col tile) int64 entries."""
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(nt, device=device), counts)
+    return rows, cols[:int(row_ptr[-1])].long()
+
+
 def _over_pairs(pts, colval, row_ptr, cols, eps2, tile, combine):
     d, n = pts.shape
     nt = n // tile
-    counts = (row_ptr[1:] - row_ptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(nt, device=pts.device), counts
-    )
-    cols = cols[:int(row_ptr[-1])].long()
+    rows, cols = _entries(row_ptr, cols, nt, pts.device)
     tiles = pts.reshape(d, nt, tile)
     vals = colval.reshape(nt, tile)
     out = torch.full(
@@ -244,22 +255,173 @@ def minlab_over_pairs(pts, labels, row_ptr, cols, eps2, tile):
     return _over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min")
 
 
+def axis_sq(v):
+    """Squared norms over dim 0, summed axis by axis in index order with
+    each operation rounded on its own: the kernels' own sum."""
+    acc = v[0] * v[0]
+    for a in range(1, v.shape[0]):
+        acc = acc + v[a] * v[a]
+    return acc
+
+
+def bf16_round(v):
+    """Round to bf16 (nearest even) and back: the fast pass's operands."""
+    return v.to(torch.bfloat16).float()
+
+
+def fast_band(nx, ny, gx, gy):
+    """The mixed classification band at recentred norm maxima ``nx``/
+    ``ny`` and frame norm maxima ``gx``/``gy`` (float32 tensors):
+    ``band_halfwidth(nx, ny) + exact_slack(gx, gy)``, the JAX package's
+    ``_mixed_band_t``, each operation in float32 in the order the
+    kernels take it."""
+    from .precision import band_halfwidth, exact_slack
+
+    return band_halfwidth(nx, ny) + exact_slack(gx, gy)
+
+
+def tile_norms(pts, row_mask, tile, centers):
+    """(nt, 2) float32 ``[nx, gx]`` per row tile over the rows of
+    ``row_mask``: the largest recentred norm ``|x - c|`` (``c`` the
+    tile's row of ``centers``) and the largest frame norm ``|x|``, 0
+    for an empty tile (the masked ``_nmax_t`` of the JAX package)."""
+    d, n = pts.shape
+    nt = n // tile
+    t3 = pts.reshape(d, nt, tile)
+    m2 = row_mask.reshape(nt, tile)
+    nx = torch.sqrt(torch.where(
+        m2, axis_sq(t3 - centers.T[:, :, None]), 0.0).amax(dim=1))
+    gx = torch.sqrt(torch.where(m2, axis_sq(t3), 0.0).amax(dim=1))
+    return torch.stack([nx, gx], dim=1).contiguous()
+
+
+def _fast_d2(xt, yt, ctr):
+    """The bf16 fast pass for a batch of tile pairs: ``xt`` (d, P, br)
+    rows, ``yt`` (d, P, bc) columns, ``ctr`` (P, d) each pair's row-tile
+    centre -> ``(d2f, yy)``: ``d2f`` (P, br, bc) ``(|x-c|^2 + |y-c|^2) -
+    2 bf16(x-c).bf16(y-c)`` and ``yy`` (P, bc) the columns' ``|y-c|^2``.
+    Products of bf16 values are exact in FP32 (and in TF32), so no
+    global matmul setting changes them."""
+    c = ctr.T[:, :, None]
+    xc = xt - c
+    yc = yt - c
+    xx = axis_sq(xc)
+    yy = axis_sq(yc)
+    dot = torch.bmm(bf16_round(xc).permute(1, 2, 0),
+                    bf16_round(yc).permute(1, 0, 2))
+    return (xx[:, :, None] + yy[:, None, :]) - 2.0 * dot, yy
+
+
+def _fast_over_pairs(pts, colval, row_ptr, cols, eps2, tile, combine, mode,
+                     centers, rnorm=None):
+    """The bf16 pair kernels' arithmetic over the pair list.
+
+    ``"default"``: the verdict is ``d2f <= eps2``.  ``"mixed"``: per
+    pair-list entry the band is :func:`fast_band` at the row tile's
+    ``rnorm`` and, over the entry's valid (``combine="sum"``: mask !=
+    0) or source (``"min"``: label != INT32_MAX) columns, ``ny = max
+    |y - c|`` and ``gy = max |y|``; a pair with ``|d2f - eps2| <=
+    band`` and a valid column takes the exact ``_pair_d2`` verdict,
+    every other pair the fast one.  Stats (``"sum"`` only) count the
+    in-band pairs of valid rows and columns, and the entries holding
+    one."""
+    d, n = pts.shape
+    nt = n // tile
+    rows, cols = _entries(row_ptr, cols, nt, pts.device)
+    tiles = pts.reshape(d, nt, tile)
+    vals = colval.reshape(nt, tile)
+    out = torch.full(
+        (nt, tile), 0 if combine == "sum" else INT_INF, dtype=torch.int32,
+        device=pts.device,
+    )
+    n_band = torch.zeros((), dtype=torch.int64, device=pts.device)
+    n_resc = torch.zeros((), dtype=torch.int64, device=pts.device)
+    elems = _CHUNK_ELEMS if pts.is_cuda else _CHUNK_ELEMS // 4
+    chunk = max(1, elems // (tile * tile))
+    for s in range(0, int(rows.numel()), chunk):
+        r, c = rows[s:s + chunk], cols[s:s + chunk]
+        yt = tiles[:, c]
+        d2f, yy = _fast_d2(tiles[:, r], yt, centers[r])
+        v = vals[c]
+        valid = (v != 0) if combine == "sum" else (v != INT_INF)
+        adj = d2f <= eps2
+        if mode == "mixed":
+            ny = torch.sqrt(torch.where(valid, yy, 0.0).amax(dim=1))
+            gy = torch.sqrt(torch.where(valid, axis_sq(yt), 0.0).amax(dim=1))
+            band = fast_band(rnorm[r, 0], ny, rnorm[r, 1], gy)
+            amb = ((d2f - eps2).abs() <= band[:, None, None]) & valid[:, None]
+            if combine == "sum":
+                st = amb & (vals[r] != 0)[:, :, None]
+                n_band += st.sum()
+                n_resc += st.flatten(1).any(dim=1).sum()
+            need = amb.flatten(1).any(dim=1)
+            if bool(need.any()):
+                d2 = _pair_d2(tiles[:, r[need]], yt[:, need])
+                adj[need] = torch.where(amb[need], d2 <= eps2, adj[need])
+        v = v[:, None, :]
+        if combine == "sum":
+            part = (adj & valid[:, None, :]).sum(dim=-1, dtype=torch.int32)
+            out.index_add_(0, r, part)
+        else:
+            cand = torch.where(adj, v, INT_INF).amin(dim=-1)
+            out.scatter_reduce_(
+                0, r[:, None].expand(-1, tile), cand, reduce="amin"
+            )
+    return out.reshape(-1), torch.stack([n_band, n_resc])
+
+
+def counts_over_pairs_mixed(pts, mask, row_ptr, cols, eps2, tile, centers,
+                            rnorm):
+    """Plain version of B1 under ``precision="mixed"``: the counts of
+    :func:`counts_over_pairs` (equal to them on any data, on the rows
+    of the mask ``rnorm`` was taken over) through the bf16 fast pass and
+    the per-pair exact rescore.  ``centers`` (nt, d) the row tiles' box
+    centres over ``mask`` and ``rnorm`` their (nt, 2) :func:`tile_norms`
+    over it.  Returns ``(counts,
+    stats)``, ``stats`` the (2,) int64 ``[band_pairs,
+    rescored_tiles]``."""
+    return _fast_over_pairs(pts, mask, row_ptr, cols, eps2, tile, "sum",
+                            "mixed", centers, rnorm)
+
+
+def minlab_over_pairs_mixed(pts, labels, row_ptr, cols, eps2, tile,
+                            centers, rnorm):
+    """Plain version of B2 under ``precision="mixed"``: the result of
+    :func:`minlab_over_pairs` on the rows ``rnorm`` covers (no
+    stats)."""
+    return _fast_over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min",
+                            "mixed", centers, rnorm)[0]
+
+
+def counts_over_pairs_default(pts, mask, row_ptr, cols, eps2, tile,
+                              centers):
+    """Plain version of B1 under ``precision="default"``: every pair
+    decided by the bf16 pass alone (lossy)."""
+    return _fast_over_pairs(pts, mask, row_ptr, cols, eps2, tile, "sum",
+                            "default", centers)[0]
+
+
+def minlab_over_pairs_default(pts, labels, row_ptr, cols, eps2, tile,
+                              centers):
+    """Plain version of B2 under ``precision="default"``."""
+    return _fast_over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min",
+                            "default", centers)[0]
+
+
 def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
-                       tile, combine):
+                       tile, combine, centers=None):
     """The sketch kernels' arithmetic over the pair list.  Per pair:
     ``t2`` the axis-ordered (skp)-row slab distance, ``up = t2 + (4 rx)
     ry``; sure-out ``t2 - band > eps2``, sure-in ``up <= eps2 - band``,
-    every other pair the exact ``_pair_d2`` against eps2.  Stats count
-    the in-band pairs whose column is valid (rows unmasked) and the
-    pair-list entries holding one."""
+    every other pair the exact ``_pair_d2`` against eps2 — or, with the
+    row tiles' ``centers`` (``precision="default"``), the bf16 pass's
+    ``d2f`` of :func:`_fast_d2`.  Stats count the in-band pairs whose
+    column is valid (rows unmasked) and the pair-list entries holding
+    one."""
     d, n = pts.shape
     skp = slab.shape[0]
     nt = n // tile
-    counts = (row_ptr[1:] - row_ptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(nt, device=pts.device), counts
-    )
-    cols = cols[:int(row_ptr[-1])].long()
+    rows, cols = _entries(row_ptr, cols, nt, pts.device)
     tiles = pts.reshape(d, nt, tile)
     stiles = slab.reshape(skp, nt, tile)
     vals = colval.reshape(nt, tile)
@@ -286,9 +448,13 @@ def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
         n_resc += need.sum()
         adj = sure_in
         if bool(need.any()):
-            # Exact d2 only where a tile holds an in-band pair: the
+            # The rescore only where a tile holds an in-band pair: the
             # verdict is the same at any granularity.
-            d2 = _pair_d2(tiles[:, r[need]], tiles[:, c[need]])
+            if centers is None:
+                d2 = _pair_d2(tiles[:, r[need]], tiles[:, c[need]])
+            else:
+                d2 = _fast_d2(tiles[:, r[need]], tiles[:, c[need]],
+                              centers[r[need]])[0]
             adj[need] = torch.where(amb[need], d2 <= eps2, sure_in[need])
         if combine == "sum":
             part = (adj & valid).sum(dim=-1, dtype=torch.int32)
@@ -302,20 +468,22 @@ def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
 
 
 def counts_over_pairs_sketch(pts, mask, row_ptr, cols, slab, k, eps2,
-                             band, tile):
+                             band, tile, centers=None):
     """Plain version of the sketch count kernel (B3): the counts of
     :func:`counts_over_pairs` (equal to them on any data), decided
     through the slab gate.  ``slab`` (skp, N) float32 with row ``k``
-    the residual norm; ``band`` the gate's float32 halfwidth.  Returns
-    ``(counts, stats)``, ``stats`` a (2,) int64 tensor ``[band_pairs,
-    rescored_tiles]``."""
+    the residual norm; ``band`` the gate's float32 halfwidth;
+    ``centers`` (nt, d) the row tiles' centres for the bf16 rescore of
+    ``precision="default"`` (None: the exact rescore of ``"high"`` and
+    ``"mixed"``).  Returns ``(counts, stats)``, ``stats`` a (2,) int64
+    tensor ``[band_pairs, rescored_tiles]``."""
     return _sketch_over_pairs(pts, slab, k, mask, row_ptr, cols, eps2,
-                              band, tile, "sum")
+                              band, tile, "sum", centers)
 
 
 def minlab_over_pairs_sketch(pts, labels, row_ptr, cols, slab, k, eps2,
-                             band, tile):
+                             band, tile, centers=None):
     """Plain version of the sketch min-label kernel (B4): the result of
     :func:`minlab_over_pairs` through the slab gate (no stats)."""
     return _sketch_over_pairs(pts, slab, k, labels, row_ptr, cols, eps2,
-                              band, tile, "min")[0]
+                              band, tile, "min", centers)[0]

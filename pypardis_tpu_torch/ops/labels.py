@@ -7,7 +7,8 @@ under the eps relation; a border point attaches to the minimum root of
 its core neighbours; the rest is noise.  Components come from min-label
 propagation with pointer jumping: every core point starts with its own
 index, each round takes the minimum label among its core eps-neighbours
-(one B2 pass, or B4 with the sketch on) and chases labels to the
+(one B2 pass, or B4 with the sketch on; under ``precision="mixed"``
+or ``"default"`` the bf16 B2) and chases labels to the
 current root, until nothing changes.  PyTorch runs eagerly, so the JAX ``while_loop``s are Python
 loops that read one bool from the device per iteration.
 """
@@ -25,10 +26,10 @@ from .cuda_kernels import (
     kernel_pair_list,
     min_neighbor_label_cuda,
     neighbor_counts_cuda,
+    pass_frames,
     sketch_stage,
 )
 from .distances import INT_INF
-from .precision import require_ported
 from .sketch import check_sketch_spec, effective_k
 
 
@@ -98,11 +99,15 @@ def dbscan_fixed_size(
     ``"auto"``: on at d >= 128).  With k > 0 the slab and its band are
     staged once, the pair list is extracted over the slab boxes, B3 runs
     the counts pass and B4 every other pass, and ``band_pairs`` /
-    ``rescored_tiles`` carry the counts pass's gate telemetry (zero
-    with the sketch off).  Labels are byte-identical either way.
+    ``rescored_tiles`` carry the counts pass's gate telemetry.  Labels
+    are byte-identical either way.  Without the sketch,
+    ``precision="mixed"`` runs the bf16 B1/B2 with their exact rescore
+    (labels byte-identical to ``"high"``) and the two stats are the B1
+    pass's band telemetry; ``"default"`` runs the bf16 passes alone.
+    Every other case reports zeros there.
     """
     validate_params(eps, min_samples)
-    mode = require_ported(check_precision(precision))
+    mode = check_precision(precision)
     resolve_backend(backend, points.device)
     d, n = points.shape
     tile = _pallas_block(block, n, d, mode)
@@ -127,12 +132,14 @@ def dbscan_fixed_size(
             torch.zeros(n, dtype=torch.bool, device=points.device),
             torch.tensor([total, budget, 0, 0, 0], dtype=torch.int64),
         )
+    # The bf16 passes' row frames: every pass's rows are the valid ones.
+    frames = pass_frames(points, mask, tile, mode, k)
     counts = neighbor_counts_cuda(
         points, eps, mask, block=block, precision=mode, pairs=pairs,
-        sketch=k, slab=slab,
+        sketch=k, slab=slab, frames=frames,
     )
     band = torch.zeros(2, dtype=torch.int64)
-    if k:
+    if isinstance(counts, tuple):
         counts, band = counts
     # A valid point always counts itself; the clamp keeps that exact
     # when eps^2 sinks below the self-pair's rounding (kept from the JAX
@@ -145,11 +152,11 @@ def dbscan_fixed_size(
     def minlab(lab):
         best = min_neighbor_label_cuda(
             points, lab, eps, core, block=block, precision=mode,
-            row_mask=mask, pairs=pairs, sketch=k, slab=slab,
+            row_mask=mask, pairs=pairs, sketch=k, slab=slab, frames=frames,
         )
-        # B4's stats are zeros, as the JAX kernel's: the counts pass
-        # measured the band.
-        return best[0] if k else best
+        # The widened return's stats are zeros, as the JAX kernels':
+        # the counts pass measured the band.
+        return best[0] if isinstance(best, tuple) else best
 
     g = f
     changed = True

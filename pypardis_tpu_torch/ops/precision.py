@@ -1,21 +1,34 @@
 """Kernel precision modes (counterpart of ``pypardis_tpu/ops/precision.py``).
 
 The accepted surface is the JAX package's mode ladder, so a config
-written for one package validates the same way in the other.  On the
-card ``"high"`` and ``"highest"`` both run exact FP32 (the TPU's
-``"high"`` is a bf16_3x emulation of FP32); ``"default"`` and
-``"mixed"`` are accepted names whose Hopper kernels are not written yet
-(ROADMAP A9, the precision slice) and raise ``NotImplementedError`` at
-fit time.  The bf16 band constants live here all the same: the sketch
-gate's ``"default"`` branch (:mod:`.sketch`) is written against them.
+written for one package validates the same way in the other.  What each
+mode means on the card:
+
+``"high"`` / ``"highest"``
+    Exact FP32: d^2 is the axis-ordered sum of ``(x_a - y_a)^2``, each
+    operation rounded on its own (the TPU's ``"high"`` is a bf16_3x
+    emulation of FP32).
+``"mixed"``
+    One bf16 tensor-core pass (``mma.sync`` m16n8k16, FP32
+    accumulators) over operands recentred on the row tile's box centre
+    and rounded to bf16 once gives ``d2f = |x-c|^2 + |y-c|^2 - 2
+    (x-c).(y-c)``, the squared norms in FP32.  Every pair whose ``d2f``
+    lies within :func:`band_halfwidth` (at the recentred norm maxima)
+    plus :func:`exact_slack` (at the frame norms) of eps^2 is rescored
+    with the exact FP32 arithmetic of ``"high"``, pair by pair, so
+    counts, labels and core masks are byte-identical to ``"high"``.  In
+    serving, the same bf16 pass lower-bounds every (query, core) d^2 of
+    a column chunk, and only chunks that may hold a core within eps run
+    the exact query pass.
+``"default"``
+    The one bf16 pass decides every pair (``d2f <= eps^2``): lossy by
+    design, as on the TPU; no rescore.  With the sketch on, the in-band
+    pairs of the slab gate are decided by the same bf16 pass.
 """
 
 from __future__ import annotations
 
 PRECISION_MODES = ("default", "high", "highest", "mixed")
-
-# Modes the port's kernels run today.
-PORTED_MODES = ("high", "highest")
 
 # bf16 has 8 explicit mantissa bits: a product of two rounded operands
 # carries <= ~2^-8 relative error per term.
@@ -27,8 +40,8 @@ _BAND_SAFETY = 1.25
 
 # Width of the pair-stats row every fit emits:
 # [live_pairs_total, budget, kernel_passes, band_pairs, rescored_tiles].
-# The last two are the sketch gate's counts-pass telemetry (zero with
-# the sketch off).
+# The last two are the counts pass's telemetry: the sketch gate's with
+# the sketch on, else the bf16 band's under "mixed", else zero.
 PAIR_STATS_WIDTH = 5
 
 
@@ -41,18 +54,6 @@ def norm_precision_mode(precision) -> str:
             f"precision must be one of {PRECISION_MODES}, got {precision!r}"
         )
     return p
-
-
-def require_ported(mode: str) -> str:
-    """Raise ``NotImplementedError`` for a mode without a Hopper kernel."""
-    if mode not in PORTED_MODES:
-        raise NotImplementedError(
-            f"precision={mode!r} has no Hopper kernel yet (ROADMAP A9, "
-            f"the precision modes: the next slice of the port); use "
-            f"'high' or 'highest', which both run exact FP32 on the card, "
-            f"with or without the sketch"
-        )
-    return mode
 
 
 def band_halfwidth(nx, ny):

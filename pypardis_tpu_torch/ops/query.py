@@ -21,6 +21,14 @@ column ``block``.  Pad slots carry :data:`PAD_COORD` (its squared
 difference with any real coordinate overflows to +inf) and INT32_MAX
 labels, so no mask enters the computation.  Queries arrive as ``(nqt,
 d, qb)`` tiles, each scanning the slab of leaf ``tile_leaf[i]``.
+
+``precision="mixed"`` adds the bf16 block prefilter
+(:func:`fast_block_keep`, the JAX package's ``_fast_block_keep``): a
+column block whose every real (query, core) pair has a bf16 lower bound
+past eps^2 is skipped, the rest run the unchanged exact pass.  A row
+with a core within eps gets the same answer; a row without one may keep
++inf where the exact pass finds a farther core, so results are compared
+after the within-eps verdict.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .distances import INT_INF, eps2_f32
+from .distances import INT_INF, axis_sq, bf16_round, eps2_f32, fast_band
 
 # Pad-slot coordinate: (PAD_COORD - x)^2 overflows float32 to +inf for
 # any real x, so pad slots lose every min and fail every eps test.
@@ -89,7 +97,51 @@ def _block_best(d2, lab, best_d2, best_lab):
     return torch.where(take, m, best_d2), torch.where(take, cand, best_lab)
 
 
-def query_min_core_plain(q, tile_leaf, coords, labels, *, block, nb):
+# A query or slot coordinate at or past this magnitude is padding.
+_PAD_LIMIT = 1e18
+
+
+def fast_block_keep(q, cols, labs, eps2):
+    """The bf16 block prefilter: for each query tile and column block,
+    whether some real pair's exact d^2 could lie within eps.
+
+    ``q`` (nqt, d, qb) query tiles; ``cols`` (d, nqt, nbk, block) and
+    ``labs`` (nqt, nbk, block) each tile's column blocks.  Both sides
+    recentre on the block's box midpoint over its real slots (label !=
+    INT32_MAX), round to bf16, and ``d2f = |q-c|^2 + |y-c|^2 - 2
+    bf16(q-c).bf16(y-c)``; the per-element band is
+    :func:`~.distances.fast_band` at the recentred and the index-frame
+    norms (``query.py``'s ``band_halfwidth(|q-c|, |y-c|) +
+    exact_slack(|q|, |y|)``), so ``d2f - band`` lower-bounds the exact
+    d^2.  Pad slots and pad query rows (a coordinate past 1e18) are
+    excluded by mask, never by the inf/NaN arithmetic they produce.
+    Returns (nqt, nbk) bool."""
+    real = labs != INT_INF
+    qreal = (q.abs() < _PAD_LIMIT).all(dim=1)
+    big = float(BIG)
+    hi = torch.where(real[None], cols, -big).amax(dim=-1)
+    lo = torch.where(real[None], cols, big).amin(dim=-1)
+    ctr = (0.5 * (hi + lo))[..., None]  # (d, nqt, nbk, 1)
+    qd = q.permute(1, 0, 2)[:, :, None, :]  # (d, nqt, 1, qb)
+    qc = qd - ctr
+    cc = cols - ctr
+    qq = axis_sq(qc)  # (nqt, nbk, qb)
+    c2 = axis_sq(cc)  # (nqt, nbk, block)
+    dot = torch.matmul(bf16_round(qc).permute(1, 2, 3, 0),
+                       bf16_round(cc).permute(1, 2, 0, 3))
+    d2f = (qq[..., None] + c2[..., None, :]) - 2.0 * dot
+    band = fast_band(
+        torch.sqrt(qq)[..., None], torch.sqrt(c2)[..., None, :],
+        torch.sqrt(axis_sq(qd))[..., None], torch.sqrt(axis_sq(cols))[
+            ..., None, :],
+    )
+    ok = ((d2f - band <= eps2) & real[..., None, :]
+          & qreal[:, None, :, None])
+    return ok.any(dim=3).any(dim=2)
+
+
+def query_min_core_plain(q, tile_leaf, coords, labels, *, block, nb,
+                         precision="high", eps2=None):
     """Plain PyTorch version of B5: per query row, ``(min d2, min label
     among ties)`` over every slot of its tile's leaf slab.
 
@@ -97,9 +149,14 @@ def query_min_core_plain(q, tile_leaf, coords, labels, *, block, nb):
     PAD_COORD); ``tile_leaf`` (nqt,) int32; ``coords`` (d, L*C) float32
     with ``C = nb * block``; ``labels`` (L*C,) int32.  Columns go by
     whole blocks, several at a time; d^2 accumulates axis by axis in
-    index order with eager ops.  Returns the packed (2, nqt, qb) int32
-    ``[labels, bitcast(d2)]`` on ``q``'s device.
+    index order with eager ops.  ``precision="mixed"`` (with the
+    float32 ``eps2``) leaves out the blocks :func:`fast_block_keep`
+    rejects.  Returns the packed (2, nqt, qb) int32 ``[labels,
+    bitcast(d2)]`` on ``q``'s device.
     """
+    mixed = precision == "mixed"
+    if mixed and eps2 is None:
+        raise ValueError("precision='mixed' needs eps2 for its prefilter")
     nqt, d, qb = q.shape
     C = nb * block
     slabs = coords.reshape(d, -1, C)
@@ -119,8 +176,17 @@ def query_min_core_plain(q, tile_leaf, coords, labels, *, block, nb):
         for a in range(1, d):
             diff = q[:, a, :, None] - cols[a][:, None, :]
             acc = acc + diff * diff
+        lab = labs[leaf, c0:c1]
+        if mixed:
+            w = c1 - c0
+            keep = fast_block_keep(
+                q, cols.reshape(d, nqt, w // block, block),
+                lab.reshape(nqt, w // block, block), eps2,
+            ).repeat_interleave(block, dim=1)
+            acc = torch.where(keep[:, None, :], acc, float("inf"))
+            lab = torch.where(keep, lab, INT_INF)
         best_d2, best_lab = _block_best(
-            acc, labs[leaf, c0:c1][:, None, :], best_d2, best_lab
+            acc, lab[:, None, :], best_d2, best_lab
         )
     return torch.stack([best_lab, best_d2.view(torch.int32)])
 

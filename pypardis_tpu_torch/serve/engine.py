@@ -118,16 +118,10 @@ def fold_leaves(n_rows: int, rowmap, labs, d2):
 
 
 def check_query_precision(precision) -> str:
-    """The query pass is exact in every mode but ``"mixed"``, whose
-    bf16 block prefilter is not ported yet."""
-    mode = norm_precision_mode(precision)
-    if mode == "mixed":
-        raise NotImplementedError(
-            "precision='mixed' has no Hopper query prefilter yet (ROADMAP "
-            "A9: precision modes and the sketch); the exact modes serve "
-            "the same answers"
-        )
-    return mode
+    """The query pass is exact in every mode; ``"mixed"`` adds B5's bf16
+    chunk prefilter, which changes no answer after the within-eps
+    verdict."""
+    return norm_precision_mode(precision)
 
 
 class QueryEngine:
@@ -181,6 +175,11 @@ class QueryEngine:
         index = build_index(model, leaves=leaves, block=block, qblock=qblock)
         if backend is None:
             backend = getattr(model, "kernel_backend", "auto")
+        # A model fitted with "mixed" serves "mixed" (the same bf16 bulk
+        # pass with an exact rescore); an explicit precision wins.
+        if "precision" not in kw and norm_precision_mode(
+                getattr(model, "precision", "high")) == "mixed":
+            kw["precision"] = "mixed"
         return cls(index, backend=backend, model=model, **kw)
 
     # -- request surface --------------------------------------------------
@@ -271,7 +270,8 @@ class QueryEngine:
         if self.index.n_core == 0 or n_rows == 0:
             return _Inflight(None, [], tickets, n_rows, 1.0)
         qbuf, tile_leaf, rowmap = self.index.assemble(qf32)
-        packed = self.index.dispatch(qbuf, tile_leaf)
+        packed = self.index.dispatch(qbuf, tile_leaf,
+                                     precision=self.precision)
         ready = None
         if packed.is_cuda:
             host = torch.empty(packed.shape, dtype=packed.dtype,

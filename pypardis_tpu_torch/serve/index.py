@@ -294,10 +294,11 @@ class CorePointIndex:
             rowmap.append(arr)
         return qbuf, tile_leaf, rowmap
 
-    def dispatch(self, qbuf, tile_leaf):
+    def dispatch(self, qbuf, tile_leaf, precision="high"):
         """Launch B5 on one assembled batch (asynchronous on the card; the
         plain version on a CPU index); returns the packed (2, nqt, qb)
-        int32 result on the index's device."""
+        int32 result on the index's device.  ``precision="mixed"`` runs
+        B5 with its bf16 chunk prefilter."""
         from ..ops.cuda_kernels import query_leaf
 
         coords, labels, _blo, _bhi = self.device_tensors()
@@ -310,7 +311,7 @@ class CorePointIndex:
         q = q.to(self.device, non_blocking=True)
         tl = tl.to(self.device, non_blocking=True)
         return query_leaf(q, tl, coords, labels, block=self.block,
-                          nb=self.nb)
+                          nb=self.nb, precision=precision, eps2=self.eps2)
 
     # -- oracle -----------------------------------------------------------
 

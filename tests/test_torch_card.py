@@ -274,3 +274,175 @@ def test_card_sketched_fit_equals_unsketched_fit():
     assert on.metrics_["sketch_k"] == 64 and off.metrics_["sketch_k"] == 0
     assert on.metrics_["band_pairs"] == cpu.metrics_["band_pairs"] > 0
     assert on.metrics_["rescored_tiles"] == cpu.metrics_["rescored_tiles"]
+
+
+# -- precision modes: the bf16 tensor-core kernels ---------------------------
+
+
+def _fast_inputs(d, eps, seed, offset=0.0):
+    """B1/B2 inputs of a fit on the card (natural blobs, shifted by
+    ``offset`` before the fit centres them), their row frames and a
+    first min-label pass's labels."""
+    X, _ = make_blob_data(20_000, d, n_centers=8, std=0.4, seed=seed)
+    pts, n, block = _stage(X + offset, 1024, torch.device("cuda"))
+    xs, mask, _owner = _pipeline_layout(pts, eps, n, block, sort=True)
+    (rows, cols), (total, budget) = ck.kernel_pair_list(
+        xs, eps, mask, block, "mixed")
+    assert total <= budget
+    tile = ck._pallas_block(block, xs.shape[1], d, "mixed")
+    rp = row_offsets(rows, xs.shape[1] // tile)
+    mi = mask.to(torch.int32)
+    counts = ck.count_pairs(xs, mi, rp, cols, eps2_f32(eps), tile)
+    core = (torch.where(mask, counts, 0) >= 10) & mask
+    lab = torch.where(
+        core, torch.arange(len(counts), device="cuda", dtype=torch.int32),
+        INT_INF,
+    ).contiguous()
+    centers, rnorm = ck.tile_frames(xs, mask, tile)
+    return dict(xs=xs, mask=mask, mi=mi, lab=lab, rp=rp, cols=cols,
+                e2=eps2_f32(eps), tile=tile, centers=centers, rnorm=rnorm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,eps", [(3, 1.2), (16, 2.4), (64, 4.8),
+                                   (96, 6.0)])
+def test_mixed_kernels_equal_plain_and_fp32_on_card(d, eps):
+    """B1/B2 under "mixed": counts and min labels bitwise equal to the
+    plain version's and to the FP32 kernels' on valid rows; the band
+    stats agree with the plain version's within 0.1% (kernel and plain
+    version differ only in the tensor cores' order of the d2f sum, which
+    moves pairs at the band's edge)."""
+    _need_card()
+    inp = _fast_inputs(d, eps, d)
+    m = inp["mask"]
+    a = (inp["xs"], inp["mi"], inp["rp"], inp["cols"], inp["e2"],
+         inp["tile"], inp["centers"], inp["rnorm"])
+    before = dict(ck.LAUNCHES)
+    got, st = ck.count_pairs_mixed(*a)
+    want, wst = ck.PLAIN["count_pairs_mixed"](*a)
+    exact = ck.count_pairs(*a[:6])
+    assert torch.equal(got[m], want[m]) and torch.equal(got[m], exact[m])
+    assert int(st[0]) > 0 and int(st[1]) > 0
+    assert (st - wst).abs().max() <= 1 + 1e-3 * wst.max()
+    b = (inp["xs"], inp["lab"]) + a[2:]
+    best = ck.minlab_pairs_mixed(*b)
+    assert torch.equal(best[m], ck.PLAIN["minlab_pairs_mixed"](*b)[m])
+    assert torch.equal(best[m], ck.minlab_pairs(*b[:6])[m])
+    assert ck.LAUNCHES["count_pairs_mixed"] == before["count_pairs_mixed"] + 1
+    assert ck.LAUNCHES["minlab_pairs_mixed"] == (
+        before["minlab_pairs_mixed"] + 1)
+
+
+def _eps2_bracket(e2, rel=2.0 ** -12):
+    """float32 eps^2 values ``rel`` below and above ``e2``: kernel and
+    plain version differ only in the order of the d2f sum, by far less
+    than ``rel * eps^2`` at these shapes, and every verdict is monotone
+    in eps^2, so the kernel lies between the plain version at the two."""
+    return (float(np.float32(e2 * (1 - rel))),
+            float(np.float32(e2 * (1 + rel))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,eps", [(3, 1.2), (16, 2.4), (64, 4.8),
+                                   (96, 6.0)])
+def test_default_kernels_bracketed_by_plain_on_card(d, eps):
+    """B1/B2 under "default": counts between the plain version's at
+    eps^2 (1 -+ 2^-12), min labels likewise (reversed), on every row."""
+    _need_card()
+    inp = _fast_inputs(d, eps, d)
+    lo, hi = _eps2_bracket(inp["e2"])
+    rest = (inp["tile"], inp["centers"])
+    a = (inp["xs"], inp["mi"], inp["rp"], inp["cols"])
+    got = ck.count_pairs_default(*a, inp["e2"], *rest)
+    plain = ck.PLAIN["count_pairs_default"]
+    assert bool((plain(*a, lo, *rest) <= got).all())
+    assert bool((got <= plain(*a, hi, *rest)).all())
+    b = (inp["xs"], inp["lab"], inp["rp"], inp["cols"])
+    best = ck.minlab_pairs_default(*b, inp["e2"], *rest)
+    plain = ck.PLAIN["minlab_pairs_default"]
+    assert bool((plain(*b, hi, *rest) <= best).all())
+    assert bool((best <= plain(*b, lo, *rest)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(256, 64), (512, 128)])
+def test_sketch_default_kernels_bracketed_by_plain_on_card(d, k):
+    """B3/B4 under "default" (the bf16 rescore): stats equal to the plain
+    version's (the gate is unchanged), counts and labels bracketed as in
+    the unsketched test (the gated verdict is monotone in eps^2 too)."""
+    _need_card()
+    xs, mask, slab, band, rp, cols, tile = _sketch_inputs(d, k, d + k)
+    centers, _rn = ck.tile_frames(xs, mask, tile)
+    mi = mask.to(torch.int32)
+    e2 = eps2_f32(2.0)
+    lo, hi = _eps2_bracket(e2)
+    a = (xs, mi, rp, cols, slab, k)
+    got, st = ck.count_pairs_sketch(*a, e2, band, tile, "default", centers)
+    plain = ck.PLAIN["count_pairs_sketch"]
+    want, wst = plain(*a, e2, band, tile, centers)
+    assert torch.equal(st, wst) and int(st[0]) > 0
+    assert bool((plain(*a, lo, band, tile, centers)[0] <= got).all())
+    assert bool((got <= plain(*a, hi, band, tile, centers)[0]).all())
+    core = (torch.where(mask, got, 0) >= 10) & mask
+    lab = torch.where(
+        core, torch.arange(len(got), device="cuda", dtype=torch.int32),
+        INT_INF,
+    ).contiguous()
+    b = (xs, lab, rp, cols, slab, k)
+    best = ck.minlab_pairs_sketch(*b, e2, band, tile, "default", centers)
+    plain = ck.PLAIN["minlab_pairs_sketch"]
+    assert bool((plain(*b, hi, band, tile, centers) <= best).all())
+    assert bool((best <= plain(*b, lo, band, tile, centers)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16, 96])
+def test_query_mixed_equals_exact_after_the_verdict_on_card(d):
+    """B5 under "mixed": after the within-eps verdict, labels and d^2
+    bits equal the exact kernel's and the plain mixed version's on every
+    real row (pad rows, which the engine drops, meet pad slots at d^2 =
+    0 in a chunk that runs and +inf in one that is skipped)."""
+    _need_card()
+    q, tl, coords, labels = _query_inputs(d, 16, 128, 4, 512, d, False)
+    e2 = eps2_f32(1.0 + 0.3 * d ** 0.5)
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    got = ck.query_leaf(q, tl, coords, labels, block=64, nb=8,
+                        precision="mixed", eps2=e2, keep_stats=stats)
+    exact = ck.query_leaf(q, tl, coords, labels, block=64, nb=8)
+    plain = query_min_core_plain(q, tl, coords, labels, block=64, nb=8,
+                                 precision="mixed", eps2=e2)
+
+    def verdict(p):
+        d2 = p[1].view(torch.float32)
+        ok = d2 <= e2
+        return torch.where(ok, p[0], -1), torch.where(ok, d2, float("inf"))
+
+    real = slice(0, q.shape[2] - 3)
+    for other in (exact, plain):
+        gl, gd = verdict(got)
+        ol, od = verdict(other)
+        assert torch.equal(gl[:, real], ol[:, real])
+        assert torch.equal(gd[:, real].view(torch.int32),
+                           od[:, real].view(torch.int32))
+    assert 0 < int(stats[0]) <= int(stats[1])
+    assert int((verdict(got)[0] >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_card_mixed_fit_equals_high_fit():
+    _need_card()
+    X, _ = make_blob_data(8000, 16, n_centers=8, std=0.4, seed=3)
+    ck.reset_launch_counts()
+    mixed = DBSCAN(eps=2.4, min_samples=10, block=256, precision="mixed").fit(X)
+    assert ck.LAUNCHES["count_pairs_mixed"] == 1
+    assert ck.LAUNCHES["minlab_pairs_mixed"] >= 1
+    assert ck.LAUNCHES["count_pairs"] == ck.LAUNCHES["minlab_pairs"] == 0
+    high = DBSCAN(eps=2.4, min_samples=10, block=256).fit(X)
+    cpu = DBSCAN(eps=2.4, min_samples=10, block=256, precision="mixed",
+                 device="cpu").fit(X)
+    for other in (high, cpu):
+        assert np.array_equal(mixed.labels_, other.labels_)
+        assert np.array_equal(mixed.core_sample_mask_,
+                              other.core_sample_mask_)
+    assert mixed.metrics_["band_pairs"] > 0
+    assert mixed.query_engine().precision == "mixed"

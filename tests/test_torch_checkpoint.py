@@ -1,8 +1,8 @@
 """Checkpoints cross-load between the JAX package and the port, both
 ways, and serve identically: models, serving indexes (including the
-cosine and haversine query frames) and partition trees.  Unported
-settings in a JAX checkpoint raise ``NotImplementedError`` naming their
-ROADMAP item."""
+cosine and haversine query frames) and partition trees, in every
+precision mode.  Unported settings in a JAX checkpoint raise
+``NotImplementedError`` naming their ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -195,13 +195,33 @@ def test_driver_metric_index_frames_load_in_the_port(tmp_path, metric,
         load_model(mpath, device="cpu")
 
 
-def test_unported_precision_names_its_roadmap_item(tmp_path, data):
-    X, _Q = data
-    ref = jax_fit(X, eps=0.5, min_samples=6, precision="mixed")
-    path = str(tmp_path / "mixed.npz")
+@pytest.mark.parametrize("precision", ["mixed", "default"])
+def test_jax_bf16_precision_model_loads_and_serves(tmp_path, data,
+                                                   precision):
+    """A JAX checkpoint fitted under a bf16 mode loads with its mode and
+    serves byte-identically to the JAX engine (a "mixed" model serves
+    through the "mixed" prefilter in both packages); a "mixed" refit of
+    the loaded model gives the checkpoint's labels (the JAX package's
+    CPU "default" dot is full FP32, so only the "mixed" fit is exact in
+    both)."""
+    X, Q = data
+    ref = jax_fit(X, eps=0.5, min_samples=6, precision=precision)
+    path = str(tmp_path / f"{precision}.npz")
     jckpt.save_model(ref, path)
-    with pytest.raises(NotImplementedError, match="A9"):
-        load_model(path, device="cpu")
+    port = load_model(path, device="cpu")
+    assert port.precision == precision
+    assert np.array_equal(port.labels_, ref.labels_)
+    eng = port.query_engine(leaves=4, block=32, qblock=32)
+    jeng = ref.query_engine(leaves=4, block=32, qblock=32)
+    assert eng.precision == jeng.precision
+    assert eng.precision == ("mixed" if precision == "mixed" else "high")
+    _same(eng.predict(Q, return_distance=True),
+          jeng.predict(Q, return_distance=True))
+    if precision == "mixed":
+        refit = DBSCAN(eps=0.5, min_samples=6, precision=port.precision,
+                       device="cpu").fit(X)
+        assert np.array_equal(refit.labels_, ref.labels_)
+        assert refit.metrics_["band_pairs"] > 0
 
 
 def test_wrong_kind_and_unfitted_raise(tmp_path, data):

@@ -220,14 +220,37 @@ def test_rejects_unknown_options(kw, match):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"precision": "mixed"}, "A9"),
-    ({"precision": "default"}, "A9"),
     ({"metric": "cityblock"}, "A3"),
     ({"metric": "cosine"}, "A6"),
 ])
 def test_unported_options_name_their_roadmap_item(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         DBSCAN(eps=0.5, min_samples=5, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("precision", ["mixed", "DEFAULT"])
+def test_bf16_precision_modes_validate_and_fit(blobs750, precision):
+    """Both bf16 modes validate (case-folded, as the JAX package does)
+    and fit: "mixed" to the "high" labels byte for byte with its band
+    telemetry, the lossy "default" to within ARI 0.99 of them with
+    none."""
+    from sklearn.metrics import adjusted_rand_score
+
+    model = DBSCAN(eps=0.3, min_samples=10, device="cpu",
+                   precision=precision)
+    assert model.precision == precision.lower()
+    model.fit(blobs750)
+    high = DBSCAN(eps=0.3, min_samples=10, device="cpu").fit(blobs750)
+    if precision == "mixed":
+        assert np.array_equal(model.labels_, high.labels_)
+        assert np.array_equal(model.core_sample_mask_,
+                              high.core_sample_mask_)
+        assert model.metrics_["band_pairs"] > 0
+        assert model.metrics_["rescored_tiles"] > 0
+    else:
+        assert adjusted_rand_score(model.labels_, high.labels_) >= 0.99
+        assert model.metrics_["band_pairs"] == 0
+        assert model.metrics_["rescored_tiles"] == 0
 
 
 def test_scipy_callable_metric_accepted(X):

@@ -203,9 +203,9 @@ def test_wrappers_use_plain_versions_on_cpu_without_launching():
     got = ck.count_pairs(pts, mi, rp, cols, eps2_f32(EPS), 128)
     want = counts_over_pairs(pts, mi, rp, cols, eps2_f32(EPS), 128)
     assert torch.equal(got, want)
-    assert ck.LAUNCHES == {"count_pairs": 0, "minlab_pairs": 0,
-                           "count_pairs_sketch": 0,
-                           "minlab_pairs_sketch": 0, "query_leaf": 0}
+    assert {"count_pairs", "minlab_pairs", "count_pairs_sketch",
+            "minlab_pairs_sketch", "query_leaf"} <= set(ck.LAUNCHES)
+    assert not any(ck.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("bad", ["dtype", "tile", "row_ptr"])

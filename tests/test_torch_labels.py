@@ -99,11 +99,35 @@ def test_fixed_size_rejects_bad_params():
         tlabels.dbscan_fixed_size(pts, -1.0, 5, mask, block=128)
     with pytest.raises(ValueError, match="min_samples"):
         tlabels.dbscan_fixed_size(pts, 0.5, 0, mask, block=128)
-    for mode in ("mixed", "default"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            tlabels.dbscan_fixed_size(
-                pts, 0.5, 5, mask, block=128, precision=mode
-            )
+    with pytest.raises(ValueError, match="precision"):
+        tlabels.dbscan_fixed_size(pts, 0.5, 5, mask, block=128,
+                                  precision="bf16")
+
+
+@pytest.mark.parametrize("mode", ["mixed", "default"])
+def test_fixed_size_bf16_modes_byte_equal(data, mode):
+    """Both bf16 modes against the JAX package's on the guard-banded data
+    (no pair within the bf16 band of eps, so "default" decides as the
+    exact modes do): labels, core mask, live pairs and passes equal;
+    the band stats are the counts pass's under "mixed", zeros under
+    "default"."""
+    X, mask = data
+    labels, core, stats = tlabels.dbscan_fixed_size(
+        torch.from_numpy(np.ascontiguousarray(X.T)), EPS, MS,
+        torch.from_numpy(mask), block=256, precision=mode,
+    )
+    jl, jc, js = jlabels.dbscan_fixed_size(
+        jnp.asarray(X.T), EPS, MS, jnp.asarray(mask), block=256,
+        backend="xla", layout="dn", precision=mode,
+    )
+    js = np.asarray(js)
+    assert np.array_equal(labels.numpy(), np.asarray(jl))
+    assert np.array_equal(core.numpy(), np.asarray(jc))
+    assert int(stats[0]) == int(js[0]) and int(stats[2]) == int(js[2])
+    if mode == "mixed":
+        assert int(stats[3]) > 0 and 0 < int(stats[4]) <= int(stats[0])
+    else:
+        assert int(stats[3]) == int(stats[4]) == 0
 
 
 def test_pair_budget_overflow_contract(data):

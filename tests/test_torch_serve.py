@@ -469,12 +469,25 @@ def test_engine_backend_must_match_the_index_device(fitted):
         QueryEngine(idx, backend="pallas")
 
 
-def test_mixed_precision_names_its_roadmap_item(fitted):
-    _ref, port, _X = fitted
-    with pytest.raises(NotImplementedError, match="A9"):
-        port.query_engine(leaves=2, block=32, precision="mixed")
-    engine = port.query_engine(leaves=2, block=32, precision="highest")
-    assert engine.serving_stats()["precision"] == "highest"
+def test_mixed_precision_engine_equals_the_oracle_after_the_verdict(fitted):
+    """A "mixed" engine (B5 with its bf16 chunk prefilter) answers as the
+    numpy oracle and the JAX "mixed" engine do (the engines apply the
+    within-eps verdict); an explicit precision is reported as asked."""
+    ref, port, X = fitted
+    rng = np.random.default_rng(12)
+    Q = np.concatenate([X[::3] + rng.normal(scale=0.1, size=X[::3].shape),
+                        rng.uniform(-4, 4, size=(60, X.shape[1]))])
+    engine = port.query_engine(leaves=2, block=32, precision="mixed")
+    assert engine.serving_stats()["precision"] == "mixed"
+    t = _assert_exact(engine, Q)
+    jeng = ref.query_engine(leaves=2, block=32, precision="mixed")
+    jt = jeng.submit(Q)
+    jeng.drain()
+    assert np.array_equal(t.labels, jt.labels)
+    assert np.array_equal(t.d2.view(np.int32), jt.d2.view(np.int32))
+    assert (t.labels >= 0).any() and (t.labels < 0).any()
+    exact = port.query_engine(leaves=2, block=32, precision="highest")
+    assert exact.serving_stats()["precision"] == "highest"
 
 
 def test_query_leaf_rejects_bad_inputs():

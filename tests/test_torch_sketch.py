@@ -215,5 +215,18 @@ def test_sketch_spec_travels_with_config_and_convert():
     model = dbscan_from_reference(params, X, np.zeros(50, np.int32),
                                   np.ones(50, bool), device="cpu")
     assert model.sketch == 16
-    with pytest.raises(NotImplementedError, match="A9"):
-        DBSCAN(eps=0.5, precision="mixed", sketch=16, device="cpu")
+    # "mixed" with a pinned sketch: the sketch gate's telemetry (the
+    # sketch wins), and the "high" fit's labels byte for byte.
+    from sklearn.datasets import make_blobs
+
+    X, _ = make_blobs(n_samples=400, n_features=32, centers=3,
+                      cluster_std=1.0, random_state=2)
+    mixed = DBSCAN(eps=5.5, min_samples=4, precision="mixed", sketch=16,
+                   device="cpu").fit(X)
+    high = DBSCAN(eps=5.5, min_samples=4, sketch=16, device="cpu").fit(X)
+    assert mixed.metrics_["sketch_k"] == high.metrics_["sketch_k"] == 16
+    assert np.array_equal(mixed.labels_, high.labels_)
+    assert np.array_equal(mixed.core_sample_mask_, high.core_sample_mask_)
+    assert mixed.labels_.max() >= 1
+    for key in ("band_pairs", "rescored_tiles"):
+        assert mixed.metrics_[key] == high.metrics_[key] > 0

@@ -277,8 +277,9 @@ def test_chip_smoke_sketch_phase_rehearses_on_the_cpu(monkeypatch):
 
     sizes = {"check_n": 600, "onoff_n": 600, "main_n": 700,
              "sub_tiles": 1, "reps": 1}
-    kernels = chip_smoke.sketch_phase(torch, torch.device("cpu"), median_ms,
-                                      lambda: None, sizes)
+    kernels, onoff = chip_smoke.sketch_phase(
+        torch, torch.device("cpu"), median_ms, lambda: None, sizes)
+    assert onoff["model"].metrics_["sketch_k"] > 0
     assert [k["name"] for k in kernels] == ["count_pairs_sketch",
                                             "minlab_pairs_sketch"]
     for rec in kernels:
