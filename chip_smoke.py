@@ -54,9 +54,14 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ``band_pairs`` (past 2^31), ``rescored_tiles``, live pairs, clusters
    and ARI >= 0.99; (5) one more fit under a global
    ``torch.set_float32_matmul_precision("high")``, byte-identical; (4)
-   B3 and B4 alone at the 1M inputs: equality with the plain versions
-   over the first 64 row tiles, CUDA-event times (median), the plain
-   versions' times on that sub-list, and the bound;
+   B3 and B4 alone at the 1M inputs: B4 at the labels of each round of
+   the fit's loop (replayed with ``ops/labels._pointer_jump``), each
+   launch's CUDA-event median, its evaluated share of (block, chunk)
+   pairs and its bound (the gate over the pairs a label-exact method
+   must rule out); B3 timed; over the first 64 row tiles both against
+   their plain versions, B4 bitwise at the round-1, converged and
+   descending labels with its evaluated count equal to
+   ``minlab_skip_walk``'s (also in (1), where the share is printed);
 8. the precision modes (the bf16 tensor-core kernels): (1) B1/B2 under
    ``"mixed"`` and ``"default"`` against their plain versions at
    d = 3, 16, 64, 96 (20,000 points, the adversarial geometry with
@@ -80,8 +85,9 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    through B3/B4 (``"mixed"`` byte-identical to ``"high"``,
    ``"default"`` ARI >= 0.99 at tile 1024), then those kernels at the
    fits' inputs against their plain versions over the first 64 row
-   tiles, as in (1), and timed.  The kernels line's ``max_abs_err`` of
-   each bf16 B1-B4 kernel is its largest difference in (4) or (6).
+   tiles, as in (1), and timed, B4 with its evaluated share.  The
+   kernels line's ``max_abs_err`` of each bf16 B1-B4 kernel is its
+   largest difference in (4) or (6).
 
 Phase 1 also times one ``nvcc -shared`` over all sources beside the
 parallel build.  The line before the last is the kernels' JSON record;
@@ -91,7 +97,9 @@ device the script exits non-zero and prints no result.
 ``python3 chip_smoke.py --profile`` instead builds the kernels and
 profiles a 1M x 16-D fit, one serving drain (``torch.profiler``, then
 ``cProfile`` for the drain's host side) and a 1M x 512 sketched fit;
-see :func:`profile_fit`.
+see :func:`profile_fit`.  ``python3 chip_smoke.py --b4`` builds the
+kernels and runs only the timings of phase 7 (4), without the plain
+versions' checks: the quick way to time B3 and B4 per round.
 """
 
 from __future__ import annotations
@@ -527,6 +535,33 @@ def noise_dominated(n, dim, n_centers=8, seed=0, sigma=0.5):
     return X.astype(np.float32), eps
 
 
+def b4_chunks(rp, tile, rows_per_block=256):
+    """Every (block, 32-column chunk) pair B4 could evaluate on a pair
+    list: its entries x blocks per row tile x chunks per column tile."""
+    return int(rp[-1]) * -(-tile // rows_per_block) * -(-tile // 32)
+
+
+def b4_floor_pairs(torch, labels, rp, cols, best, tile):
+    """The pairs a label-exact B4 must rule out on these inputs: per row
+    r with answer a_r (``best``), the source columns of its live column
+    tiles with a label below a_r, plus one (the witness) where a_r <
+    INT32_MAX.  Counted on the card from each column tile's sorted
+    labels with ``torch.searchsorted``; non-sources carry INT32_MAX and
+    never count."""
+    nt = labels.shape[0] // tile
+    srt = labels.view(nt, tile).sort(dim=1).values.contiguous()
+    per = (rp[1:] - rp[:-1]).long()
+    rows_t = torch.repeat_interleave(torch.arange(nt, device=labels.device),
+                                     per)
+    cols_t = cols[:int(rp[-1])].long()
+    a = best.view(nt, tile)
+    total = int((best != 2**31 - 1).sum())
+    for s in range(0, rows_t.numel(), 4096):
+        r, c = rows_t[s:s + 4096], cols_t[s:s + 4096]
+        total += int(torch.searchsorted(srt[c], a[r].contiguous()).sum())
+    return total
+
+
 # Sizes of phase 7; tests rehearse the phase at small ones on the CPU.
 SKETCH_SIZES = {"check_n": 20_000, "onoff_n": 100_000,
                 "main_n": 1_000_000, "sub_tiles": 64, "reps": 3}
@@ -541,8 +576,9 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     from pypardis_tpu_torch.dbscan import _stage
     from pypardis_tpu_torch.ops import cuda_kernels as ck
     from pypardis_tpu_torch.ops.distances import (
-        INT_INF, eps2_f32, row_offsets,
+        INT_INF, eps2_f32, minlab_skip_walk, row_offsets,
     )
+    from pypardis_tpu_torch.ops.labels import _pointer_jump
     from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
 
     names = ("count_pairs_sketch", "minlab_pairs_sketch")
@@ -578,31 +614,193 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
         return dict(a=a, b=(xs, lab, rp, cols, slab[0], k, e2, slab[1], tile),
                     total=total, core=core, mask=mask, tile=tile, k=k)
 
+    def hold_b4(b, what):
+        """B4 == its plain version, exactly, and its count of evaluated
+        (block, chunk) pairs == minlab_skip_walk's (the same verdicts in
+        these exact modes, so the same running minima)."""
+        ev = torch.zeros(1, dtype=torch.int64, device=dev)
+        km = ck.minlab_pairs_sketch(*b, evaluated=ev)
+        pm = ck.PLAIN["minlab_pairs_sketch"](*b)
+        wbest, wev = minlab_skip_walk(*b)
+        sync()
+        err = int((km.long() - pm.long()).abs().max())
+        bad = int((km != pm).sum()) + int((wbest != pm).sum())
+        total = b4_chunks(b[2], b[8])
+        share = int(ev[0]) / max(total, 1)
+        max_err["minlab_pairs_sketch"] = max(
+            max_err["minlab_pairs_sketch"], err)
+        log(f"    B4 at {what}: max|kernel-plain| {err}, mismatches {bad}; "
+            f"evaluated {int(ev[0])} of {total} (block, chunk) pairs "
+            f"({share:.6f}), minlab_skip_walk {wev}")
+        if bad:
+            fail(f"B4 disagrees with its plain version at {what}")
+        if int(ev[0]) != wev:
+            fail(f"B4's evaluated count differs from minlab_skip_walk's at "
+                 f"{what}")
+
     def hold(inp, what):
         """Kernel == plain version, exactly: counts, both stats, labels."""
         kc, kst = ck.count_pairs_sketch(*inp["a"])
         pc, pst = ck.PLAIN["count_pairs_sketch"](*inp["a"])
-        km = ck.minlab_pairs_sketch(*inp["b"])
-        pm = ck.PLAIN["minlab_pairs_sketch"](*inp["b"])
         sync()
-        errs = {
-            "count_pairs_sketch": max(
-                int((kc.long() - pc.long()).abs().max()),
-                int((kst - pst).abs().max())),
-            "minlab_pairs_sketch": int((km.long() - pm.long()).abs().max()),
-        }
-        bad = int((kc != pc).sum()) + int((kst != pst).sum()) + int(
-            (km != pm).sum())
-        for name in names:
-            max_err[name] = max(max_err[name], errs[name])
+        err = max(int((kc.long() - pc.long()).abs().max()),
+                  int((kst - pst).abs().max()))
+        bad = int((kc != pc).sum()) + int((kst != pst).sum())
+        max_err["count_pairs_sketch"] = max(max_err["count_pairs_sketch"],
+                                            err)
         log(f"  {what}: k={inp['k']} tile {inp['tile']}, {inp['total']} "
             f"live tile pairs; B3 stats kernel {kst.tolist()} plain "
-            f"{pst.tolist()}; max|kernel-plain| B3 "
-            f"{errs['count_pairs_sketch']}, B4 "
-            f"{errs['minlab_pairs_sketch']}; mismatches {bad}")
+            f"{pst.tolist()}; max|kernel-plain| B3 {err}; mismatches {bad}")
         if bad:
             fail(f"a sketch kernel disagrees with its plain version on {what}")
+        hold_b4(inp["b"], "round-1 labels")
         return kst
+
+    def at_main(X, main_launches, check):
+        """7.4: B3 and B4 alone at the fit's own inputs (staged as a
+        host-input fit stages them), B4 at each round's labels of the
+        fit's loop; with ``check``, both against their plain versions on
+        the first row tiles.  Returns the kernels' JSON records."""
+        n = len(X)
+        xs, mask, blk = staged(X, eps, block)
+        inp = sketch_inputs(xs, mask, eps, blk, 128, ms)
+        d, N = xs.shape
+        tile, k = inp["tile"], inp["k"]
+        nt = N // tile
+        rp, cols, core = inp["a"][2], inp["a"][3], inp["core"]
+        cols_t = cols[:int(rp[-1])].long()
+        nbytes = ((d + k + 1 + 2) * N * 4 + rp.numel() * 4
+                  + cols.numel() * 4)
+        t_bytes = (nbytes + N * 4) / PEAK_BYTES_PER_S
+        gate_ops = 3 * (k + 1) + 3
+        # The fit's rounds (ops/labels.dbscan_fixed_size): B4 at each
+        # round's labels, its evaluated share, and the pairs a
+        # label-exact method must rule out there; the last round (no
+        # change) is the border pass.
+        b = inp["b"]
+        total = b4_chunks(rp, tile)
+        idx = torch.arange(N, device=dev, dtype=torch.int32)
+        f = torch.where(core, idx, INT_INF)
+        rounds = []
+        while True:
+            args = b[:1] + (f.contiguous(),) + b[2:]
+            ev = torch.zeros(1, dtype=torch.int64, device=dev)
+            g = ck.minlab_pairs_sketch(*args, evaluated=ev)
+            sync()
+            r_ms = median_ms(lambda: ck.minlab_pairs_sketch(*args),
+                             sizes["reps"])
+            floor = b4_floor_pairs(torch, args[1], rp, cols, g, tile)
+            t_ops = floor * gate_ops / PEAK_FP32_FLOPS
+            rounds.append(dict(
+                labels=args[1], ms=r_ms, share=int(ev[0]) / max(total, 1),
+                floor=floor, t_ops=t_ops,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes"))
+            log(f"  B4 round {len(rounds)}: {r_ms:.3f} ms, evaluated "
+                f"{int(ev[0])} of {total} (block, chunk) pairs "
+                f"({rounds[-1]['share']:.6f}); label-exact floor {floor} "
+                f"pairs, bound {rounds[-1]['bound_ms']:.3f} ms by "
+                f"{rounds[-1]['bound_by']}")
+            f_new = _pointer_jump(torch.where(core, torch.minimum(f, g), f),
+                                  core)
+            if torch.equal(f_new, f):
+                break
+            f = f_new
+        b4_ms = [r["ms"] for r in rounds]
+        fit_b4 = (main_launches or {}).get("minlab_pairs_sketch")
+        log(f"  B4 over the {len(rounds)} rounds (the fit launched "
+            f"{fit_b4}): {sum(b4_ms):.3f} ms in all")
+        sub = min(sizes["sub_tiles"], nt)
+        rp_sub = torch.cat([rp[:sub + 1], rp[sub].repeat(nt - sub)])
+        if check:
+            # The 64-row-tile sub-list: the plain versions over the whole
+            # list would take minutes.
+            sub_inp = dict(inp, a=inp["a"][:2] + (rp_sub,) + inp["a"][3:],
+                           b=inp["b"][:2] + (rp_sub,) + inp["b"][3:])
+            hold(sub_inp, f"the {n} x 512 fit's inputs, first {sub} of "
+                 f"{nt} row tiles")
+            for what, lab in (
+                    ("converged labels", rounds[-1]["labels"]),
+                    ("labels descending in slot order",
+                     torch.where(core, N - 1 - idx, INT_INF))):
+                hold_b4(b[:1] + (lab.contiguous(), rp_sub) + b[3:],
+                        f"{what}, first {sub} row tiles")
+        # B3: every row of a live tile pair against its valid columns
+        # through the gate, 3 (k + 1) + 3 operations each (the slab
+        # distance over the k + 1 rows, the residual product and the two
+        # gate tests; the zero pad rows up to a multiple of 8 are the
+        # kernel's own choice), and every in-band pair through the exact
+        # d^2, 3d + 1 more.
+        a = inp["a"]
+        band_b3 = ck.count_pairs_sketch(*a)[1]
+        sync()
+        gated_b3 = int(mask.view(nt, tile).sum(1)[cols_t].sum()) * tile
+        sub_a = a[:2] + (rp_sub,) + a[3:]
+        kern_ms = median_ms(lambda: ck.count_pairs_sketch(*a), sizes["reps"])
+        plain_ms = median_ms(
+            lambda: ck.PLAIN["count_pairs_sketch"](*sub_a), 1)
+        ops = gated_b3 * gate_ops + int(band_b3[0]) * (3 * d + 1)
+        t_ops = ops / PEAK_FP32_FLOPS
+        t_b3 = (nbytes + N * 4 + cols.numel() * 4 + 8) / PEAK_BYTES_PER_S
+        bound_ms = max(t_ops, t_b3) * 1e3
+        log(f"  count_pairs_sketch: {kern_ms:.3f} ms (plain {plain_ms:.2f} "
+            f"ms on the first {sub} of {nt} row tiles), bound "
+            f"{bound_ms:.3f} ms by "
+            f"{'operations' if t_ops >= t_b3 else 'bytes'}; {gated_b3} "
+            f"gated pairs over {len(cols_t)} live tile pairs, "
+            f"{int(band_b3[0])} in band; "
+            f"{ops / (kern_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        kernels = [{
+            "name": "count_pairs_sketch", "route": "cuda",
+            "source": "pypardis_tpu_torch/csrc/sketch_kernels.cu",
+            "replaces": "pypardis_tpu/ops/pallas_kernels.py:341",
+            "launches": int((main_launches or {}).get(
+                "count_pairs_sketch", 1)),
+            "max_abs_err": max_err["count_pairs_sketch"],
+            "ms": kern_ms, "plain_ms": plain_ms,
+            "plain_scope": f"first {sub} of {nt} row tiles",
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_b3 else "bytes",
+            # No single PyTorch call computes a gated thresholded count
+            # or min-label over a tile-pair list.
+            "library_ms": None,
+        }]
+        # B4: the mean launch over the fit's rounds beside the mean of
+        # their bounds.  Each round's bound counts only the gate (no
+        # rescore) over the pairs a label-exact method must rule out, a
+        # floor; the pairs the unskipped kernel gated are printed beside.
+        sub_b = b[:1] + (rounds[0]["labels"], rp_sub) + b[3:]
+        plain_ms = median_ms(
+            lambda: ck.PLAIN["minlab_pairs_sketch"](*sub_b), 1)
+        gated_b4 = int(core.view(nt, tile).sum(1)[cols_t].sum()) * tile
+        bounds = [r["bound_ms"] for r in rounds]
+        log(f"  minlab_pairs_sketch: {np.mean(b4_ms):.3f} ms per launch "
+            f"(plain {plain_ms:.2f} ms on the first {sub} row tiles at the "
+            f"round-1 labels), bound {np.mean(bounds):.3f} ms; "
+            f"label-exact floor per round "
+            f"{[r['floor'] for r in rounds]} pairs against {gated_b4} "
+            f"gated pairs without the skip")
+        kernels.append({
+            "name": "minlab_pairs_sketch", "route": "cuda",
+            "source": "pypardis_tpu_torch/csrc/sketch_kernels.cu",
+            "replaces": "pypardis_tpu/ops/pallas_kernels.py:393",
+            "launches": int(fit_b4 or len(rounds)),
+            "max_abs_err": max_err["minlab_pairs_sketch"],
+            "ms": float(np.mean(b4_ms)), "plain_ms": plain_ms,
+            "plain_scope": f"first {sub} of {nt} row tiles, round-1 labels",
+            "bound_ms": float(np.mean(bounds)),
+            "bound_by": ("operations" if np.mean(
+                [r["t_ops"] for r in rounds]) >= t_bytes else "bytes"),
+            "library_ms": None,
+            "ms_per_round": b4_ms,
+            "bound_ms_per_round": bounds,
+            "evaluated_share_per_round": [r["share"] for r in rounds],
+        })
+        return kernels
+
+    if sizes.get("timing_only"):
+        X, _truth = make_embedding_data(sizes["main_n"], 512)
+        return at_main(X, None, False), None
 
     # 7.1: the kernels against their plain versions.
     n = sizes["check_n"]
@@ -699,84 +897,7 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     del Xd
 
     # 7.4: B3 and B4 alone at the 1M fit's own inputs.
-    xs, mask, blk = staged(X, eps, block)
-    del X
-    inp = sketch_inputs(xs, mask, eps, blk, 128, ms)
-    d, N = xs.shape
-    tile, k = inp["tile"], inp["k"]
-    nt = N // tile
-    rp = inp["a"][2]
-    cols = inp["a"][3]
-    # The work each kernel cannot skip on this data: every row of a live
-    # tile pair against its valid (B3) or source (B4) columns through the
-    # gate, 3 (k + 1) + 3 operations each (the slab distance over the
-    # k + 1 rows, the residual product and the two gate tests; the zero
-    # pad rows up to a multiple of 8 are the kernel's own choice), and
-    # every in-band pair through the exact d^2, 3d + 1 more.  B4's
-    # in-band pairs are B3's gate run over the source columns.
-    rows_t = torch.repeat_interleave(torch.arange(nt, device=dev),
-                                     (rp[1:] - rp[:-1]).long())
-    cols_t = cols[:int(rp[-1])].long()
-    band_b3 = ck.count_pairs_sketch(*inp["a"])[1]
-    a_src = (xs, inp["core"].to(torch.int32)) + inp["a"][2:]
-    band_b4 = ck.count_pairs_sketch(*a_src)[1]
-    sync()
-    per_tile = {
-        "count_pairs_sketch": inp["mask"].view(nt, tile).sum(1),
-        "minlab_pairs_sketch": inp["core"].view(nt, tile).sum(1),
-    }
-    in_band = {"count_pairs_sketch": int(band_b3[0]),
-               "minlab_pairs_sketch": int(band_b4[0])}
-    nbytes = ((d + k + 1 + 2) * N * 4 + rp.numel() * 4 + cols.numel() * 4)
-    # The 64-row-tile sub-list: the plain versions over the whole list
-    # would take minutes.
-    sub = min(sizes["sub_tiles"], nt)
-    rp_sub = torch.cat([rp[:sub + 1], rp[sub].repeat(nt - sub)])
-    sub_inp = dict(inp, a=inp["a"][:2] + (rp_sub,) + inp["a"][3:],
-                   b=inp["b"][:2] + (rp_sub,) + inp["b"][3:])
-    hold(sub_inp, f"the {n} x 512 fit's inputs, first {sub} of {nt} row "
-         f"tiles")
-    kernels = []
-    for name, args, replaces in (
-        ("count_pairs_sketch", inp["a"],
-         "pypardis_tpu/ops/pallas_kernels.py:341"),
-        ("minlab_pairs_sketch", inp["b"],
-         "pypardis_tpu/ops/pallas_kernels.py:393"),
-    ):
-        kern = getattr(ck, name)
-        plain = ck.PLAIN[name]
-        sub_args = sub_inp["a" if name == "count_pairs_sketch" else "b"]
-        kern_ms = median_ms(lambda: kern(*args), sizes["reps"])
-        sub_ms = median_ms(lambda: kern(*sub_args), sizes["reps"])
-        plain_ms = median_ms(lambda: plain(*sub_args), 2)
-        gated = int(per_tile[name][cols_t].sum()) * tile
-        ops = gated * (3 * (k + 1) + 3) + in_band[name] * (3 * d + 1)
-        out_bytes = N * 4 + (cols.numel() * 4 + 8
-                             if name == "count_pairs_sketch" else 0)
-        t_ops = ops / PEAK_FP32_FLOPS
-        t_bytes = (nbytes + out_bytes) / PEAK_BYTES_PER_S
-        bound_ms = max(t_ops, t_bytes) * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"  {name}: {kern_ms:.3f} ms (on the {sub}-tile sub-list "
-            f"{sub_ms:.3f} ms, plain {plain_ms:.2f} ms), bound "
-            f"{bound_ms:.3f} ms by {bound_by}; {gated} gated pairs over "
-            f"{len(cols_t)} live tile pairs, {in_band[name]} in band, "
-            f"{nbytes + out_bytes} bytes; "
-            f"{ops / (kern_ms * 1e-3) / 1e12:.2f} TFLOP/s")
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "pypardis_tpu_torch/csrc/sketch_kernels.cu",
-            "replaces": replaces,
-            "launches": int(main_launches[name]),
-            "max_abs_err": max_err[name],
-            "ms": kern_ms, "plain_ms": plain_ms,
-            "plain_scope": f"first {sub} of {nt} row tiles",
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            # No single PyTorch call computes a gated thresholded count
-            # or min-label over a tile-pair list.
-            "library_ms": None,
-        })
-    return kernels, onoff
+    return at_main(X, main_launches, True), onoff
 
 
 PRECISION_SIZES = {"check_n": 20_000, "sketch_n": 20_000, "sub_tiles": 64,
@@ -1325,7 +1446,22 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
                                                sub_args[10]), 1)
             gated = int(per_tile.view(nt, tile).sum(1)[cols_t].sum()) * tile
             inb = int(st[0])
-            if mode == "mixed":
+            extra = {}
+            if base == "minlab_pairs_sketch":
+                # B4 skips the chunks whose labels cannot lower a row: its
+                # bound is the gate alone over the pairs a label-exact
+                # method must rule out (b4_floor_pairs), a floor.
+                ev = torch.zeros(1, dtype=torch.int64, device=dev)
+                best = kern(*args, evaluated=ev)
+                floor = b4_floor_pairs(torch, lab, rp, cols, best, tile)
+                simt, t_tc = floor * (3 * (k + 1) + 3), 0.0
+                extra = {"evaluated_share":
+                         int(ev[0]) / max(b4_chunks(rp, tile), 1)}
+                log(f"  {name}: evaluated {int(ev[0])} of "
+                    f"{b4_chunks(rp, tile)} (block, chunk) pairs "
+                    f"({extra['evaluated_share']:.6f}); label-exact floor "
+                    f"{floor} pairs")
+            elif mode == "mixed":
                 simt, t_tc = gated * (3 * (k + 1) + 3) + inb * (3 * 512 + 1), 0.0
             else:
                 simt = gated * (3 * (k + 1) + 3) + inb * EPILOGUE_OPS[mode]
@@ -1337,7 +1473,7 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
                 f"(plain {plain_ms:.2f} ms on the first {sub} of {nt} row "
                 f"tiles), bound {bound_ms:.3f} ms; {gated} gated pairs, {inb} "
                 f"in band")
-            kernels.append({
+            kernels.append(dict(extra, **{
                 "name": name, "route": "cuda",
                 "source": "pypardis_tpu_torch/csrc/sketch_kernels.cu",
                 "replaces": replaces,
@@ -1348,7 +1484,7 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
                 "bound_ms": bound_ms,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": None,
-            })
+            }))
     log(f"  default kernels, points differing from their plain versions: "
         f"{diffs}")
     return kernels
@@ -1410,11 +1546,38 @@ def main() -> None:
         f"per source of {len(_build.SOURCES)}, in parallel); one nvcc "
         f"-shared over all sources for comparison: "
         f"{single_call_build_seconds(_build):.2f} s")
+    # ptxas names each kernel ("Compiling entry function '<mangled>'")
+    # before its registers, shared memory and spills.
+    kernel = "?"
     for line in _build.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {kernel}: {line.strip()}")
     if "--profile" in sys.argv[1:]:
         profile_fit(torch, DBSCAN, make_blob_data)
+        return
+
+    def median_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return float(np.median(times))
+
+    if "--b4" in sys.argv[1:]:
+        records, _ = sketch_phase(torch, dev, median_ms,
+                                  torch.cuda.synchronize,
+                                  dict(SKETCH_SIZES, timing_only=True))
+        log(f"card: {card}")
+        print(json.dumps({"kernels": records}))
         return
 
     max_err = {"count_pairs": 0, "minlab_pairs": 0}
@@ -1554,20 +1717,6 @@ def main() -> None:
     xs, mask, _owner = _pipeline_layout(pts, 2.4, n, block, sort=True)
     inp = kernel_inputs(xs, mask, 2.4, block, 10)
     compare(inp, "1M main-path inputs")
-
-    def median_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        return float(np.median(times))
 
     d, N = xs.shape
     tile = inp["tile"]

@@ -126,6 +126,8 @@ def _bind(lib) -> None:
     lib.pp_count_pairs_fast.restype = i32
     lib.pp_minlab_pairs_fast.argtypes = fast + [p]
     lib.pp_minlab_pairs_fast.restype = i32
+    # The sketch kernels end in (out, band_pairs, flags, stream) for B3
+    # and (out, tile_min, evaluated, stream) for B4.
     for name in ("pp_count_pairs_sketch", "pp_minlab_pairs_sketch"):
         fn = getattr(lib, name)
         fn.argtypes = [

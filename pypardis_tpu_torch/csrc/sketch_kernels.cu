@@ -43,11 +43,45 @@
 // Bound.  Per pair the gate spends 3 skp FP32 operations (3 (k + 1) of
 // them the function's own, the rest on zero pad rows) and the in-band
 // pairs 3d more; the bytes (coordinates, slab and CSR once) are far below,
-// so the kernels are bound by FP32 SIMT issue.  The 32 independent
-// accumulators give each thread the instruction-level parallelism to keep
-// its FP32 pipe busy at the low occupancy the shared-memory staging allows
-// (two blocks per SM); the full-d copy overlaps the gate, the slab copy
-// does not (later work: double buffering across chunks).
+// so the kernels are bound by FP32 SIMT throughput.  The arithmetic is unfused
+// (__fsub_rn/__fmul_rn/__fadd_rn), so each operation is one FP32
+// instruction: the SIMT ceiling is half the card's FFMA-counted 67 TFLOP/s.
+// The 32 independent accumulators give each thread the instruction-level
+// parallelism to keep its FP32 pipe busy at the low occupancy the
+// shared-memory staging allows (two blocks per SM); the full-d copy
+// overlaps the gate.
+//
+// B4's label-bound skip (MODE 1 only; B3 counts every pair and skips
+// nothing).  B4's output is a minimum, so most of its pairs cannot change
+// it:
+//   - row r keeps a running minimum m_r, starting at INT32_MAX (never at
+//     its own label: under "default" the bf16 self-pair verdict can miss);
+//   - L_C, the minimum column value over a chunk C's columns (INT32_MAX,
+//     the non-source value, when C holds no source), bounds every label C
+//     can give r from below, so if L_C >= m_r, skipping C leaves r's final
+//     minimum unchanged whatever the verdicts inside C;
+//   - so a block may skip C when L_C >= its bound, the max of m_r over its
+//     active rows.  The skip never looks at a distance: it is exact in
+//     every mode, and the output is bitwise the plain version's.
+// Both levels are decided uniformly over the block before any cp.async of
+// that work starts: a pair-list entry whose column tile's minimum label
+// (the wrapper's (nt,) tile_min, one torch reduction) is >= the bound is
+// passed over whole; a chunk is passed over when L_C, a __reduce_min_sync
+// of the 32 labels each warp reads from global memory itself (so no
+// barrier is spent on a skipped chunk), is >= the bound.  The bound is a
+// __reduce_max_sync per warp plus a max over the warps in shared memory,
+// refreshed at the barrier that opens each evaluated chunk.
+// Inside an evaluated chunk a warp whose own max of m_r is <= L_C skips
+// the gate and the rescore arithmetic; it still takes the block's
+// barriers and adds 0 to the block's band mask.  The CSR list ascends in
+// column tile, so a cluster's low labels come early and the bound falls
+// fast.  `evaluated` (optional) counts the (block, chunk) pairs evaluated.
+//
+// The chunks B4 evaluates are staged as B3's are, one at a time.  A
+// double-buffered version that copied the next chunk the bound did not
+// skip during the gate measured 11-12 % slower at 1M x 512 (unprofiled;
+// its search for that chunk ran before the gate, and the falling bound
+// often dropped the chunk it had copied).
 //
 // Precision modes.  "mixed" is this kernel as it stands (the TPU kernels
 // rescore at "high" there); the band comes from sketch_gate_band in that
@@ -67,7 +101,9 @@
 #include "bf16_tile.cuh"
 
 #define SK_INT_INF 2147483647
+#define SK_INT_MIN (-SK_INT_INF - 1)
 #define SK_THREADS 256
+#define SK_WARPS (SK_THREADS / 32)
 #define SK_CH 32    // columns per chunk: one bit each in a 32-bit mask
 #define SK_AX 8     // axes per register step
 #define SK_AXMAX 512  // full-d axes staged per slice
@@ -115,6 +151,31 @@ __device__ __forceinline__ void sk_stage_full(
   }
 }
 
+// B4's chunk search: from chunk (p, j0) on, the first chunk whose minimum
+// label L is below the bound, passing over whole entries whose column
+// tile's minimum is not.  Every warp reads the same labels, so the result
+// is uniform over the block without a barrier.  Returns false (p == p1)
+// when none is left.
+__device__ __forceinline__ bool sk_find(
+    const int* __restrict__ colval, const int* __restrict__ cols,
+    const int* __restrict__ tile_min, int tile, int p1, int bnd, int& p,
+    int& j0, int& L) {
+  const int lane = threadIdx.x & 31;
+  for (; p < p1; ++p, j0 = 0) {
+    const int ct = __ldg(cols + p);
+    if (__ldg(tile_min + ct) >= bnd) continue;
+    const long long c0 = (long long)ct * tile;
+    for (; j0 < tile; j0 += SK_CH) {
+      const int v = lane < min(SK_CH, tile - j0)
+                        ? __ldg(colval + c0 + j0 + lane)
+                        : SK_INT_INF;
+      L = __reduce_min_sync(0xffffffffu, v);
+      if (L < bnd) return true;
+    }
+  }
+  return false;
+}
+
 template <int MODE, int FAST>
 __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
     const float* __restrict__ pts, const float* __restrict__ slab,
@@ -122,13 +183,16 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
     const int* __restrict__ cols, const float* __restrict__ centers,
     float eps2, float band, long long n, int d, int dp, int ax, int skp,
     int k, int tile, int* __restrict__ out,
-    unsigned long long* __restrict__ band_pairs, int* __restrict__ flags) {
+    unsigned long long* __restrict__ band_pairs, int* __restrict__ flags,
+    const int* __restrict__ tile_min,
+    unsigned long long* __restrict__ evaluated) {
   extern __shared__ float4 smem4[];
   float* ys = reinterpret_cast<float*>(smem4);           // ax x SK_CH
   float* ss = ys + (size_t)ax * SK_CH;                    // skp x SK_CH
   int* sv = reinterpret_cast<int*>(ss + (size_t)skp * SK_CH);  // SK_CH
   __shared__ unsigned block_band;
-  __shared__ unsigned long long warp_sum[SK_THREADS / 32];
+  __shared__ unsigned long long warp_sum[SK_WARPS];
+  __shared__ int warp_max[SK_WARPS];
 
   const int r = blockIdx.x;
   const int local = blockIdx.y * blockDim.x + threadIdx.x;
@@ -154,15 +218,31 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
                           (threadIdx.x & ~31);  // the warp's first row
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int p0 = row_ptr[r];
   const int p1 = row_ptr[r + 1];
-  for (int p = p0; p < p1; ++p) {
-    const long long c0 = (long long)cols[p] * tile;
-    for (int j0 = 0; j0 < tile; j0 += SK_CH) {
+  // The walk over the pair list's chunks, (entry p, column j0).  B4 keeps
+  // its block's bound and passes over what it cannot use (see the header).
+  int p = row_ptr[r], j0 = 0;
+  int L = SK_INT_INF;   // B4: the chunk's least label
+  int wmax = 0;         // B4: the warp's largest running minimum
+  unsigned long long n_eval = 0;
+  while (true) {
+    if (MODE == 1) {
+      wmax = __reduce_max_sync(0xffffffffu, active ? res : SK_INT_MIN);
+      if (lane == 0) warp_max[threadIdx.x / 32] = wmax;
+    }
+    sk_wait<0>();     // no copy of the previous chunk is in flight
+    __syncthreads();  // and no thread reads its shared memory any more
+    if (MODE == 1) {
+      int bnd = warp_max[0];
+#pragma unroll
+      for (int i = 1; i < SK_WARPS; ++i) bnd = max(bnd, warp_max[i]);
+      if (!sk_find(colval, cols, tile_min, tile, p1, bnd, p, j0, L)) break;
+    } else if (p >= p1) {
+      break;
+    }
+    {
       const int w = min(SK_CH, tile - j0);
-      const long long col0 = c0 + j0;
-      sk_wait<0>();     // no copy of the previous chunk is in flight
-      __syncthreads();  // and no thread reads its shared memory any more
+      const long long col0 = (long long)cols[p] * tile + j0;
       if (threadIdx.x == 0) block_band = 0u;
       // Group 1: the column values and the slab columns.
       if (threadIdx.x < SK_CH) {
@@ -185,35 +265,41 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
       sk_wait<1>();
       __syncthreads();
 
-      // The gate: t2 over the slab rows for 32 columns.
+      // The gate: t2 over the slab rows for 32 columns (skipped by a B4
+      // warp none of whose rows the chunk can lower; one guard around the
+      // whole gate, which measured faster than the guard in its loop).
+      const bool live = MODE == 0 || wmax > L;
       float acc[SK_CH];
 #pragma unroll
       for (int c = 0; c < SK_CH; ++c) acc[c] = 0.f;
-      for (int a0 = 0; a0 < skp; a0 += SK_AX) {
-        float xr[SK_AX];
-#pragma unroll
-        for (int i = 0; i < SK_AX; ++i)
-          xr[i] = __ldg(slab + (a0 + i) * n + row);
-#pragma unroll
-        for (int i = 0; i < SK_AX; ++i) {
-          const float4* y4 =
-              reinterpret_cast<const float4*>(ss + (a0 + i) * SK_CH);
-#pragma unroll
-          for (int g = 0; g < SK_CH / 8; ++g)
-            sk_acc8(acc + 8 * g, xr[i], y4[2 * g], y4[2 * g + 1]);
-        }
-      }
       unsigned in_m = 0u, band_m = 0u;
+      if (live) {
+        for (int a0 = 0; a0 < skp; a0 += SK_AX) {
+          float xr[SK_AX];
 #pragma unroll
-      for (int c = 0; c < SK_CH; ++c) {
-        const int v = sv[c];
-        const bool valid = MODE == 0 ? v != 0 : v != SK_INT_INF;
-        const float up = __fadd_rn(acc[c], __fmul_rn(rx4, ss[k * SK_CH + c]));
-        if (active && valid) {
-          if (up <= lo)
-            in_m |= 1u << c;
-          else if (!(__fsub_rn(acc[c], band) > eps2))
-            band_m |= 1u << c;
+          for (int i = 0; i < SK_AX; ++i)
+            xr[i] = __ldg(slab + (a0 + i) * n + row);
+#pragma unroll
+          for (int i = 0; i < SK_AX; ++i) {
+            const float4* y4 =
+                reinterpret_cast<const float4*>(ss + (a0 + i) * SK_CH);
+#pragma unroll
+            for (int g = 0; g < SK_CH / 8; ++g)
+              sk_acc8(acc + 8 * g, xr[i], y4[2 * g], y4[2 * g + 1]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < SK_CH; ++c) {
+          const int v = sv[c];
+          const bool valid = MODE == 0 ? v != 0 : v != SK_INT_INF;
+          const float up =
+              __fadd_rn(acc[c], __fmul_rn(rx4, ss[k * SK_CH + c]));
+          if (active && valid) {
+            if (up <= lo)
+              in_m |= 1u << c;
+            else if (!(__fsub_rn(acc[c], band) > eps2))
+              band_m |= 1u << c;
+          }
         }
       }
       n_band += __popc(band_m);
@@ -346,11 +432,19 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
 #pragma unroll
         for (int c = 0; c < SK_CH; ++c)
           if ((in_m >> c) & 1u) res = min(res, sv[c]);
+        ++n_eval;
       }
+    }
+    j0 += SK_CH;
+    if (j0 >= tile) {
+      j0 = 0;
+      ++p;
     }
   }
   sk_wait<0>();  // a chunk without a rescore leaves its full-d copy in flight
   if (active) out[row] = res;
+  if (MODE == 1 && evaluated && threadIdx.x == 0 && n_eval)
+    atomicAdd(evaluated, n_eval);
   if (MODE == 0 && band_pairs) {
     unsigned long long v = n_band;
 #pragma unroll
@@ -371,6 +465,7 @@ static int launch_mode(const float* pts, const float* slab, const int* colval,
                        const float* centers, float eps2, float band,
                        long long n, int d, int skp, int k, int tile, int nt,
                        int* out, unsigned long long* band_pairs, int* flags,
+                       const int* tile_min, unsigned long long* evaluated,
                        void* stream) {
   // FAST stages whole k-steps of 16 axes.
   const int al = FAST ? 16 : SK_AX;
@@ -386,7 +481,7 @@ static int launch_mode(const float* pts, const float* slab, const int* colval,
   sketch_pair_kernel<MODE, FAST><<<grid, SK_THREADS, smem,
                                    reinterpret_cast<cudaStream_t>(stream)>>>(
       pts, slab, colval, row_ptr, cols, centers, eps2, band, n, d, dp, ax,
-      skp, k, tile, out, band_pairs, flags);
+      skp, k, tile, out, band_pairs, flags, tile_min, evaluated);
   return (int)cudaGetLastError();
 }
 
@@ -395,17 +490,20 @@ static int launch(const float* pts, const float* slab, const int* colval,
                   const int* row_ptr, const int* cols, const float* centers,
                   float eps2, float band, long long n, int d, int skp, int k,
                   int tile, int nt, int* out, unsigned long long* band_pairs,
-                  int* flags, void* stream) {
+                  int* flags, const int* tile_min,
+                  unsigned long long* evaluated, void* stream) {
   if (nt <= 0 || tile <= 0) return 0;
   if (skp % SK_AX != 0 || k < 0 || k >= skp)
     return (int)cudaErrorInvalidValue;
+  if (MODE == 1 && !tile_min) return (int)cudaErrorInvalidValue;
   if (centers)
     return launch_mode<MODE, 1>(pts, slab, colval, row_ptr, cols, centers,
                                 eps2, band, n, d, skp, k, tile, nt, out,
-                                band_pairs, flags, stream);
+                                band_pairs, flags, tile_min, evaluated,
+                                stream);
   return launch_mode<MODE, 0>(pts, slab, colval, row_ptr, cols, nullptr,
                               eps2, band, n, d, skp, k, tile, nt, out,
-                              band_pairs, flags, stream);
+                              band_pairs, flags, tile_min, evaluated, stream);
 }
 
 extern "C" {
@@ -425,23 +523,25 @@ int pp_count_pairs_sketch(const float* pts, const float* slab,
                           unsigned long long* band_pairs, int* flags,
                           void* stream) {
   return launch<0>(pts, slab, mask, row_ptr, cols, centers, eps2, band, n, d,
-                   skp, k, tile, nt, out, band_pairs, flags, stream);
+                   skp, k, tile, nt, out, band_pairs, flags, nullptr, nullptr,
+                   stream);
 }
 
 // B4: per-point minimum source label within eps through the sketch gate
 // (labels INT32_MAX for non-source points).  Same layout as B3 (centers
-// over the row mask); no stats (band_pairs and flags are ignored).
+// over the row mask), plus tile_min (nt,) int32, the minimum label of
+// each tile, and evaluated, NULL or one uint64 counter, zeroed by the
+// caller, to which the kernel adds the (block, chunk) pairs it evaluated.
 int pp_minlab_pairs_sketch(const float* pts, const float* slab,
                            const int* labels, const int* row_ptr,
                            const int* cols, const float* centers,
                            float eps2, float band, long long n, int d,
                            int skp, int k, int tile, int nt, int* out,
-                           unsigned long long* band_pairs, int* flags,
-                           void* stream) {
-  (void)band_pairs;
-  (void)flags;
+                           const int* tile_min,
+                           unsigned long long* evaluated, void* stream) {
   return launch<1>(pts, slab, labels, row_ptr, cols, centers, eps2, band, n,
-                   d, skp, k, tile, nt, out, nullptr, nullptr, stream);
+                   d, skp, k, tile, nt, out, nullptr, nullptr, tile_min,
+                   evaluated, stream);
 }
 
 }  // extern "C"

@@ -51,6 +51,7 @@ from .distances import (
     minlab_over_pairs_default,
     minlab_over_pairs_mixed,
     minlab_over_pairs_sketch,
+    minlab_skip_walk,
     row_offsets,
     tile_bounds,
     tile_norms,
@@ -434,10 +435,11 @@ def _check_slab(pts, slab, k):
 
 
 def _launch_sketch(name, pts, colval, row_ptr, cols, slab, k, eps2, band,
-                   tile, mode="high", centers=None):
+                   tile, mode="high", centers=None, evaluated=None):
     """Both sketch kernels: B3 returns ``(counts, stats)``, B4 the
     minimum labels.  ``mode="default"`` rescores in bf16 about the row
-    tiles' ``centers``; every other mode exactly."""
+    tiles' ``centers``; every other mode exactly.  ``evaluated`` (B4
+    only) as in :func:`minlab_pairs_sketch`."""
     _check(pts, colval, row_ptr, cols, tile)
     _check_slab(pts, slab, k)
     mode = norm_precision_mode(mode)
@@ -445,8 +447,15 @@ def _launch_sketch(name, pts, colval, row_ptr, cols, slab, k, eps2, band,
         raise ValueError("the row tiles' centers go with precision="
                          "'default' (its bf16 rescore), and only with it")
     _check_frames(pts, tile, centers, None)
+    if evaluated is not None and (
+            evaluated.dtype != torch.int64 or evaluated.shape != (1,)
+            or evaluated.device != pts.device):
+        raise ValueError("evaluated must be a (1,) int64 tensor beside pts")
     key = name if mode in ("high", "highest") else f"{name}_{mode}"
     if pts.device.type == "cpu":
+        if evaluated is not None:
+            evaluated += minlab_skip_walk(pts, colval, row_ptr, cols, slab,
+                                          k, eps2, band, tile, centers)[1]
         return PLAIN[name](pts, colval, row_ptr, cols, slab, k, eps2, band,
                            tile, centers)
     if pts.device.type != "cuda":
@@ -463,6 +472,12 @@ def _launch_sketch(name, pts, colval, row_ptr, cols, slab, k, eps2, band,
         n_band = torch.zeros(1, dtype=torch.int64, device=pts.device)
         flags = torch.zeros(max(cols.shape[0], 1), dtype=torch.int32,
                             device=pts.device)
+        extra = (n_band.data_ptr(), flags.data_ptr())
+    else:
+        # Each column tile's least label, for the kernel's entry skip.
+        tile_min = colval.view(n // tile, tile).amin(dim=1).contiguous()
+        extra = (tile_min.data_ptr(),
+                 None if evaluated is None else evaluated.data_ptr())
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"pp_{name}")(
@@ -470,8 +485,7 @@ def _launch_sketch(name, pts, colval, row_ptr, cols, slab, k, eps2, band,
             row_ptr.data_ptr(), cols.data_ptr(),
             None if centers is None else centers.data_ptr(), float(eps2),
             float(band), n, d, slab.shape[0], k, tile, n // tile,
-            out.data_ptr(), n_band.data_ptr() if counting else None,
-            flags.data_ptr() if counting else None, stream,
+            out.data_ptr(), *extra, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
@@ -497,11 +511,17 @@ def count_pairs_sketch(pts, mask, row_ptr, cols, slab, k, eps2, band, tile,
 
 
 def minlab_pairs_sketch(pts, labels, row_ptr, cols, slab, k, eps2, band,
-                        tile, mode="high", centers=None):
+                        tile, mode="high", centers=None, *, evaluated=None):
     """B4: :func:`minlab_pairs` through the slab gate (no stats);
-    ``mode``/``centers`` as in :func:`count_pairs_sketch`."""
+    ``mode``/``centers`` as in :func:`count_pairs_sketch`.  The kernel
+    skips, exactly, the column tiles and 32-column chunks whose labels
+    cannot lower any row of its block.  ``evaluated``: an optional (1,)
+    int64 tensor beside ``pts``, zeroed by the caller, to which the
+    kernel adds the (block, chunk) pairs it evaluated (on the CPU, the
+    count of :func:`~.distances.minlab_skip_walk`)."""
     return _launch_sketch("minlab_pairs_sketch", pts, labels, row_ptr,
-                          cols, slab, k, eps2, band, tile, mode, centers)
+                          cols, slab, k, eps2, band, tile, mode, centers,
+                          evaluated)
 
 
 def _grid(points_dn, block, mode):

@@ -408,16 +408,19 @@ def minlab_over_pairs_default(pts, labels, row_ptr, cols, eps2, tile,
                             "default", centers)[0]
 
 
-def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
-                       tile, combine, centers=None):
-    """The sketch kernels' arithmetic over the pair list.  Per pair:
-    ``t2`` the axis-ordered (skp)-row slab distance, ``up = t2 + (4 rx)
-    ry``; sure-out ``t2 - band > eps2``, sure-in ``up <= eps2 - band``,
-    every other pair the exact ``_pair_d2`` against eps2 — or, with the
-    row tiles' ``centers`` (``precision="default"``), the bf16 pass's
-    ``d2f`` of :func:`_fast_d2`.  Stats count the in-band pairs whose
-    column is valid (rows unmasked) and the pair-list entries holding
-    one."""
+def _sketch_verdicts(pts, slab, k, colval, row_ptr, cols, eps2, band,
+                     tile, combine, centers=None):
+    """The sketch kernels' per-pair verdicts over the pair list, a batch
+    of entries at a time.  Per pair: ``t2`` the axis-ordered (skp)-row
+    slab distance, ``up = t2 + (4 rx) ry``; sure-out ``t2 - band >
+    eps2``, sure-in ``up <= eps2 - band``, every other pair the exact
+    ``_pair_d2`` against eps2 — or, with the row tiles' ``centers``
+    (``precision="default"``), the bf16 pass's ``d2f`` of
+    :func:`_fast_d2`.  Yields ``(s, r, v, adj, amb, need)`` per batch:
+    its first entry ``s``, row tiles ``r`` (P,), column values ``v`` (P,
+    1, tile), the pairs within eps whose column is valid ``adj`` (P,
+    tile, tile), the in-band ones ``amb`` and the entries holding one
+    ``need`` (P,)."""
     d, n = pts.shape
     skp = slab.shape[0]
     nt = n // tile
@@ -425,13 +428,7 @@ def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
     tiles = pts.reshape(d, nt, tile)
     stiles = slab.reshape(skp, nt, tile)
     vals = colval.reshape(nt, tile)
-    out = torch.full(
-        (nt, tile), 0 if combine == "sum" else INT_INF, dtype=torch.int32,
-        device=pts.device,
-    )
     lo = float(np.float32(eps2) - np.float32(band))
-    n_band = torch.zeros((), dtype=torch.int64, device=pts.device)
-    n_resc = torch.zeros((), dtype=torch.int64, device=pts.device)
     elems = _CHUNK_ELEMS if pts.is_cuda else _CHUNK_ELEMS // 4
     chunk = max(1, elems // (tile * tile))
     for s in range(0, int(rows.numel()), chunk):
@@ -443,9 +440,7 @@ def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
         v = vals[c][:, None, :]
         valid = (v != 0) if combine == "sum" else (v != INT_INF)
         amb = ~(sure_in | ((t2 - band) > eps2)) & valid
-        n_band += amb.sum()
         need = amb.flatten(1).any(dim=1)
-        n_resc += need.sum()
         adj = sure_in
         if bool(need.any()):
             # The rescore only where a tile holds an in-band pair: the
@@ -456,8 +451,28 @@ def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
                 d2 = _fast_d2(tiles[:, r[need]], tiles[:, c[need]],
                               centers[r[need]])[0]
             adj[need] = torch.where(amb[need], d2 <= eps2, sure_in[need])
+        yield s, r, v, adj & valid, amb, need
+
+
+def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
+                       tile, combine, centers=None):
+    """The sketch kernels' arithmetic (:func:`_sketch_verdicts`) reduced
+    per row.  Stats count the in-band pairs whose column is valid (rows
+    unmasked) and the pair-list entries holding one."""
+    nt = pts.shape[1] // tile
+    out = torch.full(
+        (nt, tile), 0 if combine == "sum" else INT_INF, dtype=torch.int32,
+        device=pts.device,
+    )
+    n_band = torch.zeros((), dtype=torch.int64, device=pts.device)
+    n_resc = torch.zeros((), dtype=torch.int64, device=pts.device)
+    for _s, r, v, adj, amb, need in _sketch_verdicts(
+            pts, slab, k, colval, row_ptr, cols, eps2, band, tile, combine,
+            centers):
+        n_band += amb.sum()
+        n_resc += need.sum()
         if combine == "sum":
-            part = (adj & valid).sum(dim=-1, dtype=torch.int32)
+            part = adj.sum(dim=-1, dtype=torch.int32)
             out.index_add_(0, r, part)
         else:
             cand = torch.where(adj, v, INT_INF).amin(dim=-1)
@@ -487,3 +502,78 @@ def minlab_over_pairs_sketch(pts, labels, row_ptr, cols, slab, k, eps2,
     :func:`minlab_over_pairs` through the slab gate (no stats)."""
     return _sketch_over_pairs(pts, slab, k, labels, row_ptr, cols, eps2,
                               band, tile, "min", centers)[0]
+
+
+# Columns per chunk of B4's block walk (one bit each in the kernel's mask).
+SKIP_CHUNK = 32
+
+
+def minlab_skip_walk(pts, labels, row_ptr, cols, slab, k, eps2, band, tile,
+                     centers=None, rows_per_block=256):
+    """Plain emulation of B4's label-bound walk (``csrc/
+    sketch_kernels.cu``): the result of :func:`minlab_over_pairs_sketch`
+    and the number of (block, 32-column chunk) pairs the kernel
+    evaluates.  A block holds ``rows_per_block`` rows of a row tile and
+    walks its entries in CSR order, 32 columns at a time, keeping each
+    row's running minimum ``m_r`` (from INT32_MAX); it evaluates a
+    chunk only when the chunk's minimum label is below the max of
+    ``m_r`` over its rows, and then lowers each ``m_r`` by the chunk's
+    labels within eps (:func:`_sketch_verdicts`' own verdicts).  The
+    kernel also passes over whole entries whose tile's minimum label is
+    not below that bound; every chunk of such an entry fails the chunk
+    test, so the count is the same.  Returns ``(best, evaluated)``,
+    ``best`` (N,) int32 and ``evaluated`` a Python int.  The fit never
+    calls this: the card checks, the tests and, on the CPU, the
+    wrapper's ``evaluated=`` do."""
+    d, n = pts.shape
+    nt = n // tile
+    dev = pts.device
+    best = torch.full((nt, tile), INT_INF, dtype=torch.int32, device=dev)
+    per_tile = (row_ptr[1:] - row_ptr[:-1]).long()
+    live = torch.nonzero(per_tile).reshape(-1)
+    if live.numel() == 0:
+        return best.reshape(-1), 0
+    nl = int(live.numel())
+    slot = torch.full((nt,), -1, dtype=torch.int64, device=dev)
+    slot[live] = torch.arange(nl, device=dev)
+    rows, _c = _entries(row_ptr, cols, nt, dev)
+    pos = (torch.arange(rows.numel(), device=dev)
+           - row_ptr[:-1].long()[rows])
+    max_e = int(per_tile.max())
+    nch = -(-tile // SKIP_CHUNK)
+    wpad = nch * SKIP_CHUNK - tile
+    nb = -(-tile // rows_per_block)
+    rpad = nb * rows_per_block
+    # Per (live row tile, entry, chunk): each row's least label within
+    # eps in the chunk, and the chunk's least label.
+    cand = torch.full((nl, max_e, nch, rpad), INT_INF, dtype=torch.int32,
+                      device=dev)
+    lmin = torch.full((nl, max_e, nch), INT_INF, dtype=torch.int32,
+                      device=dev)
+    for s, r, v, adj, _amb, _need in _sketch_verdicts(
+            pts, slab, k, labels, row_ptr, cols, eps2, band, tile, "min",
+            centers):
+        p = r.numel()
+        cv = torch.where(adj, v, INT_INF)
+        vv = v[:, 0, :]
+        if wpad:
+            cv = torch.nn.functional.pad(cv, (0, wpad), value=INT_INF)
+            vv = torch.nn.functional.pad(vv, (0, wpad), value=INT_INF)
+        cm = cv.reshape(p, tile, nch, SKIP_CHUNK).amin(dim=-1)
+        sl, ps = slot[r], pos[s:s + p]
+        cand[sl, ps, :, :tile] = cm.transpose(1, 2)
+        lmin[sl, ps] = vv.reshape(p, nch, SKIP_CHUNK).amin(dim=-1)
+    cand = cand.reshape(nl, max_e * nch, nb, rows_per_block)
+    lmin = lmin.reshape(nl, max_e * nch)
+    active = (torch.arange(rpad, device=dev) < tile).reshape(
+        nb, rows_per_block)
+    m = torch.full((nl, nb, rows_per_block), INT_INF, dtype=torch.int32,
+                   device=dev)
+    evaluated = torch.zeros((), dtype=torch.int64, device=dev)
+    for t in range(max_e * nch):
+        bound = torch.where(active, m, -INT_INF - 1).amax(dim=-1)
+        ev = lmin[:, t, None] < bound
+        evaluated += ev.sum()
+        m = torch.where(ev[..., None], torch.minimum(m, cand[:, t]), m)
+    best[live] = m.reshape(nl, rpad)[:, :tile]
+    return best.reshape(-1), int(evaluated)

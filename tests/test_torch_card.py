@@ -17,10 +17,21 @@ from pypardis_tpu_torch import DBSCAN
 from pypardis_tpu_torch.dbscan import _stage
 from pypardis_tpu_torch.ops import cuda_kernels as ck
 from pypardis_tpu_torch.ops.distances import (
-    INT_INF, counts_over_pairs, eps2_f32, minlab_over_pairs, row_offsets,
+    INT_INF, counts_over_pairs, eps2_f32, minlab_over_pairs, minlab_skip_walk,
+    row_offsets,
 )
 from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
 from pypardis_tpu_torch.ops.query import PAD_COORD, query_min_core_plain
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The port's tests are large elementwise torch ops; under the
+    suite's parallel workers all-core thread pools only contend."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(min(prev, 2))
+    yield
+    torch.set_num_threads(prev)
 
 
 def _need_card():
@@ -254,6 +265,40 @@ def test_sketch_kernels_equal_plain_versions_on_card(d, k):
         "count_pairs_sketch"] + 1
     assert ck.LAUNCHES["minlab_pairs_sketch"] == before[
         "minlab_pairs_sketch"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(256, 64), (512, 128)])
+@pytest.mark.parametrize("state", ["round1", "descending", "permuted",
+                                   "no_source"])
+def test_b4_skip_equals_plain_and_counts_as_the_walk_on_card(d, k, state):
+    """B4's label-bound skip: the labels bitwise the plain version's at
+    any label state, and the (block, chunk) pairs it evaluates equal to
+    minlab_skip_walk's (the same verdicts, so the same running
+    minima)."""
+    _need_card()
+    xs, mask, slab, band, rp, cols, tile = _sketch_inputs(d, k, d + k + 1)
+    e2 = eps2_f32(2.0)
+    n = xs.shape[1]
+    idx = torch.arange(n, device="cuda", dtype=torch.int32)
+    lab = {
+        "round1": idx,
+        "descending": n - 1 - idx,
+        "permuted": torch.randperm(
+            n, generator=torch.Generator().manual_seed(3)).to(
+                "cuda", torch.int32),
+        "no_source": torch.full_like(idx, INT_INF),
+    }[state]
+    lab = torch.where(mask, lab, INT_INF).contiguous()
+    b = (xs, lab, rp, cols, slab, k, e2, band, tile)
+    ev = torch.zeros(1, dtype=torch.int64, device="cuda")
+    best = ck.minlab_pairs_sketch(*b, evaluated=ev)
+    want, walked = minlab_skip_walk(*b)
+    assert torch.equal(best, ck.PLAIN["minlab_pairs_sketch"](*b))
+    assert torch.equal(best, want)
+    assert int(ev[0]) == walked
+    assert walked <= int(rp[-1]) * -(-tile // 256) * -(-tile // 32)
+    assert (walked == 0) == (state == "no_source")
 
 
 @pytest.mark.cuda

@@ -18,6 +18,17 @@ from pypardis_tpu.parallel import default_mesh
 from pypardis_tpu_torch import DBSCAN, BoundingBox, DBSCANConfig
 from pypardis_tpu_torch.convert import dbscan_from_reference
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The port's tests are large elementwise torch ops; under the
+    suite's parallel workers all-core thread pools only contend."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(min(prev, 2))
+    yield
+    torch.set_num_threads(prev)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

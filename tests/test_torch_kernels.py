@@ -34,6 +34,17 @@ from pypardis_tpu_torch.ops.distances import (
     row_offsets,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The port's tests are large elementwise torch ops; under the
+    suite's parallel workers all-core thread pools only contend."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(min(prev, 2))
+    yield
+    torch.set_num_threads(prev)
+
+
 INT_INF = np.iinfo(np.int32).max
 EPS = 2.0
 BLOCK = 256

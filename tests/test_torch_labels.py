@@ -13,6 +13,17 @@ from pypardis_tpu.ops import labels as jlabels
 from pypardis_tpu_torch.ops import labels as tlabels
 from test_torch_kernels import EPS, guard_banded_blobs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The port's tests are large elementwise torch ops; under the
+    suite's parallel workers all-core thread pools only contend."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(min(prev, 2))
+    yield
+    torch.set_num_threads(prev)
+
+
 MS = 8
 
 

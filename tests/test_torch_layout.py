@@ -13,6 +13,16 @@ from pypardis_tpu.ops import pipeline as jpipe
 from pypardis_tpu_torch.ops import pipeline as tpipe
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The port's tests are large elementwise torch ops; under the
+    suite's parallel workers all-core thread pools only contend."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(min(prev, 2))
+    yield
+    torch.set_num_threads(prev)
+
+
 def _centred_t(X, cap):
     """The host staging copy both packages start from: (d, cap) float32,
     centred on a float64 mean, zero-padded."""

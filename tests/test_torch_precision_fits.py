@@ -21,6 +21,16 @@ from pypardis_tpu_torch import DBSCAN
 from test_torch_precision import adversarial
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The port's tests are large elementwise torch ops; under the
+    suite's parallel workers all-core thread pools only contend."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(min(prev, 2))
+    yield
+    torch.set_num_threads(prev)
+
+
 def jax_fit(X, **kw):
     return JaxDBSCAN(kernel_backend="xla", mesh=default_mesh(1), **kw).fit(X)
 

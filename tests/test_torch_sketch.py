@@ -29,6 +29,17 @@ from pypardis_tpu_torch.ops.pipeline import (
     unpack_pipeline_result,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The port's tests are large elementwise torch ops; under the
+    suite's parallel workers all-core thread pools only contend."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(min(prev, 2))
+    yield
+    torch.set_num_threads(prev)
+
+
 INT_INF = np.iinfo(np.int32).max
 BLOCK = 128
 

@@ -262,9 +262,9 @@ def test_chip_smoke_sketch_phase_rehearses_on_the_cpu(monkeypatch):
 
     for name in ("count_pairs", "minlab_pairs", "count_pairs_sketch",
                  "minlab_pairs_sketch"):
-        def counted(*a, _f=getattr(ck, name), _n=name):
+        def counted(*a, _f=getattr(ck, name), _n=name, **kw):
             ck.LAUNCHES[_n] += 1
-            return _f(*a)
+            return _f(*a, **kw)
         monkeypatch.setattr(ck, name, counted)
 
     def median_ms(fn, reps):
