@@ -7,7 +7,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 1. the card's name and power limit (``nvidia-smi``), then the build of
    the CUDA kernels from ``pypardis_tpu_torch/csrc`` (``nvcc``, into
    ``build/pypardis_tpu_torch/``), with its seconds and the compiler's
-   register report;
+   register report (every kernel instance, B3's certified rescore
+   ``sketch_pair_kernel<0, 2>`` among them);
 2. each kernel (B1 ``count_pairs``, B2 ``minlab_pairs``) against its
    plain PyTorch version on the card, at d=16 and d=64 on guard-banded
    and on natural blobs, and at d=3 and d=96 on natural blobs — the two
@@ -44,8 +45,14 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ``make_embedding_data(n, 512)`` with eps 2.0, min_samples 10, block
    2048: (1) both kernels against their plain versions, exactly (counts,
    ``band_pairs``, ``rescored_tiles``, min labels), at 20,000 points for
-   d=256 and d=512, on the noise-dominated geometry and with a pinned k
-   whose k+1 is not a multiple of 8; (2) at 100,000 x 512 the sketched
+   d=256 and d=512, on the noise-dominated geometry, with a pinned k
+   whose k+1 is not a multiple of 8, and (B3 under ``"high"`` and
+   ``"mixed"``) on the adversarial geometry at d=512; B3's
+   ``rescored_pairs`` (the pairs its certified rescore decided exactly)
+   off ``certified_rescore_walk``'s by no more than its fragile pairs
+   nor than 0.1 % (:func:`rescored_tolerance`), its share of
+   ``band_pairs`` printed; before them, the probe of the tensor cores'
+   FP32 accumulation (:func:`mma_probe`) against the band's term (3); (2) at 100,000 x 512 the sketched
    and the unsketched fit byte-identical, with their live pairs, walls
    and launches (B3 once and B4 per round and never B1/B2, and the
    reverse); (3) the slice's path at 1,000,000 x 512, one fit from host
@@ -58,8 +65,12 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    the fit's loop (replayed with ``ops/labels._pointer_jump``), each
    launch's CUDA-event median, its evaluated share of (block, chunk)
    pairs and its bound (the gate over the pairs a label-exact method
-   must rule out); B3 timed; over the first 64 row tiles both against
-   their plain versions, B4 bitwise at the round-1, converged and
+   must rule out); B3 timed with its ``rescored_pairs``, their share of
+   ``band_pairs``, two bounds (:func:`b3_bounds`: the exact rescore's
+   and the certified rescore's work) and the function's floor
+   (:func:`b3_floor`); over the first 64 row tiles both
+   against their plain versions (B3's ``rescored_pairs`` against the
+   emulation's), B4 bitwise at the round-1, converged and
    descending labels with its evaluated count equal to
    ``minlab_skip_walk``'s (also in (1), where the share is printed);
 8. the precision modes (the bf16 tensor-core kernels): (1) B1/B2 under
@@ -99,7 +110,8 @@ profiles a 1M x 16-D fit, one serving drain (``torch.profiler``, then
 ``cProfile`` for the drain's host side) and a 1M x 512 sketched fit;
 see :func:`profile_fit`.  ``python3 chip_smoke.py --b4`` builds the
 kernels and runs only the timings of phase 7 (4), without the plain
-versions' checks: the quick way to time B3 and B4 per round.
+versions' checks: the quick way to time B3 (with its rescored pairs
+and both bounds) and B4 per round.
 """
 
 from __future__ import annotations
@@ -562,6 +574,123 @@ def b4_floor_pairs(torch, labels, rp, cols, best, tile):
     return total
 
 
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
+PEAK_BF16_FLOPS = 989e12
+
+
+def b3_bounds(gated, band_pairs, rescored, k, d):
+    """B3's operation bounds in seconds: ``(old, new)``.  ``old``, the
+    exact rescore's work: the gate's 3 (k + 1) + 3 FP32 operations per
+    gated pair plus 3d + 1 per in-band pair.  ``new``, the certified
+    rescore's: the same gate, 2d tensor-core operations per in-band pair
+    at the bf16 peak, and 3d + 1 FP32 ones per rescored pair."""
+    gate = gated * (3 * (k + 1) + 3)
+    old = (gate + band_pairs * (3 * d + 1)) / PEAK_FP32_FLOPS
+    new = ((gate + rescored * (3 * d + 1)) / PEAK_FP32_FLOPS
+           + band_pairs * 2 * d / PEAK_BF16_FLOPS)
+    return old, new
+
+
+def b3_floor(gated, rescored, k, d):
+    """A floor in seconds for B3's function, below any design of it:
+    the slab distance t2 and the full-d cross term of every gated pair
+    on the tensor cores, 2 (k + 1) + 2 d operations at the bf16 peak,
+    and the exact d^2 of the pairs this run rescored, 3 d + 1 FP32
+    operations each."""
+    return (gated * (2 * (k + 1) + 2 * d) / PEAK_BF16_FLOPS
+            + rescored * (3 * d + 1) / PEAK_FP32_FLOPS)
+
+
+def mma_probe_cases(K=512, batch=32, seed=0):
+    """Inputs for the probe of the tensor cores' FP32 accumulation
+    (``ops/cuda_kernels.mma_dot_probe``), each ``(name, a, b)`` with
+    ``a`` (batch, 16, K) and ``b`` (batch, 8, K) float32 holding bf16
+    values: normal values; pairs that cancel exactly (column j the
+    row's values with alternating signs over repeated axis pairs);
+    magnitudes spread over 2^-30..2^30; one product of 1 before or after
+    K - 1 products near 2^-26 of one sign (each below the partial sum's
+    last bit); and +2^10, small products, then -2^10 (a late
+    cancellation that leaves only what the large partial sums kept)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def bf(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            torch.bfloat16).float().numpy()
+
+    cases = []
+    cases.append(("normal", bf(rng.normal(size=(batch, 16, K))),
+                  bf(rng.normal(size=(batch, 8, K)))))
+    half = bf(rng.normal(size=(batch, 16, K // 2)))
+    a = np.repeat(half, 2, axis=2)
+    sign = np.tile([1.0, -1.0], K // 2).astype(np.float32)
+    b = bf(rng.normal(size=(batch, 8, K)))
+    b[:, :8] = a[:, :8] * sign
+    cases.append(("cancelling", a, b))
+    cases.append(("magnitudes",
+                  bf(rng.normal(size=(batch, 16, K))
+                     * 2.0 ** rng.integers(-30, 31, size=(batch, 16, K))),
+                  bf(rng.normal(size=(batch, 8, K))
+                     * 2.0 ** rng.integers(-30, 31, size=(batch, 8, K)))))
+    small = bf(2.0**-26 * (1.0 + rng.random(size=(batch, 16, K))))
+    ones = np.ones((batch, 8, K), np.float32)
+    first = small.copy()
+    first[:, :, 0] = 1.0
+    last = small.copy()
+    last[:, :, -1] = 1.0
+    cases += [("one large first", first, ones), ("one large last", last,
+                                                   ones)]
+    late = bf(2.0**-14 * rng.random(size=(batch, 16, K)))
+    late[:, :, 0] = 2.0**10
+    late[:, :, -1] = -(2.0**10)
+    cases.append(("late cancellation", late, ones))
+    return cases
+
+
+def mma_probe(torch, dev, ck):
+    """The probe of the certified band's term (3): over
+    :func:`mma_probe_cases`, the tensor cores' chained FP32 sum against
+    the float64 sum of the same bf16 products.  Returns the largest
+    ``|dot - P'| / (2^-21 K sum |p|)`` (the header's bound is 1) and the
+    largest ``|dot - P'| / (2^-24 sum |p|)``; fails past the bound."""
+    worst = worst_u = 0.0
+    for name, a, b in mma_probe_cases():
+        K = a.shape[2]
+        got = ck.mma_dot_probe(
+            torch.from_numpy(a).to(dev).to(torch.bfloat16),
+            torch.from_numpy(b).to(dev).to(torch.bfloat16)).cpu().double()
+        a64, b64 = torch.from_numpy(a).double(), torch.from_numpy(b).double()
+        exact = torch.bmm(a64, b64.transpose(1, 2))
+        mag = torch.bmm(a64.abs(), b64.abs().transpose(1, 2))
+        err = (got - exact).abs()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (err[mag == 0] > 0).any()):
+            fail(f"the accumulation probe is not finite or exact on "
+                 f"{name}")
+        pos = mag > 0
+        r = float((err[pos] / (2.0**-21 * K * mag[pos])).max())
+        ru = float((err[pos] / (2.0**-24 * mag[pos])).max())
+        log(f"  mma.sync FP32 accumulation probe, {name} (K={K}): max "
+            f"|dot - P'| = {ru:.6f} x 2^-24 sum|p|, {r:.6f} of the "
+            f"band's term (3)")
+        worst, worst_u = max(worst, r), max(worst_u, ru)
+        if r > 1.0:
+            fail(f"the tensor cores' accumulation breaks the band's term "
+                 f"(3) on {name}: {r}")
+    return worst, worst_u
+
+
+def rescored_tolerance(n):
+    """How far B3's ``rescored_pairs`` may lie from the emulation's
+    ``n``: 0.1 % of it, at least 16.  The two differ only where another
+    summation order moves ``d2f +- band_p`` across eps2; on the card
+    that was at most 0.023 % at 20,000 x 512 and 0.012 % on the 1M
+    sub-list (H100), while a band 1 % wider than the emulation's would
+    move the count by about 1 %."""
+    return max(16, n // 1000)
+
+
 # Sizes of phase 7; tests rehearse the phase at small ones on the CPU.
 SKETCH_SIZES = {"check_n": 20_000, "onoff_n": 100_000,
                 "main_n": 1_000_000, "sub_tiles": 64, "reps": 3}
@@ -576,7 +705,8 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     from pypardis_tpu_torch.dbscan import _stage
     from pypardis_tpu_torch.ops import cuda_kernels as ck
     from pypardis_tpu_torch.ops.distances import (
-        INT_INF, eps2_f32, minlab_skip_walk, row_offsets,
+        INT_INF, certified_rescore_walk, eps2_f32, minlab_skip_walk,
+        row_offsets,
     )
     from pypardis_tpu_torch.ops.labels import _pointer_jump
     from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
@@ -590,29 +720,33 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
         xs, mask, _owner = _pipeline_layout(pts, eps, n, block, sort=True)
         return xs, mask, block
 
-    def sketch_inputs(xs, mask, eps, block, k, min_samples):
-        """B3's inputs and the first B4 inputs a sketched fit builds."""
-        slab = ck.sketch_stage(xs, mask, k)
+    def sketch_inputs(xs, mask, eps, block, k, min_samples, mode="high"):
+        """B3's inputs and the first B4 inputs a sketched fit of
+        ``mode`` builds, with the row tiles' centres its B3 recentres
+        on."""
+        slab = ck.sketch_stage(xs, mask, k, mode)
         (rows, cols), (total, budget) = ck.kernel_pair_list(
-            xs, eps, mask, block, "high", sketch=k, slab=slab)
+            xs, eps, mask, block, mode, sketch=k, slab=slab)
         if total > budget:
             (rows, cols), (total, budget) = ck.kernel_pair_list(
-                xs, eps, mask, block, "high", budget=total, sketch=k,
+                xs, eps, mask, block, mode, budget=total, sketch=k,
                 slab=slab)
         d, N = xs.shape
-        tile = ck._pallas_block(block, N, d, "high")
+        tile = ck._pallas_block(block, N, d, mode)
         rp = row_offsets(rows, N // tile)
         mi = mask.to(torch.int32)
         e2 = eps2_f32(eps)
+        centers = ck.pass_frames(xs, mask, tile, mode, k)[0]
         a = (xs, mi, rp, cols, slab[0], k, e2, slab[1], tile)
-        counts, _stats = ck.count_pairs_sketch(*a)
+        counts, _stats = ck.count_pairs_sketch(*a, mode, centers)
         core = (torch.clamp_min(torch.where(mask, counts, 0), 1)
                 >= min_samples) & mask
         lab = torch.where(core, torch.arange(N, device=dev,
                                              dtype=torch.int32),
                           INT_INF).contiguous()
         return dict(a=a, b=(xs, lab, rp, cols, slab[0], k, e2, slab[1], tile),
-                    total=total, core=core, mask=mask, tile=tile, k=k)
+                    total=total, core=core, mask=mask, tile=tile, k=k,
+                    mode=mode, centers=centers)
 
     def hold_b4(b, what):
         """B4 == its plain version, exactly, and its count of evaluated
@@ -639,20 +773,36 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
                  f"{what}")
 
     def hold(inp, what):
-        """Kernel == plain version, exactly: counts, both stats, labels."""
-        kc, kst = ck.count_pairs_sketch(*inp["a"])
+        """Kernel == plain version, exactly: counts, both stats, labels;
+        B3's rescored pairs off the emulation's by no more than its
+        fragile pairs (those another summation order could move across
+        a band edge) nor than :func:`rescored_tolerance`."""
+        rc = torch.zeros(1, dtype=torch.int64, device=dev)
+        kc, kst = ck.count_pairs_sketch(*inp["a"], inp["mode"],
+                                        inp["centers"], rescored_pairs=rc)
         pc, pst = ck.PLAIN["count_pairs_sketch"](*inp["a"])
+        ec, erc, frag = certified_rescore_walk(*inp["a"], inp["centers"])
+        tol = min(frag, rescored_tolerance(erc))
         sync()
         err = max(int((kc.long() - pc.long()).abs().max()),
                   int((kst - pst).abs().max()))
-        bad = int((kc != pc).sum()) + int((kst != pst).sum())
+        bad = (int((kc != pc).sum()) + int((kst != pst).sum())
+               + int((ec != pc).sum()))
         max_err["count_pairs_sketch"] = max(max_err["count_pairs_sketch"],
                                             err)
-        log(f"  {what}: k={inp['k']} tile {inp['tile']}, {inp['total']} "
-            f"live tile pairs; B3 stats kernel {kst.tolist()} plain "
-            f"{pst.tolist()}; max|kernel-plain| B3 {err}; mismatches {bad}")
+        krc = int(rc[0])
+        log(f"  {what}: {inp['mode']}, k={inp['k']} tile {inp['tile']}, "
+            f"{inp['total']} live tile pairs; B3 stats kernel "
+            f"{kst.tolist()} plain {pst.tolist()}; max|kernel-plain| B3 "
+            f"{err}; mismatches {bad}; rescored_pairs kernel {krc} "
+            f"emulation {erc} (tolerance {tol}: {frag} fragile pairs, "
+            f"{rescored_tolerance(erc)} by share), "
+            f"{krc / max(int(kst[0]), 1):.6f} of band_pairs")
         if bad:
             fail(f"a sketch kernel disagrees with its plain version on {what}")
+        if abs(krc - erc) > tol:
+            fail(f"B3's rescored_pairs {krc} is off the emulation's {erc} "
+                 f"on {what}")
         hold_b4(inp["b"], "round-1 labels")
         return kst
 
@@ -729,27 +879,46 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
         # through the gate, 3 (k + 1) + 3 operations each (the slab
         # distance over the k + 1 rows, the residual product and the two
         # gate tests; the zero pad rows up to a multiple of 8 are the
-        # kernel's own choice), and every in-band pair through the exact
-        # d^2, 3d + 1 more.
-        a = inp["a"]
-        band_b3 = ck.count_pairs_sketch(*a)[1]
+        # kernel's own choice); every in-band pair through the bf16 d^2,
+        # 2d tensor-core operations, and the pairs it queues through the
+        # exact d^2, 3d + 1 more (b3_bounds, beside the exact rescore's
+        # old bound).
+        a, cen = inp["a"], inp["centers"]
+        rc = torch.zeros(1, dtype=torch.int64, device=dev)
+        on_card = torch.device(dev).type == "cuda"
+        if on_card:
+            sync()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+        band_b3 = ck.count_pairs_sketch(*a, "high", cen, rescored_pairs=rc)[1]
         sync()
+        # The launch's own peak beyond what was held before it: the
+        # certified rescore's row-major copy and bf16 row fragments.
+        extra = (torch.cuda.max_memory_allocated(dev) - held
+                 if on_card else None)
+        log(f"  count_pairs_sketch's launch holds {extra} bytes more at its "
+            f"peak (the points: {xs.numel() * 4} bytes)")
+        resc = int(rc[0])
         gated_b3 = int(mask.view(nt, tile).sum(1)[cols_t].sum()) * tile
         sub_a = a[:2] + (rp_sub,) + a[3:]
-        kern_ms = median_ms(lambda: ck.count_pairs_sketch(*a), sizes["reps"])
+        kern_ms = median_ms(lambda: ck.count_pairs_sketch(*a, "high", cen),
+                            sizes["reps"])
         plain_ms = median_ms(
             lambda: ck.PLAIN["count_pairs_sketch"](*sub_a), 1)
-        ops = gated_b3 * gate_ops + int(band_b3[0]) * (3 * d + 1)
-        t_ops = ops / PEAK_FP32_FLOPS
+        t_old, t_ops = b3_bounds(gated_b3, int(band_b3[0]), resc, k, d)
         t_b3 = (nbytes + N * 4 + cols.numel() * 4 + 8) / PEAK_BYTES_PER_S
         bound_ms = max(t_ops, t_b3) * 1e3
+        floor_ms = max(b3_floor(gated_b3, resc, k, d), t_b3) * 1e3
         log(f"  count_pairs_sketch: {kern_ms:.3f} ms (plain {plain_ms:.2f} "
             f"ms on the first {sub} of {nt} row tiles), bound "
             f"{bound_ms:.3f} ms by "
-            f"{'operations' if t_ops >= t_b3 else 'bytes'}; {gated_b3} "
+            f"{'operations' if t_ops >= t_b3 else 'bytes'} (this design's "
+            f"work; the exact rescore's {max(t_old, t_b3) * 1e3:.3f} ms; "
+            f"the function's floor, t2 and d^2 of every gated pair on the "
+            f"tensor cores, {floor_ms:.3f} ms); {gated_b3} "
             f"gated pairs over {len(cols_t)} live tile pairs, "
-            f"{int(band_b3[0])} in band; "
-            f"{ops / (kern_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+            f"{int(band_b3[0])} in band, rescored_pairs {resc} "
+            f"({resc / max(int(band_b3[0]), 1):.6f} of band_pairs)")
         kernels = [{
             "name": "count_pairs_sketch", "route": "cuda",
             "source": "pypardis_tpu_torch/csrc/sketch_kernels.cu",
@@ -764,6 +933,13 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
             # No single PyTorch call computes a gated thresholded count
             # or min-label over a tile-pair list.
             "library_ms": None,
+            # bound_ms is this design's work (b3_bounds); floor_ms the
+            # function's, below any design (b3_floor).
+            "bound_ms_exact_rescore": max(t_old, t_b3) * 1e3,
+            "floor_ms": floor_ms,
+            "peak_extra_bytes": extra,
+            "band_pairs": int(band_b3[0]),
+            "rescored_pairs": resc,
         }]
         # B4: the mean launch over the fit's rounds beside the mean of
         # their bounds.  Each round's bound counts only the gate (no
@@ -802,7 +978,9 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
         X, _truth = make_embedding_data(sizes["main_n"], 512)
         return at_main(X, None, False), None
 
-    # 7.1: the kernels against their plain versions.
+    # 7.1: the tensor cores' accumulation against the band's term (3),
+    # then the kernels against their plain versions.
+    probe = mma_probe(torch, dev, ck)
     n = sizes["check_n"]
     for d, k in ((256, 64), (512, 128), (256, 33)):
         X, _t = make_embedding_data(n, d)
@@ -814,6 +992,13 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     xs, mask, blk = staged(X, eps_n, block)
     hold(sketch_inputs(xs, mask, eps_n, blk, 64, 5),
          f"noise-dominated n={n} d=256 eps={eps_n}")
+    # Near-eps pairs, duplicates and a 1e3 offset: where B3's exact
+    # fallback works hardest (eps at the blobs' typical distance).
+    eps_a = float(0.25 * np.sqrt(2.0 * 512))
+    xs, mask, blk = staged(adversarial(n, 512, eps_a), eps_a, block)
+    for mode in ("high", "mixed"):
+        hold(sketch_inputs(xs, mask, eps_a, blk, 128, ms, mode),
+             f"adversarial n={n} d=512 eps={eps_a}")
 
     def fit(X, sketch, what, tf32=False):
         model = DBSCAN(eps=eps, min_samples=ms, block=block, sketch=sketch,
@@ -897,14 +1082,15 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     del Xd
 
     # 7.4: B3 and B4 alone at the 1M fit's own inputs.
-    return at_main(X, main_launches, True), onoff
+    kernels = at_main(X, main_launches, True)
+    # The probe's readings: the largest share of the band's term (3) and
+    # the largest error in units of 2^-24 sum |p|.
+    kernels[0]["mma_probe_term3_share"], kernels[0]["mma_probe_err_u"] = probe
+    return kernels, onoff
 
 
 PRECISION_SIZES = {"check_n": 20_000, "sketch_n": 20_000, "sub_tiles": 64,
                    "reps": 5, "dims": (3, 16, 64, 96)}
-
-# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
-PEAK_BF16_FLOPS = 989e12
 # FP32 operations per pair of the fast pass's epilogue: d2f (add, mul,
 # sub) and the compare, plus the band test (sub, abs-compare) in "mixed".
 EPILOGUE_OPS = {"mixed": 6, "default": 4}
@@ -1114,9 +1300,12 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
         tile = ck._pallas_block(block, xs.shape[1], 512, mode)
         rp = row_offsets(rows, xs.shape[1] // tile)
         mi = mask.to(torch.int32)
-        cen = ck.tile_frames(xs, mask, tile)[0] if mode == "default" else None
+        # B3 recentres on the row tiles' centres in every mode; B4 and
+        # the plain versions take them under "default" only.
+        b3_cen = ck.tile_frames(xs, mask, tile)[0]
+        cen = b3_cen if mode == "default" else None
         a = (xs, mi, rp, cols, slab, k)
-        kc, kst = ck.count_pairs_sketch(*a, e2, band, tile, mode, cen)
+        kc, kst = ck.count_pairs_sketch(*a, e2, band, tile, mode, b3_cen)
         pc, pst = ck.PLAIN["count_pairs_sketch"](*a, e2, band, tile, cen)
         core = (torch.clamp_min(torch.where(mask, kc, 0), 1) >= 10) & mask
         lab = torch.where(core, torch.arange(len(kc), device=dev,
@@ -1407,15 +1596,21 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
         tile = ck._pallas_block(block, xs.shape[1], 512, mode)
         nt = xs.shape[1] // tile
         rp = row_offsets(rows, nt)
-        cen = ck.tile_frames(xs, mask, tile)[0] if mode == "default" else None
+        # B3 recentres on the row tiles' centres in both modes; B4 only
+        # under "default" (its exact rescore takes none).
+        cen = ck.tile_frames(xs, mask, tile)[0]
         mi = mask.to(torch.int32)
         a = (xs, mi, rp, cols, slab, k, e2, band, tile, mode, cen)
-        counts, st3 = ck.count_pairs_sketch(*a)
+        rc = torch.zeros(1, dtype=torch.int64, device=dev)
+        if mode == "default":
+            counts, st3 = ck.count_pairs_sketch(*a)
+        else:
+            counts, st3 = ck.count_pairs_sketch(*a, rescored_pairs=rc)
         core = (torch.clamp_min(torch.where(mask, counts, 0), 1) >= 10) & mask
         lab = torch.where(core, torch.arange(len(counts), device=dev,
                                              dtype=torch.int32),
                           INT_INF).contiguous()
-        b = (xs, lab) + a[2:]
+        b = (xs, lab) + a[2:10] + (cen if mode == "default" else None,)
         st4 = ck.count_pairs_sketch(xs, core.to(torch.int32), *a[2:])[1]
         cols_t = cols[:int(rp[-1])].long()
         sub = min(sizes["sub_tiles"], nt)
@@ -1434,16 +1629,15 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
             plain = ck.PLAIN[base]
             sub_args = args[:2] + (rp_sub,) + args[3:]
             # The plain versions take no mode: (..., eps2, band, tile,
-            # centers).
+            # centers), the centres only for the bf16 rescore.
+            pcen = sub_args[10] if mode == "default" else None
             hold_main(
                 name, mode, kern(*sub_args),
-                lambda e: plain(*sub_args[:6], e, *sub_args[7:9],
-                                sub_args[10]),
+                lambda e: plain(*sub_args[:6], e, *sub_args[7:9], pcen),
                 e2, m_sub, f"the {len(X5)} x 512 fit's inputs, first {sub} "
                 f"of {nt} row tiles")
             kern_ms = median_ms(lambda: kern(*args), 3)
-            plain_ms = median_ms(lambda: plain(*sub_args[:9],
-                                               sub_args[10]), 1)
+            plain_ms = median_ms(lambda: plain(*sub_args[:9], pcen), 1)
             gated = int(per_tile.view(nt, tile).sum(1)[cols_t].sum()) * tile
             inb = int(st[0])
             extra = {}
@@ -1462,7 +1656,12 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
                     f"({extra['evaluated_share']:.6f}); label-exact floor "
                     f"{floor} pairs")
             elif mode == "mixed":
-                simt, t_tc = gated * (3 * (k + 1) + 3) + inb * (3 * 512 + 1), 0.0
+                # The certified rescore (b3_bounds' new bound).
+                simt = gated * (3 * (k + 1) + 3) + int(rc[0]) * (3 * 512 + 1)
+                t_tc = 2 * 512 * inb / PEAK_BF16_FLOPS
+                extra = {"rescored_pairs": int(rc[0])}
+                log(f"  {name}: rescored_pairs {int(rc[0])} "
+                    f"({int(rc[0]) / max(inb, 1):.6f} of {inb} in band)")
             else:
                 simt = gated * (3 * (k + 1) + 3) + inb * EPILOGUE_OPS[mode]
                 t_tc = 2 * 512 * inb / PEAK_BF16_FLOPS
@@ -1554,6 +1753,10 @@ def main() -> None:
             kernel = line.split("'")[1] if "'" in line else line.strip()
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {kernel}: {line.strip()}")
+    if (_build.BUILD_INFO.get("log")
+            and "sketch_pair_kernelILi0ELi2E" not in _build.BUILD_INFO["log"]):
+        fail("the build has no certified B3 instance "
+             "(sketch_pair_kernel<0, SK_CERTIFIED>)")
     if "--profile" in sys.argv[1:]:
         profile_fit(torch, DBSCAN, make_blob_data)
         return

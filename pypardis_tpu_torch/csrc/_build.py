@@ -126,14 +126,17 @@ def _bind(lib) -> None:
     lib.pp_count_pairs_fast.restype = i32
     lib.pp_minlab_pairs_fast.argtypes = fast + [p]
     lib.pp_minlab_pairs_fast.restype = i32
-    # The sketch kernels end in (out, band_pairs, flags, stream) for B3
-    # and (out, tile_min, evaluated, stream) for B4.
-    for name in ("pp_count_pairs_sketch", "pp_minlab_pairs_sketch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [
-            p, p, p, p, p, p, f, f, i64, i32, i32, i32, i32, i32, p, p, p, p,
-        ]
-        fn.restype = i32
+    # The sketch kernels take (..., nt, rescore, out) and end in
+    # (band_pairs, flags, rescored_pairs, stream) for B3 and (tile_min,
+    # evaluated, stream) for B4; B3 also takes the points' row-major copy
+    # and the rows' bf16 fragments after the centres.
+    sketch = [f, f, i64, i32, i32, i32, i32, i32, i32, p]
+    lib.pp_count_pairs_sketch.argtypes = [p] * 8 + sketch + [p, p, p, p]
+    lib.pp_count_pairs_sketch.restype = i32
+    lib.pp_minlab_pairs_sketch.argtypes = [p] * 6 + sketch + [p, p, p]
+    lib.pp_minlab_pairs_sketch.restype = i32
+    lib.pp_mma_dot_probe.argtypes = [p, p, i32, i32, p, p]
+    lib.pp_mma_dot_probe.restype = i32
     lib.pp_query_splits.argtypes = [i32, i32, i32]
     lib.pp_query_splits.restype = i32
     lib.pp_query_leaf.argtypes = [

@@ -162,6 +162,13 @@ static void launch_dc(dim3 grid, size_t smem, cudaStream_t stream,
                       const float* pts, const int* colval,
                       const int* row_ptr, const int* cols, float eps2,
                       long long n, int d, int tile, int ch, int* out) {
+  // One staged column past 12,287 axes needs more than the default
+  // 48 KB; the launch then reports the opt-in's error, if any.
+  if (smem > PP_SMEM_BYTES &&
+      cudaFuncSetAttribute(pair_kernel<MODE, DC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return;
   pair_kernel<MODE, DC><<<grid, PP_THREADS, smem, stream>>>(
       pts, colval, row_ptr, cols, eps2, n, d, tile, ch, out);
 }

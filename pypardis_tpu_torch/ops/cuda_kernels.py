@@ -12,8 +12,10 @@ branch: B1/B2 under ``"mixed"`` (:func:`count_pairs_mixed`,
 :func:`minlab_pairs_mixed`: a bf16 tensor-core fast pass, a band, and
 an exact rescore per in-band pair) and ``"default"``
 (:func:`count_pairs_default`, :func:`minlab_pairs_default`: the bf16
-pass alone); B3/B4 rescore in bf16 under ``"default"``; B5 adds the
-bf16 chunk prefilter under ``"mixed"``.
+pass alone); B3/B4 rescore in bf16 under ``"default"``, and B3 under
+every other mode through the certified bf16 rescore (a per-pair band
+and an exact fallback, bitwise the exact verdicts); B5 adds the bf16
+chunk prefilter under ``"mixed"``.
 
 All are CUDA C++ for ``sm_90a`` (``csrc/pair_kernels.cu``,
 ``csrc/sketch_kernels.cu``, ``csrc/query_kernels.cu`` and their shared
@@ -40,6 +42,7 @@ import torch
 
 from .distances import (
     INT_INF,
+    certified_rescore_walk,
     counts_over_pairs,
     counts_over_pairs_default,
     counts_over_pairs_mixed,
@@ -62,8 +65,9 @@ from .sketch import effective_k, sketch_gate_band, sketch_matrix
 
 # Launches per kernel and mode since the last reset_launch_counts();
 # bumped only where a wrapper launches its CUDA kernel.  The plain
-# names run "high"/"highest"; B3/B4 under "mixed" are the exact kernels,
-# counted under their mode.
+# names run "high"/"highest"; B3/B4 under "mixed" run the same kernels as
+# "high" (B3's certified rescore, B4's exact one), counted under their
+# mode.
 LAUNCHES = dict.fromkeys((
     "count_pairs", "minlab_pairs",
     "count_pairs_mixed", "minlab_pairs_mixed",
@@ -147,9 +151,10 @@ def pass_frames(pts_dn, mask, tile, mode, k=0):
     """The row frames a pass of ``mode`` needs over its rows ``mask``:
     ``(centers, rnorm)`` of :func:`tile_frames` under ``"mixed"``
     without the sketch (k = 0), ``(centers, None)`` under ``"default"``
-    (the bf16 pass or the sketch's bf16 rescore), else ``(None,
+    (the bf16 pass or the sketch's bf16 rescore) and with the sketch in
+    every mode (B3's rescore recentres on them), else ``(None,
     None)``."""
-    if mode == "default":
+    if mode == "default" or k:
         return _centers_dn(pts_dn, mask, pts_dn.shape[1] // tile, tile), None
     if mode == "mixed" and not k:
         return tile_frames(pts_dn, mask, tile)
@@ -434,30 +439,83 @@ def _check_slab(pts, slab, k):
         )
 
 
+def row_fragments(pts, centers, tile):
+    """B3's certified rescore's row operands: every row recentred on its
+    tile's centre (one float32 subtraction) and rounded to bf16 (nearest
+    even), laid out as the kernel's mma.sync A fragments, so a warp reads
+    16 rows of one 16-axis k-step as one 16-byte load per lane.
+
+    ``pts`` (d, N) float32, ``centers`` (nt, d).  Returns a contiguous
+    (nt, tp / 16, dp / 16, 8, 4, 2, 2, 2) bfloat16 tensor, ``tp`` the tile
+    rounded up to 32 rows and ``dp`` d up to 16 axes (zeros in the pad):
+    entry [r, m, kk, g, t, q, h, i] is row m * 16 + h * 8 + g of tile r
+    at axis kk * 16 + q * 8 + t * 2 + i, so lane 4 g + t holds the
+    fragment registers a[2 q + h] (csrc/bf16_tile.cuh's layout)."""
+    d, n = pts.shape
+    nt = n // tile
+    dp = -(-d // 16) * 16
+    tp = -(-tile // 32) * 32
+    frag = torch.empty((nt, tp // 16, dp // 16, 8, 4, 2, 2, 2),
+                       dtype=torch.bfloat16, device=pts.device)
+    # The (nt, tp, dp) row-major order of the same entries, as a view:
+    # each batch of row tiles is written through it, so the fragments
+    # are the only full-size tensor.
+    x = frag.permute(0, 1, 6, 3, 2, 5, 4, 7)
+    step = max(1, (1 << 24) // (tp * dp))
+    for s in range(0, nt, step):
+        e = min(nt, s + step)
+        rows = pts[:, s * tile:e * tile].T.reshape(e - s, tile, d)
+        t = torch.zeros((e - s, tp, dp), dtype=torch.bfloat16,
+                        device=pts.device)
+        t[:, :tile, :d] = (rows - centers[s:e, None, :]).to(torch.bfloat16)
+        x[s:e] = t.view(e - s, tp // 16, 2, 8, dp // 16, 2, 4, 2)
+    return frag
+
+
+def _check_counter(name, t, pts):
+    if t is not None and (t.dtype != torch.int64 or t.shape != (1,)
+                          or t.device != pts.device):
+        raise ValueError(f"{name} must be a (1,) int64 tensor beside pts")
+
+
 def _launch_sketch(name, pts, colval, row_ptr, cols, slab, k, eps2, band,
-                   tile, mode="high", centers=None, evaluated=None):
+                   tile, mode="high", centers=None, evaluated=None,
+                   rescored_pairs=None):
     """Both sketch kernels: B3 returns ``(counts, stats)``, B4 the
     minimum labels.  ``mode="default"`` rescores in bf16 about the row
-    tiles' ``centers``; every other mode exactly.  ``evaluated`` (B4
-    only) as in :func:`minlab_pairs_sketch`."""
+    tiles' ``centers``; every other mode exactly: B4 with the FP32 sum,
+    B3 with the certified rescore about ``centers``.  ``evaluated`` (B4)
+    and ``rescored_pairs`` (B3, exact modes) as in
+    :func:`minlab_pairs_sketch` and :func:`count_pairs_sketch`."""
     _check(pts, colval, row_ptr, cols, tile)
     _check_slab(pts, slab, k)
     mode = norm_precision_mode(mode)
-    if (mode == "default") != (centers is not None):
-        raise ValueError("the row tiles' centers go with precision="
-                         "'default' (its bf16 rescore), and only with it")
+    counting = name == "count_pairs_sketch"
+    bf16 = mode == "default"
+    if (bf16 or counting) and centers is None:
+        raise ValueError("B3 and precision='default' need the row tiles' "
+                         "centers for their bf16 rescore")
+    if not (counting or bf16) and centers is not None:
+        raise ValueError("B4's exact rescore takes no centers: they go with "
+                         "precision='default' only")
+    if bf16 and rescored_pairs is not None:
+        raise ValueError("rescored_pairs counts the certified rescore of the "
+                         "exact modes; precision='default' has none")
+    _check_counter("evaluated", evaluated, pts)
+    _check_counter("rescored_pairs", rescored_pairs, pts)
+    certified = counting and not bf16
     _check_frames(pts, tile, centers, None)
-    if evaluated is not None and (
-            evaluated.dtype != torch.int64 or evaluated.shape != (1,)
-            or evaluated.device != pts.device):
-        raise ValueError("evaluated must be a (1,) int64 tensor beside pts")
     key = name if mode in ("high", "highest") else f"{name}_{mode}"
     if pts.device.type == "cpu":
         if evaluated is not None:
             evaluated += minlab_skip_walk(pts, colval, row_ptr, cols, slab,
                                           k, eps2, band, tile, centers)[1]
+        if rescored_pairs is not None:
+            rescored_pairs += certified_rescore_walk(
+                pts, colval, row_ptr, cols, slab, k, eps2, band, tile,
+                centers)[1]
         return PLAIN[name](pts, colval, row_ptr, cols, slab, k, eps2, band,
-                           tile, centers)
+                           tile, centers if bf16 else None)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
     from ..csrc import _build
@@ -465,26 +523,38 @@ def _launch_sketch(name, pts, colval, row_ptr, cols, slab, k, eps2, band,
     lib = _build.load()
     d, n = pts.shape
     out = torch.empty(n, dtype=torch.int32, device=pts.device)
-    counting = name == "count_pairs_sketch"
+    # The rescore (csrc/sketch_kernels.cu): SK_BF16 under "default",
+    # else SK_CERTIFIED for B3 and SK_EXACT for B4.
+    rescore = 1 if bf16 else (2 if counting else 0)
     if counting:
         # band_pairs (one 64-bit counter) and one rescore flag per
         # pair-list entry, summed below.
         n_band = torch.zeros(1, dtype=torch.int64, device=pts.device)
         flags = torch.zeros(max(cols.shape[0], 1), dtype=torch.int32,
                             device=pts.device)
-        extra = (n_band.data_ptr(), flags.data_ptr())
+        extra = (n_band.data_ptr(), flags.data_ptr(),
+                 None if rescored_pairs is None
+                 else rescored_pairs.data_ptr())
+        # The certified rescore reads each point's axes from a row-major
+        # copy (in the (d, N) layout they lie N floats apart) and its rows
+        # as bf16 mma fragments.
+        frames = ((centers, pts.T.contiguous(),
+                   row_fragments(pts, centers, tile)) if certified
+                  else (centers, None, None))
     else:
         # Each column tile's least label, for the kernel's entry skip.
         tile_min = colval.view(n // tile, tile).amin(dim=1).contiguous()
         extra = (tile_min.data_ptr(),
                  None if evaluated is None else evaluated.data_ptr())
+        frames = (centers,)
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"pp_{name}")(
             pts.data_ptr(), slab.data_ptr(), colval.data_ptr(),
             row_ptr.data_ptr(), cols.data_ptr(),
-            None if centers is None else centers.data_ptr(), float(eps2),
-            float(band), n, d, slab.shape[0], k, tile, n // tile,
+            *(None if t is None else t.data_ptr() for t in frames),
+            float(eps2), float(band), n, d, slab.shape[0], k, tile, n // tile,
+            rescore,
             out.data_ptr(), *extra, stream,
         )
     if rc != 0:
@@ -496,18 +566,29 @@ def _launch_sketch(name, pts, colval, row_ptr, cols, slab, k, eps2, band,
 
 
 def count_pairs_sketch(pts, mask, row_ptr, cols, slab, k, eps2, band, tile,
-                       mode="high", centers=None):
+                       mode="high", centers=None, *, rescored_pairs=None):
     """B3: :func:`count_pairs` through the slab gate.  ``slab`` (skp, N)
     float32 from :func:`sketch_stage` (row ``k`` the residual norm);
     ``band`` its float32 halfwidth.  Returns ``(counts, stats)``, equal
     to :func:`count_pairs` on any data, with ``stats`` a (2,) int64
     tensor ``[band_pairs, rescored_tiles]``: pairs neither certainly in
     nor certainly out whose column is valid (every row counted), and
-    pair-list entries holding one.  ``mode="default"`` (with the row
-    tiles' ``centers`` over ``mask``) decides the in-band pairs by the
-    bf16 pass instead (lossy, as that mode's band is)."""
+    pair-list entries holding one.  Under ``"high"``, ``"highest"`` and
+    ``"mixed"`` the kernel decides the in-band pairs by the bf16 tensor-
+    core d^2 recentred on the row tiles' ``centers`` (nt, d), any points
+    (:func:`pass_frames` gives the box centres over ``mask``), within a
+    proven per-pair band, and the rest by the exact d^2;
+    ``rescored_pairs``, an optional (1,) int64 tensor beside ``pts``
+    zeroed by the caller, gets the count of the latter (on the CPU,
+    :func:`~.distances.certified_rescore_walk`'s).  On the card such a
+    launch holds 1.5 times the points' bytes more while it runs: their
+    row-major float32 copy and their bf16 :func:`row_fragments`.
+    ``mode="default"`` (with the row tiles' ``centers`` over ``mask``)
+    decides the in-band pairs by the bf16 pass alone instead (lossy, as
+    that mode's band is)."""
     return _launch_sketch("count_pairs_sketch", pts, mask, row_ptr, cols,
-                          slab, k, eps2, band, tile, mode, centers)
+                          slab, k, eps2, band, tile, mode, centers,
+                          rescored_pairs=rescored_pairs)
 
 
 def minlab_pairs_sketch(pts, labels, row_ptr, cols, slab, k, eps2, band,
@@ -522,6 +603,40 @@ def minlab_pairs_sketch(pts, labels, row_ptr, cols, slab, k, eps2, band,
     return _launch_sketch("minlab_pairs_sketch", pts, labels, row_ptr,
                           cols, slab, k, eps2, band, tile, mode, centers,
                           evaluated)
+
+
+def mma_dot_probe(a, b):
+    """The tensor cores' FP32 accumulation as B3's certified rescore
+    runs it (``pp_mma_dot_probe``: one accumulator chained through
+    ``mma.sync`` m16n8k16 over the k-steps in order), for measuring the
+    header's term (3): ``a`` (B, 16, K) and ``b`` (B, 8, K) bfloat16, K
+    a multiple of 16, gives (B, 16, 8) float32, ``a[i] @ b[i].T``.  Not
+    a kernel of the fit, so not counted in :data:`LAUNCHES`.  On the CPU
+    the float64 product rounded once to float32."""
+    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or a.dim() != 3 or b.dim() != 3 or a.shape[1] != 16
+            or b.shape[1] != 8 or a.shape[0] != b.shape[0]
+            or a.shape[2] != b.shape[2] or a.shape[2] % 16
+            or a.device != b.device):
+        raise ValueError("a (B, 16, K) and b (B, 8, K) bfloat16 on one "
+                         "device, K a multiple of 16")
+    if a.device.type == "cpu":
+        return torch.bmm(a.double(), b.double().transpose(1, 2)).float()
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    from ..csrc import _build
+
+    lib = _build.load()
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty((a.shape[0], 16, 8), dtype=torch.float32,
+                      device=a.device)
+    with torch.cuda.device(a.device):
+        rc = lib.pp_mma_dot_probe(
+            a.data_ptr(), b.data_ptr(), a.shape[0], a.shape[2],
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pp_mma_dot_probe failed: cudaError {rc}")
+    return out
 
 
 def _grid(points_dn, block, mode):
@@ -619,8 +734,10 @@ def min_neighbor_label_cuda(points_dn, labels, eps, src_mask,
     centers, rnorm = (pass_frames(points_dn, rm, tile, mode, k)
                       if frames is None else frames)
     if k:
+        # B4 rescores exactly outside "default": no centres.
         best = minlab_pairs_sketch(
-            *args, slab[0], k, e2, slab[1], tile, mode, centers
+            *args, slab[0], k, e2, slab[1], tile, mode,
+            centers if mode == "default" else None,
         )
     elif mode == "mixed":
         best = minlab_pairs_mixed(*args, e2, tile, centers, rnorm)

@@ -408,24 +408,19 @@ def minlab_over_pairs_default(pts, labels, row_ptr, cols, eps2, tile,
                             "default", centers)[0]
 
 
-def _sketch_verdicts(pts, slab, k, colval, row_ptr, cols, eps2, band,
-                     tile, combine, centers=None):
-    """The sketch kernels' per-pair verdicts over the pair list, a batch
-    of entries at a time.  Per pair: ``t2`` the axis-ordered (skp)-row
-    slab distance, ``up = t2 + (4 rx) ry``; sure-out ``t2 - band >
-    eps2``, sure-in ``up <= eps2 - band``, every other pair the exact
-    ``_pair_d2`` against eps2 — or, with the row tiles' ``centers``
-    (``precision="default"``), the bf16 pass's ``d2f`` of
-    :func:`_fast_d2`.  Yields ``(s, r, v, adj, amb, need)`` per batch:
-    its first entry ``s``, row tiles ``r`` (P,), column values ``v`` (P,
-    1, tile), the pairs within eps whose column is valid ``adj`` (P,
-    tile, tile), the in-band ones ``amb`` and the entries holding one
-    ``need`` (P,)."""
+def _sketch_gate(pts, slab, k, colval, row_ptr, cols, eps2, band, tile,
+                 combine):
+    """The sketch kernels' gate over the pair list, a batch of entries
+    at a time.  Per pair: ``t2`` the axis-ordered (skp)-row slab
+    distance, ``up = t2 + (4 rx) ry``; sure-in ``up <= eps2 - band``,
+    sure-out ``t2 - band > eps2``.  Yields ``(s, r, c, v, sure_in,
+    amb)`` per batch: its first entry ``s``, row and column tiles ``r``,
+    ``c`` (P,), column values ``v`` (P, 1, tile), the sure-in pairs
+    (P, tile, tile) and the in-band ones whose column is valid."""
     d, n = pts.shape
     skp = slab.shape[0]
     nt = n // tile
     rows, cols = _entries(row_ptr, cols, nt, pts.device)
-    tiles = pts.reshape(d, nt, tile)
     stiles = slab.reshape(skp, nt, tile)
     vals = colval.reshape(nt, tile)
     lo = float(np.float32(eps2) - np.float32(band))
@@ -440,6 +435,25 @@ def _sketch_verdicts(pts, slab, k, colval, row_ptr, cols, eps2, band,
         v = vals[c][:, None, :]
         valid = (v != 0) if combine == "sum" else (v != INT_INF)
         amb = ~(sure_in | ((t2 - band) > eps2)) & valid
+        yield s, r, c, v, sure_in, amb
+
+
+def _sketch_verdicts(pts, slab, k, colval, row_ptr, cols, eps2, band,
+                     tile, combine, centers=None):
+    """The sketch kernels' per-pair verdicts over the pair list, a batch
+    of entries at a time: the gate of :func:`_sketch_gate`, and every
+    in-band pair the exact ``_pair_d2`` against eps2 — or, with the row
+    tiles' ``centers``
+    (``precision="default"``), the bf16 pass's ``d2f`` of
+    :func:`_fast_d2`.  Yields ``(s, r, v, adj, amb, need)`` per batch:
+    its first entry ``s``, row tiles ``r`` (P,), column values ``v`` (P,
+    1, tile), the pairs within eps whose column is valid ``adj`` (P,
+    tile, tile), the in-band ones ``amb`` and the entries holding one
+    ``need`` (P,)."""
+    tiles = pts.reshape(pts.shape[0], -1, tile)
+    for s, r, c, v, sure_in, amb in _sketch_gate(
+            pts, slab, k, colval, row_ptr, cols, eps2, band, tile, combine):
+        valid = (v != 0) if combine == "sum" else (v != INT_INF)
         need = amb.flatten(1).any(dim=1)
         adj = sure_in
         if bool(need.any()):
@@ -577,3 +591,128 @@ def minlab_skip_walk(pts, labels, row_ptr, cols, slab, k, eps2, band, tile,
         m = torch.where(ev[..., None], torch.minimum(m, cand[:, t]), m)
     best[live] = m.reshape(nl, rpad)[:, :tile]
     return best.reshape(-1), int(evaluated)
+
+
+def _round_up_f32(v: float) -> float:
+    f = np.float32(v)
+    if float(f) < v:
+        f = np.nextafter(f, np.float32(np.inf))
+    return float(f)
+
+
+def certified_band_coefs(d: int):
+    """``(c_cross, c_acc, c_norm)`` of B3's certified band (the
+    derivation is in the header of ``csrc/sketch_kernels.cu``, whose
+    launch takes the same expressions): ``1.25 2 h``, ``1.25 2^-20 K h``
+    and ``1.25 (3 d + 12) 2^-24 h`` in float64, ``K`` = d padded to 16
+    and ``h = 1 / (1 - (2 d + 8 K + 64) 2^-24)`` (infinite where that
+    is not positive), each rounded up to float32 and returned as a
+    Python float holding that value."""
+    K = -(-int(d) // 16) * 16
+    hd = 1.0 - (2.0 * d + 8.0 * K + 64.0) * 2.0**-24
+    h = 1.0 / hd if hd > 0.0 else float("inf")
+    return (_round_up_f32(2.5 * h),
+            _round_up_f32(1.25 * 2.0**-20 * K * h),
+            _round_up_f32(1.25 * (3.0 * d + 12.0) * 2.0**-24 * h))
+
+
+def _cert_norms(v):
+    """Per point of ``v`` (d, ...) recentred float32 values: ``(|v|^2,
+    |v|, |v'|, |v' - v|)``, ``v'`` the bf16 rounding, each sum axis-
+    ordered in float32 and each root correctly rounded."""
+    vh = bf16_round(v)
+    sq = axis_sq(v)
+    return (sq, torch.sqrt(sq), torch.sqrt(axis_sq(vh)),
+            torch.sqrt(axis_sq(vh - v)))
+
+
+def _certified_terms(xt, yt, ctr):
+    """:func:`certified_d2`'s ``(d2f, band_p)`` and, per pair, ``|X'|
+    |Y'|`` and ``S = |X|^2 + |Y|^2`` (float32)."""
+    d = xt.shape[0]
+    c = ctr.T[:, :, None]
+    xc, yc = xt - c, yt - c
+    dot = torch.bmm(bf16_round(xc).permute(1, 2, 0),
+                    bf16_round(yc).permute(1, 0, 2))
+    xx, xn, xh, xe = (t[:, :, None] for t in _cert_norms(xc))
+    yy, _yn, yh, ye = (t[:, None, :] for t in _cert_norms(yc))
+    s = xx + yy
+    d2f = s - 2.0 * dot
+    f32 = dict(dtype=torch.float32, device=xt.device)
+    c_cross, c_acc, c_norm = (torch.tensor(v, **f32)
+                              for v in certified_band_coefs(d))
+    cross = xe * yh + xn * ye
+    hh = xh * yh
+    b = c_cross * cross + c_acc * hh
+    return d2f, b + (c_norm * s + torch.tensor(2.0**-100, **f32)), hh, s
+
+
+def certified_d2(xt, yt, ctr):
+    """B3's certified rescore terms for a batch of tile pairs (``xt``
+    (d, P, br) rows, ``yt`` (d, P, bc) columns, ``ctr`` (P, d) each
+    pair's row-tile centre): ``(d2f, band_p)``, both (P, br, bc)
+    float32: ``d2f`` as in :func:`_fast_d2` and ``band_p = ((c_cross (xe
+    yh + xn ye)) + c_acc (xh yh)) + ((c_norm (xx + yy)) + 2^-100)`` from
+    the rows' and columns' :func:`_cert_norms` and
+    :func:`certified_band_coefs`, each operation in float32 as the
+    kernel takes it.  The band bounds ``|d2f - d2|``, ``d2`` the exact
+    ``_pair_d2``, for any order of the cross term's sum."""
+    return _certified_terms(xt, yt, ctr)[:2]
+
+
+def certified_rescore_walk(pts, mask, row_ptr, cols, slab, k, eps2, band,
+                           tile, centers):
+    """Plain emulation of B3's certified rescore (``csrc/
+    sketch_kernels.cu``, the exact modes): for the in-band pairs of
+    :func:`_sketch_gate`, ``d2f`` from the bf16-rounded operands
+    recentred on the row tile's ``centers`` (nt, d) and the per-pair
+    ``band_p`` of :func:`certified_d2`; ``d2f + band_p < eps2`` is
+    certainly in, ``d2f - band_p > eps2`` certainly out, and every other
+    pair is queued and decided by the exact axis-ordered d^2.  Returns
+    ``(counts, rescored_pairs, fragile)``: counts (N,) int32, equal to
+    :func:`counts_over_pairs_sketch`'s when the band is sound, the
+    queued pairs as a Python int, and the fragile pairs, which bound
+    ``|kernel - emulation|`` of the queued count.  The kernel sums in
+    its own order, so a pair whose ``fl(d2f + band_p)`` or ``fl(d2f -
+    band_p)`` lies within ``w`` of eps2 may fall on the other side
+    there, with ``w = 1.25 (2^-19 K |X'| |Y'| + (2 d + 12) 2^-24 S +
+    (2 d + 52) 2^-24 band_p)`` from the header's bounds: two orders of
+    the cross term (its (3), twice), of the squared norms (its (1),
+    twice) and of the band's norms, and the roundings of ``d2f`` and of
+    the two tests; ``S = |X|^2 + |Y|^2``, ``K`` = d padded to 16.  The
+    fit never calls this: the tests, the card checks and, on the CPU,
+    the wrapper's ``rescored_pairs=`` do."""
+    d, n = pts.shape
+    nt = n // tile
+    tiles = pts.reshape(d, nt, tile)
+    out = torch.zeros((nt, tile), dtype=torch.int32, device=pts.device)
+    rescored = n_fragile = 0
+    K = -(-d // 16) * 16
+    u = 2.0**-24
+    for _s, r, c, v, sure_in, amb in _sketch_gate(
+            pts, slab, k, mask, row_ptr, cols, eps2, band, tile, "sum"):
+        adj = sure_in & (v != 0)
+        need = amb.flatten(1).any(dim=1)
+        if bool(need.any()):
+            rn, cn, an = r[need], c[need], amb[need]
+            d2f, bp, hh, sc = _certified_terms(tiles[:, rn], tiles[:, cn],
+                                               centers[rn])
+            hi, lo = d2f + bp, d2f - bp
+            cin = an & (hi < eps2)
+            queued = an & ~cin & ~(lo > eps2)
+            w = 1.25 * (2.0**-19 * K * hh.double()
+                        + (2 * d + 12) * u * sc.double()
+                        + (2 * d + 52) * u * bp.double())
+            e2 = float(np.float32(eps2))
+            n_fragile += int((an & (((hi.double() - e2).abs() <= w)
+                                    | ((lo.double() - e2).abs() <= w))).sum())
+            p, i, j = torch.nonzero(queued, as_tuple=True)
+            step = max(1, _CHUNK_ELEMS // (4 * d))
+            for q in range(0, int(p.numel()), step):
+                pq, iq, jq = p[q:q + step], i[q:q + step], j[q:q + step]
+                d2 = axis_sq(tiles[:, rn[pq], iq] - tiles[:, cn[pq], jq])
+                cin[pq, iq, jq] = d2 <= eps2
+            adj[need] |= cin
+            rescored += int(p.numel())
+        out.index_add_(0, r, adj.sum(dim=-1, dtype=torch.int32))
+    return out.reshape(-1), rescored, n_fragile

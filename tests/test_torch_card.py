@@ -17,8 +17,8 @@ from pypardis_tpu_torch import DBSCAN
 from pypardis_tpu_torch.dbscan import _stage
 from pypardis_tpu_torch.ops import cuda_kernels as ck
 from pypardis_tpu_torch.ops.distances import (
-    INT_INF, counts_over_pairs, eps2_f32, minlab_over_pairs, minlab_skip_walk,
-    row_offsets,
+    INT_INF, certified_rescore_walk, counts_over_pairs, eps2_f32,
+    minlab_over_pairs, minlab_skip_walk, row_offsets,
 )
 from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
 from pypardis_tpu_torch.ops.query import PAD_COORD, query_min_core_plain
@@ -245,7 +245,8 @@ def test_sketch_kernels_equal_plain_versions_on_card(d, k):
     e2 = eps2_f32(2.0)
     a = (xs, mi, rp, cols, slab, k, e2, band, tile)
     before = dict(ck.LAUNCHES)
-    got, stats = ck.count_pairs_sketch(*a)
+    got, stats = ck.count_pairs_sketch(
+        *a, "high", ck.pass_frames(xs, mask, tile, "high", k)[0])
     want, wstats = ck.PLAIN["count_pairs_sketch"](*a)
     assert torch.equal(got, want) and torch.equal(stats, wstats)
     assert torch.equal(got, ck.count_pairs(xs, mi, rp, cols, e2, tile))
@@ -299,6 +300,120 @@ def test_b4_skip_equals_plain_and_counts_as_the_walk_on_card(d, k, state):
     assert int(ev[0]) == walked
     assert walked <= int(rp[-1]) * -(-tile // 256) * -(-tile // 32)
     assert (walked == 0) == (state == "no_source")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("geom", ["adversarial", "embedding"])
+def test_b3_certified_rescore_bitwise_on_card(geom, d):
+    """B3's certified rescore (bf16 tensor-core d^2, per-pair band,
+    exact fallback): counts and both stats bitwise the plain version's
+    and B1's, under "high" and "mixed", and ``rescored_pairs`` off the
+    emulation's by no more than its fragile pairs (those another
+    summation order could move across a band edge) nor than
+    ``chip_smoke.rescored_tolerance`` (0.1 %)."""
+    _need_card()
+    from chip_smoke import adversarial, rescored_tolerance
+
+    if geom == "adversarial":
+        eps = float(0.25 * np.sqrt(2.0 * d))
+        X = adversarial(20_000, d, eps)
+    else:
+        eps = 2.0
+        X, _ = make_embedding_data(20_000, d, seed=d)
+    pts, n, block = _stage(X, 2048, torch.device("cuda"))
+    xs, mask, _owner = _pipeline_layout(pts, eps, n, block, sort=True)
+    k = d // 4
+    slab, band = ck.sketch_stage(xs, mask, k)
+    (rows, cols), (total, budget) = ck.kernel_pair_list(
+        xs, eps, mask, block, "high", budget=1 << 22, sketch=k,
+        slab=(slab, band))
+    assert total <= budget
+    tile = ck._pallas_block(block, xs.shape[1], d, "high")
+    rp = row_offsets(rows, xs.shape[1] // tile)
+    centers = ck.pass_frames(xs, mask, tile, "high", k)[0]
+    mi = mask.to(torch.int32)
+    e2 = eps2_f32(eps)
+    a = (xs, mi, rp, cols, slab, k, e2, band, tile)
+    want, wstats = ck.PLAIN["count_pairs_sketch"](*a)
+    emu, erc, frag = certified_rescore_walk(*a, centers)
+    tol = min(frag, rescored_tolerance(erc))
+    assert torch.equal(emu, want)
+    assert torch.equal(want, ck.count_pairs(xs, mi, rp, cols, e2, tile))
+    for mode in ("high", "mixed"):
+        rc = torch.zeros(1, dtype=torch.int64, device="cuda")
+        got, stats = ck.count_pairs_sketch(*a, mode, centers,
+                                           rescored_pairs=rc)
+        assert torch.equal(stats, wstats), (stats, wstats)
+        assert int((got != want).sum()) == 0
+        assert int(stats[0]) > 0
+        assert abs(int(rc[0]) - erc) <= tol, (int(rc[0]), erc, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "mixed"])
+def test_card_sketched_512d_fit_equals_unsketched_fit(precision):
+    """A sketched 512-D fit, whose counts pass runs the certified
+    rescore, byte-identical to the unsketched fit."""
+    _need_card()
+    X, _truth = make_embedding_data(6000, 512, seed=7)
+    kw = dict(eps=2.0, min_samples=10, block=512, precision=precision)
+    ck.reset_launch_counts()
+    on = DBSCAN(sketch="auto", **kw).fit(X)
+    key = "count_pairs_sketch" + ("" if precision == "high" else "_mixed")
+    assert ck.LAUNCHES[key] == 1
+    off = DBSCAN(sketch=0, **kw).fit(X)
+    assert on.metrics_["sketch_k"] == 128 and on.metrics_["band_pairs"] > 0
+    assert np.array_equal(on.labels_, off.labels_)
+    assert np.array_equal(on.core_sample_mask_, off.core_sample_mask_)
+    assert on.labels_.max() >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "mixed"])
+def test_card_sketched_fit_past_16384_axes_equals_unsketched_fit(precision):
+    """Past 16,384 axes (the certified band has no limit on d) a
+    sketched fit runs B3's certified rescore and stays byte-identical
+    to the unsketched fit."""
+    _need_card()
+    d = 16400
+    X, _truth = make_embedding_data(1500, d, seed=11)
+    # The full-rank noise adds 2 d 0.02^2 to every squared distance:
+    # eps^2 keeps the 512-D fits' margin of 3.59 above it.
+    eps = float(np.sqrt(2 * d * 0.02**2 + 3.59))
+    kw = dict(eps=eps, min_samples=10, block=512, precision=precision)
+    ck.reset_launch_counts()
+    on = DBSCAN(sketch="auto", **kw).fit(X)
+    key = "count_pairs_sketch" + ("" if precision == "high" else "_mixed")
+    assert ck.LAUNCHES[key] == 1
+    off = DBSCAN(sketch=0, **kw).fit(X)
+    assert on.metrics_["sketch_k"] > 0 and on.metrics_["band_pairs"] > 0
+    assert np.array_equal(on.labels_, off.labels_)
+    assert np.array_equal(on.core_sample_mask_, off.core_sample_mask_)
+    assert on.labels_.max() >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(6))
+def test_mma_accumulation_within_the_bands_term_3_on_card(case):
+    """The tensor cores' FP32 accumulation, chained over K = 512 as B3's
+    certified rescore chains it, on adversarial bf16 inputs
+    (``chip_smoke.mma_probe_cases``): ``|dot - P'| <= 2^-21 K sum |p|``
+    (the header's term (3); sum |p| <= |X'| |Y'|) against the float64
+    sum of the same products."""
+    _need_card()
+    from chip_smoke import mma_probe_cases
+
+    name, a, b = mma_probe_cases()[case]
+    K = a.shape[2]
+    got = ck.mma_dot_probe(
+        torch.from_numpy(a).cuda().to(torch.bfloat16),
+        torch.from_numpy(b).cuda().to(torch.bfloat16)).cpu().double()
+    a64, b64 = torch.from_numpy(a).double(), torch.from_numpy(b).double()
+    exact = torch.bmm(a64, b64.transpose(1, 2))
+    mag = torch.bmm(a64.abs(), b64.abs().transpose(1, 2))
+    assert bool(torch.isfinite(got).all()), name
+    assert bool(((got - exact).abs() <= 2.0**-21 * K * mag).all()), name
 
 
 @pytest.mark.cuda

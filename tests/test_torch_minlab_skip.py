@@ -58,7 +58,8 @@ def _inputs(X, eps, block, k, min_samples, mode):
     e2 = eps2_f32(eps)
     counts, _st = ck.count_pairs_sketch(xs, mask.to(torch.int32), rp, cols,
                                         slab, k, e2, band, tile, mode,
-                                        centers)
+                                        ck.pass_frames(xs, mask, tile, mode,
+                                                       k)[0])
     core = (torch.clamp_min(torch.where(mask, counts, 0), 1)
             >= min_samples) & mask
 

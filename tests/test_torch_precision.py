@@ -402,9 +402,14 @@ def test_wrappers_reject_bad_frames():
     with pytest.raises(ValueError, match="centers"):
         ck.count_pairs_sketch(pts, colval, row_ptr, cols, slab, 4, 1.0, 0.1,
                               128, "default")
+    # B3 recentres its certified rescore in every mode; B4's exact
+    # rescore takes no centres outside "default".
+    with pytest.raises(ValueError, match="centers"):
+        ck.minlab_pairs_sketch(pts, colval, row_ptr, cols, slab, 4, 1.0, 0.1,
+                               128, "mixed", good_c)
     with pytest.raises(ValueError, match="centers"):
         ck.count_pairs_sketch(pts, colval, row_ptr, cols, slab, 4, 1.0, 0.1,
-                              128, "mixed", good_c)
+                              128, "mixed", good_c[:1])
     with pytest.raises(ValueError, match="eps2"):
         ck.query_leaf(torch.zeros((1, 4, 8)), torch.zeros(1, dtype=torch.int32),
                       torch.zeros((4, 32)), torch.zeros(32, dtype=torch.int32),

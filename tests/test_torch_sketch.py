@@ -171,7 +171,9 @@ def test_plain_sketch_identity_and_stats_on_rows_without_pairs():
     assert (m[128:] == INT_INF).all() and (m[:128] == 7).all()
     ck.reset_launch_counts()
     got = ck.count_pairs_sketch(pts, mask, row_ptr, cols, slab, 16, e2, band,
-                                128)
+                                128, "high",
+                                ck.pass_frames(pts, mask != 0, 128, "high",
+                                               16)[0])
     assert torch.equal(got[0], c) and torch.equal(got[1], st)
     assert not any(ck.LAUNCHES.values())
 

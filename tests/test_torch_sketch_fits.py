@@ -282,6 +282,8 @@ def test_chip_smoke_sketch_phase_rehearses_on_the_cpu(monkeypatch):
     assert onoff["model"].metrics_["sketch_k"] > 0
     assert [k["name"] for k in kernels] == ["count_pairs_sketch",
                                             "minlab_pairs_sketch"]
+    b3 = kernels[0]
+    assert 0 < b3["floor_ms"] and 0 <= b3["mma_probe_term3_share"] <= 1
     for rec in kernels:
         assert rec["launches"] >= 1 and rec["max_abs_err"] == 0
         assert rec["bound_by"] == "operations" and rec["bound_ms"] > 0
