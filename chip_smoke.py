@@ -24,7 +24,14 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    generating truth (>= 0.99); repeated fits must be byte-identical;
 5. the kernels alone at the 1M fit's own inputs (the first B1 pass and
    the first B2 pass): equality with the plain versions, CUDA-event
-   times (median) beside the plain versions' times and the bound;
+   times (median) beside the plain versions' times and the bound; then
+   B2 at each round's labels of the fit (:func:`b2_rounds`, the fit's
+   round loop replayed with the live rows it passes): per round its
+   time, its evaluated share of (block, 32-column chunk) pairs (the
+   label-bound skip), its bound (the label-exact floor) beside the work
+   without the skip, and on
+   the first 64 row tiles the kernel bitwise its plain version and
+   ``minlab_pairs_walk`` with its evaluated count equal to the walk's;
 6. serving at full size on phase 4's first 1M host-input model (no
    refit): ``model.query_engine()`` with its defaults builds the
    core-point index; 65,536 queries (half jittered training points, a
@@ -89,7 +96,9 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    B1/B2 kernels at phase 5's inputs: against their plain versions (and
    the mixed ones against the FP32 kernels) over the first 64 row tiles,
    as in (1), then timed beside the FP32 times, the plain versions' and
-   the bound; (5) a ``"mixed"`` engine on phase 6's
+   the bound, and B2 under both modes per round as in phase 5 (the
+   mixed kernel also bitwise the FP32 kernel); (5) a ``"mixed"`` engine
+   on phase 6's
    index over phase 6's batches: answers bitwise the exact engine's and
    the oracle's, one mixed B5 per batch, its time beside exact B5 and
    the kept share of chunks; (6) 100,000 x 512 fits under both modes
@@ -111,11 +120,18 @@ profiles a 1M x 16-D fit, one serving drain (``torch.profiler``, then
 see :func:`profile_fit`.  ``python3 chip_smoke.py --b4`` builds the
 kernels and runs only the timings of phase 7 (4), without the plain
 versions' checks: the quick way to time B3 (with its rescored pairs
-and both bounds) and B4 per round.
+and both bounds) and B4 per round.  ``--b2`` does the same for B2
+(:func:`b2_timings`: each round of the 1M x 16-D fit in all three
+modes, B1 beside it, and B1/B2 without the sketch
+at 100,000 x 512); copied into a parent tree's root it times that
+tree's kernels too, for an A/B in one call.  ``--b2-walk`` measures
+the label-bound skip's evaluated share per round from the plain walk
+alone (:func:`b2_walk_shares`).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -553,21 +569,24 @@ def b4_chunks(rp, tile, rows_per_block=256):
     return int(rp[-1]) * -(-tile // rows_per_block) * -(-tile // 32)
 
 
-def b4_floor_pairs(torch, labels, rp, cols, best, tile):
-    """The pairs a label-exact B4 must rule out on these inputs: per row
-    r with answer a_r (``best``), the source columns of its live column
-    tiles with a label below a_r, plus one (the witness) where a_r <
-    INT32_MAX.  Counted on the card from each column tile's sorted
-    labels with ``torch.searchsorted``; non-sources carry INT32_MAX and
-    never count."""
+def b4_floor_pairs(torch, labels, rp, cols, best, tile, live=None):
+    """The pairs a label-exact B4 (or B2) must rule out on these inputs:
+    per row r with answer a_r (``best``), the source columns of its live
+    column tiles with a label below a_r, plus one (the witness) where
+    a_r < INT32_MAX; rows outside ``live`` (the rows the caller no longer
+    needs) count nothing.  Counted on the card from each column tile's
+    sorted labels with ``torch.searchsorted``; non-sources carry
+    INT32_MAX and never count."""
     nt = labels.shape[0] // tile
     srt = labels.view(nt, tile).sort(dim=1).values.contiguous()
     per = (rp[1:] - rp[:-1]).long()
     rows_t = torch.repeat_interleave(torch.arange(nt, device=labels.device),
                                      per)
     cols_t = cols[:int(rp[-1])].long()
+    if live is not None:
+        best = torch.where(live, best, -2**31)
     a = best.view(nt, tile)
-    total = int((best != 2**31 - 1).sum())
+    total = int(((best != 2**31 - 1) & (best != -2**31)).sum())
     for s in range(0, rows_t.numel(), 4096):
         r, c = rows_t[s:s + 4096], cols_t[s:s + 4096]
         total += int(torch.searchsorted(srt[c], a[r].contiguous()).sum())
@@ -576,6 +595,258 @@ def b4_floor_pairs(torch, labels, rp, cols, best, tile):
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989e12
+
+
+# Sizes of the B2 hold; tests rehearse it at small ones on the CPU.
+B2_SIZES = {"sub_tiles": 64, "reps": 5}
+# FP32 operations per pair of the bf16 B1/B2 epilogue: d2f (add, mul,
+# sub) and the compare, plus the band test (sub, abs-compare) in "mixed".
+EPILOGUE_OPS = {"mixed": 6, "default": 4}
+
+
+def _takes(fn, name):
+    """Whether the wrapper ``fn`` takes the keyword ``name`` (a parent
+    tree's B2 wrappers, timed by this script for an A/B, take no skip
+    keywords)."""
+    import inspect
+
+    params = inspect.signature(fn).parameters
+    return name in params or any(p.kind == p.VAR_KEYWORD
+                                 for p in params.values())
+
+
+def b2_rounds(torch, dev, median_ms, sync, xs, mask, modes, fit_launches,
+              sizes=B2_SIZES, check=True):
+    """B2 alone at each round's labels of the 1M x 16-D fit (``xs``,
+    ``mask`` staged as a host-input fit stages them) in each of
+    ``modes``: the fit's round loop replayed (``ops/labels.
+    _pointer_jump``) with the live rows the fit passes; per round the
+    kernel's CUDA-event median, its evaluated share of (block, chunk)
+    pairs and its bound, the label-exact floor (:func:`b4_floor_pairs`'
+    rule over B2's pairs and live rows, x 3d + 1 FP32 operations, or 2K
+    tensor-core operations plus the epilogue under bf16, against the
+    bytes; as B4's), with the work without the skip beside it (every
+    source column of the live tiles).  With ``check``,
+    over the first ``sub_tiles`` row tiles at each round's labels: the
+    kernel bitwise its plain version and ``minlab_pairs_walk``, and its
+    evaluated count equal to the walk's (``"mixed"`` also bitwise the
+    FP32 kernel).  Returns one JSON record per mode."""
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import INT_INF, eps2_f32, row_offsets
+    from pypardis_tpu_torch.ops.labels import _pointer_jump
+
+    if check:
+        from pypardis_tpu_torch.ops.distances import minlab_pairs_walk
+    d, N = xs.shape
+    e2 = eps2_f32(2.4)
+    K = -(-d // 16) * 16
+    idx = torch.arange(N, device=dev, dtype=torch.int32)
+    records = []
+    for mode in modes:
+        name = "minlab_pairs" if mode == "high" else f"minlab_pairs_{mode}"
+        kern = getattr(ck, name)
+        plain = ck.PLAIN[name]
+        skip = _takes(kern, "evaluated")
+        (rows, cols), (total, budget) = ck.kernel_pair_list(
+            xs, 2.4, mask, 2048, mode)
+        if total > budget:
+            (rows, cols), (total, budget) = ck.kernel_pair_list(
+                xs, 2.4, mask, 2048, mode, budget=total)
+        tile = ck._pallas_block(2048, N, d, mode)
+        nt = N // tile
+        rp = row_offsets(rows, nt)
+        mi = mask.to(torch.int32)
+        centers, rnorm = ck.tile_frames(xs, mask, tile)
+        frames = {"high": (), "mixed": (centers, rnorm),
+                  "default": (centers,)}[mode]
+        counts = (ck.count_pairs_default(xs, mi, rp, cols, e2, tile, centers)
+                  if mode == "default"
+                  else ck.count_pairs(xs, mi, rp, cols, e2, tile))
+        core = (torch.clamp_min(torch.where(mask, counts, 0), 1)
+                >= 10) & mask
+        sub = min(sizes["sub_tiles"], nt)
+        rp_sub = torch.cat([rp[:sub + 1], rp[sub].repeat(nt - sub)])
+        cols_t = cols[:int(rp[-1])].long()
+        rpb = 256 if mode == "high" else 128
+        chunks = int(rp[-1]) * -(-tile // rpb) * -(-tile // 32)
+        # The work without the skip: every row of a live tile pair
+        # against the source columns; bytes: points, labels, list,
+        # frames.
+        pairs = int(core.view(nt, tile).sum(1)[cols_t].sum()) * tile
+        in_bytes = (d * N * 4 + N * 4 + rp.numel() * 4 + cols.numel() * 4
+                    + sum(t.numel() * 4 for t in frames) + N)
+        t_bytes = (in_bytes + N * 4) / PEAK_BYTES_PER_S
+
+        def ops_s(p):
+            if mode == "high":
+                return p * (3 * d + 1) / PEAK_FP32_FLOPS
+            return (2 * K * p / PEAK_BF16_FLOPS
+                    + p * EPILOGUE_OPS[mode] / PEAK_FP32_FLOPS)
+
+        # "mixed" also rescores its in-band pairs exactly: the stats of
+        # B1's band over the source columns, which count core rows only
+        # (B2 rescores every row's pairs: a lower count, so the bound
+        # stays a lower bound).
+        in_band = 0
+        if mode == "mixed":
+            in_band = int(ck.count_pairs_mixed(
+                xs, core.to(torch.int32), rp, cols, e2, tile, centers,
+                rnorm)[1][0])
+        t_ops = ops_s(pairs) + in_band * (3 * d + 1) / PEAK_FP32_FLOPS
+        unskipped_ms = max(t_ops, t_bytes) * 1e3
+        f = torch.where(core, idx, INT_INF)
+        live = mask
+        rounds = []
+        err = 0
+        while True:
+            a = (xs, f.contiguous(), rp, cols, e2, tile) + frames
+            kw = {"live_rows": live} if skip else {}
+            ev = torch.zeros(1, dtype=torch.int64, device=dev)
+            g = kern(*a, **kw, **({"evaluated": ev} if skip else {}))
+            sync()
+            r_ms = median_ms(lambda: kern(*a, **kw), sizes["reps"])
+            floor = b4_floor_pairs(torch, a[1], rp, cols, g, tile, live)
+            floor_ms = max(ops_s(floor), t_bytes) * 1e3
+            share = int(ev[0]) / max(chunks, 1) if skip else None
+            if check:
+                sa = a[:2] + (rp_sub,) + a[3:]
+                ev_s = torch.zeros(1, dtype=torch.int64, device=dev)
+                ks = kern(*sa, live_rows=live, evaluated=ev_s)
+                ps = plain(*sa, live_rows=live)
+                wb, wev = minlab_pairs_walk(
+                    *sa[:6], mode, *(frames + (None, None))[:2],
+                    live_rows=live)
+                sync()
+                bad = int((ks != ps).sum()) + int((wb != ps).sum())
+                if mode == "mixed":
+                    fs = ck.minlab_pairs(*sa[:6], live_rows=live)
+                    bad += int((fs != ks)[mask].sum())
+                err = max(err, int((ks.long() - ps.long()).abs().max()))
+                log(f"    {name} round {len(rounds) + 1}, first {sub} of "
+                    f"{nt} row tiles: {bad} mismatches against the plain "
+                    f"version and the walk; evaluated {int(ev_s[0])}, walk "
+                    f"{wev}")
+                if bad:
+                    fail(f"{name} disagrees with its plain version at round "
+                         f"{len(rounds) + 1}")
+                if int(ev_s[0]) != wev:
+                    fail(f"{name}'s evaluated count differs from the walk's "
+                         f"at round {len(rounds) + 1}")
+            rounds.append(dict(ms=r_ms, share=share, floor=floor,
+                               floor_ms=floor_ms,
+                               by_ops=ops_s(floor) >= t_bytes))
+            log(f"  {name} round {len(rounds)}: {r_ms:.4f} ms, evaluated "
+                f"{int(ev[0]) if skip else 'n/a'} of {chunks} (block, chunk) "
+                f"pairs ({share}); bound (label-exact floor) {floor} pairs, "
+                f"{floor_ms:.4f} ms; without the skip {unskipped_ms:.4f} ms")
+            live = mask & (g != INT_INF)
+            f_new = _pointer_jump(torch.where(core, torch.minimum(f, g), f),
+                                  core)
+            if torch.equal(f_new, f):
+                break
+            f = f_new
+        ms = [r["ms"] for r in rounds]
+        sa = (xs, torch.where(core, idx, INT_INF).contiguous(), rp_sub, cols,
+              e2, tile) + frames
+        plain_ms = median_ms(lambda: plain(*sa), 1)
+        log(f"  {name}: {np.mean(ms):.4f} ms per launch over "
+            f"{len(rounds)} rounds ({sum(ms):.4f} ms in all; plain "
+            f"{plain_ms:.2f} ms on the first {sub} of {nt} row tiles at the "
+            f"round-1 labels); {pairs} point pairs without the skip")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "pypardis_tpu_torch/csrc/pair_kernels.cu",
+            "replaces": "pypardis_tpu/ops/pallas_kernels.py:264",
+            "launches": int((fit_launches or {}).get(name, len(rounds))),
+            "max_abs_err": err, "ms": float(np.mean(ms)),
+            "plain_ms": plain_ms,
+            "plain_scope": f"first {sub} of {nt} row tiles, round-1 labels",
+            # The bound is the label-exact work (B4's rule); the work
+            # without the skip stands beside it.
+            "bound_ms": float(np.mean([r["floor_ms"] for r in rounds])),
+            "bound_by": ("operations" if all(r["by_ops"] for r in rounds)
+                         else "bytes"),
+            "bound_ms_unskipped": unskipped_ms,
+            # No single PyTorch call computes a thresholded min label
+            # over a tile-pair list.
+            "library_ms": None,
+            "ms_per_round": ms,
+            "evaluated_share_per_round": [r["share"] for r in rounds],
+            "floor_ms": float(np.mean([r["floor_ms"] for r in rounds])),
+            "floor_ms_per_round": [r["floor_ms"] for r in rounds],
+        })
+    return records
+
+
+def b2_timings(torch, dev, median_ms, sync, sizes=B2_SIZES):
+    """``--b2``: B2 alone at each round's labels of the 1M x 16-D fit in
+    its three modes (:func:`b2_rounds`, without the plain versions'
+    checks), B1 at the same inputs, and B1/B2 without the sketch at
+    100,000 x 512 (round-1 labels), then the sha256 of the 1M x 16-D
+    fits' labels and core mask in each mode from host input and from a
+    CUDA tensor: the quick way to time a B2 change, and to A/B two trees
+    in one call (run this script from each tree's root; a copy of the
+    tree with ``PP_GROUP`` or ``FP_GROUP`` of ``csrc/pair_kernels.cu``
+    edited times another staged width)."""
+    from benchdata import make_blob_data, make_embedding_data
+    from pypardis_tpu_torch.dbscan import _stage
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import (
+        INT_INF, eps2_f32, row_offsets,
+    )
+    from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
+
+    X, _truth = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
+    pts, n, block = _stage(X, 2048, dev)
+    xs, mask, _o = _pipeline_layout(pts, 2.4, n, block, sort=True)
+    records = b2_rounds(torch, dev, median_ms, sync, xs, mask,
+                        ("high", "mixed", "default"), None, sizes,
+                        check=False)
+    for what, emb, eps in (("1M x 16", False, 2.4),
+                           ("100k x 512, sketch off", True, 2.0)):
+        if emb:
+            Xe, _t = make_embedding_data(100_000, 512)
+            pts, n, block = _stage(Xe, 2048, dev)
+            xs, mask, _o = _pipeline_layout(pts, eps, n, block, sort=True)
+        (rows, cols), (total, budget) = ck.kernel_pair_list(
+            xs, eps, mask, 2048, "high")
+        if total > budget:
+            (rows, cols), (total, budget) = ck.kernel_pair_list(
+                xs, eps, mask, 2048, "high", budget=total)
+        d, N = xs.shape
+        tile = ck._pallas_block(2048, N, d, "high")
+        rp = row_offsets(rows, N // tile)
+        e2 = eps2_f32(eps)
+        a = (xs, mask.to(torch.int32), rp, cols, e2, tile)
+        c = ck.count_pairs(*a)
+        b1 = median_ms(lambda: ck.count_pairs(*a), sizes["reps"])
+        line = f"  B1 high at {what}: {b1:.4f} ms"
+        if emb:
+            core = (torch.clamp_min(torch.where(mask, c, 0), 1) >= 10) & mask
+            lab = torch.where(core, torch.arange(N, device=dev,
+                                                 dtype=torch.int32),
+                              INT_INF).contiguous()
+            b = a[:1] + (lab,) + a[2:]
+            kw = ({"live_rows": mask} if _takes(ck.minlab_pairs, "live_rows")
+                  else {})
+            b2 = median_ms(lambda: ck.minlab_pairs(*b, **kw), sizes["reps"])
+            line += f", B2 high (round-1 labels) {b2:.4f} ms"
+        log(line)
+        records.append({"name": f"count_pairs at {what}", "ms": b1})
+    # The fits' own bytes, to hold two trees' fits equal across calls.
+    from pypardis_tpu_torch import DBSCAN
+
+    Xd = torch.from_numpy(X).to(dev)
+    for mode in ("high", "mixed", "default"):
+        for src, data in (("host", X), ("cuda", Xd)):
+            m = DBSCAN(eps=2.4, min_samples=10, block=2048, precision=mode,
+                       device=dev).fit(data)
+            digest = hashlib.sha256(
+                m.labels_.tobytes() + m.core_sample_mask_.tobytes()
+            ).hexdigest()
+            log(f"  1M x 16 {mode} fit from {src}: labels and core sha256 "
+                f"{digest}")
+    return records
 
 
 def b3_bounds(gated, band_pairs, rescored, k, d):
@@ -1091,9 +1362,6 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
 
 PRECISION_SIZES = {"check_n": 20_000, "sketch_n": 20_000, "sub_tiles": 64,
                    "reps": 5, "dims": (3, 16, 64, 96)}
-# FP32 operations per pair of the fast pass's epilogue: d2f (add, mul,
-# sub) and the compare, plus the band test (sub, abs-compare) in "mixed".
-EPILOGUE_OPS = {"mixed": 6, "default": 4}
 
 
 def adversarial(n, d, eps, seed=3, offset=1e3):
@@ -1396,20 +1664,12 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
     rp, cols = inp["rp"], inp["cols"]
     cols_t = cols[:int(rp[-1])].long()
     need = {"count_pairs": int(mask.view(nt, tile).sum(1)[cols_t].sum())
-            * tile,
-            "minlab_pairs": int(inp["core"].view(nt, tile).sum(1)[cols_t]
-                                .sum()) * tile}
+            * tile}
     fr = (inp["centers"], inp["rnorm"])
     a = (xs, inp["mi"], rp, cols, inp["e2"], tile)
-    b = (xs, inp["lab"], rp, cols, inp["e2"], tile)
-    # In-band pairs of each pass: B1's band stats over valid rows and
-    # columns; for B2 the stats of the band over the source columns,
-    # which count core rows only (B2 rescores every row's pairs: a lower
-    # count, so its bound stays a lower bound).
-    band_b1 = ck.count_pairs_mixed(*a, *fr)[1]
-    band_b2 = ck.count_pairs_mixed(xs, inp["core"].to(torch.int32), rp,
-                                   cols, inp["e2"], tile, *fr)[1]
-    in_band = {"count_pairs": int(band_b1[0]), "minlab_pairs": int(band_b2[0])}
+    # In-band pairs of the pass: B1's band stats over valid rows and
+    # columns.
+    in_band = {"count_pairs": int(ck.count_pairs_mixed(*a, *fr)[1][0])}
     sub = min(sizes["sub_tiles"], nt)
     rp_sub = torch.cat([rp[:sub + 1], rp[sub].repeat(nt - sub)])
     # The rows the sub-list covers.
@@ -1420,7 +1680,6 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
     kernels = []
     for base, args, replaces in (
         ("count_pairs", a, "pypardis_tpu/ops/pallas_kernels.py:202"),
-        ("minlab_pairs", b, "pypardis_tpu/ops/pallas_kernels.py:264"),
     ):
         sub_args = args[:2] + (rp_sub,) + args[3:]
         fp32_sub = getattr(ck, base)(*sub_args)
@@ -1467,6 +1726,16 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
                 # min-label over a tile-pair list.
                 "library_ms": None,
             })
+    # B2 at each round's labels of the fit, with the fit's live rows: the
+    # kernels bitwise their plain versions and the walk (and "mixed" the
+    # FP32 kernel) on the sub-list, their counts equal to the walk's.
+    for rec in b2_rounds(torch, dev, median_ms, sync, xs, mask,
+                         ("mixed", "default"),
+                         dict(mixed_launches, **default_launches),
+                         dict(B2_SIZES, sub_tiles=sizes["sub_tiles"],
+                              reps=sizes["reps"])):
+        main_err[rec["name"]] = rec["max_abs_err"]
+        kernels.append(rec)
 
     # 8.5: serving through the mixed prefilter on phase 6's index.
     exact_eng = served["engine"]
@@ -1689,6 +1958,80 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
     return kernels
 
 
+def b2_walk_shares(torch, dev, n=1_000_000, sub_tiles=None):
+    """``--b2-walk``: the evaluated share of B2's label-bound skip per
+    round of the 1M x 16-D fit in each mode, from
+    ``ops/distances.minlab_pairs_walk`` over the whole pair list (no
+    kernel of B2 runs): with every row in the bound and with only the
+    fit's live rows (valid, and after round 1 those whose previous pass
+    found a source), at one chunk per barrier and at the kernel's
+    group.  ``sub_tiles`` restricts the list to its first row tiles."""
+    from benchdata import make_blob_data
+    from pypardis_tpu_torch.dbscan import _stage
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import (
+        INT_INF, eps2_f32, minlab_group, minlab_pairs_walk, row_offsets,
+    )
+    from pypardis_tpu_torch.ops.labels import _pointer_jump
+    from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
+
+    X, _truth = make_blob_data(n, 16, n_centers=32, std=0.4)
+    pts, nn, block = _stage(X, 2048, dev)
+    xs, mask, _o = _pipeline_layout(pts, 2.4, nn, block, sort=True)
+    d, N = xs.shape
+    e2 = eps2_f32(2.4)
+    idx = torch.arange(N, device=dev, dtype=torch.int32)
+    out = {}
+    for mode in ("high", "mixed", "default"):
+        (rows, cols), (total, budget) = ck.kernel_pair_list(
+            xs, 2.4, mask, block, mode)
+        if total > budget:
+            (rows, cols), (total, budget) = ck.kernel_pair_list(
+                xs, 2.4, mask, block, mode, budget=total)
+        tile = ck._pallas_block(block, N, d, mode)
+        nt = N // tile
+        rp = row_offsets(rows, nt)
+        if sub_tiles:
+            rp = torch.cat([rp[:sub_tiles + 1],
+                            rp[sub_tiles].repeat(nt - sub_tiles)])
+        centers, rnorm = ck.tile_frames(xs, mask, tile)
+        mi = mask.to(torch.int32)
+        counts = (ck.count_pairs_default(xs, mi, rp, cols, e2, tile, centers)
+                  if mode == "default" else
+                  ck.count_pairs(xs, mi, rp, cols, e2, tile))
+        core = (torch.clamp_min(torch.where(mask, counts, 0), 1) >= 10) & mask
+        rpb = 256 if mode == "high" else 128
+        chunks = int(rp[-1]) * -(-tile // rpb) * -(-tile // 32)
+        groups = sorted({1, minlab_group(d, mode)})
+        f = torch.where(core, idx, INT_INF)
+        live = mask
+        shares = []
+        while True:
+            lab = f.contiguous()
+            row = {}
+            for name, lr in (("all rows", None), ("live rows", live)):
+                for g in groups:
+                    best, ev = minlab_pairs_walk(
+                        xs, lab, rp, cols, e2, tile, mode, centers, rnorm,
+                        live_rows=lr, group=g)
+                    row[f"{name}, group {g}"] = ev / max(chunks, 1)
+            g_best = best
+            log(f"  B2 walk {mode} round {len(shares) + 1}: "
+                + ", ".join(f"{k} {v:.6f}" for k, v in row.items())
+                + f" of {chunks} (block, chunk) pairs; rows without a "
+                f"source {int((mask & (g_best == INT_INF)).sum())}, pad "
+                f"rows {int((~mask).sum())}")
+            shares.append(row)
+            live = mask & (g_best != INT_INF)
+            f_new = _pointer_jump(
+                torch.where(core, torch.minimum(f, g_best), f), core)
+            if torch.equal(f_new, f):
+                break
+            f = f_new
+        out[mode] = shares
+    return out
+
+
 def single_call_build_seconds(_build) -> float:
     """Seconds of one ``nvcc -shared`` over every source into a scratch
     file: the single-process build ``csrc/_build.py`` does not use, timed
@@ -1774,6 +2117,17 @@ def main() -> None:
             e.synchronize()
             times.append(s.elapsed_time(e))
         return float(np.median(times))
+
+    if "--b2" in sys.argv[1:]:
+        records = b2_timings(torch, dev, median_ms, torch.cuda.synchronize)
+        log(f"card: {card}")
+        print(json.dumps({"kernels": records}))
+        return
+
+    if "--b2-walk" in sys.argv[1:]:
+        b2_walk_shares(torch, dev)
+        log(f"card: {card}")
+        return
 
     if "--b4" in sys.argv[1:]:
         records, _ = sketch_phase(torch, dev, median_ms,
@@ -1945,8 +2299,6 @@ def main() -> None:
     kernels = []
     for name, colval, replaces in (
         ("count_pairs", inp["mi"], "pypardis_tpu/ops/pallas_kernels.py:202"),
-        ("minlab_pairs", inp["lab"],
-         "pypardis_tpu/ops/pallas_kernels.py:264"),
     ):
         args = (xs, colval, inp["rp"], inp["cols"], inp["e2"], tile)
         kern = getattr(ck, name)
@@ -1976,6 +2328,9 @@ def main() -> None:
             # min-label over a tile-pair list.
             "library_ms": None,
         })
+    # B2 at each round's labels of the fit, with the fit's live rows.
+    kernels += b2_rounds(torch, dev, median_ms, torch.cuda.synchronize, xs,
+                         mask, ("high",), main_launches)
 
     log("phase 6: serving on the 1M host-input model")
     record, served = serve_phase(torch, serve_model, serve_X, median_ms)

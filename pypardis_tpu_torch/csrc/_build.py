@@ -29,7 +29,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("pair_kernels.cu", "sketch_kernels.cu", "query_kernels.cu")
 # Headers the sources include: part of the build's key, so an edit to one
 # rebuilds every source.
-HEADERS = ("bf16_tile.cuh",)
+HEADERS = ("bf16_tile.cuh", "label_bound.cuh")
 # Compile flags of every source; the link adds ``-shared``.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -117,14 +117,17 @@ def _bind(lib) -> None:
     p, f, i64, i32 = (
         ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
     )
-    for name in ("pp_count_pairs", "pp_minlab_pairs"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, f, i64, i32, i32, i32, p, p]
-        fn.restype = i32
-    fast = [p, p, p, p, p, p, f, i64, i32, i32, i32, i32, p]
-    lib.pp_count_pairs_fast.argtypes = fast + [p, p, p]
+    pair = [p, p, p, p, f, i64, i32, i32, i32]
+    lib.pp_count_pairs.argtypes = pair + [p, p]
+    lib.pp_count_pairs.restype = i32
+    # B2 takes (tile_min, live_rows, out, evaluated, stream).
+    skip = [p, p, p, p, p]
+    lib.pp_minlab_pairs.argtypes = pair + skip
+    lib.pp_minlab_pairs.restype = i32
+    fast = [p, p, p, p, p, p, f, i64, i32, i32, i32, i32]
+    lib.pp_count_pairs_fast.argtypes = fast + [p, p, p, p]
     lib.pp_count_pairs_fast.restype = i32
-    lib.pp_minlab_pairs_fast.argtypes = fast + [p]
+    lib.pp_minlab_pairs_fast.argtypes = fast + skip
     lib.pp_minlab_pairs_fast.restype = i32
     # The sketch kernels take (..., nt, rescore, out) and end in
     # (band_pairs, flags, rescored_pairs, stream) for B3 and (tile_min,

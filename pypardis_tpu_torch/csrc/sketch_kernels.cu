@@ -71,8 +71,9 @@
 // that work starts: a pair-list entry whose column tile's minimum label
 // (the wrapper's (nt,) tile_min, one torch reduction) is >= the bound is
 // passed over whole; a chunk is passed over when L_C, a __reduce_min_sync
-// of the 32 labels each warp reads from global memory itself (so no
-// barrier is spent on a skipped chunk), is >= the bound.  The bound is a
+// of the 32 labels each warp reads from global memory itself (lb_find,
+// label_bound.cuh: no barrier is spent on a skipped chunk), is >= the
+// bound.  The bound is a
 // __reduce_max_sync per warp plus a max over the warps in shared memory,
 // refreshed at the barrier that opens each evaluated chunk.
 // Inside an evaluated chunk a warp whose own max of m_r is <= L_C skips
@@ -202,12 +203,14 @@
 #include <stdint.h>
 
 #include "bf16_tile.cuh"
+#include "label_bound.cuh"
 
 #define SK_INT_INF 2147483647
 #define SK_INT_MIN (-SK_INT_INF - 1)
 #define SK_THREADS 256
 #define SK_WARPS (SK_THREADS / 32)
 #define SK_CH 32    // columns per chunk: one bit each in a 32-bit mask
+static_assert(SK_CH == LB_CHUNK, "B4 walks the chunks lb_find searches");
 #define SK_AX 8     // axes per register step
 #define SK_AXMAX 512  // full-d axes staged per slice
 // The rescore, the C interface's explicit choice (the template's FAST).
@@ -369,14 +372,7 @@ __device__ __forceinline__ unsigned sk_to_owner(const unsigned (&rm)[2][2],
   return sel == 0 ? v00 : sel == 1 ? v01 : sel == 2 ? v10 : v11;
 }
 
-// Asynchronous 4-byte global -> shared copy; bytes past src_size (0 or 4)
-// are zero-filled.
-__device__ __forceinline__ void sk_cp4(void* dst, const void* src,
-                                      int src_size) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_size));
-}
+// Groups of asynchronous copies (each copy an lb_cp4, label_bound.cuh).
 __device__ __forceinline__ void sk_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -393,33 +389,8 @@ __device__ __forceinline__ void sk_stage_full(
     const int a = s0 + e / SK_CH;
     const int t = e % SK_CH;
     const bool in = t < w && a < d;
-    sk_cp4(ys + e, in ? pts + a * n + col0 + t : pts, in ? 4 : 0);
+    lb_cp4(ys + e, in ? pts + a * n + col0 + t : pts, in ? 4 : 0);
   }
-}
-
-// B4's chunk search: from chunk (p, j0) on, the first chunk whose minimum
-// label L is below the bound, passing over whole entries whose column
-// tile's minimum is not.  Every warp reads the same labels, so the result
-// is uniform over the block without a barrier.  Returns false (p == p1)
-// when none is left.
-__device__ __forceinline__ bool sk_find(
-    const int* __restrict__ colval, const int* __restrict__ cols,
-    const int* __restrict__ tile_min, int tile, int p1, int bnd, int& p,
-    int& j0, int& L) {
-  const int lane = threadIdx.x & 31;
-  for (; p < p1; ++p, j0 = 0) {
-    const int ct = __ldg(cols + p);
-    if (__ldg(tile_min + ct) >= bnd) continue;
-    const long long c0 = (long long)ct * tile;
-    for (; j0 < tile; j0 += SK_CH) {
-      const int v = lane < min(SK_CH, tile - j0)
-                        ? __ldg(colval + c0 + j0 + lane)
-                        : SK_INT_INF;
-      L = __reduce_min_sync(0xffffffffu, v);
-      if (L < bnd) return true;
-    }
-  }
-  return false;
 }
 
 template <int MODE, int FAST>
@@ -515,7 +486,7 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
       int bnd = warp_max[0];
 #pragma unroll
       for (int i = 1; i < SK_WARPS; ++i) bnd = max(bnd, warp_max[i]);
-      if (!sk_find(colval, cols, tile_min, tile, p1, bnd, p, j0, L)) break;
+      if (!lb_find(colval, cols, tile_min, tile, p1, bnd, p, j0, L)) break;
     } else if (p >= p1) {
       break;
     }
@@ -526,14 +497,14 @@ __global__ void __launch_bounds__(SK_THREADS) sketch_pair_kernel(
       // Group 1: the column values and the slab columns.
       if (threadIdx.x < SK_CH) {
         if (threadIdx.x < w)
-          sk_cp4(sv + threadIdx.x, colval + col0 + threadIdx.x, 4);
+          lb_cp4(sv + threadIdx.x, colval + col0 + threadIdx.x, 4);
         else
           sv[threadIdx.x] = inval;
       }
       for (int e = threadIdx.x; e < skp * SK_CH; e += blockDim.x) {
         const int a = e / SK_CH;
         const int t = e % SK_CH;
-        sk_cp4(ss + e, t < w ? slab + a * n + col0 + t : slab, t < w ? 4 : 0);
+        lb_cp4(ss + e, t < w ? slab + a * n + col0 + t : slab, t < w ? 4 : 0);
       }
       sk_commit();
       // Group 2: the first full-d slice, in flight during the gate (most

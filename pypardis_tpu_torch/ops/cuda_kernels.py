@@ -15,7 +15,10 @@ an exact rescore per in-band pair) and ``"default"``
 pass alone); B3/B4 rescore in bf16 under ``"default"``, and B3 under
 every other mode through the certified bf16 rescore (a per-pair band
 and an exact fallback, bitwise the exact verdicts); B5 adds the bf16
-chunk prefilter under ``"mixed"``.
+chunk prefilter under ``"mixed"``.  B2 and B4 skip, exactly, the
+column chunks whose labels cannot lower any row of a block (the
+label-bound skip; :func:`~.distances.minlab_pairs_walk` and
+:func:`~.distances.minlab_skip_walk` are their walks in plain torch).
 
 All are CUDA C++ for ``sm_90a`` (``csrc/pair_kernels.cu``,
 ``csrc/sketch_kernels.cu``, ``csrc/query_kernels.cu`` and their shared
@@ -54,6 +57,7 @@ from .distances import (
     minlab_over_pairs_default,
     minlab_over_pairs_mixed,
     minlab_over_pairs_sketch,
+    minlab_pairs_walk,
     minlab_skip_walk,
     row_offsets,
     tile_bounds,
@@ -311,13 +315,6 @@ def count_pairs(pts, mask, row_ptr, cols, eps2, tile):
     return _launch("count_pairs", pts, mask, row_ptr, cols, eps2, tile)
 
 
-def minlab_pairs(pts, labels, row_ptr, cols, eps2, tile):
-    """B2: per-point minimum label over columns within eps (non-source
-    columns carry INT32_MAX).  Returns (N,) int32; INT32_MAX where no
-    source is within eps."""
-    return _launch("minlab_pairs", pts, labels, row_ptr, cols, eps2, tile)
-
-
 def _check_frames(pts, tile, centers, rnorm):
     d, n = pts.shape
     nt = n // tile
@@ -335,19 +332,25 @@ def _check_frames(pts, tile, centers, rnorm):
             raise ValueError(f"{name} is on {t.device}, points on {pts.device}")
 
 
-def _launch_fast(name, mode, pts, colval, row_ptr, cols, eps2, tile,
-                 centers, rnorm=None):
-    """The bf16 pair kernels: ``count_pairs`` under ``"mixed"`` returns
-    ``(counts, stats)``, every other one its (N,) int32 result."""
-    _check(pts, colval, row_ptr, cols, tile)
+def _check_counter(name, t, pts):
+    if t is not None and (t.dtype != torch.int64 or t.shape != (1,)
+                          or t.device != pts.device):
+        raise ValueError(f"{name} must be a (1,) int64 tensor beside pts")
+
+
+def _launch_fast(mode, pts, mask, row_ptr, cols, eps2, tile, centers,
+                 rnorm=None):
+    """B1's bf16 kernel: under ``"mixed"`` returns ``(counts, stats)``,
+    under ``"default"`` the (N,) int32 counts."""
+    _check(pts, mask, row_ptr, cols, tile)
     if mode == "mixed" and rnorm is None:
         raise ValueError("precision='mixed' needs the row tiles' rnorm")
     _check_frames(pts, tile, centers, rnorm)
-    key = f"{name}_{mode}"
+    key = f"count_pairs_{mode}"
     mixed = mode == "mixed"
     if pts.device.type == "cpu":
         extra = (rnorm,) if mixed else ()
-        return PLAIN[key](pts, colval, row_ptr, cols, eps2, tile, centers,
+        return PLAIN[key](pts, mask, row_ptr, cols, eps2, tile, centers,
                           *extra)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
@@ -356,29 +359,24 @@ def _launch_fast(name, mode, pts, colval, row_ptr, cols, eps2, tile,
     lib = _build.load()
     d, n = pts.shape
     out = torch.empty(n, dtype=torch.int32, device=pts.device)
-    counting = name == "count_pairs" and mixed
-    if counting:
+    if mixed:
         n_band = torch.zeros(1, dtype=torch.int64, device=pts.device)
         flags = torch.zeros(max(cols.shape[0], 1), dtype=torch.int32,
                             device=pts.device)
-    # B1's stats pointers (NULL under "default"); B2 takes none.
-    stats = (
-        (n_band.data_ptr() if counting else None,
-         flags.data_ptr() if counting else None)
-        if name == "count_pairs" else ()
-    )
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"pp_{name}_fast")(
-            pts.data_ptr(), colval.data_ptr(), row_ptr.data_ptr(),
+        rc = lib.pp_count_pairs_fast(
+            pts.data_ptr(), mask.data_ptr(), row_ptr.data_ptr(),
             cols.data_ptr(), centers.data_ptr(),
             rnorm.data_ptr() if mixed else None, float(eps2), n, d, tile,
-            n // tile, 0 if mixed else 1, out.data_ptr(), *stats, stream,
+            n // tile, 0 if mixed else 1, out.data_ptr(),
+            n_band.data_ptr() if mixed else None,
+            flags.data_ptr() if mixed else None, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
     LAUNCHES[key] += 1
-    if counting:
+    if mixed:
         return out, torch.cat([n_band, flags.sum(dtype=torch.int64)[None]])
     return out
 
@@ -395,30 +393,114 @@ def count_pairs_mixed(pts, mask, row_ptr, cols, eps2, tile, centers,
     :func:`count_pairs` on the rows of ``mask``; ``stats`` the (2,)
     int64 ``[band_pairs, rescored_tiles]`` over valid rows and
     columns."""
-    return _launch_fast("count_pairs", "mixed", pts, mask, row_ptr, cols,
-                        eps2, tile, centers, rnorm)
-
-
-def minlab_pairs_mixed(pts, labels, row_ptr, cols, eps2, tile, centers,
-                       rnorm):
-    """B2 under ``precision="mixed"`` (the band over source columns, no
-    stats): equal to :func:`minlab_pairs` on the rows ``rnorm``
-    covers."""
-    return _launch_fast("minlab_pairs", "mixed", pts, labels, row_ptr,
-                        cols, eps2, tile, centers, rnorm)
+    return _launch_fast("mixed", pts, mask, row_ptr, cols, eps2, tile,
+                        centers, rnorm)
 
 
 def count_pairs_default(pts, mask, row_ptr, cols, eps2, tile, centers):
     """B1 under ``precision="default"``: the bf16 pass decides every
     pair (lossy; no band, no rescore)."""
-    return _launch_fast("count_pairs", "default", pts, mask, row_ptr, cols,
-                        eps2, tile, centers)
+    return _launch_fast("default", pts, mask, row_ptr, cols, eps2, tile,
+                        centers)
 
 
-def minlab_pairs_default(pts, labels, row_ptr, cols, eps2, tile, centers):
-    """B2 under ``precision="default"``."""
-    return _launch_fast("minlab_pairs", "default", pts, labels, row_ptr,
-                        cols, eps2, tile, centers)
+def _launch_minlab(mode, pts, labels, row_ptr, cols, eps2, tile,
+                   centers=None, rnorm=None, live_rows=None, evaluated=None):
+    """B2 in every mode: the FP32 kernel (``"high"``) or the bf16 one
+    (``"mixed"``, ``"default"``), each with its exact label-bound skip
+    (see :func:`minlab_pairs`)."""
+    _check(pts, labels, row_ptr, cols, tile)
+    fast = mode in ("mixed", "default")
+    if fast and centers is None:
+        raise ValueError(f"precision={mode!r} needs the row tiles' centers")
+    if mode == "mixed" and rnorm is None:
+        raise ValueError("precision='mixed' needs the row tiles' rnorm")
+    _check_frames(pts, tile, centers, rnorm)
+    _check_counter("evaluated", evaluated, pts)
+    d, n = pts.shape
+    if live_rows is not None and (
+            live_rows.dtype != torch.bool or live_rows.shape != (n,)
+            or not live_rows.is_contiguous()
+            or live_rows.device != pts.device):
+        raise ValueError("live_rows must be a contiguous (N,) bool tensor "
+                         "beside pts")
+    key = "minlab_pairs" if mode == "high" else f"minlab_pairs_{mode}"
+    frames = (centers, rnorm) if mode == "mixed" else (
+        (centers,) if fast else ())
+    if pts.device.type == "cpu":
+        if evaluated is not None:
+            evaluated += minlab_pairs_walk(
+                pts, labels, row_ptr, cols, eps2, tile, mode, centers, rnorm,
+                live_rows=live_rows)[1]
+        return PLAIN[key](pts, labels, row_ptr, cols, eps2, tile, *frames,
+                          live_rows=live_rows)
+    if pts.device.type != "cuda":
+        raise ValueError(f"unsupported device {pts.device}")
+    from ..csrc import _build
+
+    lib = _build.load()
+    out = torch.empty(n, dtype=torch.int32, device=pts.device)
+    # Each column tile's least label, for the kernel's entry skip.
+    tile_min = labels.view(n // tile, tile).amin(dim=1).contiguous()
+    skip = (tile_min.data_ptr(),
+            None if live_rows is None else live_rows.data_ptr(),
+            out.data_ptr(),
+            None if evaluated is None else evaluated.data_ptr())
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if fast:
+            rc = lib.pp_minlab_pairs_fast(
+                pts.data_ptr(), labels.data_ptr(), row_ptr.data_ptr(),
+                cols.data_ptr(), centers.data_ptr(),
+                rnorm.data_ptr() if mode == "mixed" else None, float(eps2),
+                n, d, tile, n // tile, int(mode == "default"), *skip, stream)
+        else:
+            rc = lib.pp_minlab_pairs(
+                pts.data_ptr(), labels.data_ptr(), row_ptr.data_ptr(),
+                cols.data_ptr(), float(eps2), n, d, tile, n // tile, *skip,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
+    LAUNCHES[key] += 1
+    return out
+
+
+def minlab_pairs(pts, labels, row_ptr, cols, eps2, tile, *, live_rows=None,
+                 evaluated=None):
+    """B2: per-point minimum label over columns within eps (non-source
+    columns carry INT32_MAX).  Returns (N,) int32; INT32_MAX where no
+    source is within eps.
+
+    The kernel skips, exactly, the column tiles and 32-column chunks
+    whose labels cannot lower any row of its block (each row's running
+    minimum against the chunk's least label; it never looks at a
+    distance).  ``live_rows``: an optional (N,) bool of the rows the
+    caller still needs; the others leave the skip's bound and get
+    INT32_MAX.  ``evaluated``: an optional (1,) int64 tensor beside
+    ``pts``, zeroed by the caller, to which the kernel adds the (block,
+    chunk) pairs it evaluated (on the CPU, the count of
+    :func:`~.distances.minlab_pairs_walk`, which stages
+    :func:`~.distances.minlab_group` chunks per barrier as the kernel
+    does)."""
+    return _launch_minlab("high", pts, labels, row_ptr, cols, eps2, tile,
+                          live_rows=live_rows, evaluated=evaluated)
+
+
+def minlab_pairs_mixed(pts, labels, row_ptr, cols, eps2, tile, centers,
+                       rnorm, *, live_rows=None, evaluated=None):
+    """B2 under ``precision="mixed"`` (the band over source columns, no
+    stats): equal to :func:`minlab_pairs` on the rows ``rnorm`` covers;
+    the skip and its keywords as there."""
+    return _launch_minlab("mixed", pts, labels, row_ptr, cols, eps2, tile,
+                          centers, rnorm, live_rows, evaluated)
+
+
+def minlab_pairs_default(pts, labels, row_ptr, cols, eps2, tile, centers, *,
+                         live_rows=None, evaluated=None):
+    """B2 under ``precision="default"``; the skip and its keywords as in
+    :func:`minlab_pairs_mixed`."""
+    return _launch_minlab("default", pts, labels, row_ptr, cols, eps2, tile,
+                          centers, None, live_rows, evaluated)
 
 
 def _check_slab(pts, slab, k):
@@ -470,12 +552,6 @@ def row_fragments(pts, centers, tile):
         t[:, :tile, :d] = (rows - centers[s:e, None, :]).to(torch.bfloat16)
         x[s:e] = t.view(e - s, tp // 16, 2, 8, dp // 16, 2, 4, 2)
     return frag
-
-
-def _check_counter(name, t, pts):
-    if t is not None and (t.dtype != torch.int64 or t.shape != (1,)
-                          or t.device != pts.device):
-        raise ValueError(f"{name} must be a (1,) int64 tensor beside pts")
 
 
 def _launch_sketch(name, pts, colval, row_ptr, cols, slab, k, eps2, band,
@@ -702,7 +778,7 @@ def neighbor_counts_cuda(points_dn, eps, mask, block: int = 1024,
 def min_neighbor_label_cuda(points_dn, labels, eps, src_mask,
                             block: int = 1024, precision: str = "high",
                             row_mask=None, pairs=None, sketch=None,
-                            slab=None, frames=None):
+                            slab=None, frames=None, live_rows=None):
     """Counterpart of ``min_neighbor_label_pallas`` (layout ``"dn"``):
     per-point minimum label over ``src_mask`` points within eps.  Rows
     outside ``row_mask`` return arbitrary values the caller masks;
@@ -712,7 +788,9 @@ def min_neighbor_label_cuda(points_dn, labels, eps, src_mask,
     :func:`neighbor_counts_cuda` (the slab staged over ``row_mask |
     src_mask``, ``frames`` over ``row_mask``); with k > 0 or under
     ``"mixed"`` the return is ``(best, zeros(2))``, as the JAX entry
-    point's."""
+    point's.  ``live_rows``: an optional (N,) bool of the rows the
+    caller still needs; the others get INT32_MAX (B2 leaves them out
+    of its skip's bound, :func:`minlab_pairs`)."""
     mode = norm_precision_mode(precision)
     tile, nt = _grid(points_dn, block, mode)
     k = effective_k(sketch, points_dn.shape[0])
@@ -733,18 +811,22 @@ def min_neighbor_label_cuda(points_dn, labels, eps, src_mask,
     e2 = eps2_f32(eps)
     centers, rnorm = (pass_frames(points_dn, rm, tile, mode, k)
                       if frames is None else frames)
+    live = None if live_rows is None else live_rows.contiguous()
     if k:
         # B4 rescores exactly outside "default": no centres.
         best = minlab_pairs_sketch(
             *args, slab[0], k, e2, slab[1], tile, mode,
             centers if mode == "default" else None,
         )
+        if live is not None:
+            best = torch.where(live, best, INT_INF)
     elif mode == "mixed":
-        best = minlab_pairs_mixed(*args, e2, tile, centers, rnorm)
+        best = minlab_pairs_mixed(*args, e2, tile, centers, rnorm,
+                                  live_rows=live)
     elif mode == "default":
-        best = minlab_pairs_default(*args, e2, tile, centers)
+        best = minlab_pairs_default(*args, e2, tile, centers, live_rows=live)
     else:
-        best = minlab_pairs(*args, e2, tile)
+        best = minlab_pairs(*args, e2, tile, live_rows=live)
     if poison:
         best = torch.full_like(best, -(2**31))
     if k or mode == "mixed":

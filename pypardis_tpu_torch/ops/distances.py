@@ -209,32 +209,66 @@ def _entries(row_ptr, cols, nt, device):
     return rows, cols[:int(row_ptr[-1])].long()
 
 
-def _over_pairs(pts, colval, row_ptr, cols, eps2, tile, combine):
-    d, n = pts.shape
-    nt = n // tile
-    rows, cols = _entries(row_ptr, cols, nt, pts.device)
-    tiles = pts.reshape(d, nt, tile)
-    vals = colval.reshape(nt, tile)
-    out = torch.full(
-        (nt, tile), 0 if combine == "sum" else INT_INF, dtype=torch.int32,
-        device=pts.device,
+def _identity(pts, tile, combine):
+    """(nt, tile) int32 of the pass's identity: 0 for counts, INT32_MAX
+    for minima."""
+    return torch.full(
+        (pts.shape[1] // tile, tile), 0 if combine == "sum" else INT_INF,
+        dtype=torch.int32, device=pts.device,
     )
-    # Pairs per chunk: (chunk, tile, tile) temporaries of ~64MB on the
-    # CPU, ~256MB on the card.
+
+
+def _batches(pts, row_ptr, cols, tile):
+    """The pair list's entries in batches: yields ``(s, r, c)``, the
+    first entry and the row and column tiles (P,) of each batch, sized
+    for (P, tile, tile) temporaries of ~64MB on the CPU, ~256MB on the
+    card."""
+    rows, cols = _entries(row_ptr, cols, pts.shape[1] // tile, pts.device)
     elems = _CHUNK_ELEMS if pts.is_cuda else _CHUNK_ELEMS // 4
     chunk = max(1, elems // (tile * tile))
     for s in range(0, int(rows.numel()), chunk):
-        r, c = rows[s:s + chunk], cols[s:s + chunk]
-        adj = _pair_d2(tiles[:, r], tiles[:, c]) <= eps2
-        v = vals[c][:, None, :]
-        if combine == "sum":
-            part = (adj & (v != 0)).sum(dim=-1, dtype=torch.int32)
-            out.index_add_(0, r, part)
-        else:
-            cand = torch.where(adj, v, INT_INF).amin(dim=-1)
-            out.scatter_reduce_(
-                0, r[:, None].expand(-1, tile), cand, reduce="amin"
-            )
+        yield s, rows[s:s + chunk], cols[s:s + chunk]
+
+
+def _reduce_rows(out, r, v, adj, combine):
+    """Fold a batch's verdicts ``adj`` (P, tile, tile) into the (nt,
+    tile) ``out``: the count of columns with a non-zero value
+    (``"sum"``) or the least column value (``"min"``, non-sources carry
+    INT32_MAX), ``v`` (P, 1, tile) the columns' values."""
+    if combine == "sum":
+        part = (adj & (v != 0)).sum(dim=-1, dtype=torch.int32)
+        out.index_add_(0, r, part)
+    else:
+        cand = torch.where(adj, v, INT_INF).amin(dim=-1)
+        out.scatter_reduce_(
+            0, r[:, None].expand(-1, out.shape[1]), cand, reduce="amin"
+        )
+
+
+def _pair_verdicts(pts, colval, row_ptr, cols, eps2, tile):
+    """B1/B2's FP32 verdicts over the pair list, a batch of entries at a
+    time: yields ``(s, r, v, adj)``, the batch's first entry ``s``, row
+    tiles ``r`` (P,), column values ``v`` (P, 1, tile) and the pairs
+    within eps ``adj`` (P, tile, tile), columns of any value."""
+    d = pts.shape[0]
+    tiles = pts.reshape(d, -1, tile)
+    vals = colval.reshape(-1, tile)
+    for s, r, c in _batches(pts, row_ptr, cols, tile):
+        yield s, r, vals[c][:, None, :], _pair_d2(tiles[:, r],
+                                                  tiles[:, c]) <= eps2
+
+
+def _live_only(out, live_rows):
+    """``out`` (N,) with INT32_MAX on the rows outside ``live_rows``
+    (None: every row)."""
+    return out if live_rows is None else torch.where(live_rows, out, INT_INF)
+
+
+def _over_pairs(pts, colval, row_ptr, cols, eps2, tile, combine):
+    out = _identity(pts, tile, combine)
+    for _s, r, v, adj in _pair_verdicts(pts, colval, row_ptr, cols, eps2,
+                                        tile):
+        _reduce_rows(out, r, v, adj, combine)
     return out.reshape(-1)
 
 
@@ -248,11 +282,16 @@ def counts_over_pairs(pts, mask, row_ptr, cols, eps2, tile):
     return _over_pairs(pts, mask, row_ptr, cols, eps2, tile, "sum")
 
 
-def minlab_over_pairs(pts, labels, row_ptr, cols, eps2, tile):
+def minlab_over_pairs(pts, labels, row_ptr, cols, eps2, tile,
+                      live_rows=None):
     """Plain version of the min-label kernel: for every point, the
     minimum ``labels[j]`` over columns within eps (non-source columns
-    carry INT32_MAX, so they never win); INT32_MAX where none is."""
-    return _over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min")
+    carry INT32_MAX, so they never win); INT32_MAX where none is, and
+    on every row outside ``live_rows`` (an optional (N,) bool: the rows
+    the caller still needs, see :func:`minlab_pairs_walk`)."""
+    return _live_only(
+        _over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min"),
+        live_rows)
 
 
 def axis_sq(v):
@@ -312,9 +351,10 @@ def _fast_d2(xt, yt, ctr):
     return (xx[:, :, None] + yy[:, None, :]) - 2.0 * dot, yy
 
 
-def _fast_over_pairs(pts, colval, row_ptr, cols, eps2, tile, combine, mode,
-                     centers, rnorm=None):
-    """The bf16 pair kernels' arithmetic over the pair list.
+def _fast_verdicts(pts, colval, row_ptr, cols, eps2, tile, combine, mode,
+                   centers, rnorm=None):
+    """The bf16 pair kernels' verdicts over the pair list, a batch of
+    entries at a time.
 
     ``"default"``: the verdict is ``d2f <= eps2``.  ``"mixed"``: per
     pair-list entry the band is :func:`fast_band` at the row tile's
@@ -322,51 +362,48 @@ def _fast_over_pairs(pts, colval, row_ptr, cols, eps2, tile, combine, mode,
     0) or source (``"min"``: label != INT32_MAX) columns, ``ny = max
     |y - c|`` and ``gy = max |y|``; a pair with ``|d2f - eps2| <=
     band`` and a valid column takes the exact ``_pair_d2`` verdict,
-    every other pair the fast one.  Stats (``"sum"`` only) count the
-    in-band pairs of valid rows and columns, and the entries holding
-    one."""
-    d, n = pts.shape
-    nt = n // tile
-    rows, cols = _entries(row_ptr, cols, nt, pts.device)
-    tiles = pts.reshape(d, nt, tile)
-    vals = colval.reshape(nt, tile)
-    out = torch.full(
-        (nt, tile), 0 if combine == "sum" else INT_INF, dtype=torch.int32,
-        device=pts.device,
-    )
-    n_band = torch.zeros((), dtype=torch.int64, device=pts.device)
-    n_resc = torch.zeros((), dtype=torch.int64, device=pts.device)
-    elems = _CHUNK_ELEMS if pts.is_cuda else _CHUNK_ELEMS // 4
-    chunk = max(1, elems // (tile * tile))
-    for s in range(0, int(rows.numel()), chunk):
-        r, c = rows[s:s + chunk], cols[s:s + chunk]
+    every other pair the fast one.  Yields ``(s, r, v, adj, amb)``: as
+    :func:`_pair_verdicts`, plus the in-band pairs ``amb`` (P, tile,
+    tile) with a valid column (None under ``"default"``)."""
+    d = pts.shape[0]
+    tiles = pts.reshape(d, -1, tile)
+    vals = colval.reshape(-1, tile)
+    for s, r, c in _batches(pts, row_ptr, cols, tile):
         yt = tiles[:, c]
         d2f, yy = _fast_d2(tiles[:, r], yt, centers[r])
         v = vals[c]
         valid = (v != 0) if combine == "sum" else (v != INT_INF)
         adj = d2f <= eps2
+        amb = None
         if mode == "mixed":
             ny = torch.sqrt(torch.where(valid, yy, 0.0).amax(dim=1))
             gy = torch.sqrt(torch.where(valid, axis_sq(yt), 0.0).amax(dim=1))
             band = fast_band(rnorm[r, 0], ny, rnorm[r, 1], gy)
             amb = ((d2f - eps2).abs() <= band[:, None, None]) & valid[:, None]
-            if combine == "sum":
-                st = amb & (vals[r] != 0)[:, :, None]
-                n_band += st.sum()
-                n_resc += st.flatten(1).any(dim=1).sum()
             need = amb.flatten(1).any(dim=1)
             if bool(need.any()):
                 d2 = _pair_d2(tiles[:, r[need]], yt[:, need])
                 adj[need] = torch.where(amb[need], d2 <= eps2, adj[need])
-        v = v[:, None, :]
-        if combine == "sum":
-            part = (adj & valid[:, None, :]).sum(dim=-1, dtype=torch.int32)
-            out.index_add_(0, r, part)
-        else:
-            cand = torch.where(adj, v, INT_INF).amin(dim=-1)
-            out.scatter_reduce_(
-                0, r[:, None].expand(-1, tile), cand, reduce="amin"
-            )
+        yield s, r, v[:, None, :], adj, amb
+
+
+def _fast_over_pairs(pts, colval, row_ptr, cols, eps2, tile, combine, mode,
+                     centers, rnorm=None):
+    """The bf16 pair kernels' arithmetic (:func:`_fast_verdicts`)
+    reduced per row.  Stats (``"sum"`` only) count the in-band pairs of
+    valid rows and columns, and the entries holding one."""
+    out = _identity(pts, tile, combine)
+    vals = colval.reshape(-1, tile)
+    n_band = torch.zeros((), dtype=torch.int64, device=pts.device)
+    n_resc = torch.zeros((), dtype=torch.int64, device=pts.device)
+    for _s, r, v, adj, amb in _fast_verdicts(
+            pts, colval, row_ptr, cols, eps2, tile, combine, mode, centers,
+            rnorm):
+        if amb is not None and combine == "sum":
+            st = amb & (vals[r] != 0)[:, :, None]
+            n_band += st.sum()
+            n_resc += st.flatten(1).any(dim=1).sum()
+        _reduce_rows(out, r, v, adj, combine)
     return out.reshape(-1), torch.stack([n_band, n_resc])
 
 
@@ -385,12 +422,13 @@ def counts_over_pairs_mixed(pts, mask, row_ptr, cols, eps2, tile, centers,
 
 
 def minlab_over_pairs_mixed(pts, labels, row_ptr, cols, eps2, tile,
-                            centers, rnorm):
+                            centers, rnorm, live_rows=None):
     """Plain version of B2 under ``precision="mixed"``: the result of
-    :func:`minlab_over_pairs` on the rows ``rnorm`` covers (no
-    stats)."""
-    return _fast_over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min",
-                            "mixed", centers, rnorm)[0]
+    :func:`minlab_over_pairs` on the rows ``rnorm`` covers (no stats;
+    ``live_rows`` as there)."""
+    return _live_only(
+        _fast_over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min",
+                         "mixed", centers, rnorm)[0], live_rows)
 
 
 def counts_over_pairs_default(pts, mask, row_ptr, cols, eps2, tile,
@@ -402,10 +440,12 @@ def counts_over_pairs_default(pts, mask, row_ptr, cols, eps2, tile,
 
 
 def minlab_over_pairs_default(pts, labels, row_ptr, cols, eps2, tile,
-                              centers):
-    """Plain version of B2 under ``precision="default"``."""
-    return _fast_over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min",
-                            "default", centers)[0]
+                              centers, live_rows=None):
+    """Plain version of B2 under ``precision="default"`` (``live_rows``
+    as in :func:`minlab_over_pairs`)."""
+    return _live_only(
+        _fast_over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min",
+                         "default", centers)[0], live_rows)
 
 
 def _sketch_gate(pts, slab, k, colval, row_ptr, cols, eps2, band, tile,
@@ -417,17 +457,10 @@ def _sketch_gate(pts, slab, k, colval, row_ptr, cols, eps2, band, tile,
     amb)`` per batch: its first entry ``s``, row and column tiles ``r``,
     ``c`` (P,), column values ``v`` (P, 1, tile), the sure-in pairs
     (P, tile, tile) and the in-band ones whose column is valid."""
-    d, n = pts.shape
-    skp = slab.shape[0]
-    nt = n // tile
-    rows, cols = _entries(row_ptr, cols, nt, pts.device)
-    stiles = slab.reshape(skp, nt, tile)
-    vals = colval.reshape(nt, tile)
+    stiles = slab.reshape(slab.shape[0], -1, tile)
+    vals = colval.reshape(-1, tile)
     lo = float(np.float32(eps2) - np.float32(band))
-    elems = _CHUNK_ELEMS if pts.is_cuda else _CHUNK_ELEMS // 4
-    chunk = max(1, elems // (tile * tile))
-    for s in range(0, int(rows.numel()), chunk):
-        r, c = rows[s:s + chunk], cols[s:s + chunk]
+    for s, r, c in _batches(pts, row_ptr, cols, tile):
         sx, sy = stiles[:, r], stiles[:, c]
         t2 = _pair_d2(sx, sy)
         up = t2 + (4.0 * sx[k])[:, :, None] * sy[k][:, None, :]
@@ -473,11 +506,7 @@ def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
     """The sketch kernels' arithmetic (:func:`_sketch_verdicts`) reduced
     per row.  Stats count the in-band pairs whose column is valid (rows
     unmasked) and the pair-list entries holding one."""
-    nt = pts.shape[1] // tile
-    out = torch.full(
-        (nt, tile), 0 if combine == "sum" else INT_INF, dtype=torch.int32,
-        device=pts.device,
-    )
+    out = _identity(pts, tile, combine)
     n_band = torch.zeros((), dtype=torch.int64, device=pts.device)
     n_resc = torch.zeros((), dtype=torch.int64, device=pts.device)
     for _s, r, v, adj, amb, need in _sketch_verdicts(
@@ -485,14 +514,7 @@ def _sketch_over_pairs(pts, slab, k, colval, row_ptr, cols, eps2, band,
             centers):
         n_band += amb.sum()
         n_resc += need.sum()
-        if combine == "sum":
-            part = adj.sum(dim=-1, dtype=torch.int32)
-            out.index_add_(0, r, part)
-        else:
-            cand = torch.where(adj, v, INT_INF).amin(dim=-1)
-            out.scatter_reduce_(
-                0, r[:, None].expand(-1, tile), cand, reduce="amin"
-            )
+        _reduce_rows(out, r, v, adj, combine)
     return out.reshape(-1), torch.stack([n_band, n_resc])
 
 
@@ -518,30 +540,48 @@ def minlab_over_pairs_sketch(pts, labels, row_ptr, cols, slab, k, eps2,
                               band, tile, "min", centers)[0]
 
 
-# Columns per chunk of B4's block walk (one bit each in the kernel's mask).
+# Columns per chunk of the min-label kernels' block walk (B2, B4).
 SKIP_CHUNK = 32
 
 
-def minlab_skip_walk(pts, labels, row_ptr, cols, slab, k, eps2, band, tile,
-                     centers=None, rows_per_block=256):
-    """Plain emulation of B4's label-bound walk (``csrc/
-    sketch_kernels.cu``): the result of :func:`minlab_over_pairs_sketch`
-    and the number of (block, 32-column chunk) pairs the kernel
-    evaluates.  A block holds ``rows_per_block`` rows of a row tile and
-    walks its entries in CSR order, 32 columns at a time, keeping each
-    row's running minimum ``m_r`` (from INT32_MAX); it evaluates a
-    chunk only when the chunk's minimum label is below the max of
-    ``m_r`` over its rows, and then lowers each ``m_r`` by the chunk's
-    labels within eps (:func:`_sketch_verdicts`' own verdicts).  The
-    kernel also passes over whole entries whose tile's minimum label is
-    not below that bound; every chunk of such an entry fails the chunk
-    test, so the count is the same.  Returns ``(best, evaluated)``,
-    ``best`` (N,) int32 and ``evaluated`` a Python int.  The fit never
-    calls this: the card checks, the tests and, on the CPU, the
-    wrapper's ``evaluated=`` do."""
-    d, n = pts.shape
+def minlab_group(d: int, mode: str = "high") -> int:
+    """The 32-column chunks B2's kernel instance for ``d`` and ``mode``
+    stages per barrier (its group, fixed in ``csrc/pair_kernels.cu``):
+    two under ``"mixed"``/``"default"`` (``FP_GROUP``, the bf16
+    kernel's 64-column buffer); under ``"high"``/``"highest"`` one past
+    64 axes (the axis-sliced path), else ``pp_group``: eight, or as many
+    as fit 48 KB of shared memory at the instance's width (d rounded up
+    to 4, 8, 16, 32 or 64), five at 64."""
+    if mode in ("mixed", "default"):
+        return 2
+    if d > 64:
+        return 1
+    dc = next(w for w in (4, 8, 16, 32, 64) if d <= w)
+    return min(8, 49152 // (4 * (dc + 1) * SKIP_CHUNK))
+
+
+def _label_bound_walk(batches, labels, row_ptr, tile, rows_per_block,
+                      group, live_rows=None):
+    """The min-label kernels' block walk (B2's and B4's label-bound
+    skip) over per-batch verdicts ``batches`` (``(s, r, v, adj)`` as
+    :func:`_pair_verdicts` yields them).
+
+    A block holds ``rows_per_block`` rows of a row tile and walks its
+    entries in CSR order, 32 columns at a time, keeping each row's
+    running minimum ``m_r`` (from INT32_MAX).  Its bound is the max of
+    ``m_r`` over its rows in ``live_rows`` (all rows when None); it
+    evaluates a chunk only when the chunk's least label is below the
+    bound, and then lowers each ``m_r`` by the chunk's labels within
+    eps.  The bound is refreshed after every ``group`` evaluated chunks
+    (the chunks a kernel stages per barrier).  Kernels also pass over
+    whole entries whose tile's least label is not below the bound;
+    every chunk of such an entry fails the chunk test, so the count is
+    the same.  Rows outside ``live_rows`` get INT32_MAX.  Returns
+    ``(best, evaluated)``: (N,) int32 and the (block, chunk) pairs
+    evaluated, a Python int."""
+    n = labels.shape[0]
     nt = n // tile
-    dev = pts.device
+    dev = labels.device
     best = torch.full((nt, tile), INT_INF, dtype=torch.int32, device=dev)
     per_tile = (row_ptr[1:] - row_ptr[:-1]).long()
     live = torch.nonzero(per_tile).reshape(-1)
@@ -550,7 +590,7 @@ def minlab_skip_walk(pts, labels, row_ptr, cols, slab, k, eps2, band, tile,
     nl = int(live.numel())
     slot = torch.full((nt,), -1, dtype=torch.int64, device=dev)
     slot[live] = torch.arange(nl, device=dev)
-    rows, _c = _entries(row_ptr, cols, nt, dev)
+    rows = torch.repeat_interleave(torch.arange(nt, device=dev), per_tile)
     pos = (torch.arange(rows.numel(), device=dev)
            - row_ptr[:-1].long()[rows])
     max_e = int(per_tile.max())
@@ -564,9 +604,7 @@ def minlab_skip_walk(pts, labels, row_ptr, cols, slab, k, eps2, band, tile,
                       device=dev)
     lmin = torch.full((nl, max_e, nch), INT_INF, dtype=torch.int32,
                       device=dev)
-    for s, r, v, adj, _amb, _need in _sketch_verdicts(
-            pts, slab, k, labels, row_ptr, cols, eps2, band, tile, "min",
-            centers):
+    for s, r, v, adj in batches:
         p = r.numel()
         cv = torch.where(adj, v, INT_INF)
         vv = v[:, 0, :]
@@ -579,18 +617,80 @@ def minlab_skip_walk(pts, labels, row_ptr, cols, slab, k, eps2, band, tile,
         lmin[sl, ps] = vv.reshape(p, nch, SKIP_CHUNK).amin(dim=-1)
     cand = cand.reshape(nl, max_e * nch, nb, rows_per_block)
     lmin = lmin.reshape(nl, max_e * nch)
-    active = (torch.arange(rpad, device=dev) < tile).reshape(
-        nb, rows_per_block)
+    inb = (torch.arange(rpad, device=dev) < tile).expand(nl, rpad)
+    if live_rows is not None:
+        lr = torch.nn.functional.pad(live_rows.reshape(nt, tile)[live],
+                                     (0, rpad - tile), value=False)
+        inb = inb & lr
+    inb = inb.reshape(nl, nb, rows_per_block)
     m = torch.full((nl, nb, rows_per_block), INT_INF, dtype=torch.int32,
                    device=dev)
+
+    def bound_of(m):
+        return torch.where(inb, m, -INT_INF - 1).amax(dim=-1)
+
+    bound = bound_of(m)
+    fill = torch.zeros((nl, nb), dtype=torch.int64, device=dev)
     evaluated = torch.zeros((), dtype=torch.int64, device=dev)
     for t in range(max_e * nch):
-        bound = torch.where(active, m, -INT_INF - 1).amax(dim=-1)
         ev = lmin[:, t, None] < bound
         evaluated += ev.sum()
         m = torch.where(ev[..., None], torch.minimum(m, cand[:, t]), m)
+        fill += ev
+        close = fill >= group
+        fill = torch.where(close, 0, fill)
+        bound = torch.where(close, bound_of(m), bound)
+    m = torch.where(inb, m, INT_INF)
     best[live] = m.reshape(nl, rpad)[:, :tile]
     return best.reshape(-1), int(evaluated)
+
+
+def minlab_skip_walk(pts, labels, row_ptr, cols, slab, k, eps2, band, tile,
+                     centers=None, rows_per_block=256):
+    """Plain emulation of B4's label-bound walk (``csrc/
+    sketch_kernels.cu``): the result of :func:`minlab_over_pairs_sketch`
+    and the number of (block, 32-column chunk) pairs the kernel
+    evaluates, by :func:`_label_bound_walk` over
+    :func:`_sketch_verdicts`' own verdicts, one chunk staged per barrier.
+    Returns ``(best, evaluated)``, ``best`` (N,) int32 and
+    ``evaluated`` a Python int.  The fit never calls this: the card
+    checks, the tests and, on the CPU, the wrapper's ``evaluated=``
+    do."""
+    batches = ((s, r, v, adj) for s, r, v, adj, _a, _n in _sketch_verdicts(
+        pts, slab, k, labels, row_ptr, cols, eps2, band, tile, "min",
+        centers))
+    return _label_bound_walk(batches, labels, row_ptr, tile, rows_per_block,
+                             1)
+
+
+def minlab_pairs_walk(pts, labels, row_ptr, cols, eps2, tile, mode="high",
+                      centers=None, rnorm=None, *, live_rows=None,
+                      group=None, rows_per_block=None):
+    """Plain emulation of B2's label-bound walk (``csrc/
+    pair_kernels.cu``, every mode): the result of
+    :func:`minlab_over_pairs` (``"high"``/``"highest"``),
+    :func:`minlab_over_pairs_mixed` or :func:`minlab_over_pairs_default`
+    (``centers``/``rnorm`` as there) and the (block, 32-column chunk)
+    pairs the kernel evaluates, by :func:`_label_bound_walk` over the
+    plain version's own verdicts, in blocks of 256 rows (the FP32
+    kernel) or 128 (the bf16 kernel) staging :func:`minlab_group`
+    chunks per barrier.  ``live_rows``: the rows the caller still
+    needs; the rest leave the bound and get INT32_MAX.  ``group`` /
+    ``rows_per_block`` stand in for the kernel's, for tests of the walk
+    itself.  Returns ``(best,
+    evaluated)``.  The fit never calls this: the card checks, the tests
+    and, on the CPU, the wrappers' ``evaluated=`` do."""
+    fast = mode in ("mixed", "default")
+    if fast:
+        batches = ((s, r, v, adj) for s, r, v, adj, _a in _fast_verdicts(
+            pts, labels, row_ptr, cols, eps2, tile, "min", mode, centers,
+            rnorm))
+    else:
+        batches = _pair_verdicts(pts, labels, row_ptr, cols, eps2, tile)
+    return _label_bound_walk(
+        batches, labels, row_ptr, tile,
+        rows_per_block or (128 if fast else 256),
+        group or minlab_group(pts.shape[0], mode), live_rows)
 
 
 def _round_up_f32(v: float) -> float:

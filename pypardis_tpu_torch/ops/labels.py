@@ -149,28 +149,36 @@ def dbscan_fixed_size(
     idx = torch.arange(n, dtype=torch.int32, device=points.device)
     f = torch.where(core, idx, INT_INF)
 
-    def minlab(lab):
+    def minlab(lab, live):
         best = min_neighbor_label_cuda(
             points, lab, eps, core, block=block, precision=mode,
             row_mask=mask, pairs=pairs, sketch=k, slab=slab, frames=frames,
+            live_rows=live,
         )
         # The widened return's stats are zeros, as the JAX kernels':
         # the counts pass measured the band.
         return best[0] if isinstance(best, tuple) else best
 
     g = f
+    # The rows the min-label passes still need, which B2 keeps in its
+    # skip's bound: the valid ones, and after a pass only those with a
+    # source within eps.  The sources (core), the pair list and with
+    # them every verdict are the same in each pass, so a row that found
+    # no source never finds one; it keeps INT32_MAX.
+    live = mask
     changed = True
     rounds = 0
     while changed and rounds < max_rounds:
         # Rows cover every valid point, so at convergence g is already
         # the border-attach pass ("min root among my core neighbours").
-        g = minlab(f)
+        g = minlab(f, live)
+        live = mask & (g != INT_INF)
         f_new = _pointer_jump(torch.where(core, torch.minimum(f, g), f), core)
         changed = bool((f_new != f).any())
         f = f_new
         rounds += 1
     # Only an exit by max_rounds leaves g older than the final f.
-    border = minlab(f) if changed else g
+    border = minlab(f, live) if changed else g
     labels = finish_labels(f, border, core, mask)
     passes = 1 + rounds + int(changed)
     pair_stats = torch.cat([

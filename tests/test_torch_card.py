@@ -18,8 +18,9 @@ from pypardis_tpu_torch.dbscan import _stage
 from pypardis_tpu_torch.ops import cuda_kernels as ck
 from pypardis_tpu_torch.ops.distances import (
     INT_INF, certified_rescore_walk, counts_over_pairs, eps2_f32,
-    minlab_over_pairs, minlab_skip_walk, row_offsets,
+    minlab_over_pairs, minlab_pairs_walk, minlab_skip_walk, row_offsets,
 )
+from pypardis_tpu_torch.ops.labels import _pointer_jump
 from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
 from pypardis_tpu_torch.ops.query import PAD_COORD, query_min_core_plain
 
@@ -606,3 +607,125 @@ def test_card_mixed_fit_equals_high_fit():
                               other.core_sample_mask_)
     assert mixed.metrics_["band_pairs"] > 0
     assert mixed.query_engine().precision == "mixed"
+
+
+def _b2_rounds(d, eps, mode):
+    """A 20,000-point fit's B2 inputs under ``mode`` on the card and its
+    round loop's (labels, live rows) per round, to convergence."""
+    X, _ = make_blob_data(20_000, d, n_centers=8, std=0.4, seed=d)
+    pts, n, block = _stage(X, 1024, torch.device("cuda"))
+    xs, mask, _owner = _pipeline_layout(pts, eps, n, block, sort=True)
+    (rows, cols), (total, budget) = ck.kernel_pair_list(
+        xs, eps, mask, block, mode)
+    assert total <= budget
+    N = xs.shape[1]
+    tile = ck._pallas_block(block, N, d, mode)
+    rp = row_offsets(rows, N // tile)
+    e2 = eps2_f32(eps)
+    centers, rnorm = ck.tile_frames(xs, mask, tile)
+    frames = {"high": (), "mixed": (centers, rnorm),
+              "default": (centers,)}[mode]
+    mi = mask.to(torch.int32)
+    counts = (ck.count_pairs_default(xs, mi, rp, cols, e2, tile, centers)
+              if mode == "default" else ck.count_pairs(xs, mi, rp, cols, e2,
+                                                       tile))
+    core = (torch.where(mask, counts, 0) >= 10) & mask
+    name = "minlab_pairs" if mode == "high" else f"minlab_pairs_{mode}"
+    f = torch.where(core, torch.arange(N, device="cuda", dtype=torch.int32),
+                    INT_INF)
+    live = mask
+    out = []
+    while True:
+        a = (xs, f.contiguous(), rp, cols, e2, tile) + frames
+        out.append((a, live))
+        g = ck.PLAIN[name](*a)
+        live = mask & (g != INT_INF)
+        f_new = _pointer_jump(torch.where(core, torch.minimum(f, g), f), core)
+        if torch.equal(f_new, f):
+            return name, frames, out
+        f = f_new
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high", "mixed", "default"])
+@pytest.mark.parametrize("d,eps", [(3, 1.2), (16, 2.4), (64, 4.8),
+                                   (96, 6.0)])
+def test_b2_skip_bitwise_and_counts_as_the_walk_on_card(d, eps, mode):
+    """B2's label-bound skip at each round's labels of a fit, with the
+    fit's live rows and without them: the
+    labels bitwise the plain version's and minlab_pairs_walk's and the
+    evaluated (block, chunk) pairs equal to the walk's ("default": the
+    bf16 sums may differ in order, so its labels lie between the plain
+    version's at eps^2 (1 -+ 2^-12), and its count is held where they
+    are bitwise)."""
+    _need_card()
+    name, frames, rounds = _b2_rounds(d, eps, mode)
+    kern = getattr(ck, name)
+    plain = ck.PLAIN[name]
+    pad = [None] * (2 - len(frames))
+    for a, live in rounds:
+        for lr in (None, live):
+            ev = torch.zeros(1, dtype=torch.int64, device="cuda")
+            got = kern(*a, live_rows=lr, evaluated=ev)
+            want = plain(*a, live_rows=lr)
+            walked, n_ev = minlab_pairs_walk(
+                *a[:6], mode, *frames, *pad, live_rows=lr)
+            assert torch.equal(walked, want)
+            if mode == "default" and not torch.equal(got, want):
+                lo, hi = _eps2_bracket(a[4])
+                rest = a[5:]
+                assert bool((plain(*a[:4], hi, *rest, live_rows=lr)
+                             <= got).all())
+                assert bool((got <= plain(*a[:4], lo, *rest,
+                                          live_rows=lr)).all())
+                continue
+            assert torch.equal(got, want), (d, mode)
+            assert int(ev[0]) == n_ev, (d, mode)
+    assert n_ev > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [58_200, 70_000])
+def test_card_high_fit_past_58108_axes(d):
+    """Past 58,108 axes one staged column would not fit 227 KB of
+    shared memory: B1/B2 under "high" stage their chunks in axis slices
+    (as they do past 64 axes) and stay bitwise their plain versions, and the unsketched fit equals
+    the sketched one."""
+    _need_card()
+    X, _truth = make_embedding_data(1500, d, seed=11)
+    # As in the 16,400-D test: eps^2 keeps the 512-D fits' margin of
+    # 3.59 above the noise's 2 d 0.02^2.
+    eps = float(np.sqrt(2 * d * 0.02**2 + 3.59))
+    pts, n, block = _stage(X, 512, torch.device("cuda"))
+    xs, mask, _owner = _pipeline_layout(pts, eps, n, block, sort=True)
+    (rows, cols), (total, budget) = ck.kernel_pair_list(
+        xs, eps, mask, block, "high")
+    assert total <= budget
+    tile = ck._pallas_block(block, xs.shape[1], d, "high")
+    rp = row_offsets(rows, xs.shape[1] // tile)
+    mi = mask.to(torch.int32)
+    e2 = eps2_f32(eps)
+    got = ck.count_pairs(xs, mi, rp, cols, e2, tile)
+    assert torch.equal(got, counts_over_pairs(xs, mi, rp, cols, e2, tile))
+    core = (torch.where(mask, got, 0) >= 10) & mask
+    lab = torch.where(
+        core, torch.arange(len(got), device="cuda", dtype=torch.int32),
+        INT_INF).contiguous()
+    ev = torch.zeros(1, dtype=torch.int64, device="cuda")
+    best = ck.minlab_pairs(xs, lab, rp, cols, e2, tile, live_rows=mask,
+                           evaluated=ev)
+    want, n_ev = minlab_pairs_walk(xs, lab, rp, cols, e2, tile,
+                                   live_rows=mask)
+    assert torch.equal(best, want)
+    assert torch.equal(best, minlab_over_pairs(xs, lab, rp, cols, e2, tile,
+                                               live_rows=mask))
+    assert int(ev[0]) == n_ev > 0
+    kw = dict(eps=eps, min_samples=10, block=512, precision="high")
+    ck.reset_launch_counts()
+    off = DBSCAN(sketch=0, **kw).fit(X)
+    assert ck.LAUNCHES["count_pairs"] == 1 and ck.LAUNCHES["minlab_pairs"]
+    on = DBSCAN(sketch="auto", **kw).fit(X)
+    assert on.metrics_["sketch_k"] > 0
+    assert np.array_equal(on.labels_, off.labels_)
+    assert np.array_equal(on.core_sample_mask_, off.core_sample_mask_)
+    assert off.labels_.max() >= 1
