@@ -8,11 +8,16 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    the CUDA kernels from ``pypardis_tpu_torch/csrc`` (``nvcc``, into
    ``build/pypardis_tpu_torch/``), with its seconds and the compiler's
    register report (every kernel instance, B3's certified rescore
-   ``sketch_pair_kernel<0, 2>`` among them);
+   ``sketch_pair_kernel<0, 2>`` and B1's tensor-core kernel
+   ``b1_tc_kernel<0, 1, 4>`` among them: the phase fails without them);
 2. each kernel (B1 ``count_pairs``, B2 ``minlab_pairs``) against its
    plain PyTorch version on the card, at d=16 and d=64 on guard-banded
-   and on natural blobs, and at d=3 and d=96 on natural blobs — the two
-   share their d^2 arithmetic, so the bar is exact equality;
+   and on natural blobs, at d=3 and d=96 on natural blobs, and at d=3,
+   16 and 64 on the adversarial geometry (near-eps pairs, duplicates, a
+   1e3 offset) — the exact verdicts share their d^2 arithmetic, so the
+   bar is exact equality; at d <= 64 (B1 on the tensor cores) also B1's
+   ``rescored_pairs`` against ``certified_count_walk``'s, off by no
+   more than its fragile pairs nor 0.1 % (:func:`b1_rescored_hold`);
 3. a small fit on the card against the same fit through the plain
    versions on the CPU (byte-identical labels and core mask);
 4. the main path, ``DBSCAN(eps=2.4, min_samples=10, block=2048).fit(X)``
@@ -23,8 +28,12 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    fit's kernel passes), live tile pairs, clusters and ARI against the
    generating truth (>= 0.99); repeated fits must be byte-identical;
 5. the kernels alone at the 1M fit's own inputs (the first B1 pass and
-   the first B2 pass): equality with the plain versions, CUDA-event
-   times (median) beside the plain versions' times and the bound; then
+   the first B2 pass): equality with the plain versions, B1's
+   ``rescored_pairs`` against the walk's on the first 64 row tiles,
+   CUDA-event times (median) beside the plain versions' times, B1's
+   bound (:func:`b1_bounds`), the all-FP32 work's bound, its floor
+   (:func:`b1_floor`), the pairs its fallback decided and the staging of
+   its frames (the row tiles' centres); then
    B2 at each round's labels of the fit (:func:`b2_rounds`, the fit's
    round loop replayed with the live rows it passes): per round its
    time, its evaluated share of (block, 32-column chunk) pairs (the
@@ -59,7 +68,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    off ``certified_rescore_walk``'s by no more than its fragile pairs
    nor than 0.1 % (:func:`rescored_tolerance`), its share of
    ``band_pairs`` printed; before them, the probe of the tensor cores'
-   FP32 accumulation (:func:`mma_probe`) against the band's term (3); (2) at 100,000 x 512 the sketched
+   FP32 accumulation (:func:`mma_probe`, at K = 16, 64 and 512: B1's
+   depths at 16-D and 64-D and B3's) against the band's term (3); (2) at 100,000 x 512 the sketched
    and the unsketched fit byte-identical, with their live pairs, walls
    and launches (B3 once and B4 per round and never B1/B2, and the
    reverse); (3) the slice's path at 1,000,000 x 512, one fit from host
@@ -86,7 +96,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    near-eps pairs, duplicates and a 1e3 offset, and natural blobs):
    ``"mixed"`` counts and min labels bitwise the plain version's and the
    FP32 kernel's, band stats within 1e-3 relative of the plain
-   version's; ``"default"`` between the plain version at eps^2 (1 -+
+   version's, B1's ``rescored_pairs`` against the walk's at d <= 64;
+   ``"default"`` between the plain version at eps^2 (1 -+
    2^-12), its differing points counted; B3/B4 under both modes at
    20,000 x 512 likewise; (2) ``DBSCAN(..., precision="mixed")`` at
    1M x 16-D, once from host input and twice from a CUDA tensor,
@@ -114,6 +125,12 @@ parallel build.  The line before the last is the kernels' JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero and prints no result.
 
+``python3 chip_smoke.py --b1`` builds the kernels and times B1 alone
+in its three modes at the 1M x 16-D inputs, with its bounds, floor,
+rescored share and frames' staging, then prints the 1M fits' sha256 in
+every mode from host input and from a tensor (:func:`b1_timings`);
+copied into a parent tree's root it times that tree's B1 in the same
+call, for an A/B.
 ``python3 chip_smoke.py --profile`` instead builds the kernels and
 profiles a 1M x 16-D fit, one serving drain (``torch.profiler``, then
 ``cProfile`` for the drain's host side) and a 1M x 512 sketched fit;
@@ -849,6 +866,91 @@ def b2_timings(torch, dev, median_ms, sync, sizes=B2_SIZES):
     return records
 
 
+def b1_timings(torch, dev, median_ms, sync, reps=10):
+    """``--b1``: B1 alone at the 1M x 16-D fit's inputs (staged as a
+    host-input fit stages them) in its three modes: each launch's
+    CUDA-event median, the pairs its exact fallback decided and their
+    share, its bound (:func:`b1_bounds`), the all-FP32 work's bound
+    (``bound_ms_fp32``) and the function's floor (:func:`b1_floor`), and
+    the staging of the frames each mode's fit takes; then the sha256 of
+    the 1M x 16-D fits' labels and core mask in each mode from host
+    input and from a CUDA tensor.  Run from each tree's root to A/B two
+    trees in one call (a tree whose wrappers take no centres or counter
+    is timed as it is)."""
+    from benchdata import make_blob_data
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.dbscan import _stage
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import eps2_f32, row_offsets
+    from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
+
+    X, _truth = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
+    pts, n, block = _stage(X, 2048, dev)
+    xs, mask, _o = _pipeline_layout(pts, 2.4, n, block, sort=True)
+    (rows, cols), (total, budget) = ck.kernel_pair_list(
+        xs, 2.4, mask, 2048, "high")
+    if total > budget:
+        (rows, cols), (total, budget) = ck.kernel_pair_list(
+            xs, 2.4, mask, 2048, "high", budget=total)
+    d, N = xs.shape
+    tile = ck._pallas_block(2048, N, d, "high")
+    nt = N // tile
+    rp = row_offsets(rows, nt)
+    a = (xs, mask.to(torch.int32), rp, cols, eps2_f32(2.4), tile)
+    centers, rnorm = ck.tile_frames(xs, mask, tile)
+    cols_t = cols[:int(rp[-1])].long()
+    pairs = int(mask.view(nt, tile).sum(1)[cols_t].sum()) * tile
+    t_bytes = ((d * N + N + rp.numel() + cols.numel() + centers.numel()
+                + N) * 4) / PEAK_BYTES_PER_S
+    fp32_ms = max(pairs * (3 * d + 1) / PEAK_FP32_FLOPS, t_bytes) * 1e3
+    tc = _takes(ck.count_pairs, "centers")
+    calls = {
+        "high": lambda **kw: ck.count_pairs(*a, *((centers,) if tc else ()),
+                                            **kw),
+        "mixed": lambda **kw: ck.count_pairs_mixed(*a, centers, rnorm, **kw),
+        "default": lambda **kw: ck.count_pairs_default(*a, centers, **kw),
+    }
+    records = []
+    for mode, call in calls.items():
+        name = "count_pairs" if mode == "high" else f"count_pairs_{mode}"
+        rescored = None
+        if mode != "default" and _takes(getattr(ck, name), "rescored_pairs"):
+            rc = torch.zeros(1, dtype=torch.int64, device=dev)
+            call(rescored_pairs=rc)
+            sync()
+            rescored = int(rc[0])
+        ms = median_ms(call, reps)
+        frames_ms = median_ms(lambda: ck.pass_frames(xs, mask, tile, mode),
+                              reps)
+        t_ops = b1_bounds(pairs, rescored or 0, d, mode)
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        floor_ms = max(b1_floor(pairs, rescored or 0, d), t_bytes) * 1e3
+        share = None if rescored is None else rescored / max(pairs, 1)
+        log(f"  B1 {mode} at 1M x 16: {ms:.4f} ms; {pairs} point pairs, "
+            f"decided exactly {rescored} ({share}); bound {bound_ms:.4f} ms, "
+            f"all-FP32 work {fp32_ms:.4f} ms, floor {floor_ms:.4f} ms; the "
+            f"frames' staging {frames_ms:.4f} ms")
+        records.append({
+            "name": name, "ms": ms, "rescored_pairs": rescored,
+            "rescored_share": share, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms_fp32": fp32_ms, "floor_ms": floor_ms,
+            "frames_ms": frames_ms,
+        })
+    # The fits' own bytes, to hold two trees' fits equal across calls.
+    Xd = torch.from_numpy(X).to(dev)
+    for mode in ("high", "mixed", "default"):
+        for src, data in (("host", X), ("cuda", Xd)):
+            m = DBSCAN(eps=2.4, min_samples=10, block=2048, precision=mode,
+                       device=dev).fit(data)
+            digest = hashlib.sha256(
+                m.labels_.tobytes() + m.core_sample_mask_.tobytes()
+            ).hexdigest()
+            log(f"  1M x 16 {mode} fit from {src}: labels and core sha256 "
+                f"{digest}")
+    return records
+
+
 def b3_bounds(gated, band_pairs, rescored, k, d):
     """B3's operation bounds in seconds: ``(old, new)``.  ``old``, the
     exact rescore's work: the gate's 3 (k + 1) + 3 FP32 operations per
@@ -919,14 +1021,20 @@ def mma_probe_cases(K=512, batch=32, seed=0):
     return cases
 
 
+# Depths of the accumulation probe: B1's K at 16-D and 64-D, B3's at 512.
+MMA_PROBE_KS = (16, 64, 512)
+
+
 def mma_probe(torch, dev, ck):
     """The probe of the certified band's term (3): over
-    :func:`mma_probe_cases`, the tensor cores' chained FP32 sum against
+    :func:`mma_probe_cases` at each K of :data:`MMA_PROBE_KS`, the tensor
+    cores' chained FP32 sum against
     the float64 sum of the same bf16 products.  Returns the largest
     ``|dot - P'| / (2^-21 K sum |p|)`` (the header's bound is 1) and the
     largest ``|dot - P'| / (2^-24 sum |p|)``; fails past the bound."""
     worst = worst_u = 0.0
-    for name, a, b in mma_probe_cases():
+    cases = [c for K in MMA_PROBE_KS for c in mma_probe_cases(K)]
+    for name, a, b in cases:
         K = a.shape[2]
         got = ck.mma_dot_probe(
             torch.from_numpy(a).to(dev).to(torch.bfloat16),
@@ -960,6 +1068,52 @@ def rescored_tolerance(n):
     sub-list (H100), while a band 1 % wider than the emulation's would
     move the count by about 1 %."""
     return max(16, n // 1000)
+
+
+# FP32 operations per pair of the tensor-core B1's epilogue (csrc/
+# pair_kernels.cu, b1_tc_kernel): t = fl(|Y|^2 - 2 dot), one fused
+# multiply-add (two operations), and its tests: two under "high", two more
+# for "mixed"'s stats, one under "default".
+B1_EPILOGUE_OPS = {"high": 4, "mixed": 6, "default": 3}
+
+
+def b1_bounds(pairs, rescored, d, mode):
+    """The tensor-core B1's operation bound in seconds, in the convention
+    of :func:`b3_bounds`: 2K tensor-core operations per pair at the bf16
+    peak (K = d padded to 16), the epilogue's FP32 operations per pair,
+    and 3d + 1 FP32 operations per pair the exact fallback decided."""
+    K = -(-d // 16) * 16
+    return (2 * K * pairs / PEAK_BF16_FLOPS
+            + (pairs * B1_EPILOGUE_OPS[mode] + rescored * (3 * d + 1))
+            / PEAK_FP32_FLOPS)
+
+
+def b1_floor(pairs, rescored, d):
+    """A floor in seconds for B1's function, below any design of it: the
+    cross term of every pair on the tensor cores (2K operations at the
+    bf16 peak) and the exact d^2 of the pairs this run decided exactly
+    (3d + 1 FP32 operations each)."""
+    K = -(-d // 16) * 16
+    return (2 * K * pairs / PEAK_BF16_FLOPS
+            + rescored * (3 * d + 1) / PEAK_FP32_FLOPS)
+
+
+def b1_rescored_hold(a, centers, rescored, what):
+    """The tensor-core B1's ``rescored_pairs`` against
+    ``certified_count_walk``'s on the same inputs ``a`` (pts, mask,
+    row_ptr, cols, eps2, tile) and row tile ``centers``: off by no more
+    than the walk's fragile pairs nor than :func:`rescored_tolerance`.
+    Returns the walk's count."""
+    from pypardis_tpu_torch.ops.distances import certified_count_walk
+
+    _counts, want, fragile = certified_count_walk(*a, centers)
+    tol = min(fragile, rescored_tolerance(want))
+    log(f"    B1 rescored_pairs on {what}: kernel {rescored}, walk {want} "
+        f"(fragile {fragile}, tolerance {tol})")
+    if abs(rescored - want) > tol:
+        fail(f"B1's rescored_pairs is off the walk's on {what}: {rescored} "
+             f"against {want} (tolerance {tol})")
+    return want
 
 
 # Sizes of phase 7; tests rehearse the phase at small ones on the CPU.
@@ -1490,9 +1644,16 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
         b = (inp["xs"], inp["lab"], inp["rp"], inp["cols"])
         e2, tile = inp["e2"], inp["tile"]
         fr = (inp["centers"], inp["rnorm"])
-        kc, kst = ck.count_pairs_mixed(*a, e2, tile, *fr)
+        d = inp["xs"].shape[0]
+        kw = ({"rescored_pairs": torch.zeros(1, dtype=torch.int64,
+                                             device=dev)}
+              if d <= 64 else {})
+        kc, kst = ck.count_pairs_mixed(*a, e2, tile, *fr, **kw)
         pc, pst = ck.PLAIN["count_pairs_mixed"](*a, e2, tile, *fr)
         fc = ck.count_pairs(*a, e2, tile)
+        if kw:  # the tensor-core B1 decided the rest exactly
+            b1_rescored_hold(a + (e2, tile), inp["centers"],
+                             int(kw["rescored_pairs"][0]), f"{what}, mixed")
         kb = ck.minlab_pairs_mixed(*b, e2, tile, *fr)
         pb = ck.PLAIN["minlab_pairs_mixed"](*b, e2, tile, *fr)
         fb = ck.minlab_pairs(*b, e2, tile)
@@ -1698,22 +1859,36 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
             sub_ms = median_ms(lambda: kern(*sub_args, *extra), 3)
             plain_ms = median_ms(lambda: plain(*sub_args, *extra), 1)
             pairs = need[base]
+            # The tensor-core B1's work (b1_bounds): under "mixed" with
+            # the pairs its fallback decided exactly on the whole list.
+            rescored = 0
+            if mode == "mixed":
+                rc = torch.zeros(1, dtype=torch.int64, device=dev)
+                kern(*args, *extra, rescored_pairs=rc)
+                rescored = int(rc[0])
+            frames_ms = median_ms(
+                lambda: ck.pass_frames(xs, mask, tile, mode), 3)
             t_tc = 2 * K * pairs / PEAK_BF16_FLOPS
-            simt = pairs * EPILOGUE_OPS[mode] + (
-                in_band[base] * (3 * d + 1) if mode == "mixed" else 0)
-            t_ops = t_tc + simt / PEAK_FP32_FLOPS
+            t_ops = b1_bounds(pairs, rescored, d, mode)
+            simt = (t_ops - t_tc) * PEAK_FP32_FLOPS
             t_bytes = (in_bytes + N * 4) / PEAK_BYTES_PER_S
             bound_ms = max(t_ops, t_bytes) * 1e3
             bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            floor_ms = max(b1_floor(pairs, rescored, d), t_bytes) * 1e3
+            fp32_ms_all = max(pairs * (3 * d + 1) / PEAK_FP32_FLOPS,
+                              t_bytes) * 1e3
             launches = (mixed_launches if mode == "mixed"
                         else default_launches).get(name, 0)
             log(f"  {name}: {kern_ms:.4f} ms (FP32 {base} "
                 f"{fp32_ms[base]:.4f} ms; on the {sub}-tile sub-list "
                 f"{sub_ms:.4f} ms, plain {plain_ms:.2f} ms), bound "
                 f"{bound_ms:.4f} ms by {bound_by} ({t_tc * 1e3:.4f} ms "
-                f"tensor cores + {simt / PEAK_FP32_FLOPS * 1e3:.4f} ms FP32); "
-                f"{pairs} point pairs, {in_band[base]} in the mixed band "
-                f"({in_band[base] / max(pairs, 1):.4%})")
+                f"tensor cores + {simt / PEAK_FP32_FLOPS * 1e3:.4f} ms FP32; "
+                f"floor {floor_ms:.4f} ms, all-FP32 work {fp32_ms_all:.4f} "
+                f"ms); {pairs} point pairs, {in_band[base]} in the mixed "
+                f"band ({in_band[base] / max(pairs, 1):.4%}), {rescored} "
+                f"decided exactly ({rescored / max(pairs, 1):.6f}); the "
+                f"frames' staging {frames_ms:.4f} ms")
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": "pypardis_tpu_torch/csrc/pair_kernels.cu",
@@ -1725,6 +1900,9 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
                 # No single PyTorch call computes a thresholded count or
                 # min-label over a tile-pair list.
                 "library_ms": None,
+                "rescored_pairs": rescored,
+                "bound_ms_fp32": fp32_ms_all, "floor_ms": floor_ms,
+                "frames_ms": frames_ms,
             })
     # B2 at each round's labels of the fit, with the fit's live rows: the
     # kernels bitwise their plain versions and the walk (and "mixed" the
@@ -2100,6 +2278,13 @@ def main() -> None:
             and "sketch_pair_kernelILi0ELi2E" not in _build.BUILD_INFO["log"]):
         fail("the build has no certified B3 instance "
              "(sketch_pair_kernel<0, SK_CERTIFIED>)")
+    # (The timing switches run from a parent tree's root too, whose build
+    # may predate the kernel: they skip this check.)
+    ab = {"--b1", "--b2", "--b2-walk", "--b4"} & set(sys.argv[1:])
+    if (not ab and _build.BUILD_INFO.get("log")
+            and "b1_tc_kernelILi0ELi1ELi4E" not in _build.BUILD_INFO["log"]):
+        fail("the build has no tensor-core B1 instance "
+             "(b1_tc_kernel<B1_EXACT, 1, 4>)")
     if "--profile" in sys.argv[1:]:
         profile_fit(torch, DBSCAN, make_blob_data)
         return
@@ -2117,6 +2302,12 @@ def main() -> None:
             e.synchronize()
             times.append(s.elapsed_time(e))
         return float(np.median(times))
+
+    if "--b1" in sys.argv[1:]:
+        records = b1_timings(torch, dev, median_ms, torch.cuda.synchronize)
+        log(f"card: {card}")
+        print(json.dumps({"kernels": records}))
+        return
 
     if "--b2" in sys.argv[1:]:
         records = b2_timings(torch, dev, median_ms, torch.cuda.synchronize)
@@ -2169,12 +2360,24 @@ def main() -> None:
                            dtype=torch.int32)
         lab = torch.where(core, idx, INT_INF).contiguous()
         return dict(pts=pts, mi=mi, lab=lab, rp=rp, cols=cols, e2=e2,
-                    tile=tile, total=total, core=core, mask=mask)
+                    tile=tile, total=total, core=core, mask=mask,
+                    centers=ck.tile_frames(pts, mask, tile)[0])
 
-    def compare(inp, what):
+    def compare(inp, what, walk=True):
+        """B1 and B2 bitwise their plain versions; at d <= 64 (the
+        tensor-core B1) with ``walk`` also B1's rescored_pairs against
+        the walk's."""
         a = (inp["pts"], inp["mi"], inp["rp"], inp["cols"], inp["e2"],
              inp["tile"])
-        hold("count_pairs", ck.count_pairs(*a), counts_over_pairs(*a), what)
+        if inp["pts"].shape[0] <= 64:
+            rc = torch.zeros(1, dtype=torch.int64, device=dev)
+            got = ck.count_pairs(*a, inp["centers"], rescored_pairs=rc)
+            hold("count_pairs", got, counts_over_pairs(*a), what)
+            if walk:
+                b1_rescored_hold(a, inp["centers"], int(rc[0]), what)
+        else:
+            hold("count_pairs", ck.count_pairs(*a), counts_over_pairs(*a),
+                 what)
         b = (inp["pts"], inp["lab"], inp["rp"], inp["cols"], inp["e2"],
              inp["tile"])
         hold("minlab_pairs", ck.minlab_pairs(*b), minlab_over_pairs(*b),
@@ -2202,6 +2405,14 @@ def main() -> None:
         xs, mask, _owner = _pipeline_layout(pts, eps, n, block, sort=True)
         compare(kernel_inputs(xs, mask, eps, block, 10),
                 f"natural blobs d={d} n=20000")
+    # The tensor-core B1 where its band is widest: near-eps pairs,
+    # duplicates and a 1e3 offset.
+    for d in (3, 16, 64):
+        eps_a = round(0.9 * np.sqrt(d / 8.0), 3)
+        pts, n, block = _stage(adversarial(20_000, d, eps_a), 1024, dev)
+        xs, mask, _owner = _pipeline_layout(pts, eps_a, n, block, sort=True)
+        compare(kernel_inputs(xs, mask, eps_a, block, 6),
+                f"adversarial d={d} n=20000")
     torch.cuda.synchronize()
 
     # Phase 3: a small fit on the card against the plain path on the CPU.
@@ -2273,7 +2484,7 @@ def main() -> None:
     pts, n, block = _stage(X, 2048, dev)
     xs, mask, _owner = _pipeline_layout(pts, 2.4, n, block, sort=True)
     inp = kernel_inputs(xs, mask, 2.4, block, 10)
-    compare(inp, "1M main-path inputs")
+    compare(inp, "1M main-path inputs", walk=False)
 
     d, N = xs.shape
     tile = inp["tile"]
@@ -2297,37 +2508,56 @@ def main() -> None:
                 + inp["cols"].numel() * 4)
     out_bytes = N * 4
     kernels = []
-    for name, colval, replaces in (
-        ("count_pairs", inp["mi"], "pypardis_tpu/ops/pallas_kernels.py:202"),
-    ):
-        args = (xs, colval, inp["rp"], inp["cols"], inp["e2"], tile)
-        kern = getattr(ck, name)
-        plain = ck.PLAIN[name]
-        ms = median_ms(lambda: kern(*args), 10)
-        plain_ms = median_ms(lambda: plain(*args), 2)
-        ops = need[name] * (3 * d + 1)
-        bound_s = max((in_bytes + out_bytes) / PEAK_BYTES_PER_S,
-                      ops / PEAK_FP32_FLOPS)
-        bound_by = ("operations" if ops / PEAK_FP32_FLOPS
-                    >= (in_bytes + out_bytes) / PEAK_BYTES_PER_S
-                    else "bytes")
-        log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms), bound "
-            f"{bound_s * 1e3:.4f} ms by {bound_by}; {need[name]} point "
-            f"pairs over {len(cols_t)} live tile pairs, "
-            f"{in_bytes + out_bytes} bytes; "
-            f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "pypardis_tpu_torch/csrc/pair_kernels.cu",
-            "replaces": replaces,
-            "launches": int(main_launches[name]),
-            "max_abs_err": max_err[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": bound_by,
-            # No single PyTorch call computes a thresholded count or a
-            # min-label over a tile-pair list.
-            "library_ms": None,
-        })
+    # B1 (the tensor-core kernel at 16-D): on the first 64 row tiles its
+    # rescored_pairs against the walk's, then timed on the whole list
+    # with the staging of its frames (the row tiles' centres, which the
+    # fit now stages under "high" too).
+    a = (xs, inp["mi"], inp["rp"], inp["cols"], inp["e2"], tile)
+    sub = min(64, nt)
+    rp_sub = torch.cat([inp["rp"][:sub + 1], inp["rp"][sub].repeat(nt - sub)])
+    a_sub = a[:2] + (rp_sub,) + a[3:]
+    rc = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = ck.count_pairs(*a_sub, inp["centers"], rescored_pairs=rc)
+    hold("count_pairs", got, counts_over_pairs(*a_sub),
+         f"1M main-path inputs, first {sub} of {nt} row tiles")
+    b1_rescored_hold(a_sub, inp["centers"], int(rc[0]),
+                     f"the 1M main-path inputs, first {sub} of {nt} row tiles")
+    rc.zero_()
+    ck.count_pairs(*a, inp["centers"], rescored_pairs=rc)
+    rescored = int(rc[0])
+    ms = median_ms(lambda: ck.count_pairs(*a, inp["centers"]), 10)
+    frames_ms = median_ms(lambda: ck.pass_frames(xs, mask, tile, "high"), 10)
+    plain_ms = median_ms(lambda: counts_over_pairs(*a), 2)
+    pairs = need["count_pairs"]
+    t_bytes = (in_bytes + out_bytes
+               + inp["centers"].numel() * 4) / PEAK_BYTES_PER_S
+    t_ops = b1_bounds(pairs, rescored, d, "high")
+    bound_s = max(t_bytes, t_ops)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    fp32_s = max(t_bytes, pairs * (3 * d + 1) / PEAK_FP32_FLOPS)
+    floor_s = max(t_bytes, b1_floor(pairs, rescored, d))
+    log(f"  count_pairs: {ms:.4f} ms (plain {plain_ms:.2f} ms), bound "
+        f"{bound_s * 1e3:.4f} ms by {bound_by} (all-FP32 work "
+        f"{fp32_s * 1e3:.4f} ms, floor {floor_s * 1e3:.4f} ms); {pairs} point "
+        f"pairs over {len(cols_t)} live tile pairs, {rescored} decided "
+        f"exactly ({rescored / max(pairs, 1):.6f}); the frames' staging "
+        f"{frames_ms:.4f} ms")
+    kernels.append({
+        "name": "count_pairs", "route": "cuda",
+        "source": "pypardis_tpu_torch/csrc/pair_kernels.cu",
+        "replaces": "pypardis_tpu/ops/pallas_kernels.py:202",
+        "launches": int(main_launches["count_pairs"]),
+        "max_abs_err": max_err["count_pairs"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": bound_by,
+        # No single PyTorch call computes a thresholded count or a
+        # min-label over a tile-pair list.
+        "library_ms": None,
+        "rescored_pairs": rescored,
+        "rescored_share": rescored / max(pairs, 1),
+        "bound_ms_fp32": fp32_s * 1e3, "floor_ms": floor_s * 1e3,
+        "frames_ms": frames_ms,
+    })
     # B2 at each round's labels of the fit, with the fit's live rows.
     kernels += b2_rounds(torch, dev, median_ms, torch.cuda.synchronize, xs,
                          mask, ("high",), main_launches)

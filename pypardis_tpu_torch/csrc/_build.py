@@ -118,15 +118,16 @@ def _bind(lib) -> None:
         ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
     )
     pair = [p, p, p, p, f, i64, i32, i32, i32]
-    lib.pp_count_pairs.argtypes = pair + [p, p]
-    lib.pp_count_pairs.restype = i32
     # B2 takes (tile_min, live_rows, out, evaluated, stream).
     skip = [p, p, p, p, p]
     lib.pp_minlab_pairs.argtypes = pair + skip
     lib.pp_minlab_pairs.restype = i32
+    # (pts, colval, row_ptr, cols, centers, rnorm, eps2, n, d, tile, nt,
+    # mode or fast): B1 then takes (out, band_pairs, flags,
+    # rescored_pairs, stream), B2 its skip arguments.
     fast = [p, p, p, p, p, p, f, i64, i32, i32, i32, i32]
-    lib.pp_count_pairs_fast.argtypes = fast + [p, p, p, p]
-    lib.pp_count_pairs_fast.restype = i32
+    lib.pp_count_pairs.argtypes = fast + [p] * 5
+    lib.pp_count_pairs.restype = i32
     lib.pp_minlab_pairs_fast.argtypes = fast + skip
     lib.pp_minlab_pairs_fast.restype = i32
     # The sketch kernels take (..., nt, rescore, out) and end in

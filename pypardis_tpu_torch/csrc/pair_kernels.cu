@@ -9,41 +9,125 @@
 //   B1 (MODE 0): count of columns j with colval[j] != 0 and d2 <= eps2;
 //   B2 (MODE 1): min colval[j] over columns with d2 <= eps2, where
 //                non-source columns carry INT32_MAX.
+// Which kernel runs: B1 at d <= 64 runs b1_tc_kernel (the tensor cores,
+// every mode; at the end of this file); past 64 axes slice_kernel<0>
+// ("high") or fast_pair_kernel<0, *, 0>.  B2 runs minlab_kernel ("high",
+// d <= 64), slice_kernel<1> (past 64 axes) or fast_pair_kernel<1, *, *>
+// ("mixed", "default").
 //
 // Design.  The TPU grid ran the pair list in order and carried each
 // row's accumulator from one grid step to the next; Hopper's blocks run
 // in no order, so here one block owns a slice of one row tile and loops
-// over that tile's live column tiles itself: each thread owns one output
-// row, keeps its coordinates in registers (d <= 64; past that the
-// axis-sliced path below), stages each column chunk (coordinates plus
-// mask or labels) in shared memory, keeps its count or minimum in a
-// register and writes its row once.  No atomics, no inter-block
-// reduction, deterministic.  Rows whose tile has no live pair get the
-// identity (0 or INT32_MAX).
+// over that tile's live column tiles itself, keeps each row's count or
+// minimum in registers and writes its rows once.  No atomics on the
+// outputs, no inter-block reduction, deterministic.  Rows whose tile has
+// no live pair get the identity (0 or INT32_MAX).  In the FP32 kernels
+// (minlab_kernel, slice_kernel) each thread owns one output row, keeps
+// its coordinates in registers (d <= 64; past that the axis slices
+// below) and reads each staged column point as float4 broadcasts from
+// shared memory.
 //
-// d^2 is (x_a - y_a)^2 summed over the axes in index order with
+// The exact d^2 is (x_a - y_a)^2 summed over the axes in index order with
 // __fsub_rn/__fmul_rn/__fadd_rn, so no multiply-add is contracted: the
 // plain PyTorch version (ops/distances._pair_d2) repeats the same
-// operations and is bitwise equal to this kernel on any data.  No
-// recentring is needed, since the difference form has no |x|^2+|y|^2-2xy
-// cancellation.
+// operations and is bitwise equal to every exact verdict here on any
+// data.
 //
-// Bound.  Per pair of points the kernel spends 3d FP32 SIMT operations
-// and a compare; the bytes it must move are the coordinates once, so at
-// the fit's tile sizes it is bound by FP32 SIMT issue, not by memory.
-// The arithmetic is unfused, one FP32 instruction per operation, so the
-// SIMT ceiling is half the card's FFMA-counted 67 TFLOP/s.  B2 skips
-// most pairs (below): its floor is the pairs a label-exact method must
-// still rule out.
-// What the design does about it: coordinates of the row live in
-// registers, the staged column point is read as float4 broadcasts from
-// shared memory (one load per four axes, no bank conflicts since every
-// thread of the block reads the same address), and a column whose mask
-// is 0 (B1) or whose label is INT32_MAX (B2) is skipped before any
-// arithmetic - a branch that is uniform across the block.
+// Bound of the FP32 kernels.  Per pair of points 3d FP32 SIMT operations
+// and a compare; the bytes are the coordinates once, so they are bound by
+// FP32 SIMT issue.  The arithmetic is unfused, one FP32 instruction per
+// operation, so the SIMT ceiling is half the card's FFMA-counted 67
+// TFLOP/s.  B2 skips most pairs (below): its floor is the pairs a
+// label-exact method must still rule out.
 //
-// Precision modes (fast_pair_kernel below).  Under "mixed" and "default"
-// the TPU kernels run _mixed_classify / a single bf16 dot; here:
+// B1 on the tensor cores (b1_tc_kernel, d <= 64, "high", "highest",
+// "mixed" and "default").  A block of up to B1_WARPS warps owns 16 MT rows
+// per warp of one row tile (MT = 4 at K = 16: 512 rows, two blocks per
+// 1,024-row tile) and holds their A fragments in registers: bf16(x - c),
+// c the row tile's box centre (any point would do), K = d padded to 16.
+// Per pair-list entry it stages the column tile once per block, in slabs
+// of up to 512 columns, one column per thread: Y' = bf16(y - c) (stride
+// K + 8 halves: conflict-free B fragments), the FP32 y (zero-padded to K),
+// |Y|^2 (an axis-ordered _rn sum; +inf for an invalid column) and, per
+// 32 columns, the maxima over valid columns of |Y|^2, |Y'|^2 and
+// |Y' - Y|^2.  Each warp then runs mma.sync m16n8k16 over its rows and
+// the slab, 64 columns (one band chunk) at a time, each B fragment
+// feeding MT mma, and takes per pair t = fl(|Y|^2 - 2 dot) (one fused
+// multiply-add: 2 dot is exact).  The pair's d2f is |X|^2 + t in real
+// arithmetic: each row's bounds on t absorb |X|^2, rounded outward, so a
+// test on t is the test on that real sum.  Then:
+//   * "default": count when |X|^2 + t <= eps2 (lossy, as on the TPU);
+//   * "high", "highest" and "mixed": with band b of the row against the
+//     chunk (below), count when |X|^2 + t < eps2 - b; drop when |X|^2 + t
+//     > eps2 + b; anything else (NaN included) is undecided, a bit in
+//     the lane's registers.  After the chunk the warp's undecided pairs
+//     with valid columns go to the exact fallback: the lanes take them
+//     two at a time (found by a binary search of shuffles over the lanes'
+//     inclusive counts and a select in the owner's bits) and decide them
+//     with the exact d^2 above from the block's FP32 copies of its rows
+//     and of the slab in shared memory, adding to a per-row count there.
+//     So the counts are bitwise counts_over_pairs' on every row, valid or
+//     not, as long as b bounds |d2f - E|, E the exact d^2.
+//     `rescored_pairs` (optional) counts the pairs the fallback decided.
+//   * "mixed" also counts, over the same t, the JAX stats of the
+//     reference band: per entry bt_band at the row tile's rnorm and the
+//     maxima of |y - c| and |y| over the entry's valid columns (taken
+//     from the slab's maxima, or by a sweep of the column tile before its
+//     first slab when the tile is wider than one slab), its test |d2f -
+//     eps2| <= band as bounds on t per row; band_pairs counts the pairs
+//     of valid rows and columns in it and flags the entries holding one.
+//     Its counts are the certified ones, so bitwise "high"'s.
+// The band.  sketch_kernels.cu's header derives, for one pair, the band
+// band_p = c_cross (|X' - X| |Y'| + |X| |Y' - Y|) + c_acc |X'| |Y'|
+//          + c_norm (|X|^2 + |Y|^2) + 2^-100
+// (ops/distances.certified_band_coefs) and proves |d2f - E| <= band_p for
+// d2f = fl(fl(|X|^2 + |Y|^2) - 2 dot); its term (4) bounds the rounding
+// after the cross term by 4 u S, which covers t's single rounding
+// (u |yy - 2 dot| <= (2 + 2^-6) u S), so band_p bounds |(|X|^2 + t) - E|
+// as well.  Here one band serves a row and a chunk of 64 columns: every
+// term is non-negative and increasing in the column's |Y|^2, |Y'| and
+// |Y' - Y|, so band_p at the chunk's maxima of these over its valid
+// columns bounds every pair of the chunk.  The kernel evaluates it as
+// alpha YH + beta YE + c_norm YY + delta, with the row's alpha = fl(c_cross
+// |X' - X| + c_acc |X'|), beta = fl(c_cross |X|), delta = fl(c_norm |X|^2 +
+// 2^-100) and three fused multiply-adds: each term passes through at most
+// six roundings to nearest, each a factor of at least 1 - u, within the
+// seven the derivation allows for the band's own arithmetic (sqrt_rn of
+// the maxima equals the maximum of the roots: rounding is monotone).
+// lo = eps2 - band is rounded down and hi = eps2 + band up, and the bounds
+// on t, lo - |X|^2 up and hi - |X|^2 down: a test on the float t against
+// them holds exactly when it holds for the real sum.  The emulation
+// ops/distances.certified_count_walk takes the same steps
+// (b1_chunk_band).  A band per pair would leave fewer pairs undecided
+// but costs the epilogue its evaluation per pair, where the chunk's is
+// paid once per row and 64 columns.
+// The tests (tests/test_torch_b1_certified.py) hold the chunk band over
+// random and near-eps pairs at K = 16, 32 and 64 in float64, and
+// chip_smoke.py holds the tensor cores' accumulation to term (3) at K =
+// 16, 64 and 512.
+//
+// Bound of the tensor-core B1.  Per pair 2 K tensor-core operations and
+// the epilogue's FP32 operations (t: 2; the two tests: 2; "mixed"'s stats
+// test: 2 more; "default": one test), plus 3 d + 1 per undecided pair in
+// the exact fallback; the bytes (coordinates, CSR) are far below.  At
+// 1M x 16-D the epilogue is the larger, so the kernel is bound by issue
+// in the epilogue and by the fallback's latency.  What the design does:
+// one staging and conversion of each column per block (the bf16 pass
+// before it restaged and reconverted every 64 columns for each block of
+// 128 rows), MT mma per B fragment, verdicts as predicated instructions
+// in inline PTX (the compiler made a divergent branch of each pair's
+// verdict written in C), no skip of a single n-tile (a branch there kept
+// the compiler from overlapping one n-tile's mma with the last one's
+// epilogue), the exact fallback's operands in shared memory as float4s
+// with their loads issued before the serial sum (an axis at a time from
+// global memory cost a load's latency per axis), two pairs per lane
+// per round, and two columns per thread in the staging.  Its times,
+// bound, floor and undecided share at 1M x 16-D: chip_smoke.py --b1 and
+// PERF.md.
+//
+// Precision modes of B2 and of B1 past 64 axes (fast_pair_kernel below).
+// Under "mixed" and "default" the TPU kernels run _mixed_classify / a
+// single bf16 dot; here:
 //   * one block owns 128 rows of a row tile (8 warps x 16 rows) and walks
 //     the same CSR list; each column chunk of 64 is staged in shared memory
 //     as bf16, recentred on the row tile's box centre (the tile routine of
@@ -58,24 +142,19 @@
 //     over the column tile before its chunks; a pair with
 //     |d2f - eps2| <= band and a valid column goes to a per-warp queue in
 //     shared memory, and at the end of the chunk the warp's lanes take the
-//     queued pairs one each and decide them with B1's exact arithmetic
+//     queued pairs one each and decide them with the exact arithmetic
 //     above (the rows and columns staged in FP32 for d <= 64, read from
 //     global memory beyond), adding to a per-row count (or minimum) in
-//     shared memory.  So the rescore runs per pair, not per tile: on
-//     clustered data nearly every tile holds an in-band pair, and a
-//     whole-tile rescore would cost what "high" costs.
+//     shared memory.
 // The band is sound for every valid row (band_halfwidth bounds the bf16
 // error of the cross term, exact_slack the FP32 rounding of the exact
 // pass), so counts and labels equal the FP32 kernel's on valid rows.  B1
 // also counts the in-band pairs of valid rows and columns (one 64-bit
 // counter) and flags each pair-list entry holding one.  Rows outside the
 // row mask the frames were taken over carry no guarantee (the callers
-// mask them, as on the TPU).
-//
-// Bound of the fast pass: 2 K tensor-core operations per pair (K = d
-// padded to 16) and about ten FP32 epilogue operations; at d = 16 the
-// epilogue, not the mma, is the larger, so the pass is bound by FP32 issue
-// in the epilogue and by the per-pair exact rescore of the in-band pairs.
+// mask them, as on the TPU).  Bound: 2 K tensor-core operations per pair
+// and about ten FP32 epilogue operations, plus the in-band pairs' exact
+// d^2.
 //
 // Axis slices.  Past 64 axes the row no longer fits in registers, and
 // past 58,108 one staged column of d floats would not fit the card's
@@ -139,6 +218,7 @@
 // versions take the same live_rows and do the same.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "bf16_tile.cuh"
@@ -194,56 +274,6 @@ __device__ __forceinline__ float pp_d2_regs(const float* xr, const float* y,
     }
   }
   return d2;
-}
-
-// B1 at d <= 64 (DC = d rounded up to 4, 8, 16, 32 or 64): counts of
-// valid columns within eps.
-template <int DC>
-__global__ void __launch_bounds__(PP_THREADS) pair_kernel(
-    const float* __restrict__ pts, const int* __restrict__ colval,
-    const int* __restrict__ row_ptr, const int* __restrict__ cols,
-    float eps2, long long n, int d, int tile, int ch,
-    int* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  const int dp = (d + 3) & ~3;
-  float* ys = reinterpret_cast<float*>(smem4);
-  int* sv = reinterpret_cast<int*>(ys + (size_t)ch * dp);
-
-  const int r = blockIdx.x;
-  const int local = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = local < tile;
-  const long long row = (long long)r * tile + (active ? local : 0);
-
-  float xr[DC];
-#pragma unroll
-  for (int a = 0; a < DC; ++a) xr[a] = a < d ? pts[a * n + row] : 0.f;
-
-  int acc = 0;
-  const int p0 = row_ptr[r];
-  const int p1 = row_ptr[r + 1];
-  for (int p = p0; p < p1; ++p) {
-    const long long c0 = (long long)cols[p] * tile;
-    for (int j0 = 0; j0 < tile; j0 += ch) {
-      const int w = min(ch, tile - j0);
-      __syncthreads();  // the previous chunk is consumed
-      for (int t = threadIdx.x; t < w; t += blockDim.x)
-        sv[t] = colval[c0 + j0 + t];
-      // Padded axes (d <= a < dp) hold 0 on both sides: each adds +0,
-      // which leaves d2 unchanged exactly.
-      for (int e = threadIdx.x; e < dp * w; e += blockDim.x) {
-        const int a = e / w;
-        const int t = e - a * w;
-        ys[t * dp + a] = a < d ? pts[a * n + c0 + j0 + t] : 0.f;
-      }
-      __syncthreads();
-      if (!active) continue;
-      for (int t = 0; t < w; ++t) {
-        if (sv[t] == 0) continue;
-        if (pp_d2_regs<DC>(xr, ys + t * dp, d) <= eps2) ++acc;
-      }
-    }
-  }
-  if (active) out[row] = acc;
 }
 
 // B2 under "high"/"highest" at d <= 64 (DC = d rounded up to 4, 8, 16,
@@ -455,47 +485,6 @@ static int slice_launch(const float* pts, const int* colval,
       pts, colval, row_ptr, cols, eps2, n, d, tile, sa, tile_min, live, out,
       evaluated);
   return (int)cudaGetLastError();
-}
-
-template <int DC>
-static int count_launch_dc(dim3 grid, size_t smem, cudaStream_t stream,
-                           const float* pts, const int* colval,
-                           const int* row_ptr, const int* cols, float eps2,
-                           long long n, int d, int tile, int ch, int* out) {
-  pair_kernel<DC><<<grid, PP_THREADS, smem, stream>>>(
-      pts, colval, row_ptr, cols, eps2, n, d, tile, ch, out);
-  return (int)cudaGetLastError();
-}
-
-static int count_launch(const float* pts, const int* colval,
-                        const int* row_ptr, const int* cols, float eps2,
-                        long long n, int d, int tile, int nt, int* out,
-                        void* stream) {
-  if (nt <= 0 || tile <= 0) return 0;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (d > 64)
-    return slice_launch<0>(pts, colval, row_ptr, cols, eps2, n, d, tile, nt,
-                           nullptr, nullptr, out, nullptr, s);
-  const int dp = (d + 3) & ~3;
-  // Column chunk: as many staged points as fit in 48 KB of shared
-  // memory (the default limit), capped at 256.
-  const int ch = min(PP_MAX_CHUNK, PP_SMEM_BYTES / (4 * (dp + 1)));
-  const size_t smem = (size_t)ch * dp * 4 + (size_t)ch * 4;
-  const dim3 grid(nt, (tile + PP_THREADS - 1) / PP_THREADS);
-  if (d <= 4)
-    return count_launch_dc<4>(grid, smem, s, pts, colval, row_ptr, cols,
-                              eps2, n, d, tile, ch, out);
-  if (d <= 8)
-    return count_launch_dc<8>(grid, smem, s, pts, colval, row_ptr, cols,
-                              eps2, n, d, tile, ch, out);
-  if (d <= 16)
-    return count_launch_dc<16>(grid, smem, s, pts, colval, row_ptr, cols,
-                               eps2, n, d, tile, ch, out);
-  if (d <= 32)
-    return count_launch_dc<32>(grid, smem, s, pts, colval, row_ptr, cols,
-                               eps2, n, d, tile, ch, out);
-  return count_launch_dc<64>(grid, smem, s, pts, colval, row_ptr, cols,
-                             eps2, n, d, tile, ch, out);
 }
 
 template <int DC>
@@ -995,32 +984,693 @@ static int fast_launch(const float* pts, const int* colval,
                                  centers, rnorm, eps2, n, d, tile, out,     \
                                  band_pairs, flags, tile_min, live,         \
                                  evaluated)
-  if (d <= 16) return PP_FAST_KS(1);
-  if (d <= 32) return PP_FAST_KS(2);
-  if (d <= 48) return PP_FAST_KS(3);
-  if (d <= 64) return PP_FAST_KS(4);
+  // B1 takes this kernel past 64 axes only (b1_tc_kernel below runs it
+  // at d <= 64), so MODE 0 has no register-fragment instance.
+  if constexpr (MODE == 1) {
+    if (d <= 16) return PP_FAST_KS(1);
+    if (d <= 32) return PP_FAST_KS(2);
+    if (d <= 48) return PP_FAST_KS(3);
+    if (d <= 64) return PP_FAST_KS(4);
+  }
   return PP_FAST_KS(0);
 #undef PP_FAST_KS
 }
 
+
+
+// ---- B1 on the tensor cores, d <= 64, every mode (see the header) ------
+
+#define B1_WARPS 8      // warps per block, at most
+#define B1_CH 64        // columns per band chunk: 8 n-tiles of 8
+#define B1_EXACT 0      // "high"/"highest": certified verdicts, exact queue
+#define B1_MIXED 1      // "mixed": the same, plus the reference band stats
+#define B1_DEFAULT 2    // "default": the bf16 verdict d2f <= eps2 alone
+
+// Row fragments per warp (the A fragments take MT * K / 4 registers) and
+// columns staged per slab, so that two blocks' rows and slabs fit an SM's
+// shared memory: 64 rows per warp and 512 columns at K = 16, 32 and 256
+// at K = 32, 16 and 128 past that.
+__host__ __device__ constexpr int b1_mt(int ks) {
+  return ks == 1 ? 4 : ks == 2 ? 2 : 1;
+}
+__host__ __device__ constexpr int b1_slab_cap(int ks) {
+  return ks == 1 ? 512 : ks == 2 ? 256 : 128;
+}
+
+// Shared-memory layout of b1_tc_kernel (byte offsets) for rb rows and a
+// slab of cw columns.
+struct B1Smem {
+  size_t rowc, racc, ctr, yyv, hmax, vbits, red, xs, ys, yb, total;
+};
+
+__host__ __device__ inline B1Smem b1_smem(int ks, int rb, int cw, bool exact) {
+  B1Smem s;
+  size_t o = 0;
+  s.rowc = o;  o += (size_t)rb * 16;                 // per row (a, b, c, |X|^2)
+  s.racc = o;  o += (size_t)rb * 4;                  // exact verdicts in eps
+  s.ctr = o;   o += (size_t)ks * 16 * 4;             // the row tile's centre
+  s.yyv = o;   o += (size_t)cw * 4;                  // columns' |Y|^2 (+inf)
+  s.hmax = o;  o += (size_t)(cw / 32) * 16;          // 32-column maxima
+  s.vbits = o; o += (size_t)(cw / 32) * 4;           // column validity bits
+  s.red = o;   o += 2 * B1_WARPS * 4;                // the sweep's maxima
+  // The exact fallback's FP32 rows (K each) and columns (K + 4 each).
+  s.xs = o;    if (exact) o += (size_t)rb * ks * 16 * 4;
+  s.ys = o;    if (exact) o += (size_t)cw * (ks * 16 + 4) * 4;
+  o = (o + 15) & ~(size_t)15;
+  s.yb = o;    o += (size_t)cw * (ks * 16 + 8) * 2;  // bf16 Y', stride K + 8
+  s.total = o;
+  return s;
+}
+
+__device__ __forceinline__ float b1_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The per-pair verdicts, predicated (the compiler made branches of the
+// plain C forms, one divergent branch per pair).  b1_cert: cnt += 1 if
+// v < lo; amb |= bit unless v < lo or v > hi (a NaN is neither).
+__device__ __forceinline__ void b1_cert(float v, float lo, float hi,
+                                        unsigned bit, int& cnt,
+                                        unsigned& amb) {
+  asm("{\n\t.reg .pred pi, pd;\n\t"
+      "setp.lt.f32 pi, %2, %3;\n\t"
+      "setp.gt.or.f32 pd, %2, %4, pi;\n\t"
+      "@pi add.s32 %0, %0, 1;\n\t"
+      "@!pd or.b32 %1, %1, %5;\n\t}"
+      : "+r"(cnt), "+r"(amb)
+      : "f"(v), "f"(lo), "f"(hi), "r"(bit));
+}
+
+// cnt += 1 if v <= bound.
+__device__ __forceinline__ void b1_count_le(float v, float bound, int& cnt) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.le.f32 p, %1, %2;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(cnt)
+      : "f"(v), "f"(bound));
+}
+
+// cnt += 1 if lo <= v <= hi.
+__device__ __forceinline__ void b1_count_in(float v, float lo, float hi,
+                                            unsigned& cnt) {
+  asm("{\n\t.reg .pred p, q;\n\t"
+      "setp.ge.f32 p, %1, %2;\n\t"
+      "setp.le.and.f32 q, %1, %3, p;\n\t"
+      "@q add.u32 %0, %0, 1;\n\t}"
+      : "+r"(cnt)
+      : "f"(v), "f"(lo), "f"(hi));
+}
+
+// Max of v over the warp's lanes.
+__device__ __forceinline__ float b1_wmax(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// B1 at d <= 64 (K = 16 KS): a block owns rb = 16 MT rows per warp of one
+// row tile, holds their bf16 A fragments in registers and walks the row
+// tile's pair-list entries, staging each column tile once per block in
+// slabs of up to cw columns.  MODE: B1_EXACT, B1_MIXED or B1_DEFAULT.
+template <int MODE, int KS, int MT>
+__global__ void __launch_bounds__(B1_WARPS * 32, 2) b1_tc_kernel(
+    const float* __restrict__ pts, const int* __restrict__ mask,
+    const int* __restrict__ row_ptr, const int* __restrict__ cols,
+    const float* __restrict__ centers, const float* __restrict__ rnorm,
+    float eps2, long long n, int d, int tile, int cw, float c_cross,
+    float c_acc, float c_norm, int* __restrict__ out,
+    unsigned long long* __restrict__ band_pairs, int* __restrict__ flags,
+    unsigned long long* __restrict__ rescored) {
+  constexpr int K = KS * 16;
+  constexpr int YS = K + 8;  // bf16 stride of a staged column
+  constexpr int KP = K + 4;  // FP32 stride of a staged column
+  const int nth = blockDim.x;
+  const int nw = nth >> 5;
+  const int rb = nw * 16 * MT;
+  const B1Smem L = b1_smem(KS, rb, cw, MODE != B1_DEFAULT);
+  extern __shared__ __align__(16) unsigned char b1_sm[];
+  float4* rowc = reinterpret_cast<float4*>(b1_sm + L.rowc);
+  int* racc = reinterpret_cast<int*>(b1_sm + L.racc);
+  float* ctr = reinterpret_cast<float*>(b1_sm + L.ctr);
+  float* yyv = reinterpret_cast<float*>(b1_sm + L.yyv);
+  float* hmax = reinterpret_cast<float*>(b1_sm + L.hmax);
+  unsigned* vbits = reinterpret_cast<unsigned*>(b1_sm + L.vbits);
+  float* red = reinterpret_cast<float*>(b1_sm + L.red);
+  float* xs = reinterpret_cast<float*>(b1_sm + L.xs);
+  float* ys = reinterpret_cast<float*>(b1_sm + L.ys);
+  __nv_bfloat16* yb = reinterpret_cast<__nv_bfloat16*>(b1_sm + L.yb);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int r = blockIdx.x;
+  const int rbase = blockIdx.y * rb;
+  const long long row0 = (long long)r * tile;
+  const int p0 = row_ptr[r];
+  const int p1 = row_ptr[r + 1];
+  if (p0 == p1) {  // uniform over the block: no live pair, count 0
+    for (int i = tid; i < rb; i += nth)
+      if (rbase + i < tile) out[row0 + rbase + i] = 0;
+    return;
+  }
+  for (int a = tid; a < K; a += nth)
+    ctr[a] = a < d ? centers[(long long)r * d + a] : 0.f;
+  for (int i = tid; i < rb; i += nth) racc[i] = 0;
+  __syncthreads();
+
+  // Each row's recentred norms (axis-ordered _rn sums of X^2, X'^2 and
+  // (X' - X)^2) and its band coefficients (see the header), one thread
+  // per row; the exact modes also copy the row, zero-padded to K axes,
+  // into xs (row-major: the exact fallback reads it as float4s).
+  for (int i = tid; i < rb; i += nth) {
+    const int lr = rbase + i;
+    float xx = 0.f, h2 = 0.f, e2 = 0.f;
+    float* xw = xs + i * K;
+    if (MODE != B1_DEFAULT)
+      for (int a = lr < tile ? d : 0; a < K; ++a) xw[a] = 0.f;
+    if (lr < tile) {
+      for (int a = 0; a < d; ++a) {
+        const float x = __ldg(pts + a * n + row0 + lr);
+        if (MODE != B1_DEFAULT) xw[a] = x;
+        const float v = __fsub_rn(x, ctr[a]);
+        const float vh = b1_bf16(v);
+        const float ve = __fsub_rn(vh, v);
+        xx = __fadd_rn(xx, __fmul_rn(v, v));
+        h2 = __fadd_rn(h2, __fmul_rn(vh, vh));
+        e2 = __fadd_rn(e2, __fmul_rn(ve, ve));
+      }
+    }
+    rowc[i] = make_float4(
+        __fadd_rn(__fmul_rn(c_cross, __fsqrt_rn(e2)),
+                  __fmul_rn(c_acc, __fsqrt_rn(h2))),
+        __fmul_rn(c_cross, __fsqrt_rn(xx)),
+        __fadd_rn(__fmul_rn(c_norm, xx), 0x1p-100f), xx);
+  }
+
+  // The warp's A fragments: (x - c) of its rows rounded to bf16, 0 off
+  // the tile and past d.
+  const int wrow = warp * 16 * MT;
+  auto xv = [&](int lr, int a) -> float {
+    return (lr < tile && a < d)
+               ? __fsub_rn(__ldg(pts + a * n + row0 + lr), ctr[a])
+               : 0.f;
+  };
+  unsigned af[MT][KS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int la = rbase + wrow + mt * 16 + g;
+    const int lb = la + 8;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int k0 = kk * 16 + 2 * t4;
+      af[mt][kk][0] = bt_pack(xv(la, k0), xv(la, k0 + 1));
+      af[mt][kk][1] = bt_pack(xv(lb, k0), xv(lb, k0 + 1));
+      af[mt][kk][2] = bt_pack(xv(la, k0 + 8), xv(la, k0 + 9));
+      af[mt][kk][3] = bt_pack(xv(lb, k0 + 8), xv(lb, k0 + 9));
+    }
+  }
+  __syncthreads();  // rowc is written
+
+  // This lane's rows: (mt, h) is row wrow + 16 mt + 8 h + g of the block.
+  // "default" counts a pair when |X|^2 + t <= eps2 in real arithmetic,
+  // t = fl(|Y|^2 - 2 dot), that is when t <= thd = eps2 - |X|^2 rounded
+  // down.
+  float thd[MT][2];
+  bool act[MT][2], rv[MT][2];
+  const float inf = __int_as_float(0x7f800000);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int li = wrow + mt * 16 + h * 8 + g;
+      act[mt][h] = rbase + li < tile;
+      thd[mt][h] = act[mt][h] ? __fsub_rd(eps2, rowc[li].w) : -inf;
+      rv[mt][h] = MODE == B1_MIXED && act[mt][h] &&
+                  __ldg(mask + row0 + rbase + li) != 0;
+    }
+
+  int cnt[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) cnt[mt][0] = cnt[mt][1] = 0;
+  unsigned n_band = 0;
+  unsigned long long n_resc = 0;
+  const int nslab = (tile + cw - 1) / cw;
+
+  for (int p = p0; p < p1; ++p) {
+    const long long c0 = (long long)__ldg(cols + p) * tile;
+    // "mixed": the reference band of the entry, bt_band at the row tile's
+    // rnorm and the maxima of |y - c| and |y| over its valid columns; a
+    // tile wider than one slab is swept for them first.
+    float bref = 0.f;
+    if (MODE == B1_MIXED && nslab > 1) {
+      float m1 = 0.f, m2 = 0.f;
+      for (int j = tid; j < tile; j += nth) {
+        if (__ldg(mask + c0 + j) == 0) continue;
+        float s1 = 0.f, s2 = 0.f;
+        for (int a = 0; a < d; ++a) {
+          const float y = __ldg(pts + a * n + c0 + j);
+          const float df = __fsub_rn(y, ctr[a]);
+          s1 = __fadd_rn(s1, __fmul_rn(df, df));
+          s2 = __fadd_rn(s2, __fmul_rn(y, y));
+        }
+        m1 = fmaxf(m1, s1);
+        m2 = fmaxf(m2, s2);
+      }
+      m1 = b1_wmax(m1);
+      m2 = b1_wmax(m2);
+      __syncthreads();  // the previous entry's maxima are read
+      if (lane == 0) {
+        red[warp] = m1;
+        red[B1_WARPS + warp] = m2;
+      }
+      __syncthreads();
+      m1 = red[0];
+      m2 = red[B1_WARPS];
+      for (int i = 1; i < nw; ++i) {
+        m1 = fmaxf(m1, red[i]);
+        m2 = fmaxf(m2, red[B1_WARPS + i]);
+      }
+      bref = bt_band(rnorm[2 * r], __fsqrt_rn(m1), rnorm[2 * r + 1],
+                     __fsqrt_rn(m2));
+    }
+    const unsigned band0 = n_band;  // "mixed": flag the entry if it grows
+    for (int s = 0; s < nslab; ++s) {
+      const int j0 = s * cw;
+      const int w = min(cw, tile - j0);
+      __syncthreads();  // the previous slab is consumed
+      // Stage the slab, one column per thread: Y' in bf16, |Y|^2 (+inf
+      // for an invalid column, so that d2f never counts it), and per 32
+      // columns the maxima over valid columns of |Y|^2, |Y'|^2,
+      // |Y' - Y|^2 and |y|^2, and the validity bits.
+      // At K = 16 a thread stages two columns at once, all their loads
+      // issued before the arithmetic (one column at a time paid two
+      // loads' latencies per slab).
+      constexpr int NCS = KS == 1 ? 2 : 1;
+      for (int cs = tid; cs < cw; cs += NCS * nth) {
+        float y[NCS][K];
+#pragma unroll
+        for (int u = 0; u < NCS; ++u) {
+          const int c = cs + u * nth;
+          const bool in = c < w;
+#pragma unroll
+          for (int a = 0; a < K; ++a)
+            y[u][a] = in && a < d ? __ldg(pts + a * n + c0 + j0 + c) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < NCS; ++u) {
+          const int c = cs + u * nth;
+          if (c >= cw) break;  // uniform over the warp
+          const bool valid = c < w && __ldg(mask + c0 + j0 + c) != 0;
+          float yy = 0.f, h2 = 0.f, e2 = 0.f, gg = 0.f;
+          unsigned* dst = reinterpret_cast<unsigned*>(yb + (size_t)c * YS);
+          float4* yw = reinterpret_cast<float4*>(ys + c * KP);
+#pragma unroll
+          for (int a = 0; a < K; a += 4) {
+            float Y[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              Y[i] = a + i < d ? __fsub_rn(y[u][a + i], ctr[a + i]) : 0.f;
+              const float Yh = b1_bf16(Y[i]);
+              const float Ye = __fsub_rn(Yh, Y[i]);
+              yy = __fadd_rn(yy, __fmul_rn(Y[i], Y[i]));
+              h2 = __fadd_rn(h2, __fmul_rn(Yh, Yh));
+              e2 = __fadd_rn(e2, __fmul_rn(Ye, Ye));
+              if (MODE == B1_MIXED)
+                gg = __fadd_rn(gg, __fmul_rn(y[u][a + i], y[u][a + i]));
+            }
+            dst[a / 2] = bt_pack(Y[0], Y[1]);
+            dst[a / 2 + 1] = bt_pack(Y[2], Y[3]);
+            if (MODE != B1_DEFAULT)
+              yw[a / 4] = make_float4(y[u][a], y[u][a + 1], y[u][a + 2],
+                                      y[u][a + 3]);
+          }
+          yyv[c] = valid ? yy : inf;
+          const float m0 = b1_wmax(valid ? yy : 0.f);
+          const float m1 = b1_wmax(valid ? h2 : 0.f);
+          const float m2 = b1_wmax(valid ? e2 : 0.f);
+          const float m3 = MODE == B1_MIXED ? b1_wmax(valid ? gg : 0.f) : 0.f;
+          const unsigned vb = __ballot_sync(0xffffffffu, valid);
+          if (lane == 0) {
+            *reinterpret_cast<float4*>(hmax + (c >> 5) * 4) =
+                make_float4(m0, m1, m2, m3);
+            vbits[c >> 5] = vb;
+          }
+        }
+      }
+      __syncthreads();  // the slab is staged
+      if (MODE == B1_MIXED && nslab == 1) {
+        float m1 = 0.f, m2 = 0.f;
+        for (int i = 0; i < cw / 32; ++i) {
+          m1 = fmaxf(m1, hmax[4 * i]);
+          m2 = fmaxf(m2, hmax[4 * i + 3]);
+        }
+        bref = bt_band(rnorm[2 * r], __fsqrt_rn(m1), rnorm[2 * r + 1],
+                       __fsqrt_rn(m2));
+      }
+      // The stats' test |d2f - eps2| <= bref as bounds on t per row (the
+      // same test up to the rounding of |X|^2 + |Y|^2; none for an
+      // invalid row, and an invalid column's t = +inf never meets them).
+      float slo[MT][2], shi[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float xx = rowc[wrow + mt * 16 + h * 8 + g].w;
+          slo[mt][h] = rv[mt][h] ? __fsub_rn(__fsub_rn(eps2, bref), xx) : inf;
+          shi[mt][h] = rv[mt][h]
+                           ? fminf(__fsub_rn(__fadd_rn(eps2, bref), xx),
+                                   0x1.fffffep127f)
+                           : -inf;
+        }
+
+      for (int ch = 0; ch * B1_CH < w; ++ch) {
+        const unsigned v0 = vbits[2 * ch];
+        const unsigned v1 = vbits[2 * ch + 1];
+        if (!(v0 | v1)) continue;  // uniform: no valid column
+        // The certified band of each row against this chunk: the band of
+        // the header at the chunk's maxima, evaluated by three fused
+        // multiply-adds; lo = eps2 - band and hi = eps2 + band rounded
+        // outward, and the bounds on t (|X|^2 + t < lo, > hi) rounded so
+        // that each test on t is the test on the real sum.
+        float lo[MT][2], hi[MT][2];
+        if (MODE != B1_DEFAULT) {
+          const float4 ha = *reinterpret_cast<const float4*>(hmax + 8 * ch);
+          const float4 hb =
+              *reinterpret_cast<const float4*>(hmax + 8 * ch + 4);
+          const float YY = fmaxf(ha.x, hb.x);
+          const float YH = __fsqrt_rn(fmaxf(ha.y, hb.y));
+          const float YE = __fsqrt_rn(fmaxf(ha.z, hb.z));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float4 rc = rowc[wrow + mt * 16 + h * 8 + g];
+              const float b = __fmaf_rn(
+                  rc.x, YH, __fmaf_rn(rc.y, YE, __fmaf_rn(c_norm, YY, rc.z)));
+              lo[mt][h] =
+                  act[mt][h] ? __fsub_ru(__fsub_rd(eps2, b), rc.w) : inf;
+              hi[mt][h] =
+                  act[mt][h] ? __fsub_rd(__fadd_ru(eps2, b), rc.w) : -inf;
+            }
+        }
+        unsigned amb[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) amb[mt] = 0u;
+#pragma unroll
+        for (int j = 0; j < B1_CH / 8; ++j) {
+          // (No skip of an n-tile without a valid column: a branch per
+          // n-tile kept the compiler from overlapping one n-tile's mma
+          // with the previous one's epilogue, and cost more than the
+          // invalid columns' work.)
+          const unsigned vb = ((j < 4 ? v0 : v1) >> (8 * (j & 3))) & 0xffu;
+          const int cb = ch * B1_CH + j * 8;
+          unsigned bf[KS][2];
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            const __nv_bfloat16* bp = yb + (size_t)(cb + g) * YS + kk * 16 +
+                                      2 * t4;
+            bf[kk][0] = *reinterpret_cast<const unsigned*>(bp);
+            bf[kk][1] = *reinterpret_cast<const unsigned*>(bp + 8);
+          }
+          const float y0 = yyv[cb + 2 * t4];
+          const float y1 = yyv[cb + 2 * t4 + 1];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) bt_mma(acc, af[mt][kk], bf[kk]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int h = e >> 1;
+              // t = fl(|Y|^2 - 2 dot) (2 dot is exact: one rounding); the
+              // pair's d2f is |X|^2 + t, which the row's bounds absorb.
+              const float t = __fmaf_rn(-2.f, acc[e], (e & 1) ? y1 : y0);
+              if (MODE == B1_DEFAULT) {
+                b1_count_le(t, thd[mt][h], cnt[mt][h]);
+              } else {
+                b1_cert(t, lo[mt][h], hi[mt][h], 1u << (4 * j + e),
+                        cnt[mt][h], amb[mt]);
+                if (MODE == B1_MIXED)
+                  b1_count_in(t, slo[mt][h], shi[mt][h], n_band);
+              }
+            }
+          }
+          if (MODE != B1_DEFAULT) {
+            // Only valid columns are queued (e = 0, 2 hold column 2 t4,
+            // e = 1, 3 column 2 t4 + 1).
+            const unsigned cm = ((vb >> (2 * t4)) & 3u) * 5u;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              amb[mt] &= ~((~cm & 0xfu) << (4 * j));
+          }
+        }
+        if (MODE == B1_DEFAULT) continue;
+        // The exact fallback: the warp's undecided pairs of this chunk,
+        // each lane taking two and deciding them with the axis-ordered _rn
+        // d^2 of the plain version.  Pair k of the warp's list (lanes in
+        // order, each lane's bits in (mt, bit) order) is found from the
+        // inclusive counts by a binary search over the lanes and a select
+        // in the owner's words, all by shuffles, so no list is written.
+        // The row and the column come from the block's FP32 copies in
+        // shared memory, both zero-padded to K axes (a zero axis adds +0),
+        // as float4s with 16 axes' loads issued before their arithmetic:
+        // the sum is a serial chain, and the fallback is latency-bound.
+        int nq = 0;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) nq += __popc(amb[mt]);
+        if (!__any_sync(0xffffffffu, nq != 0)) continue;
+        int incl = nq;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int t = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += t;
+        }
+        const int excl = incl - nq;
+        const int tot = __shfl_sync(0xffffffffu, incl, 31);
+        n_resc += nq;
+        // Two pairs per lane and round (k0 + lane, k0 + 32 + lane), each
+        // step written for both, so that their latencies overlap.
+        for (int k0 = 0; k0 < tot; k0 += 64) {  // uniform
+          int lr[2], cl[2];
+          bool ok[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int k = k0 + 32 * u + lane;
+            int src = 0;  // the first lane whose inclusive count exceeds k
+#pragma unroll
+            for (int st = 16; st > 0; st >>= 1)
+              if (__shfl_sync(0xffffffffu, incl, src + st - 1) <= k)
+                src += st;
+            // Its word holding the pair, and the pair's rank within it.
+            const int rk = k - __shfl_sync(0xffffffffu, excl, src);
+            int sel = 0, off = 0, base = 0;
+            unsigned word = 0u;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              const unsigned w = __shfl_sync(0xffffffffu, amb[mt], src);
+              const int c = __popc(w);
+              if (rk >= base && rk < base + c) {
+                sel = mt;
+                word = w;
+                off = rk - base;
+              }
+              base += c;
+            }
+            const int bit = (int)__fns(word, 0u, off + 1) & 31;  // 4 j + e
+            lr[u] = wrow + sel * 16 + (src >> 2) + ((bit >> 1) & 1) * 8;
+            cl[u] = ch * B1_CH + (bit >> 2) * 8 + 2 * (src & 3) + (bit & 1);
+            // Past the list, or a row past the tile (only a NaN d2f
+            // reaches the fallback there): nothing to decide.
+            ok[u] = k < tot && rbase + lr[u] < tile;
+          }
+          float d2[2] = {0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            float4 xa[2][4], ya[2][4];
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                xa[u][q] = reinterpret_cast<const float4*>(
+                    xs + lr[u] * K)[kk * 4 + q];
+                ya[u][q] = reinterpret_cast<const float4*>(
+                    ys + cl[u] * KP)[kk * 4 + q];
+              }
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                float df = __fsub_rn(xa[u][q].x, ya[u][q].x);
+                d2[u] = __fadd_rn(d2[u], __fmul_rn(df, df));
+                df = __fsub_rn(xa[u][q].y, ya[u][q].y);
+                d2[u] = __fadd_rn(d2[u], __fmul_rn(df, df));
+                df = __fsub_rn(xa[u][q].z, ya[u][q].z);
+                d2[u] = __fadd_rn(d2[u], __fmul_rn(df, df));
+                df = __fsub_rn(xa[u][q].w, ya[u][q].w);
+                d2[u] = __fadd_rn(d2[u], __fmul_rn(df, df));
+              }
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            if (ok[u] && d2[u] <= eps2) atomicAdd(racc + lr[u], 1);
+        }
+      }
+    }
+    if (MODE == B1_MIXED && flags &&
+        __any_sync(0xffffffffu, n_band != band0) && lane == 0)
+      flags[p] = 1;
+  }
+
+  // Each row's count is spread over the four lanes of its quad: fold it,
+  // then add the row's exact verdicts (queued by this warp only).
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int v = cnt[mt][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      cnt[mt][h] = v;
+    }
+  __syncwarp();
+  if (t4 == 0) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int li = wrow + mt * 16 + h * 8 + g;
+        if (act[mt][h]) out[row0 + rbase + li] = cnt[mt][h] + racc[li];
+      }
+  }
+  if (MODE != B1_DEFAULT && rescored) {
+    unsigned long long v = n_resc;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0 && v) atomicAdd(rescored, v);
+  }
+  if (MODE == B1_MIXED && band_pairs) {
+    unsigned long long v = n_band;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0 && v) atomicAdd(band_pairs, v);
+  }
+}
+
+// v rounded up to FP32.
+static float b1_round_up(double v) {
+  float f = (float)v;
+  if ((double)f < v) f = nextafterf(f, INFINITY);
+  return f;
+}
+
+template <int MODE, int KS>
+static int b1_launch_ks(const float* pts, const int* mask, const int* row_ptr,
+                        const int* cols, const float* centers,
+                        const float* rnorm, float eps2, long long n, int d,
+                        int tile, int nt, int* out,
+                        unsigned long long* band_pairs, int* flags,
+                        unsigned long long* rescored, cudaStream_t s) {
+  constexpr int MT = b1_mt(KS);
+  // As many warps as the tile has 16 MT-row groups, at most B1_WARPS.
+  const int nw = min(B1_WARPS, (tile + 16 * MT - 1) / (16 * MT));
+  const int rb = nw * 16 * MT;
+  const int cw = min(b1_slab_cap(KS), (tile + B1_CH - 1) / B1_CH * B1_CH);
+  const size_t smem = b1_smem(KS, rb, cw, MODE != B1_DEFAULT).total;
+  // The certified band's coefficients (sketch_kernels.cu's header, K =
+  // 16 KS); ops/distances.certified_band_coefs is the same expression.
+  const double K = 16.0 * KS;
+  const double hd = 1.0 - (2.0 * d + 8.0 * K + 64.0) * ldexp(1.0, -24);
+  const double h = hd > 0.0 ? 1.0 / hd : INFINITY;
+  const float c_cross = b1_round_up(2.5 * h);
+  const float c_acc = b1_round_up(1.25 * ldexp(1.0, -20) * K * h);
+  const float c_norm =
+      b1_round_up(1.25 * (3.0 * d + 12.0) * ldexp(1.0, -24) * h);
+  cudaError_t err = cudaFuncSetAttribute(
+      b1_tc_kernel<MODE, KS, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nt, (tile + rb - 1) / rb);
+  b1_tc_kernel<MODE, KS, MT><<<grid, nw * 32, smem, s>>>(
+      pts, mask, row_ptr, cols, centers, rnorm, eps2, n, d, tile, cw, c_cross,
+      c_acc, c_norm, out, band_pairs, flags, rescored);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+static int b1_launch(const float* pts, const int* mask, const int* row_ptr,
+                     const int* cols, const float* centers,
+                     const float* rnorm, float eps2, long long n, int d,
+                     int tile, int nt, int* out,
+                     unsigned long long* band_pairs, int* flags,
+                     unsigned long long* rescored, cudaStream_t s) {
+#define PP_B1_KS(KS)                                                       \
+  b1_launch_ks<MODE, KS>(pts, mask, row_ptr, cols, centers, rnorm, eps2, n, \
+                         d, tile, nt, out, band_pairs, flags, rescored, s)
+  if (d <= 16) return PP_B1_KS(1);
+  if (d <= 32) return PP_B1_KS(2);
+  if (d <= 48) return PP_B1_KS(3);
+  return PP_B1_KS(4);
+#undef PP_B1_KS
+}
+
 extern "C" {
 
-// B1: per-point neighbour counts.  pts (d, n) float32; mask (n,) int32;
-// row_ptr (nt + 1,) int32; cols int32; out (n,) int32.  Returns the
-// cudaError_t of the launch.
+// B1: per-point neighbour counts, every precision mode.  pts (d, n)
+// float32; mask (n,) int32; row_ptr (nt + 1,) int32; cols int32; centers
+// (nt, d) float32, the row tiles' recentring points (any points; the
+// wrapper gives the box centres over the mask), needed at d <= 64 and by
+// the bf16 modes; rnorm (nt, 2) float32 ([nx, gx] norm maxima over the
+// mask, "mixed" only); mode 0 ("high", "highest"), 1 ("mixed") or 2
+// ("default"); out (n,) int32; band_pairs one uint64 counter and flags one
+// int32 per pair-list entry ("mixed": the reference band's stats) and
+// rescored_pairs one uint64 counter (d <= 64, modes 0 and 1: the pairs the
+// exact fallback decided), all zeroed by the caller (any may be NULL).
+// Returns the cudaError_t of the launch.
 int pp_count_pairs(const float* pts, const int* mask, const int* row_ptr,
-                   const int* cols, float eps2, long long n, int d,
-                   int tile, int nt, int* out, void* stream) {
-  return count_launch(pts, mask, row_ptr, cols, eps2, n, d, tile, nt, out,
-                      stream);
+                   const int* cols, const float* centers, const float* rnorm,
+                   float eps2, long long n, int d, int tile, int nt, int mode,
+                   int* out, unsigned long long* band_pairs, int* flags,
+                   unsigned long long* rescored_pairs, void* stream) {
+  if (nt <= 0 || tile <= 0) return 0;
+  if (mode < B1_EXACT || mode > B1_DEFAULT) return (int)cudaErrorInvalidValue;
+  if (mode == B1_MIXED && !rnorm) return (int)cudaErrorInvalidValue;
+  if (mode != B1_EXACT && !centers) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (d > 64) {
+    if (mode == B1_EXACT)
+      return slice_launch<0>(pts, mask, row_ptr, cols, eps2, n, d, tile, nt,
+                             nullptr, nullptr, out, nullptr, s);
+    if (mode == B1_DEFAULT)
+      return fast_launch<0, 1>(pts, mask, row_ptr, cols, centers, rnorm,
+                               eps2, n, d, tile, nt, out, nullptr, nullptr,
+                               nullptr, nullptr, nullptr, stream);
+    return fast_launch<0, 0>(pts, mask, row_ptr, cols, centers, rnorm, eps2,
+                             n, d, tile, nt, out, band_pairs, flags, nullptr,
+                             nullptr, nullptr, stream);
+  }
+  if (!centers) return (int)cudaErrorInvalidValue;
+  if (mode == B1_EXACT)
+    return b1_launch<B1_EXACT>(pts, mask, row_ptr, cols, centers, nullptr,
+                               eps2, n, d, tile, nt, out, nullptr, nullptr,
+                               rescored_pairs, s);
+  if (mode == B1_MIXED)
+    return b1_launch<B1_MIXED>(pts, mask, row_ptr, cols, centers, rnorm,
+                               eps2, n, d, tile, nt, out, band_pairs, flags,
+                               rescored_pairs, s);
+  return b1_launch<B1_DEFAULT>(pts, mask, row_ptr, cols, centers, nullptr,
+                               eps2, n, d, tile, nt, out, nullptr, nullptr,
+                               nullptr, s);
 }
 
 // B2: per-point minimum source label within eps (labels INT32_MAX for
-// non-source points).  Layout as pp_count_pairs, plus tile_min (nt,)
-// int32 (each tile's least label), live_rows NULL or (n,) bytes (the rows
-// in the skip's bound; the rest get INT32_MAX) and evaluated NULL or one
-// uint64 counter to which the launch adds the (block, chunk) pairs it
-// evaluated.
+// non-source points).  pts, row_ptr, cols as pp_count_pairs, plus
+// tile_min (nt,) int32 (each tile's least label), live_rows NULL or (n,)
+// bytes (the rows in the skip's bound; the rest get INT32_MAX) and
+// evaluated NULL or one uint64 counter to which the launch adds the
+// (block, chunk) pairs it evaluated.
 int pp_minlab_pairs(const float* pts, const int* labels, const int* row_ptr,
                     const int* cols, float eps2, long long n, int d,
                     int tile, int nt, const int* tile_min,
@@ -1030,29 +1680,10 @@ int pp_minlab_pairs(const float* pts, const int* labels, const int* row_ptr,
                        tile_min, live_rows, out, evaluated, stream);
 }
 
-// B1 under "mixed" (fast = 0) or "default" (fast = 1).  As
-// pp_count_pairs, plus centers (nt, d) float32 (the row tiles' box centres
-// over the mask) and, under "mixed", rnorm (nt, 2) float32 (their [nx, gx]
-// norm maxima over the mask), band_pairs one uint64 counter and flags one
-// int32 per pair-list entry, zeroed by the caller (either may be NULL).
-int pp_count_pairs_fast(const float* pts, const int* mask, const int* row_ptr,
-                        const int* cols, const float* centers,
-                        const float* rnorm, float eps2, long long n, int d,
-                        int tile, int nt, int fast, int* out,
-                        unsigned long long* band_pairs, int* flags,
-                        void* stream) {
-  if (fast)
-    return fast_launch<0, 1>(pts, mask, row_ptr, cols, centers, rnorm, eps2,
-                             n, d, tile, nt, out, nullptr, nullptr, nullptr,
-                             nullptr, nullptr, stream);
-  return fast_launch<0, 0>(pts, mask, row_ptr, cols, centers, rnorm, eps2, n,
-                           d, tile, nt, out, band_pairs, flags, nullptr,
-                           nullptr, nullptr, stream);
-}
-
-// B2 under "mixed" or "default": as pp_count_pairs_fast with labels
-// (INT32_MAX for non-source points) and the frames over the row mask, no
-// stats, and B2's skip arguments of pp_minlab_pairs.
+// B2 under "mixed" (fast = 0) or "default" (fast = 1): as pp_minlab_pairs
+// with centers (nt, d) float32 (the row tiles' box centres over the row
+// mask) and, under "mixed", rnorm (nt, 2) float32 (their [nx, gx] norm
+// maxima over it).
 int pp_minlab_pairs_fast(const float* pts, const int* labels,
                          const int* row_ptr, const int* cols,
                          const float* centers, const float* rnorm, float eps2,

@@ -8,14 +8,20 @@
 * B5 :func:`query_leaf` replaces ``_query_leaf_kernel``.
 
 Each has a kernel per precision mode where the TPU kernel has a mode
-branch: B1/B2 under ``"mixed"`` (:func:`count_pairs_mixed`,
-:func:`minlab_pairs_mixed`: a bf16 tensor-core fast pass, a band, and
-an exact rescore per in-band pair) and ``"default"``
-(:func:`count_pairs_default`, :func:`minlab_pairs_default`: the bf16
-pass alone); B3/B4 rescore in bf16 under ``"default"``, and B3 under
-every other mode through the certified bf16 rescore (a per-pair band
-and an exact fallback, bitwise the exact verdicts); B5 adds the bf16
-chunk prefilter under ``"mixed"``.  B2 and B4 skip, exactly, the
+branch.  B1 at d <= 64 takes d^2 on the tensor cores in every mode
+(bf16 operands recentred on the row tile's centre): under ``"high"``,
+``"highest"`` (:func:`count_pairs`) and ``"mixed"``
+(:func:`count_pairs_mixed`, which also counts the reference band's
+stats) a pair outside a proven band around eps^2 takes the tensor-core
+verdict and every other pair the exact d^2, bitwise the FP32 counts;
+``"default"`` (:func:`count_pairs_default`) takes the bf16 verdict alone.
+B2 under ``"mixed"`` (:func:`minlab_pairs_mixed`: a bf16 tensor-core
+fast pass, a band, and an exact rescore per in-band pair) and
+``"default"`` (:func:`minlab_pairs_default`: the bf16 pass alone), as
+B1 past 64 axes; B3/B4 rescore in bf16 under ``"default"``, and B3
+under every other mode through the certified bf16 rescore (a per-pair
+band and an exact fallback, bitwise the exact verdicts); B5 adds the
+bf16 chunk prefilter under ``"mixed"``.  B2 and B4 skip, exactly, the
 column chunks whose labels cannot lower any row of a block (the
 label-bound skip; :func:`~.distances.minlab_pairs_walk` and
 :func:`~.distances.minlab_skip_walk` are their walks in plain torch).
@@ -45,6 +51,7 @@ import torch
 
 from .distances import (
     INT_INF,
+    certified_count_walk,
     certified_rescore_walk,
     counts_over_pairs,
     counts_over_pairs_default,
@@ -155,13 +162,13 @@ def pass_frames(pts_dn, mask, tile, mode, k=0):
     """The row frames a pass of ``mode`` needs over its rows ``mask``:
     ``(centers, rnorm)`` of :func:`tile_frames` under ``"mixed"``
     without the sketch (k = 0), ``(centers, None)`` under ``"default"``
-    (the bf16 pass or the sketch's bf16 rescore) and with the sketch in
-    every mode (B3's rescore recentres on them), else ``(None,
-    None)``."""
-    if mode == "default" or k:
-        return _centers_dn(pts_dn, mask, pts_dn.shape[1] // tile, tile), None
+    (the bf16 pass or the sketch's bf16 rescore), with the sketch in
+    every mode (B3's rescore recentres on them) and at d <= 64 (B1's
+    tensor-core kernel does), else ``(None, None)``."""
     if mode == "mixed" and not k:
         return tile_frames(pts_dn, mask, tile)
+    if mode == "default" or k or pts_dn.shape[0] <= 64:
+        return _centers_dn(pts_dn, mask, pts_dn.shape[1] // tile, tile), None
     return None, None
 
 
@@ -281,40 +288,6 @@ def _check(pts, colval, row_ptr, cols, tile):
         )
 
 
-def _launch(name, pts, colval, row_ptr, cols, eps2, tile):
-    _check(pts, colval, row_ptr, cols, tile)
-    if pts.device.type == "cpu":
-        return PLAIN[name](pts, colval, row_ptr, cols, eps2, tile)
-    if pts.device.type != "cuda":
-        raise ValueError(f"unsupported device {pts.device}")
-    from ..csrc import _build
-
-    lib = _build.load()
-    d, n = pts.shape
-    out = torch.empty(n, dtype=torch.int32, device=pts.device)
-    with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"pp_{name}")(
-            pts.data_ptr(), colval.data_ptr(), row_ptr.data_ptr(),
-            cols.data_ptr(), float(eps2), n, d, tile, n // tile,
-            out.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
-    return out
-
-
-def count_pairs(pts, mask, row_ptr, cols, eps2, tile):
-    """B1: per-point neighbour counts over the live tile pairs.
-
-    ``pts`` (d, N) float32; ``mask`` (N,) int32 column validity;
-    ``row_ptr`` (nt+1,) int32 CSR offsets; ``cols`` int32 column tiles;
-    ``eps2`` the float32 eps^2 (``distances.eps2_f32``).  Returns (N,) int32;
-    rows of tiles without a live pair get 0."""
-    return _launch("count_pairs", pts, mask, row_ptr, cols, eps2, tile)
-
-
 def _check_frames(pts, tile, centers, rnorm):
     d, n = pts.shape
     nt = n // tile
@@ -338,26 +311,44 @@ def _check_counter(name, t, pts):
         raise ValueError(f"{name} must be a (1,) int64 tensor beside pts")
 
 
-def _launch_fast(mode, pts, mask, row_ptr, cols, eps2, tile, centers,
-                 rnorm=None):
-    """B1's bf16 kernel: under ``"mixed"`` returns ``(counts, stats)``,
-    under ``"default"`` the (N,) int32 counts."""
+# The B1 kernel's mode argument (B1_EXACT, B1_MIXED, B1_DEFAULT in
+# csrc/pair_kernels.cu).
+_B1_MODE = {"high": 0, "mixed": 1, "default": 2}
+
+
+def _launch_count(mode, pts, mask, row_ptr, cols, eps2, tile, centers=None,
+                  rnorm=None, rescored_pairs=None):
+    """B1 in every mode (see :func:`count_pairs`): under ``"mixed"``
+    returns ``(counts, stats)``, else the (N,) int32 counts."""
     _check(pts, mask, row_ptr, cols, tile)
+    if mode != "high" and centers is None:
+        raise ValueError(f"precision={mode!r} needs the row tiles' centers")
     if mode == "mixed" and rnorm is None:
         raise ValueError("precision='mixed' needs the row tiles' rnorm")
     _check_frames(pts, tile, centers, rnorm)
-    key = f"count_pairs_{mode}"
+    _check_counter("rescored_pairs", rescored_pairs, pts)
+    d, n = pts.shape
+    if rescored_pairs is not None and (mode == "default" or d > 64):
+        raise ValueError("rescored_pairs counts the exact fallback of the "
+                         "tensor-core B1 (d <= 64, exact modes)")
+    key = "count_pairs" if mode == "high" else f"count_pairs_{mode}"
     mixed = mode == "mixed"
+    if centers is None and d <= 64:
+        # The tensor-core kernel recentres on any points: the box
+        # centres over the mask unless the caller staged them.
+        centers = _centers_dn(pts, mask != 0, n // tile, tile)
     if pts.device.type == "cpu":
-        extra = (rnorm,) if mixed else ()
-        return PLAIN[key](pts, mask, row_ptr, cols, eps2, tile, centers,
-                          *extra)
+        if rescored_pairs is not None:
+            rescored_pairs += certified_count_walk(
+                pts, mask, row_ptr, cols, eps2, tile, centers)[1]
+        extra = ((centers, rnorm) if mixed
+                 else (centers,) if mode == "default" else ())
+        return PLAIN[key](pts, mask, row_ptr, cols, eps2, tile, *extra)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
     from ..csrc import _build
 
     lib = _build.load()
-    d, n = pts.shape
     out = torch.empty(n, dtype=torch.int32, device=pts.device)
     if mixed:
         n_band = torch.zeros(1, dtype=torch.int64, device=pts.device)
@@ -365,13 +356,15 @@ def _launch_fast(mode, pts, mask, row_ptr, cols, eps2, tile, centers,
                             device=pts.device)
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pp_count_pairs_fast(
+        rc = lib.pp_count_pairs(
             pts.data_ptr(), mask.data_ptr(), row_ptr.data_ptr(),
-            cols.data_ptr(), centers.data_ptr(),
+            cols.data_ptr(), None if centers is None else centers.data_ptr(),
             rnorm.data_ptr() if mixed else None, float(eps2), n, d, tile,
-            n // tile, 0 if mixed else 1, out.data_ptr(),
+            n // tile, _B1_MODE[mode], out.data_ptr(),
             n_band.data_ptr() if mixed else None,
-            flags.data_ptr() if mixed else None, stream,
+            flags.data_ptr() if mixed else None,
+            None if rescored_pairs is None else rescored_pairs.data_ptr(),
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
@@ -381,27 +374,53 @@ def _launch_fast(mode, pts, mask, row_ptr, cols, eps2, tile, centers,
     return out
 
 
+def count_pairs(pts, mask, row_ptr, cols, eps2, tile, centers=None, *,
+                rescored_pairs=None):
+    """B1: per-point neighbour counts over the live tile pairs.
+
+    ``pts`` (d, N) float32; ``mask`` (N,) int32 column validity;
+    ``row_ptr`` (nt+1,) int32 CSR offsets; ``cols`` int32 column tiles;
+    ``eps2`` the float32 eps^2 (``distances.eps2_f32``).  Returns (N,)
+    int32, bitwise :func:`~.distances.counts_over_pairs` on every row;
+    rows of tiles without a live pair get 0.
+
+    At d <= 64 the kernel takes d^2 on the tensor cores (bf16 operands
+    recentred on the row tiles' ``centers`` (nt, d), any points;
+    :func:`pass_frames` stages the box centres over the mask, and None
+    takes them here), decides each pair outside a proven band around
+    eps^2 from it and every other pair by the exact d^2.
+    ``rescored_pairs``: an optional (1,) int64 tensor beside ``pts``,
+    zeroed by the caller, to which the kernel adds the pairs it decided
+    exactly (on the CPU, the count of
+    :func:`~.distances.certified_count_walk`).  Past 64 axes it runs the
+    exact d^2 for every pair (in axis slices)."""
+    return _launch_count("high", pts, mask, row_ptr, cols, eps2, tile,
+                         centers, rescored_pairs=rescored_pairs)
+
+
 def count_pairs_mixed(pts, mask, row_ptr, cols, eps2, tile, centers,
-                      rnorm):
-    """B1 under ``precision="mixed"``: the bf16 tensor-core pass
-    classifies every pair against ``eps2 +- band`` (band per pair-list
-    entry: :func:`~.distances.fast_band` at the row tile's ``rnorm`` and
-    the entry's valid columns' norms about the row tile's centre), and
-    each in-band pair with a valid column takes B1's exact verdict.
-    ``centers`` (nt, d) / ``rnorm`` (nt, 2) from :func:`tile_frames`
-    over ``mask``.  Returns ``(counts, stats)``: counts equal to
-    :func:`count_pairs` on the rows of ``mask``; ``stats`` the (2,)
-    int64 ``[band_pairs, rescored_tiles]`` over valid rows and
-    columns."""
-    return _launch_fast("mixed", pts, mask, row_ptr, cols, eps2, tile,
-                        centers, rnorm)
+                      rnorm, *, rescored_pairs=None):
+    """B1 under ``precision="mixed"``: at d <= 64 the kernel of
+    :func:`count_pairs` (its counts, bitwise on every row, and its
+    ``rescored_pairs``), which also counts the reference band's stats
+    over the same d2f: per pair-list entry the band is
+    :func:`~.distances.fast_band` at the row tile's ``rnorm`` and the
+    entry's valid columns' norms about the row tile's centre.  Past 64
+    axes the bf16 pass classifies against that band and rescores its
+    in-band pairs exactly.  ``centers`` (nt, d) / ``rnorm`` (nt, 2) from
+    :func:`tile_frames` over ``mask``.  Returns ``(counts, stats)``:
+    counts equal to :func:`count_pairs` on the rows of ``mask``;
+    ``stats`` the (2,) int64 ``[band_pairs, rescored_tiles]`` over valid
+    rows and columns."""
+    return _launch_count("mixed", pts, mask, row_ptr, cols, eps2, tile,
+                         centers, rnorm, rescored_pairs)
 
 
 def count_pairs_default(pts, mask, row_ptr, cols, eps2, tile, centers):
     """B1 under ``precision="default"``: the bf16 pass decides every
     pair (lossy; no band, no rescore)."""
-    return _launch_fast("default", pts, mask, row_ptr, cols, eps2, tile,
-                        centers)
+    return _launch_count("default", pts, mask, row_ptr, cols, eps2, tile,
+                         centers)
 
 
 def _launch_minlab(mode, pts, labels, row_ptr, cols, eps2, tile,
@@ -768,7 +787,7 @@ def neighbor_counts_cuda(points_dn, eps, mask, block: int = 1024,
     elif mode == "default":
         counts = count_pairs_default(*args, e2, tile, centers)
     else:
-        counts = count_pairs(*args, e2, tile)
+        counts = count_pairs(*args, e2, tile, centers)
     counts = torch.where(mask, counts, 0)
     if poison:
         counts = torch.full_like(counts, -1)

@@ -23,6 +23,9 @@ take the cross term as an FP32 product of the rounded values (exact
 products, so only the order of the sum differs from the kernels'
 tensor-core accumulation); the squared norms, the band and the exact
 rescore are the kernels' own operations.
+B1's tensor-core kernel (d <= 64) decides most pairs from that bf16
+d2f within a proven band and the rest exactly, so its counts are
+:func:`counts_over_pairs`'; :func:`certified_count_walk` emulates it.
 The CPU path runs them; on the card they are only the yardstick the
 kernels are held against.
 """
@@ -816,3 +819,146 @@ def certified_rescore_walk(pts, mask, row_ptr, cols, slab, k, eps2, band,
             rescored += int(p.numel())
         out.index_add_(0, r, adj.sum(dim=-1, dtype=torch.int32))
     return out.reshape(-1), rescored, n_fragile
+
+
+# Columns per band chunk of B1's tensor-core kernel (``B1_CH`` in
+# ``csrc/pair_kernels.cu``): one certified band per (row, chunk).
+B1_CHUNK = 64
+
+
+def _fma_f32(a, b, c):
+    """``fl(a b + c)`` of float32 tensors: the product is exact in
+    float64 and the sum is rounded there, then to float32 (a double
+    rounding that can differ from the card's fused multiply-add by one
+    ulp, which :func:`certified_count_walk`'s fragile pairs cover)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _fadd_dir(a, b, up: bool):
+    """``a + b`` of float32 tensors rounded up (or down): the nearest sum
+    and its exact error (Knuth's two-sum, every step in float32), stepped
+    one ulp where the error points that way; an infinite or NaN sum
+    stays as it is."""
+    s = a + b
+    t = s - a
+    e = (a - (s - t)) + (b - t)
+    step = torch.nextafter(s, torch.full_like(s, np.inf if up else -np.inf))
+    return torch.where(e > 0 if up else e < 0, step, s)
+
+
+def b1_chunk_band(xc, yc, valid):
+    """The certified band of B1's tensor-core kernel (``csrc/
+    pair_kernels.cu``) for a batch of tile pairs: ``xc`` (d, P, br) rows
+    and ``yc`` (d, P, bc) columns recentred on the row tile's centre,
+    ``valid`` (P, bc) the valid columns.  One band per row and chunk of
+    :data:`B1_CHUNK` columns: B3's per-pair band (:func:`certified_d2`)
+    at the chunk's maxima over its valid columns of ``|Y|^2``, ``|Y'|``
+    and ``|Y' - Y|``, as ``alpha YH + beta YE + c_norm YY + delta`` with
+    the row's ``alpha = c_cross |X' - X| + c_acc |X'|``, ``beta = c_cross
+    |X|`` and ``delta = c_norm |X|^2 + 2^-100``, the sum by three fused
+    multiply-adds (:func:`_fma_f32`).  Every term is non-negative and
+    monotone in the column norms, so the band bounds ``|d2f - d2|`` for
+    every pair of the chunk.  Returns (P, br, bc) float32, each column
+    carrying its chunk's band."""
+    d = xc.shape[0]
+    P, bc = valid.shape
+    nch = -(-bc // B1_CHUNK)
+    pad = nch * B1_CHUNK - bc
+    xx, xn, xh, xe = _cert_norms(xc)
+    yy, _yn, yh, ye = _cert_norms(yc)
+
+    def cmax(v):
+        v = torch.nn.functional.pad(torch.where(valid, v, 0.0), (0, pad))
+        return v.reshape(P, nch, B1_CHUNK).amax(dim=-1)[:, None, :]
+
+    f32 = dict(dtype=torch.float32, device=xc.device)
+    c_cross, c_acc, c_norm = (torch.tensor(v, **f32)
+                              for v in certified_band_coefs(d))
+    alpha = (c_cross * xe + c_acc * xh)[:, :, None]
+    beta = (c_cross * xn)[:, :, None]
+    delta = (c_norm * xx + torch.tensor(2.0**-100, **f32))[:, :, None]
+    band = _fma_f32(alpha, cmax(yh), _fma_f32(
+        beta, cmax(ye), _fma_f32(c_norm, cmax(yy), delta)))
+    return band.repeat_interleave(B1_CHUNK, dim=2)[:, :, :bc]
+
+
+def certified_count_walk(pts, mask, row_ptr, cols, eps2, tile, centers,
+                         rnorm=None):
+    """Plain emulation of B1's tensor-core kernel in its exact modes
+    (``csrc/pair_kernels.cu``, ``b1_tc_kernel``, d <= 64): for every pair
+    of the list, the cross term ``dot`` of the bf16-rounded operands
+    recentred on the row tile's ``centers`` (nt, d) (as :func:`_fast_d2`),
+    ``t = fl(|Y|^2 - 2 dot)`` and the band of :func:`b1_chunk_band`; a
+    pair counts when ``|X|^2 + t < lo`` (``lo = eps2 - band`` rounded
+    down) and not when ``|X|^2 + t > hi`` (``hi = eps2 + band`` rounded
+    up), both in real arithmetic (bounds on ``t`` rounded outward, as the
+    kernel takes them), and every other pair with a valid column is
+    queued and decided by the exact axis-ordered d^2.  Returns
+    ``(counts, rescored_pairs, fragile)``: counts (N,) int32, equal to
+    :func:`counts_over_pairs`' when the band is sound, the queued pairs
+    as a Python int, and the fragile pairs, which bound ``|kernel -
+    emulation|`` of the queued count: pairs whose ``t`` lies within ``w``
+    of a bound, with ``w`` as in :func:`certified_rescore_walk`, since the
+    kernel sums the cross term in its own order.  With the row tiles' ``rnorm``
+    (``"mixed"``) the first element is ``(counts, stats)``, ``stats``
+    the (2,) int64 ``[band_pairs, rescored_tiles]`` of the reference
+    band over the same ``d2f`` (those of :func:`counts_over_pairs_mixed`).
+    The fit never calls this: the tests, the card checks and, on the
+    CPU, the wrapper's ``rescored_pairs=`` do."""
+    d, n = pts.shape
+    nt = n // tile
+    tiles = pts.reshape(d, nt, tile)
+    vals = mask.reshape(nt, tile)
+    out = torch.zeros((nt, tile), dtype=torch.int32, device=pts.device)
+    rescored = n_fragile = 0
+    n_band = torch.zeros((), dtype=torch.int64, device=pts.device)
+    n_resc = torch.zeros((), dtype=torch.int64, device=pts.device)
+    K = -(-d // 16) * 16
+    u = 2.0**-24
+    e2 = torch.tensor(eps2, dtype=torch.float32, device=pts.device)
+    for _s, r, c in _batches(pts, row_ptr, cols, tile):
+        xt, yt = tiles[:, r], tiles[:, c]
+        ctr = centers[r].T[:, :, None]
+        xc, yc = xt - ctr, yt - ctr
+        dot = torch.bmm(bf16_round(xc).permute(1, 2, 0),
+                        bf16_round(yc).permute(1, 0, 2))
+        xx, _xn, xh, _xe = (v[:, :, None] for v in _cert_norms(xc))
+        yy, _yn, yh, _ye = (v[:, None, :] for v in _cert_norms(yc))
+        valid = vals[c] != 0
+        band = b1_chunk_band(xc, yc, valid)
+        # The kernel's t = fl(|Y|^2 - 2 dot) against the row's bounds:
+        # |X|^2 + t < lo and > hi in real arithmetic.
+        t = yy - 2.0 * dot
+        lo = _fadd_dir(_fadd_dir(e2, -band, up=False), -xx, up=True)
+        hi = _fadd_dir(_fadd_dir(e2, band, up=True), -xx, up=False)
+        vcol = valid[:, None, :]
+        cin = (t < lo) & vcol
+        queued = ~(t < lo) & ~(t > hi) & vcol
+        w = 1.25 * (2.0**-19 * K * (xh * yh).double()
+                    + (2 * d + 12) * u * (xx + yy).double()
+                    + (2 * d + 52) * u * band.double())
+        n_fragile += int((vcol & (((t.double() - lo.double()).abs() <= w)
+                                  | ((t.double() - hi.double()).abs()
+                                     <= w))).sum())
+        p, i, j = torch.nonzero(queued, as_tuple=True)
+        step = max(1, _CHUNK_ELEMS // (4 * d))
+        for q in range(0, int(p.numel()), step):
+            pq, iq, jq = p[q:q + step], i[q:q + step], j[q:q + step]
+            d2 = axis_sq(tiles[:, r[pq], iq] - tiles[:, c[pq], jq])
+            cin[pq, iq, jq] = d2 <= eps2
+        rescored += int(p.numel())
+        out.index_add_(0, r, cin.sum(dim=-1, dtype=torch.int32))
+        if rnorm is not None:
+            # The reference's d2f of _fast_d2 and its band per entry.
+            d2f = (xx + yy) - 2.0 * dot
+            ny = torch.sqrt(torch.where(valid, yy[:, 0], 0.0).amax(dim=1))
+            gy = torch.sqrt(torch.where(valid, axis_sq(yt), 0.0).amax(dim=1))
+            bref = fast_band(rnorm[r, 0], ny, rnorm[r, 1], gy)
+            st = (((d2f - eps2).abs() <= bref[:, None, None]) & vcol
+                  & (vals[r] != 0)[:, :, None])
+            n_band += st.sum()
+            n_resc += st.flatten(1).any(dim=1).sum()
+    counts = out.reshape(-1)
+    if rnorm is not None:
+        counts = (counts, torch.stack([n_band, n_resc]))
+    return counts, rescored, n_fragile

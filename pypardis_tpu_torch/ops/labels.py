@@ -132,7 +132,9 @@ def dbscan_fixed_size(
             torch.zeros(n, dtype=torch.bool, device=points.device),
             torch.tensor([total, budget, 0, 0, 0], dtype=torch.int64),
         )
-    # The bf16 passes' row frames: every pass's rows are the valid ones.
+    # The row frames (the tile centres B1 recentres on at d <= 64 in every
+    # mode, and the bf16 passes' norms): every pass's rows are the valid
+    # ones.
     frames = pass_frames(points, mask, tile, mode, k)
     counts = neighbor_counts_cuda(
         points, eps, mask, block=block, precision=mode, pairs=pairs,

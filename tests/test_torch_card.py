@@ -609,6 +609,96 @@ def test_card_mixed_fit_equals_high_fit():
     assert mixed.query_engine().precision == "mixed"
 
 
+# -- B1 on the tensor cores (d <= 64, every mode) ---------------------------
+
+
+def _adversarial_b1_inputs(d):
+    """B1's inputs on the adversarial geometry (chip_smoke.adversarial:
+    near-eps pairs, duplicates, a 1e3 offset; 20,000 points, seed 3) on
+    the card, with the row tiles' frames."""
+    from chip_smoke import adversarial
+
+    eps = round(0.9 * np.sqrt(d / 8.0), 3)
+    pts, n, block = _stage(adversarial(20_000, d, eps), 1024,
+                           torch.device("cuda"))
+    xs, mask, _owner = _pipeline_layout(pts, eps, n, block, sort=True)
+    (rows, cols), (total, budget) = ck.kernel_pair_list(
+        xs, eps, mask, block, "high")
+    assert total <= budget
+    tile = ck._pallas_block(block, xs.shape[1], d, "high")
+    rp = row_offsets(rows, xs.shape[1] // tile)
+    centers, rnorm = ck.tile_frames(xs, mask, tile)
+    a = (xs, mask.to(torch.int32), rp, cols, eps2_f32(eps), tile)
+    return a, mask, centers, rnorm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16, 64])
+def test_b1_tensor_cores_bitwise_in_every_mode_on_card(d):
+    """The tensor-core B1 on adversarial blobs: "high" and "mixed"
+    counts bitwise the plain B1's on every row (and each other's),
+    "mixed" stats within 1e-3 of the plain "mixed" version's, "default"
+    between the plain "default" version at eps^2 (1 -+ 2^-12); each
+    launch counted once."""
+    _need_card()
+    a, mask, centers, rnorm = _adversarial_b1_inputs(d)
+    want = counts_over_pairs(*a)
+    before = dict(ck.LAUNCHES)
+    high = ck.count_pairs(*a, centers)
+    mixed, st = ck.count_pairs_mixed(*a, centers, rnorm)
+    dflt = ck.count_pairs_default(*a, centers)
+    assert torch.equal(high, want) and torch.equal(mixed, want)
+    _pm, wst = ck.PLAIN["count_pairs_mixed"](*a, centers, rnorm)
+    assert int(st[0]) > 0
+    assert (st - wst).abs().max() <= 1 + 1e-3 * wst.max()
+    lo, hi = _eps2_bracket(a[4])
+    plain = ck.PLAIN["count_pairs_default"]
+    assert bool((plain(*a[:4], lo, a[5], centers) <= dflt).all())
+    assert bool((dflt <= plain(*a[:4], hi, a[5], centers)).all())
+    for key in ("count_pairs", "count_pairs_mixed", "count_pairs_default"):
+        assert ck.LAUNCHES[key] == before[key] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16, 64])
+def test_b1_rescored_pairs_within_tolerance_of_the_walk_on_card(d):
+    """The tensor-core B1's ``rescored_pairs`` (the pairs its exact
+    fallback decided), the same under "high" and "mixed", is off
+    ``certified_count_walk``'s by no more than the walk's fragile pairs
+    nor than ``chip_smoke.rescored_tolerance`` (0.1 %)."""
+    from chip_smoke import rescored_tolerance
+    from pypardis_tpu_torch.ops.distances import certified_count_walk
+
+    _need_card()
+    a, _mask, centers, rnorm = _adversarial_b1_inputs(d)
+    rc = torch.zeros(1, dtype=torch.int64, device="cuda")
+    ck.count_pairs(*a, centers, rescored_pairs=rc)
+    rcm = torch.zeros(1, dtype=torch.int64, device="cuda")
+    ck.count_pairs_mixed(*a, centers, rnorm, rescored_pairs=rcm)
+    _c, want, frag = certified_count_walk(*a, centers)
+    assert want > 0 and int(rc[0]) == int(rcm[0])
+    assert abs(int(rc[0]) - want) <= min(frag, rescored_tolerance(want))
+
+
+@pytest.mark.cuda
+def test_card_200k_fits_byte_identical_across_high_and_mixed():
+    """A 200,000 x 16-D fit (the main path's geometry) under "high" and
+    under "mixed": byte-identical labels and core masks, each through
+    its own B1 launch."""
+    _need_card()
+    X, _ = make_blob_data(200_000, 16, n_centers=32, std=0.4)
+    fits = {}
+    for mode in ("high", "mixed"):
+        ck.reset_launch_counts()
+        fits[mode] = DBSCAN(eps=2.4, min_samples=10, block=2048,
+                            precision=mode).fit(X)
+        key = "count_pairs" if mode == "high" else "count_pairs_mixed"
+        assert ck.LAUNCHES[key] == 1
+    assert np.array_equal(fits["high"].labels_, fits["mixed"].labels_)
+    assert np.array_equal(fits["high"].core_sample_mask_,
+                          fits["mixed"].core_sample_mask_)
+
+
 def _b2_rounds(d, eps, mode):
     """A 20,000-point fit's B2 inputs under ``mode`` on the card and its
     round loop's (labels, live rows) per round, to convergence."""

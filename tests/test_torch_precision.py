@@ -201,19 +201,16 @@ def test_plain_mixed_equals_plain_high(d, eps):
 
 @pytest.mark.parametrize("mode", ["mixed", "default", "high"])
 def test_staged_frames_serve_every_pass(mode):
-    """``pass_frames`` gives each mode the row frames its bf16 passes
-    read (none for an exact mode), and the entry points answer the same
-    with them staged as with their own."""
+    """``pass_frames`` gives each mode the row frames its passes read
+    (at d <= 64 every mode's B1 recentres on the tiles' centres; only
+    ``"mixed"`` reads rnorm), and the entry points answer the same with
+    them staged as with their own."""
     xs, mask = _layout(adversarial(n=1500, d=16, eps=1.27), 1.27)
     tile = ck._pallas_block(BLOCK, xs.shape[1], 16, mode)
     centers, rnorm = ck.pass_frames(xs, mask, tile, mode)
-    if mode == "high":
-        assert centers is None and rnorm is None
-    else:
-        want_c, want_r = ck.tile_frames(xs, mask, tile)
-        assert torch.equal(centers, want_c)
-        assert rnorm is None if mode == "default" else torch.equal(rnorm,
-                                                                   want_r)
+    want_c, want_r = ck.tile_frames(xs, mask, tile)
+    assert torch.equal(centers, want_c)
+    assert rnorm is None if mode != "mixed" else torch.equal(rnorm, want_r)
     kw = dict(block=BLOCK, precision=mode, sketch=0)
     own = ck.neighbor_counts_cuda(xs, 1.27, mask, **kw)
     staged = ck.neighbor_counts_cuda(xs, 1.27, mask, frames=(centers, rnorm),
