@@ -8,8 +8,9 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    the CUDA kernels from ``pypardis_tpu_torch/csrc`` (``nvcc``, into
    ``build/pypardis_tpu_torch/``), with its seconds and the compiler's
    register report (every kernel instance, B3's certified rescore
-   ``sketch_pair_kernel<0, 2>`` and B1's tensor-core kernel
-   ``b1_tc_kernel<0, 1, 4>`` among them: the phase fails without them);
+   ``sketch_pair_kernel<0, 2>``, B1's tensor-core kernel
+   ``b1_tc_kernel<0, 1, 4>`` and B5's tables, pass and prefilter
+   kernels among them: the phase fails without them);
 2. each kernel (B1 ``count_pairs``, B2 ``minlab_pairs``) against its
    plain PyTorch version on the card, at d=16 and d=64 on guard-banded
    and on natural blobs, at d=3 and d=96 on natural blobs, and at d=3,
@@ -42,20 +43,32 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    the first 64 row tiles the kernel bitwise its plain version and
    ``minlab_pairs_walk`` with its evaluated count equal to the walk's;
 6. serving at full size on phase 4's first 1M host-input model (no
-   refit): ``model.query_engine()`` with its defaults builds the
-   core-point index; 65,536 queries (half jittered training points, a
-   quarter exact core points, a quarter uniform over the data's box) go
-   in as 16 ``submit`` calls of 4,096 and one ``drain``, then one sync
-   ``predict`` of 4,096.  Checks: (a) B5 equals its plain version on
-   the card, bitwise, on the first two batches and the timed batch;
-   (b) 512 queries equal the numpy brute-force oracle over all cores;
-   (c) every exact core point predicts its own training label; (d) a
+   refit): the main path, counted from 0, is ``model.query_engine()``
+   with its defaults (the core-point index and B5's tables, built once),
+   65,536 queries (half jittered training points, a quarter exact core
+   points, a quarter uniform over the data's box) as 16 ``submit``
+   calls of 4,096 and one ``drain``, then one sync ``predict`` of
+   4,096.  Checks: (a) B5 equals its plain version on the card, bitwise
+   on the whole packed output (pad rows and pad tiles included), on the
+   first two batches and the timed batch, each with its fill
+   (:func:`b5_fill`: real tiles of nqt, real rows of the real tiles,
+   real slots of leaf_cap) and the (row, slot) pairs B5's pass
+   computed, read from the kernel's pass counter and held equal to
+   ``query_pass_pairs``'s count, so the real share of them is
+   measured (the first form's every row against every slot is
+   computed); B5's tables bitwise their
+   plain versions; an index whose one leaf has no pad slot, whose pad
+   rows and pad tiles answer (+inf, the leaf's least label); (b) 512
+   queries equal the numpy brute-force oracle over all cores; (c) every
+   exact core point predicts its own training label; (d) a
    ``save``/``load`` round trip (no training data) predicts
-   byte-identically; (e) B5 launched once per dispatched batch.  Prints
-   the index geometry, queries/s, p50/p99 request ms, batch fill, the
-   host's waits on the card, warm drains against as many sync predicts
-   (ms per batch), one batch's stage times, and B5's CUDA-event time
-   per 4,096-query batch beside its plain version and its bound;
+   byte-identically; (e) B5 launched once per dispatched batch, its
+   tables once.  Prints the index geometry, queries/s, p50/p99 request
+   ms, batch fill, the host's waits on the card, warm drains against as
+   many sync predicts (ms per batch), one batch's stage times, B5's
+   CUDA-event time per 4,096-query batch beside its plain version, its
+   bound and its unfused SIMT ceiling (:func:`b5_bounds`), and the
+   tables' build time;
 7. high-dimensional fits through the sketch kernels (B3
    ``count_pairs_sketch``, B4 ``minlab_pairs_sketch``) on
    ``make_embedding_data(n, 512)`` with eps 2.0, min_samples 10, block
@@ -111,12 +124,17 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    mixed kernel also bitwise the FP32 kernel); (5) a ``"mixed"`` engine
    on phase 6's
    index over phase 6's batches: answers bitwise the exact engine's and
-   the oracle's, one mixed B5 per batch, its time beside exact B5 and
-   the kept share of chunks; (6) 100,000 x 512 fits under both modes
+   the oracle's, one mixed B5 per batch, its time beside exact B5, the
+   kept share of units and the pairs its pass computed; its bound is
+   the least of the exact bound and the prefilter over every real pair
+   plus the exact pass over the pairs the walk keeps; (6) 100,000 x 512 fits under both modes
    through B3/B4 (``"mixed"`` byte-identical to ``"high"``,
    ``"default"`` ARI >= 0.99 at tile 1024), then those kernels at the
    fits' inputs against their plain versions over the first 64 row
-   tiles, as in (1), and timed, B4 with its evaluated share.  The
+   tiles, as in (1), and timed, B4 with its evaluated share.  In (5)
+   the mixed B5's kept and visited units (tile, 32-row group, column
+   block) are held against ``query_keep_walk``'s: visited equal, kept
+   within the walk's fragile units.  The
    kernels line's ``max_abs_err`` of each bf16 B1-B4 kernel is its
    largest difference in (4) or (6).
 
@@ -131,6 +149,11 @@ rescored share and frames' staging, then prints the 1M fits' sha256 in
 every mode from host input and from a tensor (:func:`b1_timings`);
 copied into a parent tree's root it times that tree's B1 in the same
 call, for an A/B.
+``python3 chip_smoke.py --b5`` builds the kernels and times exact and
+mixed B5 on phase 6's 16 batches from the 1M x 16-D model fitted from
+a CUDA tensor, with each batch's fill and bounds, then the warm drain
+against the sync ``predict`` per batch (:func:`b5_timings`); copied
+into a parent tree's root it times that tree's B5 in the same call.
 ``python3 chip_smoke.py --profile`` instead builds the kernels and
 profiles a 1M x 16-D fit, one serving drain (``torch.profiler``, then
 ``cProfile`` for the drain's host side) and a 1M x 512 sketched fit;
@@ -320,34 +343,12 @@ def profile_fit(torch, DBSCAN, make_blob_data):
               lambda: model.fit(Xd))
 
 
-def serve_phase(torch, model, X, median_ms):
-    """Phase 6 (see the module docstring); returns B5's JSON record and
-    what phase 8 reuses: the engine, the batches, the drain's answers,
-    the oracle's answers on the first 512 queries and batch 2's
-    tiles."""
-    import tempfile
-    from concurrent.futures import ThreadPoolExecutor
-
-    from pypardis_tpu_torch import DBSCAN
-    from pypardis_tpu_torch.ops import cuda_kernels as ck
-    from pypardis_tpu_torch.ops.query import (
-        brute_force_query, query_min_core_plain,
-    )
-
-    dev = model.device
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    eng = model.query_engine()
-    torch.cuda.synchronize()
-    idx = eng.index
-    log(f"  index build {time.perf_counter() - t:.3f} s: "
-        f"{idx.n_core} cores, {idx.n_leaves} leaves, leaf_cap "
-        f"{idx.leaf_cap}, block {idx.block}, qblock {idx.qblock}, "
-        f"{idx.stats['index_bytes'] / 1e6:.1f} MB "
-        f"({idx.index_device_bytes} bytes on the card), pad waste "
-        f"{idx.stats['pad_waste']}")
-
-    # Traffic, made with numpy from a fixed seed and shuffled.
+def serve_traffic(model, X):
+    """Phase 6's traffic, made with numpy from a fixed seed and shuffled:
+    65,536 + 4,096 queries, half jittered training points, a quarter
+    exact core points, a quarter uniform over the data's box.  Returns
+    (queries, kind, source rows, the 16 batches of 4,096, the sync
+    predict's 4,096)."""
     rng = np.random.default_rng(12)
     n_q, per = 65_536 + 4096, 4096
     core_rows = np.flatnonzero(model.core_sample_mask_)
@@ -366,39 +367,150 @@ def serve_phase(torch, model, X, median_ms):
     Q, kind = Q[perm], kind[perm]
     src = np.concatenate([src, np.full(n_q - len(src), -1)])[perm]
     batches = [Q[s:s + per] for s in range(0, 65_536, per)]
-    sync_q = Q[65_536:]
+    return Q, kind, src, batches, Q[65_536:]
+
+
+# PAD_COORD's bits: pad slots and pad query rows hold them in every axis.
+PAD_BITS = int(np.float32(2e19).view(np.int32))
+INT32_MAX = np.iinfo(np.int32).max
+
+
+def b5_fill(idx, tile_leaf, rowmap, qb):
+    """The fill of one assembled batch, from the index's host arrays
+    alone (so it reads a parent tree's index too): real tiles / nqt,
+    real rows / rows of the real tiles, real slots / leaf_cap over the
+    real tiles' leaves, the real (row, core slot) pairs, and the pairs
+    of every row of every tile against the whole slab (what the first
+    form launched; computed here, not measured)."""
+    C, L = idx.leaf_cap, idx.n_leaves
+    nqt = len(tile_leaf)
+    lab = idx.labels.reshape(L, C)
+    per_leaf = (lab != INT32_MAX).sum(1)
+    pad = (lab == INT32_MAX) & (
+        idx.coords.view(np.int32) == PAD_BITS).all(0).reshape(L, C)
+    ends = np.where((~pad).any(1), C - np.argmax(~pad[:, ::-1], axis=1), 0)
+    rows = np.array([len(a) for a in rowmap], np.int64)
+    tl = np.asarray(tile_leaf)[:len(rowmap)]
+    real = int((rows * per_leaf[tl]).sum())
+    return dict(
+        nqt=nqt, real_tiles=len(rowmap), tile_fill=len(rowmap) / nqt,
+        row_fill=float(rows.sum() / max(len(rowmap) * qb, 1)),
+        slot_fill=float(per_leaf[tl].mean() / C) if len(tl) else 0.0,
+        pad_waste=idx.stats.get("pad_waste"), leaf_cap=C,
+        real_rows=int(rows.sum()), real_pairs=real,
+        all_pairs=nqt * qb * C, ends=ends, per_leaf=per_leaf,
+        leaves=np.unique(tl),
+    )
+
+
+def fill_line(f, pass_pairs=None):
+    """One batch's fill; with ``pass_pairs``, the pairs B5's pass
+    computed as its counter read them on the card."""
+    real = f["real_pairs"]
+    ran = ("" if pass_pairs is None else
+           f"{real / max(pass_pairs, 1):.4f} of the {pass_pairs} the pass "
+           f"computed (measured), ")
+    return (f"tiles {f['real_tiles']}/{f['nqt']} ({f['tile_fill']:.4f}), "
+            f"rows of real tiles {f['row_fill']:.4f}, slots of leaf_cap "
+            f"{f['slot_fill']:.4f} (leaf_cap {f['leaf_cap']}, pad_waste "
+            f"{f['pad_waste']}); real (row, slot) pairs {real}: {ran}"
+            f"{real / max(f['all_pairs'], 1):.4f} of the {f['all_pairs']} "
+            f"of every row against every slot (computed)")
+
+
+def b5_bounds(f, d, kept_pairs=None):
+    """B5's bound at one batch's real work (``f`` from :func:`b5_fill`):
+    each real row against its leaf's core slots, 3d FP32 operations
+    (sub, mul, add per axis) and the compare per pair; the bytes of the
+    real query rows, the core slots of each referenced leaf and the leaf
+    ids once, and a (label, d^2) per real row.  With ``kept_pairs`` (the
+    real pairs ``query_keep_walk`` keeps, counted pair by pair) the
+    "mixed" bound: the least of the exact bound and the prefilter's
+    2·16·ceil(d/16) tensor-core operations and ~17 FP32 (d2f, the
+    per-element band, the test) per real pair plus the exact pass over
+    the kept pairs, since either answers "mixed".  Returns (bound_ms,
+    bound_by, simt_ceiling_ms, nbytes): the sealed arithmetic issues one
+    instruction per FP32 operation, so its SIMT ceiling is twice its
+    share of the bound."""
+    pairs, rows = f["real_pairs"], f["real_rows"]
+    nbytes = (rows * d * 4 + int(f["per_leaf"][f["leaves"]].sum()) * (d + 1)
+              * 4 + f["real_tiles"] * 4 + 2 * rows * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    forms = [(0.0, pairs * (3 * d + 1))]  # (tensor-core s, SIMT ops)
+    if kept_pairs is not None:
+        K = -(-d // 16) * 16
+        forms.append((2 * K * pairs / PEAK_BF16_FLOPS,
+                      pairs * 17 + kept_pairs * (3 * d + 1)))
+    t_tc, simt = min(forms, key=lambda x: x[0] + x[1] / PEAK_FP32_FLOPS)
+    t_ops = t_tc + simt / PEAK_FP32_FLOPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            (t_tc + 2 * simt / PEAK_FP32_FLOPS) * 1e3, nbytes)
+
+
+def b5_call(ck, idx, q, tl, **kw):
+    """One B5 launch on ``idx``'s slab with its tables (a parent tree's
+    index has none and its wrapper takes none)."""
+    coords, labels, _blo, _bhi = idx.device_tensors()
+    if hasattr(idx, "kernel_tables"):
+        kw["tables"] = idx.kernel_tables()
+    return ck.query_leaf(q, tl, coords, labels, block=idx.block, nb=idx.nb,
+                         **kw)
+
+
+def hold_tables(torch, idx, what):
+    """B5's per-index tables on the card against their plain versions,
+    bitwise; returns the number of differing words."""
+    from pypardis_tpu_torch.ops.query import (
+        query_block_frames, query_leaf_ends, query_pad_keys,
+    )
 
     coords, labels, _blo, _bhi = idx.device_tensors()
-    err = 0
+    got = idx.kernel_tables()
+    C = idx.leaf_cap
+    want = (query_pad_keys(coords, labels, C),
+            query_leaf_ends(coords, labels, C),
+            *query_block_frames(coords, labels, idx.block))
+    bad = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+              for g, w in zip(got, want))
+    full = int(((got[0] >> 32) == 0x7F800000).sum())
+    log(f"  B5 tables ({what}): {idx.n_leaves} leaves, {full} without a "
+        f"pad slot; pad keys, leaf ends and block frames against their "
+        f"plain versions: {bad} differing words")
+    if bad:
+        fail(f"B5's tables differ from their plain versions ({what})")
+    return bad
 
-    def tiles(qs):
-        qbuf, tile_leaf, rowmap = idx.assemble(idx.prepare_queries(qs))
-        return (torch.from_numpy(qbuf).to(dev),
-                torch.from_numpy(tile_leaf).to(dev), rowmap)
 
-    def hold(b):
-        nonlocal err
-        q, tl, rowmap = tiles(batches[b])
-        args = (q, tl, coords, labels)
-        kern = ck.query_leaf(*args, block=idx.block, nb=idx.nb)
-        plain = query_min_core_plain(*args, block=idx.block, nb=idx.nb)
-        diff = (kern.long() - plain.long()).abs()
-        err = max(err, int(diff.max()))
-        bad = int((diff != 0).sum())
-        rows = sum(len(a) for a in rowmap)
-        log(f"  B5 batch {b}: {rows} routed rows in {len(rowmap)} tiles "
-            f"(nqt {q.shape[0]}); max|kernel-plain| = {int(diff.max())}, "
-            f"mismatches = {bad}")
-        if bad:
-            fail(f"query_leaf disagrees with its plain version on batch {b}")
-        return args, rowmap
+def serve_phase(torch, model, X, median_ms):
+    """Phase 6 (see the module docstring); returns B5's JSON records and
+    what phase 8 reuses: the engine, the batches, the drain's answers,
+    the oracle's answers on the first 512 queries and batch 2's
+    tiles."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
-    hold(0)
-    hold(1)
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.query import (
+        brute_force_query, query_block_frames, query_leaf_ends,
+        query_min_core_plain, query_pad_keys, query_pass_pairs,
+    )
+    from pypardis_tpu_torch.serve import CorePointIndex
 
-    # The main path: counts from 0, 16 submits, one drain, one predict.
+    dev = model.device
+    Q, kind, src, batches, sync_q = serve_traffic(model, X)
+    per = len(batches[0])
+
+    # The main path, counts from 0: the engine (its index and B5's
+    # tables), 16 submits, one drain, one predict.
     ck.reset_launch_counts()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng = model.query_engine()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    idx = eng.index
     t = time.perf_counter()
     tickets = [eng.submit(b) for b in batches]
     done = eng.drain()
@@ -407,7 +519,14 @@ def serve_phase(torch, model, X, median_ms):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = ck.LAUNCHES["query_leaf"]
+    t_launches = ck.LAUNCHES["query_tables"]
     st = eng.serving_stats()
+    log(f"  index build {build_s:.3f} s: {idx.n_core} cores, "
+        f"{idx.n_leaves} leaves, leaf_cap {idx.leaf_cap}, block "
+        f"{idx.block}, qblock {idx.qblock}, "
+        f"{idx.stats['index_bytes'] / 1e6:.1f} MB "
+        f"({idx.index_device_bytes} bytes on the card with B5's tables), "
+        f"pad waste {idx.stats['pad_waste']}; {t_launches} table builds")
     log(f"  served {done} + {len(sync_q)} queries in {wall:.4f} s: "
         f"{st['batches']} batches, {launches} B5 launches; queries/s "
         f"{st['qps']}, p50 {st['p50_ms']} ms, p99 {st['p99_ms']} ms, "
@@ -417,12 +536,78 @@ def serve_phase(torch, model, X, median_ms):
         f"the sync predict")
     if launches < 1 or launches != st["batches"]:
         fail(f"B5 launches {launches} != batches {st['batches']}")
+    if t_launches != 1:
+        fail(f"B5's tables were built {t_launches} times, not once")
     lab = np.concatenate([tk.result() for tk in tickets] + [sync_lab])
     d2 = np.concatenate([tk.d2 for tk in tickets])
 
+    coords, labels, _blo, _bhi = idx.device_tensors()
+    err = 0
+    tables_err = hold_tables(torch, idx, "the served index")
+
+    def tiles(qs, index=idx):
+        qbuf, tile_leaf, rowmap = index.assemble(index.prepare_queries(qs))
+        return (torch.from_numpy(qbuf).to(dev),
+                torch.from_numpy(tile_leaf).to(dev), rowmap)
+
+    def hold(b, index=idx, what=None, qs=None):
+        nonlocal err
+        what = what or f"batch {b}"
+        q, tl, rowmap = tiles(batches[b] if qs is None else qs, index)
+        c, l, _lo, _hi = index.device_tensors()
+        args = (q, tl, c, l)
+        ran = torch.zeros(1, dtype=torch.int64, device=dev)
+        kern = b5_call(ck, index, q, tl, pass_stats=ran)
+        plain = query_min_core_plain(*args, block=index.block, nb=index.nb)
+        diff = (kern.long() - plain.long()).abs()
+        err = max(err, int(diff.max()))
+        bad = int((diff != 0).sum())
+        f = b5_fill(index, tl.cpu().numpy(), rowmap, q.shape[2])
+        # The pass's own count of the pairs it computed, against the
+        # plain count of the rule (groups without a real row run
+        # nothing, the others stop at the leaf's end).
+        f["pass_pairs"] = int(ran)
+        want = query_pass_pairs(q, tl, index.kernel_tables()[1],
+                                block=index.block, nb=index.nb)
+        log(f"  B5 {what}: {f['real_rows']} routed rows in {len(rowmap)} "
+            f"tiles (nqt {q.shape[0]}); max|kernel-plain| = "
+            f"{int(diff.max())}, mismatches = {bad}; pass pairs "
+            f"{f['pass_pairs']} (query_pass_pairs {want}); "
+            f"{fill_line(f, f['pass_pairs'])}")
+        if bad:
+            fail(f"query_leaf disagrees with its plain version on {what}")
+        if f["pass_pairs"] != want:
+            fail(f"B5's pass computed {f['pass_pairs']} pairs on {what}, "
+                 f"not the {want} of query_pass_pairs")
+        return args, rowmap, kern, f
+
+    hold(0)
+    hold(1)
+    # An index whose one leaf has no pad slot (4,096 cores, block 256)
+    # and 3,000 queries (24 tiles, 8 pad tiles): its pad rows and pad
+    # tiles answer (+inf, the leaf's least label).
+    sel = idx.labels != INT32_MAX
+    full = CorePointIndex.build(
+        np.ascontiguousarray(idx.coords[:, sel][:, :4096].T),
+        idx.labels[sel][:4096], idx.eps, leaves=1, block=256,
+        qblock=idx.qblock, device=dev)
+    tables_err = hold_tables(torch, full, "one full leaf")
+    (q, tl, _c, _l), rowmap, kern, _f = hold(
+        0, full, "one full leaf", idx.coords[:, sel][:, :3000].T
+        + full.center.astype(np.float32))
+    pad_rows = (q.view(torch.int32) == PAD_BITS).all(dim=1)
+    least = int(full.labels.min())
+    fd2 = kern[1].view(torch.float32)
+    ok = (bool(torch.isinf(fd2[pad_rows]).all())
+          and bool((kern[0][pad_rows] == least).all()))
+    log(f"  one full leaf: {int(pad_rows.sum())} pad rows answer (+inf, "
+        f"{least}): {ok}")
+    if not ok or not int(pad_rows.sum()):
+        fail("the pad rows of a full leaf did not answer (+inf, least label)")
+    del full
+
     # (b) the numpy oracle over all cores, on 512 queries (threads: numpy
     # releases the GIL in its ufuncs).
-    sel = idx.labels != np.iinfo(np.int32).max
     cores = np.ascontiguousarray(idx.coords[:, sel].T)
     qf = idx.prepare_queries(Q[:512])
     t = time.perf_counter()
@@ -463,33 +648,7 @@ def serve_phase(torch, model, X, median_ms):
     if not same:
         fail("the loaded model predicts differently")
 
-    # Steady state on the warm engine (the first drain above also
-    # allocates pinned buffers): the same 16 batches as one drain, where
-    # B5 of a batch runs while the host folds the one before and
-    # assembles the next, against 16 sync predicts, where each batch's
-    # B5 sits between its assembly and its fold; interleaved, five each.
-    modes = {"drain": [], "sync": []}
-    waits = {"drain": [], "sync": []}
-    for _ in range(5):
-        for mode in modes:
-            w0 = eng.device_wait_s
-            t = time.perf_counter()
-            if mode == "drain":
-                for b in batches:
-                    eng.submit(b)
-                eng.drain()
-            else:
-                for b in batches:
-                    eng.predict(b)
-            modes[mode].append((time.perf_counter() - t) * 1e3
-                               / len(batches))
-            waits[mode].append((eng.device_wait_s - w0) * 1e3)
-    for mode, ms_b in modes.items():
-        log(f"  warm {mode} of {len(batches)} x {per}: ms per batch "
-            f"{[round(x, 3) for x in ms_b]} (median {np.median(ms_b):.3f},"
-            f" {per / np.median(ms_b) * 1e3:.1f} queries/s); host waits "
-            f"on the card, ms per {len(batches)} batches "
-            f"{[round(x, 3) for x in waits[mode]]}")
+    warm_drain_sync(eng, batches, per)
 
     # Where one batch's time goes: the stages of batch 3, each on its
     # own and synchronised (host clock).
@@ -512,43 +671,25 @@ def serve_phase(torch, model, X, median_ms):
                                 lambda: idx.assemble(qf))
     q, tl = stage("H2D", lambda: (torch.from_numpy(qbuf).to(dev),
                                   torch.from_numpy(tl_np).to(dev)))
-    packed = stage("B5", lambda: ck.query_leaf(
-        q, tl, coords, labels, block=idx.block, nb=idx.nb))
+    packed = stage("B5", lambda: b5_call(ck, idx, q, tl))
     labs, d2r = stage("D2H", lambda: unpack_query_result(packed))
     stage("fold", lambda: fold_leaves(len(qf), rowmap, labs, d2r))
     log("  batch 3 stages (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
 
     # B5 alone on batch 2's tiles (also held against its plain version).
-    args, rowmap = hold(2)
+    args, rowmap, _kern, f = hold(2)
     kw = dict(block=idx.block, nb=idx.nb)
-    ms = median_ms(lambda: ck.query_leaf(*args, **kw), 10)
+    ms = median_ms(lambda: b5_call(ck, idx, args[0], args[1]), 10)
     plain_ms = median_ms(lambda: query_min_core_plain(*args, **kw), 3)
     d = args[0].shape[1]
-    # The work the answer needs: each real tile's real rows against the
-    # core (non-pad) slots of its leaf; pad rows and pad slots never
-    # change a result.
-    per_leaf = (idx.labels.reshape(idx.n_leaves, idx.leaf_cap)
-                != np.iinfo(np.int32).max).sum(1)
-    tile_leaf = args[1][:len(rowmap)].cpu().numpy()
-    tile_rows = np.array([len(a) for a in rowmap])
-    rows = int(tile_rows.sum())
-    pairs = int((tile_rows * per_leaf[tile_leaf]).sum())
-    # Operations: 3d FP32 operations per pair (sub, mul, add per axis)
-    # plus the compare.
-    ops = pairs * (3 * d + 1)
-    # Bytes: the real query rows, the core slots (coordinates and labels)
-    # of each referenced leaf and the leaf ids once, and a (label, d^2)
-    # per real row.
-    nbytes = (rows * d * 4 + int(per_leaf[np.unique(tile_leaf)].sum())
-              * (d + 1) * 4 + len(rowmap) * 4 + 2 * rows * 4)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by, ceiling_ms, nbytes = b5_bounds(f, d)
+    pairs = f["real_pairs"]
     log(f"  query_leaf: {ms:.4f} ms per 4096-query batch (plain "
-        f"{plain_ms:.2f} ms), bound {bound_ms:.4f} ms by {bound_by}; "
-        f"{rows} real rows in {len(rowmap)} tiles, {pairs} row x core "
-        f"pairs, {nbytes} bytes; {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
+        f"{plain_ms:.2f} ms), bound {bound_ms:.4f} ms by {bound_by}, "
+        f"unfused SIMT ceiling {ceiling_ms:.4f} ms; {f['real_rows']} real "
+        f"rows in {len(rowmap)} tiles, {pairs} row x core pairs, {nbytes} "
+        f"bytes; {pairs * (3 * d + 1) / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
         f"of needed work")
     record = {
         "name": "query_leaf", "route": "cuda",
@@ -556,15 +697,75 @@ def serve_phase(torch, model, X, median_ms):
         "replaces": "pypardis_tpu/ops/pallas_kernels.py:1107",
         "launches": launches // st["batches"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_by": bound_by, "simt_ceiling_ms": ceiling_ms,
         # No single PyTorch call computes (min d^2, min label among
         # ties) over a leaf slab.
+        "library_ms": None,
+        # Measured: the real pairs over those the pass's counter read.
+        "real_share": f["real_pairs"] / max(f["pass_pairs"], 1),
+    }
+    # The tables alone: built once per index (two kernels, one launch
+    # counted), bound by the bytes of the slab read once and the tables
+    # written once.
+    L, C = idx.n_leaves, idx.leaf_cap
+    t_ms = median_ms(lambda: ck.query_tables(coords, labels, **kw), 5)
+    t_plain = median_ms(lambda: (
+        query_pad_keys(coords, labels, C), query_leaf_ends(coords, labels, C),
+        query_block_frames(coords, labels, idx.block)), 3)
+    t_bytes = (L * C * (d + 1) * 4 + L * 12 + L * idx.nb * d * 4
+               + L * C * 16)
+    # Per slot: the pad row's d2 (3d) and the frames' box (2d), |y-c|^2
+    # (3d) and |y|^2 (2d), two square roots and the compares.
+    t_ops = L * C * (10 * d + 4)
+    t_b = max(t_bytes / PEAK_BYTES_PER_S, t_ops / PEAK_FP32_FLOPS) * 1e3
+    log(f"  query_tables: {t_ms:.4f} ms per index (plain {t_plain:.2f} ms),"
+        f" bound {t_b:.4f} ms by bytes ({t_bytes} bytes)")
+    tables_record = {
+        "name": "query_tables", "route": "cuda",
+        "source": "pypardis_tpu_torch/csrc/query_kernels.cu",
+        "replaces": "pypardis_tpu/ops/pallas_kernels.py:1107",
+        "launches": t_launches, "max_abs_err": tables_err, "ms": t_ms,
+        "plain_ms": t_plain, "bound_ms": t_b,
+        "bound_by": ("bytes" if t_bytes / PEAK_BYTES_PER_S
+                     >= t_ops / PEAK_FP32_FLOPS else "operations"),
         "library_ms": None,
     }
     ctx = dict(engine=eng, batches=batches, lab=lab[:len(d2)], d2=d2,
                olab=olab, od2=od2, Q512=Q[:512], tiles=args, rowmap=rowmap,
-               ops_per_pair=3 * d + 1, pairs=pairs, nbytes=nbytes)
-    return record, ctx
+               fill=f)
+    return [record, tables_record], ctx
+
+
+def warm_drain_sync(eng, batches, per, rounds=5):
+    """Steady state on the warm engine (the first drain also allocates
+    pinned buffers): the batches as one drain, where B5 of a batch runs
+    while the host folds the one before and assembles the next, against
+    as many sync predicts, where each batch's B5 sits between its
+    assembly and its fold; interleaved, ``rounds`` each.  Returns the
+    median ms per batch of each."""
+    modes = {"drain": [], "sync": []}
+    waits = {"drain": [], "sync": []}
+    for _ in range(rounds):
+        for mode in modes:
+            w0 = eng.device_wait_s
+            t = time.perf_counter()
+            if mode == "drain":
+                for b in batches:
+                    eng.submit(b)
+                eng.drain()
+            else:
+                for b in batches:
+                    eng.predict(b)
+            modes[mode].append((time.perf_counter() - t) * 1e3
+                               / len(batches))
+            waits[mode].append((eng.device_wait_s - w0) * 1e3)
+    for mode, ms_b in modes.items():
+        log(f"  warm {mode} of {len(batches)} x {per}: ms per batch "
+            f"{[round(x, 4) for x in ms_b]} (median {np.median(ms_b):.4f},"
+            f" {per / np.median(ms_b) * 1e3:.1f} queries/s); host waits "
+            f"on the card, ms per {len(batches)} batches "
+            f"{[round(x, 3) for x in waits[mode]]}")
+    return {m: float(np.median(v)) for m, v in modes.items()}
 
 
 def noise_dominated(n, dim, n_centers=8, seed=0, sigma=0.5):
@@ -1563,7 +1764,9 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
         INT_INF, eps2_f32, row_offsets,
     )
     from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
-    from pypardis_tpu_torch.ops.query import query_min_core_plain
+    from pypardis_tpu_torch.ops.query import (
+        QUERY_GROUP, query_keep_walk, query_min_core_plain,
+    )
     from pypardis_tpu_torch.serve import QueryEngine
 
     err = {}
@@ -1945,12 +2148,17 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
         fail("the mixed engine did not run the mixed B5 alone")
     q, tl, coords, labels = served["tiles"]
     kw = dict(block=idx.block, nb=idx.nb)
+    tables = idx.kernel_tables()
     keep = torch.zeros(2, dtype=torch.int64, device=dev)
+    ran = torch.zeros(1, dtype=torch.int64, device=dev)
     km = ck.query_leaf(q, tl, coords, labels, **kw, precision="mixed",
-                       eps2=idx.eps2, keep_stats=keep)
+                       eps2=idx.eps2, keep_stats=keep, pass_stats=ran,
+                       tables=tables)
     pm = query_min_core_plain(q, tl, coords, labels, **kw, precision="mixed",
                               eps2=idx.eps2)
-    ex = ck.query_leaf(q, tl, coords, labels, **kw)
+    ex = ck.query_leaf(q, tl, coords, labels, **kw, tables=tables)
+    _units, walk = query_keep_walk(q, tl, coords, labels, tables[2:],
+                                   tables[1], idx.eps2, **kw)
     sync()
 
     def verdict(p):
@@ -1958,9 +2166,7 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
         ok = dd <= idx.eps2
         return torch.where(ok, p[0], -1), torch.where(ok, dd, float("inf"))
 
-    # Rows a tile answers for (pad rows are dropped by the engine; the
-    # exact pass gives them d2 = 0 against pad slots, a skipped chunk
-    # +inf).
+    # Rows a tile answers for (pad rows are dropped by the engine).
     real = torch.zeros(q.shape[0], q.shape[2], dtype=torch.bool, device=dev)
     for t, rows in enumerate(served["rowmap"]):
         real[t, :len(rows)] = True
@@ -1969,26 +2175,34 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
         (x[1].view(torch.int32) != vk[1].view(torch.int32))[real].sum())
         for x in (vp, ve))
     kept = int(keep[0]) / max(int(keep[1]), 1)
+    w_kept, w_vis, w_frag, w_pairs = (int(x) for x in walk)
+    pairs = served["fill"]["real_pairs"]
     note("query_leaf_mixed", q_bad)
+    log(f"  mixed B5's units (tile, {QUERY_GROUP}-row group, column block "
+        f"of {idx.block}): kept {int(keep[0])} of {int(keep[1])} visited "
+        f"({kept:.4f}); query_keep_walk: kept {w_kept} of {w_vis} "
+        f"({w_kept / max(w_vis, 1):.4f}), {w_frag} fragile units "
+        f"(tolerance: the card's kept count within the walk's fragile "
+        f"units, visited equal); the pass computed {int(ran)} pairs "
+        f"(measured; exact B5's pass {served['fill']['pass_pairs']}); the "
+        f"walk keeps {w_pairs} of the {pairs} real pairs "
+        f"({w_pairs / max(pairs, 1):.4f}) pair by pair")
+    if int(keep[1]) != w_vis or abs(int(keep[0]) - w_kept) > w_frag:
+        fail("mixed B5's kept units disagree with query_keep_walk")
     ms_m = median_ms(lambda: ck.query_leaf(
-        q, tl, coords, labels, **kw, precision="mixed", eps2=idx.eps2), 10)
-    ms_e = median_ms(lambda: ck.query_leaf(q, tl, coords, labels, **kw), 10)
+        q, tl, coords, labels, **kw, precision="mixed", eps2=idx.eps2,
+        tables=tables), 10)
+    ms_e = median_ms(lambda: ck.query_leaf(q, tl, coords, labels, **kw,
+                                           tables=tables), 10)
     plain_ms = median_ms(lambda: query_min_core_plain(
         q, tl, coords, labels, **kw, precision="mixed", eps2=idx.eps2), 3)
-    pairs = served["pairs"]
-    t_tc = 2 * K * pairs / PEAK_BF16_FLOPS
-    # The prefilter's epilogue (d2f, the per-element band, the test: ~17
-    # FP32 operations per pair) over every pair, the exact pass over the
-    # kept share.
-    simt = pairs * 17 + kept * pairs * served["ops_per_pair"]
-    t_ops = t_tc + simt / PEAK_FP32_FLOPS
-    t_bytes = served["nbytes"] / PEAK_BYTES_PER_S
-    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_ms, bound_by, ceiling_ms, _nb = b5_bounds(
+        served["fill"], q.shape[1], w_pairs)
     log(f"  query_leaf_mixed on batch 2: {ms_m:.4f} ms per batch (exact B5 "
-        f"{ms_e:.4f} ms, plain {plain_ms:.2f} ms), bound {bound_ms:.4f} ms; "
-        f"kept {int(keep[0])} of {int(keep[1])} chunks ({kept:.4f}); after "
-        f"the verdict {q_bad} mismatches on the {int(real.sum())} real rows "
-        f"against the plain version and the exact kernel")
+        f"{ms_e:.4f} ms, plain {plain_ms:.2f} ms), bound {bound_ms:.4f} ms, "
+        f"unfused SIMT ceiling {ceiling_ms:.4f} ms; after the verdict "
+        f"{q_bad} mismatches on the {int(real.sum())} real rows against the "
+        f"plain version and the exact kernel")
     if q_bad:
         fail("the mixed B5 disagrees after the verdict")
     kernels.append({
@@ -1997,8 +2211,10 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
         "replaces": "pypardis_tpu/ops/pallas_kernels.py:1107",
         "launches": q_launches // st["batches"], "max_abs_err": q_bad,
         "ms": ms_m, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+        "bound_by": bound_by, "simt_ceiling_ms": ceiling_ms,
+        "library_ms": None, "kept_share": kept,
+        "kept_share_walk": w_kept / max(w_vis, 1),
+        "kept_pairs_share_walk": w_pairs / max(pairs, 1),
     })
 
     # 8.6: 100k x 512 through B3/B4 under both modes.
@@ -2210,6 +2426,119 @@ def b2_walk_shares(torch, dev, n=1_000_000, sub_tiles=None):
     return out
 
 
+def b5_timings(torch, dev, median_ms, reps=10):
+    """``--b5``: B5 alone on phase 6's 16 batches from the 1M x 16-D
+    model fitted from a CUDA tensor: per batch its fill, exact and mixed
+    B5 (CUDA-event medians of ``reps``) with their bounds, the mixed
+    kept share and the pairs each pass computed; then the warm drain
+    against the sync ``predict`` per batch, for an exact and a mixed
+    engine.  Copied into a parent tree's root it times that tree's B5
+    (whose index has no tables, whose wrapper counts no pass pairs and
+    whose package has no ``query_keep_walk``: no mixed bound there) the
+    same way, for an A/B in one call.  Returns the two B5 records
+    (medians over the batches)."""
+    from benchdata import make_blob_data
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.serve import QueryEngine
+
+    X, _truth = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
+    model = DBSCAN(eps=2.4, min_samples=10, block=2048).fit(
+        torch.from_numpy(X).to(dev))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng = model.query_engine()
+    torch.cuda.synchronize()
+    idx = eng.index
+    log(f"  1M x 16-D from a CUDA tensor; index build "
+        f"{time.perf_counter() - t:.3f} s: {idx.n_leaves} leaves, leaf_cap "
+        f"{idx.leaf_cap}, block {idx.block}, pad_waste "
+        f"{idx.stats['pad_waste']}, {idx.index_device_bytes} bytes on the "
+        f"card")
+    _Q, _kind, _src, batches, _sync_q = serve_traffic(model, X)
+    per = len(batches[0])
+    try:
+        from pypardis_tpu_torch.ops.query import query_keep_walk
+    except ImportError:
+        query_keep_walk = None
+    counted = _takes(ck.query_leaf, "pass_stats")
+    rows = {"exact": [], "mixed": []}
+    tiles = []
+    for b, qs in enumerate(batches):
+        qbuf, tl_np, rowmap = idx.assemble(idx.prepare_queries(qs))
+        q = torch.from_numpy(qbuf).to(dev)
+        tl = torch.from_numpy(tl_np).to(dev)
+        tiles.append((q, tl))
+        f = b5_fill(idx, tl_np, rowmap, qbuf.shape[2])
+        keep = torch.zeros(2, dtype=torch.int64, device=dev)
+        ran = torch.zeros(2, dtype=torch.int64, device=dev)
+        cnt = ((lambda i: dict(pass_stats=ran[i:i + 1])) if counted
+               else (lambda i: {}))
+        b5_call(ck, idx, q, tl, **cnt(0))
+        b5_call(ck, idx, q, tl, precision="mixed", eps2=idx.eps2,
+                keep_stats=keep, **cnt(1))
+        w_pairs = None
+        if query_keep_walk is not None:
+            coords, labels, _lo, _hi = idx.device_tensors()
+            tables = idx.kernel_tables()
+            w_pairs = int(query_keep_walk(
+                q, tl, coords, labels, tables[2:], tables[1], idx.eps2,
+                block=idx.block, nb=idx.nb)[1][3])
+        torch.cuda.synchronize()
+        kept = int(keep[0]) / max(int(keep[1]), 1)
+        ms_e = median_ms(lambda: b5_call(ck, idx, q, tl), reps)
+        ms_m = median_ms(lambda: b5_call(
+            ck, idx, q, tl, precision="mixed", eps2=idx.eps2), reps)
+        be = b5_bounds(f, qbuf.shape[1])
+        bm = (b5_bounds(f, qbuf.shape[1], w_pairs) if w_pairs is not None
+              else (None, None, None, None))
+        rows["exact"].append((ms_e, be))
+        rows["mixed"].append((ms_m, bm))
+        bm_s = ("no walk in this tree" if w_pairs is None else
+                f"bound {bm[0]:.4f}, ceiling {bm[2]:.4f}, the walk keeps "
+                f"{w_pairs} real pairs")
+        log(f"  batch {b}: exact {ms_e:.4f} ms (bound {be[0]:.4f}, SIMT "
+            f"ceiling {be[2]:.4f}); mixed {ms_m:.4f} ms ({bm_s}, kept "
+            f"{int(keep[0])} of {int(keep[1])} units, {kept:.4f}, its pass "
+            f"computed {int(ran[1]) if counted else 'n/a'} pairs); "
+            f"{fill_line(f, int(ran[0]) if counted else None)}")
+    # Device time by kernel (torch.profiler), the 16 batches through
+    # each mode: what the CUDA-event times above hold beyond the kernels
+    # is the wrapper's host time before its first launch.
+    for mode, kw in (("exact", {}),
+                     ("mixed", dict(precision="mixed", eps2=idx.eps2))):
+        _profiled(torch, f"B5 {mode} on the {len(tiles)} batches", lambda: [
+            b5_call(ck, idx, q, tl, **kw) for q, tl in tiles])
+    for mode, r in rows.items():
+        ms = [x[0] for x in r]
+        bounds = ("" if r[0][1][0] is None else
+                  f", bound sum {sum(x[1][0] for x in r):.4f}, SIMT ceiling "
+                  f"sum {sum(x[1][2] for x in r):.4f}")
+        log(f"  B5 {mode}: ms per batch median {np.median(ms):.4f}, sum "
+            f"over {len(ms)} batches {sum(ms):.4f}{bounds}")
+    for name, e in (("exact", eng), ("mixed", QueryEngine(idx,
+                                                          precision="mixed"))):
+        for qs in batches:
+            e.submit(qs)
+        e.drain()
+        log(f"  {name} engine:")
+        warm_drain_sync(e, batches, per)
+    records = []
+    for mode, name in (("exact", "query_leaf"), ("mixed", "query_leaf_mixed")):
+        r = rows[mode]
+        i = int(np.argsort([x[0] for x in r])[len(r) // 2])
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "pypardis_tpu_torch/csrc/query_kernels.cu",
+            "replaces": "pypardis_tpu/ops/pallas_kernels.py:1107",
+            "launches": 1, "max_abs_err": None, "ms": r[i][0],
+            "plain_ms": None, "bound_ms": r[i][1][0],
+            "bound_by": r[i][1][1], "simt_ceiling_ms": r[i][1][2],
+            "library_ms": None,
+        })
+    return records
+
+
 def single_call_build_seconds(_build) -> float:
     """Seconds of one ``nvcc -shared`` over every source into a scratch
     file: the single-process build ``csrc/_build.py`` does not use, timed
@@ -2280,11 +2609,19 @@ def main() -> None:
              "(sketch_pair_kernel<0, SK_CERTIFIED>)")
     # (The timing switches run from a parent tree's root too, whose build
     # may predate the kernel: they skip this check.)
-    ab = {"--b1", "--b2", "--b2-walk", "--b4"} & set(sys.argv[1:])
+    ab = {"--b1", "--b2", "--b2-walk", "--b4", "--b5"} & set(sys.argv[1:])
     if (not ab and _build.BUILD_INFO.get("log")
             and "b1_tc_kernelILi0ELi1ELi4E" not in _build.BUILD_INFO["log"]):
         fail("the build has no tensor-core B1 instance "
              "(b1_tc_kernel<B1_EXACT, 1, 4>)")
+    # B5's instances: its tables, the pass and the prefilter at 16-D.
+    for inst in ("query_tables_kernel", "query_frames_kernel",
+                 "query_rows_kernel", "query_pass_kernelILi16ELb1E",
+                 "query_keep_staged_kernelILi16E", "query_pass_kernelILi0E",
+                 "query_keep_global_kernel"):
+        if (not ab and _build.BUILD_INFO.get("log")
+                and inst not in _build.BUILD_INFO["log"]):
+            fail(f"the build has no B5 instance {inst}")
     if "--profile" in sys.argv[1:]:
         profile_fit(torch, DBSCAN, make_blob_data)
         return
@@ -2318,6 +2655,12 @@ def main() -> None:
     if "--b2-walk" in sys.argv[1:]:
         b2_walk_shares(torch, dev)
         log(f"card: {card}")
+        return
+
+    if "--b5" in sys.argv[1:]:
+        records = b5_timings(torch, dev, median_ms)
+        log(f"card: {card}")
+        print(json.dumps({"kernels": records}))
         return
 
     if "--b4" in sys.argv[1:]:
@@ -2563,8 +2906,8 @@ def main() -> None:
                          mask, ("high",), main_launches)
 
     log("phase 6: serving on the 1M host-input model")
-    record, served = serve_phase(torch, serve_model, serve_X, median_ms)
-    kernels.append(record)
+    records, served = serve_phase(torch, serve_model, serve_X, median_ms)
+    kernels += records
     log("phase 7: high-dimensional fits, the sketch kernels B3/B4")
     records, onoff = sketch_phase(torch, dev, median_ms,
                                   torch.cuda.synchronize)

@@ -141,10 +141,15 @@ def _bind(lib) -> None:
     lib.pp_minlab_pairs_sketch.restype = i32
     lib.pp_mma_dot_probe.argtypes = [p, p, i32, i32, p, p]
     lib.pp_mma_dot_probe.restype = i32
-    lib.pp_query_splits.argtypes = [i32, i32, i32]
-    lib.pp_query_splits.restype = i32
+    # B5: the per-index tables (coords, labels, L, C, block, d, then
+    # pad_keys, leaf_end, ctr, slots, stream); the call (q, tile_leaf,
+    # coords, labels, ncols, nqt, d, qb, C, block, the four tables, eps2,
+    # mixed, keep_stats, pass_stats, keys, grp, flags, out, stream).
+    lib.pp_query_tables.argtypes = [p, p, i32, i32, i32, i32, p, p, p, p, p]
+    lib.pp_query_tables.restype = i32
     lib.pp_query_leaf.argtypes = [
-        p, p, p, p, i64, i32, i32, i32, i32, i32, f, i32, p, p, p, p,
+        p, p, p, p, i64, i32, i32, i32, i32, i32, p, p, p, p, f, i32,
+        p, p, p, p, p, p, p,
     ]
     lib.pp_query_leaf.restype = i32
 

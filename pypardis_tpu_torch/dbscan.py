@@ -101,7 +101,8 @@ def _stage(points, block: int, device: torch.device):
 
     Host input centres on a float64 mean (chunked, no dataset-sized f64
     temp): centring keeps magnitudes small at GPS-scale coordinates.  A
-    tensor centres on its own device in its own dtype, then casts.
+    tensor centres on its own device in its own dtype (an integer one in
+    float64), then casts.
     """
     n, k = points.shape
     block = clamp_block(block, n)
@@ -110,6 +111,10 @@ def _stage(points, block: int, device: torch.device):
     )
     if isinstance(points, torch.Tensor):
         x = points.to(device)
+        if not x.is_floating_point():
+            # torch has no mean of an integer tensor; promote as jnp.mean
+            # does, to float64 like the host path's mean.
+            x = x.to(torch.float64)
         points_t[:, :n] = (x - x.mean(dim=0)).to(torch.float32).T
         return points_t, n, block
     center = points.mean(axis=0, dtype=np.float64)

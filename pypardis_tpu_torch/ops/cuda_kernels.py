@@ -5,7 +5,8 @@
 * B2 :func:`minlab_pairs` replaces ``_minlab_pairs_kernel``;
 * B3 :func:`count_pairs_sketch` replaces ``_count_pairs_sketch_kernel``;
 * B4 :func:`minlab_pairs_sketch` replaces ``_minlab_pairs_sketch_kernel``;
-* B5 :func:`query_leaf` replaces ``_query_leaf_kernel``.
+* B5 :func:`query_leaf` replaces ``_query_leaf_kernel`` (with its
+  per-index tables, :func:`query_tables`).
 
 Each has a kernel per precision mode where the TPU kernel has a mode
 branch.  B1 at d <= 64 takes d^2 on the tensor cores in every mode
@@ -20,8 +21,10 @@ fast pass, a band, and an exact rescore per in-band pair) and
 ``"default"`` (:func:`minlab_pairs_default`: the bf16 pass alone), as
 B1 past 64 axes; B3/B4 rescore in bf16 under ``"default"``, and B3
 under every other mode through the certified bf16 rescore (a per-pair
-band and an exact fallback, bitwise the exact verdicts); B5 adds the
-bf16 chunk prefilter under ``"mixed"``.  B2 and B4 skip, exactly, the
+band and an exact fallback, bitwise the exact verdicts); B5 answers pad
+rows from per-index tables (:func:`query_tables`), skips each leaf's
+pad tail, and adds a bf16 unit prefilter under ``"mixed"``.  B2 and B4
+skip, exactly, the
 column chunks whose labels cannot lower any row of a block (the
 label-bound skip; :func:`~.distances.minlab_pairs_walk` and
 :func:`~.distances.minlab_skip_walk` are their walks in plain torch).
@@ -71,14 +74,21 @@ from .distances import (
     tile_norms,
 )
 from .precision import norm_precision_mode
-from .query import query_min_core_plain
+from .query import (
+    query_block_frames,
+    query_keep_walk,
+    query_leaf_ends,
+    query_min_core_plain,
+    query_pad_keys,
+    query_pass_pairs,
+)
 from .sketch import effective_k, sketch_gate_band, sketch_matrix
 
 # Launches per kernel and mode since the last reset_launch_counts();
 # bumped only where a wrapper launches its CUDA kernel.  The plain
 # names run "high"/"highest"; B3/B4 under "mixed" run the same kernels as
 # "high" (B3's certified rescore, B4's exact one), counted under their
-# mode.
+# mode; "query_tables" counts the builds of B5's per-index tables.
 LAUNCHES = dict.fromkeys((
     "count_pairs", "minlab_pairs",
     "count_pairs_mixed", "minlab_pairs_mixed",
@@ -86,7 +96,7 @@ LAUNCHES = dict.fromkeys((
     "count_pairs_sketch", "minlab_pairs_sketch",
     "count_pairs_sketch_mixed", "minlab_pairs_sketch_mixed",
     "count_pairs_sketch_default", "minlab_pairs_sketch_default",
-    "query_leaf", "query_leaf_mixed",
+    "query_leaf", "query_leaf_mixed", "query_tables",
 ), 0)
 
 PLAIN = {
@@ -884,53 +894,163 @@ def _check_query(q, tile_leaf, coords, labels, block, nb):
         )
 
 
+def query_tables(coords, labels, *, block, nb):
+    """B5's per-index tables over ``L`` leaf slabs of ``C = nb * block``
+    slots: ``(pad_keys (L,) int64, leaf_end (L,) int32, ctr (L*nb, d)
+    float32, slots (L*C, 4) float32)`` -- the key of a pad row against
+    each leaf (:func:`~.query.query_pad_keys`), each leaf's end
+    (:func:`~.query.query_leaf_ends`) and the ``"mixed"`` block frames
+    (:func:`~.query.query_block_frames`).  On the card two small kernels
+    build them (one launch counted); on the CPU the plain functions."""
+    d = coords.shape[0]
+    C = block * nb
+    if (coords.dtype != torch.float32 or not coords.is_contiguous()
+            or coords.dim() != 2 or block <= 0 or nb <= 0
+            or coords.shape[1] % C != 0):
+        raise ValueError(
+            f"coords must be a contiguous (d, L*C) float32 tensor with C = "
+            f"nb * block = {nb} * {block}, got {coords.dtype} "
+            f"{tuple(coords.shape)}"
+        )
+    if (labels.dtype != torch.int32 or labels.dim() != 1
+            or labels.shape[0] != coords.shape[1]
+            or labels.device != coords.device or not labels.is_contiguous()):
+        raise ValueError("labels must be a contiguous (L*C,) int32 tensor "
+                         "beside coords")
+    if coords.device.type == "cpu":
+        return (query_pad_keys(coords, labels, C),
+                query_leaf_ends(coords, labels, C),
+                *query_block_frames(coords, labels, block))
+    if coords.device.type != "cuda":
+        raise ValueError(f"unsupported device {coords.device}")
+    from ..csrc import _build
+
+    lib = _build.load()
+    L = coords.shape[1] // C
+    kw = dict(device=coords.device)
+    tables = (torch.empty(L, dtype=torch.int64, **kw),
+              torch.empty(L, dtype=torch.int32, **kw),
+              torch.empty((L * nb, d), dtype=torch.float32, **kw),
+              torch.empty((L * C, 4), dtype=torch.float32, **kw))
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pp_query_tables(
+            coords.data_ptr(), labels.data_ptr(), L, C, block, d,
+            *(t.data_ptr() for t in tables), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"query_tables kernel launch failed: cudaError {rc}")
+    LAUNCHES["query_tables"] += 1
+    return tables
+
+
+def _check_tables(tables, coords, block, nb):
+    d = coords.shape[0]
+    C = block * nb
+    L = coords.shape[1] // C
+    want = ((torch.int64, (L,)), (torch.int32, (L,)),
+            (torch.float32, (L * nb, d)), (torch.float32, (L * C, 4)))
+    if len(tables) != 4 or any(
+            t.dtype != dt or tuple(t.shape) != sh or not t.is_contiguous()
+            or t.device != coords.device
+            for t, (dt, sh) in zip(tables, want)):
+        raise ValueError(
+            "tables must be query_tables(coords, labels, block, nb) of this "
+            "slab, on its device"
+        )
+
+
 def query_leaf(q, tile_leaf, coords, labels, *, block, nb,
-               precision="high", eps2=None, keep_stats=None):
+               precision="high", eps2=None, keep_stats=None,
+               pass_stats=None, tables=None):
     """B5: per query row, ``(min d2, min label among ties)`` over every
     slot of its tile's leaf slab (``C = nb * block`` slots per leaf).
 
     ``q`` (nqt, d, qb) float32 centred query tiles; ``tile_leaf``
-    (nqt,) int32; ``coords`` (d, L*C) float32; ``labels`` (L*C,) int32.
-    Returns the packed (2, nqt, qb) int32 ``[labels, bitcast(d2)]``.
+    (nqt,) int32; ``coords`` (d, L*C) float32; ``labels`` (L*C,) int32;
+    ``tables`` the slab's :func:`query_tables`, built once per index
+    (:meth:`~..serve.index.CorePointIndex.kernel_tables`): required on
+    the card, built here on the CPU where none are given.  Returns the packed (2, nqt, qb) int32
+    ``[labels, bitcast(d2)]``, bitwise :func:`~.query.
+    query_min_core_plain`'s.  The kernel answers pad rows from the
+    tables and skips each leaf's pad tail (:func:`~.query.
+    query_skip_walk` is that rule in plain torch).
 
-    ``precision="mixed"`` (with the float32 ``eps2``) skips every column
-    chunk whose bf16 lower bound clears eps2 for all of its real (query
-    row, core slot) pairs; the kept chunks run the exact pass unchanged,
-    so a row with a core within eps gets the exact answer, and a row
-    without one may keep +inf.  ``keep_stats``: an optional (2,) int64
-    tensor on the card, zeroed by the caller, to which the kernel adds
-    ``[kept chunks, visited chunks]`` (its row groups count apart)."""
+    ``precision="mixed"`` (with the float32 ``eps2``) decides each unit
+    (tile, 32-row group, column block) by its bf16 lower bound and runs
+    the exact pass on the kept units only; a row with a core within eps
+    gets the exact answer, a row without one may keep +inf.
+    ``keep_stats``: an optional (2,) int64 tensor beside ``q``, zeroed
+    by the caller, to which the call adds ``[kept units, visited
+    units]`` (on the CPU, :func:`~.query.query_keep_walk`'s).
+    ``pass_stats``: an optional (1,) int64 tensor beside ``q``, zeroed
+    by the caller, to which the call adds the (row, slot) pairs its
+    exact pass computes, 32 per row group and column it runs (on the
+    CPU, :func:`~.query.query_pass_pairs`'s count)."""
     _check_query(q, tile_leaf, coords, labels, block, nb)
     mixed = norm_precision_mode(precision) == "mixed"
     if mixed and eps2 is None:
         raise ValueError("precision='mixed' needs eps2 for its prefilter")
+    if keep_stats is not None and (
+            keep_stats.dtype != torch.int64 or keep_stats.shape != (2,)
+            or keep_stats.device != q.device):
+        raise ValueError("keep_stats must be a (2,) int64 tensor beside q")
+    if pass_stats is not None and (
+            pass_stats.dtype != torch.int64 or pass_stats.shape != (1,)
+            or pass_stats.device != q.device):
+        raise ValueError("pass_stats must be a (1,) int64 tensor beside q")
+    if tables is not None:
+        _check_tables(tables, coords, block, nb)
     if q.device.type == "cpu":
+        if keep_stats is not None or pass_stats is not None:
+            if tables is None:
+                tables = query_tables(coords, labels, block=block, nb=nb)
+            keep = None
+            if mixed:
+                keep, counts = query_keep_walk(
+                    q, tile_leaf, coords, labels, tables[2:], tables[1],
+                    eps2, block=block, nb=nb)
+                if keep_stats is not None:
+                    keep_stats += counts[:2]
+            if pass_stats is not None:
+                pass_stats += query_pass_pairs(q, tile_leaf, tables[1],
+                                               block=block, nb=nb, keep=keep)
         return query_min_core_plain(
             q, tile_leaf, coords, labels, block=block, nb=nb,
             precision="mixed" if mixed else "high", eps2=eps2,
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if keep_stats is not None and (
-            keep_stats.dtype != torch.int64 or keep_stats.shape != (2,)
-            or keep_stats.device != q.device):
-        raise ValueError("keep_stats must be a (2,) int64 tensor beside q")
+    if tables is None:
+        raise ValueError("query_leaf on the card needs the index's tables "
+                         "(query_tables, built once per index)")
     from ..csrc import _build
 
     lib = _build.load()
     nqt, d, qb = q.shape
     C = block * nb
-    out = torch.empty((2, nqt, qb), dtype=torch.int32, device=q.device)
-    splits = int(lib.pp_query_splits(nqt, qb, C))
-    keys = torch.empty(splits * nqt * qb, dtype=torch.int64, device=q.device)
+    G = -(-qb // 32)
+    kw = dict(device=q.device)
+    out = torch.empty((2, nqt, qb), dtype=torch.int32, **kw)
+    # One scratch buffer: the rows' keys (u64), the groups' classes and,
+    # under "mixed", the units' keep flags (bytes).
+    n_keys = nqt * qb * 8
+    n_grp = -(-nqt * G // 16) * 16
+    scratch = torch.empty(n_keys + n_grp + (nqt * G * nb if mixed else 0),
+                          dtype=torch.uint8, **kw)
+    at = scratch.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pp_query_leaf(
             q.data_ptr(), tile_leaf.data_ptr(), coords.data_ptr(),
-            labels.data_ptr(), coords.shape[1], nqt, d, qb, C, splits,
+            labels.data_ptr(), coords.shape[1], nqt, d, qb, C, block,
+            *(t.data_ptr() for t in tables),
             float(eps2) if mixed else 0.0, int(mixed),
             None if keep_stats is None else keep_stats.data_ptr(),
-            keys.data_ptr(), out.data_ptr(), stream,
+            None if pass_stats is None else pass_stats.data_ptr(),
+            at, at + n_keys, at + n_keys + n_grp if mixed else None,
+            out.data_ptr(), stream,
         )
     key = "query_leaf_mixed" if mixed else "query_leaf"
     if rc != 0:

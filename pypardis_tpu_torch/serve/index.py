@@ -97,6 +97,7 @@ class CorePointIndex:
         self.epoch = 0
         self._margin = self.eps * _MARGIN_SLACK
         self._dev = None
+        self._tables = None
 
     # -- construction -----------------------------------------------------
 
@@ -221,20 +222,42 @@ class CorePointIndex:
 
     def device_tensors(self):
         """``(coords, labels, blo, bhi)`` on the index's device, uploaded
-        on first use and kept for the index's life."""
+        on first use and kept for the index's life.  On the card the
+        upload also builds B5's per-index tables (:meth:`kernel_tables`)
+        on the current stream, so every later batch's B5 finds them."""
         if self._dev is None:
             self._dev = tuple(
                 torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                 for a in (self.coords, self.labels, self.blo, self.bhi)
             )
+            if self.device.type == "cuda" and self.coords.shape[1]:
+                from ..ops.cuda_kernels import query_tables
+
+                self._tables = query_tables(
+                    self._dev[0], self._dev[1], block=self.block, nb=self.nb
+                )
         return self._dev
+
+    def kernel_tables(self):
+        """B5's per-index tables (``ops/cuda_kernels.query_tables``):
+        the pad rows' keys, the leaf ends and the ``"mixed"`` block
+        frames.  Built with the upload on the card; on the CPU (whose B5
+        is the plain version, which needs none) computed per call."""
+        coords, labels, _blo, _bhi = self.device_tensors()
+        if self._tables is not None:
+            return self._tables
+        from ..ops.cuda_kernels import query_tables
+
+        return query_tables(coords, labels, block=self.block, nb=self.nb)
 
     @property
     def index_device_bytes(self) -> int:
-        """Bytes the index holds on its device (0 before the upload)."""
+        """Bytes the index holds on its device (0 before the upload),
+        B5's tables included."""
         if self._dev is None:
             return 0
-        return int(sum(t.numel() * t.element_size() for t in self._dev))
+        return int(sum(t.numel() * t.element_size()
+                       for t in self._dev + tuple(self._tables or ())))
 
     # -- query-side layout ------------------------------------------------
 
@@ -298,7 +321,7 @@ class CorePointIndex:
         """Launch B5 on one assembled batch (asynchronous on the card; the
         plain version on a CPU index); returns the packed (2, nqt, qb)
         int32 result on the index's device.  ``precision="mixed"`` runs
-        B5 with its bf16 chunk prefilter."""
+        B5 with its bf16 unit prefilter."""
         from ..ops.cuda_kernels import query_leaf
 
         coords, labels, _blo, _bhi = self.device_tensors()
@@ -311,7 +334,8 @@ class CorePointIndex:
         q = q.to(self.device, non_blocking=True)
         tl = tl.to(self.device, non_blocking=True)
         return query_leaf(q, tl, coords, labels, block=self.block,
-                          nb=self.nb, precision=precision, eps2=self.eps2)
+                          nb=self.nb, precision=precision, eps2=self.eps2,
+                          tables=self._tables)
 
     # -- oracle -----------------------------------------------------------
 

@@ -22,7 +22,10 @@ from pypardis_tpu_torch.ops.distances import (
 )
 from pypardis_tpu_torch.ops.labels import _pointer_jump
 from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
-from pypardis_tpu_torch.ops.query import PAD_COORD, query_min_core_plain
+from pypardis_tpu_torch.ops.query import (
+    PAD_COORD, query_block_frames, query_keep_walk, query_leaf_ends,
+    query_min_core_plain, query_pad_keys, query_pass_pairs, query_skip_walk,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -125,6 +128,42 @@ def _query_inputs(d, nqt, qb, L, C, seed, integer):
     return [torch.from_numpy(a).cuda() for a in (q, tile_leaf, coords, labels)]
 
 
+def query_pad_inputs(d, seed=0):
+    """B5 inputs (numpy) with every kind of padding the kernel skips:
+    leaf 0 full (no pad slot, so its pad rows answer (+inf, its least
+    label)), leaf 1 with a pad tail, leaf 2 with a pad tail and one pad
+    slot inside, leaf 3 all pads; tiles with pad rows after their real
+    rows, three pad tiles at leaf 0 last, real rows at a core (d2 = 0),
+    and real rows near the pad magnitude (every |q_a| >= 1e18), one of
+    which sits exactly on PAD_COORD in all axes but one, so a pad slot
+    is its nearest slot at a finite d2.  Returns (q, tile_leaf, coords,
+    labels, block, nb)."""
+    rng = np.random.default_rng(seed)
+    L, block, nb, qb, nqt = 4, 32, 6, 80, 9
+    C = block * nb
+    coords = rng.normal(size=(d, L * C)).astype(np.float32)
+    labels = rng.integers(0, 40, L * C).astype(np.int32)
+    labels[:C] += 3  # leaf 0's least label is not 0
+    for s in (list(range(2 * C - 70, 2 * C)) + [2 * C + 9]
+              + list(range(3 * C - 40, 3 * C)) + list(range(3 * C, 4 * C))):
+        coords[:, s] = PAD_COORD
+        labels[s] = INT_INF
+    q = rng.normal(size=(nqt, d, qb)).astype(np.float32)
+    tile_leaf = np.array([1, 2, 0, 3, 1, 2, 0, 0, 0], np.int32)
+    n_real = [80, 33, 64, 5, 1, 70]
+    for t, n in enumerate(n_real):
+        q[t, :, n:] = PAD_COORD
+        if tile_leaf[t] != 3:
+            cols = tile_leaf[t] * C + rng.integers(10, C - 80, 2)
+            q[t, :, :2] = coords[:, cols]
+    q[len(n_real):] = PAD_COORD
+    q[0, :, 7] = 1.5e18
+    q[1, :, 20] = PAD_COORD
+    q[1, 0, 20] = np.float32(1.99e19)
+    q[5, :, 3] = -3e18
+    return q, tile_leaf, coords, labels, block, nb
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [2, 3, 16, 64, 96])
 @pytest.mark.parametrize("shape", [
@@ -141,8 +180,10 @@ def test_query_kernel_equals_plain_version_on_card(d, shape):
     _need_card()
     nqt, qb, L, C, block, integer = shape
     q, tl, coords, labels = _query_inputs(d, nqt, qb, L, C, d, integer)
+    tables = ck.query_tables(coords, labels, block=block, nb=C // block)
     before = ck.LAUNCHES["query_leaf"]
-    got = ck.query_leaf(q, tl, coords, labels, block=block, nb=C // block)
+    got = ck.query_leaf(q, tl, coords, labels, block=block, nb=C // block,
+                        tables=tables)
     want = query_min_core_plain(q, tl, coords, labels, block=block,
                                 nb=C // block)
     torch.cuda.synchronize()
@@ -152,6 +193,88 @@ def test_query_kernel_equals_plain_version_on_card(d, shape):
     assert bool((d2[:, :4] == 0).all())  # rows on a core point
     if integer:
         assert bool((d2[:, :qb - 3] == 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16, 64, 96])
+def test_query_kernel_skips_padding_bitwise_on_card(d):
+    """B5 on every kind of padding it skips (pad tiles, pad rows, a full
+    leaf, pad tails, an all-pad leaf, real rows near the pad magnitude):
+    bitwise its plain version and the plain walk of its skipping, its
+    tables bitwise their plain versions, and the pairs its pass counted
+    equal to ``query_pass_pairs``'s (no pad tile, pad group or pad tail
+    computed; the near rows' groups over the whole slab)."""
+    _need_card()
+    *arrays, block, nb = query_pad_inputs(d)
+    q, tl, coords, labels = (torch.from_numpy(a).cuda() for a in arrays)
+    before = dict(ck.LAUNCHES)
+    tables = ck.query_tables(coords, labels, block=block, nb=nb)
+    ran = torch.zeros(1, dtype=torch.int64, device="cuda")
+    got = ck.query_leaf(q, tl, coords, labels, block=block, nb=nb,
+                        pass_stats=ran, tables=tables)
+    torch.cuda.synchronize()
+    assert int(ran) == query_pass_pairs(q, tl, tables[1], block=block,
+                                        nb=nb) > 0
+    assert ck.LAUNCHES["query_leaf"] == before["query_leaf"] + 1
+    assert ck.LAUNCHES["query_tables"] == before["query_tables"] + 1
+    # The plain versions on the card: torch's CPU square root may differ
+    # from the IEEE one by an ulp; the card's does not.
+    C = block * nb
+    plain = (query_pad_keys(coords, labels, C),
+             query_leaf_ends(coords, labels, C),
+             *query_block_frames(coords, labels, block))
+    for g, w in zip(tables, plain):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    want = query_min_core_plain(q, tl, coords, labels, block=block, nb=nb)
+    assert torch.equal(got, want)
+    walk = query_skip_walk(q, tl, coords, labels, tables[0], tables[1],
+                           block=block, nb=nb)
+    assert torch.equal(got, walk)
+    d2 = got[1].view(torch.float32).cpu()
+    assert float(d2[1, 20]) < float("inf") and int(got[0, 1, 20]) == INT_INF
+    assert bool(torch.isinf(d2[6:, :]).all())  # pad tiles: leaf 0 is full
+    lab = got[0].cpu()
+    # The all-pad leaf: its real rows keep the starting key, its pad rows
+    # meet a pad slot at 0.
+    assert bool(torch.isinf(d2[3, :5]).all())
+    assert bool((lab[3] == INT_INF).all())
+    assert bool((d2[3, 5:] == 0).all()) and bool((d2[1, 33:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16, 96])
+def test_query_mixed_units_against_the_walk_on_card(d):
+    """Mixed B5 on the padded inputs: after the verdict, equal to the
+    exact kernel on every row with all |q_a| < 1e18; its [kept,
+    visited] units equal to query_keep_walk's, kept within its fragile
+    units."""
+    _need_card()
+    *arrays, block, nb = query_pad_inputs(d, seed=1)
+    q, tl, coords, labels = (torch.from_numpy(a).cuda() for a in arrays)
+    e2 = eps2_f32(0.5 + 0.3 * d ** 0.5)
+    tables = ck.query_tables(coords, labels, block=block, nb=nb)
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    got = ck.query_leaf(q, tl, coords, labels, block=block, nb=nb,
+                        precision="mixed", eps2=e2, keep_stats=stats,
+                        tables=tables)
+    exact = ck.query_leaf(q, tl, coords, labels, block=block, nb=nb,
+                          tables=tables)
+    _keep, walk = query_keep_walk(q, tl, coords, labels, tables[2:],
+                                  tables[1], e2, block=block, nb=nb)
+    torch.cuda.synchronize()
+    real = (q.abs() < 1e18).all(dim=1)
+
+    def verdict(p):
+        d2 = p[1].view(torch.float32)
+        ok = d2 <= e2
+        return torch.where(ok, p[0], -1), torch.where(ok, d2, float("inf"))
+
+    (gl, gd), (el, ed) = verdict(got), verdict(exact)
+    assert torch.equal(gl[real], el[real])
+    assert torch.equal(gd[real].view(torch.int32), ed[real].view(torch.int32))
+    assert int(stats[1]) == int(walk[1])
+    assert abs(int(stats[0]) - int(walk[0])) <= int(walk[2])
+    assert 0 < int(stats[0]) < int(stats[1])
 
 
 @pytest.mark.cuda
@@ -567,9 +690,12 @@ def test_query_mixed_equals_exact_after_the_verdict_on_card(d):
     q, tl, coords, labels = _query_inputs(d, 16, 128, 4, 512, d, False)
     e2 = eps2_f32(1.0 + 0.3 * d ** 0.5)
     stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    tables = ck.query_tables(coords, labels, block=64, nb=8)
     got = ck.query_leaf(q, tl, coords, labels, block=64, nb=8,
-                        precision="mixed", eps2=e2, keep_stats=stats)
-    exact = ck.query_leaf(q, tl, coords, labels, block=64, nb=8)
+                        precision="mixed", eps2=e2, keep_stats=stats,
+                        tables=tables)
+    exact = ck.query_leaf(q, tl, coords, labels, block=64, nb=8,
+                          tables=tables)
     plain = query_min_core_plain(q, tl, coords, labels, block=64, nb=8,
                                  precision="mixed", eps2=e2)
 

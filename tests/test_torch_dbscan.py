@@ -81,6 +81,21 @@ def test_tensor_input_matches_host_input(blobs750):
     assert b.bounding_boxes[0] == a.bounding_boxes[0]
 
 
+def test_integer_tensor_fit_matches_numpy_and_reference_fits():
+    """An integer tensor is promoted before its mean, as ``jnp.mean``
+    promotes, and fits as its numpy array does in both packages."""
+    torch.manual_seed(0)
+    X = torch.randint(0, 20, (300, 3), dtype=torch.int32)
+    kw = dict(eps=2.5, min_samples=3)
+    got = DBSCAN(**kw, device="cpu").fit(X)
+    host = DBSCAN(**kw, device="cpu").fit(X.numpy())
+    ref = jax_fit(X.numpy(), **kw)
+    for other in (host, ref):
+        assert np.array_equal(got.labels_, other.labels_)
+        assert np.array_equal(got.core_sample_mask_, other.core_sample_mask_)
+    assert got.labels_.max() >= 1
+
+
 def test_optdigits_ari_vs_sklearn():
     """Real data, the config of tests/test_realdata.py; ARI >= 0.99 is
     the repo's bar for the reference as well."""

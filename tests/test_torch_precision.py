@@ -367,7 +367,7 @@ def test_launch_keys_and_cpu_wrappers():
         for base in ("count_pairs", "minlab_pairs", "count_pairs_sketch",
                      "minlab_pairs_sketch")
         for suffix in ("", "_mixed", "_default")
-    } | {"query_leaf", "query_leaf_mixed"}
+    } | {"query_leaf", "query_leaf_mixed", "query_tables"}
     X, mask = guard_banded_blobs(16, n=512, seed=1)
     pts = torch.from_numpy(np.ascontiguousarray(X.T))
     ck.reset_launch_counts()

@@ -172,7 +172,9 @@ def _precision_phase(monkeypatch, wrong=None):
     from pypardis_tpu_torch.dbscan import _stage
     from pypardis_tpu_torch.ops import cuda_kernels as ck
     from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
-    from pypardis_tpu_torch.ops.query import brute_force_query
+    from pypardis_tpu_torch.ops.query import (
+        brute_force_query, query_pass_pairs,
+    )
 
     def counting(name):
         fn = getattr(ck, name)
@@ -240,7 +242,10 @@ def _precision_phase(monkeypatch, wrong=None):
         lab=np.concatenate([t.result() for t in tickets]),
         d2=np.concatenate([t.d2 for t in tickets]),
         tiles=(torch.from_numpy(qbuf), torch.from_numpy(tl), coords, labels),
-        ops_per_pair=49, pairs=1, nbytes=1,
+        fill=dict(chip_smoke.b5_fill(idx, tl, rowmap, qbuf.shape[2]),
+                  pass_pairs=query_pass_pairs(
+                      torch.from_numpy(qbuf), torch.from_numpy(tl),
+                      idx.kernel_tables()[1], block=idx.block, nb=idx.nb)),
     )
     X5, t5 = benchdata.make_embedding_data(900, 512)
     onoff = dict(X=X5, truth=t5,
