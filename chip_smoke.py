@@ -136,13 +136,40 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    block) are held against ``query_keep_walk``'s: visited equal, kept
    within the walk's fragile units.  The
    kernels line's ``max_abs_err`` of each bf16 B1-B4 kernel is its
-   largest difference in (4) or (6).
+   largest difference in (4) or (6);
+9. the metrics and the sweep (:func:`metrics_phase`), each fit from host
+   input with its launches counted from 0: (1) cosine on phase 7's
+   1,000,000 x 512 data (eps :data:`COS_EPS`, sketch "auto"): B3 once
+   and B4 per round, ARI against the truth, labels and core mask
+   byte-identical to the Euclidean fit of ``_unit_rows(X)`` at
+   ``kernel_eps``; B3/B4 bitwise their plain versions on unit rows
+   (20,000 x 512, k = 128), timed; 4,096 queries through the model's
+   engine (one B5 launch), answers bitwise :func:`card_oracle` over all
+   cores (which equals the numpy oracle on 8 rows over 65,536 cores), B5
+   bitwise its plain version on the batch's first tiles, timed; (2)
+   haversine on :func:`geolife_like` stay points (1,000,000, eps 50 m):
+   byte-identical to the Euclidean fit of ``latlon_to_unit_sphere(X)``
+   at the chord eps, B1/B2 at d = 3 bitwise their plain versions on the
+   fit's inputs with B1's exact-fallback share (its ``rescored_pairs``
+   against the walk's on 64 row tiles), ``predict`` as in (1) at d = 3;
+   (3) cityblock on phase 4's blobs (1,000,000 x 16, eps
+   :data:`L1_EPS`): its torch L1 passes (``L1_PASSES``) equal to its
+   passes and no kernel launched, ARI >= 0.99, a 20,000-point fit (block
+   128) on the card byte-identical to the CPU's, one L1 counts pass timed; (4)
+   a sweep of 8 eps up to :data:`SWEEP_EPS_MAX` x min_samples {5, 10}
+   from a CUDA tensor: one distance pass, :data:`SWEEP_EDGES` edges,
+   every config byte-identical to a fit at it (their walls summed
+   against the sweep's), the emission and each config's relabel on CUDA
+   events, and a second sweep past the 2^26-edge cap degrading to
+   per-config fits with the same labels.
 
 Phase 1 also times one ``nvcc -shared`` over all sources beside the
 parallel build.  The line before the last is the kernels' JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero and prints no result.
 
+``python3 chip_smoke.py --metrics`` builds the kernels and runs phase 9
+alone.
 ``python3 chip_smoke.py --b1`` builds the kernels and times B1 alone
 in its three modes at the 1M x 16-D inputs, with its bounds, floor,
 rescored share and frames' staging, then prints the 1M fits' sha256 in
@@ -237,6 +264,15 @@ def guard_banded_blobs(d, n=8192, eps=2.0, band=1e-3, seed=7):
     if len(X) < n:
         fail("guard-banded data generation left too few points")
     return X
+
+
+def cold(fn):
+    """``fn`` for ``median_ms(cold(fn), 1)``: one timed call, the warm-up
+    call skipped (for plain versions and kernels whose calls take
+    seconds and compile nothing; the call just before on the same inputs
+    warmed the allocator)."""
+    calls = iter((False, True))
+    return lambda: fn() if next(calls) else None
 
 
 def _dev_us(e):
@@ -1530,7 +1566,7 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
         kern_ms = median_ms(lambda: ck.count_pairs_sketch(*a, "high", cen),
                             sizes["reps"])
         plain_ms = median_ms(
-            lambda: ck.PLAIN["count_pairs_sketch"](*sub_a), 1)
+            cold(lambda: ck.PLAIN["count_pairs_sketch"](*sub_a)), 1)
         t_old, t_ops = b3_bounds(gated_b3, int(band_b3[0]), resc, k, d)
         t_b3 = (nbytes + N * 4 + cols.numel() * 4 + 8) / PEAK_BYTES_PER_S
         bound_ms = max(t_ops, t_b3) * 1e3
@@ -1573,7 +1609,7 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
         # floor; the pairs the unskipped kernel gated are printed beside.
         sub_b = b[:1] + (rounds[0]["labels"], rp_sub) + b[3:]
         plain_ms = median_ms(
-            lambda: ck.PLAIN["minlab_pairs_sketch"](*sub_b), 1)
+            cold(lambda: ck.PLAIN["minlab_pairs_sketch"](*sub_b)), 1)
         gated_b4 = int(core.view(nt, tile).sum(1)[cols_t].sum()) * tile
         bounds = [r["bound_ms"] for r in rounds]
         log(f"  minlab_pairs_sketch: {np.mean(b4_ms):.3f} ms per launch "
@@ -1712,6 +1748,7 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     # The probe's readings: the largest share of the band's term (3) and
     # the largest error in units of 2^-24 sum |p|.
     kernels[0]["mma_probe_term3_share"], kernels[0]["mma_probe_err_u"] = probe
+    onoff["main"] = (X, truth)
     return kernels, onoff
 
 
@@ -2300,7 +2337,8 @@ def precision_phase(torch, dev, median_ms, sync, main, served, onoff,
                 e2, m_sub, f"the {len(X5)} x 512 fit's inputs, first {sub} "
                 f"of {nt} row tiles")
             kern_ms = median_ms(lambda: kern(*args), 3)
-            plain_ms = median_ms(lambda: plain(*sub_args[:9], pcen), 1)
+            plain_ms = median_ms(cold(lambda: plain(*sub_args[:9], pcen)),
+                                 1)
             gated = int(per_tile.view(nt, tile).sum(1)[cols_t].sum()) * tile
             inb = int(st[0])
             extra = {}
@@ -2539,6 +2577,558 @@ def b5_timings(torch, dev, median_ms, reps=10):
     return records
 
 
+# Cosine eps on make_embedding_data(n, 512) (1 - cos; the kernels run at
+# sqrt(2 eps) on the unit rows): at the Euclidean fit's eps 2.0 over the
+# typical centre norm.
+COS_EPS = 0.008
+# Haversine: 50 m over the Earth's mean radius, in radians.
+HAV_EPS = 50.0 / 6_371_000.0
+# Cityblock eps on the phase 4 blobs (16-D, std 0.4): ARI 0.9999 on a
+# 60,000-point subsample on the CPU.
+L1_EPS = 6.0
+# The sweep's eps_max on the phase 4 blobs at 1M and its graph's exact
+# edge_total, self-pairs included (measured on an H100 80GB HBM3),
+# under the 2^26-edge cap; 2.4 is far past it.
+SWEEP_EPS_MAX = 1.15
+SWEEP_EDGES = 43_341_250
+SWEEP_PAST_CAP = 2.4
+
+
+# Phase 9: the metrics and the sweep.  Sizes of the phase; a test
+# rehearses it at small ones on the CPU.
+METRIC_SIZES = {"cos_n": 1_000_000, "check_n": 20_000, "hav_n": 1_000_000,
+                "l1_n": 1_000_000, "l1_sub_n": 20_000, "queries": 4096,
+                "oracle_rows": 8, "sub_tiles": 64, "plain_tiles": 4,
+                "reps": 3, "block": 2048, "sweep_edges": SWEEP_EDGES}
+
+
+def geolife_like(n, seed=0):
+    """GeoLife-shaped stay points (BASELINE config 3's shape): (n, 2)
+    [lat, lon] radians in float64, 64 stay-point clusters of 100 m
+    spread inside a 40 km box at Beijing's latitude, at least 1 km
+    apart, plus 10 % uniform noise.  Returns (X, truth), truth -1 for
+    the noise."""
+    rng = np.random.default_rng(seed)
+    R = 6_371_000.0
+    lat0, lon0 = np.radians(39.9), np.radians(116.4)
+    half_lat = 20_000.0 / R
+    half_lon = half_lat / np.cos(lat0)
+    centers = []
+    while len(centers) < 64:
+        c = np.array([rng.uniform(-half_lat, half_lat),
+                      rng.uniform(-half_lon, half_lon)])
+        if all(np.hypot((c[0] - o[0]) * R,
+                        (c[1] - o[1]) * R * np.cos(lat0)) >= 1000.0
+               for o in centers):
+            centers.append(c)
+    centers = np.asarray(centers)
+    n_noise = n // 10
+    assign = rng.integers(0, 64, n - n_noise)
+    sig = np.array([100.0 / R, 100.0 / (R * np.cos(lat0))])
+    pts = centers[assign] + rng.normal(size=(len(assign), 2)) * sig
+    noise = np.column_stack([rng.uniform(-half_lat, half_lat, n_noise),
+                             rng.uniform(-half_lon, half_lon, n_noise)])
+    X = np.concatenate([pts, noise]) + np.array([lat0, lon0])
+    truth = np.concatenate([assign, np.full(n_noise, -1)])
+    perm = rng.permutation(n)
+    return X[perm], truth[perm]
+
+
+def card_oracle(torch, qf32, coords, labels, eps2):
+    """``ops/query.brute_force_query``'s arithmetic on the tensors'
+    device: per query, over all cores, the axis-ordered sum of
+    separately rounded squares (each torch op its own kernel, so no
+    fused multiply-add), the least d^2 and the least label among its
+    ties; (-1, +inf) past eps^2.  ``coords`` (d, m) float32, ``labels``
+    (m,) int32; returns numpy (labels, d2)."""
+    dev = coords.device
+    q = torch.from_numpy(np.ascontiguousarray(qf32)).to(dev)
+    m = coords.shape[1]
+    out_lab = np.full(len(qf32), -1, np.int32)
+    out_d2 = np.full(len(qf32), np.inf, np.float32)
+    chunk = max(1, (1 << 28) // max(m, 1))
+    lab = labels[None, :]
+    for s in range(0, len(qf32), chunk):
+        qq = q[s:s + chunk]
+        diff = qq[:, 0, None] - coords[0][None, :]
+        acc = diff * diff
+        for a in range(1, coords.shape[0]):
+            diff = qq[:, a, None] - coords[a][None, :]
+            acc = acc + diff * diff
+        dmin = acc.min(dim=1).values
+        tied = torch.where(acc == dmin[:, None], lab, INT32_MAX)
+        labmin = tied.min(dim=1).values
+        sel = dmin <= eps2
+        e = s + len(qq)
+        out_lab[s:e] = torch.where(sel, labmin, -1).cpu().numpy()
+        out_d2[s:e] = torch.where(sel, dmin, float("inf")).cpu().numpy()
+    return out_lab, out_d2
+
+
+def metrics_phase(torch, dev, median_ms, sync, sizes=METRIC_SIZES,
+                  embedding=None):
+    """Phase 9 (the metrics and the sweep); see the module docstring.
+    ``embedding``: phase 7's ``make_embedding_data(1M, 512)`` as ``(X,
+    truth)``, made here when None.  Returns the kernels' records at the
+    slice's new shapes and the phase's own record (walls, the L1 pass,
+    the sweep)."""
+    from benchdata import make_blob_data, make_embedding_data
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.dbscan import _stage, _unit_rows
+    from pypardis_tpu_torch.geometry import latlon_to_unit_sphere
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import (
+        counts_over_pairs, eps_threshold, minlab_over_pairs, row_offsets,
+    )
+    from pypardis_tpu_torch.ops.pipeline import (
+        _pipeline_layout, sweep_config_pack, sweep_graph_pipeline,
+    )
+    from pypardis_tpu_torch.ops.query import (
+        brute_force_query, query_min_core_plain, query_pass_pairs,
+    )
+
+    block, reps = sizes["block"], sizes["reps"]
+    kernels, rec = [], {}
+    t_phase = time.perf_counter()
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def timed_fit(model, X):
+        ck.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        model.fit(X)
+        sync()
+        return (time.perf_counter() - t, dict(ck.LAUNCHES),
+                dict(ck.L1_PASSES))
+
+    def same_fit(a, b, what):
+        ok = (np.array_equal(a.labels_, b.labels_)
+              and np.array_equal(a.core_sample_mask_, b.core_sample_mask_))
+        log(f"  {what}: labels and core mask byte-identical: {ok}")
+        if not ok:
+            fail(f"{what}: the fits differ")
+
+    def held(name, kern, plain, what):
+        diff = (kern.long() - plain.long()).abs()
+        err = int(diff.max()) if diff.numel() else 0
+        bad = int((diff != 0).sum())
+        log(f"    {name} {what}: max|kernel-plain| = {err}, mismatches "
+            f"{bad}")
+        if bad:
+            fail(f"{name} disagrees with its plain version on {what}")
+        return err
+
+    def inputs(X, eps, k=0, metric="euclidean"):
+        """The first B1 (or B3) and B2 (or B4) inputs a fit of the
+        kernel-frame rows ``X`` at ``eps`` builds, staged from host."""
+        pts, n, blk = _stage(X, block, dev)
+        xs, mask, _o = _pipeline_layout(pts, eps, n, blk, sort=n > 2 * blk)
+        slab = ck.sketch_stage(xs, mask, k, "high") if k else None
+        (rows, cols), (total, budget) = ck.kernel_pair_list(
+            xs, eps, mask, blk, "high", sketch=k, slab=slab, metric=metric)
+        if total > budget:
+            (rows, cols), (total, budget) = ck.kernel_pair_list(
+                xs, eps, mask, blk, "high", budget=total, sketch=k,
+                slab=slab, metric=metric)
+        d, N = xs.shape
+        tile = ck._pallas_block(blk, N, d, "high")
+        rp = row_offsets(rows, N // tile)
+        centers = ck.pass_frames(xs, mask, tile, "high", k)[0]
+        return dict(xs=xs, mask=mask, mi=mask.to(torch.int32), rp=rp,
+                    cols=cols, tile=tile, e2=eps_threshold(eps, metric),
+                    k=k, slab=slab, centers=centers, nt=N // tile)
+
+    def core_labels(inp, counts, ms):
+        core = (torch.clamp_min(torch.where(inp["mask"], counts, 0), 1)
+                >= ms) & inp["mask"]
+        idx = torch.arange(inp["xs"].shape[1], device=dev, dtype=torch.int32)
+        return core, torch.where(core, idx, INT32_MAX).contiguous()
+
+    def sub_list(inp):
+        sub = min(sizes["sub_tiles"], inp["nt"])
+        rp = inp["rp"]
+        return sub, torch.cat([rp[:sub + 1], rp[sub].repeat(inp["nt"] - sub)])
+
+    def pair_work(inp, colmask):
+        """(row, column) pairs of every live tile pair against the
+        columns of ``colmask``."""
+        nt, tile = inp["nt"], inp["tile"]
+        cols_t = inp["cols"][: int(inp["rp"][-1])].long()
+        return int(colmask.view(nt, tile).sum(1)[cols_t].sum()) * tile
+
+    def record(name, source, replaces, launches, err, ms, plain_ms,
+               bound_s, bound_by, shape, **extra):
+        r = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": int(launches),
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+             # No single PyTorch call computes these thresholded pair
+             # reductions over a tile-pair list.
+             "library_ms": None, "shape": shape}
+        r.update(extra)
+        log(f"  {name} at {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms), "
+            f"bound {r['bound_ms']:.4f} ms by {bound_by}")
+        kernels.append(r)
+
+    def bound(t_ops, t_bytes):
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def served(model, X, what, seed):
+        """4,096 queries (half jittered data rows, half exact core rows)
+        through the model's engine: B5 launched once per batch, answers
+        bitwise the card oracle's over all cores, which equals the numpy
+        oracle on the first rows; then B5 against its plain version on
+        the batch's tiles, timed."""
+        rng = np.random.default_rng(seed)
+        nq = sizes["queries"]
+        core_rows = np.flatnonzero(model.core_sample_mask_)
+        src = rng.integers(0, len(X), nq // 2)
+        scale = (np.abs(X[src]).max() * 1e-3 if what == "cosine"
+                 else HAV_EPS / 2)
+        Q = np.concatenate([
+            X[src] + rng.normal(scale=scale, size=(nq // 2, X.shape[1])),
+            X[core_rows[rng.integers(0, len(core_rows), nq - nq // 2)]],
+        ])
+        ck.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        eng = model.query_engine()
+        sync()
+        build_s = time.perf_counter() - t
+        idx = eng.index
+        t = time.perf_counter()
+        ticket = eng.submit(Q)
+        eng.drain()
+        lab, d2 = ticket.result(), ticket.d2
+        sync()
+        wall = time.perf_counter() - t
+        launches = ck.LAUNCHES["query_leaf"]
+        st = eng.serving_stats()
+        log(f"  {what} serving: index {idx.n_core} cores, {idx.n_leaves} "
+            f"leaves, build {build_s:.3f} s; {nq} queries in {wall:.4f} s, "
+            f"{launches} B5 launches for {st['batches']} batches; "
+            f"projection {idx.projection!r}; within eps "
+            f"{int((lab >= 0).sum())}")
+        if launches < 1 or launches != st["batches"]:
+            fail(f"B5 launches {launches} != batches {st['batches']} "
+                 f"({what})")
+        coords, labels, _blo, _bhi = idx.device_tensors()
+        sel = torch.from_numpy(idx.labels != INT32_MAX).to(dev)
+        qf = idx.prepare_queries(Q)
+        t = time.perf_counter()
+        olab, od2 = card_oracle(torch, qf, coords[:, sel], labels[sel],
+                                idx.eps2)
+        o_s = time.perf_counter() - t
+        # The card oracle against the numpy one on a few rows over the
+        # first 65,536 cores (over all 1M at 512-D numpy takes minutes).
+        k = sizes["oracle_rows"]
+        hsel = np.flatnonzero(idx.labels != INT32_MAX)[:1 << 16]
+        nlab, nd2 = brute_force_query(qf[:k], idx.coords[:, hsel].T,
+                                      idx.labels[hsel], idx.eps)
+        hsel_t = torch.from_numpy(hsel).to(dev)
+        clab, cd2 = card_oracle(torch, qf[:k], coords[:, hsel_t],
+                                labels[hsel_t], idx.eps2)
+        tie = (np.array_equal(nlab, clab)
+               and np.array_equal(nd2.view(np.int32), cd2.view(np.int32)))
+        same = (np.array_equal(lab, olab)
+                and np.array_equal(d2.view(np.int32), od2.view(np.int32)))
+        log(f"    {nq} queries vs the oracle over {int(sel.sum())} cores "
+            f"on the card ({o_s:.1f} s): labels and d2 bits equal: {same}; "
+            f"the card oracle equals the numpy one on {k} rows over "
+            f"{len(hsel)} cores: {tie}")
+        if not (same and tie):
+            fail(f"{what} predict differs from the brute-force oracle")
+        qbuf, tile_leaf, rowmap = idx.assemble(qf)
+        q = torch.from_numpy(qbuf).to(dev)
+        tl = torch.from_numpy(tile_leaf).to(dev)
+        kern = b5_call(ck, idx, q, tl)
+        # The plain version over the batch's first tiles: at 512-D over
+        # the whole batch it takes tens of seconds.
+        nsub = min(q.shape[0], sizes["plain_tiles"])
+        sub = (q[:nsub], tl[:nsub], coords, labels)
+        plain = query_min_core_plain(*sub, block=idx.block, nb=idx.nb)
+        err = held("query_leaf", kern[:, :nsub], plain,
+                   f"the {what} batch, first {nsub} of {q.shape[0]} tiles")
+        f = b5_fill(idx, tile_leaf, rowmap, q.shape[2])
+
+        def kern_call():
+            return b5_call(ck, idx, q, tl)
+
+        ms = (median_ms(kern_call, reps) if idx.d <= 64
+              else median_ms(cold(kern_call), 1))
+        plain_ms = median_ms(
+            lambda: query_min_core_plain(*sub, block=idx.block,
+                                         nb=idx.nb), 1)
+        bound_ms, bound_by, _simt, _nb = b5_bounds(f, idx.d)
+        pp = query_pass_pairs(q, tl, idx.kernel_tables()[1],
+                              block=idx.block, nb=idx.nb)
+        record("query_leaf", "pypardis_tpu_torch/csrc/query_kernels.cu",
+               "pypardis_tpu/ops/pallas_kernels.py:1107", launches, err, ms,
+               plain_ms, bound_ms * 1e-3, bound_by, f"{what} d={idx.d}",
+               plain_scope=f"first {nsub} of {q.shape[0]} tiles",
+               real_pairs=f["real_pairs"], pass_pairs=int(pp))
+        return wall
+
+    # 9.1: cosine at 1M x 512 (BASELINE config 4's data), sketch "auto".
+    n = sizes["cos_n"]
+    X, truth = embedding or make_embedding_data(n, 512)
+    del embedding
+    stamp("9.1: data made")
+    cos = DBSCAN(eps=COS_EPS, min_samples=10, metric="cosine", block=block,
+                 device=dev)
+    wall, lc, _l1 = timed_fit(cos, X)
+    m = cos.metrics_
+    a = ari(cos.labels_, truth)
+    log(f"  9.1 cosine n={n} d=512 eps={COS_EPS} (kernel eps "
+        f"{cos.kernel_eps}) from host: {wall:.4f} s, launches "
+        f"B3={lc['count_pairs_sketch']} B4={lc['minlab_pairs_sketch']}, "
+        f"passes {m['kernel_passes']}, sketch_k {m['sketch_k']}, clusters "
+        f"{int(cos.labels_.max()) + 1}, ARI vs truth {a:.6f}")
+    if (lc["count_pairs_sketch"] != 1 or lc["minlab_pairs_sketch"] < 1
+            or sum(lc.values()) != m["kernel_passes"]):
+        fail("the cosine fit did not run B3 once and B4 per round")
+    U = cos.data
+    if not np.array_equal(U[:4096], _unit_rows(X[:4096])):
+        fail("the cosine model's data is not _unit_rows(X)")
+    euc = DBSCAN(eps=cos.kernel_eps, min_samples=10, block=block,
+                 device=dev)
+    e_wall, _lc, _l1 = timed_fit(euc, U)
+    log(f"  Euclidean fit of _unit_rows(X) at kernel eps: {e_wall:.4f} s")
+    same_fit(cos, euc, "cosine fit vs the Euclidean fit of its frame")
+    rec["cosine"] = {"n": n, "eps": COS_EPS, "wall_s": wall,
+                     "euclidean_wall_s": e_wall, "ari": a,
+                     "clusters": int(cos.labels_.max()) + 1}
+    # B3/B4 bitwise on unit-norm rows at 20,000 x 512 (k = 128).
+    Xc, _t = make_embedding_data(sizes["check_n"], 512)
+    inp = inputs(_unit_rows(Xc), cos.kernel_eps, k=128)
+    a3 = (inp["xs"], inp["mi"], inp["rp"], inp["cols"], inp["slab"][0], 128,
+          inp["e2"], inp["slab"][1], inp["tile"])
+    counts, st = ck.count_pairs_sketch(*a3, "high", inp["centers"])
+    pc, pst = ck.PLAIN["count_pairs_sketch"](*a3)
+    err3 = max(held("count_pairs_sketch", counts, pc, "unit rows"),
+               held("count_pairs_sketch stats", st, pst, "unit rows"))
+    core, lab = core_labels(inp, counts, 10)
+    b4 = (inp["xs"], lab) + a3[2:]
+    err4 = held("minlab_pairs_sketch", ck.minlab_pairs_sketch(*b4),
+                ck.PLAIN["minlab_pairs_sketch"](*b4), "unit rows")
+    d, N = inp["xs"].shape
+    gated = pair_work(inp, inp["mask"])
+    src_pairs = pair_work(inp, core)
+    nbytes = (d + inp["slab"][0].shape[0]) * N * 4 + N * 8
+    ms3 = median_ms(lambda: ck.count_pairs_sketch(*a3, "high",
+                                                  inp["centers"]), reps)
+    p3 = median_ms(lambda: ck.PLAIN["count_pairs_sketch"](*a3), 1)
+    # B3 at this run's work (b3_bounds' certified form, with the rescored
+    # pairs the kernel counted); B4 at the gate over its source pairs.
+    rc = torch.zeros(1, dtype=torch.int64, device=dev)
+    ck.count_pairs_sketch(*a3, "high", inp["centers"], rescored_pairs=rc)
+    _old, t3 = b3_bounds(gated, int(st[0]), int(rc[0]), 128, d)
+    record("count_pairs_sketch", "pypardis_tpu_torch/csrc/sketch_kernels.cu",
+           "pypardis_tpu/ops/pallas_kernels.py:341", lc["count_pairs_sketch"],
+           err3, ms3, p3, *bound(t3, nbytes / PEAK_BYTES_PER_S),
+           f"cosine unit rows n={sizes['check_n']} d=512 k=128",
+           band_pairs=int(st[0]), rescored_pairs=int(rc[0]))
+    ms4 = median_ms(lambda: ck.minlab_pairs_sketch(*b4), reps)
+    p4 = median_ms(lambda: ck.PLAIN["minlab_pairs_sketch"](*b4), 1)
+    record("minlab_pairs_sketch", "pypardis_tpu_torch/csrc/sketch_kernels.cu",
+           "pypardis_tpu/ops/pallas_kernels.py:393",
+           lc["minlab_pairs_sketch"], err4, ms4, p4,
+           *bound(src_pairs * (3 * 129 + 3) / PEAK_FP32_FLOPS,
+                  nbytes / PEAK_BYTES_PER_S),
+           f"cosine unit rows n={sizes['check_n']} d=512 k=128")
+    stamp("9.1: fits and B3/B4 held")
+    rec["cosine"]["serve_s"] = served(cos, X, "cosine", 21)
+    stamp("9.1: served")
+    del X, U, euc, cos, inp
+
+    # 9.2: haversine on GeoLife-shaped stay points (BASELINE config 3,
+    # cut from ~25M to 1M points).
+    n = sizes["hav_n"]
+    X, truth = geolife_like(n)
+    hav = DBSCAN(eps=HAV_EPS, min_samples=10, metric="haversine",
+                 block=block, device=dev)
+    wall, lh, _l1 = timed_fit(hav, X)
+    m = hav.metrics_
+    a = ari(hav.labels_, truth)
+    log(f"  9.2 haversine n={n} eps={HAV_EPS} rad (chord "
+        f"{hav.kernel_eps}) from host: {wall:.4f} s, launches "
+        f"B1={lh['count_pairs']} B2={lh['minlab_pairs']}, passes "
+        f"{m['kernel_passes']}, live pairs {m['live_pairs']}, clusters "
+        f"{int(hav.labels_.max()) + 1}, noise "
+        f"{int((hav.labels_ < 0).sum())}, ARI vs truth {a:.6f}")
+    if (lh["count_pairs"] != 1 or lh["minlab_pairs"] < 1
+            or sum(lh.values()) != m["kernel_passes"]):
+        fail("the haversine fit did not run B1 once and B2 per round")
+    S = latlon_to_unit_sphere(X)
+    euc = DBSCAN(eps=hav.kernel_eps, min_samples=10, block=block,
+                 device=dev)
+    e_wall, _lc, _l1 = timed_fit(euc, S)
+    same_fit(hav, euc, "haversine fit vs the Euclidean fit of its frame")
+    rec["haversine"] = {"n": n, "eps": HAV_EPS, "wall_s": wall,
+                        "euclidean_wall_s": e_wall, "ari": a,
+                        "clusters": int(hav.labels_.max()) + 1}
+    # B1/B2 at d = 3 on the fit's own inputs.
+    inp = inputs(S, hav.kernel_eps)
+    a1 = (inp["xs"], inp["mi"], inp["rp"], inp["cols"], inp["e2"],
+          inp["tile"])
+    rc = torch.zeros(1, dtype=torch.int64, device=dev)
+    counts = ck.count_pairs(*a1, inp["centers"], rescored_pairs=rc)
+    err1 = held("count_pairs", counts, counts_over_pairs(*a1), "d=3")
+    rescored = int(rc[0])
+    pairs = pair_work(inp, inp["mask"])
+    sub, rp_sub = sub_list(inp)
+    a_sub = a1[:2] + (rp_sub,) + a1[3:]
+    rc.zero_()
+    ck.count_pairs(*a_sub, inp["centers"], rescored_pairs=rc)
+    b1_rescored_hold(a_sub, inp["centers"], int(rc[0]),
+                     f"the haversine inputs, first {sub} row tiles")
+    core, lab = core_labels(inp, counts, 10)
+    b2 = (inp["xs"], lab, inp["rp"], inp["cols"], inp["e2"], inp["tile"])
+    err2 = held("minlab_pairs", ck.minlab_pairs(*b2), minlab_over_pairs(*b2),
+                "d=3 round 1")
+    d, N = inp["xs"].shape
+    nbytes = d * N * 4 + N * 4 + inp["rp"].numel() * 4 + inp[
+        "cols"].numel() * 4
+    ms1 = median_ms(lambda: ck.count_pairs(*a1, inp["centers"]), reps)
+    p1 = median_ms(lambda: counts_over_pairs(*a1), 1)
+    record("count_pairs", "pypardis_tpu_torch/csrc/pair_kernels.cu",
+           "pypardis_tpu/ops/pallas_kernels.py:202", lh["count_pairs"], err1,
+           ms1, p1, *bound(b1_bounds(pairs, rescored, d, "high"),
+                           (nbytes + N * 4) / PEAK_BYTES_PER_S),
+           f"haversine n={n} d=3", rescored_pairs=rescored,
+           rescored_share=rescored / max(pairs, 1))
+    log(f"    B1 at d=3: {pairs} point pairs, {rescored} decided exactly "
+        f"({rescored / max(pairs, 1):.6f})")
+    ms2 = median_ms(lambda: ck.minlab_pairs(*b2), reps)
+    p2 = median_ms(lambda: minlab_over_pairs(*b2), 1)
+    record("minlab_pairs", "pypardis_tpu_torch/csrc/pair_kernels.cu",
+           "pypardis_tpu/ops/pallas_kernels.py:264", lh["minlab_pairs"], err2,
+           ms2, p2, *bound(pair_work(inp, core) * (3 * d + 1)
+                           / PEAK_FP32_FLOPS,
+                           (nbytes + N * 4) / PEAK_BYTES_PER_S),
+           f"haversine n={n} d=3")
+    rec["haversine"]["b1_rescored_share"] = rescored / max(pairs, 1)
+    rec["haversine"]["serve_s"] = served(hav, X, "haversine", 22)
+    stamp("9.2: done")
+    del X, S, euc, hav, inp
+
+    # 9.3: cityblock on the phase 4 blobs: the torch L1 pass on the card.
+    n = sizes["l1_n"]
+    X, truth = make_blob_data(n, 16, n_centers=32, std=0.4)
+    l1 = DBSCAN(eps=L1_EPS, min_samples=10, metric="cityblock", block=block,
+                device=dev)
+    wall, ll, lp = timed_fit(l1, X)
+    m = l1.metrics_
+    a = ari(l1.labels_, truth)
+    log(f"  9.3 cityblock n={n} d=16 eps={L1_EPS} from host: {wall:.4f} s, "
+        f"L1 passes {lp}, kernel launches {sum(ll.values())}, passes "
+        f"{m['kernel_passes']}, live pairs {m['live_pairs']}, clusters "
+        f"{int(l1.labels_.max()) + 1}, ARI vs truth {a:.6f}")
+    if sum(lp.values()) != m["kernel_passes"] or sum(ll.values()):
+        fail("the cityblock fit's L1 passes do not match its passes")
+    if a < 0.99:
+        fail(f"cityblock ARI {a} < 0.99")
+    stamp("9.3: fitted")
+    # Card against CPU on a subsample, at the least block (128): the
+    # CPU's plain pass over 1024-wide tiles would take ~15 s at 20k.
+    k = sizes["l1_sub_n"]
+    same_fit(DBSCAN(eps=L1_EPS, min_samples=10, metric="cityblock",
+                    block=128, device=dev).fit(X[:k]),
+             DBSCAN(eps=L1_EPS, min_samples=10, metric="cityblock",
+                    block=128, device="cpu").fit(X[:k]),
+             f"cityblock n={k} block 128: card vs CPU")
+    inp = inputs(X, L1_EPS, metric="cityblock")
+    a1 = (inp["xs"], inp["mi"], inp["rp"], inp["cols"], inp["e2"],
+          inp["tile"])
+    l1_ms = median_ms(cold(lambda: ck.count_pairs_l1(*a1)), 1)
+    rec["cityblock"] = {"n": n, "eps": L1_EPS, "wall_s": wall, "ari": a,
+                        "passes": m["kernel_passes"],
+                        "l1_counts_pass_ms": l1_ms,
+                        "live_pairs": m["live_pairs"]}
+    log(f"    one L1 counts pass on the card: {l1_ms:.3f} ms over "
+        f"{int(inp['rp'][-1])} live tile pairs")
+
+    stamp("9.3: done")
+    # 9.4: the sweep on the same blobs, from a CUDA tensor.
+    Xd = torch.from_numpy(X).to(dev)
+    eps_list = [round(SWEEP_EPS_MAX * (i + 1) / 8, 6) for i in range(8)]
+    ms_list = [5, 10]
+    ck.reset_launch_counts()
+    sync()
+    t = time.perf_counter()
+    sw = DBSCAN(eps=SWEEP_EPS_MAX, min_samples=10, block=block, device=dev)
+    res = sw.sweep(Xd, eps_list, ms_list)
+    sync()
+    s_wall = time.perf_counter() - t
+    st = res.stats
+    log(f"  9.4 sweep n={n}: {len(res)} configs in {s_wall:.4f} s, "
+        f"distance_passes {st['distance_passes']}, graph_pairs "
+        f"{st['graph_pairs']}, graph_bytes {st['graph_bytes']}, build "
+        f"{st['graph_build_s']} s, relabel {st['relabel_s']}, "
+        f"amortization {st['sweep_amortization_est']}")
+    if st["distance_passes"] != 1 or st["degraded"] is not None:
+        fail("the sweep did not run one distance pass")
+    want = sizes.get("sweep_edges")
+    if want is not None and st["graph_pairs"] != want:
+        fail(f"the sweep graph holds {st['graph_pairs']} edges, not the "
+             f"{want} measured for eps_max {SWEEP_EPS_MAX}")
+    fit_s = 0.0
+    fits = {}
+    for cfg in res.configs:
+        fit = DBSCAN(eps=cfg[0], min_samples=cfg[1], block=block,
+                     device=dev)
+        f_wall, _lc, _l1 = timed_fit(fit, Xd)
+        fit_s += f_wall
+        fits[cfg] = (fit.labels_, fit.core_sample_mask_)
+        if not (np.array_equal(res.labels(*cfg), fit.labels_)
+                and np.array_equal(res.core(*cfg), fit.core_sample_mask_)):
+            fail(f"sweep config {cfg} differs from its fit")
+    stamp("9.4: sweep and its fits")
+    log(f"    every config byte-identical to its fit from the tensor; the "
+        f"{len(res)} fits took {fit_s:.4f} s against the sweep's "
+        f"{s_wall:.4f} s")
+    # Emission and per-config relabel on CUDA events.
+    pts, nn, blk = _stage(Xd, block, dev)
+    built = []
+    emit_ms = median_ms(cold(lambda: built.append(sweep_graph_pipeline(
+        pts, SWEEP_EPS_MAX, nn, block=blk, sort=nn > 2 * blk))), 1)
+    graph, mask_k, owner, cap, gst = built[0]
+    ev = gst[0]
+    gi, gj, dv = graph[0][:ev].long(), graph[1][:ev].long(), graph[2][:ev]
+    relabel_ms = [median_ms(lambda c=cfg: sweep_config_pack(
+        gi, gj, dv, mask_k, owner, c[0], c[1], gst, cap=cap), 1)
+        for cfg in res.configs]
+    log(f"    emission (layout + graph) {emit_ms:.3f} ms on CUDA events, "
+        f"relabel per config {[round(v, 3) for v in relabel_ms]} ms")
+    del gi, gj, dv, graph, pts
+    # Past the cap: per-config fits, the same labels.
+    cfgs2 = [(SWEEP_EPS_MAX, 10), (SWEEP_PAST_CAP, 10)]
+    res2 = DBSCAN(eps=SWEEP_PAST_CAP, min_samples=10, block=block,
+                  device=dev).sweep(
+        Xd, [c[0] for c in cfgs2], [10])
+    ok = res2.stats["degraded"] == "per_config_refit"
+    ref = DBSCAN(eps=SWEEP_PAST_CAP, min_samples=10, block=block,
+                 device=dev).fit(Xd)
+    ok = ok and np.array_equal(res2.labels(SWEEP_PAST_CAP, 10), ref.labels_)
+    ok = ok and np.array_equal(res2.labels(SWEEP_EPS_MAX, 10),
+                               fits[(SWEEP_EPS_MAX, 10)][0])
+    log(f"  sweep past the cap (eps_max {SWEEP_PAST_CAP}): degraded "
+        f"{res2.stats['degraded']!r}, distance_passes "
+        f"{res2.stats['distance_passes']}, labels equal to the fits: {ok}")
+    if not ok:
+        fail("the degraded sweep differs from its fits")
+    stamp("9.4: done")
+    rec["sweep"] = {"n": n, "configs": len(res), "wall_s": s_wall,
+                    "fits_s": fit_s, "graph_pairs": st["graph_pairs"],
+                    "graph_bytes": st["graph_bytes"],
+                    "emission_ms": emit_ms, "relabel_ms": relabel_ms,
+                    "eps_max": SWEEP_EPS_MAX}
+    return kernels, rec
+
+
 def single_call_build_seconds(_build) -> float:
     """Seconds of one ``nvcc -shared`` over every source into a scratch
     file: the single-process build ``csrc/_build.py`` does not use, timed
@@ -2576,6 +3166,11 @@ def main() -> None:
     from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def phase(title):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {title}")
+
     # Phase 1: the card and the build.
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2663,6 +3258,14 @@ def main() -> None:
         print(json.dumps({"kernels": records}))
         return
 
+    if "--metrics" in sys.argv[1:]:
+        records, rec9 = metrics_phase(torch, dev, median_ms,
+                                      torch.cuda.synchronize)
+        log(f"phase 9 record: {json.dumps(rec9)}")
+        log(f"card: {card}")
+        print(json.dumps({"kernels": records}))
+        return
+
     if "--b4" in sys.argv[1:]:
         records, _ = sketch_phase(torch, dev, median_ms,
                                   torch.cuda.synchronize,
@@ -2727,7 +3330,7 @@ def main() -> None:
              what)
 
     # Phase 2: kernels against their plain versions on the card.
-    log("phase 2: kernels vs plain versions on the card (tolerance: "
+    phase("phase 2: kernels vs plain versions on the card (tolerance: "
         "exact equality; the two share their d^2 arithmetic)")
     for d in (16, 64):
         pts, n, block = _stage(guard_banded_blobs(d), 1024, dev)
@@ -2759,7 +3362,7 @@ def main() -> None:
     torch.cuda.synchronize()
 
     # Phase 3: a small fit on the card against the plain path on the CPU.
-    log("phase 3: small fit, card vs plain versions on the CPU")
+    phase("phase 3: small fit, card vs plain versions on the CPU")
     Xs, truth_s = make_blob_data(8000, 16, n_centers=8, std=0.4, seed=3)
     gpu = DBSCAN(eps=2.4, min_samples=10, block=256).fit(Xs)
     cpu = DBSCAN(eps=2.4, min_samples=10, block=256, device="cpu").fit(Xs)
@@ -2771,7 +3374,7 @@ def main() -> None:
         fail("the card's fit differs from the plain-version fit")
 
     # Phase 4: the main path at real size.
-    log("phase 4: main path DBSCAN(eps=2.4, min_samples=10, block=2048)")
+    phase("phase 4: main path DBSCAN(eps=2.4, min_samples=10, block=2048)")
     fits = {}
     main_launches = None
     serve_model = serve_X = None
@@ -2822,7 +3425,7 @@ def main() -> None:
 
     # Phase 5: the kernels alone at the 1M fit's own inputs (staged as
     # a host-input fit stages them).
-    log("phase 5: kernels at the 1M main-path inputs")
+    phase("phase 5: kernels at the 1M main-path inputs")
     X, truth = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
     pts, n, block = _stage(X, 2048, dev)
     xs, mask, _owner = _pipeline_layout(pts, 2.4, n, block, sort=True)
@@ -2870,7 +3473,9 @@ def main() -> None:
     rescored = int(rc[0])
     ms = median_ms(lambda: ck.count_pairs(*a, inp["centers"]), 10)
     frames_ms = median_ms(lambda: ck.pass_frames(xs, mask, tile, "high"), 10)
-    plain_ms = median_ms(lambda: counts_over_pairs(*a), 2)
+    # One timed call of the plain pass (≈ 5.4 s): the hold above warmed
+    # it on the first row tiles.
+    plain_ms = median_ms(cold(lambda: counts_over_pairs(*a)), 1)
     pairs = need["count_pairs"]
     t_bytes = (in_bytes + out_bytes
                + inp["centers"].numel() * 4) / PEAK_BYTES_PER_S
@@ -2905,21 +3510,32 @@ def main() -> None:
     kernels += b2_rounds(torch, dev, median_ms, torch.cuda.synchronize, xs,
                          mask, ("high",), main_launches)
 
-    log("phase 6: serving on the 1M host-input model")
+    phase("phase 6: serving on the 1M host-input model")
     records, served = serve_phase(torch, serve_model, serve_X, median_ms)
     kernels += records
-    log("phase 7: high-dimensional fits, the sketch kernels B3/B4")
+    phase("phase 7: high-dimensional fits, the sketch kernels B3/B4")
     records, onoff = sketch_phase(torch, dev, median_ms,
                                   torch.cuda.synchronize)
     kernels += records
-    log("phase 8: precision modes, the bf16 tensor-core kernels")
+    phase("phase 8: precision modes, the bf16 tensor-core kernels")
+    embedding = onoff.pop("main")
     main_fit = dict(X=X, truth=truth, model=serve_model, xs=xs, mask=mask)
     fp32_ms = {k["name"]: k["ms"] for k in kernels[:2]}
     kernels += precision_phase(torch, dev, median_ms,
                                torch.cuda.synchronize, main_fit, served,
                                onoff, fp32_ms)
-    del serve_model, serve_X, served, onoff, main_fit
+    del serve_model, serve_X, served, onoff, main_fit, xs, inp
+    phase("phase 9: metrics (cosine, haversine, cityblock) and the sweep")
+    t9 = time.perf_counter()
+    records, rec9 = metrics_phase(torch, dev, median_ms,
+                                  torch.cuda.synchronize,
+                                  embedding=embedding)
+    del embedding
+    kernels += records
+    log(f"phase 9 record: {json.dumps(rec9)}; phase 9 took "
+        f"{time.perf_counter() - t9:.1f} s")
     log(f"fit seconds (host, host, cuda, cuda): {json.dumps(fits)}")
+    phase("phases 2-9 done")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,15 +7,24 @@ caller passes ``device="cpu"``, which runs the kernels' plain PyTorch
 versions.
 """
 
+from .aggregator import ClusterAggregator, default_value
 from .checkpoint import load_index, load_model, save_index, save_model
 from .config import DBSCANConfig
-from .dbscan import DBSCAN
+from .dbscan import (
+    DBSCAN,
+    SweepResult,
+    dbscan_partition,
+    map_cluster_id,
+    sweep_dbscan,
+)
 from .geometry import BoundingBox
 from .partition import KDPartitioner
 from .serve import CorePointIndex, QueryEngine
 
 __all__ = [
-    "DBSCAN", "BoundingBox", "DBSCANConfig", "CorePointIndex",
-    "QueryEngine", "KDPartitioner", "save_model", "load_model",
-    "save_index", "load_index",
+    "DBSCAN", "BoundingBox", "ClusterAggregator", "default_value",
+    "DBSCANConfig",
+    "CorePointIndex", "QueryEngine", "KDPartitioner", "SweepResult",
+    "dbscan_partition", "map_cluster_id", "sweep_dbscan", "save_model",
+    "load_model", "save_index", "load_index",
 ]

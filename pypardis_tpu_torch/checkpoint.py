@@ -14,10 +14,11 @@ A file written by either package loads in the other:
 The JAX package accepts only its own kernel backends (``auto``/``xla``/
 ``pallas``), so the port writes ``"auto"`` and reads any of them as
 ``"auto"``.  Every precision mode loads with its meaning (a
-``"mixed"`` model serves through B5's bf16 prefilter).  A JAX model
-whose metric or eps mode the port has not ported raises
-``NotImplementedError`` naming its ROADMAP item; it is never served
-through a substitute.
+``"mixed"`` model serves through B5's bf16 prefilter), and every
+metric (a cosine or haversine model's core points are in its kernel
+frame, as the JAX package stores them).  A JAX model fitted with
+``eps=None`` raises ``NotImplementedError`` naming its ROADMAP item
+(A14); it is never served through a substitute.
 """
 
 from __future__ import annotations

@@ -25,8 +25,10 @@ def dbscan_from_reference(params: dict, X, labels, core, *, keys=None,
 
     ``params``: the JAX model's parameters (unknown keys are ignored;
     its ``kernel_backend`` names a JAX backend and is dropped; its
-    ``sketch`` spec carries over, so a refit sketches as it did).  ``X``:
-    the (N, d) training points; ``labels`` / ``core``: its ``labels_``
+    ``sketch`` spec carries over, so a refit sketches as it did; its
+    ``metric`` too).  ``X``: the JAX model's ``data``, the (N, d)
+    training points (for cosine and haversine the projected rows, the
+    kernel frame it holds them in); ``labels`` / ``core``: its ``labels_``
     and ``core_sample_mask_``; ``keys``: its record keys (default
     ``arange(N)``); ``device``: where a refit of the returned model
     would run (default the card).
@@ -46,10 +48,12 @@ def dbscan_from_reference(params: dict, X, labels, core, *, keys=None,
     model = cfg.build()
     model.data = X
     model._keys = np.arange(len(X)) if keys is None else np.asarray(keys)
-    if len(X):
-        model._set_fit(labels, core, X.min(axis=0), X.max(axis=0))
-    else:
-        model._set_fit(labels, core, np.zeros(0), np.zeros(0))
+    # The JAX fit sets its boxes in the kernel frame (eps remapped).
+    with model._kernel_frame():
+        if len(X):
+            model._set_fit(labels, core, X.min(axis=0), X.max(axis=0))
+        else:
+            model._set_fit(labels, core, np.zeros(0), np.zeros(0))
     # The core rows serve predict() even once ``data`` is dropped.
     model._serve_core_points = X[core]
     return model

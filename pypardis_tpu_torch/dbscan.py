@@ -15,28 +15,41 @@ A fitted model serves out-of-sample queries (``predict`` /
 ``query_engine``, :mod:`.serve`, kernel B5) and checkpoints in the JAX
 package's format (``save`` / ``load``, :mod:`.checkpoint`).
 
+The metrics are the JAX package's: Euclidean and cityblock run the pair
+passes directly (cityblock through its torch L1 pass on any device, as
+the JAX package runs it outside Pallas); cosine and haversine are
+driver metrics, fitted on projected rows (unit norm; the unit sphere)
+with eps remapped onto the Euclidean kernels (:attr:`DBSCAN.kernel_eps`).
+:meth:`DBSCAN.sweep` / :func:`sweep_dbscan` fit a grid of (eps,
+min_samples) configs from one distance pass; :func:`dbscan_partition`,
+:func:`map_cluster_id` and :meth:`DBSCAN.cluster_mapping` keep the
+reference's per-partition wire format.
+
 The device is the card (``"cuda"``) unless the caller asks for
 ``device="cpu"``, which runs the kernels' plain PyTorch versions; with
 no CUDA device and no ``device="cpu"`` the constructor raises.
-Sharded fits, sweeps, live serving and telemetry are later slices of
-the port (ROADMAP A10-A16).
+Sharded fits, the eps-free hierarchy, live serving and telemetry are
+later slices of the port (ROADMAP A10-A12, A14-A16).
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from .geometry import BoundingBox
+from .aggregator import ClusterAggregator
+from .geometry import BoundingBox, latlon_to_unit_sphere
 from .ops.cuda_kernels import _pallas_block
-from .ops.labels import densify_labels, resolve_backend
+from .ops.labels import check_pair_metric, densify_labels, resolve_backend
 from .ops.pipeline import dbscan_device_pipeline, unpack_pipeline_result
 from .ops.sketch import check_sketch_spec, effective_k
 from .utils.budget import run_pair_ladder
-from .utils.shaping import clamp_block, round_up
+from .utils.shaping import clamp_block, round_up, row_chunks
 from .utils.validate import (
     check_finite,
     check_kernel_backend,
@@ -44,6 +57,22 @@ from .utils.validate import (
     check_precision,
     validate_params,
 )
+
+
+class SweepGraphOverflow(RuntimeError):
+    """The sweep graph is past its cap or still overflowed after the
+    exact-total retry; the sweep runs per-config fits instead."""
+
+
+def _kernel_eps(metric_norm: str, eps) -> float:
+    """eps in the kernels' frame: ``sqrt(2 eps)`` for cosine, ``2
+    sin(eps / 2)`` for haversine, else eps (float64 numpy, as the JAX
+    package computes it)."""
+    if metric_norm == "cosine":
+        return float(np.sqrt(2.0 * eps))
+    if metric_norm == "haversine":
+        return float(2.0 * np.sin(eps / 2.0))
+    return float(eps)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,6 +97,32 @@ def _as_float(data) -> np.ndarray:
     if pts.dtype not in (np.float32, np.float64):
         pts = pts.astype(np.float64)
     return pts
+
+
+def _unit_rows(points) -> np.ndarray:
+    """Rows scaled to unit L2 norm: the cosine metric's kernel frame (on
+    the unit sphere d^2 = 2 - 2 cos, so the L2 kernels answer cosine
+    thresholds at ``sqrt(2 * eps)``).  The JAX package's numpy
+    arithmetic, op for op: norms summed in float64 by ``np.einsum``,
+    chunked; float32 input comes back float32.  Zero rows raise."""
+    pts = _as_float(points)
+    out = np.empty(
+        pts.shape, np.float64 if pts.dtype == np.float64 else np.float32
+    )
+    chunk = 1 << 20
+    for s in range(0, len(pts), chunk):
+        e = min(s + chunk, len(pts))
+        sub = np.asarray(pts[s:e], np.float64)
+        nrm = np.sqrt(np.einsum("ij,ij->i", sub, sub))
+        if not np.isfinite(nrm).all():
+            raise ValueError("input contains NaN or infinite coordinates")
+        if not nrm.all():
+            raise ValueError(
+                "metric='cosine' is undefined for zero vectors: row(s) "
+                "with zero norm in the input"
+            )
+        out[s:e] = (sub / nrm[:, None]).astype(out.dtype)
+    return out
 
 
 def _as_keys_points(data):
@@ -119,9 +174,7 @@ def _stage(points, block: int, device: torch.device):
         return points_t, n, block
     center = points.mean(axis=0, dtype=np.float64)
     staged = np.empty((k, n), np.float32)
-    chunk = 1 << 20
-    for s in range(0, n, chunk):
-        e = min(s + chunk, n)
+    for s, e in row_chunks(n, k):
         np.subtract(
             points[s:e].T, center[:, None], out=staged[:, s:e],
             casting="unsafe",
@@ -131,21 +184,24 @@ def _stage(points, block: int, device: torch.device):
 
 
 def _pad_and_run(points, eps, min_samples, block, precision="high",
-                 backend="auto", device=None, sketch=None):
+                 backend="auto", device=None, sketch=None,
+                 metric="euclidean"):
     """Centre, pad to a tile multiple, run the device pipeline through
     the pair-budget ladder, and return ``(roots, core, info)`` in input
     order (roots are root point indices, -1 for noise).  ``sketch`` is
     resolved once here (None reads ``PPTORCH_SKETCH``) and every rung of
-    the ladder runs that k."""
+    the ladder runs that k; ``metric`` is a pair metric (Euclidean or
+    cityblock, whose sketch is off)."""
+    metric = check_pair_metric(metric, check_precision(precision))
     points_t, n, block = _stage(points, block, resolve_device(device))
     k, cap = points_t.shape
-    sketch_k = effective_k(sketch, k)
+    sketch_k = effective_k(sketch, k) if metric == "euclidean" else 0
 
     def run_step(pair_budget):
         packed = dbscan_device_pipeline(
             points_t, eps, n, min_samples, block=block,
             precision=precision, backend=backend, sort=n > 2 * block,
-            pair_budget=pair_budget, sketch=sketch_k,
+            pair_budget=pair_budget, sketch=sketch_k, metric=metric,
         )
         _r, _c, total, budget, *_ = unpack_pipeline_result(packed)
         return packed, total, budget
@@ -171,6 +227,128 @@ def _pad_and_run(points, eps, min_samples, block, precision="high",
     return roots[:n], core[:n], info
 
 
+def _cluster_codes(parts: np.ndarray, labels: np.ndarray) -> np.ndarray:
+    """Each clustered point's ``(partition, label)`` as one int64 code,
+    the partition in the high word (noise left out)."""
+    sel = labels >= 0
+    return parts[sel].astype(np.int64) << 32 | labels[sel].astype(np.int64)
+
+
+def _code_key(code) -> str:
+    """The ``"partition:cluster"`` key of a :func:`_cluster_codes` code."""
+    return f"{int(code) >> 32}:{int(code) & 0xFFFFFFFF}"
+
+
+def _partition_cluster_dict(parts: np.ndarray, labels: np.ndarray) -> Dict:
+    """``{"partition:cluster": global id}`` parity codes (the reference's
+    ``cluster_dict``): the global dense label doubles as the
+    per-partition cluster id."""
+    return {
+        _code_key(c): int(c & 0xFFFFFFFF)
+        for c in np.unique(_cluster_codes(parts, labels))
+    }
+
+
+def dbscan_partition(iterable, params):
+    """The reference's per-partition worker: takes ``((key, partition),
+    vector)`` records, clusters the stacked vectors (``params``:
+    ``eps``, ``min_samples`` and optionally ``metric`` (a pair metric),
+    ``precision``, ``backend``, ``device``) and yields ``(key,
+    "part:cluster[*]")``, ``'*'`` marking non-core points: the label
+    wire format :class:`ClusterAggregator` consumes."""
+    data = list(iterable)
+    if not data:
+        return
+    (_, part), _ = data[0]
+    x = _as_float(np.stack([np.asarray(v) for (_k, _p), v in data]))
+    y = [k for (k, _p), _v in data]
+    roots, core, _kinfo = _pad_and_run(
+        x,
+        params["eps"],
+        params["min_samples"],
+        block=256,
+        precision=params.get("precision", "high"),
+        backend=params.get("backend", "auto"),
+        device=params.get("device"),
+        metric=params.get("metric", "euclidean"),
+    )
+    labels = densify_labels(roots)
+    for i in range(len(x)):
+        flag = "" if core[i] else "*"
+        yield (y[i], "%i:%i%s" % (part, labels[i], flag))
+
+
+def map_cluster_id(x, mapping: Dict[str, int]):
+    """The reference's ``map_cluster_id`` with a plain dict for its
+    broadcast: strip the core marker, look up the global id; noise and
+    unmapped labels give -1."""
+    key, cluster_id = x
+    cluster_id = next(iter(cluster_id)).strip("*")
+    if "-1" not in cluster_id and cluster_id in mapping:
+        return key, mapping[cluster_id]
+    return key, -1
+
+
+class SweepResult:
+    """Result of an amortized sweep (:meth:`DBSCAN.sweep`).
+
+    ``configs`` is the ``(eps, min_samples)`` grid in request order; each
+    config's dense labels and core mask equal an independent fit at that
+    config.  ``stats`` is the sweep's telemetry (``distance_passes``,
+    ``graph_pairs``, ``graph_bytes``, ``relabel_s``, ``degraded``,
+    ``sweep_amortization_est``, ...); ``per_config`` one dict per
+    config.  ``sweep_amortization_est`` is the JAX package's
+    ``sweep_amortization`` estimate (configs x (graph build + first
+    relabel) / sweep wall), not a measured ratio: on the card the torch
+    emission costs far more than a fit, so it overstates the gain.
+    """
+
+    def __init__(self, configs, labels, core, per_config, stats):
+        self.configs = list(configs)
+        self._labels = labels
+        self._core = core
+        self.per_config = per_config
+        self.stats = stats
+
+    def _key(self, eps, min_samples=None):
+        if min_samples is None:
+            matches = [c for c in self.configs if c[0] == float(eps)]
+            if len(matches) != 1:
+                raise KeyError(
+                    f"eps={eps} matches {len(matches)} configs; pass "
+                    f"min_samples too"
+                )
+            return matches[0]
+        key = (float(eps), int(min_samples))
+        if key not in self._labels:
+            raise KeyError(f"config {key} was not in this sweep")
+        return key
+
+    def labels(self, eps, min_samples=None) -> np.ndarray:
+        """Dense labels for one config (noise = -1)."""
+        return self._labels[self._key(eps, min_samples)]
+
+    def core(self, eps, min_samples=None) -> np.ndarray:
+        """Core-sample mask for one config."""
+        return self._core[self._key(eps, min_samples)]
+
+    def __len__(self) -> int:
+        return len(self.configs)
+
+    def __iter__(self):
+        for c in self.configs:
+            yield c, self._labels[c]
+
+
+def sweep_dbscan(points, eps_list, min_samples_list=None, **kw):
+    """``DBSCAN(**kw).sweep(points, eps_list, min_samples_list)``; the
+    model is ``result.model``."""
+    model = DBSCAN(**kw)
+    result = model.sweep(points, eps_list, min_samples_list)
+    result.model = model
+    return result
+
+
 class DBSCAN:
     """Density-based clustering on one GPU.
 
@@ -184,7 +362,11 @@ class DBSCAN:
     ``device`` and the
     ``sketch`` prefilter (None defers to ``PPTORCH_SKETCH``, default
     ``"auto"``: k = d/4 at d >= 128; ``"off"``/0; or a pinned k),
-    which leaves the labels byte-identical.
+    which leaves the labels byte-identical.  ``metric``: ``"euclidean"``,
+    ``"cityblock"`` (also ``"manhattan"``/``"l1"``), ``"cosine"``
+    (``"angular"``; eps in (0, 2]) or ``"haversine"`` ((lat, lon)
+    radians; eps the great-circle angle in (0, pi]), or a scipy
+    callable by name.
     """
 
     def __init__(
@@ -198,17 +380,23 @@ class DBSCAN:
         device=None,
         sketch=None,
     ):
+        if eps is None:
+            raise NotImplementedError(
+                "eps=None (the density hierarchy) is not ported to the "
+                "GPU package yet (ROADMAP A14); pass a concrete eps"
+            )
         validate_params(eps, min_samples)
         self.eps = float(eps)
         self.min_samples = int(min_samples)
         self.metric = metric
-        self._metric_norm = check_metric(metric)
+        self._metric_norm = check_metric(metric, self.eps)
         self.block = int(block)
         self.precision = check_precision(precision)
+        check_pair_metric(self._pair_metric, self.precision)
         self.kernel_backend = check_kernel_backend(kernel_backend)
         self.sketch = check_sketch_spec(sketch)
         self.device = resolve_device(device)
-        resolve_backend(self.kernel_backend, self.device)
+        resolve_backend(self.kernel_backend, self.device, self._pair_metric)
         # Reference attribute surface.
         self.data = None
         self._keys = None
@@ -228,15 +416,67 @@ class DBSCAN:
         self._fit_generation = 0
 
     @property
+    def _pair_metric(self) -> str:
+        """The metric the pair passes run: cityblock, else Euclidean
+        (the driver metrics run the L2 kernels in their frame)."""
+        return "cityblock" if self._metric_norm == "cityblock" else "euclidean"
+
+    @property
     def kernel_eps(self) -> float:
-        """eps in the kernels' frame (the Euclidean metric: eps)."""
-        return self.eps
+        """eps in the kernels' frame: for cosine the L2 threshold
+        ``sqrt(2 * eps)`` on the unit sphere, for haversine the chord
+        ``2 sin(eps / 2)`` of the great-circle angle, else eps.  The
+        serving index builds against it."""
+        return _kernel_eps(self._metric_norm, self.eps)
+
+    def _kernel_frame(self):
+        """Context manager swapping ``(eps, metric)`` to the kernel frame
+        for a fit or sweep body of a driver metric (cosine, haversine),
+        so every internal consumer sees the L2 values; the user's spec
+        is restored on exit.  A no-op for the pair metrics."""
+        if self._metric_norm not in ("cosine", "haversine"):
+            return contextlib.nullcontext()
+
+        @contextlib.contextmanager
+        def swap():
+            saved = (self.eps, self.metric)
+            self.eps, self.metric = self.kernel_eps, "euclidean"
+            try:
+                yield
+            finally:
+                self.eps, self.metric = saved
+
+        return swap()
+
+    def _driver_frame_rows(self, points) -> np.ndarray:
+        """Raw rows in a driver metric's kernel frame: unit rows for
+        cosine, (lat, lon) radians on the unit sphere for haversine.
+        Host numpy arithmetic, as the JAX package's: a tensor (on the
+        card too) is brought to the host first, and ``model.data`` holds
+        the projected rows."""
+        if isinstance(points, torch.Tensor):
+            points = points.detach().cpu().numpy()
+        if self._metric_norm == "cosine":
+            return _unit_rows(points)
+        return latlon_to_unit_sphere(points)
 
     # -- training ---------------------------------------------------------
 
     def train(self, data) -> "DBSCAN":
         """Cluster a (key, vector) dataset; see :func:`_as_keys_points`
-        for the accepted forms."""
+        for the accepted forms.  A cosine or haversine fit runs on the
+        projected rows (:meth:`_driver_frame_rows`) at
+        :attr:`kernel_eps`; its labels are the metric's clustering."""
+        if self._metric_norm in ("cosine", "haversine"):
+            keys, points = _as_keys_points(data)
+            with self._kernel_frame():
+                return self._train_impl(
+                    (keys, self._driver_frame_rows(points))
+                )
+        return self._train_impl(data)
+
+    def _train_impl(self, data) -> "DBSCAN":
+        """The metric-agnostic fit body (kernel-frame eps)."""
         keys, points = _as_keys_points(data)
         self._keys = keys
         self.data = points
@@ -268,6 +508,7 @@ class DBSCAN:
             points, self.eps, self.min_samples, self.block,
             precision=self.precision, backend=self.kernel_backend,
             device=self.device, sketch=self.sketch,
+            metric=self._pair_metric,
         )
         self.metrics_["n_partitions"] = 1
         self.metrics_.update(info)
@@ -297,13 +538,252 @@ class DBSCAN:
 
     def fit(self, X) -> "DBSCAN":
         """Fit on an (N, d) array; a tensor (e.g. already on the card)
-        is clustered where it lies, without a host round trip."""
+        is clustered where it lies, without a host round trip (a cosine
+        or haversine frame is projected on the host, see
+        :meth:`_driver_frame_rows`)."""
         if isinstance(X, torch.Tensor):
             return self.train(X)
         return self.train(np.asarray(X))
 
     def fit_predict(self, X) -> np.ndarray:
         return self.fit(X).labels_
+
+    # -- amortized hyperparameter sweeps ----------------------------------
+
+    def sweep(self, data, eps_list, min_samples_list=None) -> SweepResult:
+        """Fit every ``(eps, min_samples)`` config from ONE distance pass.
+
+        On the card this is not yet a speed-up: until the emission has
+        a kernel (ROADMAP A13), building the graph in torch ops takes
+        longer than the per-config fits it replaces (16 configs at 1M x
+        16-D: a 6.0 s sweep against 2.3 s of fits on an NVIDIA H100 80GB
+        HBM3 at 700 W, ``chip_smoke.py`` phase 9.4).  Its use today is
+        one distance pass and exact per-config labels.
+
+        The layout and the neighbour-pair graph are built once at
+        ``eps_max = max(eps_list)`` (in the kernel frame), and each
+        config re-thresholds the cached distances and relabels over the
+        cached pairs (:func:`~.ops.pipeline.sweep_config_pack`): each
+        config's labels and core mask are byte-identical to a fit at
+        that config.  The grid is ``eps_list x min_samples_list``
+        (None: this model's ``min_samples``), eps-major; the order of
+        ``eps_list`` does not change any config's result.  A graph past
+        ``PPTORCH_SWEEP_MAX_PAIRS`` runs per-config fits instead
+        (``stats["degraded"] == "per_config_refit"``), and so does
+        ``precision="default"``, whose bf16 verdicts depend on each
+        fit's tile frames.  The model is left fitted at the last
+        config.  ``eps_list="auto"`` (the hierarchy's ladder) is not
+        ported yet (ROADMAP A14).
+        """
+        auto_ladder = isinstance(eps_list, str)
+        if auto_ladder and eps_list != "auto":
+            raise ValueError(
+                f"eps_list must be a sequence of eps values or the "
+                f"string 'auto', got {eps_list!r}"
+            )
+        if auto_ladder:
+            raise NotImplementedError(
+                "sweep(eps_list='auto') extracts its ladder from the "
+                "density hierarchy, which is not ported to the GPU "
+                "package yet (ROADMAP A14); pass a list of eps values"
+            )
+        eps_arr = np.atleast_1d(np.asarray(eps_list, np.float64))
+        if eps_arr.ndim != 1 or len(eps_arr) == 0:
+            raise ValueError("eps_list must be a non-empty 1-D sequence")
+        eps_vals = [float(e) for e in eps_arr]
+        for e in eps_vals:
+            validate_params(e, 1)
+            check_metric(self.metric, e)
+        if min_samples_list is None:
+            ms_vals = [int(self.min_samples)]
+        else:
+            ms_arr = np.atleast_1d(np.asarray(min_samples_list))
+            if ms_arr.ndim != 1 or len(ms_arr) == 0:
+                raise ValueError(
+                    "min_samples_list must be None or a non-empty 1-D "
+                    "sequence"
+                )
+            ms_vals = [int(m) for m in ms_arr]
+        for m in ms_vals:
+            validate_params(1.0, m)
+        configs = [(e, m) for e in eps_vals for m in ms_vals]
+
+        keys, points = _as_keys_points(data)
+        if self._metric_norm in ("cosine", "haversine"):
+            points = self._driver_frame_rows(points)
+        if len(points) == 0:
+            raise ValueError("sweep needs a non-empty dataset")
+        check_finite(points)
+        t0 = time.perf_counter()
+        self.metrics_ = {}
+        self._serve_engine = None
+        self._serve_core_points = None
+        self._fit_generation += 1
+        self._keys = keys
+        self.data = points
+        self._result_cache = None
+        self.bounding_boxes = self.expanded_boxes = None
+        self.neighbors = None
+        self.cluster_dict = None
+        with self._kernel_frame():
+            labels, core, per_cfg, sweep = self._sweep_run(points, configs)
+        last = configs[-1]
+        self.labels_ = labels[last]
+        self.core_sample_mask_ = core[last]
+        wall = time.perf_counter() - t0
+        self.metrics_["total_s"] = wall
+        self.metrics_["points_per_sec"] = (
+            len(configs) * len(points) / max(wall, 1e-9)
+        )
+        self.metrics_["live_pairs"] = int(sweep["graph_pairs"])
+        sweep["sweep_wall_s"] = round(wall, 6)
+        # An estimate from the sweep's own walls, taking a fit as one
+        # graph build plus one relabel (no fit is run to measure it).
+        solo = sweep["graph_build_s"] + (
+            sweep["relabel_s"][0] if sweep["relabel_s"] else 0.0
+        )
+        sweep["sweep_amortization_est"] = round(
+            len(configs) * solo / max(wall, 1e-9), 4
+        )
+        return SweepResult(configs, labels, core, per_cfg, sweep)
+
+    def _sweep_run(self, points, configs):
+        """The graph and one relabel per config (kernel frame), or the
+        per-config fits when the graph is past its cap or the mode is
+        ``"default"``."""
+        eps_k = [_kernel_eps(self._metric_norm, e) for e, _ in configs]
+        if self.precision == "default":
+            return self._sweep_refit(points, configs)
+        try:
+            relabel, gstats = self._sweep_graph_fused(points, max(eps_k))
+        except SweepGraphOverflow as e:
+            logging.getLogger("pypardis_tpu_torch").warning(
+                "sweep graph unavailable (%s); running per-config fits: "
+                "labels stay exact, one distance pass per config", e,
+            )
+            return self._sweep_refit(points, configs)
+        labels_out, core_out, per_cfg, relabel_s = {}, {}, [], []
+        passes_total = 0
+        for cfg, e_k in zip(configs, eps_k):
+            t_c = time.perf_counter()
+            roots, cor, passes = relabel(e_k, cfg[1])
+            dense = densify_labels(roots)
+            labels_out[cfg] = dense
+            core_out[cfg] = cor
+            passes_total += int(passes)
+            dt = time.perf_counter() - t_c
+            relabel_s.append(round(dt, 6))
+            per_cfg.append({
+                "eps": cfg[0], "min_samples": cfg[1],
+                "relabel_s": round(dt, 6),
+                "n_clusters": int(dense.max()) + 1, "passes": int(passes),
+            })
+        self.metrics_["kernel_passes"] = passes_total + 1
+        self.metrics_["n_partitions"] = 1
+        sweep = {
+            "k": len(configs),
+            "configs": [[e, m] for e, m in configs],
+            "distance_passes": 1,
+            "graph_pairs": gstats["graph_pairs"],
+            "graph_bytes": gstats["graph_bytes"],
+            "graph_build_s": round(gstats["build_s"], 6),
+            "relabel_s": relabel_s,
+            "mode": "fused",
+            "degraded": None,
+            "n_devices": 1,
+        }
+        return labels_out, core_out, per_cfg, sweep
+
+    def _sweep_graph_fused(self, points, eps_max):
+        """Layout and graph at ``eps_max`` (kernel frame) with the
+        exact-total retry; returns ``(relabel, gstats)``, ``relabel(eps,
+        min_samples) -> (roots, core, passes)`` in input order."""
+        from .ops.distances import sweep_max_edges
+        from .ops.pipeline import sweep_config_pack, sweep_graph_pipeline
+
+        t_b = time.perf_counter()
+        points_t, n, block = _stage(points, self.block, self.device)
+        cap_edges = sweep_max_edges()
+        eb = None
+        for attempt in (0, 1):
+            graph, mask_k, owner, cap, stats = sweep_graph_pipeline(
+                points_t, eps_max, n, metric=self._pair_metric,
+                block=block, precision=self.precision, sort=n > 2 * block,
+                edge_budget=eb, edge_cap=cap_edges,
+            )
+            need_e, got_e = stats[0], stats[1]
+            if need_e > cap_edges:
+                raise SweepGraphOverflow(
+                    f"neighbour-pair graph needs more than {cap_edges} "
+                    f"edges, the sweep cap (PPTORCH_SWEEP_MAX_PAIRS)"
+                )
+            if need_e <= got_e:
+                break
+            if attempt:
+                raise SweepGraphOverflow(
+                    f"graph emission overflow persisted after an "
+                    f"exact-total retry ({need_e}/{got_e})"
+                )
+            eb = round_up(need_e, 4096)
+        del points_t
+        gi, gj, dv = (t[:need_e] for t in graph)
+        gi, gj = gi.long(), gj.long()
+        metric = self._pair_metric
+
+        def relabel(eps_c, ms_c):
+            packed = sweep_config_pack(
+                gi, gj, dv, mask_k, owner, eps_c, ms_c, stats, cap=cap,
+                metric=metric,
+            )
+            roots, core, _t, _b, passes, _bp, _rs = (
+                unpack_pipeline_result(packed)
+            )
+            return roots[:n], core[:n], passes
+
+        gstats = {
+            "graph_pairs": int(need_e),
+            "graph_bytes": int(need_e) * 12,
+            "build_s": time.perf_counter() - t_b,
+        }
+        return relabel, gstats
+
+    def _sweep_refit(self, points, configs):
+        """Per-config fits (one distance pass each) on the kernel-frame
+        points: the sweep's label-safe fallback."""
+        labels_out, core_out, per_cfg, relabel_s = {}, {}, [], []
+        for cfg in configs:
+            e_u, ms = cfg
+            t_c = time.perf_counter()
+            m = DBSCAN(
+                eps=_kernel_eps(self._metric_norm, e_u), min_samples=ms,
+                metric=self._pair_metric, block=self.block,
+                precision=self.precision,
+                kernel_backend=self.kernel_backend, device=self.device,
+                sketch=self.sketch,
+            )
+            m.train(points)
+            labels_out[cfg] = np.asarray(m.labels_)
+            core_out[cfg] = np.asarray(m.core_sample_mask_)
+            dt = time.perf_counter() - t_c
+            relabel_s.append(round(dt, 6))
+            per_cfg.append({
+                "eps": e_u, "min_samples": ms, "relabel_s": round(dt, 6),
+                "n_clusters": int(labels_out[cfg].max()) + 1, "passes": 0,
+            })
+        self.metrics_["n_partitions"] = 1
+        sweep = {
+            "k": len(configs),
+            "configs": [[e, m_] for e, m_ in configs],
+            "distance_passes": len(configs),
+            "graph_pairs": 0,
+            "graph_bytes": 0,
+            "graph_build_s": 0.0,
+            "relabel_s": relabel_s,
+            "mode": "fused",
+            "degraded": "per_config_refit",
+            "n_devices": 1,
+        }
+        return labels_out, core_out, per_cfg, sweep
 
     # -- results ----------------------------------------------------------
 
@@ -350,6 +830,23 @@ class DBSCAN:
 
             self._serve_engine = QueryEngine.from_model(self, **kw)
         return self._serve_engine
+
+    def cluster_mapping(self) -> ClusterAggregator:
+        """A :class:`ClusterAggregator` over the final labels (the
+        reference's ``cluster_dict`` surface): each ``partition:cluster``
+        pair (partition 0 on one device) gets the next global id in
+        first-seen point order, as feeding the points one by one would;
+        ``cluster_dict`` is set from it."""
+        agg = ClusterAggregator()
+        if self.labels_ is not None:
+            labels = np.asarray(self.labels_)
+            codes = _cluster_codes(np.zeros(len(labels), np.int32), labels)
+            uniq, first = np.unique(codes, return_index=True)
+            for gid, c in enumerate(uniq[np.argsort(first, kind="stable")]):
+                agg[_code_key(c)] = gid
+            agg.next_global_id = len(uniq)
+        self.cluster_dict = dict(agg.fwd)
+        return agg
 
     # -- checkpoints ------------------------------------------------------
 

@@ -61,7 +61,7 @@ from .distances import (
     counts_over_pairs_mixed,
     counts_over_pairs_sketch,
     default_pair_budget,
-    eps2_f32,
+    eps_threshold,
     live_tile_pairs,
     minlab_over_pairs,
     minlab_over_pairs_default,
@@ -112,9 +112,18 @@ PLAIN = {
 }
 
 
+# Passes of the cityblock metric run on the card.  Cityblock has no
+# kernel (the JAX package runs it outside Pallas too): its pass is the
+# plain torch one on the tensor's device, counted here, never in
+# LAUNCHES.
+L1_PASSES = dict.fromkeys(("count_pairs_l1", "minlab_pairs_l1"), 0)
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in L1_PASSES:
+        L1_PASSES[k] = 0
 
 
 def _pallas_block(block: int, n: int, d: int, mode: str = "high") -> int:
@@ -244,7 +253,7 @@ def sketch_gate(eps, band) -> float:
 
 def kernel_pair_list(points_dn, eps, mask, block: int, precision,
                      budget: int | None = None, src_mask=None,
-                     sketch: int = 0, slab=None):
+                     sketch: int = 0, slab=None, metric="euclidean"):
     """Live tile-pair list on the kernels' own tile grid.
 
     ``points_dn`` (d, N) float32; ``mask`` (N,) bool.  ``src_mask``
@@ -252,7 +261,8 @@ def kernel_pair_list(points_dn, eps, mask, block: int, precision,
     = off) extracts over the (skp)-row slab boxes at the gate
     :func:`sketch_gate` instead of the full-d boxes; ``slab`` is a
     staged ``(slab, band)`` pair (None stages it here over ``mask |
-    src_mask``).  The tile never depends on the sketch.  Returns
+    src_mask``).  The tile never depends on the sketch.  ``metric``
+    ("euclidean" or "cityblock") picks the box test's form.  Returns
     ``((rows, cols), (total, budget))``: ``total > budget`` means the
     list was truncated and results built from it are invalid (rerun
     with ``budget >= total``)."""
@@ -272,9 +282,29 @@ def kernel_pair_list(points_dn, eps, mask, block: int, precision,
         budget = default_pair_budget(nt)
     budget = min(budget, nt * nt)
     rows, cols, total = live_tile_pairs(
-        lo, hi, gate, lo_col, hi_col, budget=budget
+        lo, hi, gate, lo_col, hi_col, budget=budget, metric=metric
     )
     return (rows, cols), (total, budget)
+
+
+def count_pairs_l1(pts, mask, row_ptr, cols, eps_f, tile):
+    """The cityblock counts pass, on the tensor's device:
+    :func:`~.distances.counts_over_pairs` at ``metric="cityblock"``
+    (``eps_f`` the float32 eps).  Counted in :data:`L1_PASSES` on the
+    card."""
+    if pts.is_cuda:
+        L1_PASSES["count_pairs_l1"] += 1
+    return counts_over_pairs(pts, mask, row_ptr, cols, eps_f, tile,
+                             metric="cityblock")
+
+
+def minlab_pairs_l1(pts, labels, row_ptr, cols, eps_f, tile, *,
+                    live_rows=None):
+    """The cityblock min-label pass, as :func:`count_pairs_l1`."""
+    if pts.is_cuda:
+        L1_PASSES["minlab_pairs_l1"] += 1
+    return minlab_over_pairs(pts, labels, row_ptr, cols, eps_f, tile,
+                             live_rows=live_rows, metric="cityblock")
 
 
 def _check(pts, colval, row_ptr, cols, tile):
@@ -754,7 +784,7 @@ def _grid(points_dn, block, mode):
 
 def neighbor_counts_cuda(points_dn, eps, mask, block: int = 1024,
                          precision: str = "high", pairs=None, sketch=None,
-                         slab=None, frames=None):
+                         slab=None, frames=None, metric="euclidean"):
     """Counterpart of ``neighbor_counts_pallas`` (layout ``"dn"``):
     per-point eps-neighbour counts, 0 on invalid rows.  ``pairs``: a
     shared ``(rows, cols)`` list from :func:`kernel_pair_list`; None
@@ -768,27 +798,34 @@ def neighbor_counts_cuda(points_dn, eps, mask, block: int = 1024,
     bf16 B1 with its rescore, ``"default"`` the bf16 B1 alone.  With
     k > 0 or under ``"mixed"`` the return is ``(counts, stats)``, stats
     the (2,) int64 ``[band_pairs, rescored_tiles]`` of the sketch gate
-    (the sketch wins) or of the bf16 band."""
+    (the sketch wins) or of the bf16 band.  ``metric="cityblock"`` runs
+    :func:`count_pairs_l1` (no sketch, no bf16 pass)."""
     mode = norm_precision_mode(precision)
     tile, nt = _grid(points_dn, block, mode)
-    k = effective_k(sketch, points_dn.shape[0])
+    l1 = metric == "cityblock"
+    k = 0 if l1 else effective_k(sketch, points_dn.shape[0])
     if k:
         slab = _staged(points_dn, mask, k, mode, slab)
     poison = False
     if pairs is None:
         pairs, (total, budget) = kernel_pair_list(
-            points_dn, eps, mask, block, mode, sketch=k, slab=slab
+            points_dn, eps, mask, block, mode, sketch=k, slab=slab,
+            metric=metric,
         )
         poison = total > budget
     rows, cols = pairs
     args = (points_dn, mask.to(torch.int32), row_offsets(rows, nt),
             cols.contiguous())
-    e2 = eps2_f32(eps)
+    e2 = eps_threshold(eps, metric)
     stats = None
     # The bf16 passes' row frames, over the rows they count for.
-    centers, rnorm = (pass_frames(points_dn, mask, tile, mode, k)
-                      if frames is None else frames)
-    if k:
+    if frames is None:
+        frames = ((None, None) if l1
+                  else pass_frames(points_dn, mask, tile, mode, k))
+    centers, rnorm = frames
+    if l1:
+        counts = count_pairs_l1(*args, e2, tile)
+    elif k:
         counts, stats = count_pairs_sketch(
             *args, slab[0], k, e2, slab[1], tile, mode, centers
         )
@@ -807,7 +844,8 @@ def neighbor_counts_cuda(points_dn, eps, mask, block: int = 1024,
 def min_neighbor_label_cuda(points_dn, labels, eps, src_mask,
                             block: int = 1024, precision: str = "high",
                             row_mask=None, pairs=None, sketch=None,
-                            slab=None, frames=None, live_rows=None):
+                            slab=None, frames=None, live_rows=None,
+                            metric="euclidean"):
     """Counterpart of ``min_neighbor_label_pallas`` (layout ``"dn"``):
     per-point minimum label over ``src_mask`` points within eps.  Rows
     outside ``row_mask`` return arbitrary values the caller masks;
@@ -819,10 +857,12 @@ def min_neighbor_label_cuda(points_dn, labels, eps, src_mask,
     ``"mixed"`` the return is ``(best, zeros(2))``, as the JAX entry
     point's.  ``live_rows``: an optional (N,) bool of the rows the
     caller still needs; the others get INT32_MAX (B2 leaves them out
-    of its skip's bound, :func:`minlab_pairs`)."""
+    of its skip's bound, :func:`minlab_pairs`).  ``metric="cityblock"``
+    runs :func:`minlab_pairs_l1`."""
     mode = norm_precision_mode(precision)
     tile, nt = _grid(points_dn, block, mode)
-    k = effective_k(sketch, points_dn.shape[0])
+    l1 = metric == "cityblock"
+    k = 0 if l1 else effective_k(sketch, points_dn.shape[0])
     rm = torch.ones_like(src_mask) if row_mask is None else row_mask
     if k:
         slab = _staged(points_dn, rm, k, mode, slab, src_mask)
@@ -830,18 +870,22 @@ def min_neighbor_label_cuda(points_dn, labels, eps, src_mask,
     if pairs is None:
         pairs, (total, budget) = kernel_pair_list(
             points_dn, eps, rm, block, mode, src_mask=src_mask,
-            sketch=k, slab=slab,
+            sketch=k, slab=slab, metric=metric,
         )
         poison = total > budget
     rows, cols = pairs
     labi = torch.where(src_mask, labels.to(torch.int32), INT_INF)
     args = (points_dn, labi.contiguous(), row_offsets(rows, nt),
             cols.contiguous())
-    e2 = eps2_f32(eps)
-    centers, rnorm = (pass_frames(points_dn, rm, tile, mode, k)
-                      if frames is None else frames)
+    e2 = eps_threshold(eps, metric)
+    if frames is None:
+        frames = ((None, None) if l1
+                  else pass_frames(points_dn, rm, tile, mode, k))
+    centers, rnorm = frames
     live = None if live_rows is None else live_rows.contiguous()
-    if k:
+    if l1:
+        best = minlab_pairs_l1(*args, e2, tile, live_rows=live)
+    elif k:
         # B4 rescores exactly outside "default": no centres.
         best = minlab_pairs_sketch(
             *args, slab[0], k, e2, slab[1], tile, mode,

@@ -32,6 +32,8 @@ kernels are held against.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -85,17 +87,31 @@ def _pad_boxes(lo, hi, n_to):
     return torch.cat([lo, fill]), torch.cat([hi, -fill])
 
 
-def _box_gap_live(rlo, rhi, clo, chi, eps2):
-    """Squared box-to-box gap <= eps^2, broadcast the JAX way: row boxes
-    gain an axis before the feature axis."""
+def eps_threshold(eps, metric: str = "euclidean") -> float:
+    """The pair passes' float32 threshold: eps^2 (:func:`eps2_f32`) for
+    the Euclidean metric, eps itself for cityblock."""
+    if metric == "cityblock":
+        return float(np.float32(eps))
+    return eps2_f32(eps)
+
+
+def _box_gap_live(rlo, rhi, clo, chi, thr, metric="euclidean"):
+    """Box-to-box gap within the threshold, broadcast the JAX way: row
+    boxes gain an axis before the feature axis.  Euclidean sums the
+    squared per-axis gaps against eps^2, cityblock the gaps against eps
+    (the L1 form of the JAX package's ``tile_skip_mask``)."""
     gap = torch.clamp_min(
         torch.maximum(clo - rhi[..., None, :], rlo[..., None, :] - chi), 0.0
     )
-    return (gap * gap).sum(dim=-1) <= eps2
+    if metric == "cityblock":
+        return gap.sum(dim=-1) <= thr
+    return (gap * gap).sum(dim=-1) <= thr
 
 
-def live_tile_pairs(lo, hi, eps, lo_col=None, hi_col=None, budget=None):
-    """Row-major list of tile pairs whose bounding boxes lie within eps.
+def live_tile_pairs(lo, hi, eps, lo_col=None, hi_col=None, budget=None,
+                    metric="euclidean"):
+    """Row-major list of tile pairs whose bounding boxes lie within eps
+    (in ``metric``: Euclidean or cityblock).
 
     ``lo``/``hi``: (nt, d) float32 row-tile bounds; ``lo_col``/``hi_col``
     default to the same boxes.  Returns ``(rows, cols, total)``: int32
@@ -118,7 +134,7 @@ def live_tile_pairs(lo, hi, eps, lo_col=None, hi_col=None, budget=None):
     if budget is None:
         budget = default_pair_budget(nt)
     budget = min(budget, nt * nt)
-    eps2 = eps2_f32(eps)
+    thr = eps_threshold(eps, metric)
     G = PAIR_GROUP
     ng = -(-nt // G)
     tlo_r, thi_r = _pad_boxes(lo, hi, (ng + 1) * G)
@@ -133,7 +149,7 @@ def live_tile_pairs(lo, hi, eps, lo_col=None, hi_col=None, budget=None):
     chunk_g = max(1, min(ng, -(-_CHUNK_ELEMS // max(ng * d, 1))))
     live_g = torch.cat([
         _box_gap_live(glo_r[s:s + chunk_g], ghi_r[s:s + chunk_g],
-                      glo_c[None], ghi_c[None], eps2).reshape(-1)
+                      glo_c[None], ghi_c[None], thr, metric).reshape(-1)
         for s in range(0, ng, chunk_g)
     ])
     gidx = torch.nonzero(live_g).reshape(-1)
@@ -151,7 +167,7 @@ def live_tile_pairs(lo, hi, eps, lo_col=None, hi_col=None, budget=None):
         b = cols_g[s:s + chunk_p]
         live = _box_gap_live(
             tlo_rg[a], thi_rg[a], tlo_cg[b][:, None], thi_cg[b][:, None],
-            eps2,
+            thr, metric,
         ).reshape(-1)
         idx = torch.nonzero(live).reshape(-1)
         p, ij = idx // (G * G), idx % (G * G)
@@ -205,6 +221,26 @@ def _pair_d2(x, y):
     return d2
 
 
+def _pair_l1(x, y):
+    """(d, P, br) x (d, P, bc) -> (P, br, bc) L1 distances: ``|x_a -
+    y_a|`` summed over the axes in index order, each operation rounded
+    on its own.  Cityblock has no kernel in the JAX package either
+    (only the Euclidean metric goes through Pallas), so this pass is
+    its implementation on the card too."""
+    d1 = torch.zeros(
+        (x.shape[1], x.shape[2], y.shape[2]), dtype=torch.float32,
+        device=x.device,
+    )
+    for a in range(x.shape[0]):
+        d1 += (x[a][:, :, None] - y[a][:, None, :]).abs()
+    return d1
+
+
+def pair_dist(metric: str = "euclidean"):
+    """The pair passes' distance: :func:`_pair_d2` or :func:`_pair_l1`."""
+    return _pair_l1 if metric == "cityblock" else _pair_d2
+
+
 def _entries(row_ptr, cols, nt, device):
     """The CSR pair list as (row tile, col tile) int64 entries."""
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
@@ -248,17 +284,20 @@ def _reduce_rows(out, r, v, adj, combine):
         )
 
 
-def _pair_verdicts(pts, colval, row_ptr, cols, eps2, tile):
+def _pair_verdicts(pts, colval, row_ptr, cols, eps2, tile,
+                   metric="euclidean"):
     """B1/B2's FP32 verdicts over the pair list, a batch of entries at a
     time: yields ``(s, r, v, adj)``, the batch's first entry ``s``, row
     tiles ``r`` (P,), column values ``v`` (P, 1, tile) and the pairs
-    within eps ``adj`` (P, tile, tile), columns of any value."""
+    within eps ``adj`` (P, tile, tile), columns of any value.  ``eps2``
+    is the metric's threshold (:func:`eps_threshold`)."""
     d = pts.shape[0]
     tiles = pts.reshape(d, -1, tile)
     vals = colval.reshape(-1, tile)
+    dist = pair_dist(metric)
     for s, r, c in _batches(pts, row_ptr, cols, tile):
-        yield s, r, vals[c][:, None, :], _pair_d2(tiles[:, r],
-                                                  tiles[:, c]) <= eps2
+        yield s, r, vals[c][:, None, :], dist(tiles[:, r],
+                                              tiles[:, c]) <= eps2
 
 
 def _live_only(out, live_rows):
@@ -267,33 +306,38 @@ def _live_only(out, live_rows):
     return out if live_rows is None else torch.where(live_rows, out, INT_INF)
 
 
-def _over_pairs(pts, colval, row_ptr, cols, eps2, tile, combine):
+def _over_pairs(pts, colval, row_ptr, cols, eps2, tile, combine,
+                metric="euclidean"):
     out = _identity(pts, tile, combine)
     for _s, r, v, adj in _pair_verdicts(pts, colval, row_ptr, cols, eps2,
-                                        tile):
+                                        tile, metric):
         _reduce_rows(out, r, v, adj, combine)
     return out.reshape(-1)
 
 
-def counts_over_pairs(pts, mask, row_ptr, cols, eps2, tile):
+def counts_over_pairs(pts, mask, row_ptr, cols, eps2, tile,
+                      metric="euclidean"):
     """Plain version of the count kernel: for every point, the number of
     columns j with ``mask[j] != 0`` and ``d^2 <= eps2`` over the live
     column tiles of its row tile.  ``pts`` (d, N) float32, ``mask`` (N,)
     int32, ``row_ptr`` (nt+1,) int32, ``cols`` int32, ``eps2`` the
     float32 eps^2 (:func:`eps2_f32`).  Rows whose tile has no live pair
-    get 0; invalid rows get a count the caller masks."""
-    return _over_pairs(pts, mask, row_ptr, cols, eps2, tile, "sum")
+    get 0; invalid rows get a count the caller masks.  With
+    ``metric="cityblock"`` the distance is :func:`_pair_l1` and ``eps2``
+    the float32 eps (:func:`eps_threshold`)."""
+    return _over_pairs(pts, mask, row_ptr, cols, eps2, tile, "sum", metric)
 
 
 def minlab_over_pairs(pts, labels, row_ptr, cols, eps2, tile,
-                      live_rows=None):
+                      live_rows=None, metric="euclidean"):
     """Plain version of the min-label kernel: for every point, the
     minimum ``labels[j]`` over columns within eps (non-source columns
     carry INT32_MAX, so they never win); INT32_MAX where none is, and
     on every row outside ``live_rows`` (an optional (N,) bool: the rows
-    the caller still needs, see :func:`minlab_pairs_walk`)."""
+    the caller still needs, see :func:`minlab_pairs_walk`).  ``metric``
+    as in :func:`counts_over_pairs`."""
     return _live_only(
-        _over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min"),
+        _over_pairs(pts, labels, row_ptr, cols, eps2, tile, "min", metric),
         live_rows)
 
 
@@ -962,3 +1006,94 @@ def certified_count_walk(pts, mask, row_ptr, cols, eps2, tile, centers,
     if rnorm is not None:
         counts = (counts, torch.stack([n_band, n_resc]))
     return counts, rescored, n_fragile
+
+
+# ---------------------------------------------------------------------------
+# The amortized sweep's neighbour-pair graph: one emission at eps_max of
+# every (i, j, dval) over the live pair list, re-thresholded per config
+# (:func:`~.labels.graph_dbscan`).  ``dval`` is the pair passes' own
+# arithmetic (:func:`_pair_d2`'s axis-ordered sum of separately rounded
+# squares, or :func:`_pair_l1`), so ``dval <= threshold(eps_c)`` is the
+# kernels' verdict at every config, bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def sweep_max_edges() -> int:
+    """Cap on the sweep graph, in edges (``PPTORCH_SWEEP_MAX_PAIRS``,
+    default 2^26, 768 MiB at 12 bytes per edge).  Past it a sweep runs
+    per-config fits instead: the graph is an amortization, never a
+    correctness requirement."""
+    return int(os.environ.get("PPTORCH_SWEEP_MAX_PAIRS", str(1 << 26)))
+
+
+def default_edge_budget(n: int) -> int:
+    """Default graph slab: 96 directed edges per row, at least 2^16, at
+    most the sweep cap (a graph past the cap is never kept).  The
+    emission returns the exact total, so one retry always suffices."""
+    return min(max(1 << 16, 96 * n), max(1, sweep_max_edges()))
+
+
+def neighbor_pair_graph(points, mask, eps, metric: str = "euclidean",
+                        tile: int = 1024, budget: int | None = None,
+                        pair_budget: int | None = None,
+                        cap: int | None = None):
+    """Every ``(i, j, dval)`` with ``dval`` within eps over the live tile
+    pairs, into a budgeted slab.
+
+    ``points`` (d, N) float32, N a multiple of ``tile``; ``mask`` (N,)
+    bool.  Self-pairs ride in the graph, as the passes count them.
+    Returns ``(gi, gj, dval, stats)``: int32 / int32 / float32 slabs of
+    ``budget`` entries in pair-list order (padding ``dval = +inf``,
+    inert at any eps) and ``stats`` the exact ``[edge_total,
+    edge_budget, tile_total, tile_budget]`` as Python ints.  Edges past
+    the budget are counted but dropped: the graph is then invalid and
+    the caller retries once with the exact total.  A tile list past its
+    budget is extracted again at its exact total before any edge is
+    emitted, so the edge total is always exact.  With ``cap`` the
+    emission stops once the total passes it (the caller then gives the
+    graph up): ``edge_total`` is only known to exceed ``cap`` then.  One
+    route: torch ops on the tensor's device.
+    """
+    d, n = points.shape
+    nt = n // tile
+    dev = points.device
+    tiles = points.reshape(d, nt, tile).transpose(0, 1)
+    msk = mask.reshape(nt, tile)
+    lo, hi = tile_bounds(tiles, msk)
+    if pair_budget is None:
+        pair_budget = default_pair_budget(nt)
+    pair_budget = min(int(pair_budget), nt * nt)
+    rows, cols, tile_total = live_tile_pairs(lo, hi, eps, budget=pair_budget,
+                                             metric=metric)
+    if tile_total > pair_budget:
+        pair_budget = min(-(-tile_total // 4096) * 4096, nt * nt)
+        rows, cols, tile_total = live_tile_pairs(
+            lo, hi, eps, budget=pair_budget, metric=metric
+        )
+    budget = default_edge_budget(n) if budget is None else int(budget)
+    gi = torch.zeros(budget, dtype=torch.int32, device=dev)
+    gj = torch.zeros(budget, dtype=torch.int32, device=dev)
+    dv = torch.full((budget,), float("inf"), dtype=torch.float32,
+                    device=dev)
+    thr = eps_threshold(eps, metric)
+    dist = pair_dist(metric)
+    pts_t = points.reshape(d, nt, tile)
+    total = 0
+    for _s, r, c in _batches(points, row_offsets(rows, nt), cols, tile):
+        val = dist(pts_t[:, r], pts_t[:, c])
+        live = (val <= thr) & msk[r][:, :, None] & msk[c][:, None, :]
+        if total >= budget:
+            # The slab is full: count only.
+            total += int(live.sum())
+        else:
+            p, i, j = torch.nonzero(live, as_tuple=True)
+            m = int(p.numel())
+            keep = min(m, budget - total)
+            p, i, j = p[:keep], i[:keep], j[:keep]
+            gi[total:total + keep] = (r[p] * tile + i).int()
+            gj[total:total + keep] = (c[p] * tile + j).int()
+            dv[total:total + keep] = val[p, i, j]
+            total += m
+        if cap is not None and total > cap:
+            break
+    return gi, gj, dv, [total, budget, int(tile_total), int(pair_budget)]

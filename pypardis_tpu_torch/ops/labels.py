@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..utils.validate import (
-    check_kernel_backend, check_precision, validate_params,
+    check_kernel_backend, check_precision, norm_metric, validate_params,
 )
 from .cuda_kernels import (
     _pallas_block,
@@ -29,16 +29,27 @@ from .cuda_kernels import (
     pass_frames,
     sketch_stage,
 )
-from .distances import INT_INF
+from .distances import INT_INF, eps_threshold
 from .sketch import check_sketch_spec, effective_k
 
 
-def resolve_backend(backend: str, device: torch.device) -> str:
+def resolve_backend(backend: str, device: torch.device,
+                    metric: str = "euclidean") -> str:
     """``"auto"`` -> ``"cuda"`` for a CUDA tensor, ``"torch"`` for a CPU
     tensor.  An explicit backend must match the tensor's device: the
     plain versions never stand in for a kernel on the card, and the
-    kernels cannot run on the CPU."""
+    kernels cannot run on the CPU.  Cityblock has no kernel (as in the
+    JAX package, where only the Euclidean metric goes through Pallas):
+    it resolves to its torch pass on any device, and an explicit
+    ``"cuda"`` raises, as the JAX package's ``"pallas"`` does."""
     backend = check_kernel_backend(backend)
+    if norm_metric(metric) == "cityblock":
+        if backend == "cuda":
+            raise ValueError(
+                "kernel_backend='cuda' supports only the euclidean "
+                "metric, got 'cityblock'; use 'auto' or 'torch'"
+            )
+        return "torch"
     kind = "cuda" if torch.device(device).type == "cuda" else "torch"
     if backend not in ("auto", kind):
         raise ValueError(
@@ -80,6 +91,7 @@ def dbscan_fixed_size(
     backend: str = "auto",
     pair_budget: int | None = None,
     sketch=None,
+    metric: str = "euclidean",
 ):
     """DBSCAN over a fixed-capacity padded point set.
 
@@ -105,16 +117,22 @@ def dbscan_fixed_size(
     (labels byte-identical to ``"high"``) and the two stats are the B1
     pass's band telemetry; ``"default"`` runs the bf16 passes alone.
     Every other case reports zeros there.
+
+    ``metric="cityblock"`` runs the L1 torch passes over a pair list
+    pruned by the L1 box test, on any device; the sketch is off and
+    ``"mixed"`` raises, as in the JAX package.
     """
     validate_params(eps, min_samples)
     mode = check_precision(precision)
-    resolve_backend(backend, points.device)
+    metric = check_pair_metric(metric, mode)
+    resolve_backend(backend, points.device, metric)
     d, n = points.shape
     tile = _pallas_block(block, n, d, mode)
     if n % tile != 0:
         raise ValueError(f"tile {tile} does not divide n={n}")
     points = points.contiguous()
-    k = effective_k(check_sketch_spec(sketch), d)
+    k = (effective_k(check_sketch_spec(sketch), d)
+         if metric == "euclidean" else 0)
     # One slab for every pass: each pass's band mask is the validity
     # mask (the core mask lies inside it), so one band serves all.
     slab = sketch_stage(points, mask, k, mode) if k else None
@@ -122,7 +140,7 @@ def dbscan_fixed_size(
     # boxes, a superset of any pass's source subset (the core mask).
     pairs, (total, budget) = kernel_pair_list(
         points, eps, mask, block, mode, budget=pair_budget, sketch=k,
-        slab=slab,
+        slab=slab, metric=metric,
     )
     if total > budget:
         # The list is truncated: the caller reruns with the exact total,
@@ -135,10 +153,11 @@ def dbscan_fixed_size(
     # The row frames (the tile centres B1 recentres on at d <= 64 in every
     # mode, and the bf16 passes' norms): every pass's rows are the valid
     # ones.
-    frames = pass_frames(points, mask, tile, mode, k)
+    frames = (pass_frames(points, mask, tile, mode, k)
+              if metric == "euclidean" else (None, None))
     counts = neighbor_counts_cuda(
         points, eps, mask, block=block, precision=mode, pairs=pairs,
-        sketch=k, slab=slab, frames=frames,
+        sketch=k, slab=slab, frames=frames, metric=metric,
     )
     band = torch.zeros(2, dtype=torch.int64)
     if isinstance(counts, tuple):
@@ -155,7 +174,7 @@ def dbscan_fixed_size(
         best = min_neighbor_label_cuda(
             points, lab, eps, core, block=block, precision=mode,
             row_mask=mask, pairs=pairs, sketch=k, slab=slab, frames=frames,
-            live_rows=live,
+            live_rows=live, metric=metric,
         )
         # The widened return's stats are zeros, as the JAX kernels':
         # the counts pass measured the band.
@@ -188,6 +207,64 @@ def dbscan_fixed_size(
         band.cpu(),
     ])
     return labels, core, pair_stats
+
+
+def check_pair_metric(metric, mode: str) -> str:
+    """The pair passes' metric (Euclidean or cityblock); ``"mixed"`` is
+    a Euclidean two-pass mode and raises for cityblock, as the JAX
+    package's fit does."""
+    metric = norm_metric(metric)
+    if metric == "cityblock" and mode == "mixed":
+        raise ValueError(
+            "precision='mixed' supports only the euclidean metric "
+            "(its bf16 pass and band are Euclidean), got 'cityblock'"
+        )
+    return metric
+
+
+def graph_dbscan(gi, gj, dval, mask, eps, min_samples,
+                 metric: str = "euclidean", max_rounds: int = 64):
+    """DBSCAN relabel over a cached neighbour-pair graph (the JAX
+    package's ``graph_dbscan``), torch ops on the graph's device.
+
+    ``gi``/``gj``: (E,) int64 directed edges (each pair once per
+    direction, self-pairs included); ``dval``: (E,) float32 threshold
+    values (:func:`~.distances.neighbor_pair_graph`; ``+inf`` padding is
+    inert); ``mask``: (n,) validity of the id space.  Round for round
+    :func:`dbscan_fixed_size`: the same counts with the self-count
+    clamp, the same minima over the same adjacency, the same pointer
+    jumping and border attach, so the labels are the fit's at that
+    config.  Returns ``(labels, core, passes)``: per-id root (min core
+    id, -1 noise), the core mask and the pass count.
+    """
+    n = mask.shape[0]
+    dev = mask.device
+    adj = dval <= eps_threshold(eps, norm_metric(metric))
+    gi_a, gj_a = gi[adj], gj[adj]
+    counts = torch.zeros(n, dtype=torch.int32, device=dev)
+    counts.index_add_(0, gi_a, torch.ones_like(gi_a, dtype=torch.int32))
+    core = (torch.clamp_min(counts, 1) >= min_samples) & mask
+    # Only edges into a core column carry a label.
+    src = core[gj_a]
+    gi_s, gj_s = gi_a[src], gj_a[src]
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    f = torch.where(core, idx, INT_INF)
+
+    def minlab(lab):
+        out = torch.full((n,), INT_INF, dtype=torch.int32, device=dev)
+        return out.scatter_reduce_(0, gi_s, lab[gj_s], reduce="amin")
+
+    g = f
+    changed = True
+    rounds = 0
+    while changed and rounds < max_rounds:
+        g = minlab(f)
+        f_new = _pointer_jump(torch.where(core, torch.minimum(f, g), f), core)
+        changed = bool((f_new != f).any())
+        f = f_new
+        rounds += 1
+    border = minlab(f) if changed else g
+    return finish_labels(f, border, core, mask), core, 1 + rounds + int(changed)
 
 
 def densify_labels(root_labels) -> np.ndarray:

@@ -204,12 +204,16 @@ def dbscan_device_pipeline(
     sort: bool = True,
     pair_budget: int | None = None,
     sketch=None,
+    metric: str = "euclidean",
 ):
     """``points_t``: (d, cap) float32, centred, zero-padded past ``n``,
-    on the device that runs the fit.  ``sketch``: the spec handed to
-    :func:`~pypardis_tpu_torch.ops.labels.dbscan_fixed_size`.  Returns
-    the host ``(row, stats)`` numpy pair of :func:`_pipeline_pack`
-    (decode with :func:`unpack_pipeline_result`)."""
+    on the device that runs the fit.  ``sketch`` and ``metric``
+    (Euclidean or cityblock): handed to
+    :func:`~pypardis_tpu_torch.ops.labels.dbscan_fixed_size`; the
+    layout is the same for both metrics, as in the JAX package (its
+    segment break tests a Euclidean jump, which only affects pruning).
+    Returns the host ``(row, stats)`` numpy pair of
+    :func:`_pipeline_pack` (decode with :func:`unpack_pipeline_result`)."""
     cap = points_t.shape[1]
     xs, mask, owner = _pipeline_layout(
         points_t, eps, n, block=block, sort=sort, precision=precision
@@ -217,6 +221,71 @@ def dbscan_device_pipeline(
     roots_s, core_s, pair_stats = dbscan_fixed_size(
         xs, eps, min_samples, mask, block=block, precision=precision,
         backend=backend, pair_budget=pair_budget, sketch=sketch,
+        metric=metric,
     )
     row, stats = _pipeline_pack(roots_s, core_s, pair_stats, owner, cap=cap)
+    return row.numpy(), stats.numpy()
+
+
+# ---------------------------------------------------------------------------
+# The amortized sweep: ONE layout and ONE pair emission at eps_max, then
+# one relabel per (eps, min_samples) config over the cached graph in
+# kernel-slot space, packed through _pipeline_pack as a fit is.
+#
+# Why a config's labels equal a fit at that config although the layout
+# was built at eps_max: eps enters the layout only through the segment
+# break, which inserts pad slots between sorted runs.  Its targets
+# ``seg_tgt0[seg] + i - seg_src0[seg]`` strictly increase with the
+# sorted position i (each segment's padded length is at least its
+# length), and the Morton words and the sort do not read eps.  So the
+# real points keep one relative slot order at every eps; the min core
+# slot of a cluster, mapped back through ``owner``, is the same input
+# row, and densify_labels numbers by that row.  Each point's
+# coordinates are the same float32 values in every layout, so its d^2
+# to any other point is the same bits too.
+# ---------------------------------------------------------------------------
+
+
+def sweep_graph_pipeline(points_t, eps, n, metric: str = "euclidean",
+                         block: int = 1024, precision: str = "high",
+                         sort: bool = True, edge_budget: int | None = None,
+                         edge_cap: int | None = None):
+    """Layout at the sweep's ``eps`` (its eps_max) and the graph over it.
+    Returns ``((gi, gj, dval), mask_k, owner, cap, stats)``: the graph
+    in kernel-slot space on the points' device and the ``[edge_total,
+    edge_budget, tile_total, tile_budget]`` of
+    :func:`~.distances.neighbor_pair_graph` (an edge total past its
+    budget invalidates the graph; ``edge_cap`` is its ``cap``)."""
+    from .distances import neighbor_pair_graph
+
+    cap = points_t.shape[1]
+    xs, mask_k, owner = _pipeline_layout(
+        points_t, eps, n, block=block, sort=sort, precision=precision
+    )
+    d, capk = xs.shape
+    tile = _pallas_block(block, capk, d, norm_precision_mode(precision))
+    gi, gj, dval, stats = neighbor_pair_graph(
+        xs, mask_k, eps, metric=metric, tile=tile, budget=edge_budget,
+        cap=edge_cap,
+    )
+    return (gi, gj, dval), mask_k, owner, cap, stats
+
+
+def sweep_config_pack(gi, gj, dval, mask_k, owner, eps, min_samples,
+                      edge_stats, *, cap, metric: str = "euclidean",
+                      max_rounds: int = 64):
+    """One config's relabel over the cached graph, in the fit's wire
+    format (decode with :func:`unpack_pipeline_result`; the pair stats
+    carry ``[edge_total, edge_budget, passes, 0, 0]``)."""
+    from .labels import graph_dbscan
+
+    labels, core, passes = graph_dbscan(
+        gi.long(), gj.long(), dval, mask_k, eps, min_samples,
+        metric=metric, max_rounds=max_rounds,
+    )
+    pair_stats = torch.tensor(
+        [int(edge_stats[0]), int(edge_stats[1]), passes, 0, 0],
+        dtype=torch.int64,
+    )
+    row, stats = _pipeline_pack(labels, core, pair_stats, owner, cap=cap)
     return row.numpy(), stats.numpy()

@@ -31,7 +31,7 @@ import torch
 
 from ..ops.query import BIG, INT_INF, PAD_COORD, brute_force_query, eps2_f32
 from ..partition import KDPartitioner, expanded_members, spatial_order
-from ..utils.shaping import clamp_block, round_up
+from ..utils.shaping import clamp_block, round_up, row_chunks
 from ..utils.validate import check_query_points, validate_params
 
 _INT_INF32 = np.int32(INT_INF)
@@ -89,8 +89,8 @@ class CorePointIndex:
         self.device = resolve_device(device)
         # Query frame of a driver metric: "unit" (cosine) normalizes
         # queries before centring, "latlon" (haversine) embeds [lat, lon]
-        # radians on the unit sphere.  Set by load_index; an index the
-        # port builds is Euclidean ("none").
+        # radians on the unit sphere.  Set by build_index from the
+        # model's metric and by load_index.
         self.unit_norm = False
         self.projection = "none"
         # Live updates (ROADMAP A15) bump this; a built index stays at 0.
@@ -146,9 +146,10 @@ class CorePointIndex:
         # Centre on the float64 core mean, then cast: the centre also
         # recentres every query, so distances are preserved exactly.
         center = cores.mean(axis=0, dtype=np.float64)
-        cores_c = np.ascontiguousarray(
-            (cores.astype(np.float64) - center).astype(np.float32)
-        )
+        cores_c = np.empty((n, d), np.float32)
+        for s, e in row_chunks(n, d):
+            np.subtract(cores[s:e].astype(np.float64), center,
+                        out=cores_c[s:e], casting="unsafe")
         if leaves is None:
             leaves = int(np.clip(n // max(4 * block, 1), 1, 64))
         tree, parts = _leaf_partition(cores_c, int(leaves), seed)
@@ -165,7 +166,8 @@ class CorePointIndex:
             idx_l = np.asarray(parts[leaf])
             idx_l = idx_l[spatial_order(cores_c[idx_l])]
             s = leaf * C
-            coords[:, s:s + len(idx_l)] = cores_c[idx_l].T
+            for a, b in row_chunks(len(idx_l), d):
+                coords[:, s + a:s + b] = cores_c[idx_l[a:b]].T
             slab_labels[s:s + len(idx_l)] = labels[idx_l]
             src_index[s:s + len(idx_l)] = idx_l
         # Per-column-block core bounds (empty blocks invert).
@@ -385,10 +387,20 @@ def _core_rows(data, mask: np.ndarray) -> np.ndarray:
 def build_index(model, *, leaves=None, block: int = 256, qblock: int = 128,
                 seed: int = 0):
     """Serving index of a fitted (or checkpoint-loaded) ``DBSCAN``, on the
-    model's device."""
+    model's device.  It answers the L2 question at ``model.kernel_eps``
+    over the model's core rows, as the JAX package's index does for
+    every metric; a cosine or haversine model's rows are already in its
+    kernel frame, and the index projects queries into it (``"unit"`` /
+    ``"latlon"``)."""
     model._require_fitted()
     cores, labels = _model_core_set(model)
-    return CorePointIndex.build(
+    idx = CorePointIndex.build(
         cores, labels, model.kernel_eps, leaves=leaves, block=block,
         qblock=qblock, seed=seed, device=model.device,
     )
+    metric_norm = getattr(model, "_metric_norm", None)
+    idx.unit_norm = metric_norm == "cosine"
+    idx.projection = {
+        "cosine": "unit", "haversine": "latlon"
+    }.get(metric_norm, "none")
+    return idx

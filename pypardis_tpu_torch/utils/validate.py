@@ -15,14 +15,6 @@ from ..ops.precision import norm_precision_mode
 
 KERNEL_BACKENDS = ("auto", "cuda", "torch")
 
-# Metrics the JAX package serves that this slice has not ported yet,
-# with the ROADMAP item that ports each.
-_UNPORTED_METRICS = {
-    "cityblock": "A3",
-    "cosine": "A6",
-    "haversine": "A6",
-}
-
 
 def check_query_points(points, k=None) -> np.ndarray:
     """Validate out-of-sample query points (or points routed through a
@@ -62,34 +54,74 @@ def check_kernel_backend(backend) -> str:
     return b
 
 
-def check_metric(metric) -> str:
-    """Normalize a metric spec (string or scipy-style callable, by
-    name).  Euclidean is the ported metric; the JAX package's other
-    metrics raise ``NotImplementedError`` naming their ROADMAP item, and
-    anything else raises ``ValueError``."""
-    name = metric
+def _metric_name(metric) -> str:
+    """A metric spec's lower-case name (a scipy-style callable by its
+    ``__name__``)."""
     if callable(metric):
-        name = getattr(metric, "__name__", str(metric))
-    name = str(name).lower()
-    if name in ("euclidean", "l2"):
+        metric = getattr(metric, "__name__", str(metric))
+    return str(metric).lower()
+
+
+def norm_metric(metric) -> str:
+    """The kernel metrics' normalizer (``ops/distances._norm_metric`` of
+    the JAX package): Euclidean and cityblock spellings, scipy callables
+    by name.  The driver metrics (cosine, haversine) never reach the
+    kernels and raise here, as anything else does."""
+    metric = _metric_name(metric)
+    if metric in ("euclidean", "l2"):
         return "euclidean"
-    if name == "sqeuclidean":
+    if metric == "sqeuclidean":
         raise ValueError(
             "metric 'sqeuclidean' is not supported: its eps thresholds "
             "squared distance; use metric='euclidean' with eps=sqrt(eps)"
         )
-    canon = {
-        "manhattan": "cityblock", "l1": "cityblock", "angular": "cosine",
-    }.get(name, name)
-    if canon in _UNPORTED_METRICS:
-        raise NotImplementedError(
-            f"metric {canon!r} is not ported to the GPU package yet "
-            f"(ROADMAP {_UNPORTED_METRICS[canon]}); use 'euclidean'"
+    if metric in ("cityblock", "manhattan", "l1"):
+        return "cityblock"
+    if metric in ("cosine", "angular"):
+        raise ValueError(
+            "metric 'cosine' is served at the driver level (unit-"
+            "normalization + eps remap: use DBSCAN(metric='cosine')); "
+            "the pair passes are euclidean/cityblock only"
         )
     raise ValueError(
         f"unsupported metric {metric!r}: the GPU package supports "
-        f"'euclidean'"
+        f"euclidean, cityblock, cosine and haversine"
     )
+
+
+def _concrete(eps) -> bool:
+    return isinstance(eps, (int, float, np.floating)) and np.isfinite(eps)
+
+
+def check_metric(metric, eps=None) -> str:
+    """Normalize a metric spec (string or scipy-style callable, by
+    name) and check ``eps`` against its range.
+
+    The kernel metrics are Euclidean and cityblock.  Cosine
+    (``"angular"``) and haversine are driver metrics: the fit projects
+    the rows (unit norm; (lat, lon) radians onto the unit sphere) and
+    remaps eps onto the L2 kernels.  Cosine's eps thresholds ``1 -
+    cos`` and lies in (0, 2]; haversine's is the great-circle angle in
+    radians, in (0, pi]."""
+    name = _metric_name(metric)
+    if name == "haversine":
+        if _concrete(eps) and not 0 < eps <= np.pi:
+            raise ValueError(
+                f"metric='haversine' thresholds the great-circle "
+                f"angle in RADIANS, which lies in [0, pi]; eps must "
+                f"be in (0, pi], got {eps} (degrees instead of "
+                f"radians?)"
+            )
+        return "haversine"
+    if name in ("cosine", "angular"):
+        if _concrete(eps) and not 0 < eps <= 2:
+            raise ValueError(
+                f"metric='cosine' thresholds the cosine distance "
+                f"1 - cos(theta), which lies in [0, 2]; eps must be in "
+                f"(0, 2], got {eps}"
+            )
+        return "cosine"
+    return norm_metric(name)
 
 
 def validate_params(eps, min_samples) -> None:

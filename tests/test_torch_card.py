@@ -945,3 +945,153 @@ def test_card_high_fit_past_58108_axes(d):
     assert np.array_equal(on.labels_, off.labels_)
     assert np.array_equal(on.core_sample_mask_, off.core_sample_mask_)
     assert off.labels_.max() >= 1
+
+
+# -- the metrics and the sweep (the slice's new shapes) -------------------
+
+
+def _frame_inputs(rows, eps, k=0):
+    """Staged B1/B2 (or B3/B4) inputs of kernel-frame ``rows`` at
+    ``eps`` on the card, and the round-1 labels."""
+    dev = torch.device("cuda")
+    pts, n, block = _stage(rows, 1024, dev)
+    xs, mask, _owner = _pipeline_layout(pts, eps, n, block, sort=True)
+    slab = ck.sketch_stage(xs, mask, k, "high") if k else None
+    (r, cols), (total, budget) = ck.kernel_pair_list(
+        xs, eps, mask, block, "high", sketch=k, slab=slab, budget=1 << 26)
+    assert total <= budget
+    tile = ck._pallas_block(block, xs.shape[1], xs.shape[0], "high")
+    rp = row_offsets(r, xs.shape[1] // tile)
+    return xs, mask, rp, cols, tile, slab
+
+
+@pytest.mark.cuda
+def test_b1_b2_bitwise_at_d3_on_the_unit_sphere():
+    """Haversine's frame: GeoLife-shaped stay points on the unit sphere
+    at the chord of 50 m, where eps is ~8e-6."""
+    _need_card()
+    from chip_smoke import HAV_EPS, geolife_like
+    from pypardis_tpu_torch.geometry import latlon_to_unit_sphere
+
+    X, _t = geolife_like(40_000)
+    chord = float(2.0 * np.sin(HAV_EPS / 2.0))
+    xs, mask, rp, cols, tile, _s = _frame_inputs(latlon_to_unit_sphere(X),
+                                                 chord)
+    mi, e2 = mask.to(torch.int32), eps2_f32(chord)
+    got = ck.count_pairs(xs, mi, rp, cols, e2, tile)
+    assert torch.equal(got, counts_over_pairs(xs, mi, rp, cols, e2, tile))
+    core = (torch.where(mask, got, 0) >= 10) & mask
+    lab = torch.where(core, torch.arange(len(got), device="cuda",
+                                         dtype=torch.int32), INT_INF)
+    lab = lab.contiguous()
+    assert torch.equal(ck.minlab_pairs(xs, lab, rp, cols, e2, tile),
+                       minlab_over_pairs(xs, lab, rp, cols, e2, tile))
+    assert int(core.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_b3_b4_bitwise_on_unit_norm_rows():
+    _need_card()
+    from chip_smoke import COS_EPS
+    from pypardis_tpu_torch.dbscan import _unit_rows
+
+    X, _t = make_embedding_data(6000, 512)
+    eps = float(np.sqrt(2.0 * COS_EPS))
+    xs, mask, rp, cols, tile, slab = _frame_inputs(_unit_rows(X), eps,
+                                                   k=128)
+    centers = ck.pass_frames(xs, mask, tile, "high", 128)[0]
+    a = (xs, mask.to(torch.int32), rp, cols, slab[0], 128, eps2_f32(eps),
+         slab[1], tile)
+    counts, st = ck.count_pairs_sketch(*a, "high", centers)
+    pc, pst = ck.PLAIN["count_pairs_sketch"](*a)
+    assert torch.equal(counts, pc) and torch.equal(st.cpu(), pst.cpu())
+    core = (torch.where(mask, counts, 0) >= 10) & mask
+    lab = torch.where(core, torch.arange(len(counts), device="cuda",
+                                         dtype=torch.int32), INT_INF)
+    b = (xs, lab.contiguous()) + a[2:]
+    assert torch.equal(ck.minlab_pairs_sketch(*b),
+                       ck.PLAIN["minlab_pairs_sketch"](*b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["haversine", "cosine"])
+def test_driver_metric_fit_and_predict_on_card_equal_the_cpu(metric):
+    """A cosine or haversine fit on the card equals the CPU fit byte for
+    byte, and its predict (B5 at d = 3 or 512 in the model's frame)
+    equals the CPU engine's in labels and distances."""
+    _need_card()
+    from chip_smoke import COS_EPS, HAV_EPS, geolife_like
+
+    if metric == "haversine":
+        X, _t = geolife_like(30_000)
+        eps, jitter = HAV_EPS, HAV_EPS / 2
+    else:
+        X, _t = make_embedding_data(3000, 512)
+        eps, jitter = COS_EPS, 0.05
+    kw = dict(eps=eps, min_samples=10, metric=metric, block=1024)
+    gpu = DBSCAN(**kw).fit(X)
+    cpu = DBSCAN(device="cpu", **kw).fit(X)
+    assert np.array_equal(gpu.labels_, cpu.labels_)
+    assert np.array_equal(gpu.core_sample_mask_, cpu.core_sample_mask_)
+    rng = np.random.default_rng(3)
+    Q = X[::8] + rng.normal(scale=jitter, size=X[::8].shape)
+    before = ck.LAUNCHES["query_leaf"]
+    got = gpu.predict(Q)
+    assert ck.LAUNCHES["query_leaf"] > before
+    want = cpu.predict(Q)
+    assert np.array_equal(got, want) and (got >= 0).any()
+    ge, ce = gpu.query_engine(), cpu.query_engine()
+    assert np.array_equal(ge.predict(Q, return_distance=True)[1],
+                          ce.predict(Q, return_distance=True)[1])
+
+
+@pytest.mark.cuda
+def test_l1_pass_on_card_equals_the_cpu():
+    """The cityblock pass is the same torch ops on either device: its
+    counts and minima on the card equal the CPU's, and a cityblock fit
+    on the card runs it (counted in L1_PASSES) and equals the CPU fit."""
+    _need_card()
+    from pypardis_tpu_torch.ops.distances import eps_threshold
+
+    X, _t = make_blob_data(20_000, 16, n_centers=8, std=0.4, seed=16)
+    dev = torch.device("cuda")
+    pts, n, block = _stage(X, 1024, dev)
+    xs, mask, _owner = _pipeline_layout(pts, 6.0, n, block, sort=True)
+    (r, cols), (total, budget) = ck.kernel_pair_list(
+        xs, 6.0, mask, block, "high", metric="cityblock", budget=1 << 26)
+    tile = ck._pallas_block(block, xs.shape[1], 16, "high")
+    rp = row_offsets(r, xs.shape[1] // tile)
+    thr = eps_threshold(6.0, "cityblock")
+    a = (xs, mask.to(torch.int32), rp, cols, thr, tile)
+    got = ck.count_pairs_l1(*a)
+    cpu = tuple(t.cpu() if torch.is_tensor(t) else t for t in a)
+    assert torch.equal(got.cpu(), ck.count_pairs_l1(*cpu))
+    lab = torch.where(mask, torch.arange(len(got), device=dev,
+                                         dtype=torch.int32), INT_INF)
+    assert torch.equal(
+        ck.minlab_pairs_l1(xs, lab, rp, cols, thr, tile).cpu(),
+        ck.minlab_pairs_l1(*((cpu[0], lab.cpu()) + cpu[2:])))
+    ck.reset_launch_counts()
+    g = DBSCAN(eps=6.0, min_samples=10, metric="cityblock").fit(X)
+    assert sum(ck.L1_PASSES.values()) == g.metrics_["kernel_passes"]
+    assert sum(ck.LAUNCHES.values()) == 0
+    c = DBSCAN(eps=6.0, min_samples=10, metric="cityblock",
+               device="cpu").fit(X)
+    assert np.array_equal(g.labels_, c.labels_)
+
+
+@pytest.mark.cuda
+def test_sweep_on_card_equals_its_fits():
+    """A 16-config sweep from a CUDA tensor: one distance pass, each
+    config byte-identical to a fit at it on the card."""
+    _need_card()
+    X, _t = make_blob_data(50_000, 16, n_centers=8, std=0.4, seed=5)
+    Xd = torch.from_numpy(X).cuda()
+    eps_list = [0.15 * (i + 1) for i in range(8)]
+    res = DBSCAN(eps=1.2, min_samples=5, block=2048).sweep(Xd, eps_list,
+                                                           [5, 10])
+    assert res.stats["distance_passes"] == 1 and len(res) == 16
+    for eps, ms in res.configs:
+        fit = DBSCAN(eps=eps, min_samples=ms, block=2048).fit(Xd)
+        assert np.array_equal(res.labels(eps, ms), fit.labels_)
+        assert np.array_equal(res.core(eps, ms), fit.core_sample_mask_)

@@ -1,8 +1,8 @@
 """Checkpoints cross-load between the JAX package and the port, both
 ways, and serve identically: models, serving indexes (including the
 cosine and haversine query frames) and partition trees, in every
-precision mode.  Unported settings in a JAX checkpoint raise
-``NotImplementedError`` naming their ROADMAP item."""
+precision mode and metric.  An ``eps=None`` JAX checkpoint raises
+``NotImplementedError`` naming its ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -198,11 +198,14 @@ def test_driver_metric_index_frames_load_in_the_port(tmp_path, metric,
         jeng.index.projection, jeng.index.unit_norm
     )
     _same(QueryEngine(idx).predict(Q, return_distance=True), want)
-    # The port model itself refuses the unported metric.
+    # The JAX model loads as a port model in its metric and serves
+    # through the same frame.
     mpath = str(tmp_path / "frame_model.npz")
     jckpt.save_model(ref, mpath)
-    with pytest.raises(NotImplementedError, match="A6"):
-        load_model(mpath, device="cpu")
+    model = load_model(mpath, device="cpu")
+    assert model.metric == metric and model.kernel_eps == ref.kernel_eps
+    _same(model.query_engine(leaves=4, block=32, qblock=32).predict(
+        Q, return_distance=True), want)
 
 
 @pytest.mark.parametrize("precision", ["mixed", "default"])

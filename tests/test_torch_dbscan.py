@@ -245,13 +245,18 @@ def test_rejects_unknown_options(kw, match):
         DBSCAN(eps=0.5, min_samples=5, **{"device": "cpu", **kw})
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"metric": "cityblock"}, "A3"),
-    ({"metric": "cosine"}, "A6"),
-])
-def test_unported_options_name_their_roadmap_item(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        DBSCAN(eps=0.5, min_samples=5, device="cpu", **kw)
+@pytest.mark.parametrize("case", ["eps_none", "sweep_auto"])
+def test_unported_options_name_their_roadmap_item(case):
+    """What the port still lacks raises where it is asked for, naming
+    its ROADMAP item: the eps-free hierarchy (``eps=None``) and its
+    sweep ladder (``sweep(eps_list="auto")``) are A14."""
+    with pytest.raises(NotImplementedError, match="A14"):
+        if case == "eps_none":
+            DBSCAN(eps=None, min_samples=5, device="cpu")
+        else:
+            DBSCAN(eps=0.5, min_samples=5, device="cpu").sweep(
+                np.zeros((10, 2)), "auto"
+            )
 
 
 @pytest.mark.parametrize("precision", ["mixed", "DEFAULT"])
