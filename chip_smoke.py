@@ -59,7 +59,9 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    computed); B5's tables bitwise their
    plain versions; an index whose one leaf has no pad slot, whose pad
    rows and pad tiles answer (+inf, the leaf's least label); (b) 512
-   queries equal the numpy brute-force oracle over all cores; (c) every
+   queries equal :func:`card_oracle` over all cores (the numpy
+   brute-force oracle's op sequence on the card, which equals the numpy
+   oracle on 8 rows over all cores); (c) every
    exact core point predicts its own training label; (d) a
    ``save``/``load`` round trip (no training data) predicts
    byte-identically; (e) B5 launched once per dispatched batch, its
@@ -161,15 +163,43 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    every config byte-identical to a fit at it (their walls summed
    against the sweep's), the emission and each config's relabel on CUDA
    events, and a second sweep past the 2^26-edge cap degrading to
-   per-config fits with the same labels.
+   per-config fits with the same labels;
+10. the density hierarchy (:func:`hier_phase`): (1) ``DBSCAN(eps=None,
+   min_samples=10)`` on phase 4's 1,000,000 x 16-D blobs from a CUDA
+   tensor with ``PPTORCH_HIER_EPS_MAX`` at :data:`SWEEP_EPS_MAX` (the
+   graph must hold :data:`SWEEP_EDGES` edges), its stage seconds (graph,
+   prepare, core pass, MST with its rounds, condense, cut, relabel),
+   ``eps_``, clusters and ARI (not gated); labels and core mask
+   byte-identical to ``fit(eps_)`` from the same tensor (B1/B2 counted
+   from 0, launched, summing to its passes); the card's core distances
+   bitwise the host's core pass over a host copy of the prepared slab,
+   and so is the one-shot twin on the card over the same slab;
+   (2) ``sweep(eps_list="auto", min_samples_list=[5, 10])`` on the first
+   200,000 rows at that ceiling, every rung byte-identical to a fit at
+   it (B1/B2 launched in each); (3) the default ceiling twice at 20,000
+   points (the largest of 20,000 / 50,000 / 100,000 whose graph stays
+   under the 2^26-edge cap; 50,000 would take about 78M edges):
+   byte-identical, equal to the same fit with ``device="cpu"`` and to
+   the same fit at ``precision="default"`` (the graph's d^2 is exact in
+   every mode); then a haversine eps=None fit on :func:`geolife_like`
+   points of that size (ceiling 800 m) byte-identical to its
+   ``fit(eps_)`` and served once (4,096 queries, B5 counted from 0;
+   exact core points keep their labels); (4) an interior cut at scale:
+   ``DBSCAN(eps=None, min_samples=10, min_cluster_size=1000)`` on
+   1,000,000 x 3-D :func:`twin_blobs` at a ceiling of 0.22, which must
+   select ``eps_`` below the ceiling, byte-identical to ``fit(eps_)``;
+   ``fit(eps_, precision="default")``'s labels that differ are counted,
+   not gated.  Phases (1)-(3) cut at their ceiling.  The phase adds no
+   kernel: the hierarchy runs torch ops on the card and numpy on the
+   host.
 
-Phase 1 also times one ``nvcc -shared`` over all sources beside the
-parallel build.  The line before the last is the kernels' JSON record;
-the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
-device the script exits non-zero and prints no result.
+The script prints its total seconds.  The line before the last is the
+kernels' JSON record; the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device the script exits non-zero and prints
+no result.
 
 ``python3 chip_smoke.py --metrics`` builds the kernels and runs phase 9
-alone.
+alone; ``--hier`` builds them and runs phase 10 alone.
 ``python3 chip_smoke.py --b1`` builds the kernels and times B1 alone
 in its three modes at the 1M x 16-D inputs, with its bounds, floor,
 rescored share and frames' staging, then prints the 1M fits' sha256 in
@@ -524,7 +554,6 @@ def serve_phase(torch, model, X, median_ms):
     the oracle's answers on the first 512 queries and batch 2's
     tiles."""
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
 
     from pypardis_tpu_torch import DBSCAN
     from pypardis_tpu_torch.ops import cuda_kernels as ck
@@ -642,25 +671,26 @@ def serve_phase(torch, model, X, median_ms):
         fail("the pad rows of a full leaf did not answer (+inf, least label)")
     del full
 
-    # (b) the numpy oracle over all cores, on 512 queries (threads: numpy
-    # releases the GIL in its ufuncs).
-    cores = np.ascontiguousarray(idx.coords[:, sel].T)
+    # (b) the card oracle (numpy's op sequence in torch) over all cores
+    # on 512 queries, tied to the numpy oracle on its first rows.
     qf = idx.prepare_queries(Q[:512])
+    sel_t = torch.from_numpy(sel).to(dev)
     t = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:
-        parts = list(pool.map(
-            lambda s: brute_force_query(qf[s:s + 64], cores, idx.labels[sel],
-                                        idx.eps),
-            range(0, 512, 64),
-        ))
-    olab = np.concatenate([p[0] for p in parts])
-    od2 = np.concatenate([p[1] for p in parts])
+    olab, od2 = card_oracle(torch, qf, coords[:, sel_t], labels[sel_t],
+                            idx.eps2)
+    k = 8
+    nlab, nd2 = brute_force_query(
+        qf[:k], np.ascontiguousarray(idx.coords[:, sel].T), idx.labels[sel],
+        idx.eps)
+    tie = (np.array_equal(nlab, olab[:k])
+           and np.array_equal(nd2.view(np.int32), od2[:k].view(np.int32)))
     same = (np.array_equal(olab, lab[:512])
             and np.array_equal(od2.view(np.int32), d2[:512].view(np.int32)))
-    log(f"  (b) 512 queries vs the numpy oracle over {len(cores)} cores "
+    log(f"  (b) 512 queries vs the card oracle over {int(sel.sum())} cores "
         f"({time.perf_counter() - t:.1f} s): labels and d2 bits equal: "
-        f"{same}; noise {int((olab < 0).sum())}")
-    if not same:
+        f"{same}; noise {int((olab < 0).sum())}; the card oracle equals "
+        f"the numpy one on {k} rows: {tie}")
+    if not (same and tie):
         fail("predict differs from the brute-force oracle")
     # (c) exact core points keep their training label.
     c = kind == 1
@@ -3129,21 +3159,341 @@ def metrics_phase(torch, dev, median_ms, sync, sizes=METRIC_SIZES,
     return kernels, rec
 
 
-def single_call_build_seconds(_build) -> float:
-    """Seconds of one ``nvcc -shared`` over every source into a scratch
-    file: the single-process build ``csrc/_build.py`` does not use, timed
-    beside its parallel one."""
-    import tempfile
+# Phase 10: the density hierarchy.  Sizes of the phase; a test rehearses
+# it at small ones on the CPU.  ``small_n``: the default ceiling's size
+# (the largest of 20,000 / 50,000 / 100,000 whose graph stays under the
+# cap; past it the fit raises and the phase fails); ``hav_eps_max_m``:
+# the haversine fit's ceiling in metres (the default's sample-kNN
+# heuristic reads ~12 km on GeoLife-shaped points, a graph past the cap
+# at 20,000 points); ``twin_*``: the interior cut's data, ceiling and
+# min_cluster_size (32,217,390 edges at 1M points; twins merge between
+# about 0.2009 and the ceiling, so each blob is selected).
+HIER_SIZES = {"n": 1_000_000, "auto_n": 200_000, "small_n": 20_000,
+              "block": 2048, "small_block": 256, "eps_max": SWEEP_EPS_MAX,
+              "edges": SWEEP_EDGES, "queries": 4096, "hav_eps_max_m": 800.0,
+              "twin_n": 1_000_000, "twin_std": 1.0, "twin_eps_max": 0.22,
+              "twin_mcs": 1000}
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-               os.path.join(tmp, "lib.so"),
-               *(os.path.join(_build._HERE, src) for src in _build.SOURCES)]
+
+def twin_blobs(n, std=1.0, pairs=16, offset=5.0, spread=40.0, seed=0):
+    """(n, 3) float32 points: ``pairs`` pairs of Gaussian blobs of
+    ``std``, the two of a pair ``offset`` stds apart, pair centres
+    uniform in a ``spread`` box at least 12 stds apart.  Twins merge
+    through their saddle well below the distance between pairs, so the
+    hierarchy has splits under a ceiling just above that merge.
+    Returns (X, truth), truth the blob of each point."""
+    rng = np.random.default_rng(seed)
+    cs = []
+    while len(cs) < pairs:
+        c = rng.uniform(-spread, spread, 3)
+        if all(np.linalg.norm(c - o) >= 12 * std for o in cs):
+            cs.append(c)
+    cs = np.asarray(cs)
+    u = rng.normal(size=(pairs, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    centres = np.concatenate([cs - 0.5 * offset * std * u,
+                              cs + 0.5 * offset * std * u])
+    truth = rng.integers(0, 2 * pairs, n)
+    X = (centres[truth] + rng.normal(size=(n, 3)) * std).astype(np.float32)
+    return X, truth
+
+
+def hier_phase(torch, dev, sync, card="", sizes=HIER_SIZES):
+    """Phase 10 (the density hierarchy, ``DBSCAN(eps=None)``): (1) one
+    eps=None fit of phase 4's 1M x 16-D blobs from a CUDA tensor at the
+    sweep's ceiling (``PPTORCH_HIER_EPS_MAX`` = :data:`SWEEP_EPS_MAX`,
+    phase 9.4's :data:`SWEEP_EDGES` edges) with its stage seconds,
+    byte-identical to ``fit(eps_)`` from the same tensor (B1/B2
+    launched), the card's core distances bitwise the host's core pass
+    over a host copy of the prepared slab; (2) ``sweep(eps_list="auto",
+    min_samples_list=[5, 10])`` on the first 200,000 rows at that
+    ceiling, every rung byte-identical to a fit at it; (3) the default
+    ceiling twice at ``small_n`` points (byte-identical), the card
+    against ``device="cpu"`` and against ``precision="default"``
+    (byte-identical), then a haversine eps=None fit on
+    :func:`geolife_like` points of that size, served once (B5); (4) an
+    interior cut on :func:`twin_blobs`: ``eps_`` below the ceiling,
+    byte-identical to ``fit(eps_)``, and ``fit(eps_)`` at
+    ``precision="default"`` held against it (differences counted).
+    Returns the phase's record."""
+    from benchdata import make_blob_data
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops import hierarchy as H
+
+    block, rec = sizes["block"], {}
+    t_phase = time.perf_counter()
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def same_fit(a, b, what):
+        ok = (np.array_equal(a.labels_, b.labels_)
+              and np.array_equal(a.core_sample_mask_, b.core_sample_mask_))
+        log(f"  {what}: labels and core mask byte-identical: {ok}")
+        if not ok:
+            fail(f"{what}: the fits differ")
+
+    def kernel_fit(model, X, what):
+        """A fit with B1/B2 counted from 0 (in the model's precision
+        mode): both launched, summing to its passes."""
+        ck.reset_launch_counts()
+        sync()
         t = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            fail(f"nvcc -shared over all sources failed:\n{proc.stderr}")
-        return time.perf_counter() - t
+        model.fit(X)
+        sync()
+        wall = time.perf_counter() - t
+        la = dict(ck.LAUNCHES)
+        if not (sum(v for k, v in la.items() if k.startswith("count_"))
+                and sum(v for k, v in la.items() if k.startswith("minlab_"))):
+            fail(f"{what}: B1/B2 were not launched")
+        if sum(la.values()) != model.metrics_["kernel_passes"]:
+            fail(f"{what}: kernel launches do not sum to the passes")
+        return wall, la
+
+    def stages(h):
+        return (f"graph {h['graph_build_s']} s ({h['graph_pairs']} edges), "
+                f"prepare {h['prepare_s']} s, core pass {h['core_pass_s']} "
+                f"s, MST {h['mst_s']} s ({h['boruvka_rounds']} rounds, cap "
+                f"{h['round_cap']}; {h['mst_edges']} edges), condense "
+                f"{h['condense_s']} s ({h['condensed_clusters']} condensed, "
+                f"{h['selected_clusters']} selected), cut {h['cut_s']} s, "
+                f"relabel {h['relabel_s']} s")
+
+    # 10.1: the 1M eps=None fit at the sweep's ceiling.  The hierarchy's
+    # inputs are captured as the fit builds it.
+    n = sizes["n"]
+    X, truth = make_blob_data(n, 16, n_centers=32, std=0.4)
+    Xd = torch.from_numpy(X).to(dev)
+    seen = []
+    build = H.build_hierarchy
+
+    def capture(state, mask, n_ids, ms, **kw):
+        h = build(state, mask, n_ids, ms, **kw)
+        seen.append((state, mask, ms, h.cd2))
+        return h
+
+    os.environ["PPTORCH_HIER_EPS_MAX"] = repr(sizes["eps_max"])
+    H.build_hierarchy = capture
+    try:
+        ck.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        model = DBSCAN(eps=None, min_samples=10, block=block, device=dev)
+        model.fit(Xd)
+        sync()
+        wall = time.perf_counter() - t
+        la = dict(ck.LAUNCHES)
+    finally:
+        H.build_hierarchy = build
+        del os.environ["PPTORCH_HIER_EPS_MAX"]
+    h = model._hier_stats
+    a = ari(model.labels_, truth)
+    clusters = int(model.labels_.max()) + 1
+    log(f"  10.1 eps=None n={n} d=16 from a CUDA tensor, eps_max "
+        f"{h['eps_max']}: {wall:.4f} s on {card}; eps_ {model.eps_!r}, "
+        f"{clusters} clusters, ARI vs truth {a:.6f}; kernel launches "
+        f"{sum(la.values())}")
+    log(f"    stages: {stages(h)}")
+    want = sizes.get("edges")
+    if want is not None and h["graph_pairs"] != want:
+        fail(f"the hierarchy's graph holds {h['graph_pairs']} edges, not "
+             f"the {want} of phase 9.4's graph at {sizes['eps_max']}")
+    ref = DBSCAN(eps=model.eps_, min_samples=10, block=block, device=dev)
+    f_wall, fla = kernel_fit(ref, Xd, "fit(eps_)")
+    same_fit(model, ref, f"eps=None against fit(eps_) ({f_wall:.4f} s, "
+             f"B1 {fla['count_pairs']}, B2 {fla['minlab_pairs']})")
+    state, mask, ms, cd2 = seen[0]
+    t = time.perf_counter()
+    host = H.core_distances(tuple(x.cpu() for x in state), mask.cpu(), ms)
+    ok = bool(torch.equal(cd2.cpu().view(torch.int32),
+                          host.view(torch.int32)))
+    log(f"    the card's core distances bitwise the host core pass over a "
+        f"host copy of the prepared slab ({time.perf_counter() - t:.1f} "
+        f"s): {ok}")
+    if not ok:
+        fail("the card's core distances differ from the host's")
+    sync()
+    t = time.perf_counter()
+    twin = H.core_distances_device(state[0], state[1], state[2], mask, ms)
+    sync()
+    twin_s = time.perf_counter() - t
+    ok = bool(torch.equal(twin.cpu().view(torch.int32),
+                          host.view(torch.int32)))
+    log(f"    the one-shot twin on the card ({twin_s:.4f} s) bitwise the "
+        f"host core pass: {ok}")
+    if not ok:
+        fail("the card's one-shot core twin differs from the host's")
+    rec["fit"] = dict(
+        {k: h[k] for k in ("graph_pairs", "graph_build_s", "prepare_s",
+                           "core_pass_s", "mst_s", "boruvka_rounds",
+                           "round_cap", "mst_edges", "condense_s",
+                           "condensed_clusters", "selected_clusters",
+                           "cut_s", "relabel_s", "eps_max")},
+        n=n, wall_s=wall, eps_=model.eps_, n_clusters=clusters, ari=a,
+        fit_eps_s=f_wall)
+    del seen, state, mask, cd2, host, twin, model, ref
+    stamp("10.1: done")
+
+    # 10.2: the auto ladder at 200,000 rows of the same data and ceiling.
+    n2 = sizes["auto_n"]
+    X2d = Xd[:n2].contiguous()
+    os.environ["PPTORCH_HIER_EPS_MAX"] = repr(sizes["eps_max"])
+    try:
+        sync()
+        t = time.perf_counter()
+        res = DBSCAN(eps=None, min_samples=10, block=block,
+                     device=dev).sweep(X2d, "auto", [5, 10])
+        sync()
+        s_wall = time.perf_counter() - t
+    finally:
+        del os.environ["PPTORCH_HIER_EPS_MAX"]
+    st = res.stats
+    log(f"  10.2 sweep(eps_list='auto', min_samples_list=[5, 10]) n={n2}: "
+        f"{len(res)} rungs in {s_wall:.4f} s on {card}; ladder "
+        f"{st['ladder']}; graph {st['graph_pairs']} edges, build "
+        f"{st['graph_build_s']} s; relabel per rung {st['relabel_s']}")
+    log(f"    first hierarchy's stages: {stages(st['hierarchy'])}")
+    fit_s = 0.0
+    for eps, ms in res.configs:
+        f = DBSCAN(eps=eps, min_samples=ms, block=block, device=dev)
+        f_wall, _la = kernel_fit(f, X2d, f"rung ({eps}, {ms})")
+        fit_s += f_wall
+        if not (np.array_equal(res.labels(eps, ms), f.labels_)
+                and np.array_equal(res.core(eps, ms), f.core_sample_mask_)):
+            fail(f"auto rung ({eps}, {ms}) differs from its fit")
+    log(f"    every rung byte-identical to its fit from the tensor; the "
+        f"{len(res)} fits took {fit_s:.4f} s")
+    rec["auto"] = {"n": n2, "rungs": len(res), "wall_s": s_wall,
+                   "fits_s": fit_s, "ladder": st["ladder"],
+                   "graph_pairs": st["graph_pairs"]}
+    del X2d, res, Xd
+    stamp("10.2: done")
+
+    # 10.3: the default ceiling at the largest size whose graph fits.
+    n3 = sizes["small_n"]
+    Xs = X[:n3]
+    sb = sizes["small_block"]
+    runs = []
+    for _ in range(2):
+        sync()
+        t = time.perf_counter()
+        m = DBSCAN(eps=None, min_samples=10, block=sb, device=dev).fit(Xs)
+        sync()
+        runs.append((m, time.perf_counter() - t))
+    same_fit(runs[0][0], runs[1][0], f"default ceiling n={n3}, two fits")
+    t = time.perf_counter()
+    cpu = DBSCAN(eps=None, min_samples=10, block=sb, device="cpu").fit(Xs)
+    cpu_s = time.perf_counter() - t
+    same_fit(runs[0][0], cpu, f"default ceiling n={n3}, card vs CPU")
+    lossy = DBSCAN(eps=None, min_samples=10, block=sb, precision="default",
+                   device=dev).fit(Xs)
+    same_fit(runs[0][0], lossy, f"default ceiling n={n3}, \"high\" vs "
+             f"\"default\"")
+    if not runs[0][0].eps_ == runs[1][0].eps_ == cpu.eps_ == lossy.eps_:
+        fail("the default-ceiling fits selected different eps_")
+    hs = runs[0][0]._hier_stats
+    log(f"    eps_ {cpu.eps_!r}, {int(cpu.labels_.max()) + 1} clusters; "
+        f"card {runs[0][1]:.4f} / {runs[1][1]:.4f} s, CPU {cpu_s:.4f} s; "
+        f"card stages: {stages(hs)}")
+    rec["default"] = {"n": n3, "eps_": cpu.eps_, "card_s": runs[0][1],
+                      "cpu_s": cpu_s, "graph_pairs": hs["graph_pairs"],
+                      "eps_max": hs["eps_max"]}
+    del runs, cpu, lossy
+    G, gtruth = geolife_like(n3)
+    hav_max = sizes["hav_eps_max_m"] / 6_371_000.0
+    os.environ["PPTORCH_HIER_EPS_MAX"] = repr(hav_max)
+    try:
+        hav = DBSCAN(eps=None, min_samples=10, metric="haversine", block=sb,
+                     device=dev).fit(G)
+    finally:
+        del os.environ["PPTORCH_HIER_EPS_MAX"]
+    ref = DBSCAN(eps=hav.eps_, min_samples=10, metric="haversine",
+                 block=sb, device=dev)
+    kernel_fit(ref, G, "haversine fit(eps_)")
+    same_fit(hav, ref, f"haversine eps=None n={n3} against fit(eps_)")
+    rng = np.random.default_rng(5)
+    nq = sizes["queries"]
+    picks = np.flatnonzero(hav.core_sample_mask_)
+    picks = picks[rng.integers(0, len(picks), nq - nq // 2)]
+    Q = np.concatenate([
+        G[rng.integers(0, len(G), nq // 2)]
+        + rng.normal(scale=HAV_EPS / 2, size=(nq // 2, 2)),
+        G[picks]])
+    ck.reset_launch_counts()
+    sync()
+    t = time.perf_counter()
+    lab = hav.predict(Q)
+    sync()
+    serve_s = time.perf_counter() - t
+    b5 = ck.LAUNCHES["query_leaf"]
+    kept = np.array_equal(lab[nq // 2:], hav.labels_[picks])
+    log(f"    haversine eps=None (ceiling {sizes['hav_eps_max_m']} m): "
+        f"eps_ {hav.eps_ * 6_371_000.0:.3f} m, "
+        f"{int(hav.labels_.max()) + 1} clusters, ARI vs truth "
+        f"{ari(hav.labels_, gtruth):.6f}; served {nq} queries in "
+        f"{serve_s:.4f} s with {b5} B5 launches; exact core points predict "
+        f"their own label: {kept}")
+    if b5 < 1:
+        fail("serving the eps=None model launched no B5")
+    if not kept:
+        fail("a core point of the eps=None model predicted another label")
+    rec["haversine"] = {"n": n3, "eps_m": hav.eps_ * 6_371_000.0,
+                        "serve_s": serve_s, "b5_launches": b5}
+    del hav, ref, G
+    stamp("10.3: done")
+
+    # 10.4: an interior cut at scale.
+    n4, top = sizes["twin_n"], sizes["twin_eps_max"]
+    T, ttruth = twin_blobs(n4, sizes["twin_std"])
+    Td = torch.from_numpy(T).to(dev)
+    os.environ["PPTORCH_HIER_EPS_MAX"] = repr(top)
+    try:
+        sync()
+        t = time.perf_counter()
+        tw = DBSCAN(eps=None, min_samples=10,
+                    min_cluster_size=sizes["twin_mcs"], block=block,
+                    device=dev).fit(Td)
+        sync()
+        wall = time.perf_counter() - t
+    finally:
+        del os.environ["PPTORCH_HIER_EPS_MAX"]
+    h = tw._hier_stats
+    clusters = int(tw.labels_.max()) + 1
+    log(f"  10.4 eps=None n={n4} d=3 twin blobs, min_cluster_size "
+        f"{sizes['twin_mcs']}, eps_max {h['eps_max']}: {wall:.4f} s on "
+        f"{card}; eps_ {tw.eps_!r}, {clusters} clusters, noise share "
+        f"{float(np.mean(tw.labels_ < 0)):.6f}, ARI vs the blobs "
+        f"{ari(tw.labels_, ttruth):.6f}")
+    log(f"    stages: {stages(h)}")
+    if not tw.eps_ < h["eps_max"]:
+        fail(f"the twin blobs' cut fell back to the ceiling ({tw.eps_!r} "
+             f"against {h['eps_max']!r})")
+    ref = DBSCAN(eps=tw.eps_, min_samples=10, block=block, device=dev)
+    f_wall, fla = kernel_fit(ref, Td, "twin fit(eps_)")
+    same_fit(tw, ref, f"twin eps=None against fit(eps_) ({f_wall:.4f} s, "
+             f"B1 {fla['count_pairs']}, B2 {fla['minlab_pairs']})")
+    lossy = DBSCAN(eps=tw.eps_, min_samples=10, block=block,
+                   precision="default", device=dev)
+    kernel_fit(lossy, Td, "twin fit(eps_) at \"default\"")
+    diff_lab = int(np.sum(lossy.labels_ != tw.labels_))
+    diff_core = int(np.sum(lossy.core_sample_mask_ != tw.core_sample_mask_))
+    ari_lossy = ari(lossy.labels_, tw.labels_)
+    log(f"    fit(eps_) at precision=\"default\" (bf16 verdicts) against "
+        f"the eps=None fit: {diff_lab} labels and {diff_core} core flags "
+        f"differ, ARI {ari_lossy:.6f} (not gated)")
+    rec["interior"] = dict(
+        {k: h[k] for k in ("graph_pairs", "graph_build_s", "prepare_s",
+                           "core_pass_s", "mst_s", "boruvka_rounds",
+                           "condense_s", "selected_clusters", "cut_s",
+                           "relabel_s", "eps_max")},
+        n=n4, wall_s=wall, eps_=tw.eps_, n_clusters=clusters,
+        default_labels_differ=diff_lab, default_core_differ=diff_core,
+        default_ari=ari_lossy)
+    del tw, ref, lossy, Td, T
+    stamp("10.4: done")
+    rec["card"] = card
+    return rec
 
 
 def main() -> None:
@@ -3187,9 +3537,7 @@ def main() -> None:
     _build.load()
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.BUILD_INFO.get('seconds', 0.0):.2f} s, one process "
-        f"per source of {len(_build.SOURCES)}, in parallel); one nvcc "
-        f"-shared over all sources for comparison: "
-        f"{single_call_build_seconds(_build):.2f} s")
+        f"per source of {len(_build.SOURCES)}, in parallel)")
     # ptxas names each kernel ("Compiling entry function '<mangled>'")
     # before its registers, shared memory and spills.
     kernel = "?"
@@ -3204,7 +3552,8 @@ def main() -> None:
              "(sketch_pair_kernel<0, SK_CERTIFIED>)")
     # (The timing switches run from a parent tree's root too, whose build
     # may predate the kernel: they skip this check.)
-    ab = {"--b1", "--b2", "--b2-walk", "--b4", "--b5"} & set(sys.argv[1:])
+    ab = {"--b1", "--b2", "--b2-walk", "--b4", "--b5", "--hier"} & set(
+        sys.argv[1:])
     if (not ab and _build.BUILD_INFO.get("log")
             and "b1_tc_kernelILi0ELi1ELi4E" not in _build.BUILD_INFO["log"]):
         fail("the build has no tensor-core B1 instance "
@@ -3264,6 +3613,12 @@ def main() -> None:
         log(f"phase 9 record: {json.dumps(rec9)}")
         log(f"card: {card}")
         print(json.dumps({"kernels": records}))
+        return
+
+    if "--hier" in sys.argv[1:]:
+        rec10 = hier_phase(torch, dev, torch.cuda.synchronize, card)
+        log(f"phase 10 record: {json.dumps(rec10)}")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
         return
 
     if "--b4" in sys.argv[1:]:
@@ -3534,9 +3889,14 @@ def main() -> None:
     kernels += records
     log(f"phase 9 record: {json.dumps(rec9)}; phase 9 took "
         f"{time.perf_counter() - t9:.1f} s")
+    phase("phase 10: the density hierarchy, DBSCAN(eps=None)")
+    t10 = time.perf_counter()
+    rec10 = hier_phase(torch, dev, torch.cuda.synchronize, card)
+    log(f"phase 10 record: {json.dumps(rec10)}; phase 10 took "
+        f"{time.perf_counter() - t10:.1f} s")
     log(f"fit seconds (host, host, cuda, cuda): {json.dumps(fits)}")
-    phase("phases 2-9 done")
-    log(f"card: {card}")
+    phase("phases 2-10 done")
+    log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,11 @@ The JAX package accepts only its own kernel backends (``auto``/``xla``/
 ``"auto"``.  Every precision mode loads with its meaning (a
 ``"mixed"`` model serves through B5's bf16 prefilter), and every
 metric (a cosine or haversine model's core points are in its kernel
-frame, as the JAX package stores them).  A JAX model fitted with
-``eps=None`` raises ``NotImplementedError`` naming its ROADMAP item
-(A14); it is never served through a substitute.
+frame, as the JAX package stores them).  An ``eps=None`` (density
+hierarchy) model saves and loads as the JAX package's does: its
+``eps`` is stored as null and its selected ``eps_`` is not stored, so a
+loaded one keeps its labels and ``assignments()`` while ``predict``
+raises, having no eps to serve at.
 """
 
 from __future__ import annotations
@@ -150,12 +152,6 @@ def load_model(path: str, device=None):
         if str(z["kind"]) != "dbscan_model":
             raise ValueError(f"{path} is not a DBSCAN model checkpoint")
         params = json.loads(str(z["params"]))
-        if params["eps"] is None:
-            raise NotImplementedError(
-                "this checkpoint holds an eps=None (density hierarchy) "
-                "fit, which is not ported to the GPU package yet "
-                "(ROADMAP A14)"
-            )
         model = DBSCAN(
             eps=params["eps"],
             min_samples=params["min_samples"],

@@ -28,14 +28,21 @@ reference's per-partition wire format.
 The device is the card (``"cuda"``) unless the caller asks for
 ``device="cpu"``, which runs the kernels' plain PyTorch versions; with
 no CUDA device and no ``device="cpu"`` the constructor raises.
-Sharded fits, the eps-free hierarchy, live serving and telemetry are
-later slices of the port (ROADMAP A10-A12, A14-A16).
+
+``DBSCAN(eps=None)`` fits the eps-free density hierarchy
+(:mod:`.ops.hierarchy`): one neighbour-pair graph at a data-derived
+ceiling, the mutual-reachability MST and HDBSCAN*'s stability rule
+select the flat cut, exposed as ``eps_``; ``sweep(eps_list="auto")``
+takes its eps ladder from the same hierarchy.  Sharded fits, live
+serving and telemetry are later slices of the port (ROADMAP A10-A12,
+A15-A16).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from typing import Dict, Optional
 
@@ -46,7 +53,11 @@ from .aggregator import ClusterAggregator
 from .geometry import BoundingBox, latlon_to_unit_sphere
 from .ops.cuda_kernels import _pallas_block
 from .ops.labels import check_pair_metric, densify_labels, resolve_backend
-from .ops.pipeline import dbscan_device_pipeline, unpack_pipeline_result
+from .ops.pipeline import (
+    _pipeline_pack,
+    dbscan_device_pipeline,
+    unpack_pipeline_result,
+)
 from .ops.sketch import check_sketch_spec, effective_k
 from .utils.budget import run_pair_ladder
 from .utils.shaping import clamp_block, round_up, row_chunks
@@ -366,28 +377,35 @@ class DBSCAN:
     ``"cityblock"`` (also ``"manhattan"``/``"l1"``), ``"cosine"``
     (``"angular"``; eps in (0, 2]) or ``"haversine"`` ((lat, lon)
     radians; eps the great-circle angle in (0, pi]), or a scipy
-    callable by name.
+    callable by name.  ``eps=None`` selects eps by the density
+    hierarchy's stability rule at fit time (``eps_``; its labels are
+    ``fit(eps_)``'s, at ``"high"`` when ``precision="default"``);
+    ``min_cluster_size`` (>= 2, default ``max(min_samples, 2)``) is its
+    condensation granularity.
     """
 
     def __init__(
         self,
-        eps: float = 0.5,
+        eps: Optional[float] = 0.5,
         min_samples: int = 5,
         metric="euclidean",
+        min_cluster_size: Optional[int] = None,
         block: int = 1024,
         precision: str = "high",
         kernel_backend: str = "auto",
         device=None,
         sketch=None,
     ):
-        if eps is None:
-            raise NotImplementedError(
-                "eps=None (the density hierarchy) is not ported to the "
-                "GPU package yet (ROADMAP A14); pass a concrete eps"
-            )
-        validate_params(eps, min_samples)
-        self.eps = float(eps)
+        validate_params(eps, min_samples, allow_none_eps=True)
+        self.eps = None if eps is None else float(eps)
         self.min_samples = int(min_samples)
+        if min_cluster_size is not None and int(min_cluster_size) < 2:
+            raise ValueError(
+                f"min_cluster_size must be >= 2, got {min_cluster_size}"
+            )
+        self.min_cluster_size = (
+            None if min_cluster_size is None else int(min_cluster_size)
+        )
         self.metric = metric
         self._metric_norm = check_metric(metric, self.eps)
         self.block = int(block)
@@ -408,6 +426,11 @@ class DBSCAN:
         self.labels_: Optional[np.ndarray] = None
         self.core_sample_mask_: Optional[np.ndarray] = None
         self.metrics_: Dict[str, float] = {}
+        # The density hierarchy (eps=None fits, sweep("auto")): its
+        # block of stats (the JAX package's report()["hierarchy"]) and
+        # the selected eps in the user frame, which serving runs at.
+        self._hier_stats: Optional[Dict] = None
+        self.eps_: Optional[float] = None
         # Serving state: the cached query engine, the core-point
         # coordinates of a loaded or carried-across model, and the fit
         # generation a held engine checks itself against.
@@ -426,8 +449,23 @@ class DBSCAN:
         """eps in the kernels' frame: for cosine the L2 threshold
         ``sqrt(2 * eps)`` on the unit sphere, for haversine the chord
         ``2 sin(eps / 2)`` of the great-circle angle, else eps.  The
-        serving index builds against it."""
-        return _kernel_eps(self._metric_norm, self.eps)
+        serving index builds against it.  An eps=None model resolves to
+        the fitted ``eps_``, so serving runs at the eps its labels were
+        computed at."""
+        return _kernel_eps(self._metric_norm, self._effective_eps())
+
+    def _effective_eps(self) -> float:
+        """``self.eps``, or the stability-selected ``eps_`` of an eps=None
+        model; raises before its first fit (no eps to serve at yet)."""
+        if self.eps is not None:
+            return float(self.eps)
+        if self.eps_ is not None:
+            return float(self.eps_)
+        raise RuntimeError(
+            "this model was constructed with eps=None and has not been "
+            "fitted yet — fit() selects eps by the stability rule and "
+            "exposes it as eps_"
+        )
 
     def _kernel_frame(self):
         """Context manager swapping ``(eps, metric)`` to the kernel frame
@@ -440,7 +478,10 @@ class DBSCAN:
         @contextlib.contextmanager
         def swap():
             saved = (self.eps, self.metric)
-            self.eps, self.metric = self.kernel_eps, "euclidean"
+            # The hierarchy picks its own ceiling (_hier_ceiling): an
+            # eps=None model swaps only the metric.
+            eps_k = None if saved[0] is None else self.kernel_eps
+            self.eps, self.metric = eps_k, "euclidean"
             try:
                 yield
             finally:
@@ -466,14 +507,19 @@ class DBSCAN:
         """Cluster a (key, vector) dataset; see :func:`_as_keys_points`
         for the accepted forms.  A cosine or haversine fit runs on the
         projected rows (:meth:`_driver_frame_rows`) at
-        :attr:`kernel_eps`; its labels are the metric's clustering."""
+        :attr:`kernel_eps`; its labels are the metric's clustering.  An
+        eps=None model fits the density hierarchy instead
+        (:meth:`_fit_hierarchy`)."""
+        if self.eps is None:
+            return self._fit_hierarchy(data)
         if self._metric_norm in ("cosine", "haversine"):
             keys, points = _as_keys_points(data)
             with self._kernel_frame():
-                return self._train_impl(
-                    (keys, self._driver_frame_rows(points))
-                )
-        return self._train_impl(data)
+                self._train_impl((keys, self._driver_frame_rows(points)))
+        else:
+            self._train_impl(data)
+        self.eps_ = float(self.eps)
+        return self
 
     def _train_impl(self, data) -> "DBSCAN":
         """The metric-agnostic fit body (kernel-frame eps)."""
@@ -572,8 +618,17 @@ class DBSCAN:
         (``stats["degraded"] == "per_config_refit"``), and so does
         ``precision="default"``, whose bf16 verdicts depend on each
         fit's tile frames.  The model is left fitted at the last
-        config.  ``eps_list="auto"`` (the hierarchy's ladder) is not
-        ported yet (ROADMAP A14).
+        config.
+
+        ``eps_list="auto"`` takes the eps ladder from the density
+        hierarchy (:meth:`_sweep_auto_run`): the top
+        ``PPTORCH_HIER_LADDER_K`` (default 8) stability cuts of the
+        first min_samples' hierarchy, each rung labelled by a cut of its
+        min_samples' hierarchy over the same graph, byte-identical to a
+        fit at it (at ``"high"`` when ``precision="default"``: the graph
+        is exact in every mode); ``stats`` then carries ``eps_source``, ``ladder`` and
+        the ``hierarchy`` block.  It needs the graph: past the cap it
+        raises instead of refitting.
         """
         auto_ladder = isinstance(eps_list, str)
         if auto_ladder and eps_list != "auto":
@@ -581,19 +636,16 @@ class DBSCAN:
                 f"eps_list must be a sequence of eps values or the "
                 f"string 'auto', got {eps_list!r}"
             )
-        if auto_ladder:
-            raise NotImplementedError(
-                "sweep(eps_list='auto') extracts its ladder from the "
-                "density hierarchy, which is not ported to the GPU "
-                "package yet (ROADMAP A14); pass a list of eps values"
-            )
-        eps_arr = np.atleast_1d(np.asarray(eps_list, np.float64))
-        if eps_arr.ndim != 1 or len(eps_arr) == 0:
-            raise ValueError("eps_list must be a non-empty 1-D sequence")
-        eps_vals = [float(e) for e in eps_arr]
-        for e in eps_vals:
-            validate_params(e, 1)
-            check_metric(self.metric, e)
+        if not auto_ladder:
+            eps_arr = np.atleast_1d(np.asarray(eps_list, np.float64))
+            if eps_arr.ndim != 1 or len(eps_arr) == 0:
+                raise ValueError(
+                    "eps_list must be a non-empty 1-D sequence"
+                )
+            eps_vals = [float(e) for e in eps_arr]
+            for e in eps_vals:
+                validate_params(e, 1)
+                check_metric(self.metric, e)
         if min_samples_list is None:
             ms_vals = [int(self.min_samples)]
         else:
@@ -606,7 +658,10 @@ class DBSCAN:
             ms_vals = [int(m) for m in ms_arr]
         for m in ms_vals:
             validate_params(1.0, m)
-        configs = [(e, m) for e in eps_vals for m in ms_vals]
+        configs = (
+            None if auto_ladder
+            else [(e, m) for e in eps_vals for m in ms_vals]
+        )
 
         keys, points = _as_keys_points(data)
         if self._metric_norm in ("cosine", "haversine"):
@@ -625,9 +680,17 @@ class DBSCAN:
         self.bounding_boxes = self.expanded_boxes = None
         self.neighbors = None
         self.cluster_dict = None
+        self._hier_stats = None
         with self._kernel_frame():
-            labels, core, per_cfg, sweep = self._sweep_run(points, configs)
+            if auto_ladder:
+                labels, core, per_cfg, sweep = self._sweep_auto_run(
+                    points, ms_vals)
+                configs = [tuple(c) for c in sweep["configs"]]
+            else:
+                labels, core, per_cfg, sweep = self._sweep_run(
+                    points, configs)
         last = configs[-1]
+        self.eps_ = float(last[0])
         self.labels_ = labels[last]
         self.core_sample_mask_ = core[last]
         wall = time.perf_counter() - t0
@@ -655,7 +718,8 @@ class DBSCAN:
         if self.precision == "default":
             return self._sweep_refit(points, configs)
         try:
-            relabel, gstats = self._sweep_graph_fused(points, max(eps_k))
+            relabel, gstats, _gh = self._sweep_graph_fused(
+                points, max(eps_k))
         except SweepGraphOverflow as e:
             logging.getLogger("pypardis_tpu_torch").warning(
                 "sweep graph unavailable (%s); running per-config fits: "
@@ -696,8 +760,12 @@ class DBSCAN:
 
     def _sweep_graph_fused(self, points, eps_max):
         """Layout and graph at ``eps_max`` (kernel frame) with the
-        exact-total retry; returns ``(relabel, gstats)``, ``relabel(eps,
-        min_samples) -> (roots, core, passes)`` in input order."""
+        exact-total retry; returns ``(relabel, gstats, ghandle)``:
+        ``relabel(eps, min_samples) -> (roots, core, passes)`` in input
+        order, and the hierarchy's handle on the graph, ``{gi, gj, dv,
+        mask, n_ids, finalize}`` in kernel-slot space, ``finalize(roots,
+        core)`` mapping slot-space results to input rows as a fit's
+        pack does."""
         from .ops.distances import sweep_max_edges
         from .ops.pipeline import sweep_config_pack, sweep_graph_pipeline
 
@@ -740,12 +808,27 @@ class DBSCAN:
             )
             return roots[:n], core[:n], passes
 
+        def finalize(roots_s, core_s):
+            row, stats0 = _pipeline_pack(
+                roots_s, core_s, torch.zeros(5, dtype=torch.int64), owner,
+                cap=cap,
+            )
+            roots, core, *_stats = unpack_pipeline_result(
+                (row.numpy(), stats0.numpy()))
+            return roots[:n], core[:n]
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         gstats = {
             "graph_pairs": int(need_e),
             "graph_bytes": int(need_e) * 12,
             "build_s": time.perf_counter() - t_b,
         }
-        return relabel, gstats
+        ghandle = {
+            "gi": gi, "gj": gj, "dv": dv, "mask": mask_k,
+            "n_ids": int(mask_k.shape[0]), "finalize": finalize,
+        }
+        return relabel, gstats, ghandle
 
     def _sweep_refit(self, points, configs):
         """Per-config fits (one distance pass each) on the kernel-frame
@@ -782,6 +865,273 @@ class DBSCAN:
             "mode": "fused",
             "degraded": "per_config_refit",
             "n_devices": 1,
+        }
+        return labels_out, core_out, per_cfg, sweep
+
+    # -- density hierarchy (eps-free fits) --------------------------------
+
+    def _user_eps_from_kernel(self, eps_k: float) -> float:
+        """Kernel-frame eps -> user frame (the inverse of
+        :attr:`kernel_eps`)."""
+        if self._metric_norm == "cosine":
+            return float(eps_k) ** 2 / 2.0
+        if self._metric_norm == "haversine":
+            return float(2.0 * np.arcsin(min(float(eps_k) / 2.0, 1.0)))
+        return float(eps_k)
+
+    def _hier_ceiling(self, points) -> float:
+        """The hierarchy's eps_max in the kernel frame: the graph is
+        built at it, and the family is truncated there.
+
+        In order: a concrete model eps (``sweep("auto")`` on a fitted-eps
+        model; inside :meth:`_kernel_frame`, so already remapped), then
+        ``PPTORCH_HIER_EPS_MAX`` (user frame), else a sample-kNN
+        heuristic on the host in numpy, bit for bit the JAX package's:
+        4x the 98th percentile of the ``min_samples``-th neighbour
+        distance over a strided ``PPTORCH_HIER_SAMPLE``-row sample
+        (default 2048), an overestimate of the core distances (a sample
+        is sparser than the whole set).  A tensor sends only its sample
+        rows to the host."""
+        if self.eps is not None:
+            return float(self.eps)
+        env = os.environ.get("PPTORCH_HIER_EPS_MAX")
+        if env:
+            e_u = float(env)
+            validate_params(e_u, 1)
+            return _kernel_eps(self._metric_norm, e_u)
+        n = len(points)
+        s_max = max(
+            2, min(int(os.environ.get("PPTORCH_HIER_SAMPLE", "2048")), n)
+        )
+        step = max(1, n // s_max)
+        if isinstance(points, torch.Tensor):
+            sample = points[::step][:s_max].to(torch.float32).cpu().numpy()
+        else:
+            sample = np.asarray(points[::step][:s_max], np.float32)
+        s = len(sample)
+        k = min(max(self.min_samples, 2), s - 1)
+        if self._pair_metric == "cityblock":
+            dk = np.empty(s, np.float32)
+            for lo in range(0, s, 256):
+                hi = min(lo + 256, s)
+                d = np.abs(
+                    sample[lo:hi, None, :] - sample[None, :, :]
+                ).sum(-1)
+                dk[lo:hi] = np.partition(d, k, axis=1)[:, k]
+        else:
+            sq = (sample * sample).sum(-1)
+            d2 = np.maximum(
+                sq[:, None] + sq[None, :] - 2.0 * (sample @ sample.T),
+                0.0,
+            )
+            dk = np.sqrt(np.partition(d2, k, axis=1)[:, k])
+        ceil = 4.0 * float(np.quantile(dk.astype(np.float64), 0.98))
+        if self._metric_norm in ("cosine", "haversine"):
+            # A unit-sphere chord past 2 takes in every pair: it only
+            # inflates the graph.
+            ceil = min(ceil, 1.999)
+        return max(ceil, 1e-6)
+
+    def _hier_run(self, points, ms: Optional[int] = None):
+        """Graph and hierarchy (kernel frame), the eps-free front half
+        of :meth:`_sweep_run`.  Returns a context dict: ``hier`` (the
+        ``ms`` hierarchy), ``build`` (ms -> another hierarchy over the
+        same prepared slab: core pass and MST, no new distance work),
+        ``gh``, ``gstats``, ``eps_max_k`` and ``stages`` (seconds of the
+        graph build and the prepare)."""
+        from .ops import hierarchy as _hier
+
+        ms = int(self.min_samples if ms is None else ms)
+        eps_max = self._hier_ceiling(points)
+        _relabel, gstats, gh = self._sweep_graph_fused(points, eps_max)
+        km = self._pair_metric
+        eps_f = np.float32(eps_max)
+        thr_max = float(eps_f * eps_f if km == "euclidean" else eps_f)
+        t0 = time.perf_counter()
+        state = _hier.hierarchy_prepare(gh["gi"], gh["gj"], gh["dv"])
+        _hier._sync(self.device)
+        t1 = time.perf_counter()
+
+        def build(ms_c: int):
+            return _hier.build_hierarchy(
+                state, gh["mask"], gh["n_ids"], int(ms_c),
+                kernel_metric=km, user_frame=self._metric_norm,
+                thr_max=thr_max, min_cluster_size=self.min_cluster_size,
+            )
+
+        return {
+            "hier": build(ms), "build": build, "gh": gh, "gstats": gstats,
+            "eps_max_k": float(eps_max),
+            "stages": {"graph_build_s": gstats["build_s"],
+                       "prepare_s": t1 - t0},
+        }
+
+    def _hier_no_refit(self, e: Exception) -> RuntimeError:
+        return RuntimeError(
+            f"the density-hierarchy path needs the cached pair graph "
+            f"and cannot degrade to per-config refits (there is no eps "
+            f"to refit at): {e}.  Raise PPTORCH_SWEEP_MAX_PAIRS, or "
+            f"lower the graph ceiling via PPTORCH_HIER_EPS_MAX."
+        )
+
+    def _hier_guarded(self, points, ms: Optional[int] = None):
+        """:meth:`_hier_run`, a graph past its cap raising the no-refit
+        error."""
+        try:
+            return self._hier_run(points, ms)
+        except SweepGraphOverflow as e:
+            raise self._hier_no_refit(e) from e
+
+    def _fit_hierarchy(self, data) -> "DBSCAN":
+        """The eps=None fit: one distance pass, stability-selected eps.
+
+        The pair graph at a data-derived ceiling, per-point core
+        distances, the mutual-reachability MST (Borůvka rounds), the
+        tree condensed by ``min_cluster_size`` and HDBSCAN*'s
+        excess-of-mass rule pick the flat cut.  ``labels_`` are
+        byte-identical to ``fit(eps_)`` on the same device, and every
+        step is deterministic given the data and the environment.  The
+        graph's d^2 is exact in every precision mode, so at
+        ``precision="default"`` they are ``fit(eps_)``'s at ``"high"``;
+        a ``"default"`` fit at ``eps_`` decides pairs in bf16 and may
+        differ."""
+        from .ops import hierarchy as _hier
+
+        keys, points = _as_keys_points(data)
+        if self._metric_norm in ("cosine", "haversine"):
+            points = self._driver_frame_rows(points)
+        if len(points) == 0:
+            raise ValueError("eps=None fits need a non-empty dataset")
+        check_finite(points)
+        t0 = time.perf_counter()
+        self.metrics_ = {}
+        self._serve_engine = None
+        self._serve_core_points = None
+        self._fit_generation += 1
+        self._keys = keys
+        self.data = points
+        self._result_cache = None
+        self.bounding_boxes = self.expanded_boxes = None
+        self.neighbors = None
+        self.cluster_dict = None
+        self._hier_stats = None
+        with self._kernel_frame():
+            ctx = self._hier_guarded(points)
+            hier = ctx["hier"]
+            t = time.perf_counter()
+            _thr_star, eps_u = hier.select_cut()
+            t_cut = time.perf_counter()
+            # Label at the round trip of eps_ (not the raw cut weight):
+            # the labels then equal fit(eps_) by construction.
+            thr_rt = float(
+                _hier.thr_from_user_eps(eps_u, self._metric_norm))
+            lab_s, core_s = hier.labels_at_thr(thr_rt)
+            lab, core = ctx["gh"]["finalize"](lab_s, core_s)
+            dense = densify_labels(lab)
+            t_rel = time.perf_counter()
+        self.labels_ = dense
+        self.core_sample_mask_ = np.asarray(core, bool)
+        self.eps_ = float(eps_u)
+        self.metrics_["total_s"] = time.perf_counter() - t0
+        self.metrics_["points_per_sec"] = len(points) / max(
+            self.metrics_["total_s"], 1e-9
+        )
+        self.metrics_["live_pairs"] = int(ctx["gstats"]["graph_pairs"])
+        self.metrics_["n_partitions"] = 1
+        self.metrics_["kernel_passes"] = 2
+        ctx["stages"].update(cut_s=t_cut - t, relabel_s=t_rel - t_cut)
+        self._hier_stats = self._hier_block(ctx, eps_selected=eps_u)
+        return self
+
+    def _hier_block(self, ctx, eps_selected, ladder=None) -> Dict:
+        """The hierarchy's stats block (the JAX package's
+        ``report()["hierarchy"]`` keys, user-frame values) with each
+        stage's seconds."""
+        gstats = ctx["gstats"]
+        block = dict(ctx["hier"].telemetry())
+        block.update(
+            distance_passes=1,
+            graph_pairs=int(gstats["graph_pairs"]),
+            graph_bytes=int(gstats["graph_bytes"]),
+            graph_build_s=round(float(gstats["build_s"]), 6),
+            mode="fused",
+            n_devices=1,
+            eps_max=self._user_eps_from_kernel(ctx["eps_max_k"]),
+            eps_selected=float(eps_selected),
+            min_samples=int(ctx["hier"].min_samples),
+        )
+        block.update({k: round(float(v), 6)
+                      for k, v in ctx["stages"].items()})
+        if ladder is not None:
+            block["ladder"] = [float(e) for e in ladder]
+        return block
+
+    def _sweep_auto_run(self, points, ms_vals):
+        """Ladder extraction and per-rung cuts (kernel frame).
+
+        The ladder comes from the first min_samples' hierarchy (its top
+        stability cuts); each ``(eps, ms)`` rung is a cut of that ms's
+        hierarchy (a union-find over about n MST edges and one border
+        attach, no per-config fixpoint), byte-identical to a fit at it.
+        """
+        from .ops import hierarchy as _hier
+
+        ctx = self._hier_guarded(points, ms=ms_vals[0])
+        k = int(os.environ.get("PPTORCH_HIER_LADDER_K", "8"))
+        hier0 = ctx["hier"]
+        t = time.perf_counter()
+        _thr_star, eps_sel = hier0.select_cut()
+        ladder = hier0.eps_ladder(k)
+        ctx["stages"]["cut_s"] = time.perf_counter() - t
+        if not ladder:
+            raise RuntimeError(
+                "eps_list='auto' found no positive cuts to ladder "
+                "(degenerate pair graph: every point isolated at the "
+                "ceiling?)"
+            )
+        hiers = {int(ms_vals[0]): hier0}
+        for ms in ms_vals[1:]:
+            if int(ms) not in hiers:
+                hiers[int(ms)] = ctx["build"](ms)
+        configs = [(float(e), int(m)) for e in ladder for m in ms_vals]
+        gh = ctx["gh"]
+        labels_out, core_out, per_cfg, relabel_s = {}, {}, [], []
+        for cfg in configs:
+            e_u, ms = cfg
+            t_c = time.perf_counter()
+            thr = float(_hier.thr_from_user_eps(e_u, self._metric_norm))
+            lab_s, core_s = hiers[ms].labels_at_thr(thr)
+            lab, core = gh["finalize"](lab_s, core_s)
+            dense = densify_labels(lab)
+            labels_out[cfg] = dense
+            core_out[cfg] = np.asarray(core, bool)
+            dt = time.perf_counter() - t_c
+            relabel_s.append(round(dt, 6))
+            per_cfg.append({
+                "eps": e_u, "min_samples": ms, "relabel_s": round(dt, 6),
+                "n_clusters": int(dense.max()) + 1, "passes": 1,
+            })
+        self.metrics_["kernel_passes"] = len(configs) + 1
+        self.metrics_["n_partitions"] = 1
+        ctx["stages"]["relabel_s"] = sum(relabel_s)
+        gstats = ctx["gstats"]
+        self._hier_stats = self._hier_block(
+            ctx, eps_selected=eps_sel, ladder=ladder
+        )
+        sweep = {
+            "k": len(configs),
+            "configs": [[e, m] for e, m in configs],
+            "distance_passes": 1,
+            "graph_pairs": int(gstats["graph_pairs"]),
+            "graph_bytes": int(gstats["graph_bytes"]),
+            "graph_build_s": round(float(gstats["build_s"]), 6),
+            "relabel_s": relabel_s,
+            "mode": "fused",
+            "degraded": None,
+            "n_devices": 1,
+            "eps_source": "hierarchy_auto",
+            "ladder": [float(e) for e in ladder],
+            "hierarchy": self._hier_stats,
         }
         return labels_out, core_out, per_cfg, sweep
 

@@ -72,6 +72,46 @@ def _pointer_jump(f: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         f = nxt
 
 
+def uf_hook(parent: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor) -> torch.Tensor:
+    """Union the edges ``(a[k], b[k])`` into ``parent``, a min-id forest
+    whose entries already point at their roots (``arange`` for none
+    merged).  Each pass hooks every larger root onto the least root
+    across its edges (a scatter-min) and pointer-jumps to a fixpoint;
+    edges whose ends share a root leave the pass.  Returns the new
+    forest, each entry its component's minimum id."""
+    while a.numel():
+        ra, rb = parent[a], parent[b]
+        live = ra != rb
+        if not bool(live.any()):
+            break
+        a, b, ra, rb = a[live], b[live], ra[live], rb[live]
+        parent = parent.scatter_reduce(
+            0, torch.maximum(ra, rb), torch.minimum(ra, rb), reduce="amin"
+        )
+        parent = _pointer_jump(
+            parent, torch.ones_like(parent, dtype=torch.bool))
+    return parent
+
+
+def uf_resolve_dense(edges, n_nodes: int) -> torch.Tensor:
+    """Min-id union-find roots for dense node ids ``0..n_nodes-1`` (the
+    JAX package's ``_native.uf_resolve_dense``), as array operations on
+    the edges' device: hooking and pointer jumping (:func:`uf_hook`).
+
+    ``edges``: (E, 2) integer tensor or array; entries outside ``[0,
+    n_nodes)`` are ignored.  Returns (n_nodes,) int64 on the edges'
+    device: each node's component root, the component's minimum id."""
+    e = edges if isinstance(edges, torch.Tensor) else torch.from_numpy(
+        np.asarray(edges, dtype=np.int64))
+    e = e.reshape(-1, 2).long()
+    n = int(n_nodes)
+    a, b = e[:, 0], e[:, 1]
+    ok = (a >= 0) & (a < n) & (b >= 0) & (b < n)
+    parent = torch.arange(n, dtype=torch.int64, device=e.device)
+    return uf_hook(parent, a[ok], b[ok])
+
+
 def finish_labels(f, border, core, mask):
     """Labels from converged propagation state: core points keep their
     root, valid points with a core neighbour take its root, else -1."""

@@ -124,12 +124,24 @@ def check_metric(metric, eps=None) -> str:
     return norm_metric(name)
 
 
-def validate_params(eps, min_samples) -> None:
-    """Raise ValueError on an invalid (eps, min_samples)."""
+def validate_params(eps, min_samples, allow_none_eps: bool = False) -> None:
+    """Raise ValueError on an invalid (eps, min_samples).
+
+    ``eps=None`` (the density hierarchy, which selects eps by stability
+    and exposes it as ``eps_``) is legal only where ``allow_none_eps``:
+    the ``DBSCAN`` constructor.  Every call site downstream of a fit
+    needs a concrete radius, and a concrete ``eps <= 0`` or non-finite
+    one fails either way."""
     if isinstance(min_samples, (int, np.integer)) and min_samples < 1:
         raise ValueError(f"min_samples must be >= 1, got {min_samples}")
     if eps is None:
-        raise ValueError("eps must be a positive finite radius, got None")
+        if allow_none_eps:
+            return
+        raise ValueError(
+            "eps=None is only legal at construction/fit time (the "
+            "density-hierarchy path selects eps by stability); this "
+            "call site needs a concrete positive radius"
+        )
     if not np.isfinite(float(eps)) or float(eps) <= 0:
         raise ValueError(f"eps must be positive and finite, got {eps}")
 

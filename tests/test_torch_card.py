@@ -1095,3 +1095,85 @@ def test_sweep_on_card_equals_its_fits():
         fit = DBSCAN(eps=eps, min_samples=ms, block=2048).fit(Xd)
         assert np.array_equal(res.labels(eps, ms), fit.labels_)
         assert np.array_equal(res.core(eps, ms), fit.core_sample_mask_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ms", [1, 2, 10])
+def test_hierarchy_stages_on_card_equal_the_cpu(ms):
+    """The hierarchy's device stages on the card (the prepare's lexsort,
+    the one-shot core twin and the prepared slab's core pass, the
+    Borůvka MST, the cuts' labels) bitwise the same stages on the CPU
+    over the same slab."""
+    _need_card()
+    from pypardis_tpu_torch.ops import hierarchy as H
+    from pypardis_tpu_torch.ops.distances import neighbor_pair_graph
+
+    X, _ = make_blob_data(30_000, 16, n_centers=8, std=0.4, seed=5)
+    pts, n, block = _stage(X, 1024, torch.device("cuda"))
+    xs, mask, _owner = _pipeline_layout(pts, 1.8, n, block, sort=True)
+    gi, gj, dv, st = neighbor_pair_graph(xs, mask, 1.8, tile=1024)
+    slab = {"cuda": (gi, gj, dv, mask)}
+    slab["cpu"] = tuple(t.cpu() for t in slab["cuda"])
+    out = {}
+    for dev, (g_i, g_j, d_v, msk) in slab.items():
+        state = H.hierarchy_prepare(g_i, g_j, d_v)
+        cd2 = H.core_distances(state, msk, ms)
+        twin = H.core_distances_device(g_i, g_j, d_v, msk, ms)
+        assert torch.equal(cd2.view(torch.int32), twin.view(torch.int32))
+        mst = H.mutual_reachability_mst(state, cd2, len(msk))
+        h = H.build_hierarchy(state, msk, len(msk), ms,
+                              thr_max=float(np.float32(1.8) ** 2))
+        assert torch.equal(h.cd2.view(torch.int32), cd2.view(torch.int32))
+        cuts = [h.labels_at_thr(float(np.float32(e) ** 2))
+                for e in (0.9, 1.3, 1.8)]
+        out[dev] = (state, cd2, mst, h, cuts)
+    (sg, cg, mg, hg, kg), (sc, cc, mc, hc, kc) = out["cuda"], out["cpu"]
+    for a, b in zip(sg, sc):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(cg.cpu().view(torch.int32), cc.view(torch.int32))
+    for a, b in zip(mg[:3], mc[:3]):
+        assert torch.equal(a.cpu(), b)
+    assert mg[3] == mc[3] and mg[3]["boruvka_rounds"] <= mg[3]["round_cap"]
+    assert hg.select_cut() == hc.select_cut()
+    assert hg.eps_ladder(8) == hc.eps_ladder(8)
+    for (lg, pg), (lc, pc) in zip(kg, kc):
+        assert torch.equal(lg.cpu(), lc) and torch.equal(pg.cpu(), pc)
+
+
+@pytest.mark.cuda
+def test_eps_none_fit_on_card_equals_the_cpu_and_its_fit():
+    _need_card()
+    X, _ = make_blob_data(20_000, 16, n_centers=32, std=0.4, seed=2)
+    card = DBSCAN(eps=None, min_samples=10, block=256).fit(X)
+    cpu = DBSCAN(eps=None, min_samples=10, block=256, device="cpu").fit(X)
+    assert card.eps_ == cpu.eps_
+    assert np.array_equal(card.labels_, cpu.labels_)
+    assert np.array_equal(card.core_sample_mask_, cpu.core_sample_mask_)
+    ref = DBSCAN(eps=card.eps_, min_samples=10, block=256).fit(
+        torch.from_numpy(X).cuda())
+    assert np.array_equal(card.labels_, ref.labels_)
+    assert np.array_equal(card.core_sample_mask_, ref.core_sample_mask_)
+
+
+@pytest.mark.cuda
+def test_eps_none_at_default_precision_is_the_exact_clustering(monkeypatch):
+    """The hierarchy's graph holds exact d^2 in every precision mode, so
+    an eps=None fit at ``precision="default"`` gives the ``"high"``
+    clustering: the same ``eps_``, labels and core mask as eps=None at
+    ``"high"`` and as ``fit(eps_)`` at ``"high"`` (not as ``fit(eps_)``
+    at ``"default"``, whose bf16 verdicts may differ near eps).  Twin
+    blobs, so the cut lies inside the ceiling."""
+    _need_card()
+    from chip_smoke import twin_blobs
+
+    X, _ = twin_blobs(6000)
+    Xd = torch.from_numpy(X).cuda()
+    monkeypatch.setenv("PPTORCH_HIER_EPS_MAX", "1.1")
+    fits = [DBSCAN(eps=None, min_samples=10, min_cluster_size=50,
+                   block=128, precision=p).fit(Xd)
+            for p in ("default", "high")]
+    ref = DBSCAN(eps=fits[0].eps_, min_samples=10, block=128).fit(Xd)
+    assert fits[0].eps_ == fits[1].eps_ < 1.1
+    for m in (fits[1], ref):
+        assert np.array_equal(fits[0].labels_, m.labels_)
+        assert np.array_equal(fits[0].core_sample_mask_, m.core_sample_mask_)

@@ -1,8 +1,8 @@
 """Checkpoints cross-load between the JAX package and the port, both
 ways, and serve identically: models, serving indexes (including the
 cosine and haversine query frames) and partition trees, in every
-precision mode and metric.  An ``eps=None`` JAX checkpoint raises
-``NotImplementedError`` naming its ROADMAP item."""
+precision mode and metric.  ``eps=None`` checkpoints cross-load in
+``tests/test_torch_hierarchy.py``."""
 
 import numpy as np
 import pytest

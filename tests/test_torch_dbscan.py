@@ -247,16 +247,19 @@ def test_rejects_unknown_options(kw, match):
 
 @pytest.mark.parametrize("case", ["eps_none", "sweep_auto"])
 def test_unported_options_name_their_roadmap_item(case):
-    """What the port still lacks raises where it is asked for, naming
-    its ROADMAP item: the eps-free hierarchy (``eps=None``) and its
-    sweep ladder (``sweep(eps_list="auto")``) are A14."""
-    with pytest.raises(NotImplementedError, match="A14"):
-        if case == "eps_none":
-            DBSCAN(eps=None, min_samples=5, device="cpu")
-        else:
-            DBSCAN(eps=0.5, min_samples=5, device="cpu").sweep(
-                np.zeros((10, 2)), "auto"
-            )
+    """The options that once raised naming ROADMAP A14 now run: the
+    eps-free hierarchy (``eps=None``) and its sweep ladder
+    (``sweep(eps_list="auto")``), as the JAX package runs them
+    (``tests/test_torch_hierarchy.py`` holds them against it)."""
+    X = np.random.default_rng(0).normal(size=(64, 2))
+    if case == "eps_none":
+        m = DBSCAN(eps=None, min_samples=5, device="cpu").fit(X)
+        assert m.eps is None and m.eps_ > 0
+        assert m.labels_.shape == (64,)
+    else:
+        res = DBSCAN(eps=0.5, min_samples=5, device="cpu").sweep(X, "auto")
+        assert res.stats["eps_source"] == "hierarchy_auto"
+        assert max(res.stats["ladder"]) <= 0.5 * (1 + 1e-6)
 
 
 @pytest.mark.parametrize("precision", ["mixed", "DEFAULT"])

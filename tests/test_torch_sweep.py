@@ -184,7 +184,7 @@ def test_tensor_input_sweep(blobs):
     (([-0.5],), ValueError),
     (([0.5], [0]), ValueError),
     (("bogus",), ValueError),
-    (("auto",), NotImplementedError),
+    (("auto", [0]), ValueError),
 ])
 def test_validation(args, err):
     m = DBSCAN(eps=0.4, min_samples=5, device="cpu")
