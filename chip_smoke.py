@@ -179,9 +179,10 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    it (B1/B2 launched in each); (3) the default ceiling twice at 20,000
    points (the largest of 20,000 / 50,000 / 100,000 whose graph stays
    under the 2^26-edge cap; 50,000 would take about 78M edges):
-   byte-identical, equal to the same fit with ``device="cpu"`` and to
-   the same fit at ``precision="default"`` (the graph's d^2 is exact in
-   every mode); then a haversine eps=None fit on :func:`geolife_like`
+   byte-identical, equal to the same fit at ``precision="default"``
+   (the graph's d^2 is exact in every mode; ``tests/test_torch_card.py``
+   holds it equal to the same fit with ``device="cpu"``); then a
+   haversine eps=None fit on :func:`geolife_like`
    points of that size (ceiling 800 m) byte-identical to its
    ``fit(eps_)`` and served once (4,096 queries, B5 counted from 0;
    exact core points keep their labels); (4) an interior cut at scale:
@@ -193,13 +194,42 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    kernel: the hierarchy runs torch ops on the card and numpy on the
    host.
 
+11. live updates and ingest (:func:`live_phase`) on phase 6's model
+   (1,000,000 x 16-D, eps 2.4, min_samples 10): ``model.live()``, then
+   a seeded write stream (256 single inserts and 4 ``insert_batch``es
+   of 1,024 rows from the blob law, 4,096 rows from one blob, a clump
+   of 12 points 20 eps past every centre, 64 noise points, a pour into
+   the index leaf with the fewest free slots past its pads, a
+   ``delete_batch`` of the noise and of 64 cores of the largest
+   cluster, an ``IngestQueue`` of 4,096 single submits flushed in
+   batches of 1,024, a ``Compactor`` cycle with 64 inserts and 16
+   deletes injected during its refit, a save/load).  Gates: after every
+   commit the index's device tensors equal its host mirrors and B5's
+   tables a fresh ``query_tables``, bitwise (after each group also their
+   plain versions on the card and on the CPU: :func:`host_tables`);
+   after each group ``predict`` of 4,096
+   queries bitwise ``card_oracle`` over the mutated cores (and once B5
+   bitwise its plain version); the float64 verdicts card = CPU on one
+   update's pool; ARI 1.0 against a fresh fit of the final points, each
+   differing core flag traced to a pair within ``exact_slack`` of eps^2;
+   one re-cluster dispatch, one index delta and one fit (B1/B2 launches
+   = its passes) per ``insert_batch`` and queue batch; tickets before
+   the compaction's swap answer against the old generation, after it
+   against the new one, the replayed writes in it.  It prints per
+   update kind the p50 ms of its walls (synced at each update's start
+   and end), the p99 where it has 100 updates or more and the largest
+   elsewhere, its seconds in verdicts, re-cluster, attach, commit and
+   B5 tables (CUDA-event spans, which add no sync), the launches and
+   the compaction's phases.
+
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits non-zero and prints
 no result.
 
 ``python3 chip_smoke.py --metrics`` builds the kernels and runs phase 9
-alone; ``--hier`` builds them and runs phase 10 alone.
+alone; ``--hier`` builds them and runs phase 10 alone; ``--live`` builds
+them, fits the 1M model and runs phase 11 alone.
 ``python3 chip_smoke.py --b1`` builds the kernels and times B1 alone
 in its three modes at the 1M x 16-D inputs, with its bounds, floor,
 rescored share and frames' staging, then prints the 1M fits' sha256 in
@@ -228,6 +258,7 @@ alone (:func:`b2_walk_shares`).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -3209,8 +3240,7 @@ def hier_phase(torch, dev, sync, card="", sizes=HIER_SIZES):
     min_samples_list=[5, 10])`` on the first 200,000 rows at that
     ceiling, every rung byte-identical to a fit at it; (3) the default
     ceiling twice at ``small_n`` points (byte-identical), the card
-    against ``device="cpu"`` and against ``precision="default"``
-    (byte-identical), then a haversine eps=None fit on
+    against ``precision="default"`` (byte-identical), then a haversine eps=None fit on
     :func:`geolife_like` points of that size, served once (B5); (4) an
     interior cut on :func:`twin_blobs`: ``eps_`` below the ceiling,
     byte-identical to ``fit(eps_)``, and ``fit(eps_)`` at
@@ -3382,24 +3412,23 @@ def hier_phase(torch, dev, sync, card="", sizes=HIER_SIZES):
         sync()
         runs.append((m, time.perf_counter() - t))
     same_fit(runs[0][0], runs[1][0], f"default ceiling n={n3}, two fits")
-    t = time.perf_counter()
-    cpu = DBSCAN(eps=None, min_samples=10, block=sb, device="cpu").fit(Xs)
-    cpu_s = time.perf_counter() - t
-    same_fit(runs[0][0], cpu, f"default ceiling n={n3}, card vs CPU")
+    # (The same fit with device="cpu" is tests/test_torch_card.py::
+    # test_eps_none_fit_on_card_equals_the_cpu_and_its_fit, at this n.)
     lossy = DBSCAN(eps=None, min_samples=10, block=sb, precision="default",
                    device=dev).fit(Xs)
     same_fit(runs[0][0], lossy, f"default ceiling n={n3}, \"high\" vs "
              f"\"default\"")
-    if not runs[0][0].eps_ == runs[1][0].eps_ == cpu.eps_ == lossy.eps_:
+    card_fit = runs[0][0]
+    if not card_fit.eps_ == runs[1][0].eps_ == lossy.eps_:
         fail("the default-ceiling fits selected different eps_")
-    hs = runs[0][0]._hier_stats
-    log(f"    eps_ {cpu.eps_!r}, {int(cpu.labels_.max()) + 1} clusters; "
-        f"card {runs[0][1]:.4f} / {runs[1][1]:.4f} s, CPU {cpu_s:.4f} s; "
-        f"card stages: {stages(hs)}")
-    rec["default"] = {"n": n3, "eps_": cpu.eps_, "card_s": runs[0][1],
-                      "cpu_s": cpu_s, "graph_pairs": hs["graph_pairs"],
+    hs = card_fit._hier_stats
+    log(f"    eps_ {card_fit.eps_!r}, {int(card_fit.labels_.max()) + 1} "
+        f"clusters; card {runs[0][1]:.4f} / {runs[1][1]:.4f} s; card "
+        f"stages: {stages(hs)}")
+    rec["default"] = {"n": n3, "eps_": card_fit.eps_, "card_s": runs[0][1],
+                      "graph_pairs": hs["graph_pairs"],
                       "eps_max": hs["eps_max"]}
-    del runs, cpu, lossy
+    del runs, card_fit, lossy
     G, gtruth = geolife_like(n3)
     hav_max = sizes["hav_eps_max_m"] / 6_371_000.0
     os.environ["PPTORCH_HIER_EPS_MAX"] = repr(hav_max)
@@ -3493,6 +3522,624 @@ def hier_phase(torch, dev, sync, card="", sizes=HIER_SIZES):
     del tw, ref, lossy, Td, T
     stamp("10.4: done")
     rec["card"] = card
+    return rec
+
+
+def host_tables(idx):
+    """B5's tables from the index's host mirrors: their plain versions
+    on the CPU."""
+    import torch
+
+    from pypardis_tpu_torch.ops.query import (
+        query_block_frames, query_leaf_ends, query_pad_keys,
+    )
+
+    C = idx.leaf_cap
+    hc, hl = torch.from_numpy(idx.coords), torch.from_numpy(idx.labels)
+    return (query_pad_keys(hc, hl, C), query_leaf_ends(hc, hl, C),
+            *query_block_frames(hc, hl, idx.block))
+
+
+# Phase 11: live updates and ingest.  Sizes of the phase; a test
+# rehearses it at small ones on the CPU.
+LIVE_SIZES = {"n": 1_000_000, "d": 16, "centers": 32, "std": 0.4,
+              "eps": 2.4, "min_samples": 10, "block": 2048,
+              "singles": 256, "batches": 4, "batch_rows": 1024,
+              "blob_rows": 4096, "clump": 12, "deletes": 64,
+              "queue_rows": 4096, "queue_batch": 1024, "replay_rows": 64,
+              "replay_deletes": 16, "queries": 4096, "inserted_q": 1024,
+              "trace_cap": 64, "seed": 11}
+
+
+@contextlib.contextmanager
+def _live_instruments(torch, dev):
+    """Phase 11's clocks on the live path: the spans of its verdicts
+    (float64 counts), re-clusters, border attaches and B5 table builds,
+    and every fit's passes and B1/B2 launches; restored on exit.  A span
+    is a pair of CUDA events on the current stream on the card (host
+    clocks on the CPU), so the clocks add no sync to the path they
+    time; :func:`settle` reads them after the update's closing sync.
+    Yields ``(split, fits, spans)``."""
+    import pypardis_tpu_torch.dbscan as dbscan_mod
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.serve import live as live_mod
+
+    split = dict.fromkeys(("verdicts", "recluster", "attach", "commit",
+                           "tables"), 0.0)
+    fits, spans = [], []
+    patched = [(live_mod, "count_within_eps", "verdicts"),
+               (live_mod, "count_reaches", "verdicts"),
+               (live_mod, "core_components", "recluster"),
+               (live_mod, "attach_to_cores", "attach"),
+               (ck, "query_tables", "tables"),
+               (dbscan_mod, "_pad_and_run", None)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _k in patched]
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t = _live_mark(torch, dev)
+            out = fn(*a, **kw)
+            spans.append((key, t, _live_mark(torch, dev)))
+            return out
+        return run
+
+    def counted_fit(*a, _f=dbscan_mod._pad_and_run, **kw):
+        before = dict(ck.LAUNCHES)
+        out = _f(*a, **kw)
+        fits.append((out[2]["kernel_passes"],
+                     {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}))
+        return out
+
+    for (mod, name, key), (_m, _n, fn) in zip(patched, saved):
+        setattr(mod, name, counted_fit if key is None else timed(key, fn))
+    try:
+        yield split, fits, spans
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _live_mark(torch, dev):
+    """A point on the live path's clock: a CUDA event recorded on the
+    current stream on the card, the host clock elsewhere."""
+    if dev.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def settle(spans, split):
+    """Add each span's seconds to ``split`` under its stage and empty
+    ``spans``; on the card after a sync, so every event has completed."""
+    for key, a, b in spans:
+        split[key] += (b - a if isinstance(a, float)
+                       else a.elapsed_time(b) / 1e3)
+    spans.clear()
+
+
+def live_phase(torch, dev, sync, card="", sizes=LIVE_SIZES, model=None,
+               X=None, truth=None):
+    """Phase 11 (live updates and ingest) on ``model``, a host-input fit
+    of ``make_blob_data(n, d, n_centers, std)`` (fitted here when None),
+    with a seeded write stream: single inserts and ``insert_batch``es
+    from the blob law, a batch from one blob, a clump 20 eps past every
+    centre, a noise batch, a pour into the index leaf with the fewest
+    free slots until it overflows (an appended slab), ``delete_batch``es
+    of the noise ids and of core ids of the largest cluster, an
+    ``IngestQueue`` of single submits, a ``Compactor`` cycle with writes
+    injected during its refit, and a save/load on ``dev``.
+
+    Gates: (1) after every commit the index's device tensors equal its
+    host mirrors, and B5's tables a fresh ``query_tables``, bitwise
+    (after each group also their plain versions on ``dev`` and the
+    host's, :func:`host_tables`); (2) after each group ``predict`` of ``queries`` rows (the
+    group's last inserted points, then blob-law points) is bitwise
+    ``card_oracle`` over the mutated cores, and once B5 is bitwise its
+    plain version on the slab; (3) the float64 counts and the border
+    attach of one update's pool: ``dev`` = CPU; (4) against a fresh fit
+    of the final points: ARI 1.0, every differing core flag traced to a
+    pair whose float32 d^2 lies within ``exact_slack`` of eps^2; (5)
+    each ``insert_batch`` and each queue batch costs one re-cluster
+    dispatch, one index delta and one fit whose B1/B2 launches are its
+    passes; (6) tickets submitted before the compaction's swap answer
+    against the old generation, after it against the new one, none
+    dropped, and the replayed writes are in the new generation.  Prints
+    per update kind its p50 ms, its p99 (its largest where fewer than
+    100 updates) and its seconds by stage, the launches, the
+    compaction's phases.  Returns the phase's record."""
+    import tempfile
+
+    from benchdata import make_blob_data
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops import incremental as inc
+    from pypardis_tpu_torch.ops.distances import eps2_f32
+    from pypardis_tpu_torch.ops.query import (
+        query_block_frames, query_leaf_ends, query_min_core_plain,
+        query_pad_keys,
+    )
+    from pypardis_tpu_torch.partition import route_tree
+    from pypardis_tpu_torch.serve import Compactor, IngestQueue, LiveModel
+
+    eps, ms, d = sizes["eps"], sizes["min_samples"], sizes["d"]
+    nq = sizes["queries"]
+    t_phase = time.perf_counter()
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    if model is None:
+        X, truth = make_blob_data(sizes["n"], d, n_centers=sizes["centers"],
+                                  std=sizes["std"])
+        model = DBSCAN(eps=eps, min_samples=ms, block=sizes["block"],
+                       device=dev).fit(X)
+    centres = np.stack([X[truth == c].mean(axis=0)
+                        for c in range(int(truth.max()) + 1)])
+    rng = np.random.default_rng(sizes["seed"])
+
+    def blob_law(m, c=None):
+        cc = rng.integers(0, len(centres), m) if c is None else np.full(m, c)
+        return centres[cc] + rng.normal(scale=sizes["std"], size=(m, d))
+
+    rec = {"card": card}
+    t = time.perf_counter()
+    live = model.live()
+    sync()
+    idx = live.index
+    stamp(f"11: LiveModel over {live.stats['points']} points "
+          f"({live.stats['cores']} cores, {live.n_leaves} routing leaves; "
+          f"index {idx.n_leaves} leaves of {idx.leaf_cap} slots) in "
+          f"{time.perf_counter() - t:.2f} s, its warm-up "
+          f"{live.stats['warm_compile_ms']:.1f} ms")
+    rec["build_s"] = time.perf_counter() - t
+    gate = {"s": 0.0, "launches": dict.fromkeys(ck.LAUNCHES, 0)}
+    per_kind, deltas = {}, []
+    commit = idx.commit_update
+
+    with _live_instruments(torch, dev) as (split, fits, spans):
+        ck.reset_launch_counts()
+
+        def gated(fn):
+            """Run gate code with its seconds and launches (and the
+            stages it calls) kept out of the main path's."""
+            before, n_spans = dict(ck.LAUNCHES), len(spans)
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            gate["s"] += time.perf_counter() - t0
+            del spans[n_spans:]
+            for k in ck.LAUNCHES:
+                gate["launches"][k] += ck.LAUNCHES[k] - before[k]
+            return out
+
+        def words(got, want):
+            """Differing 32-bit words, counted on ``got``'s device."""
+            return sum(int((g.view(torch.int32)
+                            != w.to(g.device).view(torch.int32)).sum())
+                       for g, w in zip(got, want))
+
+        def hold_index(what, full=False):
+            """Gate 1: the device tensors against the host mirrors and
+            B5's tables against a fresh ``query_tables``; with ``full``
+            also against their plain versions on ``dev`` and the host's
+            (:func:`host_tables`)."""
+            dev_t = idx.device_tensors()
+            bad = words(dev_t, [torch.from_numpy(a) for a in (
+                idx.coords, idx.labels, idx.blo, idx.bhi)])
+            if bad:
+                fail(f"after {what} the index's device tensors differ from "
+                     f"its host mirrors ({bad} words)")
+            got, C = idx.kernel_tables(), idx.leaf_cap
+            bad = words(got, ck.query_tables(dev_t[0], dev_t[1],
+                                              block=idx.block, nb=idx.nb))
+            if full:
+                bad += words(got, (query_pad_keys(dev_t[0], dev_t[1], C),
+                                   query_leaf_ends(dev_t[0], dev_t[1], C),
+                                   *query_block_frames(dev_t[0], dev_t[1],
+                                                       idx.block)))
+            if full and dev.type == "cuda":
+                bad += words(got, host_tables(idx))
+            if bad:
+                fail(f"after {what} B5's tables differ from a fresh "
+                     f"query_tables or their plain versions ({bad} words)")
+
+        def checked_commit():
+            t0 = _live_mark(torch, dev)
+            before = ck.LAUNCHES["query_tables"]
+            out = commit()
+            spans.append(("commit", t0, _live_mark(torch, dev)))
+            deltas.append(out)
+            if dev.type == "cuda" and ck.LAUNCHES["query_tables"] != \
+                    before + 1:
+                fail("a commit did not rebuild B5's tables once")
+            gated(lambda: hold_index("a commit"))
+            return out
+
+        idx.commit_update = checked_commit
+
+        def update(kind, fn):
+            """One update: its wall (host clock, synced at its start and
+            end, without the gates), its stages' seconds (their event
+            spans, read after the closing sync) and delta bytes."""
+            s0, g0, n_d = dict(split), gate["s"], len(deltas)
+            sync()
+            spans.clear()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            wall = time.perf_counter() - t0 - (gate["s"] - g0)
+            settle(spans, split)
+            per_kind.setdefault(kind, []).append(
+                (wall, {k: split[k] - s0[k] for k in split},
+                 sum(deltas[n_d:])))
+            return out
+
+        def one_dispatch(kind, fn, n=1):
+            """Gate 5: ``n`` batches, each one re-cluster dispatch, one
+            index delta and one fit whose B1/B2 launches are its
+            passes."""
+            d0, e0, f0 = (live.stats["recluster_dispatches"], idx.epoch,
+                          len(fits))
+            b0 = dict(ck.LAUNCHES)
+            out = update(kind, fn)
+            got = (live.stats["recluster_dispatches"] - d0, idx.epoch - e0,
+                   len(fits) - f0)
+            mine = fits[f0:]
+            b1 = sum(f["count_pairs"] for _p, f in mine)
+            b2 = sum(f["minlab_pairs"] for _p, f in mine)
+            ok = (got == (n, n, n)
+                  and all(f["count_pairs"] >= 1 and f["minlab_pairs"] >= 1
+                          and f["count_pairs"] + f["minlab_pairs"] == p
+                          for p, f in mine)
+                  and ck.LAUNCHES["count_pairs"] - b0["count_pairs"] == b1
+                  and ck.LAUNCHES["minlab_pairs"] - b0["minlab_pairs"]
+                  == b2)
+            log(f"    {kind}: re-cluster dispatches, index deltas, fits "
+                f"{got}; their B1 {b1} + B2 {b2} launches against "
+                f"{sum(p for p, _f in mine)} passes")
+            if not ok:
+                fail(f"{kind} did not cost one re-cluster dispatch, one "
+                     f"index delta and one fit's launches per batch")
+            return out
+
+        def oracle_of(Q):
+            coords, labels, _lo, _hi = idx.device_tensors()
+            sel = torch.from_numpy(idx.labels != INT32_MAX).to(dev)
+            return card_oracle(torch, idx.prepare_queries(Q),
+                               coords[:, sel], labels[sel], idx.eps2)
+
+        def bitwise(t_, o):
+            return (t_.done and not t_.failed
+                    and np.array_equal(t_.labels, o[0])
+                    and np.array_equal(t_.d2.view(np.int32),
+                                       o[1].view(np.int32)))
+
+        def served(what, inserted, plain=False):
+            """Gate 2, then gate 1 with the CPU's tables."""
+            ins = live._coords[inserted[-sizes["inserted_q"]:]]
+            Q = np.concatenate([ins, blob_law(nq - len(ins))])
+            t0 = time.perf_counter()
+            tk = live.engine.submit(Q)
+            live.engine.drain()
+            serve_s = time.perf_counter() - t0
+
+            def check():
+                o = oracle_of(Q)
+                same_plain = None
+                if plain:
+                    coords, labels, _lo, _hi = idx.device_tensors()
+                    qbuf, tl, _rowmap = idx.assemble(idx.prepare_queries(Q))
+                    q_t = torch.from_numpy(qbuf).to(dev)
+                    tl_t = torch.from_numpy(tl).to(dev)
+                    got = ck.query_leaf(q_t, tl_t, coords, labels,
+                                        block=idx.block, nb=idx.nb,
+                                        tables=idx.kernel_tables())
+                    same_plain = bool(torch.equal(got, query_min_core_plain(
+                        q_t, tl_t, coords, labels, block=idx.block,
+                        nb=idx.nb)))
+                return bitwise(tk, o), same_plain, int((o[0] >= 0).sum())
+            ok, same_plain, hits = gated(check)
+            log(f"    predict {nq} ({len(ins)} just inserted) after {what}:"
+                f" {serve_s * 1e3:.1f} ms; bitwise the card oracle over "
+                f"{idx.n_core} cores: {ok} ({hits} within eps)"
+                + ("" if same_plain is None else
+                   f"; B5 bitwise its plain version on the slab: "
+                   f"{same_plain}"))
+            if not ok or same_plain is False:
+                fail(f"predict after {what} differs from its oracle")
+            gated(lambda: hold_index(what, full=True))
+
+        def new_ids(start):
+            return np.arange(start, live._n, dtype=np.int64)
+
+        # 11.1: single inserts, then batches spread over every cluster.
+        n0 = live._n
+        for row in blob_law(sizes["singles"]):
+            update("insert", lambda r=row: live.insert(r[None]))
+        served(f"{sizes['singles']} single inserts", new_ids(n0))
+        stamp("11.1: single inserts done")
+        n0 = live._n
+        for _ in range(sizes["batches"]):
+            one_dispatch("insert_batch", lambda: live.insert_batch(
+                blob_law(sizes["batch_rows"])))
+        served(f"{sizes['batches']} insert_batches", new_ids(n0))
+
+        def pool_check():
+            """Gate 3: one update's pool (16 rows of one blob), the
+            card against the CPU."""
+            Xb = blob_law(16, c=3)
+            pool = live._pool(Xb)
+            cores = pool[live._core[pool]]
+            xt = torch.from_numpy(Xb).to(dev)
+            got = (inc.count_within_eps(live._rows(pool), xt, eps),
+                   inc.count_within_eps(xt, live._rows(pool), eps),
+                   *inc.attach_to_cores(xt, live._rows(cores),
+                                        live._labels[cores], eps))
+            cp = live._coords[pool]
+            want = (inc.count_within_eps(cp, Xb, eps),
+                    inc.count_within_eps(Xb, cp, eps),
+                    *inc.attach_to_cores(Xb, live._coords[cores],
+                                         live._labels[cores], eps))
+            same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+            return len(pool), int(want[0].sum()), same
+        npool, pairs, same = gated(pool_check)
+        log(f"    one update's pool ({npool} points against 16 rows, {pairs}"
+            f" pairs within eps): counts, attach labels and d2 bits on the "
+            f"device equal the CPU's: {same}")
+        if not same:
+            fail("the float64 verdicts on the device differ from the CPU's")
+        stamp("11.1: batches done")
+
+        # 11.2: one blob, a clump, a noise batch.
+        n0 = live._n
+        one_dispatch("blob_batch", lambda: live.insert_batch(
+            blob_law(sizes["blob_rows"], c=0)))
+        far = centres.max(axis=0) + 20 * eps
+        n1 = live._n
+        update("clump", lambda: live.insert(
+            far + rng.normal(scale=0.05 * eps, size=(sizes["clump"], d))))
+        clump_ids = new_ids(n1)
+        n1 = live._n
+        lo, hi = X.min(axis=0), X.max(axis=0)
+        update("noise", lambda: live.insert_batch(
+            rng.uniform(lo, hi, size=(sizes["deletes"], d))))
+        noise_ids = new_ids(n1)
+        clump_labels = np.unique(live._labels[clump_ids])
+        noise = int((live._labels[noise_ids] < 0).sum())
+        log(f"    clump of {sizes['clump']}: labels "
+            f"{clump_labels.tolist()}, {int(live._core[clump_ids].sum())} "
+            f"core; noise batch: {noise} of {len(noise_ids)} noise")
+        if len(clump_labels) != 1 or clump_labels[0] < 0:
+            fail("the clump did not become one new cluster")
+        served("a blob batch, a clump and noise", new_ids(n0))
+        stamp("11.2: blob batch, clump, noise done")
+
+        # 11.3: a pour into the index leaf with the fewest free slots.
+        C = idx.leaf_cap
+        free = {leaf: sum(int((idx.labels[s * C:(s + 1) * C]
+                               == INT32_MAX).sum()) for s in slabs)
+                for leaf, slabs in idx.leaf_slabs.items()}
+        leaf = min(free, key=free.get)
+        base = live._coords[int(idx.gids[idx.leaf_slabs[leaf][0] * C])]
+        for jitter in (1e-3, 1e-5, 0.0):
+            pour = base + rng.normal(scale=jitter * eps,
+                                     size=(free[leaf] + 64, d))
+            if not idx.tree or (route_tree(idx.tree, (
+                    pour - idx.center).astype(np.float32)) == leaf).all():
+                break
+        cols0, n0 = idx.coords.shape[1], live._n
+        one_dispatch("pour", lambda: live.insert_batch(pour))
+        grown = len(idx.leaf_slabs[leaf])
+        log(f"    pour of {len(pour)} points into index leaf {leaf} "
+            f"({free[leaf]} free slots): slab width {cols0} -> "
+            f"{idx.coords.shape[1]}, the leaf owns {grown} slabs, appended "
+            f"slab bytes {idx.appended_slab_bytes}")
+        if idx.coords.shape[1] <= cols0 or grown < 2:
+            fail("the pour did not append a slab")
+        served("the pour", new_ids(n0), plain=True)
+        stamp("11.3: pour done")
+
+        # 11.4: delete the noise batch, then core ids of one cluster.
+        d0, e0 = live.stats["recluster_dispatches"], idx.epoch
+        update("delete_noise", lambda: live.delete_batch(noise_ids))
+        log(f"    delete_batch of {len(noise_ids)} noise ids: "
+            f"{live.stats['recluster_dispatches'] - d0} re-cluster "
+            f"dispatches, {idx.epoch - e0} index deltas")
+        lab = live._labels[:live._n]
+        big = int(np.bincount(lab[lab >= 0]).argmax())
+        members = np.flatnonzero((lab == big) & live._core[:live._n])
+        doomed = rng.choice(members, size=sizes["deletes"], replace=False)
+        p0 = live.stats["recluster_points"]
+        one_dispatch("delete_cores", lambda: live.delete_batch(doomed))
+        log(f"    delete_batch of {len(doomed)} core ids of cluster {big} "
+            f"({len(members)} cores): re-clustered "
+            f"{live.stats['recluster_points'] - p0} points")
+        served("the deletes", new_ids(n0))
+        stamp("11.4: deletes done")
+
+        # 11.5: an IngestQueue of single submits, one flush.
+        q = IngestQueue(live, max_batch_rows=sizes["queue_batch"])
+        n0 = live._n
+        t0 = time.perf_counter()
+        tickets = [q.submit_insert(r[None])
+                   for r in blob_law(sizes["queue_rows"])]
+        submit_s = time.perf_counter() - t0
+        batches = -(-sizes["queue_rows"] // sizes["queue_batch"])
+        one_dispatch("queue_flush", q.flush, n=batches)
+        qs = q.stats()
+        if not all(t_.done and not t_.failed for t_ in tickets) or \
+                qs["batches"] != batches:
+            fail("the ingest queue did not resolve its tickets in its "
+                 "batches")
+        log(f"    IngestQueue: {len(tickets)} submits in {submit_s:.3f} s, "
+            f"{qs['batches']} batches of {qs['mean_batch_rows']} rows; "
+            f"write latency (submit to flush) p50 {qs['write_p50_ms']} ms, "
+            f"p99 {qs['write_p99_ms']} ms")
+        served("the queue", new_ids(n0))
+        stamp("11.5: ingest queue done")
+
+        def against_refit():
+            """Gate 4."""
+            P = live.points()
+            fresh = DBSCAN(eps=eps, min_samples=ms, block=sizes["block"],
+                           device=dev).fit(P)
+            a = ari(fresh.labels_, live.labels())
+            diff = np.flatnonzero(fresh.core_sample_mask_ != live.core_mask())
+            e2 = float(eps2_f32(eps))
+            Pc = torch.from_numpy((P - P.mean(axis=0)).astype(
+                np.float32)).to(dev)
+            norms = torch.sqrt((Pc * Pc).sum(dim=1))
+            traced = 0
+            for p in diff[:sizes["trace_cap"]]:
+                acc = torch.zeros(len(Pc), dtype=torch.float32, device=dev)
+                for ax in range(d):
+                    dd = Pc[:, ax] - Pc[p, ax]
+                    acc = acc + dd * dd
+                slack = (2.0 ** -16) * (norms + norms[p]) ** 2
+                traced += int(bool(((acc - e2).abs() <= slack).any()))
+            return len(P), a, len(diff), traced
+        n_p, a, n_diff, traced = gated(against_refit)
+        log(f"    against a fresh fit of the {n_p} live points: ARI {a:.6f};"
+            f" {n_diff} core flags differ, {traced} traced to a pair whose "
+            f"float32 d2 lies within exact_slack of eps^2")
+        if a != 1.0 or n_diff > sizes["trace_cap"] or traced != n_diff:
+            fail("the live clustering differs from a fresh fit beyond the "
+                 "near-eps pairs")
+        rec.update(refit_ari=a, core_flags_differ=n_diff)
+        stamp("11.5: the fresh fit's check done")
+
+        # 11.6: a compaction, writes injected during its refit.
+        Q = np.concatenate([live.points()[-nq // 4:], blob_law(nq - nq // 4)])
+        inj = {}
+
+        def hook(phase):
+            if phase == "refit":
+                n1 = live._n
+                live.insert_batch(blob_law(sizes["replay_rows"]))
+                inj["ins"] = new_ids(n1)
+                alive = live._alive[members] & live._core[members]
+                inj["del"] = rng.choice(members[alive],
+                                        sizes["replay_deletes"],
+                                        replace=False)
+                live.delete_batch(inj["del"])
+            elif phase == "swap":
+                inj["before"] = live.engine.submit(Q)
+                inj["oracle"] = gated(lambda: oracle_of(Q))
+
+        hook_s = {}
+
+        def timed_hook(phase):
+            t0 = time.perf_counter()
+            hook(phase)
+            sync()
+            hook_s[phase] = time.perf_counter() - t0
+
+        comp = Compactor(live, phase_hook=timed_hook)
+        gen0 = idx.generation
+        sync()
+        t0 = time.perf_counter()
+        cst = comp.compact()
+        sync()
+        # The phases without the hook's own work (the injected writes in
+        # the refit's, the ticket and its oracle in the swap's).
+        comp_s = time.perf_counter() - t0 - sum(hook_s.values())
+        ok_before = bitwise(inj["before"], inj["oracle"])
+        after = live.engine.submit(Q)
+        live.engine.drain()
+        ok_after = bitwise(after, gated(lambda: oracle_of(Q)))
+        gids = set(idx.gids[idx.gids >= 0].tolist())
+        ins_core = inj["ins"][live._core[inj["ins"]]]
+        replayed = (cst["replayed_inserts"] == sizes["replay_rows"]
+                    and cst["replayed_deletes"] == sizes["replay_deletes"]
+                    and live._alive[inj["ins"]].all()
+                    and (live._labels[inj["ins"]] >= 0).all()
+                    and all(int(g) in gids for g in ins_core)
+                    and not live._alive[inj["del"]].any()
+                    and not any(int(g) in gids for g in inj["del"]))
+        phases = {k: round(v - hook_s.get(k, 0.0), 4)
+                  for k, v in comp.phase_s.items()}
+        log(f"    compaction {comp_s:.3f} s, by phase {phases} (the "
+            f"injected writes took {hook_s.get('refit', 0.0):.3f} s); "
+            f"generation "
+            f"{gen0} -> {idx.generation}, appended slab bytes "
+            f"{idx.appended_slab_bytes}; replayed "
+            f"{cst['replayed_inserts']} inserts and "
+            f"{cst['replayed_deletes']} deletes, in the new generation: "
+            f"{replayed}; {nq} tickets submitted before the swap equal the"
+            f" old generation's oracle: {ok_before}, after it the new "
+            f"one's: {ok_after}; {card}")
+        if not (ok_before and ok_after and replayed
+                and idx.generation == gen0 + 1):
+            fail("the compaction's swap dropped, misanswered or lost a "
+                 "write")
+        gated(lambda: hold_index("the compaction", full=True))
+        rec.update(compaction_s=comp_s, compaction_phases=phases)
+        stamp("11.6: compaction done")
+
+        # 11.7: save and load on the device.
+        Qs = np.concatenate([live.points()[-nq // 8:],
+                             blob_law(nq - nq // 8)])
+        lab0, dist0 = live.predict(Qs, return_distance=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "live.npz")
+            t0 = time.perf_counter()
+            live.save(path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = LiveModel.load(path, device=dev)
+            sync()
+            load_s = time.perf_counter() - t0
+        lab1, dist1 = back.predict(Qs, return_distance=True)
+        same = (np.array_equal(lab0, lab1) and np.array_equal(dist0, dist1)
+                and back.index.epoch == idx.epoch
+                and np.array_equal(back.labels(), live.labels())
+                and np.array_equal(back.ids(), np.arange(len(live.ids()))))
+        log(f"    save {save_s:.2f} s, load {load_s:.2f} s: the restored "
+            f"model serves byte-identically at epoch {back.index.epoch}: "
+            f"{same}")
+        if not same:
+            fail("the live checkpoint does not round-trip")
+        rec.update(save_s=save_s, load_s=load_s)
+        del back
+        stamp("11.7: save/load done")
+
+        main = {k: ck.LAUNCHES[k] - gate["launches"][k] for k in ck.LAUNCHES}
+    rec["kinds"] = {}
+    for kind, runs in per_kind.items():
+        walls = np.array([w for w, _s, _b in runs]) * 1e3
+        parts = {k: round(float(sum(s[k] for _w, s, _b in runs)), 4)
+                 for k in split}
+        # A p99 over fewer than 100 updates is little more than their
+        # largest, so those kinds report the largest.
+        tail = ("p99_ms", float(np.percentile(walls, 99))) \
+            if len(runs) >= 100 else ("max_ms", float(walls.max()))
+        rec["kinds"][kind] = {
+            "n": len(runs),
+            "p50_ms": round(float(np.percentile(walls, 50)), 3),
+            tail[0]: round(tail[1], 3),
+            "sum_s": round(float(walls.sum() / 1e3), 4),
+            "split_s": parts,
+            "delta_bytes": int(sum(b for _w, _s, b in runs)),
+        }
+        log(f"    {kind}: {len(runs)} updates, p50 "
+            f"{rec['kinds'][kind]['p50_ms']} ms, {tail[0][:-3]} "
+            f"{round(tail[1], 3)} ms; stage seconds {parts};"
+            f" delta bytes {rec['kinds'][kind]['delta_bytes']}; {card}")
+    rec["launches"] = {k: main[k] for k in ("count_pairs", "minlab_pairs",
+                                            "query_leaf", "query_tables")}
+    rec.update(recluster_dispatches=live.stats["recluster_dispatches"],
+               commits=len(deltas), delta_bytes=int(sum(deltas)),
+               gate_s=round(gate["s"], 3))
+    log(f"    main path: {live.stats['recluster_dispatches']} re-cluster "
+        f"dispatches; launches B1 {main['count_pairs']}, B2 "
+        f"{main['minlab_pairs']}, B5 {main['query_leaf']}, query_tables "
+        f"{main['query_tables']}; {len(deltas)} commits shipping "
+        f"{sum(deltas)} delta bytes; gates took {gate['s']:.1f} s; {card}")
+    if main["count_pairs"] < 1 or main["minlab_pairs"] < 1 or main[
+            "query_leaf"] < 1 or (dev.type == "cuda"
+                                  and main["query_tables"] < 1):
+        fail("a kernel of the live path was never launched")
     return rec
 
 
@@ -3618,6 +4265,14 @@ def main() -> None:
     if "--hier" in sys.argv[1:]:
         rec10 = hier_phase(torch, dev, torch.cuda.synchronize, card)
         log(f"phase 10 record: {json.dumps(rec10)}")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
+
+    if "--live" in sys.argv[1:]:
+        t11 = time.perf_counter()
+        rec11 = live_phase(torch, dev, torch.cuda.synchronize, card)
+        log(f"phase 11 record: {json.dumps(rec11)}; phase 11 took "
+            f"{time.perf_counter() - t11:.1f} s")
         log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
         return
 
@@ -3879,6 +4534,8 @@ def main() -> None:
     kernels += precision_phase(torch, dev, median_ms,
                                torch.cuda.synchronize, main_fit, served,
                                onoff, fp32_ms)
+    # Phase 11 runs the live path on phase 6's model.
+    live_fit = dict(model=serve_model, X=X, truth=truth)
     del serve_model, serve_X, served, onoff, main_fit, xs, inp
     phase("phase 9: metrics (cosine, haversine, cityblock) and the sweep")
     t9 = time.perf_counter()
@@ -3894,8 +4551,14 @@ def main() -> None:
     rec10 = hier_phase(torch, dev, torch.cuda.synchronize, card)
     log(f"phase 10 record: {json.dumps(rec10)}; phase 10 took "
         f"{time.perf_counter() - t10:.1f} s")
+    phase("phase 11: live updates and ingest")
+    t11 = time.perf_counter()
+    rec11 = live_phase(torch, dev, torch.cuda.synchronize, card, **live_fit)
+    del live_fit
+    log(f"phase 11 record: {json.dumps(rec11)}; phase 11 took "
+        f"{time.perf_counter() - t11:.1f} s")
     log(f"fit seconds (host, host, cuda, cuda): {json.dumps(fits)}")
-    phase("phases 2-10 done")
+    phase("phases 2-11 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,11 @@ A file written by either package loads in the other:
 
 * ``save_model`` / ``load_model``: hyperparameters, labels, core mask,
   record keys, boxes, metrics and the core-point coordinates, so a
-  loaded model serves ``predict`` without its training data;
+  loaded model serves ``predict`` without its training data; with
+  ``live=``/``index=`` (:meth:`~.serve.live.LiveModel.save`) also the
+  live state and the mutated index slabs (the ``live_*``/``index_*``
+  payload), which ``load_model`` hands to
+  :meth:`~.serve.live.LiveModel.load`;
 * ``save_index`` / ``load_index``: a serving index's padded slabs,
   labels, per-block bounds, split tree and frame, byte for byte;
 * ``save_partitioner`` / ``load_partitioner``: a KD split tree and its
@@ -90,9 +94,16 @@ def load_partitioner(path: str) -> PartitionTree:
         )
 
 
-def save_model(model, path: str) -> None:
+def save_model(model, path: str, *, live=None, index=None) -> None:
     """Persist a fitted ``DBSCAN``: results, hyperparameters and the
-    core-point coordinates (in the data's own dtype)."""
+    core-point coordinates (in the data's own dtype).
+
+    ``live``/``index`` (both, from :meth:`~.serve.live.LiveModel.save`)
+    also persist the live state: the current points with their labels,
+    core flags and stable ids, the routing tree and counters, and the
+    index's slabs byte for byte (epoch, leaf -> slab map and slot ids
+    included), so a restarted server serves the updated model as it was
+    and keeps taking writes."""
     from .serve.index import _core_rows
 
     if model.labels_ is None:
@@ -123,6 +134,52 @@ def save_model(model, path: str) -> None:
         cores = _core_rows(
             model.data, np.asarray(model.core_sample_mask_, bool)
         )
+    extra = {}
+    if live is not None:
+        extra.update(
+            live_points=np.asarray(live["points"], np.float64),
+            live_labels=np.asarray(live["labels"], np.int32),
+            live_core=np.asarray(live["core"], bool),
+            live_gids=np.asarray(live["gids"], np.int64),
+            live_tree=np.asarray(live["tree"], np.float64).reshape(-1, 5),
+            live_meta=json.dumps({
+                "next_label": int(live["next_label"]),
+                "counters": {
+                    k: int(v) for k, v in live["counters"].items()
+                },
+                # A compaction was in flight at the save: the saved index
+                # is the serving generation; the partial one is dropped.
+                "compact_pending": bool(live.get("compact_pending", False)),
+            }),
+        )
+    if index is not None:
+        # The leaf -> slab map as (leaf, slab) rows.
+        pairs = [
+            (int(l), int(s))
+            for l, slabs in sorted(index.leaf_slabs.items()) for s in slabs
+        ]
+        extra.update(
+            index_coords=index.coords,
+            index_labels=index.labels,
+            index_blo=index.blo,
+            index_bhi=index.bhi,
+            index_center=index.center,
+            index_tree=np.asarray(index.tree, np.float64).reshape(-1, 5),
+            index_gids=(
+                index.gids if index.gids is not None
+                else np.empty(0, np.int64)
+            ),
+            index_leaf_slabs=np.asarray(pairs, np.int64).reshape(-1, 2),
+            index_meta=json.dumps({
+                "eps": index.eps,
+                "block": index.block,
+                "qblock": index.qblock,
+                "n_core": index.n_core,
+                "leaf_cap": int(index.stats.get("leaf_cap", 0)),
+                "n_leaves": int(index.stats.get("n_leaves", 0)),
+                "epoch": int(index.epoch),
+            }),
+        )
     np.savez(
         _norm_npz(path),
         kind="dbscan_model",
@@ -139,13 +196,16 @@ def save_model(model, path: str) -> None:
         box_upper=np.stack([boxes[l].upper for l in labels])
         if labels else np.zeros((0, 0)),
         metrics=json.dumps(model.metrics_),
+        **extra,
     )
 
 
 def load_model(path: str, device=None):
     """Rebuild a fitted ``DBSCAN`` from either package's checkpoint;
     ``assignments()`` and ``predict`` work without retraining.
-    ``device``: where the model serves and refits (default the card)."""
+    ``device``: where the model serves and refits (default the card).
+    A live checkpoint's payload goes to ``model._live_ckpt`` (its index
+    on ``device``), for :meth:`~.serve.live.LiveModel.load`."""
     from .dbscan import DBSCAN
 
     with np.load(_norm_npz(path), allow_pickle=False) as z:
@@ -179,10 +239,57 @@ def load_model(path: str, device=None):
         model.metrics_ = json.loads(str(z["metrics"]))
         if "core_points" in z.files and z["core_points"].size:
             model._serve_core_points = z["core_points"]
-        # The live_*/index_* payload of the JAX LiveModel.save (ROADMAP
-        # A15) is not read: the port has no live model to hand it to,
-        # and the fitted result above serves on its own.
+        if "live_points" in z.files:
+            model._live_ckpt = _live_payload(z, device)
     return model
+
+
+def _live_payload(z, device):
+    """The ``live_*``/``index_*`` payload of an open checkpoint: the live
+    state and the mutated index (slabs byte for byte, on ``device``)."""
+    from .serve import CorePointIndex
+
+    imeta = json.loads(str(z["index_meta"]))
+    lmeta = json.loads(str(z["live_meta"]))
+    leaf_slabs: dict = {}
+    for leaf, slab in z["index_leaf_slabs"]:
+        leaf_slabs.setdefault(int(leaf), []).append(int(slab))
+    idx = CorePointIndex(
+        eps=imeta["eps"],
+        center=z["index_center"],
+        tree=z["index_tree"],
+        coords=z["index_coords"],
+        labels=z["index_labels"],
+        blo=z["index_blo"],
+        bhi=z["index_bhi"],
+        block=imeta["block"],
+        qblock=imeta["qblock"],
+        n_core=imeta["n_core"],
+        leaf_slabs=leaf_slabs,
+        gids=z["index_gids"] if z["index_gids"].size else None,
+        stats={
+            "n_core": imeta["n_core"],
+            "n_leaves": imeta["n_leaves"],
+            "leaf_cap": imeta["leaf_cap"],
+            "index_bytes": int(
+                z["index_coords"].nbytes + z["index_labels"].nbytes
+                + z["index_blo"].nbytes + z["index_bhi"].nbytes
+            ),
+        },
+        device=device,
+    )
+    idx.epoch = int(imeta["epoch"])
+    return {
+        "points": z["live_points"],
+        "labels": z["live_labels"],
+        "core": z["live_core"],
+        "gids": z["live_gids"],
+        "tree": z["live_tree"],
+        "next_label": lmeta["next_label"],
+        "counters": lmeta["counters"],
+        "compact_pending": lmeta.get("compact_pending", False),
+        "index": idx,
+    }
 
 
 def save_index(index, path: str) -> None:

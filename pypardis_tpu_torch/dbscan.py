@@ -33,9 +33,11 @@ no CUDA device and no ``device="cpu"`` the constructor raises.
 (:mod:`.ops.hierarchy`): one neighbour-pair graph at a data-derived
 ceiling, the mutual-reachability MST and HDBSCAN*'s stability rule
 select the flat cut, exposed as ``eps_``; ``sweep(eps_list="auto")``
-takes its eps ladder from the same hierarchy.  Sharded fits, live
-serving and telemetry are later slices of the port (ROADMAP A10-A12,
-A15-A16).
+takes its eps ladder from the same hierarchy.  A fitted model takes
+live inserts and deletes (``live``, ``insert``, ``delete``;
+:mod:`.serve.live`), its serving index edited in place.  Sharded fits,
+the serving gateway and telemetry are later slices of the port
+(ROADMAP A10-A12, A15's second half, A16).
 """
 
 from __future__ import annotations
@@ -415,6 +417,10 @@ class DBSCAN:
         self.sketch = check_sketch_spec(sketch)
         self.device = resolve_device(device)
         resolve_backend(self.kernel_backend, self.device, self._pair_metric)
+        # The live write surface (:meth:`live`); its model reads the
+        # lazily synced labels_ / core_sample_mask_ / data below.
+        self._live_model = None
+        self._live_stats: Optional[Dict] = None
         # Reference attribute surface.
         self.data = None
         self._keys = None
@@ -532,6 +538,8 @@ class DBSCAN:
         # the generation move and raises instead of serving the old fit.
         self._serve_engine = None
         self._serve_core_points = None
+        self._live_model = None
+        self._live_stats = None
         self._fit_generation += 1
         if len(points) == 0:
             self.labels_ = np.empty(0, np.int32)
@@ -673,6 +681,8 @@ class DBSCAN:
         self.metrics_ = {}
         self._serve_engine = None
         self._serve_core_points = None
+        self._live_model = None
+        self._live_stats = None
         self._fit_generation += 1
         self._keys = keys
         self.data = points
@@ -1007,6 +1017,8 @@ class DBSCAN:
         self.metrics_ = {}
         self._serve_engine = None
         self._serve_core_points = None
+        self._live_model = None
+        self._live_stats = None
         self._fit_generation += 1
         self._keys = keys
         self.data = points
@@ -1137,6 +1149,39 @@ class DBSCAN:
 
     # -- results ----------------------------------------------------------
 
+    # ``labels_``, ``core_sample_mask_`` and ``data`` are properties so
+    # that a live model syncs them lazily: an update marks them dirty,
+    # and the O(N) copies run on their first read after it.
+    @property
+    def labels_(self) -> Optional[np.ndarray]:
+        if self._live_model is not None:
+            self._live_model._sync_if_dirty()
+        return self._labels_v
+
+    @labels_.setter
+    def labels_(self, value) -> None:
+        self._labels_v = value
+
+    @property
+    def core_sample_mask_(self) -> Optional[np.ndarray]:
+        if self._live_model is not None:
+            self._live_model._sync_if_dirty()
+        return self._core_mask_v
+
+    @core_sample_mask_.setter
+    def core_sample_mask_(self, value) -> None:
+        self._core_mask_v = value
+
+    @property
+    def data(self):
+        if self._live_model is not None:
+            self._live_model._sync_if_dirty()
+        return self._data_v
+
+    @data.setter
+    def data(self, value) -> None:
+        self._data_v = value
+
     @property
     def result(self):
         """Key-sorted ``[(key, global label)]``, built on first access."""
@@ -1180,6 +1225,42 @@ class DBSCAN:
 
             self._serve_engine = QueryEngine.from_model(self, **kw)
         return self._serve_engine
+
+    # -- live updates -----------------------------------------------------
+
+    def live(self, **kw):
+        """The cached :class:`~pypardis_tpu_torch.serve.live.LiveModel`
+        over this fitted model, its incremental write surface (built on
+        first use; kwargs force a rebuild; a refit drops it).  Only a
+        Euclidean model goes live (see :class:`LiveModel`); an eps=None
+        model raises too, having no fixed eps to maintain."""
+        self._require_fitted()
+        from .serve.live import check_live_metric
+
+        check_live_metric(self._metric_norm)
+        if self.eps is None:
+            raise TypeError(
+                "live updates need a fixed eps; this model was built with "
+                "eps=None (its fit selected eps_): refit with "
+                "DBSCAN(eps=model.eps_) to update it live"
+            )
+        if self._live_model is None or kw:
+            from .serve import LiveModel
+
+            self._live_model = LiveModel(self, **kw)
+        return self._live_model
+
+    def insert(self, X) -> np.ndarray:
+        """Insert points into the fitted clustering (labels maintained
+        incrementally, the serving index edited in place); returns their
+        stable ids.  See :class:`~pypardis_tpu_torch.serve.live.
+        LiveModel`."""
+        return self.live().insert(X)
+
+    def delete(self, ids) -> int:
+        """Delete points by id (as :meth:`insert` returned them; the fit's
+        points are ``0..n-1``)."""
+        return self.live().delete(ids)
 
     def cluster_mapping(self) -> ClusterAggregator:
         """A :class:`ClusterAggregator` over the final labels (the

@@ -69,6 +69,15 @@ def axis_sq_dists(q, c):
     return acc
 
 
+def _sqrt_rn(x):
+    """float32 square roots rounded correctly, as the kernel's
+    ``__fsqrt_rn``: taken in float64 and rounded once to float32 (float64
+    holds more than twice float32's bits, so the double rounding of a
+    square root is harmless).  torch's float32 ``sqrt`` on the CPU may
+    miss by an ulp."""
+    return torch.sqrt(x.double()).float()
+
+
 def brute_force_query(queries, cores, labels, eps):
     """The numpy oracle: exact ``(labels, d2)`` per query over all
     cores (already centred; cast to float32).  Label -1 and d2 = +inf
@@ -133,8 +142,8 @@ def fast_block_keep(q, cols, labs, eps2):
                        bf16_round(cc).permute(1, 2, 0, 3))
     d2f = (qq[..., None] + c2[..., None, :]) - 2.0 * dot
     band = fast_band(
-        torch.sqrt(qq)[..., None], nc[..., None, :],
-        torch.sqrt(axis_sq(qd))[..., None], gc[..., None, :],
+        _sqrt_rn(qq)[..., None], nc[..., None, :],
+        _sqrt_rn(axis_sq(qd))[..., None], gc[..., None, :],
     )
     ok = ((d2f - band <= eps2) & real[..., None, :]
           & qreal[:, None, :, None])
@@ -153,7 +162,7 @@ def keep_frames(cols, labs):
     lo = torch.where(real[None], cols, big).amin(dim=-1)
     ctr = (0.5 * (hi + lo))[..., None]
     c2 = axis_sq(cols - ctr)
-    return real, ctr, c2, torch.sqrt(c2), torch.sqrt(axis_sq(cols))
+    return real, ctr, c2, _sqrt_rn(c2), _sqrt_rn(axis_sq(cols))
 
 
 def query_min_core_plain(q, tile_leaf, coords, labels, *, block, nb,
@@ -260,8 +269,9 @@ def query_block_frames(coords, labels, block):
     block's real slots (label != INT32_MAX; 0 for a block without one),
     and ``slots`` (L*C, 4) float32 ``[|y - c|^2, |y - c|, |y|, real]``
     per slot (the squares summed axis by axis in index order; zeros at
-    a slot that is not real).  The kernel's table, built once per
-    index; :func:`fast_block_keep` computes the same per call."""
+    a slot that is not real).  The kernel's table, built per index and
+    again at every live commit; :func:`fast_block_keep` computes the
+    same per call."""
     d, n = coords.shape
     nbk = n // block
     real = (labels != INT_INF).reshape(nbk, block)
@@ -272,7 +282,7 @@ def query_block_frames(coords, labels, block):
     ctr = 0.5 * (hi + lo)  # (d, nbk)
     cc = torch.where(real, axis_sq(c3 - ctr[..., None]), 0.0)
     gc = torch.where(real, axis_sq(c3), 0.0)
-    slots = torch.stack([cc, torch.sqrt(cc), torch.sqrt(gc),
+    slots = torch.stack([cc, _sqrt_rn(cc), _sqrt_rn(gc),
                          real.to(torch.float32)], dim=-1)
     return ctr.T.contiguous(), slots.reshape(n, 4)
 
@@ -372,7 +382,7 @@ def query_keep_walk(q, tile_leaf, coords, labels, frames, leaf_end, eps2,
     fragile = torch.zeros_like(keep)
     kept_pairs = 0
     kpad = -(-d // 16) * 16
-    gq = torch.sqrt(axis_sq(q.permute(1, 0, 2)))  # (nqt, qb)
+    gq = _sqrt_rn(axis_sq(q.permute(1, 0, 2)))  # (nqt, qb)
     elems = _PLAIN_ELEMS * (4 if q.is_cuda else 1)
     per = max(1, elems // max(nqt * qb * block, 1))
     for b0 in range(0, int(nbend.max()) if nqt else 0, per):
@@ -389,7 +399,7 @@ def query_keep_walk(q, tile_leaf, coords, labels, frames, leaf_end, eps2,
         dot = torch.einsum("atbr,atbs->tbrs", bq, by)
         cc, nc, gc, sreal = (f[..., i][:, :, None, :] for i in range(4))
         d2f = (xx[..., None] + cc) - 2.0 * dot
-        band = fast_band(torch.sqrt(xx)[..., None], nc,
+        band = fast_band(_sqrt_rn(xx)[..., None], nc,
                          gq[:, None, :, None], gc)
         m = (d2f - band) - eps2
         tol = (2.0 * (kpad + 2) * 2.0 ** -23

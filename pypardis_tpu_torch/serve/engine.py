@@ -13,8 +13,14 @@ batch *i* is folded) keeps running while the host folds.
 when B5 is hidden behind the host stages.
 
 ``serving_stats()`` reports QPS over engine-busy wall time, batch fill
-(real routed rows over padded device rows) and p50/p99 request latency
-over a bounded window of recent requests.
+(real routed rows over padded device rows), p50/p99 request latency
+over a bounded window of recent requests, and the index's epoch and
+generation.  A live update (:mod:`.live`) edits the index in place
+between drains: a ticket submitted before it and drained after it
+answers against the updated index (its queries were centred in the
+index's frame, which no update moves), and a batch already dispatched
+reads the old slab, since the update's device writes queue behind it on
+the stream.
 """
 
 from __future__ import annotations
@@ -358,4 +364,5 @@ class QueryEngine:
             "shed_total": int(self._shed),
             "deadline_failures": int(self._deadline_failures),
             "index_epoch": int(self.index.epoch),
+            "index_generation": int(self.index.generation),
         }

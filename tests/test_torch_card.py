@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from benchdata import make_blob_data, make_embedding_data
+from benchdata import (
+    make_blob_data, make_embedding_data, make_separated_blob_data,
+)
 from pypardis_tpu_torch import DBSCAN
 from pypardis_tpu_torch.dbscan import _stage
 from pypardis_tpu_torch.ops import cuda_kernels as ck
@@ -1177,3 +1179,140 @@ def test_eps_none_at_default_precision_is_the_exact_clustering(monkeypatch):
     for m in (fits[1], ref):
         assert np.array_equal(fits[0].labels_, m.labels_)
         assert np.array_equal(fits[0].core_sample_mask_, m.core_sample_mask_)
+
+
+def _hold_index(idx):
+    """The index's device tensors equal its host mirrors, and B5's
+    tables equal a fresh ``query_tables`` and their plain versions on
+    the card and on the CPU (from the host mirrors), bitwise."""
+    dev = idx.device_tensors()
+    for t, a in zip(dev, (idx.coords, idx.labels, idx.blo, idx.bhi)):
+        assert torch.equal(t.cpu(), torch.from_numpy(a))
+    got = idx.kernel_tables()
+    fresh = ck.query_tables(dev[0], dev[1], block=idx.block, nb=idx.nb)
+
+    def plain(coords, labels):
+        return (query_pad_keys(coords, labels, idx.leaf_cap),
+                query_leaf_ends(coords, labels, idx.leaf_cap),
+                *query_block_frames(coords, labels, idx.block))
+    host = plain(torch.from_numpy(idx.coords), torch.from_numpy(idx.labels))
+    for g, f, w, h in zip(got, fresh, plain(dev[0], dev[1]), host):
+        assert torch.equal(g.view(torch.int32), f.view(torch.int32))
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), h.view(torch.int32))
+
+
+def _live_writes(live, centers, rng, dim):
+    """Inserts (interior, a new clump, noise, a pour past a leaf's
+    pads), core deletes and a compaction; yields after each."""
+    live.insert(centers[0] + rng.normal(scale=0.3, size=(4, dim)))
+    yield "interior"
+    live.insert(np.full(dim, 24.0) + rng.normal(scale=0.2, size=(8, dim)))
+    yield "clump"
+    live.insert(rng.uniform(-30, 30, size=(3, dim)))
+    yield "noise"
+    live.insert_batch(centers[1] + rng.normal(scale=0.3, size=(300, dim)))
+    yield "pour"
+    live.delete_batch(live.ids()[live.core_mask()][:12])
+    yield "delete cores"
+    from pypardis_tpu_torch.serve import Compactor
+
+    Compactor(live).compact()
+    yield "compaction"
+    live.insert_batch(centers[2] + rng.normal(scale=0.3, size=(20, dim)))
+    yield "after the swap"
+
+
+@pytest.mark.cuda
+def test_live_sequence_keeps_b5_tables_fresh_on_card():
+    """Every commit rebuilds B5's tables over the new slab (a filled
+    tail pad moves a leaf's end; a delete leaves an interior pad; an
+    overflow appends a slab; a compaction swaps the generation), and
+    ``predict`` stays bitwise ``oracle_predict``."""
+    _need_card()
+    X, _t, centers = make_separated_blob_data(
+        800, 3, n_centers=5, std=0.35, min_sep=6.3, spread=10.0, seed=0)
+    live = DBSCAN(eps=1.1, min_samples=6, block=128).fit(X).live(
+        leaves=8, block=32, qblock=32)
+    idx = live.index
+    commit = idx.commit_update
+    held = []
+
+    def checked():
+        before = ck.LAUNCHES["query_tables"]
+        out = commit()
+        assert ck.LAUNCHES["query_tables"] == before + 1
+        _hold_index(idx)
+        held.append(idx.epoch)
+        return out
+
+    idx.commit_update = checked
+    rng = np.random.default_rng(3)
+    Q0 = np.concatenate([X[:200], rng.uniform(-25, 25, size=(80, 3))])
+    cols0 = idx.coords.shape[1]
+    for what in _live_writes(live, centers, rng, 3):
+        _hold_index(idx)
+        Q = np.concatenate([Q0, live.points()[-40:]])
+        olabs, od2 = idx.oracle_predict(Q)
+        assert np.array_equal(live.predict(Q), olabs), what
+        t = live.engine.submit(Q)
+        live.engine.drain()
+        assert np.array_equal(t.d2.view(np.int32), od2.view(np.int32)), what
+        if what == "pour":
+            assert idx.coords.shape[1] > cols0
+    # One rebuild per commit; the swap adopts the new generation's.
+    assert len(held) == idx.epoch - 1 >= 5 and idx.generation == 1
+
+
+@pytest.mark.cuda
+def test_live_on_card_equals_live_on_the_cpu():
+    """The same writes on a card model and a CPU model: labels, core
+    flags, the index's host arrays and the counters byte-identical, and
+    ``predict`` bitwise."""
+    _need_card()
+    X, _t, centers = make_separated_blob_data(
+        800, 3, n_centers=5, std=0.35, min_sep=6.3, spread=10.0, seed=1)
+    lives = [DBSCAN(eps=1.1, min_samples=6, block=128, device=d).fit(
+        X).live(leaves=8, block=32, qblock=32, warm=False)
+        for d in ("cuda", "cpu")]
+    gens = [_live_writes(lv, centers, np.random.default_rng(4), 3)
+            for lv in lives]
+    for steps in zip(*gens):
+        g, c = lives
+        assert np.array_equal(g.labels(), c.labels()), steps
+        assert np.array_equal(g.core_mask(), c.core_mask())
+        for f in ("coords", "labels", "blo", "bhi", "gids"):
+            assert np.array_equal(getattr(g.index, f), getattr(c.index, f))
+        assert g.index.leaf_slabs == c.index.leaf_slabs
+        assert g._counters == c._counters
+        Q = np.concatenate([X[:100], g.points()[-50:]])
+        a, b = (lv.predict(Q, return_distance=True) for lv in lives)
+        assert np.array_equal(a[0], b[0])
+        assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
+
+
+@pytest.mark.cuda
+def test_incremental_primitives_on_card_equal_the_cpu():
+    """float64 counts and the border attach: card = CPU, counts and
+    labels exactly, d^2 bitwise (no fused multiply-add on either)."""
+    _need_card()
+    from pypardis_tpu_torch.ops import incremental as inc
+
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(3000, 16)) * 0.4 + rng.uniform(-10, 10, 16)
+    c = np.concatenate([q[:2000] + rng.normal(scale=0.3, size=(2000, 16)),
+                        rng.normal(size=(3000, 16)) * 3.0])
+    lab = rng.integers(0, 9, len(c))
+    for eps in (1.0, 2.4):
+        a = inc.count_within_eps(torch.from_numpy(q).cuda(),
+                                 torch.from_numpy(c).cuda(), eps)
+        assert torch.equal(a.cpu(), inc.count_within_eps(q, c, eps))
+        gl, gd = inc.attach_to_cores(torch.from_numpy(q).cuda(),
+                                     torch.from_numpy(c).cuda(), lab, eps)
+        cl, cd = inc.attach_to_cores(q, c, lab, eps)
+        assert torch.equal(gl.cpu(), cl)
+        assert torch.equal(gd.cpu().view(torch.int64), cd.view(torch.int64))
+    d2g = inc.sq_dists_f64(torch.from_numpy(q[:500]).cuda(),
+                           torch.from_numpy(c[:700]).cuda())
+    d2c = inc.sq_dists_f64(torch.from_numpy(q[:500]), torch.from_numpy(c[:700]))
+    assert torch.equal(d2g.cpu().view(torch.int64), d2c.view(torch.int64))

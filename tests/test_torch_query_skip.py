@@ -122,6 +122,29 @@ def test_block_frames_equal_the_prefilter_frames(d):
         assert bool((s[..., i][~real] == 0).all())
 
 
+@pytest.mark.parametrize("d", [3, 16])
+def test_block_frames_take_correctly_rounded_square_roots(d):
+    """The frames' two square-root columns round correctly, as the
+    kernel's ``__fsqrt_rn`` does (numpy's float32 ``sqrt`` is IEEE), on
+    enough slots that torch's own float32 CPU ``sqrt`` would miss."""
+    rng = np.random.default_rng(d)
+    block, n = 64, 64 * 512
+    coords = (rng.normal(size=(d, n)) * 7.0).astype(np.float32)
+    labels = rng.integers(0, 50, n).astype(np.int32)
+    labels[rng.random(n) < 0.2] = INT_INF
+    _ctr, slots = query.query_block_frames(
+        torch.from_numpy(coords), torch.from_numpy(labels), block)
+    s = slots.numpy()
+    real = s[:, 3] > 0
+    gc = coords[0] * coords[0]
+    for a in range(1, d):
+        gc = gc + coords[a] * coords[a]
+    for col, sq in ((1, s[:, 0]), (2, gc)):
+        want = np.where(real, np.sqrt(sq), np.float32(0))
+        assert np.array_equal(s[:, col].view(np.int32),
+                              want.view(np.int32))
+
+
 def _mixed_from_units(q, tl, coords, labels, keep, block, nb):
     """The exact pass over the kept units only (the kernel's second
     phase), as the plain version: every other slot at (+inf, INT32_MAX)
