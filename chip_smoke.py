@@ -100,7 +100,7 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    must rule out); B3 timed with its ``rescored_pairs``, their share of
    ``band_pairs``, two bounds (:func:`b3_bounds`: the exact rescore's
    and the certified rescore's work) and the function's floor
-   (:func:`b3_floor`); over the first 64 row tiles both
+   (:func:`b3_floor`); over the first 32 row tiles both
    against their plain versions (B3's ``rescored_pairs`` against the
    emulation's), B4 bitwise at the round-1, converged and
    descending labels with its evaluated count equal to
@@ -145,8 +145,10 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    and B4 per round, ARI against the truth, labels and core mask
    byte-identical to the Euclidean fit of ``_unit_rows(X)`` at
    ``kernel_eps``; B3/B4 bitwise their plain versions on unit rows
-   (20,000 x 512, k = 128), timed; 4,096 queries through the model's
-   engine (one B5 launch), answers bitwise :func:`card_oracle` over all
+   (20,000 x 512, k = 128), timed; 4,096 queries through the engine of
+   a cosine model fitted on the first 200,000 rows (the 512-D index
+   build is host work, ~36 s at 1M; one B5 launch), answers bitwise
+   :func:`card_oracle` over all
    cores (which equals the numpy oracle on 8 rows over 65,536 cores), B5
    bitwise its plain version on the batch's first tiles, timed; (2)
    haversine on :func:`geolife_like` stay points (1,000,000, eps 50 m):
@@ -196,7 +198,7 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 
 11. live updates and ingest (:func:`live_phase`) on phase 6's model
    (1,000,000 x 16-D, eps 2.4, min_samples 10): ``model.live()``, then
-   a seeded write stream (256 single inserts and 4 ``insert_batch``es
+   a seeded write stream (128 single inserts and 4 ``insert_batch``es
    of 1,024 rows from the blob law, 4,096 rows from one blob, a clump
    of 12 points 20 eps past every centre, 64 noise points, a pour into
    the index leaf with the fewest free slots past its pads, a
@@ -221,6 +223,38 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    elsewhere, its seconds in verdicts, re-cluster, attach, commit and
    B5 tables (CUDA-event spans, which add no sync), the launches and
    the compaction's phases.
+12. the multi-tenant gateway and the load harnesses
+   (:func:`gateway_phase`): (1) ``sustained_load`` on phase 11's live
+   model (4 Poisson readers at 200 Hz of 16 rows, 2 Poisson writers at
+   30 Hz of 8 blob-law rows through an ``IngestQueue``, a fifth of them
+   deleting their own inserts, a ``Compactor`` started at 5 s; 15 s):
+   no dropped ticket, failed write or missed deadline, >= 1 compaction
+   and epoch swap, then the index's device tensors and B5's tables held
+   as in phase 11, ``predict`` of 4,096 blob-law rows bitwise
+   ``card_oracle``, ARI 1.0 against a fresh fit; it prints qps, p50,
+   p99, update-visible p50/p99, write rows/s and batch, read p99 during
+   the compaction against outside it and the compaction's phases;
+   (2) a fleet of seven models fitted on the card (``big`` 1M, five of
+   250,000, ``live`` 250,000 registered live; the blob law, seeds
+   101-107) behind one ``ModelGateway`` at 60 % of their summed
+   ``index_bytes``: the least recently served are the victims, the
+   card's allocated memory falls by at least their device bytes and
+   every released tensor is freed, each readmitted index's slabs and
+   tables are bitwise what they were and its answers (labels, d^2)
+   bitwise before the eviction and ``card_oracle``; a tenant at 0.001
+   qps, burst 3 sheds 7 of 10, a quiet one none; a refit raises
+   ``StaleModelHandle`` until ``refresh``; an insert on the live handle
+   is served at once and its ``refresh`` refused; ``gateway_load`` (4
+   tenants x 2 clients at 120 Hz of 64 rows, Zipf 1.2, 2 % live writes,
+   15 s, ``m2`` refreshed to a refit on new data at 6 s) drops nothing,
+   evicts, readmits and swaps once, ``m2`` then gives the refreshed
+   model's labels and answers bitwise the oracle over its new
+   generation, B5 launches = the engines' batches and
+   ``query_tables`` launches = readmissions + refreshes + live commits.
+   It prints per tenant admitted, shed, p50 and p99, qps, the mean
+   eviction and readmission windows by model size (without traffic and
+   under it), the swap window, read p99 inside the eviction and swap
+   windows against outside them, update-visible p50.
 
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
@@ -229,7 +263,13 @@ no result.
 
 ``python3 chip_smoke.py --metrics`` builds the kernels and runs phase 9
 alone; ``--hier`` builds them and runs phase 10 alone; ``--live`` builds
-them, fits the 1M model and runs phase 11 alone.
+them, fits the 1M model and runs phase 11 alone; ``--gateway`` builds
+them, fits the 1M model, builds its live model and runs phase 12 alone.
+``--hold-reps N`` (with any of the above, or alone for the whole
+script) runs every gate-1 hold of the index (:func:`hold_index`: after
+each live commit, each served check, the compaction and the ingest
+harness) N times over, each failing the run on a difference: a search
+for a difference that does not show on every computation.
 ``python3 chip_smoke.py --b1`` builds the kernels and times B1 alone
 in its three modes at the 1M x 16-D inputs, with its bounds, floor,
 rescored share and frames' staging, then prints the 1M fits' sha256 in
@@ -1416,7 +1456,7 @@ def b1_rescored_hold(a, centers, rescored, what):
 
 # Sizes of phase 7; tests rehearse the phase at small ones on the CPU.
 SKETCH_SIZES = {"check_n": 20_000, "onoff_n": 100_000,
-                "main_n": 1_000_000, "sub_tiles": 64, "reps": 3}
+                "main_n": 1_000_000, "sub_tiles": 32, "reps": 3}
 
 
 def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
@@ -2657,7 +2697,8 @@ SWEEP_PAST_CAP = 2.4
 
 # Phase 9: the metrics and the sweep.  Sizes of the phase; a test
 # rehearses it at small ones on the CPU.
-METRIC_SIZES = {"cos_n": 1_000_000, "check_n": 20_000, "hav_n": 1_000_000,
+METRIC_SIZES = {"cos_n": 1_000_000, "cos_serve_n": 200_000,
+                "check_n": 20_000, "hav_n": 1_000_000,
                 "l1_n": 1_000_000, "l1_sub_n": 20_000, "queries": 4096,
                 "oracle_rows": 8, "sub_tiles": 64, "plain_tiles": 4,
                 "reps": 3, "block": 2048, "sweep_edges": SWEEP_EDGES}
@@ -3001,7 +3042,14 @@ def metrics_phase(torch, dev, median_ms, sync, sizes=METRIC_SIZES,
                   nbytes / PEAK_BYTES_PER_S),
            f"cosine unit rows n={sizes['check_n']} d=512 k=128")
     stamp("9.1: fits and B3/B4 held")
-    rec["cosine"]["serve_s"] = served(cos, X, "cosine", 21)
+    # Served from a cosine model of the first cos_serve_n rows: the 512-D
+    # index build is host work (≈ 36 s at 1M).
+    ns = min(sizes["cos_serve_n"], n)
+    if ns < n:
+        cos = DBSCAN(eps=COS_EPS, min_samples=10, metric="cosine",
+                     block=block, device=dev).fit(X[:ns])
+    rec["cosine"]["serve_n"] = ns
+    rec["cosine"]["serve_s"] = served(cos, X[:ns], "cosine", 21)
     stamp("9.1: served")
     del X, U, euc, cos, inp
 
@@ -3540,11 +3588,123 @@ def host_tables(idx):
             *query_block_frames(hc, hl, idx.block))
 
 
+def words_off(torch, got, want):
+    """Differing 32-bit words between two sequences of tensors, counted
+    on ``got``'s device."""
+    return sum(int((g.view(torch.int32)
+                    != w.to(g.device).view(torch.int32)).sum())
+               for g, w in zip(got, want))
+
+
+def words_where(torch, got, want, names, cap=4):
+    """Per tensor of ``got`` that differs from ``want``: its name, its
+    differing 32-bit words and the first ``cap`` of them as ``(flat
+    word, got, want)`` -- a failure's report."""
+    out = []
+    for name, g, w in zip(names, got, want):
+        gi = g.reshape(-1).view(torch.int32)
+        wi = w.to(g.device).reshape(-1).view(torch.int32)
+        at = torch.nonzero(gi != wi).reshape(-1)
+        if len(at):
+            first = at[:cap].tolist()
+            out.append(f"{name}: {len(at)} words, first "
+                       + ", ".join(f"[{j}] {int(gi[j])} != {int(wi[j])}"
+                                   for j in first))
+    return "; ".join(out)
+
+
+TABLE_NAMES = ("pad_keys", "leaf_end", "ctr", "slots")
+# Times each hold runs (``--hold-reps``).
+HOLD_REPS = 1
+
+
+def hold_index(torch, ck, idx, dev, what, full=False):
+    """The index's device tensors against its host mirrors and B5's
+    tables against a fresh ``query_tables``, bitwise; with ``full`` also
+    the tables against their plain versions on ``dev`` and, on the card,
+    the host's (:func:`host_tables`).  Fails the run on a difference,
+    naming each comparison, table and first differing words.  Runs
+    :data:`HOLD_REPS` times."""
+    for _ in range(HOLD_REPS):
+        _hold_once(torch, ck, idx, dev, what, full)
+
+
+def _hold_once(torch, ck, idx, dev, what, full):
+    from pypardis_tpu_torch.ops.query import (
+        query_block_frames, query_leaf_ends, query_pad_keys,
+    )
+
+    dev_t = idx.device_tensors()
+    bad = words_where(torch, dev_t, [torch.from_numpy(a) for a in (
+        idx.coords, idx.labels, idx.blo, idx.bhi)],
+        ("coords", "labels", "blo", "bhi"))
+    if bad:
+        fail(f"after {what} the index's device tensors differ from "
+             f"its host mirrors ({bad})")
+    got, C = idx.kernel_tables(), idx.leaf_cap
+    wants = [("a fresh query_tables", lambda: ck.query_tables(
+        dev_t[0], dev_t[1], block=idx.block, nb=idx.nb))]
+    if full:
+        wants.append((f"the plain versions on {dev.type}", lambda: (
+            query_pad_keys(dev_t[0], dev_t[1], C),
+            query_leaf_ends(dev_t[0], dev_t[1], C),
+            *query_block_frames(dev_t[0], dev_t[1], idx.block))))
+    if full and dev.type == "cuda":
+        wants.append(("the plain versions on the host",
+                      lambda: host_tables(idx)))
+    bad = []
+    for name, want in wants:
+        off = words_where(torch, got, want(), TABLE_NAMES)
+        if off:
+            # Computed once more, to tell a lasting difference from a
+            # passing one in the report; either fails the run.
+            again = words_where(torch, got, want(), TABLE_NAMES)
+            bad.append(f"against {name}: {off} (computed again: "
+                       f"{again or 'equal'})")
+    if bad:
+        fail(f"after {what} B5's tables differ ({' | '.join(bad)})")
+
+
+def index_oracle(torch, idx, Q):
+    """:func:`card_oracle` over the index's live cores (its device
+    slab's non-pad columns) for raw-frame queries ``Q``."""
+    coords, labels, _lo, _hi = idx.device_tensors()
+    sel = torch.from_numpy(idx.labels != INT32_MAX).to(coords.device)
+    return card_oracle(torch, idx.prepare_queries(Q), coords[:, sel],
+                       labels[sel], idx.eps2)
+
+
+def refit_trace(torch, dev, live, block, trace_cap):
+    """A fresh fit of the live points against the live clustering:
+    ``(points, ARI, core flags that differ, of them traced to a pair
+    whose float32 d^2 lies within exact_slack of eps^2)``."""
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.ops.distances import eps2_f32
+
+    P = live.points()
+    fresh = DBSCAN(eps=live.eps, min_samples=live.min_samples, block=block,
+                   device=dev).fit(P)
+    a = ari(fresh.labels_, live.labels())
+    diff = np.flatnonzero(fresh.core_sample_mask_ != live.core_mask())
+    e2 = float(eps2_f32(live.eps))
+    Pc = torch.from_numpy((P - P.mean(axis=0)).astype(np.float32)).to(dev)
+    norms = torch.sqrt((Pc * Pc).sum(dim=1))
+    traced = 0
+    for p in diff[:trace_cap]:
+        acc = torch.zeros(len(Pc), dtype=torch.float32, device=dev)
+        for ax in range(Pc.shape[1]):
+            dd = Pc[:, ax] - Pc[p, ax]
+            acc = acc + dd * dd
+        slack = (2.0 ** -16) * (norms + norms[p]) ** 2
+        traced += int(bool(((acc - e2).abs() <= slack).any()))
+    return len(P), a, len(diff), traced
+
+
 # Phase 11: live updates and ingest.  Sizes of the phase; a test
 # rehearses it at small ones on the CPU.
 LIVE_SIZES = {"n": 1_000_000, "d": 16, "centers": 32, "std": 0.4,
               "eps": 2.4, "min_samples": 10, "block": 2048,
-              "singles": 256, "batches": 4, "batch_rows": 1024,
+              "singles": 128, "batches": 4, "batch_rows": 1024,
               "blob_rows": 4096, "clump": 12, "deletes": 64,
               "queue_rows": 4096, "queue_batch": 1024, "replay_rows": 64,
               "replay_deletes": 16, "queries": 4096, "inserted_q": 1024,
@@ -3654,11 +3814,7 @@ def live_phase(torch, dev, sync, card="", sizes=LIVE_SIZES, model=None,
     from pypardis_tpu_torch import DBSCAN
     from pypardis_tpu_torch.ops import cuda_kernels as ck
     from pypardis_tpu_torch.ops import incremental as inc
-    from pypardis_tpu_torch.ops.distances import eps2_f32
-    from pypardis_tpu_torch.ops.query import (
-        query_block_frames, query_leaf_ends, query_min_core_plain,
-        query_pad_keys,
-    )
+    from pypardis_tpu_torch.ops.query import query_min_core_plain
     from pypardis_tpu_torch.partition import route_tree
     from pypardis_tpu_torch.serve import Compactor, IngestQueue, LiveModel
 
@@ -3713,36 +3869,9 @@ def live_phase(torch, dev, sync, card="", sizes=LIVE_SIZES, model=None,
                 gate["launches"][k] += ck.LAUNCHES[k] - before[k]
             return out
 
-        def words(got, want):
-            """Differing 32-bit words, counted on ``got``'s device."""
-            return sum(int((g.view(torch.int32)
-                            != w.to(g.device).view(torch.int32)).sum())
-                       for g, w in zip(got, want))
-
-        def hold_index(what, full=False):
-            """Gate 1: the device tensors against the host mirrors and
-            B5's tables against a fresh ``query_tables``; with ``full``
-            also against their plain versions on ``dev`` and the host's
-            (:func:`host_tables`)."""
-            dev_t = idx.device_tensors()
-            bad = words(dev_t, [torch.from_numpy(a) for a in (
-                idx.coords, idx.labels, idx.blo, idx.bhi)])
-            if bad:
-                fail(f"after {what} the index's device tensors differ from "
-                     f"its host mirrors ({bad} words)")
-            got, C = idx.kernel_tables(), idx.leaf_cap
-            bad = words(got, ck.query_tables(dev_t[0], dev_t[1],
-                                              block=idx.block, nb=idx.nb))
-            if full:
-                bad += words(got, (query_pad_keys(dev_t[0], dev_t[1], C),
-                                   query_leaf_ends(dev_t[0], dev_t[1], C),
-                                   *query_block_frames(dev_t[0], dev_t[1],
-                                                       idx.block)))
-            if full and dev.type == "cuda":
-                bad += words(got, host_tables(idx))
-            if bad:
-                fail(f"after {what} B5's tables differ from a fresh "
-                     f"query_tables or their plain versions ({bad} words)")
+        def held(what, full=False):
+            """Gate 1 (:func:`hold_index`)."""
+            hold_index(torch, ck, idx, dev, what, full)
 
         def checked_commit():
             t0 = _live_mark(torch, dev)
@@ -3753,7 +3882,7 @@ def live_phase(torch, dev, sync, card="", sizes=LIVE_SIZES, model=None,
             if dev.type == "cuda" and ck.LAUNCHES["query_tables"] != \
                     before + 1:
                 fail("a commit did not rebuild B5's tables once")
-            gated(lambda: hold_index("a commit"))
+            gated(lambda: held("a commit"))
             return out
 
         idx.commit_update = checked_commit
@@ -3804,10 +3933,7 @@ def live_phase(torch, dev, sync, card="", sizes=LIVE_SIZES, model=None,
             return out
 
         def oracle_of(Q):
-            coords, labels, _lo, _hi = idx.device_tensors()
-            sel = torch.from_numpy(idx.labels != INT32_MAX).to(dev)
-            return card_oracle(torch, idx.prepare_queries(Q),
-                               coords[:, sel], labels[sel], idx.eps2)
+            return index_oracle(torch, idx, Q)
 
         def bitwise(t_, o):
             return (t_.done and not t_.failed
@@ -3848,7 +3974,7 @@ def live_phase(torch, dev, sync, card="", sizes=LIVE_SIZES, model=None,
                    f"{same_plain}"))
             if not ok or same_plain is False:
                 fail(f"predict after {what} differs from its oracle")
-            gated(lambda: hold_index(what, full=True))
+            gated(lambda: held(what, full=True))
 
         def new_ids(start):
             return np.arange(start, live._n, dtype=np.int64)
@@ -3979,27 +4105,8 @@ def live_phase(torch, dev, sync, card="", sizes=LIVE_SIZES, model=None,
         served("the queue", new_ids(n0))
         stamp("11.5: ingest queue done")
 
-        def against_refit():
-            """Gate 4."""
-            P = live.points()
-            fresh = DBSCAN(eps=eps, min_samples=ms, block=sizes["block"],
-                           device=dev).fit(P)
-            a = ari(fresh.labels_, live.labels())
-            diff = np.flatnonzero(fresh.core_sample_mask_ != live.core_mask())
-            e2 = float(eps2_f32(eps))
-            Pc = torch.from_numpy((P - P.mean(axis=0)).astype(
-                np.float32)).to(dev)
-            norms = torch.sqrt((Pc * Pc).sum(dim=1))
-            traced = 0
-            for p in diff[:sizes["trace_cap"]]:
-                acc = torch.zeros(len(Pc), dtype=torch.float32, device=dev)
-                for ax in range(d):
-                    dd = Pc[:, ax] - Pc[p, ax]
-                    acc = acc + dd * dd
-                slack = (2.0 ** -16) * (norms + norms[p]) ** 2
-                traced += int(bool(((acc - e2).abs() <= slack).any()))
-            return len(P), a, len(diff), traced
-        n_p, a, n_diff, traced = gated(against_refit)
+        n_p, a, n_diff, traced = gated(lambda: refit_trace(
+            torch, dev, live, sizes["block"], sizes["trace_cap"]))
         log(f"    against a fresh fit of the {n_p} live points: ARI {a:.6f};"
             f" {n_diff} core flags differ, {traced} traced to a pair whose "
             f"float32 d2 lies within exact_slack of eps^2")
@@ -4073,7 +4180,7 @@ def live_phase(torch, dev, sync, card="", sizes=LIVE_SIZES, model=None,
                 and idx.generation == gen0 + 1):
             fail("the compaction's swap dropped, misanswered or lost a "
                  "write")
-        gated(lambda: hold_index("the compaction", full=True))
+        gated(lambda: held("the compaction", full=True))
         rec.update(compaction_s=comp_s, compaction_phases=phases)
         stamp("11.6: compaction done")
 
@@ -4105,6 +4212,8 @@ def live_phase(torch, dev, sync, card="", sizes=LIVE_SIZES, model=None,
         stamp("11.7: save/load done")
 
         main = {k: ck.LAUNCHES[k] - gate["launches"][k] for k in ck.LAUNCHES}
+        # The index serves on (phase 12) without the per-commit gate.
+        del idx.commit_update
     rec["kinds"] = {}
     for kind, runs in per_kind.items():
         walls = np.array([w for w, _s, _b in runs]) * 1e3
@@ -4143,6 +4252,520 @@ def live_phase(torch, dev, sync, card="", sizes=LIVE_SIZES, model=None,
     return rec
 
 
+# Phase 12: the gateway and the load harnesses.  Sizes of the phase; a
+# test rehearses it at small ones on the CPU.
+GATEWAY_SIZES = {"n": 1_000_000, "d": 16, "centers": 32, "std": 0.4,
+                 "eps": 2.4, "min_samples": 10, "block": 2048,
+                 "queries": 4096, "trace_cap": 64,
+                 # 12.1: sustained_load on the live model.
+                 "clients": 4, "rate_hz": 200.0, "batch_rows": 16,
+                 "writers": 2, "write_rate_hz": 30.0, "write_batch_rows": 8,
+                 "delete_fraction": 0.2, "compact_at_s": 5.0,
+                 "duration_s": 15.0,
+                 # 12.2: the fleet and gateway_load.
+                 "big_n": 1_000_000, "fleet_n": 250_000, "fleet": 5,
+                 "seed0": 101, "budget_share": 0.6, "hot_rows": 64,
+                 "tenants": 4, "clients_per_tenant": 2,
+                 "fleet_rate_hz": 120.0, "fleet_batch_rows": 64,
+                 "zipf_s": 1.2, "write_fraction": 0.02,
+                 "fleet_duration_s": 15.0, "refresh_at_s": 6.0}
+
+
+def gateway_phase(torch, dev, sync, card="", sizes=GATEWAY_SIZES, live=None,
+                  X=None, truth=None):
+    """Phase 12 (the multi-tenant gateway and the load harnesses).
+
+    12.1: ``sustained_load`` on ``live`` (phase 11's 1M x 16-D
+    ``LiveModel``; fitted from ``make_blob_data`` here when None):
+    Poisson readers, two Poisson writers through an ``IngestQueue``
+    (blob-law inserts, a share deleting their own acknowledged ones) and
+    a ``Compactor`` started at ``compact_at_s``.  Gates: no dropped
+    ticket, failed write or missed deadline; >= 1 compaction and epoch
+    swap; the index's device tensors = its host mirrors and B5's tables
+    = a fresh ``query_tables``, bitwise; ``predict`` of ``queries``
+    blob-law rows bitwise ``card_oracle``; a fresh fit of the final
+    points ARI 1.0, each differing core flag traced to a near-eps pair;
+    B1, B2, B5 (and on the card ``query_tables``) launched.
+
+    12.2: a fleet of seven models fitted on ``dev`` from
+    ``make_blob_data`` (``big``: ``big_n`` points, ``m1`` ...: ``fleet_n``
+    each, ``live``: ``fleet_n``, registered live) behind one
+    ``ModelGateway`` whose budget is ``budget_share`` of their summed
+    ``index_bytes``.  Gates: the victims of the budget are the least
+    recently served; the first eviction gives back (``memory_allocated``
+    on the card, and every released tensor is freed) at least the
+    victims' device bytes; each readmitted index's device tensors and
+    B5 tables are bitwise what they were, and its answers (labels and
+    d^2) bitwise its answers before the eviction and ``card_oracle``;
+    a tenant over its quota sheds 7 of 10, a quiet one none; a refit
+    model raises ``StaleModelHandle`` until ``refresh``; an insert on the
+    live handle is served at once and its ``refresh`` refused; then
+    ``gateway_load`` (Zipf tenants, live writes, a ``refresh`` of ``m2``
+    at ``refresh_at_s``) drops no ticket, misses no deadline, evicts and
+    readmits, swaps once, ``m2`` then gives the refreshed model's labels
+    and answers bitwise the oracle over its new generation (built in the
+    old frame, its d^2 may differ from the model's own engine's), B5
+    launches = the engines' batches and on the card ``query_tables``
+    launches = readmissions + refreshes + live commits.  Returns the
+    phase's record."""
+    import gc
+    import tempfile
+    import weakref
+
+    from benchdata import make_blob_data
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.checkpoint import load_index
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.serve import (
+        Compactor, GatewayError, ModelGateway, StaleModelHandle,
+        TenantQuotaExceeded, gateway_load, sustained_load,
+    )
+
+    eps, ms, d = sizes["eps"], sizes["min_samples"], sizes["d"]
+    nq, block = sizes["queries"], sizes["block"]
+    t_phase = time.perf_counter()
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def blob_law(rng, centres, m):
+        cc = rng.integers(0, len(centres), m)
+        return centres[cc] + rng.normal(scale=sizes["std"], size=(m, d))
+
+    def centres_of(Xs, ts):
+        return np.stack([Xs[ts == c].mean(axis=0)
+                         for c in range(int(ts.max()) + 1)])
+
+    def kernel_launches():
+        """Launches since the last reset, by kernel (both modes)."""
+        L = ck.LAUNCHES
+        return {"count_pairs": L["count_pairs"],
+                "minlab_pairs": L["minlab_pairs"],
+                "query_leaf": L["query_leaf"] + L["query_leaf_mixed"],
+                "query_tables": L["query_tables"]}
+
+    def answers(eng, Q):
+        """(labels, d^2) of one request through ``eng``'s queue."""
+        t = eng.submit(Q)
+        eng.drain()
+        return t.labels, t.d2
+
+    def bitwise(got, want):
+        return (np.array_equal(got[0], want[0])
+                and np.array_equal(np.asarray(got[1], np.float32)
+                                   .view(np.int32),
+                                   np.asarray(want[1], np.float32)
+                                   .view(np.int32)))
+
+    rec = {"card": card}
+    rng = np.random.default_rng(0)
+
+    # 12.1: the ingest harness on the live model.
+    if live is None:
+        X, truth = make_blob_data(sizes["n"], d, n_centers=sizes["centers"],
+                                  std=sizes["std"])
+        live = DBSCAN(eps=eps, min_samples=ms, block=block,
+                      device=dev).fit(X).live()
+        sync()
+        stamp(f"12.1: LiveModel over {live.stats['points']} points built")
+    centres = centres_of(X, truth)
+    comp = Compactor(live)
+    swaps0 = live.stats["epoch_swaps"]
+    sync()
+    ck.reset_launch_counts()
+    res = sustained_load(
+        live.engine, clients=sizes["clients"], rate_hz=sizes["rate_hz"],
+        batch_rows=sizes["batch_rows"], writers=sizes["writers"],
+        write_rate_hz=sizes["write_rate_hz"],
+        write_batch_rows=sizes["write_batch_rows"],
+        delete_fraction=sizes["delete_fraction"],
+        write_sampler=lambda r, k: blob_law(r, centres, k), live=live,
+        compactor=comp, compact_at_s=sizes["compact_at_s"],
+        duration_s=sizes["duration_s"], seed=0,
+    )
+    sync()
+    main = kernel_launches()
+    swaps = live.stats["epoch_swaps"] - swaps0
+    keys = ("qps", "p50_ms", "p99_ms", "update_visible_p50_ms",
+            "update_visible_p99_ms", "write_qps", "mean_write_batch",
+            "read_p99_during_compaction_ms", "read_p99_outside_ms",
+            "compaction_s")
+    rec["ingest"] = {k: res[k] for k in keys}
+    rec["ingest"].update(
+        queries=res["queries"], write_rows=res["write_rows"],
+        compactions=res["compactions"], epoch_swaps=swaps,
+        compaction_phases={k: round(v, 4) for k, v in comp.phase_s.items()},
+        launches=main)
+    log(f"    sustained_load {res['duration_s']} s: {res['queries']} "
+        f"queries, qps {res['qps']}, p50 {res['p50_ms']} ms, p99 "
+        f"{res['p99_ms']} ms; update-visible p50 "
+        f"{res['update_visible_p50_ms']} ms, p99 "
+        f"{res['update_visible_p99_ms']} ms; {res['write_rows']} rows "
+        f"written at {res['write_qps']} rows/s in batches of "
+        f"{res['mean_write_batch']} mean; read p99 during compaction "
+        f"{res['read_p99_during_compaction_ms']} ms against "
+        f"{res['read_p99_outside_ms']} ms outside; {res['compactions']} "
+        f"compaction(s) {res['compaction_s']} s by phase "
+        f"{rec['ingest']['compaction_phases']}; dropped "
+        f"{res['dropped_tickets']}, failed writes {res['write_failures']}, "
+        f"missed deadlines {res['deadline_failures']}, shed {res['shed']}; "
+        f"launches {main}; {card}")
+    if (res["dropped_tickets"] or res["write_failures"]
+            or res["deadline_failures"]):
+        fail("sustained_load dropped a ticket, failed a write or missed a "
+             "deadline")
+    if res["compactions"] < 1 or swaps < 1:
+        fail("sustained_load ran no compaction and epoch swap")
+    idx = live.index
+    hold_index(torch, ck, idx, dev, "sustained_load", full=True)
+    Q = blob_law(rng, centres, nq)
+    want = index_oracle(torch, idx, Q)
+    ok = bitwise(answers(live.engine, Q), want)
+    n_p, a, n_diff, traced = refit_trace(torch, dev, live, block,
+                                         sizes["trace_cap"])
+    log(f"    after the run: predict of {nq} bitwise the card oracle over "
+        f"{idx.n_core} cores: {ok} ({int((want[0] >= 0).sum())} within "
+        f"eps); a fresh fit of the {n_p} live points: ARI {a:.6f}, "
+        f"{n_diff} core flags differ, {traced} traced to a near-eps pair")
+    if not ok:
+        fail("predict after sustained_load differs from its oracle")
+    if a != 1.0 or n_diff > sizes["trace_cap"] or traced != n_diff:
+        fail("the live clustering after sustained_load differs from a "
+             "fresh fit beyond the near-eps pairs")
+    if min(main["count_pairs"], main["minlab_pairs"],
+           main["query_leaf"]) < 1 or (dev.type == "cuda"
+                                       and main["query_tables"] < 1):
+        fail("a kernel of the ingest harness's path was never launched")
+    rec["ingest"].update(refit_ari=a, core_flags_differ=n_diff)
+    stamp("12.1: the ingest harness done")
+
+    # 12.2: the fleet.
+    specs = ([("big", sizes["big_n"])]
+             + [(f"m{i}", sizes["fleet_n"])
+                for i in range(1, sizes["fleet"] + 1)]
+             + [("live", sizes["fleet_n"])])
+    fits, queries = {}, {}
+    t0 = time.perf_counter()
+    for i, (name, n) in enumerate(specs):
+        Xs, ts = make_blob_data(n, d, n_centers=sizes["centers"],
+                                std=sizes["std"], seed=sizes["seed0"] + i)
+        fits[name] = (DBSCAN(eps=eps, min_samples=ms, block=block,
+                             device=dev).fit(Xs), Xs)
+        queries[name] = blob_law(rng, centres_of(Xs, ts), nq)
+    sync()
+    fit_s = time.perf_counter() - t0
+    spill = tempfile.TemporaryDirectory()
+    gw = ModelGateway(spill_dir=spill.name)
+
+    def served(name, Q, tenant="warm"):
+        """(labels, d^2) of one request through the gateway."""
+        t = gw.submit(name, Q, tenant=tenant)
+        gw.drain(name)
+        return t.labels, t.d2
+
+    build_s = {}
+    for name, (m, _Xs) in fits.items():
+        t0 = time.perf_counter()
+        gw.register(name, m, live=name == "live")
+        sync()
+        build_s[name] = round(time.perf_counter() - t0, 3)
+    rep = gw.gateway_report()
+    sizes_b = {k: v["index_bytes"] for k, v in rep["models"].items()}
+    total = sum(sizes_b.values())
+    log(f"    fleet of {len(fits)} fitted in {fit_s:.2f} s; registered "
+        f"(index builds, the live model's LiveModel) in s {build_s}; "
+        f"index_bytes {sizes_b}, {total} in all")
+    stamp("12.2: the fleet registered")
+
+    # Serve each once (the LRU order), hold against the oracle.
+    pre = {}
+    for name in fits:
+        pre[name] = served(name, queries[name])
+        want = index_oracle(torch, gw._handles[name].index, queries[name])
+        if not bitwise(pre[name], want):
+            fail(f"model {name} does not answer as its oracle")
+    # Timers on eviction and readmission (a readmission's own evictions
+    # are taken out of its window).
+    timing = {"evict": [], "readmit": [], "victims": []}
+    evict, readmit = gw._evict, gw._readmit
+
+    def timed_evict(h):
+        t, mid = time.perf_counter(), h.model_id
+        timing["victims"].append(mid)
+        evict(h)
+        sync()
+        timing["evict"].append((mid, time.perf_counter() - t))
+
+    def timed_readmit(h):
+        t, n_ev = time.perf_counter(), len(timing["evict"])
+        readmit(h)
+        sync()
+        inner = sum(sec for _m, sec in timing["evict"][n_ev:])
+        timing["readmit"].append((h.model_id,
+                                  time.perf_counter() - t - inner))
+
+    def mean_ms(kind):
+        """Mean ms of the timed evictions or readmissions, by model
+        size."""
+        out = {}
+        for n, pick in ((sizes["big_n"], lambda m: m == "big"),
+                        (sizes["fleet_n"], lambda m: m != "big")):
+            v = [sec for m, sec in timing[kind] if pick(m)]
+            out[str(n)] = round(1e3 * float(np.mean(v)), 3) if v else None
+        return out
+
+    gw._evict, gw._readmit = timed_evict, timed_readmit
+    # The budget: the victims are the least recently served unpinned
+    # residents other than the last served.
+    order = list(fits)
+    budget = int(sizes["budget_share"] * total)
+    expect, left = [], total
+    for name in order[:-1]:
+        if left <= budget:
+            break
+        if not rep["models"][name]["pinned"]:
+            expect.append(name)
+            left -= sizes_b[name]
+    snaps, refs, dev_bytes = {}, [], 0
+    for name in expect:
+        idx = gw._handles[name].index
+        tensors = tuple(idx._dev) + tuple(idx._tables or ())
+        snaps[name] = [t.cpu().clone() for t in tensors]
+        refs += [weakref.ref(t) for t in tensors]
+        dev_bytes += idx.index_device_bytes
+    del tensors, idx
+    gc.collect()
+    sync()
+    mem0 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    gw.budget_bytes = budget
+    gw._ensure_budget(keep=order[-1])
+    gc.collect()
+    sync()
+    fell = (mem0 - torch.cuda.memory_allocated(dev)
+            if dev.type == "cuda" else None)
+    alive = sum(r() is not None for r in refs)
+    log(f"    budget {budget} bytes ({sizes['budget_share']} of the fleet): "
+        f"evicted {timing['victims']} (expected {expect}); device bytes "
+        f"given back {fell} against the victims' {dev_bytes}; released "
+        f"tensors still alive {alive}")
+    if timing["victims"] != expect:
+        fail("the budget did not evict the least recently served models")
+    if alive or (fell is not None and fell < dev_bytes):
+        fail("an eviction did not give the card its memory back")
+    # Readmit each victim on demand.
+    for name in expect:
+        got = served(name, queries[name])
+        idx = gw._handles[name].index
+        now = tuple(idx._dev) + tuple(idx._tables or ())
+        bad = words_off(torch, now, snaps[name])
+        if idx.device != dev or len(now) != len(snaps[name]) or bad:
+            fail(f"the readmitted {name} index differs from its tensors "
+                 f"before the eviction ({bad} words) or left {dev}")
+        want = index_oracle(torch, idx, queries[name])
+        same = bitwise(got, pre[name]) and bitwise(got, want)
+        log(f"    readmitted {name}: device tensors and B5 tables bitwise "
+            f"as before: True; {nq} answers bitwise before the eviction "
+            f"and the card oracle: {same}")
+        if not same:
+            fail(f"the readmitted {name} does not answer as before")
+        del idx, now
+    rep = gw.gateway_report()
+    # Where a readmission's time goes, on a spill of each size (a
+    # readmitted model's stays on disk): reading it (host) against the
+    # upload with B5's tables.
+    split = {}
+    for n, pick in ((sizes["big_n"], lambda m: m == "big"),
+                    (sizes["fleet_n"], lambda m: m != "big")):
+        spilled = [hh for m, hh in gw._handles.items()
+                   if pick(m) and hh.spill_path
+                   and os.path.exists(hh.spill_path)]
+        if not spilled:
+            continue
+        t0 = time.perf_counter()
+        probe = load_index(spilled[0].spill_path, device=dev)
+        t1 = time.perf_counter()
+        probe.device_tensors()
+        sync()
+        split[str(n)] = {"read_ms": round(1e3 * (t1 - t0), 3),
+                         "upload_tables_ms": round(
+                             1e3 * (time.perf_counter() - t1), 3)}
+        probe.release()
+        del probe
+    rec["quiet"] = {"evict_ms_mean": mean_ms("evict"),
+                    "readmit_ms_mean": mean_ms("readmit"),
+                    "readmit_split": split}
+    stamp(f"12.2: evictions {rep['evictions']}, readmissions "
+          f"{rep['reloads']} done, without traffic: mean ms by model size, "
+          f"eviction {rec['quiet']['evict_ms_mean']}, readmission "
+          f"{rec['quiet']['readmit_ms_mean']} (a spill's read and its "
+          f"upload with B5's tables: {split})")
+
+    # Admission.
+    hq = queries["live"][:sizes["hot_rows"]]
+    gw.set_quota("hot", qps=0.001, burst=3)
+    shed = {"hot": 0, "quiet": 0}
+    for tenant in ("hot", "quiet"):
+        for _ in range(10):
+            try:
+                gw.predict("live", hq, tenant=tenant)
+            except TenantQuotaExceeded:
+                shed[tenant] += 1
+    log(f"    admission: hot sheds {shed['hot']} of 10, quiet "
+        f"{shed['quiet']}")
+    if shed != {"hot": 7, "quiet": 0}:
+        fail("the admission gate did not shed 7 of the hot tenant's 10 "
+             "and none of the quiet tenant's")
+
+    # Staleness, then refresh.
+    m3, X3 = fits["m3"]
+    m3.fit(X3)
+    try:
+        gw.predict("m3", queries["m3"][:8])
+        fail("a refit model was served through its stale handle")
+    except StaleModelHandle:
+        pass
+    gw.refresh("m3")
+    got = served("m3", queries["m3"])
+    own = answers(m3.query_engine(), queries["m3"])
+    log(f"    m3 refit: StaleModelHandle raised; after refresh bitwise its "
+        f"own predict: {bitwise(got, own)}")
+    if not bitwise(got, own):
+        fail("the refreshed m3 does not answer as its own predict")
+
+    # The live handle.
+    h = gw.handle("live")
+    q1 = fits["live"][1][:1] + 0.05
+    h.live.insert(q1)
+    lab = gw.predict("live", q1)
+    try:
+        gw.refresh("live")
+        refused = False
+    except GatewayError:
+        refused = True
+    log(f"    live handle: an insert served at once: "
+        f"{lab[0] == h.live.labels()[-1]} (label {lab[0]}); refresh "
+        f"refused: {refused}")
+    if lab[0] != h.live.labels()[-1] or not refused:
+        fail("the live handle did not serve its insert or took a refresh")
+    stamp("12.2: admission, staleness and the live handle done")
+
+    # gateway_load with a mid-run refresh of m2 on new data.
+    Xn, tn = make_blob_data(sizes["fleet_n"], d, n_centers=sizes["centers"],
+                            std=sizes["std"], seed=sizes["seed0"] + len(specs))
+    m2_new = DBSCAN(eps=eps, min_samples=ms, block=block, device=dev).fit(Xn)
+    Q2 = blob_law(rng, centres_of(Xn, tn), nq)
+    rep0 = gw.gateway_report()
+    live_epoch0 = h.index.epoch
+    # Each engine's batches during the run: an engine alive at the start
+    # counts from its batches then, one built in the run from 0.
+    start = {hh.model_id: (hh.engine, hh.engine.batches)
+             for hh in gw._handles.values() if hh.resident}
+    batches = [0]
+    evict_t = gw._evict
+
+    def ran(mid, eng):
+        first, b0 = start.get(mid, (None, 0))
+        return eng.batches - (b0 if first is eng else 0)
+
+    def counted_evict(hh):
+        # The eviction drains the victim's engine first: count after it.
+        mid, eng = hh.model_id, hh.engine
+        evict_t(hh)
+        batches[0] += ran(mid, eng)
+
+    gw._evict = counted_evict
+    timing["evict"].clear()
+    timing["readmit"].clear()
+    del h
+    sync()
+    ck.reset_launch_counts()
+    res = gateway_load(
+        gw, list(fits), tenants=sizes["tenants"],
+        clients_per_tenant=sizes["clients_per_tenant"],
+        rate_hz=sizes["fleet_rate_hz"], batch_rows=sizes["fleet_batch_rows"],
+        zipf_s=sizes["zipf_s"], write_fraction=sizes["write_fraction"],
+        duration_s=sizes["fleet_duration_s"],
+        refresh_at_s=sizes["refresh_at_s"],
+        refresher=lambda: gw.refresh("m2", m2_new), seed=0,
+    )
+    sync()
+    main = kernel_launches()
+    batches[0] += sum(ran(mid, hh.engine) for mid, hh in gw._handles.items()
+                      if hh.resident)
+    gw._evict = evict_t
+    start.clear()
+    g = res["gateway"]
+    ev = g["evictions"] - rep0["evictions"]
+    rl = g["reloads"] - rep0["reloads"]
+    sw = g["epoch_swaps"] - rep0["epoch_swaps"]
+    commits = gw._handles["live"].index.epoch - live_epoch0
+    tables_want = rl + sw + commits
+    swap_ms = [round(1e3 * (b - a), 3) for a, b in gw.swap_windows[-sw:]] \
+        if sw else []
+    tenants = {t: {k: st[k] for k in ("admitted", "shed", "p50_ms",
+                                      "p99_ms")}
+               for t, st in g["tenants"].items() if t.startswith("t")}
+    rec["fleet"] = {
+        "index_bytes": sizes_b, "budget_bytes": budget,
+        "build_s": build_s, "qps": res["qps"], "p50_ms": res["p50_ms"],
+        "p99_ms": res["p99_ms"], "queries": res["queries"],
+        "writes": res["writes"], "evictions": ev, "reloads": rl,
+        "evict_ms_mean": mean_ms("evict"),
+        "readmit_ms_mean": mean_ms("readmit"), "swap_ms": swap_ms,
+        "read_p99_in_window_ms": res["read_p99_in_window_ms"],
+        "read_p99_outside_ms": res["read_p99_outside_ms"],
+        "update_visible_p50_ms": res["update_visible_p50_ms"],
+        "tenants": tenants, "launches": main, "batches": batches[0],
+    }
+    for t, st in tenants.items():
+        log(f"    tenant {t}: admitted {st['admitted']}, shed {st['shed']}, "
+            f"p50 {st['p50_ms']} ms, p99 {st['p99_ms']} ms")
+    log(f"    gateway_load {res['duration_s']} s: {res['queries']} queries, "
+        f"qps {res['qps']}, p50 {res['p50_ms']} ms, p99 {res['p99_ms']} ms; "
+        f"{ev} evictions (mean {rec['fleet']['evict_ms_mean']} ms), {rl} "
+        f"readmissions (mean {rec['fleet']['readmit_ms_mean']} ms), swap "
+        f"window {swap_ms} ms; read p99 in a window "
+        f"{res['read_p99_in_window_ms']} ms against "
+        f"{res['read_p99_outside_ms']} ms outside; {res['writes']} live "
+        f"writes, update-visible p50 {res['update_visible_p50_ms']} ms; "
+        f"dropped {res['dropped_tickets']}, missed deadlines "
+        f"{res['deadline_failures']}; launches {main} for {batches[0]} "
+        f"batches, query_tables expected {tables_want} ({rl} readmissions "
+        f"+ {sw} refreshes + {commits} live commits); {card}")
+    if res["dropped_tickets"] or res["deadline_failures"]:
+        fail("gateway_load dropped a ticket or missed a deadline")
+    if ev < 1 or rl < 1 or sw != 1:
+        fail(f"gateway_load ran {ev} evictions, {rl} readmissions and {sw} "
+             f"swaps (wanted >= 1, >= 1 and 1)")
+    if main["query_leaf"] < 1 or main["query_leaf"] != batches[0]:
+        fail("B5's launches in gateway_load differ from the engines' "
+             "batches")
+    if dev.type == "cuda" and main["query_tables"] != tables_want:
+        fail("query_tables launches in gateway_load differ from the "
+             "readmissions, refreshes and live commits")
+    # The swap builds the new generation in the old one's frame (its
+    # centre), the refreshed model's own index in its own: labels equal,
+    # d^2 rounded in another frame; the swapped generation answers
+    # bitwise its oracle.
+    got = served("m2", Q2)
+    own = answers(m2_new.query_engine(), Q2)
+    want = index_oracle(torch, gw._handles["m2"].index, Q2)
+    same = np.array_equal(got[0], own[0]) and bitwise(got, want)
+    d2_off = int((got[1].view(np.int32) != own[1].view(np.int32)).sum())
+    rec["fleet"]["swap_d2_words_off_own_frame"] = d2_off
+    log(f"    m2 after the swap: labels bitwise the refreshed model's own "
+        f"predict and (labels, d2) bitwise the card oracle over the new "
+        f"generation: {same}; d2 words off the model's own engine (its "
+        f"index centred on its own cores, not the old frame): {d2_off}")
+    if not same:
+        fail("m2 after the swap does not answer as the refreshed model")
+    for name in list(gw.model_ids):
+        gw.unregister(name)
+    spill.cleanup()
+    stamp("12.2: gateway_load done")
+    return rec
+
+
 def main() -> None:
     import torch
 
@@ -4164,6 +4787,9 @@ def main() -> None:
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    if "--hold-reps" in sys.argv[1:]:
+        global HOLD_REPS
+        HOLD_REPS = int(sys.argv[sys.argv.index("--hold-reps") + 1])
 
     def phase(title):
         log(f"[{time.perf_counter() - t_start:.1f} s] {title}")
@@ -4273,6 +4899,14 @@ def main() -> None:
         rec11 = live_phase(torch, dev, torch.cuda.synchronize, card)
         log(f"phase 11 record: {json.dumps(rec11)}; phase 11 took "
             f"{time.perf_counter() - t11:.1f} s")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
+
+    if "--gateway" in sys.argv[1:]:
+        t12 = time.perf_counter()
+        rec12 = gateway_phase(torch, dev, torch.cuda.synchronize, card)
+        log(f"phase 12 record: {json.dumps(rec12)}; phase 12 took "
+            f"{time.perf_counter() - t12:.1f} s")
         log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
         return
 
@@ -4554,11 +5188,19 @@ def main() -> None:
     phase("phase 11: live updates and ingest")
     t11 = time.perf_counter()
     rec11 = live_phase(torch, dev, torch.cuda.synchronize, card, **live_fit)
-    del live_fit
     log(f"phase 11 record: {json.dumps(rec11)}; phase 11 took "
         f"{time.perf_counter() - t11:.1f} s")
+    # Phase 12 drives the ingest harness on phase 11's live model.
+    phase("phase 12: the gateway and the load harnesses")
+    t12 = time.perf_counter()
+    rec12 = gateway_phase(torch, dev, torch.cuda.synchronize, card,
+                          live=live_fit["model"].live(), X=live_fit["X"],
+                          truth=live_fit["truth"])
+    del live_fit
+    log(f"phase 12 record: {json.dumps(rec12)}; phase 12 took "
+        f"{time.perf_counter() - t12:.1f} s")
     log(f"fit seconds (host, host, cuda, cuda): {json.dumps(fits)}")
-    phase("phases 2-11 done")
+    phase("phases 2-12 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -318,10 +318,11 @@ def save_index(index, path: str) -> None:
     )
 
 
-def load_index(path: str, device=None):
+def load_index(path: str, handle=None, device=None):
     """Restore a serving index saved by either package (slabs load byte
     for byte, so it serves identical answers) onto ``device`` (default
-    the card)."""
+    the card).  ``handle`` names the model the restored index serves in
+    a multi-model plane (the gateway readmits an evicted model so)."""
     from .serve import CorePointIndex
 
     with np.load(_norm_npz(path), allow_pickle=False) as z:
@@ -349,6 +350,7 @@ def load_index(path: str, device=None):
                 ),
             },
             device=device,
+            handle=handle,
         )
         idx.unit_norm = bool(params.get("unit_norm", False))
         idx.projection = str(

@@ -35,9 +35,10 @@ ceiling, the mutual-reachability MST and HDBSCAN*'s stability rule
 select the flat cut, exposed as ``eps_``; ``sweep(eps_list="auto")``
 takes its eps ladder from the same hierarchy.  A fitted model takes
 live inserts and deletes (``live``, ``insert``, ``delete``;
-:mod:`.serve.live`), its serving index edited in place.  Sharded fits,
-the serving gateway and telemetry are later slices of the port
-(ROADMAP A10-A12, A15's second half, A16).
+:mod:`.serve.live`), its serving index edited in place, and many fitted
+models serve behind one :class:`~.serve.gateway.ModelGateway`.  Sharded
+fits and telemetry beyond the metrics registry are later slices of the
+port (ROADMAP A10-A12, A16).
 """
 
 from __future__ import annotations

@@ -137,7 +137,8 @@ class QueryEngine:
     index; ``"auto"`` accepts either, ``"cuda"``/``"torch"`` must match
     the index's device.  ``batch_capacity`` bounds the rows coalesced into
     one batch; ``max_pending`` bounds the queue (``submit`` raises
-    :class:`QueueFull` when full).
+    :class:`QueueFull` when full).  ``handle`` names the model served
+    (default: the index's handle).
     """
 
     def __init__(
@@ -149,10 +150,15 @@ class QueryEngine:
         max_pending: int = 1 << 16,
         precision: str = "high",
         model=None,
+        handle: Optional[str] = None,
     ):
         from ..ops.labels import resolve_backend
 
         self.index = index
+        self.handle = (
+            str(handle) if handle is not None
+            else getattr(index, "handle", None)
+        )
         resolve_backend(backend, index.device)
         # Staleness guard: an engine built from a model records the
         # model's fit generation, and raises once the model is refit.
@@ -177,8 +183,9 @@ class QueryEngine:
     @classmethod
     def from_model(cls, model, *, leaves=None, block: int = 256,
                    qblock: int = 128, backend: Optional[str] = None,
-                   **kw) -> "QueryEngine":
-        index = build_index(model, leaves=leaves, block=block, qblock=qblock)
+                   handle: Optional[str] = None, **kw) -> "QueryEngine":
+        index = build_index(model, leaves=leaves, block=block, qblock=qblock,
+                            handle=handle)
         if backend is None:
             backend = getattr(model, "kernel_backend", "auto")
         # A model fitted with "mixed" serves "mixed" (the same bf16 bulk
@@ -186,7 +193,7 @@ class QueryEngine:
         if "precision" not in kw and norm_precision_mode(
                 getattr(model, "precision", "high")) == "mixed":
             kw["precision"] = "mixed"
-        return cls(index, backend=backend, model=model, **kw)
+        return cls(index, backend=backend, model=model, handle=handle, **kw)
 
     # -- request surface --------------------------------------------------
 
@@ -346,6 +353,7 @@ class QueryEngine:
         )
         st = self.index.stats
         return {
+            "model": self.handle or "default",
             "queries": int(self.queries),
             "batches": int(self.batches),
             "qps": round(self.queries / self._busy_s, 1)

@@ -84,9 +84,14 @@ class CorePointIndex:
         self, *, eps, center, tree, coords, labels, blo, bhi,
         block: int, qblock: int, n_core: int, stats: Optional[Dict] = None,
         leaf_slabs: Optional[Dict] = None, gids=None, device=None,
+        handle: Optional[str] = None,
     ):
         from ..dbscan import resolve_device
 
+        # The model handle: names the fitted model this index serves in
+        # a multi-model plane (:class:`~.gateway.ModelGateway`).  The port
+        # has no staging cache, so it routes nothing.
+        self.handle = None if handle is None else str(handle)
         self.eps = float(eps)
         self.eps2 = eps2_f32(eps)
         self.center = np.asarray(center, np.float64)
@@ -112,6 +117,8 @@ class CorePointIndex:
         self._margin = self.eps * _MARGIN_SLACK
         self._dev = None
         self._tables = None
+        # Set by release(): the device tensors are gone for good.
+        self._released = False
         # The event behind the upload, where another stream must wait
         # for it (a generation built on a compaction thread's stream).
         self._ready = None
@@ -148,7 +155,7 @@ class CorePointIndex:
     def build(
         cls, cores, labels, eps, *, leaves: Optional[int] = None,
         block: int = 256, qblock: int = 128, seed: int = 0, center=None,
-        device=None,
+        device=None, handle: Optional[str] = None,
     ):
         """Index ``(n_core, d)`` core points with their cluster labels and
         upload the slabs to ``device``.
@@ -159,7 +166,7 @@ class CorePointIndex:
         partitioner's subsample seed; ``center``: the recentring frame
         (default the cores' float64 mean).  A compaction builds in the
         old generation's frame, so queries centred before the swap stay
-        valid after it.
+        valid after it.  ``handle`` names the model the index serves.
         """
         validate_params(eps, 1)
         cores = np.asarray(cores)
@@ -184,7 +191,7 @@ class CorePointIndex:
                 blo=np.empty((0, d), np.float32),
                 bhi=np.empty((0, d), np.float32),
                 block=int(block), qblock=int(qblock), n_core=0,
-                device=device,
+                device=device, handle=handle,
             )
             idx.stats = {"n_core": 0, "n_leaves": 0, "build_s": 0.0,
                          "index_bytes": 0}
@@ -228,7 +235,7 @@ class CorePointIndex:
         idx = cls(
             eps=eps, center=center, tree=tree, coords=coords,
             labels=slab_labels, blo=blo, bhi=bhi, block=block,
-            qblock=int(qblock), n_core=n, device=device,
+            qblock=int(qblock), n_core=n, device=device, handle=handle,
         )
         idx.src_index = src_index
         idx.leaf_slabs = {leaf: [leaf] for leaf in range(L)}
@@ -289,7 +296,14 @@ class CorePointIndex:
         """``(coords, labels, blo, bhi)`` on the index's device, uploaded
         on first use and kept for the index's life.  On the card the
         upload also builds B5's per-index tables (:meth:`kernel_tables`)
-        on the current stream, so every later batch's B5 finds them."""
+        on the current stream, so every later batch's B5 finds them.  A
+        released index (:meth:`release`) raises."""
+        if self._released:
+            raise RuntimeError(
+                "this index was released (its device tensors were freed, "
+                "e.g. by a gateway eviction); load_index() its spill to "
+                "serve it again"
+            )
         if self._dev is None:
             # A copy on the CPU too: the live path edits the host mirrors
             # first and ships the delta at its commit.
@@ -326,6 +340,25 @@ class CorePointIndex:
         from ..ops.cuda_kernels import query_tables
 
         return query_tables(coords, labels, block=self.block, nb=self.nb)
+
+    def release(self) -> int:
+        """Drop the index's device tensors (the slabs and B5's tables) so
+        the card's allocator gets them back; the host mirrors stay whole.
+        Any later dispatch raises.  Returns the device bytes dropped
+        (:attr:`index_device_bytes`).  The caller drains every engine
+        over this index first: a batch in flight keeps its tensors
+        alive until it is folded."""
+        if self._pending is not None:
+            raise RuntimeError(
+                "cannot release an index with a delta update open; "
+                "commit_update() first"
+            )
+        freed = self.index_device_bytes
+        self._dev = None
+        self._tables = None
+        self._ready = None
+        self._released = True
+        return freed
 
     @property
     def index_device_bytes(self) -> int:
@@ -757,18 +790,18 @@ def _core_rows(data, mask: np.ndarray) -> np.ndarray:
 
 
 def build_index(model, *, leaves=None, block: int = 256, qblock: int = 128,
-                seed: int = 0):
+                seed: int = 0, handle: Optional[str] = None):
     """Serving index of a fitted (or checkpoint-loaded) ``DBSCAN``, on the
     model's device.  It answers the L2 question at ``model.kernel_eps``
     over the model's core rows, as the JAX package's index does for
     every metric; a cosine or haversine model's rows are already in its
     kernel frame, and the index projects queries into it (``"unit"`` /
-    ``"latlon"``)."""
+    ``"latlon"``).  ``handle`` names the model in a multi-model plane."""
     model._require_fitted()
     cores, labels = _model_core_set(model)
     idx = CorePointIndex.build(
         cores, labels, model.kernel_eps, leaves=leaves, block=block,
-        qblock=qblock, seed=seed, device=model.device,
+        qblock=qblock, seed=seed, device=model.device, handle=handle,
     )
     metric_norm = getattr(model, "_metric_norm", None)
     idx.unit_norm = metric_norm == "cosine"

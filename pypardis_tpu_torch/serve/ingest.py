@@ -51,11 +51,14 @@ def _env_int(name: str, default: int) -> int:
 
 class WriteTicket:
     """One submitted write, resolved (ids assigned or error set) by the
-    next :meth:`IngestQueue.flush`."""
+    next :meth:`IngestQueue.flush`.  ``visible_ms`` is set by a caller
+    that measures when the write became visible to readers (the load
+    harness: submit to the flush that applied it, a ``predict`` through
+    the updated index included)."""
 
     __slots__ = (
-        "kind", "rows", "ids", "error", "latency_ms", "_t_submit",
-        "_payload",
+        "kind", "rows", "ids", "error", "latency_ms", "visible_ms",
+        "_t_submit", "_payload",
     )
 
     def __init__(self, kind: str, payload):
@@ -65,6 +68,7 @@ class WriteTicket:
         self.ids: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
         self.latency_ms: Optional[float] = None
+        self.visible_ms: Optional[float] = None
         self._t_submit = time.perf_counter()
 
     @property
@@ -260,8 +264,11 @@ class Compactor:
             "compactions": 0, "compaction_s": 0.0,
             "replayed_inserts": 0, "replayed_deletes": 0,
         }
-        # Seconds each phase of the last cycle took.
+        # Seconds each phase of the last cycle took, and every completed
+        # cycle's (t0, t1) on the perf_counter clock: the load harness
+        # sorts read latencies into inside and outside these windows.
         self.phase_s: Dict[str, float] = {}
+        self.windows: List[Tuple[float, float]] = []
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._active = False
@@ -320,6 +327,7 @@ class Compactor:
             finally:
                 live._compact_active = False
             dt = marks[-1] - t0
+            self.windows.append((t0, marks[-1]))
             self.phase_s = {
                 name: marks[i + 1] - marks[i]
                 for i, name in enumerate(self.PHASES)

@@ -96,13 +96,16 @@ class LiveModel:
     :meth:`delete`); the fit's points are ``0..n-1``.  Labels are
     canonical ids, stable across updates and not re-densified, so
     ``predict`` and the model's labels agree.  ``stats`` holds the update
-    telemetry under the JAX package's key names.
+    telemetry under the JAX package's key names.  ``handle`` names the
+    model in a multi-model plane: its index and engine are built under it.
     """
 
     def __init__(self, model, *, leaves: Optional[int] = None,
                  block: int = 256, qblock: int = 128, warm: bool = True,
+                 handle: Optional[str] = None,
                  _resume: Optional[Dict] = None, **engine_kw):
         model._require_fitted()
+        self.handle = None if handle is None else str(handle)
         check_live_metric(model._metric_norm)
         self.model = model
         self.eps = float(model.eps)
@@ -196,12 +199,12 @@ class LiveModel:
             self.index = _resume["index"]
             self.engine = QueryEngine(
                 self.index, backend=model.kernel_backend, model=model,
-                **engine_kw,
+                handle=self.handle, **engine_kw,
             )
             model._serve_engine = self.engine
         else:
             self.engine = model.query_engine(
-                block=block, qblock=qblock, **engine_kw
+                block=block, qblock=qblock, handle=self.handle, **engine_kw
             )
             self.index = self.engine.index
             self.index.attach_gids(np.flatnonzero(core))
@@ -666,6 +669,7 @@ class LiveModel:
         c = self._counters
         alive = self._alive[:self._n]
         self.stats.update({
+            "model": self.handle or "default",
             "points": int(np.count_nonzero(alive)),
             "cores": int(np.count_nonzero(self._core[:self._n] & alive)),
             "inserts": c["inserts"],

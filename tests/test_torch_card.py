@@ -1316,3 +1316,60 @@ def test_incremental_primitives_on_card_equal_the_cpu():
                            torch.from_numpy(c[:700]).cuda())
     d2c = inc.sq_dists_f64(torch.from_numpy(q[:500]), torch.from_numpy(c[:700]))
     assert torch.equal(d2g.cpu().view(torch.int64), d2c.view(torch.int64))
+
+
+@pytest.mark.cuda
+def test_gateway_eviction_gives_memory_back_and_readmits_bitwise(tmp_path):
+    """Evict a model on the card (its spill written, its device tensors
+    released: ``memory_allocated`` falls by at least its index's device
+    bytes) and readmit it: onto the card, its slabs and B5 tables bitwise
+    what they were, its answers (labels and d^2) bitwise as before."""
+    _need_card()
+    import gc
+
+    from pypardis_tpu_torch.serve import ModelGateway
+
+    fits = {}
+    for i, name in enumerate(("a", "b")):
+        X, _t, _c = make_separated_blob_data(
+            3000, 8, n_centers=6, std=0.35, min_sep=6.0, spread=10.0,
+            seed=40 + i)
+        fits[name] = (DBSCAN(eps=1.1, min_samples=6, block=256).fit(X), X)
+    gw = ModelGateway(spill_dir=str(tmp_path))
+    for name, (m, _X) in fits.items():
+        gw.register(name, m)
+
+    def served(name, Q):
+        t = gw.submit(name, Q)
+        gw.drain(name)
+        return t.labels, t.d2
+
+    Q = fits["a"][1][:512] + 0.01
+    before = served("a", Q)
+    served("b", fits["b"][1][:64])
+    idx = gw._handles["a"].index
+    snap = [t.clone() for t in idx._dev + idx._tables]
+    nbytes = idx.index_device_bytes
+    del idx
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    gw.budget_bytes = gw.resident_bytes() - 1
+    gw._ensure_budget(keep="b")
+    gc.collect()
+    torch.cuda.synchronize()
+    assert not gw.gateway_report()["models"]["a"]["resident"]
+    assert mem0 - torch.cuda.memory_allocated() >= nbytes > 0
+    after = served("a", Q)
+    back = gw._handles["a"].index
+    assert back.device.type == "cuda"
+    def bits(t):
+        return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+    assert len(back._dev + back._tables) == len(snap)
+    for t, s in zip(back._dev + back._tables, snap):
+        assert torch.equal(bits(t), bits(s))
+    assert np.array_equal(after[0], before[0])
+    assert np.array_equal(after[1].view(np.int32), before[1].view(np.int32))
+    olabs, od2 = back.oracle_predict(Q)
+    assert np.array_equal(after[0], olabs)
