@@ -88,11 +88,11 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    and the unsketched fit byte-identical, with their live pairs, walls
    and launches (B3 once and B4 per round and never B1/B2, and the
    reverse); (3) the slice's path at 1,000,000 x 512, one fit from host
-   input and two from a CUDA tensor (byte-identical), each with its
-   wall, launches (summing to its passes), ``sketch_k`` 128,
+   input and two from a CUDA tensor (byte-identical; (5) the second
+   under a global ``torch.set_float32_matmul_precision("high")``), each
+   with its wall, launches (summing to its passes), ``sketch_k`` 128,
    ``band_pairs`` (past 2^31), ``rescored_tiles``, live pairs, clusters
-   and ARI >= 0.99; (5) one more fit under a global
-   ``torch.set_float32_matmul_precision("high")``, byte-identical; (4)
+   and ARI >= 0.99; (4)
    B3 and B4 alone at the 1M inputs: B4 at the labels of each round of
    the fit's loop (replayed with ``ops/labels._pointer_jump``), each
    launch's CUDA-event median, its evaluated share of (block, chunk)
@@ -156,10 +156,11 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    at the chord eps, B1/B2 at d = 3 bitwise their plain versions on the
    fit's inputs with B1's exact-fallback share (its ``rescored_pairs``
    against the walk's on 64 row tiles), ``predict`` as in (1) at d = 3;
-   (3) cityblock on phase 4's blobs (1,000,000 x 16, eps
-   :data:`L1_EPS`): its torch L1 passes (``L1_PASSES``) equal to its
-   passes and no kernel launched, ARI >= 0.99, a 20,000-point fit (block
-   128) on the card byte-identical to the CPU's, one L1 counts pass timed; (4)
+   (3) cityblock on the first 200,000 of phase 4's blobs (16-D, eps
+   :data:`L1_EPS`; the 1M fit took ~22 s): its torch L1 passes
+   (``L1_PASSES``) equal to its passes and no kernel launched, ARI >=
+   0.99, a 20,000-point fit (block 128) on the card byte-identical to the
+   CPU's, one L1 counts pass timed at 200,000 points; (4)
    a sweep of 8 eps up to :data:`SWEEP_EPS_MAX` x min_samples {5, 10}
    from a CUDA tensor: one distance pass, :data:`SWEEP_EDGES` edges,
    every config byte-identical to a fit at it (their walls summed
@@ -255,6 +256,31 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    eviction and readmission windows by model size (without traffic and
    under it), the swap window, read p99 inside the eviction and swap
    windows against outside them, update-visible p50.
+13. the KD route's chained form (:func:`chained_phase`,
+   ``pypardis_tpu_torch.parallel.sharded_dbscan``): (1) 20,000
+   separated 16-D blobs over 8 KD partitions (block 256), the card's
+   labels and core flags byte-identical to the CPU's chained route under
+   both merges and with ``overlap`` True and False (accepted for the
+   JAX signature, it changes nothing), B1 once per partition and B2
+   once per other pass; 4,096 x 512 embeddings over 4 partitions with
+   the sketch on (B3/B4 likewise), byte-identical to the CPU's (the CPU
+   runs go on in a child process beside (2) and (3) and are held at the
+   phase's end); (2) phase 4's 1M x 16-D data over
+   ``KDPartitioner(max_partitions=64)`` with the defaults (device
+   merge): B1/B2 launches equal to the partitions' passes, the core
+   mask byte-identical to phase 4's single-device fit, the noise and the
+   core clustering identical, and each border point in another cluster
+   within eps of a core of both (the exact float32 verdict on the card);
+   then B1 and one B2 round bitwise their plain versions on the first 64
+   row tiles of the route's largest slab (owned rows, the gap up to the
+   owned capacity, the halo), on the same device tensors; (3) the same
+   data at eps 1.4 under the host merge, held the same way against a
+   single-device fit at that eps; it must hold border points.  (2) and
+   (3) print the fit's wall from host input split into the KD build, the
+   halo sets, the host slab build, the per-partition device time
+   (CUDA-event spans), the loop and the merge, with the halo and
+   duplicated-work factors, pad waste, merge rounds, the overlap
+   efficiency and the border and noise counts.
 
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
@@ -264,7 +290,9 @@ no result.
 ``python3 chip_smoke.py --metrics`` builds the kernels and runs phase 9
 alone; ``--hier`` builds them and runs phase 10 alone; ``--live`` builds
 them, fits the 1M model and runs phase 11 alone; ``--gateway`` builds
-them, fits the 1M model, builds its live model and runs phase 12 alone.
+them, fits the 1M model, builds its live model and runs phase 12 alone;
+``--chained`` builds them and runs phase 13 alone (fitting the 1M
+single-device model it compares with).
 ``--hold-reps N`` (with any of the above, or alone for the whole
 script) runs every gate-1 hold of the index (:func:`hold_index`: after
 each live commit, each served check, the compaction and the ingest
@@ -298,6 +326,7 @@ alone (:func:`b2_walk_shares`).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import hashlib
 import json
@@ -1818,8 +1847,12 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     n = sizes["main_n"]
     X, truth = make_embedding_data(n, 512)
     Xd = torch.from_numpy(X).to(dev)
-    runs = [fit(X, None, f"n={n} d=512 from host")]
-    runs += [fit(Xd, None, f"n={n} d=512 from cuda ({i})") for i in (1, 2)]
+    runs = [fit(X, None, f"n={n} d=512 from host"),
+            fit(Xd, None, f"n={n} d=512 from cuda")]
+    # 7.5: the repeat from the tensor runs under a global TF32 setting,
+    # which must not reach the slab's product: byte-identical.
+    runs.append(fit(Xd, None, f"n={n} d=512 from cuda under "
+                    f"set_float32_matmul_precision('high')", tf32=True))
     for model, _w, _l in runs:
         m = model.metrics_
         a = ari(model.labels_, truth)
@@ -1832,15 +1865,11 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     (m1, _w, _l), (m2, _w2, _l2) = runs[1], runs[2]
     if not (np.array_equal(m1.labels_, m2.labels_)
             and np.array_equal(m1.core_sample_mask_, m2.core_sample_mask_)):
-        fail("repeated cuda-tensor fits differ at 512-D")
-    log(f"  n={n}: repeated fits byte-identical; host vs cuda-tensor labels "
-        f"identical: {np.array_equal(runs[0][0].labels_, m1.labels_)}")
-    # 7.5: a global TF32 setting must not reach the slab's product.
-    tf, _w, _l = fit(Xd, None, f"n={n} d=512 from cuda under "
-                     f"set_float32_matmul_precision('high')", tf32=True)
-    if not np.array_equal(tf.labels_, m1.labels_):
-        fail("a global TF32 setting changed the labels")
-    log("    labels byte-identical to the default fit")
+        fail("repeated cuda-tensor fits differ at 512-D (the repeat under "
+             "a global TF32 setting)")
+    log(f"  n={n}: repeated fits byte-identical (the repeat under TF32); "
+        f"host vs cuda-tensor labels identical: "
+        f"{np.array_equal(runs[0][0].labels_, m1.labels_)}")
     main_launches = runs[0][2]
     del Xd
 
@@ -2699,7 +2728,8 @@ SWEEP_PAST_CAP = 2.4
 # rehearses it at small ones on the CPU.
 METRIC_SIZES = {"cos_n": 1_000_000, "cos_serve_n": 200_000,
                 "check_n": 20_000, "hav_n": 1_000_000,
-                "l1_n": 1_000_000, "l1_sub_n": 20_000, "queries": 4096,
+                "l1_n": 1_000_000, "l1_fit_n": 200_000, "l1_sub_n": 20_000,
+                "queries": 4096,
                 "oracle_rows": 8, "sub_tiles": 64, "plain_tiles": 4,
                 "reps": 3, "block": 2048, "sweep_edges": SWEEP_EDGES}
 
@@ -3124,14 +3154,15 @@ def metrics_phase(torch, dev, median_ms, sync, sizes=METRIC_SIZES,
     stamp("9.2: done")
     del X, S, euc, hav, inp
 
-    # 9.3: cityblock on the phase 4 blobs: the torch L1 pass on the card.
-    n = sizes["l1_n"]
-    X, truth = make_blob_data(n, 16, n_centers=32, std=0.4)
+    # 9.3: cityblock on the first l1_fit_n of the phase 4 blobs (9.4
+    # sweeps all l1_n): the torch L1 pass on the card.
+    X, truth = make_blob_data(sizes["l1_n"], 16, n_centers=32, std=0.4)
+    n = sizes["l1_fit_n"]
     l1 = DBSCAN(eps=L1_EPS, min_samples=10, metric="cityblock", block=block,
                 device=dev)
-    wall, ll, lp = timed_fit(l1, X)
+    wall, ll, lp = timed_fit(l1, X[:n])
     m = l1.metrics_
-    a = ari(l1.labels_, truth)
+    a = ari(l1.labels_, truth[:n])
     log(f"  9.3 cityblock n={n} d=16 eps={L1_EPS} from host: {wall:.4f} s, "
         f"L1 passes {lp}, kernel launches {sum(ll.values())}, passes "
         f"{m['kernel_passes']}, live pairs {m['live_pairs']}, clusters "
@@ -3149,7 +3180,7 @@ def metrics_phase(torch, dev, median_ms, sync, sizes=METRIC_SIZES,
              DBSCAN(eps=L1_EPS, min_samples=10, metric="cityblock",
                     block=128, device="cpu").fit(X[:k]),
              f"cityblock n={k} block 128: card vs CPU")
-    inp = inputs(X, L1_EPS, metric="cityblock")
+    inp = inputs(X[:n], L1_EPS, metric="cityblock")
     a1 = (inp["xs"], inp["mi"], inp["rp"], inp["cols"], inp["e2"],
           inp["tile"])
     l1_ms = median_ms(cold(lambda: ck.count_pairs_l1(*a1)), 1)
@@ -4766,9 +4797,478 @@ def gateway_phase(torch, dev, sync, card="", sizes=GATEWAY_SIZES, live=None,
     return rec
 
 
+# Phase 13: the KD route's chained form.  Sizes of the phase; a test
+# rehearses it at small ones on the CPU.  13.1: separated 16-D blobs
+# (centres 12 apart, std 0.4; no border within eps of two clusters) and
+# make_embedding_data(emb_n, 512) through B3/B4 (block 128 keeps the
+# CPU's plain sketch passes to ~15 s); 13.2: phase 4's data and fit, and
+# B1/B2 held on the first hold_tiles row tiles of its largest slab;
+# 13.3: the same data at border_eps (1.4: ~4 % of the points are border
+# points, the rest core but for ~0.3 % noise) under the host merge.
+CHAINED_SIZES = {"small_n": 20_000, "small_eps": 2.0, "small_parts": 8,
+                 "small_block": 256, "emb_n": 4096, "emb_eps": 2.0,
+                 "emb_parts": 4, "emb_block": 128, "n": 1_000_000,
+                 "eps": 2.4, "parts": 64, "block": 2048, "hold_tiles": 64,
+                 "border_eps": 1.4}
+
+
+def chained_cpu_cases(sizes):
+    """13.1's two cases, made from their seeds: ``{name: (X,
+    partitioner, kwargs)}``."""
+    from benchdata import make_embedding_data, make_separated_blob_data
+    from pypardis_tpu_torch import KDPartitioner
+
+    Xs, _truth, _c = make_separated_blob_data(
+        sizes["small_n"], 16, n_centers=8, min_sep=12.0, spread=12.0,
+        seed=13)
+    Xe, _te = make_embedding_data(sizes["emb_n"], 512)
+    return {
+        "small": (Xs, KDPartitioner(Xs, max_partitions=sizes["small_parts"]),
+                  dict(eps=sizes["small_eps"], min_samples=10,
+                       block=sizes["small_block"])),
+        "emb": (Xe, KDPartitioner(Xe, max_partitions=sizes["emb_parts"]),
+                dict(eps=sizes["emb_eps"], min_samples=10,
+                     block=sizes["emb_block"])),
+    }
+
+
+def cases_digest(cases) -> str:
+    """sha256 over the cases' points: both processes hold the same."""
+    h = hashlib.sha256()
+    for name in sorted(cases):
+        h.update(np.ascontiguousarray(cases[name][0]).tobytes())
+    return h.hexdigest()
+
+
+def chained_cpu_runs(cases):
+    """Each case through the port's chained route on the CPU (the
+    kernels' plain versions, which count no launch): ``{name: ((labels,
+    core), seconds)}``."""
+    from pypardis_tpu_torch.parallel import sharded_dbscan
+
+    out = {}
+    for name, (x, part, kw) in cases.items():
+        t = time.perf_counter()
+        lab, core, _st = sharded_dbscan(x, part, device="cpu", **kw)
+        out[name] = ((lab, core), time.perf_counter() - t)
+    return out
+
+
+class ChainedCpuRefs:
+    """13.1's CPU runs in a child process (``chip_smoke.py
+    --chained-cpu-refs PATH SIZES``: no card, 4 threads, niced), started
+    before the phase so that they run beside its card work without
+    sharing this process's interpreter lock; :meth:`result` waits for
+    them.  The child writes ``PATH`` (``.npz``) under the checkout's
+    ``build/`` and is killed if this process exits first."""
+
+    def __init__(self, sizes=CHAINED_SIZES):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.dir = os.path.join(root, "build", "chip_smoke_refs")
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir, f"refs_{os.getpid()}.npz")
+        self.log = open(self.path + ".log", "w")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="4")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--chained-cpu-refs",
+             self.path, json.dumps(sizes)],
+            env=env, stdout=self.log, stderr=subprocess.STDOUT, cwd=root)
+        atexit.register(self.stop)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+    def result(self, cases):
+        """The child's ``{name: ((labels, core), seconds)}``, its points
+        checked to be ``cases``'."""
+        rc = self.proc.wait()
+        self.log.close()
+        try:
+            with open(self.path + ".log") as f:
+                tail = f.read()[-2000:]
+            if rc:
+                fail(f"13.1: the CPU runs' process exited {rc}: {tail}")
+            with np.load(self.path) as z:
+                if str(z["digest"]) != cases_digest(cases):
+                    fail("13.1: the CPU runs' process made other points")
+                return {name: ((z[f"{name}_labels"], z[f"{name}_core"]),
+                               float(z[f"{name}_s"])) for name in cases}
+        finally:
+            for f in (self.path, self.path + ".log"):
+                if os.path.exists(f):
+                    os.remove(f)
+            with contextlib.suppress(OSError):
+                os.rmdir(self.dir)
+
+
+def chained_cpu_refs_child(path, sizes):
+    """The child of :class:`ChainedCpuRefs`."""
+    import torch
+
+    os.nice(10)
+    torch.set_num_threads(4)
+    cases = chained_cpu_cases(sizes)
+    runs = chained_cpu_runs(cases)
+    arrays = {"digest": np.array(cases_digest(cases))}
+    for name, ((lab, core), sec) in runs.items():
+        arrays.update({f"{name}_labels": lab, f"{name}_core": core,
+                       f"{name}_s": np.array(sec)})
+    np.savez(path, **arrays)
+
+
+def chained_launches(ck, stats, what, counts="count_pairs",
+                     minlab="minlab_pairs"):
+    """The chained route's launches against its partitions' passes: one
+    counts pass per partition dispatched, a min-label pass for each of
+    its other passes (``stats["partition_passes"]``, 0 where a pair list
+    overflowed and no pass ran)."""
+    la = dict(ck.LAUNCHES)
+    ran = [p for p in stats["partition_passes"] if p]
+    want = {counts: len(ran), minlab: sum(p - 1 for p in ran)}
+    others = {k: v for k, v in la.items() if k not in want and v}
+    log(f"    {what}: launches {counts}={la[counts]} {minlab}={la[minlab]}"
+        f" for {len(ran)} partitions dispatched, passes {sum(ran)} "
+        f"(want {want}); other kernels {others}")
+    if la[counts] < 1 or la[minlab] < 1:
+        fail(f"{what}: a kernel of the chained route was never launched")
+    if {k: la[k] for k in want} != want or others:
+        fail(f"{what}: launches do not match the partitions' passes")
+    return la
+
+
+def f32_within(torch, x, rows, cand, e2, chunk=1 << 22):
+    """Per row of ``rows`` (indices into the recentred float32 rows
+    ``x``, on the card), whether it lies within eps of any row in
+    ``cand``: d^2 summed axis by axis with each operation rounded on its
+    own, the kernels' exact verdict (``ops/distances._pair_d2``), against
+    the float32 eps^2 ``e2``; ``chunk`` bounds the pairs held at once."""
+    out = torch.zeros(len(rows), dtype=torch.bool, device=x.device)
+    step = max(1, chunk // max(len(cand), 1))
+    for s in range(0, len(rows), step):
+        df = x[cand][None, :, :] - x[rows[s:s + step]][:, None, :]
+        acc = torch.zeros(df.shape[:2], dtype=torch.float32,
+                          device=x.device)
+        for a in range(x.shape[1]):
+            acc = acc + df[:, :, a] * df[:, :, a]
+        out[s:s + step] = (acc <= e2).any(1)
+    return out
+
+
+def hold_chained(torch, dev, X, eps, lab, core, s_lab, s_core, what):
+    """A chained fit's ``(lab, core)`` against the single-device fit's
+    ``(s_lab, s_core)`` on the same data: the core mask and the noise
+    byte-identical, the core points clustered alike (a bijection of
+    labels), and every border point whose cluster differs within eps of
+    a core of both clusters (an eps tie: either attach is right), by the
+    exact float32 verdict on the card; any other difference fails.
+    Returns ``(clusters, borders, noise, differ)``."""
+    from pypardis_tpu_torch.ops.distances import eps2_f32
+
+    s_lab, s_core = np.asarray(s_lab), np.asarray(s_core)
+    if not np.array_equal(core, s_core):
+        fail(f"{what}: core flags differ from the single-device fit in "
+             f"{int((core != s_core).sum())} points")
+    if not np.array_equal(lab < 0, s_lab < 0):
+        fail(f"{what}: noise differs from the single-device fit")
+    pairs = np.unique(np.stack([lab[core], s_lab[core]]), axis=1)
+    if not (pairs.shape[1] == len(np.unique(lab[core]))
+            == len(np.unique(s_lab[core]))):
+        fail(f"{what}: the core points' clustering differs from the "
+             f"single-device fit's")
+    to_chained = dict(zip(pairs[1].tolist(), pairs[0].tolist()))
+    border = np.flatnonzero((lab >= 0) & ~core)
+    mapped = np.array([to_chained.get(v, -2) for v in s_lab[border]],
+                      dtype=np.int64)
+    differ = border[mapped != lab[border]]
+    if len(differ):
+        center = X.mean(axis=0, dtype=np.float64)
+        xr = torch.from_numpy((X - center).astype(np.float32)).to(dev)
+        e2 = eps2_f32(eps)
+        for c_of in (lab[differ], mapped[mapped != lab[border]]):
+            for c in np.unique(c_of).tolist():
+                rows = torch.from_numpy(differ[c_of == c]).to(dev)
+                cand = torch.from_numpy(
+                    np.flatnonzero(core & (lab == c))).to(dev)
+                ok = (f32_within(torch, xr, rows, cand, e2)
+                      if len(cand) else torch.zeros_like(rows, dtype=bool))
+                if not bool(ok.all()):
+                    b = int(rows[~ok][0])
+                    fail(f"{what}: border point {b} differs from the "
+                         f"single-device fit but is not within eps of a "
+                         f"core of cluster {c}")
+        del xr
+    noise = int((lab < 0).sum())
+    log(f"    {what} vs the single-device fit: core byte-identical, core "
+        f"clustering identical ({pairs.shape[1]} clusters), {len(border)} "
+        f"border and {noise} noise points, {len(differ)} border points in "
+        f"another cluster, each within eps of a core of both")
+    return pairs.shape[1], len(border), noise, len(differ)
+
+
+def chained_slab_hold(torch, dev, X, part, eps, block, tiles, what):
+    """B1 and one B2 round on the chained route's largest slab (most
+    owned + halo points of ``part``'s partitions), laid out as the route
+    lays it out (``parallel/sharded._chained_layout`` and
+    ``_partition_slab``: the owned rows, the empty rows up to ``cap``,
+    then the halo) and put on the card: on the first ``tiles`` row tiles
+    of its live tile-pair list the kernels against their plain versions
+    on the same device tensors (B1's counts; B2 at the round-1 labels
+    with every valid row live), both exact.  Returns the record."""
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import (
+        INT_INF, eps2_f32, row_offsets,
+    )
+    from pypardis_tpu_torch.parallel import sharded
+
+    layout, _st = sharded._chained_layout(X, part, eps, block, "high")
+    sizes = [len(o) + len(h) for o, h in zip(layout["part_idx"],
+                                              layout["halo_idx"])]
+    p = int(np.argmax(sizes))
+    rows = layout["cap"] + layout["hcap"]
+    pts = np.empty((X.shape[1], rows), np.float32)
+    msk = np.empty(rows, bool)
+    gid = np.empty(rows, np.int32)
+    sharded._partition_slab(pts, msk, gid, X, layout, p)
+    xs = torch.from_numpy(pts).to(dev)
+    mask = torch.from_numpy(msk).to(dev)
+    blk = layout["block"]
+    (prs, cols), (total, budget) = ck.kernel_pair_list(xs, eps, mask, blk,
+                                                       "high")
+    if total > budget:
+        (prs, cols), (total, budget) = ck.kernel_pair_list(
+            xs, eps, mask, blk, "high", budget=total)
+    d, N = xs.shape
+    tile = ck._pallas_block(blk, N, d, "high")
+    nt = N // tile
+    rp = row_offsets(prs, nt)
+    mi = mask.to(torch.int32)
+    e2 = eps2_f32(eps)
+    centers = ck.pass_frames(xs, mask, tile, "high")[0]
+    sub = min(tiles, nt)
+    rp_sub = torch.cat([rp[:sub + 1], rp[sub].repeat(nt - sub)])
+    m_sub = mask & (torch.arange(N, device=dev) < sub * tile)
+    a_sub = (xs, mi, rp_sub, cols, e2, tile)
+    kc = ck.count_pairs(*a_sub, centers)
+    pc = ck.PLAIN["count_pairs"](*a_sub)
+    core = (torch.clamp_min(ck.count_pairs(xs, mi, rp, cols, e2, tile,
+                                           centers), 1) >= 10) & mask
+    f = torch.where(core, torch.arange(N, device=dev, dtype=torch.int32),
+                    INT_INF).contiguous()
+    b_sub = (xs, f, rp_sub, cols, e2, tile)
+    kb = ck.minlab_pairs(*b_sub, live_rows=mask)
+    pb = ck.PLAIN["minlab_pairs"](*b_sub, live_rows=mask)
+    bad_c = int((kc[m_sub] != pc[m_sub]).sum())
+    bad_b = int((kb[m_sub] != pb[m_sub]).sum())
+    err = {"count_pairs": int((kc[m_sub].long() - pc[m_sub].long()).abs()
+                              .max()),
+           "minlab_pairs": int((kb[m_sub].long() - pb[m_sub].long()).abs()
+                               .max())}
+    owned_rows = int(msk[:layout["cap"]].sum())
+    log(f"    {what}: partition {p}'s slab ({owned_rows} owned of cap "
+        f"{layout['cap']}, {sizes[p] - owned_rows} halo of hcap "
+        f"{layout['hcap']}; tile {tile}, {total} live tile pairs), first "
+        f"{sub} of {nt} row tiles ({int(m_sub.sum())} points): count_pairs "
+        f"{bad_c} and minlab_pairs (round 1) {bad_b} points differ from "
+        f"the plain versions")
+    if bad_c or bad_b:
+        fail(f"{what}: B1/B2 disagree with their plain versions on the "
+             f"chained route's largest slab")
+    if not int(m_sub.sum()) or not bool((pb[m_sub] != INT_INF).any()):
+        fail(f"{what}: the held rows of the largest slab hold no label")
+    return {"partition": p, "rows": N, "owned": owned_rows,
+            "halo": sizes[p] - owned_rows, "tile": tile, "tiles_held": sub,
+            "points_held": int(m_sub.sum()), "max_abs_err": err}
+
+
+def chained_phase(torch, dev, sync, card="", sizes=CHAINED_SIZES,
+                  main=None, cpu_refs=None):
+    """Phase 13 (the KD route's chained form on one card,
+    ``pypardis_tpu_torch.parallel.sharded_dbscan``): (1) ``small_n``
+    separated 16-D blobs over ``small_parts`` KD partitions, block
+    ``small_block``: the card's labels and core flags byte-identical to
+    the port's chained route on the CPU, under both merges and with
+    ``overlap`` True and False; B1 launched once per partition and B2 once per
+    other pass; ``emb_n`` x 512 embeddings over ``emb_parts`` partitions
+    with the sketch on: B3/B4 launched likewise, byte-identical to the
+    CPU's chained run; (2) the main path: phase 4's ``n`` x 16-D blobs,
+    eps 2.4, min_samples 10, block 2048, ``KDPartitioner(max_partitions=
+    parts)``, ``merge="auto"`` (the default), with
+    B1/B2 counted from 0, held against the single-device fit (phase
+    4's, or one fitted here) by :func:`hold_chained`; then B1/B2 against
+    their plain versions on the largest slab of that path
+    (:func:`chained_slab_hold`).  ``cpu_refs``: a
+    :class:`ChainedCpuRefs` whose CPU runs of (1) are held once (3) is
+    done (None: they run first, here).  Prints the fit's wall from host input
+    split into the KD build, the halo sets, the host slab build, the
+    per-partition device time (CUDA-event spans), the loop and the
+    merge, with the geometry, merge and overlap stats.  (3) The same
+    data at ``border_eps`` under ``merge="host"``, held against a
+    single-device fit at that eps: it must hold border points, and each
+    that another cluster takes must be an eps tie.  ``main``:
+    ``dict(X=, labels=, core=)`` of phase 4's fit.  Returns the phase's
+    record."""
+    from benchdata import make_blob_data
+    from pypardis_tpu_torch import DBSCAN, KDPartitioner
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.parallel import sharded_dbscan
+
+    rec = {"card": card}
+    t_phase = time.perf_counter()
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def run(X, part, **kw):
+        sync()
+        t = time.perf_counter()
+        out = sharded_dbscan(X, part, **kw)
+        sync()
+        return out, time.perf_counter() - t
+
+    def same(a, b, what):
+        ok = np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        log(f"    {what}: labels and core byte-identical: {ok}")
+        if not ok:
+            fail(f"{what}: the chained fits differ")
+
+    def split(what, st, wall, kd_s):
+        ss = st["stage_s"]
+        log(f"  {what}, {st['n_shard_partitions']} KD partitions: "
+            f"{wall:.4f} s from host input on {card}; KD build {kd_s:.4f} s,"
+            f" halo sets {ss['halo_sets']:.4f} s, host slab build "
+            f"{ss['slab_build']:.4f} s, per-partition device "
+            f"{ss['device']:.4f} s (CUDA-event spans), loop {ss['loop']:.4f}"
+            f" s, merge {st['merge']} {ss['merge']:.4f} s "
+            f"({st.get('merge_rounds')} rounds, "
+            f"{st.get('merge_host_syncs')} host syncs)")
+        log(f"    halo_factor {st['halo_factor']:.6f}, "
+            f"duplicated_work_factor {st['duplicated_work_factor']:.6f}, "
+            f"pad_waste {st['pad_waste']:.6f}, owned_cap {st['owned_cap']},"
+            f" halo_cap {st['halo_cap']}, overlap_efficiency "
+            f"{st.get('overlap_efficiency')}, live pairs "
+            f"{st['live_pairs']}, kernel passes (max) "
+            f"{st['kernel_passes']}, tile {st['kernel_block']}")
+        return {
+            "partitions": st["n_shard_partitions"], "wall_s": wall,
+            "kd_build_s": kd_s, **{f"{k}_s": v for k, v in ss.items()},
+            **{k: st.get(k) for k in (
+                "halo_factor", "duplicated_work_factor", "pad_waste",
+                "owned_cap", "halo_cap", "merge", "merge_rounds",
+                "merge_host_syncs", "overlap_efficiency", "live_pairs",
+                "kernel_passes")},
+        }
+
+    # 13.1: card against the CPU's chained route.  With ``cpu_refs``
+    # (:class:`ChainedCpuRefs`) the CPU runs went on in a child process
+    # beside the card's work and their gates close the phase; without,
+    # they run here first.
+    cases = chained_cpu_cases(sizes)
+    (Xs, part_s, kw_s), (Xe, part_e, kw_e) = cases["small"], cases["emb"]
+    cpu_now = None if cpu_refs else chained_cpu_runs(cases)
+    ck.reset_launch_counts()
+    ref, ref_s = run(Xs, part_s, device=dev, **kw_s)
+    chained_launches(ck, ref[2], f"13.1 n={len(Xs)} d=16")
+    log(f"  13.1 n={len(Xs)} d=16, {ref[2]['n_shard_partitions']} "
+        f"partitions: card {ref_s:.4f} s; clusters "
+        f"{len(np.unique(ref[0][ref[0] >= 0]))}, halo_factor "
+        f"{ref[2]['halo_factor']:.4f}, merge {ref[2]['merge']} "
+        f"({ref[2].get('merge_rounds')} rounds)")
+    variants = {}
+    for merge in ("device", "host"):
+        for overlap in (True, False):
+            variants[merge, overlap] = run(
+                Xs, part_s, device=dev, merge=merge, overlap=overlap, **kw_s)
+    ck.reset_launch_counts()
+    emb, emb_s = run(Xe, part_e, device=dev, **kw_e)
+    chained_launches(ck, emb[2], f"13.1 n={len(Xe)} d=512",
+                     "count_pairs_sketch", "minlab_pairs_sketch")
+    log(f"  13.1 n={len(Xe)} d=512, {emb[2]['n_shard_partitions']} "
+        f"partitions, sketch_k {emb[2]['sketch_k']}: card {emb_s:.4f} s; "
+        f"clusters {len(np.unique(emb[0][emb[0] >= 0]))}")
+    rec["small"] = {"n": len(Xs), "card_s": ref_s,
+                    "halo_factor": ref[2]["halo_factor"],
+                    "emb_n": len(Xe), "emb_card_s": emb_s}
+    stamp("13.1: card runs done")
+
+    def close_13_1():
+        cpu = cpu_now or cpu_refs.result(cases)
+        (c_small, c_s), (c_emb, c_emb_s) = cpu["small"], cpu["emb"]
+        log(f"  13.1 on the CPU: n={len(Xs)} d=16 {c_s:.4f} s, "
+            f"n={len(Xe)} d=512 {c_emb_s:.4f} s"
+            f"{' (in a child process)' if cpu_refs else ''}")
+        same(ref, c_small, "13.1 card vs CPU")
+        for (merge, overlap), (out, s) in variants.items():
+            same(out, c_small, f"13.1 card merge={merge} overlap={overlap} "
+                 f"({s:.4f} s) vs CPU")
+        same(emb, c_emb, "13.1 sketched card vs CPU")
+        rec["small"].update(cpu_s=c_s, emb_cpu_s=c_emb_s)
+        stamp("13.1: done")
+
+    # 13.2: the main path at phase 4's size.
+    n, eps = sizes["n"], sizes["eps"]
+    if main is None:
+        X, _truth = make_blob_data(n, 16, n_centers=32, std=0.4)
+        single = DBSCAN(eps=eps, min_samples=10, block=sizes["block"],
+                        device=dev).fit(X)
+        main = dict(X=X, labels=single.labels_,
+                    core=single.core_sample_mask_)
+    X = main["X"]
+    t = time.perf_counter()
+    part = KDPartitioner(X, max_partitions=sizes["parts"])
+    kd_s = time.perf_counter() - t
+    ck.reset_launch_counts()
+    (lab, core, st), wall = run(X, part, eps=eps, min_samples=10,
+                                block=sizes["block"], device=dev)
+    la = chained_launches(ck, st, f"13.2 n={n} d=16")
+    rec["main"] = {"n": n, **split(f"13.2 n={n} d=16", st, wall, kd_s)}
+    clusters, borders, noise, differ = hold_chained(
+        torch, dev, X, eps, lab, core, main["labels"], main["core"], "13.2")
+    rec["main"].update(
+        launches={"count_pairs": la["count_pairs"],
+                  "minlab_pairs": la["minlab_pairs"]},
+        clusters=clusters, borders=borders, noise=noise,
+        borders_differ=differ)
+    del lab, core, main
+    stamp("13.2: the fit held")
+    rec["main"]["slab_hold"] = chained_slab_hold(
+        torch, dev, X, part, eps, sizes["block"], sizes["hold_tiles"],
+        "13.2 largest slab")
+    stamp("13.2: done")
+
+    # 13.3: border points at 1M, through the host merge.
+    b_eps = sizes["border_eps"]
+    single = DBSCAN(eps=b_eps, min_samples=10, block=sizes["block"],
+                    device=dev).fit(X)
+    ck.reset_launch_counts()
+    (lab, core, st), wall = run(X, part, eps=b_eps, min_samples=10,
+                                block=sizes["block"], merge="host",
+                                device=dev)
+    chained_launches(ck, st, f"13.3 n={n} d=16 eps={b_eps}")
+    rec["border"] = {"n": n, "eps": b_eps, **split(
+        f"13.3 n={n} d=16 eps={b_eps}", st, wall, kd_s)}
+    clusters, borders, noise, differ = hold_chained(
+        torch, dev, X, b_eps, lab, core, single.labels_,
+        single.core_sample_mask_, "13.3")
+    if not borders:
+        fail("13.3: the data holds no border point, so the border check "
+             "proves nothing")
+    rec["border"].update(clusters=clusters, borders=borders, noise=noise,
+                         borders_differ=differ)
+    stamp("13.3: done")
+    close_13_1()
+    return rec
+
+
 def main() -> None:
     import torch
 
+    if sys.argv[1:2] == ["--chained-cpu-refs"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        chained_cpu_refs_child(sys.argv[2], json.loads(sys.argv[3]))
+        return
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False; this smoke run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -4907,6 +5407,15 @@ def main() -> None:
         rec12 = gateway_phase(torch, dev, torch.cuda.synchronize, card)
         log(f"phase 12 record: {json.dumps(rec12)}; phase 12 took "
             f"{time.perf_counter() - t12:.1f} s")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
+
+    if "--chained" in sys.argv[1:]:
+        t13 = time.perf_counter()
+        rec13 = chained_phase(torch, dev, torch.cuda.synchronize, card,
+                              cpu_refs=ChainedCpuRefs())
+        log(f"phase 13 record: {json.dumps(rec13)}; phase 13 took "
+            f"{time.perf_counter() - t13:.1f} s")
         log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
         return
 
@@ -5055,6 +5564,9 @@ def main() -> None:
             if n == 1_000_000 and main_launches is None:
                 main_launches = launches
                 serve_model, serve_X = model, X
+                # Phase 13 holds the chained route against this fit.
+                chained_main = dict(X=X, labels=model.labels_.copy(),
+                                    core=model.core_sample_mask_.copy())
             runs.append((source, wall, model.labels_.copy(),
                          model.core_sample_mask_.copy()))
         for i in (1, 3):
@@ -5199,8 +5711,21 @@ def main() -> None:
     del live_fit
     log(f"phase 12 record: {json.dumps(rec12)}; phase 12 took "
         f"{time.perf_counter() - t12:.1f} s")
+    phase("phase 13: the KD route's chained form (sharded_dbscan)")
+    t13 = time.perf_counter()
+    rec13 = chained_phase(torch, dev, torch.cuda.synchronize, card,
+                          main=chained_main, cpu_refs=ChainedCpuRefs())
+    del chained_main
+    # The chained route's B1/B2 launches per fit at 13.2's size, and
+    # their largest error against the plain versions on its largest slab.
+    for rec, key in zip(kernels[:2], ("count_pairs", "minlab_pairs")):
+        rec["launches_chained"] = rec13["main"]["launches"][key]
+        rec["max_abs_err_chained"] = (
+            rec13["main"]["slab_hold"]["max_abs_err"][key])
+    log(f"phase 13 record: {json.dumps(rec13)}; phase 13 took "
+        f"{time.perf_counter() - t13:.1f} s")
     log(f"fit seconds (host, host, cuda, cuda): {json.dumps(fits)}")
-    phase("phases 2-12 done")
+    phase("phases 2-13 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,14 @@ versions.
 """
 
 from .aggregator import ClusterAggregator, default_value
-from .checkpoint import load_index, load_model, save_index, save_model
+from .checkpoint import (
+    load_index,
+    load_model,
+    load_partitioner,
+    save_index,
+    save_model,
+    save_partitioner,
+)
 from .config import DBSCANConfig
 from .dbscan import (
     DBSCAN,
@@ -18,13 +25,22 @@ from .dbscan import (
     sweep_dbscan,
 )
 from .geometry import BoundingBox
-from .partition import KDPartitioner
+from .partition import (
+    KDPartitioner,
+    mean_var_split,
+    median_search_split,
+    min_var_split,
+)
 from .serve import CorePointIndex, QueryEngine
+
+__version__ = "0.1.0"
 
 __all__ = [
     "DBSCAN", "BoundingBox", "ClusterAggregator", "default_value",
     "DBSCANConfig",
     "CorePointIndex", "QueryEngine", "KDPartitioner", "SweepResult",
+    "median_search_split", "mean_var_split", "min_var_split",
     "dbscan_partition", "map_cluster_id", "sweep_dbscan", "save_model",
-    "load_model", "save_index", "load_index",
+    "load_model", "save_partitioner", "load_partitioner", "save_index",
+    "load_index", "__version__",
 ]

@@ -36,7 +36,9 @@ select the flat cut, exposed as ``eps_``; ``sweep(eps_list="auto")``
 takes its eps ladder from the same hierarchy.  A fitted model takes
 live inserts and deletes (``live``, ``insert``, ``delete``;
 :mod:`.serve.live`), its serving index edited in place, and many fitted
-models serve behind one :class:`~.serve.gateway.ModelGateway`.  Sharded
+models serve behind one :class:`~.serve.gateway.ModelGateway`.  The KD
+route's partitioned fit on one card is
+:func:`pypardis_tpu_torch.parallel.sharded_dbscan`; the multi-device
 fits and telemetry beyond the metrics registry are later slices of the
 port (ROADMAP A10-A12, A16).
 """
@@ -1287,6 +1289,11 @@ class DBSCAN:
         from .checkpoint import save_model
 
         save_model(self, path)
+
+    @classmethod
+    def from_config(cls, config) -> "DBSCAN":
+        """The model a :class:`~.config.DBSCANConfig` describes."""
+        return config.build()
 
     @classmethod
     def load(cls, path: str, device=None) -> "DBSCAN":

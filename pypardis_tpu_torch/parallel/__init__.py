@@ -1,3 +1,9 @@
-"""Host-side label merging (counterpart of ``pypardis_tpu/parallel``).
-The collectives, the sharded fits and the occurrence merge are later
-slices (ROADMAP A10-A12)."""
+"""Partitioned fits and label merging (counterpart of
+``pypardis_tpu/parallel``): :func:`sharded_dbscan`, the KD route's
+chained form on one card, and the host merge's union-find.  The
+collectives and the fused multi-device steps are later slices (ROADMAP
+A10-A12)."""
+
+from .sharded import sharded_dbscan
+
+__all__ = ["sharded_dbscan"]

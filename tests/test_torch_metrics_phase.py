@@ -22,7 +22,8 @@ def _few_threads():
 # their plain versions and count their calls as launches (on the card
 # each call is one launch), so the phase's gates and records rehearse.
 REHEARSAL = dict(cos_n=1500, cos_serve_n=1000, check_n=600, hav_n=3000,
-                 l1_n=8000, l1_sub_n=800, queries=256, oracle_rows=4,
+                 l1_n=8000, l1_fit_n=8000, l1_sub_n=800, queries=256,
+                 oracle_rows=4,
                  sub_tiles=1, plain_tiles=1, reps=1, block=128,
                  sweep_edges=None)
 
