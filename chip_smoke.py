@@ -280,7 +280,22 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    halo sets, the host slab build, the per-partition device time
    (CUDA-event spans), the loop and the merge, with the halo and
    duplicated-work factors, pad waste, merge rounds, the overlap
-   efficiency and the border and noise counts.
+   efficiency and the border and noise counts;
+14. run reports and tracing (:func:`report_phase`), on fits the script
+   already ran: (1) one B1 launch on phase 5's 1M inputs inside a span
+   with ``sync_on`` must last at least its CUDA events' time (the same
+   span without ``sync_on`` is printed beside it); (2) ``report()`` of
+   phase 4's first 1M fit and 13.2's chained fit's report (built from
+   its stats and recorder, :func:`chained_report`) must be JSON with
+   the schema and every number finite, the ``table:h100`` peak row, a
+   positive model rate, ``compute`` counts equal to the fit's
+   ``metrics_``, phases within the run's wall and the device watermark
+   in (0, ``max_memory_allocated``]; their summaries and model mfu are
+   printed; (3) the 1M fit's ``export_trace`` must hold its pipeline
+   and phase spans inside the fit's wall; (4) phase 4's 200k data fitted
+   with ``flight=`` must ``replay`` to the live spans and phases.  It
+   prints phase 4's 1M walls from host input beside
+   :data:`FIT_1M_HOST_S_BEFORE`.
 
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
@@ -292,7 +307,9 @@ alone; ``--hier`` builds them and runs phase 10 alone; ``--live`` builds
 them, fits the 1M model and runs phase 11 alone; ``--gateway`` builds
 them, fits the 1M model, builds its live model and runs phase 12 alone;
 ``--chained`` builds them and runs phase 13 alone (fitting the 1M
-single-device model it compares with).
+single-device model it compares with); ``--report`` builds them and
+runs phase 14 alone on its own fits (phase 4's 1M fit twice, phase 5's
+B1 inputs, 13.2's chained fit).
 ``--hold-reps N`` (with any of the above, or alone for the whole
 script) runs every gate-1 hold of the index (:func:`hold_index`: after
 each live commit, each served check, the compaction and the ingest
@@ -814,7 +831,16 @@ def serve_phase(torch, model, X, median_ms):
     if not same:
         fail("the loaded model predicts differently")
 
-    warm_drain_sync(eng, batches, per)
+    warm = warm_drain_sync(eng, batches, per)
+    # The drain's one serving.* gauge publish (serve/engine._publish),
+    # timed alone beside the drain it rides on.
+    t = time.perf_counter()
+    for _ in range(200):
+        eng._publish()
+    pub_ms = (time.perf_counter() - t) / 200 * 1e3
+    log(f"  the drain's serving.* gauge publish: {pub_ms * 1e3:.1f} us, "
+        f"{pub_ms / (warm['drain'] * len(batches)):.6f} of a warm drain "
+        f"of {len(batches)} batches")
 
     # Where one batch's time goes: the stages of batch 3, each on its
     # own and synchronised (host clock).
@@ -5083,8 +5109,49 @@ def chained_slab_hold(torch, dev, X, part, eps, block, tiles, what):
             "points_held": int(m_sub.sum()), "max_abs_err": err}
 
 
+def chained_fit_recorded(torch, dev, sync, X, sizes=CHAINED_SIZES):
+    """13.2's fit: the KD build and ``sharded_dbscan`` (B1/B2 counted
+    from 0) under a fresh telemetry recorder with a resource sampler on
+    ``dev``, the KD build as its ``partition`` phase and the route as
+    its ``cluster`` phase, as a partitioned fit's report takes them.
+    Returns ``((labels, core, stats), wall, kd_s, partitioner,
+    recorded)``, ``recorded`` the inputs of the fit's report
+    (:func:`chained_report`)."""
+    from pypardis_tpu_torch import KDPartitioner, obs
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.parallel import sharded_dbscan
+    from pypardis_tpu_torch.utils.profiling import PhaseTimer
+
+    rec = obs.RunRecorder(device=dev)
+    timer = PhaseTimer()
+    sampler = obs.ResourceSampler(rec, device=dev).start()
+    t_all = time.perf_counter()
+    try:
+        with obs.use_recorder(rec):
+            with timer.phase("partition"):
+                t = time.perf_counter()
+                part = KDPartitioner(X, max_partitions=sizes["parts"])
+                kd_s = time.perf_counter() - t
+            ck.reset_launch_counts()
+            with timer.phase("cluster"):
+                sync()
+                t = time.perf_counter()
+                out = sharded_dbscan(X, part, eps=sizes["eps"],
+                                     min_samples=10, block=sizes["block"],
+                                     device=dev)
+                sync()
+                wall = time.perf_counter() - t
+        total = time.perf_counter() - t_all
+    finally:
+        sampler.stop()
+    recorded = dict(recorder=rec, stats=out[2], phases=timer.as_dict(),
+                    total_s=total, n=len(X), d=X.shape[1],
+                    eps=sizes["eps"], block=sizes["block"])
+    return out, wall, kd_s, part, recorded
+
+
 def chained_phase(torch, dev, sync, card="", sizes=CHAINED_SIZES,
-                  main=None, cpu_refs=None):
+                  main=None, cpu_refs=None, reports=None):
     """Phase 13 (the KD route's chained form on one card,
     ``pypardis_tpu_torch.parallel.sharded_dbscan``): (1) ``small_n``
     separated 16-D blobs over ``small_parts`` KD partitions, block
@@ -5108,10 +5175,12 @@ def chained_phase(torch, dev, sync, card="", sizes=CHAINED_SIZES,
     data at ``border_eps`` under ``merge="host"``, held against a
     single-device fit at that eps: it must hold border points, and each
     that another cluster takes must be an eps tie.  ``main``:
-    ``dict(X=, labels=, core=)`` of phase 4's fit.  Returns the phase's
+    ``dict(X=, labels=, core=)`` of phase 4's fit.  ``reports``: a dict
+    that gains ``"chained"``, 13.2's report inputs
+    (:func:`chained_fit_recorded`, for phase 14).  Returns the phase's
     record."""
     from benchdata import make_blob_data
-    from pypardis_tpu_torch import DBSCAN, KDPartitioner
+    from pypardis_tpu_torch import DBSCAN
     from pypardis_tpu_torch.ops import cuda_kernels as ck
     from pypardis_tpu_torch.parallel import sharded_dbscan
 
@@ -5216,12 +5285,10 @@ def chained_phase(torch, dev, sync, card="", sizes=CHAINED_SIZES,
         main = dict(X=X, labels=single.labels_,
                     core=single.core_sample_mask_)
     X = main["X"]
-    t = time.perf_counter()
-    part = KDPartitioner(X, max_partitions=sizes["parts"])
-    kd_s = time.perf_counter() - t
-    ck.reset_launch_counts()
-    (lab, core, st), wall = run(X, part, eps=eps, min_samples=10,
-                                block=sizes["block"], device=dev)
+    (lab, core, st), wall, kd_s, part, recorded = chained_fit_recorded(
+        torch, dev, sync, X, sizes)
+    if reports is not None:
+        reports["chained"] = recorded
     la = chained_launches(ck, st, f"13.2 n={n} d=16")
     rec["main"] = {"n": n, **split(f"13.2 n={n} d=16", st, wall, kd_s)}
     clusters, borders, noise, differ = hold_chained(
@@ -5259,6 +5326,223 @@ def chained_phase(torch, dev, sync, card="", sizes=CHAINED_SIZES,
                          borders_differ=differ)
     stamp("13.3: done")
     close_13_1()
+    return rec
+
+
+# Phase 14: run reports and tracing.  Phase 4's 1M x 16-D fit from host
+# input as PERF.md last recorded it before the spans (PRs 10-16, my chip
+# runs; NVIDIA H100 80GB HBM3, 700 W), and from a CUDA tensor as PRs
+# 15-16's full runs read it: printed beside this run's walls.
+FIT_1M_HOST_S_BEFORE = (0.3145, 0.3594)
+FIT_1M_TENSOR_S_BEFORE = (0.1001, 0.1141)
+# The 200k fit of 14.4 writes its flight file here, the 1M fit's trace
+# too; both are removed once read.
+OBS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_obs")
+
+
+def fit_record(model, wall):
+    """What phase 14 reads of a fit: its ``report()``, its wall (timed
+    around ``fit``), its ``metrics_`` and its ``export_trace`` file
+    (under :data:`OBS_DIR`)."""
+    os.makedirs(OBS_DIR, exist_ok=True)
+    return dict(report=model.report(), wall=wall,
+                metrics=dict(model.metrics_),
+                trace=model.export_trace(os.path.join(
+                    OBS_DIR, f"trace_{os.getpid()}.json")))
+
+
+def nonfinite(obj, path="report"):
+    """Paths of the non-finite numbers in a JSON-like object."""
+    if isinstance(obj, dict):
+        return [p for k, v in obj.items() for p in nonfinite(v, f"{path}.{k}")]
+    if isinstance(obj, (list, tuple)):
+        return [p for i, v in enumerate(obj)
+                for p in nonfinite(v, f"{path}[{i}]")]
+    if isinstance(obj, float) and not np.isfinite(obj):
+        return [path]
+    return []
+
+
+def chained_report(recorded):
+    """13.2's report, built from the route's stats as ``report()``
+    builds a fit's: the stats and the fit's phases as its metrics, the
+    recorder's spans, events and watermarks."""
+    from pypardis_tpu_torch import obs
+
+    r = recorded
+    metrics = dict(r["stats"], **r["phases"], total_s=r["total_s"],
+                   points_per_sec=r["n"] / max(r["total_s"], 1e-9))
+    return obs.build_run_report(
+        r["recorder"],
+        params={"eps": r["eps"], "min_samples": 10, "block": r["block"],
+                "precision": "high", "merge": r["stats"]["merge"]},
+        n_points=r["n"], n_dims=r["d"], n_devices=1, backend="cuda",
+        metrics=metrics)
+
+
+def report_gates(torch, dev, rep, metrics, what):
+    """14.2's gates on one report: JSON, the schema, finite numbers, the
+    H100 peak row, a positive achieved rate, the compute counts equal to
+    the fit's metrics, phases within the run's wall and the device
+    watermark within ``max_memory_allocated``."""
+    from pypardis_tpu_torch import obs
+
+    text = json.dumps(rep)
+    if rep.get("schema") != obs.REPORT_SCHEMA:
+        fail(f"14.2 {what}: schema {rep.get('schema')!r}")
+    bad = nonfinite(json.loads(text))
+    if bad:
+        fail(f"14.2 {what}: non-finite numbers at {bad[:5]}")
+    comp, res = rep["compute"], rep["resources"]
+    if comp["peak_source"] != "table:h100":
+        fail(f"14.2 {what}: peak_source {comp['peak_source']!r}, not the "
+             f"H100 row")
+    if not comp["achieved_flops_per_sec"] > 0:
+        fail(f"14.2 {what}: achieved_flops_per_sec "
+             f"{comp['achieved_flops_per_sec']}")
+    for k in ("live_pairs", "kernel_passes"):
+        if comp[k] != int(metrics[k]):
+            fail(f"14.2 {what}: compute.{k} {comp[k]} != {metrics[k]}")
+    phases = sum(rep["phases"].values())
+    if phases > rep["run"]["total_s"] * 1.01:
+        fail(f"14.2 {what}: the phases sum to {phases:.6f} s, past the "
+             f"run's {rep['run']['total_s']:.6f} s")
+    peak = res["peak_device_bytes"]
+    high = torch.cuda.max_memory_allocated(dev)
+    if not 0 < peak <= high:
+        fail(f"14.2 {what}: peak_device_bytes {peak} outside (0, "
+             f"max_memory_allocated {high}]")
+    log(f"  14.2 {what}: {len(text)} bytes of JSON, phases "
+        f"{json.dumps(rep['phases'])} of {rep['run']['total_s']:.6f} s, "
+        f"model mfu {comp['mfu']:.8f} ({comp['achieved_flops_per_sec']:.1f}"
+        f" model FLOP/s of {comp['peak_flops']:.3g} {comp['peak_source']}), "
+        f"peak device {peak} of max_memory_allocated {high}, "
+        f"{res['samples']} samples, events {json.dumps(rep['events'])}")
+    for line in obs.format_summary(rep).splitlines():
+        log(f"    {line}")
+    return {"phases": rep["phases"], "total_s": rep["run"]["total_s"],
+            "mfu": comp["mfu"], "peak_device_bytes": peak,
+            "samples": res["samples"]}
+
+
+def sync_hold(torch, dev, ck, a, centers):
+    """14.1: one B1 launch on phase 4's 1M layout inside a span with
+    ``sync_on(out)``, CUDA events recorded around the launch; the span
+    must cover the events' elapsed time.  The same span without
+    ``sync_on`` is printed beside it (it closes when the launch is
+    queued)."""
+    from pypardis_tpu_torch import obs
+
+    tr = obs.Tracer(device=dev)
+    out = {}
+    for name, wait in (("b1.sync_on", True), ("b1.queued", False)):
+        torch.cuda.synchronize(dev)
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with tr.span(name) as sp:
+            s.record()
+            got = ck.count_pairs(*a, centers)
+            e.record()
+            if wait:
+                sp.sync_on(got)
+        span_ms = tr.spans[-1].dur_s * 1e3
+        e.synchronize()
+        out[name] = (span_ms, s.elapsed_time(e))
+    span_ms, ev_ms = out["b1.sync_on"]
+    log(f"  14.1 B1 on phase 4's 1M layout: span with sync_on {span_ms:.4f} "
+        f"ms >= CUDA events {ev_ms:.4f} ms; the same span without sync_on "
+        f"{out['b1.queued'][0]:.4f} ms (events {out['b1.queued'][1]:.4f} ms)")
+    if span_ms < ev_ms:
+        fail(f"14.1: the span with sync_on ({span_ms:.4f} ms) is shorter "
+             f"than the launch's events ({ev_ms:.4f} ms)")
+    return {"sync_on_ms": span_ms, "events_ms": ev_ms,
+            "queued_ms": out["b1.queued"][0]}
+
+
+def trace_hold(fit1m):
+    """14.3: the fit's ``export_trace`` file (``fit1m["trace"]``, removed
+    once read) loads as JSON and holds the ``pipeline.layout``,
+    ``pipeline.cluster``, ``cluster`` and ``densify`` spans, every span
+    inside the fit's wall (``fit1m["wall"]``, measured around ``fit``)."""
+    with open(fit1m["trace"]) as f:
+        doc = json.load(f)
+    os.remove(fit1m["trace"])
+    xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    names = [e["name"] for e in xs]
+    wall_us = fit1m["wall"] * 1e6
+    outside = [e["name"] for e in xs
+               if e["ts"] < 0 or e["ts"] + e["dur"] > wall_us]
+    log(f"  14.3 the fit's trace: {len(xs)} spans {names}, all inside its "
+        f"{fit1m['wall']:.6f} s wall: {not outside}")
+    for need in ("pipeline.layout", "pipeline.cluster", "cluster",
+                 "densify"):
+        if need not in names:
+            fail(f"14.3: the fit's trace has no {need} span")
+    if outside:
+        fail(f"14.3: spans {outside} lie outside the fit's wall")
+    return {"spans": names}
+
+
+def flight_hold(X, dev, eps=2.4, block=2048):
+    """14.4: ``X`` fitted with ``flight=`` (a file under
+    :data:`OBS_DIR`, removed once read); its ``replay`` must be complete
+    and give the live tracer's span names in order and ``report()``'s
+    phase names."""
+    from pypardis_tpu_torch import DBSCAN, obs
+
+    os.makedirs(OBS_DIR, exist_ok=True)
+    path = os.path.join(OBS_DIR, f"flight_{os.getpid()}.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    model = DBSCAN(eps=eps, min_samples=10, block=block, device=dev,
+                   flight=path).fit(X)
+    rp = obs.replay(path)
+    os.remove(path)
+    live = [sp.name for sp in model._recorder.tracer.spans]
+    got = [e["name"] for e in rp.to_chrome_trace()["traceEvents"]
+           if e.get("ph") == "X"]
+    phases_live = sorted(model.report()["phases"])
+    phases_rp = sorted(rp.report()["phases"])
+    log(f"  14.4 n={len(X)} fit with flight=: {rp.records} records, "
+        f"complete {rp.complete}, replayed spans {got} (live {live}), "
+        f"phases {phases_rp} (report() {phases_live})")
+    if not rp.complete or rp.status != "ok" or got != live:
+        fail("14.4: the flight file's replay differs from the live tracer")
+    if phases_rp != phases_live:
+        fail("14.4: the replayed report's phases differ from report()'s")
+    return {"records": rp.records, "spans": got}
+
+
+def report_phase(torch, dev, card, ck, sync_args, fit1m, chained, X200,
+                 fit_walls):
+    """Phase 14 (run reports and tracing): 14.1 :func:`sync_hold`; 14.2
+    :func:`report_gates` on phase 4's first 1M fit's ``report()`` and on
+    13.2's chained fit's (:func:`chained_report`); 14.3 that fit's
+    ``export_trace`` loads and holds the pipeline and phase spans inside
+    the fit's wall; 14.4 phase 4's 200k data fitted with ``flight=`` and
+    ``replay``: the same span names in the same order as the live
+    tracer, the same phase names as ``report()``.  ``fit1m``:
+    ``dict(report=, trace=, wall=, metrics=)`` of phase 4's fit;
+    ``fit_walls``: phase 4's 1M walls (two from host input, then any
+    from a CUDA tensor), printed beside :data:`FIT_1M_HOST_S_BEFORE`
+    and :data:`FIT_1M_TENSOR_S_BEFORE`.  Returns the phase's record."""
+    rec = {"card": card}
+    rec["sync"] = sync_hold(torch, dev, ck, *sync_args)
+    rec["fit_1m"] = report_gates(torch, dev, fit1m["report"],
+                                 fit1m["metrics"], "phase 4's 1M fit")
+    rec["chained"] = report_gates(torch, dev, chained_report(chained),
+                                  chained["stats"], "13.2's chained fit")
+    rec["trace"] = trace_hold(fit1m)
+    rec["flight"] = flight_hold(X200, dev)
+    for what, walls, (lo, hi) in (
+            ("host input", fit_walls[:2], FIT_1M_HOST_S_BEFORE),
+            ("a CUDA tensor", fit_walls[2:], FIT_1M_TENSOR_S_BEFORE)):
+        if walls:
+            log(f"  phase 4's 1M fit from {what} with the spans on: "
+                f"{', '.join(f'{w:.4f}' for w in walls)} s, against "
+                f"{lo}-{hi} s before them (PERF.md); {card}")
+    rec["fit_1m_host_s"] = list(fit_walls[:2])
+    rec["fit_1m_tensor_s"] = list(fit_walls[2:])
     return rec
 
 
@@ -5482,6 +5766,36 @@ def main() -> None:
         hold("minlab_pairs", ck.minlab_pairs(*b), minlab_over_pairs(*b),
              what)
 
+    if "--report" in sys.argv[1:]:
+        # Phase 14 alone, on its own fits: phase 4's 1M fit (twice from
+        # host input; the first one's report and trace), its 200k data,
+        # phase 5's B1 inputs and 13.2's chained fit.
+        t14 = time.perf_counter()
+        walls = []
+        X, _truth = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
+        for _ in range(2):
+            model = DBSCAN(eps=2.4, min_samples=10, block=2048)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.fit(X)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if len(walls) == 1:
+                fit1m = fit_record(model, walls[0])
+        X200, _truth = make_blob_data(200_000, 16, n_centers=32, std=0.4)
+        pts, n, block = _stage(X, 2048, dev)
+        xs, mask, _owner = _pipeline_layout(pts, 2.4, n, block, sort=True)
+        inp = kernel_inputs(xs, mask, 2.4, block, 10)
+        a = (xs, inp["mi"], inp["rp"], inp["cols"], inp["e2"], inp["tile"])
+        _out, _wall, _kd, _part, chained = chained_fit_recorded(
+            torch, dev, torch.cuda.synchronize, X)
+        rec14 = report_phase(torch, dev, card, ck, (a, inp["centers"]),
+                             fit1m, chained, X200, fit_walls=walls)
+        log(f"phase 14 record: {json.dumps(rec14)}; phase 14 took "
+            f"{time.perf_counter() - t14:.1f} s")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
+
     # Phase 2: kernels against their plain versions on the card.
     phase("phase 2: kernels vs plain versions on the card (tolerance: "
         "exact equality; the two share their d^2 arithmetic)")
@@ -5564,6 +5878,7 @@ def main() -> None:
             if n == 1_000_000 and main_launches is None:
                 main_launches = launches
                 serve_model, serve_X = model, X
+                fit1m = fit_record(model, wall)  # phase 14 reads it
                 # Phase 13 holds the chained route against this fit.
                 chained_main = dict(X=X, labels=model.labels_.copy(),
                                     core=model.core_sample_mask_.copy())
@@ -5577,6 +5892,8 @@ def main() -> None:
             f"labels identical: {np.array_equal(runs[0][2], runs[2][2])}, "
             f"ARI {ari(runs[0][2], runs[2][2]):.6f}")
         fits[n] = [round(r[1], 6) for r in runs]
+        if n == 200_000:
+            X200 = X  # phase 14.4 fits it with a flight file
         del Xd
 
     # Phase 5: the kernels alone at the 1M fit's own inputs (staged as
@@ -5627,6 +5944,7 @@ def main() -> None:
     rc.zero_()
     ck.count_pairs(*a, inp["centers"], rescored_pairs=rc)
     rescored = int(rc[0])
+    sync_args = (a, inp["centers"])  # phase 14.1's B1 inputs
     ms = median_ms(lambda: ck.count_pairs(*a, inp["centers"]), 10)
     frames_ms = median_ms(lambda: ck.pass_frames(xs, mask, tile, "high"), 10)
     # One timed call of the plain pass (≈ 5.4 s): the hold above warmed
@@ -5713,8 +6031,10 @@ def main() -> None:
         f"{time.perf_counter() - t12:.1f} s")
     phase("phase 13: the KD route's chained form (sharded_dbscan)")
     t13 = time.perf_counter()
+    reports = {}
     rec13 = chained_phase(torch, dev, torch.cuda.synchronize, card,
-                          main=chained_main, cpu_refs=ChainedCpuRefs())
+                          main=chained_main, cpu_refs=ChainedCpuRefs(),
+                          reports=reports)
     del chained_main
     # The chained route's B1/B2 launches per fit at 13.2's size, and
     # their largest error against the plain versions on its largest slab.
@@ -5725,7 +6045,15 @@ def main() -> None:
     log(f"phase 13 record: {json.dumps(rec13)}; phase 13 took "
         f"{time.perf_counter() - t13:.1f} s")
     log(f"fit seconds (host, host, cuda, cuda): {json.dumps(fits)}")
-    phase("phases 2-13 done")
+    phase("phase 14: run reports and tracing")
+    t14 = time.perf_counter()
+    rec14 = report_phase(torch, dev, card, ck, sync_args, fit1m,
+                         reports["chained"], X200,
+                         fit_walls=fits[1_000_000])
+    del sync_args
+    log(f"phase 14 record: {json.dumps(rec14)}; phase 14 took "
+        f"{time.perf_counter() - t14:.1f} s")
+    phase("phases 2-14 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

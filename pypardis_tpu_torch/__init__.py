@@ -7,6 +7,7 @@ caller passes ``device="cpu"``, which runs the kernels' plain PyTorch
 versions.
 """
 
+from . import obs
 from .aggregator import ClusterAggregator, default_value
 from .checkpoint import (
     load_index,
@@ -42,5 +43,5 @@ __all__ = [
     "median_search_split", "mean_var_split", "min_var_split",
     "dbscan_partition", "map_cluster_id", "sweep_dbscan", "save_model",
     "load_model", "save_partitioner", "load_partitioner", "save_index",
-    "load_index", "__version__",
+    "load_index", "obs", "__version__",
 ]

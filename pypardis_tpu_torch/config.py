@@ -27,6 +27,11 @@ class DBSCANConfig:
     device: Optional[str] = None
     # None defers to PPTORCH_SKETCH; "auto", "off"/0 or a pinned k.
     sketch: Any = None
+    # A directory each fit writes a torch.profiler Chrome trace into.
+    profile_dir: Optional[str] = None
+    # The flight recorder: a *.jsonl path or a directory (None defers
+    # to PPTORCH_FLIGHT).
+    flight: Optional[str] = None
 
     def build(self):
         from .dbscan import DBSCAN

@@ -5,7 +5,10 @@ The library is compiled at first use from the sources beside this file,
 into ``build/pypardis_tpu_torch/`` at the root of the checkout (or
 ``$PPTORCH_BUILD_DIR``), under a name keyed by the content of the sources
 and the headers they include and by the flags, so an edited source or
-header never loads a stale build.  Each source
+header never loads a stale build.  ``PPTORCH_KERNEL_CHECKS=1`` builds
+the checked variant instead (``-DPPT_CHECKED``: every guarded global
+store of the kernels traps on an index past its extent, ``ppt_check.cuh``)
+into a library of its own name, so the two never mix.  Each source
 compiles to an object in its own ``nvcc`` process, all started
 together, so the build takes as long as its slowest source rather than
 their sum as kernel sources are added; one more ``nvcc`` links the
@@ -29,12 +32,15 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("pair_kernels.cu", "sketch_kernels.cu", "query_kernels.cu")
 # Headers the sources include: part of the build's key, so an edit to one
 # rebuilds every source.
-HEADERS = ("bf16_tile.cuh", "label_bound.cuh")
+HEADERS = ("bf16_tile.cuh", "label_bound.cuh", "ppt_check.cuh")
 # Compile flags of every source; the link adds ``-shared``.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The checked build's extra flag (PPTORCH_KERNEL_CHECKS=1).
+CHECK_FLAGS = ("-DPPT_CHECKED",)
 
 _lock = threading.Lock()
 _lib = None
@@ -68,12 +74,22 @@ def find_nvcc() -> str:
     )
 
 
+def checked() -> bool:
+    """Whether this process builds and loads the checked variant."""
+    return os.environ.get("PPTORCH_KERNEL_CHECKS", "") not in ("", "0")
+
+
+def compile_flags() -> tuple:
+    return NVCC_FLAGS + (CHECK_FLAGS if checked() else ())
+
+
 def _library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(compile_flags()).encode())
     for name in SOURCES + HEADERS:
         with open(os.path.join(_HERE, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
-    return os.path.join(build_dir(), f"libpp_kernels_{h.hexdigest()[:16]}.so")
+    kind = "libpp_kernels_checked" if checked() else "libpp_kernels"
+    return os.path.join(build_dir(), f"{kind}_{h.hexdigest()[:16]}.so")
 
 
 def _compile(out: str) -> None:
@@ -84,7 +100,8 @@ def _compile(out: str) -> None:
     t0 = time.perf_counter()
     procs = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(_HERE, src)],
+            [nvcc, *compile_flags(), "-c", "-o", obj,
+             os.path.join(_HERE, src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for src, obj in zip(SOURCES, objs)
@@ -142,28 +159,39 @@ def _bind(lib) -> None:
     lib.pp_mma_dot_probe.argtypes = [p, p, i32, i32, p, p]
     lib.pp_mma_dot_probe.restype = i32
     # B5: the per-index tables (coords, labels, L, C, block, d, then
-    # pad_keys, leaf_end, ctr, slots, stream); the call (q, tile_leaf,
-    # coords, labels, ncols, nqt, d, qb, C, block, the four tables, eps2,
-    # mixed, keep_stats, pass_stats, keys, grp, flags, out, stream).
-    lib.pp_query_tables.argtypes = [p, p, i32, i32, i32, i32, p, p, p, p, p]
+    # pad_keys, leaf_end, ctr, slots, their four numels, stream); the call
+    # (q, tile_leaf, coords, labels, ncols, nqt, d, qb, C, block, the four
+    # tables, eps2, mixed, keep_stats, pass_stats, keys, grp, flags, out,
+    # the numels of keys, grp and out, stream).
+    lib.pp_query_tables.argtypes = [
+        p, p, i32, i32, i32, i32, p, p, p, p, i64, i64, i64, i64, p,
+    ]
     lib.pp_query_tables.restype = i32
     lib.pp_query_leaf.argtypes = [
         p, p, p, p, i64, i32, i32, i32, i32, i32, p, p, p, p, f, i32,
-        p, p, p, p, p, p, p,
+        p, p, p, p, p, p, i64, i64, i64, p,
     ]
     lib.pp_query_leaf.restype = i32
 
 
 def load():
-    """The bound kernel library, built on first use."""
+    """The bound kernel library, built on first use.  A build that runs
+    ``nvcc`` records one ``compile`` event (``stage="kernel_build"``) on
+    the current telemetry recorder; a cached load records none."""
     global _lib
     with _lock:
         if _lib is None:
             path = _library_path()
+            BUILD_INFO["checked"] = checked()
             if os.path.exists(path):
                 BUILD_INFO.setdefault("seconds", 0.0)
             else:
                 _compile(path)
+                from ..obs import event
+
+                event("compile", stage="kernel_build",
+                      seconds=round(BUILD_INFO["seconds"], 3),
+                      checked=checked())
             lib = ctypes.CDLL(path)
             _bind(lib)
             _lib = lib

@@ -223,6 +223,7 @@
 
 #include "bf16_tile.cuh"
 #include "label_bound.cuh"
+#include "ppt_check.cuh"
 
 #define PP_INT_INF 2147483647
 #define PP_INT_MIN (-PP_INT_INF - 1)
@@ -362,7 +363,10 @@ __global__ void __launch_bounds__(PP_THREADS) minlab_kernel(
       }
     }
   }
-  if (active) out[row] = inb ? m : PP_INT_INF;
+  if (active) {
+    PPT_CHECK(row, n);
+    out[row] = inb ? m : PP_INT_INF;
+  }
   if (evaluated && threadIdx.x == 0 && n_eval) atomicAdd(evaluated, n_eval);
 }
 
@@ -1133,7 +1137,10 @@ __global__ void __launch_bounds__(B1_WARPS * 32, 2) b1_tc_kernel(
   const int p1 = row_ptr[r + 1];
   if (p0 == p1) {  // uniform over the block: no live pair, count 0
     for (int i = tid; i < rb; i += nth)
-      if (rbase + i < tile) out[row0 + rbase + i] = 0;
+      if (rbase + i < tile) {
+        PPT_CHECK(row0 + rbase + i, n);
+        out[row0 + rbase + i] = 0;
+      }
     return;
   }
   for (int a = tid; a < K; a += nth)
@@ -1520,8 +1527,10 @@ __global__ void __launch_bounds__(B1_WARPS * 32, 2) b1_tc_kernel(
       }
     }
     if (MODE == B1_MIXED && flags &&
-        __any_sync(0xffffffffu, n_band != band0) && lane == 0)
+        __any_sync(0xffffffffu, n_band != band0) && lane == 0) {
+      PPT_CHECK(p, row_ptr[gridDim.x]);
       flags[p] = 1;
+    }
   }
 
   // Each row's count is spread over the four lanes of its quad: fold it,
@@ -1542,7 +1551,10 @@ __global__ void __launch_bounds__(B1_WARPS * 32, 2) b1_tc_kernel(
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int li = wrow + mt * 16 + h * 8 + g;
-        if (act[mt][h]) out[row0 + rbase + li] = cnt[mt][h] + racc[li];
+        if (act[mt][h]) {
+          PPT_CHECK(row0 + rbase + li, n);
+          out[row0 + rbase + li] = cnt[mt][h] + racc[li];
+        }
       }
   }
   if (MODE != B1_DEFAULT && rescored) {

@@ -92,6 +92,7 @@
 #include <stdint.h>
 
 #include "bf16_tile.cuh"
+#include "ppt_check.cuh"
 
 #define PQ_THREADS 128       // 4 warps: the 4 groups of a 128-row slab
 #define PQ_GROUPS 4
@@ -158,7 +159,8 @@ __device__ __forceinline__ float pq_d2(const float* xr, const float* y,
 __global__ void __launch_bounds__(PQ_TABLE_THREADS) query_tables_kernel(
     const float* __restrict__ coords, const int* __restrict__ labels,
     long long ncols, int d, int C, u64* __restrict__ pad_keys,
-    int* __restrict__ leaf_end) {
+    int* __restrict__ leaf_end PPT_EXTENT(n_pad_keys)
+        PPT_EXTENT(n_leaf_end)) {
   __shared__ u64 sk[PQ_TABLE_THREADS / 32];
   __shared__ int se[PQ_TABLE_THREADS / 32];
   const long long base = (long long)blockIdx.x * C;
@@ -195,7 +197,9 @@ __global__ void __launch_bounds__(PQ_TABLE_THREADS) query_tables_kernel(
       best = sk[w] < best ? sk[w] : best;
       end = max(end, se[w]);
     }
+    PPT_CHECK(blockIdx.x, n_pad_keys);
     pad_keys[blockIdx.x] = best;
+    PPT_CHECK(blockIdx.x, n_leaf_end);
     leaf_end[blockIdx.x] = end;
   }
 }
@@ -205,7 +209,7 @@ __global__ void __launch_bounds__(PQ_TABLE_THREADS) query_tables_kernel(
 __global__ void __launch_bounds__(PQ_TABLE_THREADS) query_frames_kernel(
     const float* __restrict__ coords, const int* __restrict__ labels,
     long long ncols, int d, int block, float* __restrict__ ctr,
-    float4* __restrict__ slots) {
+    float4* __restrict__ slots PPT_EXTENT(n_ctr) PPT_EXTENT(n_slots)) {
   const long long base = (long long)blockIdx.x * block;
   float* c = ctr + (size_t)blockIdx.x * d;
   const int lane = threadIdx.x & 31;
@@ -223,8 +227,10 @@ __global__ void __launch_bounds__(PQ_TABLE_THREADS) query_frames_kernel(
       lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
       hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
     }
-    if (lane == 0)
+    if (lane == 0) {
+      PPT_CHECK((long long)blockIdx.x * d + a, n_ctr);
       c[a] = hi >= lo ? __fmul_rn(0.5f, __fadd_rn(hi, lo)) : 0.f;
+    }
   }
   __syncthreads();
   for (int t = threadIdx.x; t < block; t += blockDim.x) {
@@ -238,6 +244,7 @@ __global__ void __launch_bounds__(PQ_TABLE_THREADS) query_frames_kernel(
         s2 = __fadd_rn(s2, __fmul_rn(y, y));
       }
     }
+    PPT_CHECK(base + t, n_slots);
     slots[base + t] =
         make_float4(s1, __fsqrt_rn(s1), __fsqrt_rn(s2), real ? 1.f : 0.f);
   }
@@ -251,7 +258,8 @@ __global__ void __launch_bounds__(PQ_TABLE_THREADS) query_frames_kernel(
 __global__ void __launch_bounds__(PQ_THREADS) query_rows_kernel(
     const float* __restrict__ q, const int* __restrict__ tile_leaf, int d,
     int qb, int G, const u64* __restrict__ pad_keys,
-    unsigned char* __restrict__ grp, u64* __restrict__ keys) {
+    unsigned char* __restrict__ grp,
+    u64* __restrict__ keys PPT_EXTENT(n_grp) PPT_EXTENT(n_keys)) {
   const int tile = blockIdx.x;
   const int group = blockIdx.y * PQ_GROUPS + (threadIdx.x >> 5);
   if (group >= G) return;
@@ -269,12 +277,16 @@ __global__ void __launch_bounds__(PQ_THREADS) query_rows_kernel(
   const unsigned rb = __ballot_sync(0xffffffffu, real);
   const unsigned nb = __ballot_sync(0xffffffffu, real && near);
   const unsigned sb = __ballot_sync(0xffffffffu, active && small);
-  if ((threadIdx.x & 31) == 0)
+  if ((threadIdx.x & 31) == 0) {
+    PPT_CHECK((long long)tile * G + group, n_grp);
     grp[(size_t)tile * G + group] = (unsigned char)(
         (rb ? PQ_REAL : 0) | (nb ? PQ_NEAR : 0) | (sb ? PQ_QREAL : 0));
-  if (active)
+  }
+  if (active) {
+    PPT_CHECK((long long)tile * qb + row, n_keys);
     keys[(size_t)tile * qb + row] =
         pad ? pad_keys[tile_leaf[tile]] : ~0ull;
+  }
 }
 
 // The last columns a group must visit: none without a real row, the
@@ -324,7 +336,7 @@ __global__ void __launch_bounds__(PQ_THREADS) query_pass_kernel(
     int nb, const int* __restrict__ leaf_end,
     const unsigned char* __restrict__ grp,
     const unsigned char* __restrict__ flags, u64* __restrict__ keys,
-    u64* __restrict__ pass_stats) {
+    u64* __restrict__ pass_stats PPT_EXTENT(n_keys)) {
   constexpr int R = PqRows<DC>::R;
   constexpr int NP = PQ_GROUPS / R;  // warps over the slab's rows
   extern __shared__ float4 smem4[];
@@ -461,9 +473,11 @@ __global__ void __launch_bounds__(PQ_THREADS) query_pass_kernel(
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (live[r] &&
-        (bl[r] != 0x7fffffff || bd[r] != __int_as_float(0x7f800000)))
+        (bl[r] != 0x7fffffff || bd[r] != __int_as_float(0x7f800000))) {
+      PPT_CHECK((long long)tile * qb + (group0 + r) * 32 + lane, n_keys);
       atomicMin(keys + (size_t)tile * qb + (group0 + r) * 32 + lane,
                 pq_key(bd[r], bl[r]));
+    }
   }
   if (pass_stats && lane == 0 && pairs) atomicAdd(pass_stats, pairs);
 }
@@ -802,12 +816,15 @@ __global__ void __launch_bounds__(PQ_THREADS, 6) query_keep_staged_kernel(
 // Least of each row's key and the starting key, unpacked into [labels,
 // bits(d2)].
 __global__ void query_unpack_kernel(const u64* __restrict__ keys,
-                                    long long nrows, int* __restrict__ out) {
+                                    long long nrows,
+                                    int* __restrict__ out PPT_EXTENT(n_out)) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nrows) return;
   u64 k = keys[i];
   k = k < PQ_INIT_KEY ? k : PQ_INIT_KEY;
+  PPT_CHECK(i, n_out);
   out[i] = (int)((unsigned int)(k & 0xffffffffu) ^ 0x80000000u);
+  PPT_CHECK(nrows + i, n_out);
   out[nrows + i] = (int)(unsigned int)(k >> 32);
 }
 
@@ -829,11 +846,12 @@ static int launch_dc(int mixed, dim3 pgrid, dim3 kgrid, size_t smem,
                      int bper, const int* leaf_end, const float* ctr,
                      const float4* slots, float eps2, unsigned char* grp,
                      unsigned char* flags, u64* keep_stats, u64* pass_stats,
-                     u64* keys) {
+                     u64* keys, long long n_keys) {
   const bool full = DC > 0 && ((d + 3) & ~3) == DC;
   void (*pass)(const float*, const int*, const float*, const int*,
                long long, int, int, int, int, int, int, int, const int*,
-               const unsigned char*, const unsigned char*, u64*, u64*) =
+               const unsigned char*, const unsigned char*, u64*,
+               u64* PPT_EXTENT(n)) =
       full ? query_pass_kernel<DC, true> : query_pass_kernel<DC, false>;
   cudaError_t err;
   if (smem > 48 * 1024) {
@@ -859,7 +877,8 @@ static int launch_dc(int mixed, dim3 pgrid, dim3 kgrid, size_t smem,
   }
   pass<<<pgrid, PQ_THREADS, smem, s>>>(
       q, tile_leaf, coords, labels, ncols, d, qb, C, G, span, block, nb,
-      leaf_end, grp, mixed ? flags : nullptr, keys, pass_stats);
+      leaf_end, grp, mixed ? flags : nullptr, keys,
+      pass_stats PPT_ARG(n_keys));
   return (int)cudaGetLastError();
 }
 
@@ -869,22 +888,26 @@ extern "C" {
 // keys; leaf_end (L,) int32; and the "mixed" block frames, ctr (L * nb,
 // d) float32 and slots (L * C, 4) float32 [|y-c|^2, |y-c|, |y|, real],
 // nb = C / block.  coords (d, L * C) float32; labels (L * C,) int32.
+// n_pad_keys, n_leaf_end, n_ctr and n_slots are the four outputs'
+// allocated numels, which only the checked build reads (ppt_check.cuh).
 // Returns the cudaError_t of the launches.
 int pp_query_tables(const float* coords, const int* labels, int L, int C,
                     int block, int d, void* pad_keys, int* leaf_end,
-                    float* ctr, float* slots, void* stream) {
+                    float* ctr, float* slots, long long n_pad_keys,
+                    long long n_leaf_end, long long n_ctr, long long n_slots,
+                    void* stream) {
   if (L <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const long long ncols = (long long)L * C;
   const long long nb = C / block;
   query_tables_kernel<<<L, PQ_TABLE_THREADS, 0, s>>>(
       coords, labels, ncols, d, C, reinterpret_cast<u64*>(pad_keys),
-      leaf_end);
+      leaf_end PPT_ARG(n_pad_keys) PPT_ARG(n_leaf_end));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   query_frames_kernel<<<(unsigned)(L * nb), PQ_TABLE_THREADS, 0, s>>>(
       coords, labels, ncols, d, block, ctr,
-      reinterpret_cast<float4*>(slots));
+      reinterpret_cast<float4*>(slots) PPT_ARG(n_ctr) PPT_ARG(n_slots / 4));
   return (int)cudaGetLastError();
 }
 
@@ -896,8 +919,9 @@ int pp_query_tables(const float* coords, const int* labels, int L, int C,
 // which the pass adds the (row, slot) pairs it computes (32 per row group
 // and column it runs); scratch: keys (nqt * qb u64), grp
 // (nqt * G bytes, G = ceil(qb / 32)) and, under "mixed", flags (nqt * G *
-// nb bytes); out (2, nqt, qb) int32.  Returns the cudaError_t of the
-// launches.
+// nb bytes); out (2, nqt, qb) int32; n_keys, n_grp and n_out the u64s,
+// bytes and int32s allotted to keys, grp and out, which only the checked
+// build reads.  Returns the cudaError_t of the launches.
 int pp_query_leaf(const float* q, const int* tile_leaf, const float* coords,
                   const int* labels, long long ncols, int nqt, int d, int qb,
                   int C, int block, const void* pad_keys,
@@ -905,6 +929,7 @@ int pp_query_leaf(const float* q, const int* tile_leaf, const float* coords,
                   float eps2, int mixed, void* keep_stats, void* pass_stats,
                   void* keys,
                   unsigned char* grp, unsigned char* flags, int* out,
+                  long long n_keys, long long n_grp, long long n_out,
                   void* stream) {
   if (nqt <= 0 || qb <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -916,7 +941,7 @@ int pp_query_leaf(const float* q, const int* tile_leaf, const float* coords,
 
   query_rows_kernel<<<dim3(nqt, slabs), PQ_THREADS, 0, s>>>(
       q, tile_leaf, d, qb, G, reinterpret_cast<const u64*>(pad_keys), grp,
-      k);
+      k PPT_ARG(n_grp) PPT_ARG(n_keys));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (mixed) {
@@ -937,7 +962,7 @@ int pp_query_leaf(const float* q, const int* tile_leaf, const float* coords,
 #define PQ_LAUNCH(DCV)                                                      \
   launch_dc<DCV>(mixed, pgrid, kgrid, smem, s, q, tile_leaf, coords,       \
                  labels, ncols, d, qb, C, G, span, block, nb, bper,         \
-                 leaf_end, ctr, sl, eps2, grp, flags, ks, ps, k)
+                 leaf_end, ctr, sl, eps2, grp, flags, ks, ps, k, n_keys)
   if (d <= 4)
     rc = PQ_LAUNCH(4);
   else if (d <= 8)
@@ -954,7 +979,7 @@ int pp_query_leaf(const float* q, const int* tile_leaf, const float* coords,
   if (rc != 0) return rc;
   const int ft = 256;
   query_unpack_kernel<<<(unsigned)((nrows + ft - 1) / ft), ft, 0, s>>>(
-      k, nrows, out);
+      k, nrows, out PPT_ARG(n_out));
   return (int)cudaGetLastError();
 }
 

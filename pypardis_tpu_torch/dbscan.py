@@ -39,14 +39,22 @@ live inserts and deletes (``live``, ``insert``, ``delete``;
 models serve behind one :class:`~.serve.gateway.ModelGateway`.  The KD
 route's partitioned fit on one card is
 :func:`pypardis_tpu_torch.parallel.sharded_dbscan`; the multi-device
-fits and telemetry beyond the metrics registry are later slices of the
-port (ROADMAP A10-A12, A16).
+fits are later slices of the port (ROADMAP A10-A12).
+
+Every fit, sweep and eps=None fit records its telemetry on a fresh
+:class:`~.obs.RunRecorder`: phase spans and timings, the pipeline's
+spans, the ladders' events and resource watermarks, behind
+:meth:`DBSCAN.report` (the JAX package's ``run_report@1`` dict),
+:meth:`DBSCAN.summary` and :meth:`DBSCAN.export_trace` (Chrome trace).
+``flight=`` streams it to a crash-safe JSONL file
+(:func:`~.obs.replay` reads it back), ``profile_dir=`` runs the fit
+under ``torch.profiler``, and ``PPTORCH_METRICS_PORT`` /
+``PPTORCH_METRICS_SNAPSHOT`` export it live.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import os
 import time
 from typing import Dict, Optional
@@ -54,6 +62,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from . import obs
 from .aggregator import ClusterAggregator
 from .geometry import BoundingBox, latlon_to_unit_sphere
 from .ops.cuda_kernels import _pallas_block
@@ -65,6 +74,8 @@ from .ops.pipeline import (
 )
 from .ops.sketch import check_sketch_spec, effective_k
 from .utils.budget import run_pair_ladder
+from .utils.log import get_logger, log_phase
+from .utils.profiling import PhaseTimer, trace
 from .utils.shaping import clamp_block, round_up, row_chunks
 from .utils.validate import (
     check_finite,
@@ -214,23 +225,26 @@ def _pad_and_run(points, eps, min_samples, block, precision="high",
     sketch_k = effective_k(sketch, k) if metric == "euclidean" else 0
 
     def run_step(pair_budget):
-        packed = dbscan_device_pipeline(
+        packed, tiles = dbscan_device_pipeline(
             points_t, eps, n, min_samples, block=block,
             precision=precision, backend=backend, sort=n > 2 * block,
             pair_budget=pair_budget, sketch=sketch_k, metric=metric,
         )
         _r, _c, total, budget, *_ = unpack_pipeline_result(packed)
-        return packed, total, budget
+        return (packed, tiles), total, budget
 
-    packed = run_pair_ladder(run_step)
+    packed, tiles = run_pair_ladder(run_step)
     roots, core, total, budget, passes, band_pairs, rescored = (
         unpack_pipeline_result(packed)
     )
+    tile = int(_pallas_block(block, cap, k, precision))
     info = {
         "live_pairs": int(total),
         "pair_budget": int(budget),
         "kernel_passes": int(passes),
-        "kernel_block": int(_pallas_block(block, cap, k, precision)),
+        # The kernel grid's (the segment break pads it past cap).
+        "kernel_tiles": int(tiles),
+        "kernel_block": tile,
         # The counts pass's telemetry: the sketch gate's with it on,
         # else the bf16 band's under "mixed", else zeros.  Pairs whose
         # verdict fell in the band and were rescored, and pair-list
@@ -386,7 +400,10 @@ class DBSCAN:
     hierarchy's stability rule at fit time (``eps_``; its labels are
     ``fit(eps_)``'s, at ``"high"`` when ``precision="default"``);
     ``min_cluster_size`` (>= 2, default ``max(min_samples, 2)``) is its
-    condensation granularity.
+    condensation granularity.  ``flight``: a ``*.jsonl`` path or a
+    directory for per-fit files of the crash-safe flight recorder (None
+    defers to ``PPTORCH_FLIGHT``); ``profile_dir``: a directory each fit
+    writes a ``torch.profiler`` Chrome trace into.
     """
 
     def __init__(
@@ -400,6 +417,8 @@ class DBSCAN:
         kernel_backend: str = "auto",
         device=None,
         sketch=None,
+        profile_dir: Optional[str] = None,
+        flight: Optional[str] = None,
     ):
         validate_params(eps, min_samples, allow_none_eps=True)
         self.eps = None if eps is None else float(eps)
@@ -420,6 +439,13 @@ class DBSCAN:
         self.sketch = check_sketch_spec(sketch)
         self.device = resolve_device(device)
         resolve_backend(self.kernel_backend, self.device, self._pair_metric)
+        self.profile_dir = profile_dir
+        self.flight = flight
+        # Telemetry of the most recent fit, behind report(), summary()
+        # and export_trace(); the sweep's and the hierarchy's blocks.
+        self._recorder: Optional[obs.RunRecorder] = None
+        self._fit_info: Dict[str, int] = {}
+        self._sweep_stats: Optional[Dict] = None
         # The live write surface (:meth:`live`); its model reads the
         # lazily synced labels_ / core_sample_mask_ / data below.
         self._live_model = None
@@ -536,37 +562,125 @@ class DBSCAN:
         self._keys = keys
         self.data = points
         self._result_cache = None
-        self.metrics_ = {}
-        # A refit invalidates the serving surface; a held engine sees
-        # the generation move and raises instead of serving the old fit.
-        self._serve_engine = None
-        self._serve_core_points = None
-        self._live_model = None
-        self._live_stats = None
-        self._fit_generation += 1
+        self._reset_fit()
         if len(points) == 0:
             self.labels_ = np.empty(0, np.int32)
             self.core_sample_mask_ = np.empty(0, bool)
             self.bounding_boxes, self.expanded_boxes = {}, {}
             self.neighbors, self.cluster_dict = {}, {}
             self.metrics_ = {"total_s": 0.0, "points_per_sec": 0.0}
+            self._fit_info = {
+                "n_dims": int(points.shape[1]) if points.ndim == 2 else 0,
+                "n_devices": 1,
+            }
             return self
-        check_finite(points)
         t0 = time.perf_counter()
-        self._train_single(points)
-        self.metrics_["total_s"] = time.perf_counter() - t0
-        self.metrics_["points_per_sec"] = len(points) / max(
-            self.metrics_["total_s"], 1e-9
-        )
+        timer = PhaseTimer()
+        with self._run_telemetry(points):
+            # Inside the recorded region: a rejected input seals the
+            # flight file with the error.
+            check_finite(points)
+            self._train_single(points, timer)
+            self.metrics_.update(timer.as_dict())
+            self.metrics_["total_s"] = time.perf_counter() - t0
+            self.metrics_["points_per_sec"] = len(points) / max(
+                self.metrics_["total_s"], 1e-9
+            )
+            log_phase(
+                "train", n=len(points),
+                clusters=int(self.labels_.max()) + 1,
+                **{k: round(v, 4) for k, v in self.metrics_.items()
+                   if isinstance(v, float)},
+            )
         return self
 
-    def _train_single(self, points) -> None:
-        roots, core, info = _pad_and_run(
-            points, self.eps, self.min_samples, self.block,
-            precision=self.precision, backend=self.kernel_backend,
-            device=self.device, sketch=self.sketch,
-            metric=self._pair_metric,
-        )
+    def _reset_fit(self) -> None:
+        """A new fit's clean slate: a fresh recorder and stats (no refit
+        carries a previous run's telemetry) and no serving surface (a
+        held engine sees the generation move and raises instead of
+        serving the old fit)."""
+        self._recorder = obs.RunRecorder(device=self.device)
+        self.metrics_ = {}
+        self._fit_info = {}
+        self._sweep_stats = None
+        self._hier_stats = None
+        self._serve_engine = None
+        self._serve_core_points = None
+        self._live_model = None
+        self._live_stats = None
+        self._fit_generation += 1
+
+    @contextlib.contextmanager
+    def _run_telemetry(self, points):
+        """One fit's telemetry, as the JAX package's ``train`` sets it
+        up: the fit's :class:`~.obs.RunRecorder` (from
+        :meth:`_reset_fit`) made current for the block, the flight file
+        (``flight=`` / ``PPTORCH_FLIGHT``) with its header, the live
+        exporters (``PPTORCH_METRICS_*``), the resource sampler and,
+        with ``profile_dir``, ``torch.profiler``.
+        On a normal exit the scalar ``metrics_`` land in the registry
+        as ``run.*`` gauges; an exception seals the flight file with
+        ``status="error"`` and propagates.  The sampler is joined and
+        the exporters closed either way."""
+        rec = self._recorder
+        self._fit_info = {"n_dims": int(points.shape[1]), "n_devices": 1}
+        flight = obs.open_flight(self.flight)
+        if flight is not None:
+            rec.attach_flight(flight)
+            flight.header(
+                params={
+                    "eps": self.eps,
+                    "min_samples": self.min_samples,
+                    "mode": "auto",
+                    "merge": "auto",
+                    "block": self.block,
+                },
+                n_points=int(len(points)),
+                n_dims=int(points.shape[1]),
+                n_devices=1,
+                n_processes=1,
+                process_index=0,
+                backend=self.device.type,
+            )
+        exporters = obs.attach_exporters(rec)
+        sampler = obs.ResourceSampler(rec, device=self.device).start()
+        prof = (trace(self.profile_dir) if self.profile_dir
+                else contextlib.nullcontext())
+        try:
+            with obs.use_recorder(rec), prof:
+                yield rec
+            for k, v in self.metrics_.items():
+                if not k.endswith("_s") and isinstance(
+                        v, (bool, int, float, str, np.integer,
+                            np.floating)):
+                    rec.metrics.set(f"run.{k}", v)
+        except BaseException as e:
+            if flight is not None:
+                flight.finish(
+                    status="error",
+                    error=f"{type(e).__name__}: {str(e)[:300]}",
+                )
+            raise
+        finally:
+            sampler.stop()
+            if exporters is not None:
+                exporters.close()
+            if flight is not None:
+                flight.finish(status="ok")  # a no-op after an error
+                flight.close()
+
+    def _train_single(self, points, timer) -> None:
+        with timer.phase("cluster"):
+            # _pad_and_run returns host arrays: the phase covers the
+            # device work.
+            roots, core, info = _pad_and_run(
+                points, self.eps, self.min_samples, self.block,
+                precision=self.precision, backend=self.kernel_backend,
+                device=self.device, sketch=self.sketch,
+                metric=self._pair_metric,
+            )
+        with timer.phase("densify"):
+            labels = densify_labels(roots)
         self.metrics_["n_partitions"] = 1
         self.metrics_.update(info)
         if isinstance(points, torch.Tensor):
@@ -576,7 +690,7 @@ class DBSCAN:
             lo, hi = both[0], both[1]
         else:
             lo, hi = points.min(axis=0), points.max(axis=0)
-        self._set_fit(densify_labels(roots), core, lo, hi)
+        self._set_fit(labels, core, lo, hi)
 
     def _set_fit(self, labels, core, lo, hi) -> None:
         """Install a single-partition fit: labels, core mask, and the
@@ -679,72 +793,77 @@ class DBSCAN:
             points = self._driver_frame_rows(points)
         if len(points) == 0:
             raise ValueError("sweep needs a non-empty dataset")
-        check_finite(points)
         t0 = time.perf_counter()
-        self.metrics_ = {}
-        self._serve_engine = None
-        self._serve_core_points = None
-        self._live_model = None
-        self._live_stats = None
-        self._fit_generation += 1
+        self._reset_fit()
         self._keys = keys
         self.data = points
         self._result_cache = None
         self.bounding_boxes = self.expanded_boxes = None
         self.neighbors = None
         self.cluster_dict = None
-        self._hier_stats = None
-        with self._kernel_frame():
-            if auto_ladder:
-                labels, core, per_cfg, sweep = self._sweep_auto_run(
-                    points, ms_vals)
-                configs = [tuple(c) for c in sweep["configs"]]
-            else:
-                labels, core, per_cfg, sweep = self._sweep_run(
-                    points, configs)
-        last = configs[-1]
-        self.eps_ = float(last[0])
-        self.labels_ = labels[last]
-        self.core_sample_mask_ = core[last]
-        wall = time.perf_counter() - t0
-        self.metrics_["total_s"] = wall
-        self.metrics_["points_per_sec"] = (
-            len(configs) * len(points) / max(wall, 1e-9)
-        )
-        self.metrics_["live_pairs"] = int(sweep["graph_pairs"])
-        sweep["sweep_wall_s"] = round(wall, 6)
-        # An estimate from the sweep's own walls, taking a fit as one
-        # graph build plus one relabel (no fit is run to measure it).
-        solo = sweep["graph_build_s"] + (
-            sweep["relabel_s"][0] if sweep["relabel_s"] else 0.0
-        )
-        sweep["sweep_amortization_est"] = round(
-            len(configs) * solo / max(wall, 1e-9), 4
-        )
+        timer = PhaseTimer()
+        with self._run_telemetry(points):
+            check_finite(points)
+            with self._kernel_frame():
+                if auto_ladder:
+                    labels, core, per_cfg, sweep = self._sweep_auto_run(
+                        points, ms_vals, timer)
+                    configs = [tuple(c) for c in sweep["configs"]]
+                else:
+                    labels, core, per_cfg, sweep = self._sweep_run(
+                        points, configs, timer)
+            last = configs[-1]
+            self.eps_ = float(last[0])
+            self.labels_ = labels[last]
+            self.core_sample_mask_ = core[last]
+            self.metrics_.update(timer.as_dict())
+            wall = time.perf_counter() - t0
+            self.metrics_["total_s"] = wall
+            self.metrics_["points_per_sec"] = (
+                len(configs) * len(points) / max(wall, 1e-9)
+            )
+            self.metrics_["live_pairs"] = int(sweep["graph_pairs"])
+            sweep["sweep_wall_s"] = round(wall, 6)
+            # An estimate from the sweep's own walls, taking a fit as one
+            # graph build plus one relabel (no fit is run to measure it).
+            solo = sweep["graph_build_s"] + (
+                sweep["relabel_s"][0] if sweep["relabel_s"] else 0.0
+            )
+            sweep["sweep_amortization_est"] = round(
+                len(configs) * solo / max(wall, 1e-9), 4
+            )
+            self._sweep_stats = sweep
+            log_phase(
+                "sweep", n=len(points), k=len(configs),
+                distance_passes=sweep["distance_passes"],
+                graph_pairs=sweep["graph_pairs"], seconds=round(wall, 4),
+            )
         return SweepResult(configs, labels, core, per_cfg, sweep)
 
-    def _sweep_run(self, points, configs):
+    def _sweep_run(self, points, configs, timer):
         """The graph and one relabel per config (kernel frame), or the
         per-config fits when the graph is past its cap or the mode is
         ``"default"``."""
         eps_k = [_kernel_eps(self._metric_norm, e) for e, _ in configs]
         if self.precision == "default":
-            return self._sweep_refit(points, configs)
+            return self._sweep_refit(points, configs, timer)
         try:
             relabel, gstats, _gh = self._sweep_graph_fused(
-                points, max(eps_k))
+                points, max(eps_k), timer)
         except SweepGraphOverflow as e:
-            logging.getLogger("pypardis_tpu_torch").warning(
+            get_logger().warning(
                 "sweep graph unavailable (%s); running per-config fits: "
                 "labels stay exact, one distance pass per config", e,
             )
-            return self._sweep_refit(points, configs)
+            return self._sweep_refit(points, configs, timer)
         labels_out, core_out, per_cfg, relabel_s = {}, {}, [], []
         passes_total = 0
         for cfg, e_k in zip(configs, eps_k):
             t_c = time.perf_counter()
-            roots, cor, passes = relabel(e_k, cfg[1])
-            dense = densify_labels(roots)
+            with timer.phase("relabel"):
+                roots, cor, passes = relabel(e_k, cfg[1])
+            with timer.phase("densify"):
+                dense = densify_labels(roots)
             labels_out[cfg] = dense
             core_out[cfg] = cor
             passes_total += int(passes)
@@ -771,44 +890,51 @@ class DBSCAN:
         }
         return labels_out, core_out, per_cfg, sweep
 
-    def _sweep_graph_fused(self, points, eps_max):
+    def _sweep_graph_fused(self, points, eps_max, timer):
         """Layout and graph at ``eps_max`` (kernel frame) with the
         exact-total retry; returns ``(relabel, gstats, ghandle)``:
         ``relabel(eps, min_samples) -> (roots, core, passes)`` in input
         order, and the hierarchy's handle on the graph, ``{gi, gj, dv,
         mask, n_ids, finalize}`` in kernel-slot space, ``finalize(roots,
         core)`` mapping slot-space results to input rows as a fit's
-        pack does."""
+        pack does.  The build is ``timer``'s ``graph`` phase; an
+        emission overflow records ``pair_overflow`` (``route=
+        "sweep_graph"``) before its exact-total retry."""
         from .ops.distances import sweep_max_edges
         from .ops.pipeline import sweep_config_pack, sweep_graph_pipeline
 
         t_b = time.perf_counter()
-        points_t, n, block = _stage(points, self.block, self.device)
-        cap_edges = sweep_max_edges()
-        eb = None
-        for attempt in (0, 1):
-            graph, mask_k, owner, cap, stats = sweep_graph_pipeline(
-                points_t, eps_max, n, metric=self._pair_metric,
-                block=block, precision=self.precision, sort=n > 2 * block,
-                edge_budget=eb, edge_cap=cap_edges,
-            )
-            need_e, got_e = stats[0], stats[1]
-            if need_e > cap_edges:
-                raise SweepGraphOverflow(
-                    f"neighbour-pair graph needs more than {cap_edges} "
-                    f"edges, the sweep cap (PPTORCH_SWEEP_MAX_PAIRS)"
+        with timer.phase("graph"):
+            points_t, n, block = _stage(points, self.block, self.device)
+            cap_edges = sweep_max_edges()
+            eb = None
+            for attempt in (0, 1):
+                graph, mask_k, owner, cap, stats = sweep_graph_pipeline(
+                    points_t, eps_max, n, metric=self._pair_metric,
+                    block=block, precision=self.precision,
+                    sort=n > 2 * block, edge_budget=eb, edge_cap=cap_edges,
                 )
-            if need_e <= got_e:
-                break
-            if attempt:
-                raise SweepGraphOverflow(
-                    f"graph emission overflow persisted after an "
-                    f"exact-total retry ({need_e}/{got_e})"
-                )
-            eb = round_up(need_e, 4096)
-        del points_t
-        gi, gj, dv = (t[:need_e] for t in graph)
-        gi, gj = gi.long(), gj.long()
+                need_e, got_e = stats[0], stats[1]
+                if need_e > cap_edges:
+                    raise SweepGraphOverflow(
+                        f"neighbour-pair graph needs more than {cap_edges} "
+                        f"edges, the sweep cap (PPTORCH_SWEEP_MAX_PAIRS)"
+                    )
+                if need_e <= got_e:
+                    break
+                if attempt:
+                    raise SweepGraphOverflow(
+                        f"graph emission overflow persisted after an "
+                        f"exact-total retry ({need_e}/{got_e})"
+                    )
+                obs.event("pair_overflow", total=int(need_e),
+                          budget=int(got_e), route="sweep_graph")
+                eb = round_up(need_e, 4096)
+            del points_t
+            gi, gj, dv = (t[:need_e] for t in graph)
+            gi, gj = gi.long(), gj.long()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         metric = self._pair_metric
 
         def relabel(eps_c, ms_c):
@@ -830,8 +956,6 @@ class DBSCAN:
                 (row.numpy(), stats0.numpy()))
             return roots[:n], core[:n]
 
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
         gstats = {
             "graph_pairs": int(need_e),
             "graph_bytes": int(need_e) * 12,
@@ -843,7 +967,7 @@ class DBSCAN:
         }
         return relabel, gstats, ghandle
 
-    def _sweep_refit(self, points, configs):
+    def _sweep_refit(self, points, configs, timer):
         """Per-config fits (one distance pass each) on the kernel-frame
         points: the sweep's label-safe fallback."""
         labels_out, core_out, per_cfg, relabel_s = {}, {}, [], []
@@ -857,7 +981,8 @@ class DBSCAN:
                 kernel_backend=self.kernel_backend, device=self.device,
                 sketch=self.sketch,
             )
-            m.train(points)
+            with timer.phase("refit"):
+                m.train(points)
             labels_out[cfg] = np.asarray(m.labels_)
             core_out[cfg] = np.asarray(m.core_sample_mask_)
             dt = time.perf_counter() - t_c
@@ -945,7 +1070,7 @@ class DBSCAN:
             ceil = min(ceil, 1.999)
         return max(ceil, 1e-6)
 
-    def _hier_run(self, points, ms: Optional[int] = None):
+    def _hier_run(self, points, timer, ms: Optional[int] = None):
         """Graph and hierarchy (kernel frame), the eps-free front half
         of :meth:`_sweep_run`.  Returns a context dict: ``hier`` (the
         ``ms`` hierarchy), ``build`` (ms -> another hierarchy over the
@@ -956,24 +1081,27 @@ class DBSCAN:
 
         ms = int(self.min_samples if ms is None else ms)
         eps_max = self._hier_ceiling(points)
-        _relabel, gstats, gh = self._sweep_graph_fused(points, eps_max)
+        _relabel, gstats, gh = self._sweep_graph_fused(
+            points, eps_max, timer)
         km = self._pair_metric
         eps_f = np.float32(eps_max)
         thr_max = float(eps_f * eps_f if km == "euclidean" else eps_f)
-        t0 = time.perf_counter()
-        state = _hier.hierarchy_prepare(gh["gi"], gh["gj"], gh["dv"])
-        _hier._sync(self.device)
-        t1 = time.perf_counter()
+        with timer.phase("hierarchy"):
+            t0 = time.perf_counter()
+            state = _hier.hierarchy_prepare(gh["gi"], gh["gj"], gh["dv"])
+            _hier._sync(self.device)
+            t1 = time.perf_counter()
 
-        def build(ms_c: int):
-            return _hier.build_hierarchy(
-                state, gh["mask"], gh["n_ids"], int(ms_c),
-                kernel_metric=km, user_frame=self._metric_norm,
-                thr_max=thr_max, min_cluster_size=self.min_cluster_size,
-            )
+            def build(ms_c: int):
+                return _hier.build_hierarchy(
+                    state, gh["mask"], gh["n_ids"], int(ms_c),
+                    kernel_metric=km, user_frame=self._metric_norm,
+                    thr_max=thr_max, min_cluster_size=self.min_cluster_size,
+                )
 
+            hier = build(ms)
         return {
-            "hier": build(ms), "build": build, "gh": gh, "gstats": gstats,
+            "hier": hier, "build": build, "gh": gh, "gstats": gstats,
             "eps_max_k": float(eps_max),
             "stages": {"graph_build_s": gstats["build_s"],
                        "prepare_s": t1 - t0},
@@ -987,11 +1115,11 @@ class DBSCAN:
             f"lower the graph ceiling via PPTORCH_HIER_EPS_MAX."
         )
 
-    def _hier_guarded(self, points, ms: Optional[int] = None):
+    def _hier_guarded(self, points, timer, ms: Optional[int] = None):
         """:meth:`_hier_run`, a graph past its cap raising the no-refit
         error."""
         try:
-            return self._hier_run(points, ms)
+            return self._hier_run(points, timer, ms)
         except SweepGraphOverflow as e:
             raise self._hier_no_refit(e) from e
 
@@ -1015,47 +1143,54 @@ class DBSCAN:
             points = self._driver_frame_rows(points)
         if len(points) == 0:
             raise ValueError("eps=None fits need a non-empty dataset")
-        check_finite(points)
         t0 = time.perf_counter()
-        self.metrics_ = {}
-        self._serve_engine = None
-        self._serve_core_points = None
-        self._live_model = None
-        self._live_stats = None
-        self._fit_generation += 1
+        self._reset_fit()
         self._keys = keys
         self.data = points
         self._result_cache = None
         self.bounding_boxes = self.expanded_boxes = None
         self.neighbors = None
         self.cluster_dict = None
-        self._hier_stats = None
-        with self._kernel_frame():
-            ctx = self._hier_guarded(points)
-            hier = ctx["hier"]
-            t = time.perf_counter()
-            _thr_star, eps_u = hier.select_cut()
-            t_cut = time.perf_counter()
-            # Label at the round trip of eps_ (not the raw cut weight):
-            # the labels then equal fit(eps_) by construction.
-            thr_rt = float(
-                _hier.thr_from_user_eps(eps_u, self._metric_norm))
-            lab_s, core_s = hier.labels_at_thr(thr_rt)
-            lab, core = ctx["gh"]["finalize"](lab_s, core_s)
-            dense = densify_labels(lab)
-            t_rel = time.perf_counter()
-        self.labels_ = dense
-        self.core_sample_mask_ = np.asarray(core, bool)
-        self.eps_ = float(eps_u)
-        self.metrics_["total_s"] = time.perf_counter() - t0
-        self.metrics_["points_per_sec"] = len(points) / max(
-            self.metrics_["total_s"], 1e-9
-        )
-        self.metrics_["live_pairs"] = int(ctx["gstats"]["graph_pairs"])
-        self.metrics_["n_partitions"] = 1
-        self.metrics_["kernel_passes"] = 2
-        ctx["stages"].update(cut_s=t_cut - t, relabel_s=t_rel - t_cut)
-        self._hier_stats = self._hier_block(ctx, eps_selected=eps_u)
+        timer = PhaseTimer()
+        with self._run_telemetry(points):
+            check_finite(points)
+            with self._kernel_frame():
+                ctx = self._hier_guarded(points, timer)
+                hier = ctx["hier"]
+                t = time.perf_counter()
+                _thr_star, eps_u = hier.select_cut()
+                t_cut = time.perf_counter()
+                # Label at the round trip of eps_ (not the raw cut
+                # weight): the labels then equal fit(eps_) by
+                # construction.
+                thr_rt = float(
+                    _hier.thr_from_user_eps(eps_u, self._metric_norm))
+                with timer.phase("relabel"):
+                    lab_s, core_s = hier.labels_at_thr(thr_rt)
+                    lab, core = ctx["gh"]["finalize"](lab_s, core_s)
+                with timer.phase("densify"):
+                    dense = densify_labels(lab)
+                t_rel = time.perf_counter()
+            self.labels_ = dense
+            self.core_sample_mask_ = np.asarray(core, bool)
+            self.eps_ = float(eps_u)
+            self.metrics_.update(timer.as_dict())
+            self.metrics_["total_s"] = time.perf_counter() - t0
+            self.metrics_["points_per_sec"] = len(points) / max(
+                self.metrics_["total_s"], 1e-9
+            )
+            self.metrics_["live_pairs"] = int(ctx["gstats"]["graph_pairs"])
+            self.metrics_["n_partitions"] = 1
+            self.metrics_["kernel_passes"] = 2
+            ctx["stages"].update(cut_s=t_cut - t, relabel_s=t_rel - t_cut)
+            self._hier_stats = self._hier_block(ctx, eps_selected=eps_u)
+            log_phase(
+                "hierarchy", n=len(points),
+                mst_edges=self._hier_stats["mst_edges"],
+                boruvka_rounds=self._hier_stats["boruvka_rounds"],
+                eps_selected=round(float(eps_u), 6),
+                seconds=round(self.metrics_["total_s"], 4),
+            )
         return self
 
     def _hier_block(self, ctx, eps_selected, ladder=None) -> Dict:
@@ -1081,7 +1216,7 @@ class DBSCAN:
             block["ladder"] = [float(e) for e in ladder]
         return block
 
-    def _sweep_auto_run(self, points, ms_vals):
+    def _sweep_auto_run(self, points, ms_vals, timer):
         """Ladder extraction and per-rung cuts (kernel frame).
 
         The ladder comes from the first min_samples' hierarchy (its top
@@ -1091,7 +1226,7 @@ class DBSCAN:
         """
         from .ops import hierarchy as _hier
 
-        ctx = self._hier_guarded(points, ms=ms_vals[0])
+        ctx = self._hier_guarded(points, timer, ms=ms_vals[0])
         k = int(os.environ.get("PPTORCH_HIER_LADDER_K", "8"))
         hier0 = ctx["hier"]
         t = time.perf_counter()
@@ -1107,7 +1242,8 @@ class DBSCAN:
         hiers = {int(ms_vals[0]): hier0}
         for ms in ms_vals[1:]:
             if int(ms) not in hiers:
-                hiers[int(ms)] = ctx["build"](ms)
+                with timer.phase("hierarchy"):
+                    hiers[int(ms)] = ctx["build"](ms)
         configs = [(float(e), int(m)) for e in ladder for m in ms_vals]
         gh = ctx["gh"]
         labels_out, core_out, per_cfg, relabel_s = {}, {}, [], []
@@ -1115,9 +1251,11 @@ class DBSCAN:
             e_u, ms = cfg
             t_c = time.perf_counter()
             thr = float(_hier.thr_from_user_eps(e_u, self._metric_norm))
-            lab_s, core_s = hiers[ms].labels_at_thr(thr)
-            lab, core = gh["finalize"](lab_s, core_s)
-            dense = densify_labels(lab)
+            with timer.phase("relabel"):
+                lab_s, core_s = hiers[ms].labels_at_thr(thr)
+                lab, core = gh["finalize"](lab_s, core_s)
+            with timer.phase("densify"):
+                dense = densify_labels(lab)
             labels_out[cfg] = dense
             core_out[cfg] = np.asarray(core, bool)
             dt = time.perf_counter() - t_c
@@ -1281,6 +1419,80 @@ class DBSCAN:
             agg.next_global_id = len(uniq)
         self.cluster_dict = dict(agg.fwd)
         return agg
+
+    # -- telemetry --------------------------------------------------------
+
+    def report(self) -> Dict:
+        """The schema'd telemetry dict of the most recent fit, sweep or
+        eps=None fit (``pypardis_tpu/run_report@1``, the JAX package's
+        schema and keys): per-phase wall seconds, the shard-layout and
+        compute sections, resource watermarks, event counts and the
+        registry dump; ``serving`` once the model's engine has answered
+        queries, ``live`` with a live model, ``sweep`` after
+        :meth:`sweep` and ``hierarchy`` after an eps=None fit or
+        ``sweep(eps_list="auto")``.  JSON-serialisable throughout.
+        The parameters the port's constructor lacks (the sharding
+        knobs) carry the JAX package's defaults, which its single-device
+        fit runs as."""
+        self._require_fitted()
+        eng = self._serve_engine
+        serving = (
+            eng.serving_stats() if eng is not None and eng.queries > 0
+            else None
+        )
+        live = dict(self._live_stats) if self._live_stats else None
+        rep = obs.build_run_report(
+            self._recorder,
+            params={
+                "eps": self.eps,
+                "min_samples": self.min_samples,
+                "metric": self.metric,
+                "max_partitions": None,
+                "split_method": "min_var",
+                "block": self.block,
+                "precision": self.precision,
+                "kernel_backend": self.kernel_backend,
+                "merge": "auto",
+                "owner_computes": True,
+                "overlap": None,
+                "mode": "auto",
+                "flight": self.flight,
+                "auto": False,
+                "sketch": self.sketch,
+            },
+            n_points=len(self.labels_),
+            n_dims=self._fit_info.get("n_dims", 0),
+            n_devices=self._fit_info.get("n_devices", 1),
+            backend=self.device.type,
+            metrics=self.metrics_,
+            serving=serving,
+            live=live,
+        )
+        if self._sweep_stats:
+            rep["sweep"] = dict(self._sweep_stats)
+        if self._hier_stats:
+            rep["hierarchy"] = dict(self._hier_stats)
+            rep["params"]["eps_selected"] = self.eps_
+        return rep
+
+    def summary(self) -> str:
+        """One-screen rendering of :meth:`report`."""
+        return obs.format_summary(self.report())
+
+    def export_trace(self, path: str) -> str:
+        """Write the fit's driver spans as Chrome-trace JSON (loads in
+        chrome://tracing and ui.perfetto.dev).  Works on a failed fit
+        too: the spans recorded before the exception export (a killed
+        process leaves its flight file instead, :func:`~.obs.replay`).
+        ``profile_dir`` gives the device-level ``torch.profiler``
+        trace."""
+        if self._recorder is not None:
+            return self._recorder.tracer.export_chrome_trace(path)
+        self._require_fitted()
+        raise RuntimeError(
+            "no telemetry recorded for this model (loaded from a "
+            "checkpoint?) — export_trace needs an in-process fit"
+        )
 
     # -- checkpoints ------------------------------------------------------
 

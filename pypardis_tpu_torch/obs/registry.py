@@ -66,8 +66,8 @@ class MetricsRegistry:
         self._gauges: Dict[str, object] = {}
         self._timings: Dict[str, Dict[str, float]] = {}
         self._hists: Dict[str, Histogram] = {}
-        # An optional streaming sink (the JAX package's flight recorder;
-        # ROADMAP A16): every write is forwarded to it when set.
+        # An optional streaming sink (obs.flight.FlightRecorder, or the
+        # exporters' Fanout): every write is forwarded to it when set.
         self.sink = None
 
     # -- write surface ----------------------------------------------------

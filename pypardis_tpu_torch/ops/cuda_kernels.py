@@ -980,7 +980,8 @@ def query_tables(coords, labels, *, block, nb):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pp_query_tables(
             coords.data_ptr(), labels.data_ptr(), L, C, block, d,
-            *(t.data_ptr() for t in tables), stream,
+            *(t.data_ptr() for t in tables), *(t.numel() for t in tables),
+            stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -1094,7 +1095,7 @@ def query_leaf(q, tile_leaf, coords, labels, *, block, nb,
             None if keep_stats is None else keep_stats.data_ptr(),
             None if pass_stats is None else pass_stats.data_ptr(),
             at, at + n_keys, at + n_keys + n_grp if mixed else None,
-            out.data_ptr(), stream,
+            out.data_ptr(), n_keys // 8, n_grp, out.numel(), stream,
         )
     key = "query_leaf_mixed" if mixed else "query_leaf"
     if rc != 0:

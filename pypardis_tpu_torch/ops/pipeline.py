@@ -29,6 +29,8 @@ from .cuda_kernels import _pallas_block
 from .distances import PAIR_GROUP, eps2_f32
 from .labels import dbscan_fixed_size
 from .precision import PAIR_STATS_WIDTH, norm_precision_mode
+from ..obs import current as obs_current
+from ..obs import span as obs_span
 from ..partition import interleave_bit_words, morton_plan
 
 _U32_ALL = 0xFFFFFFFF
@@ -212,19 +214,36 @@ def dbscan_device_pipeline(
     :func:`~pypardis_tpu_torch.ops.labels.dbscan_fixed_size`; the
     layout is the same for both metrics, as in the JAX package (its
     segment break tests a Euclidean jump, which only affects pruning).
-    Returns the host ``(row, stats)`` numpy pair of
-    :func:`_pipeline_pack` (decode with :func:`unpack_pipeline_result`)."""
+    Returns ``(packed, kernel_tiles)``: the host ``(row, stats)`` numpy
+    pair of :func:`_pipeline_pack` (decode with
+    :func:`unpack_pipeline_result`) and the kernel grid's tile count
+    (the report's ``live_pair_fraction`` denominator: the segment break
+    pads the kernel capacity past ``cap``).
+
+    Telemetry on the current recorder: the spans ``pipeline.layout``
+    (waits for the layout's device work at its end) and
+    ``pipeline.cluster`` (``mode="fused"``; it ends with the packed
+    result on the host), and the tile count as the
+    ``pipeline.kernel_tiles`` gauge."""
     cap = points_t.shape[1]
-    xs, mask, owner = _pipeline_layout(
-        points_t, eps, n, block=block, sort=sort, precision=precision
-    )
-    roots_s, core_s, pair_stats = dbscan_fixed_size(
-        xs, eps, min_samples, mask, block=block, precision=precision,
-        backend=backend, pair_budget=pair_budget, sketch=sketch,
-        metric=metric,
-    )
-    row, stats = _pipeline_pack(roots_s, core_s, pair_stats, owner, cap=cap)
-    return row.numpy(), stats.numpy()
+    with obs_span("pipeline.layout", sort=bool(sort)) as sp:
+        xs, mask, owner = _pipeline_layout(
+            points_t, eps, n, block=block, sort=sort, precision=precision
+        )
+        sp.sync_on(xs)
+    d, capk = xs.shape
+    tile = _pallas_block(block, capk, d, norm_precision_mode(precision))
+    tiles = max(1, capk // tile)
+    obs_current().metrics.set("pipeline.kernel_tiles", tiles)
+    with obs_span("pipeline.cluster", mode="fused"):
+        roots_s, core_s, pair_stats = dbscan_fixed_size(
+            xs, eps, min_samples, mask, block=block, precision=precision,
+            backend=backend, pair_budget=pair_budget, sketch=sketch,
+            metric=metric,
+        )
+        row, stats = _pipeline_pack(roots_s, core_s, pair_stats, owner,
+                                    cap=cap)
+        return (row.numpy(), stats.numpy()), tiles
 
 
 # ---------------------------------------------------------------------------
@@ -259,15 +278,19 @@ def sweep_graph_pipeline(points_t, eps, n, metric: str = "euclidean",
     from .distances import neighbor_pair_graph
 
     cap = points_t.shape[1]
-    xs, mask_k, owner = _pipeline_layout(
-        points_t, eps, n, block=block, sort=sort, precision=precision
-    )
+    with obs_span("sweep.layout", sort=bool(sort)) as sp:
+        xs, mask_k, owner = _pipeline_layout(
+            points_t, eps, n, block=block, sort=sort, precision=precision
+        )
+        sp.sync_on(xs)
     d, capk = xs.shape
     tile = _pallas_block(block, capk, d, norm_precision_mode(precision))
-    gi, gj, dval, stats = neighbor_pair_graph(
-        xs, mask_k, eps, metric=metric, tile=tile, budget=edge_budget,
-        cap=edge_cap,
-    )
+    with obs_span("sweep.extract") as sp:
+        gi, gj, dval, stats = neighbor_pair_graph(
+            xs, mask_k, eps, metric=metric, tile=tile, budget=edge_budget,
+            cap=edge_cap,
+        )
+        sp.sync_on((gi, gj, dval))
     return (gi, gj, dval), mask_k, owner, cap, stats
 
 

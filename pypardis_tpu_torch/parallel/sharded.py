@@ -44,6 +44,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..obs import heartbeat as obs_heartbeat
+from ..obs import span as obs_span
 from ..ops.cuda_kernels import _pallas_block
 from ..ops.distances import INT_INF
 from ..ops.labels import dbscan_fixed_size
@@ -267,7 +269,9 @@ class _Spans:
     """Busy time of the per-partition clustering: CUDA events recorded
     on the current stream around each partition on the card (the span
     from its first operation to its last, read after the loop), the
-    host clock around each (synchronous) partition on the CPU."""
+    host clock around each (synchronous) partition on the CPU.  Not
+    recorder spans: those read the host clock and would need a sync per
+    partition to cover the card's work, which these events avoid."""
 
     def __init__(self, device):
         self.cuda = torch.device(device).type == "cuda"
@@ -616,6 +620,10 @@ def _chained_tables_overlap(
             passes.append(int(ps[2]))
             gid_dev.append(gid)
             del slab, pts, msk
+            # Per-partition progress with a partitions-remaining ETA
+            # (the flight file always, a log line under
+            # PPTORCH_HEARTBEAT).
+            obs_heartbeat("chained.partitions", p + 1, p_total, t_loop)
         wall = time.perf_counter() - t_loop
     busy = spans.seconds()
     stage["slab_build"] = stage.get("slab_build", 0.0) + build_s[0]
@@ -675,9 +683,10 @@ def sharded_dbscan(
     per-partition fits over owned + halo slabs, then the label merge.
     ``merge``: ``"device"`` (torch on the card), ``"host"`` (union-find
     over the occurrence tables) or ``"auto"`` (host from
-    :data:`MERGE_HOST_AUTO` points); labels are byte-identical under
-    both.  Partition ``p + 1``'s slab is built and shipped on a host
-    thread while the card clusters partition ``p``
+    :data:`MERGE_HOST_AUTO` points, or under host-RSS pressure,
+    :func:`~pypardis_tpu_torch.obs.resources.memory_pressure`); labels
+    are byte-identical under both.  Partition ``p + 1``'s slab is built
+    and shipped on a host thread while the card clusters partition ``p``
     (``stats["overlap_efficiency"]`` with more than one partition).
 
     ``pair_budget`` and ``merge_rounds`` run the ladders of
@@ -702,6 +711,12 @@ def sharded_dbscan(
     partition dispatch's kernel passes, every ladder attempt, 0 where
     its pair list overflowed) and, under the device merge,
     ``merge_host_syncs``.
+
+    Telemetry on the current recorder, as in the JAX package: the spans
+    ``sharded.build_shards`` (the geometry and halo sets),
+    ``sharded.execute`` (the partitions and the device merge, through
+    the ladders) and ``sharded.merge_host``, the ladders' events and the
+    heartbeat ``chained.partitions``.
     """
     from ..dbscan import resolve_device
 
@@ -730,9 +745,18 @@ def sharded_dbscan(
     points = np.asarray(points)
     n, k = points.shape
     if merge == "auto":
-        merge = "host" if n >= MERGE_HOST_AUTO else "device"
-    layout, stats = _chained_layout(points, partitioner, eps, block,
-                                    precision)
+        # Under host-RSS pressure (PPTORCH_RSS_SOFT_LIMIT crossed) the
+        # host merge is taken at once: the device merge's (N+1,) arrays
+        # come back to the host as well.
+        from ..obs.resources import memory_pressure
+
+        merge = (
+            "host" if n >= MERGE_HOST_AUTO or memory_pressure()
+            else "device"
+        )
+    with obs_span("sharded.build_shards", halo="host"):
+        layout, stats = _chained_layout(points, partitioner, eps, block,
+                                        precision)
     block = layout["block"]
     stage = {"halo_sets": layout["halo_sets_s"]}
     passes = []
@@ -773,13 +797,16 @@ def sharded_dbscan(
         stage["merge"] = stage.get("merge", 0.0) + time.perf_counter() - t
         return ((final, core, rounds), pstats), (total, budget), converged
 
-    out, pstats = run_ladders(run_step, pair_budget, merge_rounds)
+    with obs_span("sharded.execute", halo="host", merge=merge,
+                  overlap=True):
+        out, pstats = run_ladders(run_step, pair_budget, merge_rounds)
     t = time.perf_counter()
     if merge == "host":
         own_glab, own_core, halo_glab, _ps = memo["out"][0]
         gid_o, gid_h = memo["out"][2]
-        final, core = _host_merge_finish(
-            n, gid_o, own_glab, own_core, gid_h, halo_glab)
+        with obs_span("sharded.merge_host"):
+            final, core = _host_merge_finish(
+                n, gid_o, own_glab, own_core, gid_h, halo_glab)
         stats = dict(stats, merge="host")
     else:
         final, core, rounds = out

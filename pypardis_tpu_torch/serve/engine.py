@@ -14,13 +14,16 @@ when B5 is hidden behind the host stages.
 
 ``serving_stats()`` reports QPS over engine-busy wall time, batch fill
 (real routed rows over padded device rows), p50/p99 request latency
-over a bounded window of recent requests, and the index's epoch and
-generation.  A live update (:mod:`.live`) edits the index in place
-between drains: a ticket submitted before it and drained after it
-answers against the updated index (its queries were centred in the
-index's frame, which no update moves), and a batch already dispatched
-reads the old slab, since the update's device writes queue behind it on
-the stream.
+from the engine's ``serving.latency_ms``
+:class:`~pypardis_tpu_torch.obs.export.Histogram` (bounded buckets,
+windowed percentiles; its snapshot rides as ``latency_hist``), and the
+index's epoch and generation; each drain also publishes them as
+``serving.*`` gauges on the engine's :attr:`QueryEngine.recorder`.
+A live update (:mod:`.live`) edits the index in place between drains: a
+ticket submitted before it and drained after it answers against the
+updated index (its queries were centred in the index's frame, which no
+update moves), and a batch already dispatched reads the old slab, since
+the update's device writes queue behind it on the stream.
 """
 
 from __future__ import annotations
@@ -33,12 +36,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..obs import RunRecorder
+from ..obs.registry import sanitize_segment
 from ..ops.precision import norm_precision_mode
 from ..ops.query import INT_INF, unpack_query_result
 from .index import CorePointIndex, build_index
-
-# Requests whose latencies the p50/p99 are taken over.
-LATENCY_WINDOW = 4096
 
 
 class QueueFull(RuntimeError):
@@ -168,9 +170,13 @@ class QueryEngine:
         self.precision = check_query_precision(precision)
         self.batch_capacity = int(batch_capacity)
         self.max_pending = int(max_pending)
+        self.recorder = RunRecorder(device=index.device)
         self._pending: deque = deque()
         self._pending_rows = 0
-        self._latencies: deque = deque(maxlen=LATENCY_WINDOW)
+        # Request latencies on a bounded log-bucket histogram: O(buckets)
+        # memory under sustained traffic, p50/p99 over a sliding window
+        # (PPTORCH_HIST_WINDOW_S).
+        self._lat_hist = self.recorder.metrics.hist("serving.latency_ms")
         self.queries = 0
         self.batches = 0
         self._busy_s = 0.0
@@ -270,6 +276,7 @@ class QueryEngine:
         self._busy_s += time.perf_counter() - t0
         self.queries += n_done
         self.batches += len(batches)
+        self._publish()
         return n_done
 
     # -- internals --------------------------------------------------------
@@ -324,7 +331,8 @@ class QueryEngine:
             t.d2 = d2[s:s + t.n]
             t.latency_ms = (now - t._t_submit) * 1e3
             t._q = None
-            self._latencies.append(t.latency_ms)
+            self.recorder.metrics.observe_ms(
+                "serving.latency_ms", t.latency_ms)
             s += t.n
         self._fill_num += int(round(fl.fill * fl.n_rows))
         self._fill_den += fl.n_rows
@@ -344,13 +352,26 @@ class QueryEngine:
 
     # -- telemetry --------------------------------------------------------
 
+    def _publish(self) -> None:
+        """The numeric serving stats as ``serving.*`` gauges, once per
+        drain as the JAX engine does (they stream to an attached flight
+        file or exporter); the histogram's snapshot is left out."""
+        m = self.recorder.metrics
+        for k, v in self._scalar_stats().items():
+            if isinstance(v, (int, float, bool)):
+                m.set(f"serving.{sanitize_segment(k)}", v)
+
     def serving_stats(self) -> Dict:
-        """Serving gauges, finite by construction."""
-        lat = np.asarray(self._latencies, np.float64)
-        p50, p99 = (
-            (float(np.percentile(lat, 50)), float(np.percentile(lat, 99)))
-            if len(lat) else (0.0, 0.0)
-        )
+        """Serving gauges, finite by construction (the ``serving``
+        block of ``DBSCAN.report()``), and the latency histogram's
+        snapshot (``pypardis_tpu/hist@1``: windowed percentiles and
+        lifetime bucket counts) as ``latency_hist``."""
+        return {**self._scalar_stats(),
+                "latency_hist": self._lat_hist.snapshot()}
+
+    def _scalar_stats(self) -> Dict:
+        p50 = self._lat_hist.percentile(50)
+        p99 = self._lat_hist.percentile(99)
         st = self.index.stats
         return {
             "model": self.handle or "default",

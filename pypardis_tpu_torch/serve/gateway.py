@@ -49,8 +49,10 @@ runs on the calling thread; it waits for its upload and its tables
 before the window closes, so the B5 a pump thread launches next reads
 finished tables whatever stream it runs on.
 
-Not yet ported: the ``gateway.admit`` fault site (``utils/faults``) and
-the export plane (ROADMAP A16).
+Not yet ported: the ``gateway.admit`` fault site (``utils/faults``,
+ROADMAP A16).  ``gateway_load`` exports the gateway's recorder when the
+``PPTORCH_METRICS_*`` knobs ask (:func:`~pypardis_tpu_torch.obs.
+attach_exporters`).
 """
 
 from __future__ import annotations

@@ -28,8 +28,10 @@ models over a per-tenant rotation, live writes on live handles, a
 mid-run hot swap, and read p99 inside against outside the eviction and
 swap windows.
 
-Both return the JAX package's stats keys.  Their wrappers attach no
-export plane (``attach_exporters`` is ROADMAP A16).
+Both return the JAX package's stats keys.  Their wrappers own the live
+export plane: with ``PPTORCH_METRICS_PORT`` / ``PPTORCH_METRICS_SNAPSHOT``
+set, the engine's (or the gateway's) registry, the serving latency
+histogram included, is scraped or snapshotted for the run.
 """
 
 from __future__ import annotations
@@ -41,13 +43,19 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-from ..obs.export import Histogram
+from ..obs.export import Histogram, attach_exporters
 
 
 def sustained_load(engine, **kw) -> Dict:
     """Run the harness; returns the stats dict (see
-    :func:`_sustained_load` for every knob)."""
-    return _sustained_load(engine, **kw)
+    :func:`_sustained_load` for every knob), with the engine's recorder
+    exported for the run when the ``PPTORCH_METRICS_*`` knobs ask."""
+    exporters = attach_exporters(getattr(engine, "recorder", None))
+    try:
+        return _sustained_load(engine, **kw)
+    finally:
+        if exporters is not None:
+            exporters.close()
 
 
 def _sustained_load(
@@ -437,8 +445,14 @@ def _sustained_load(
 def gateway_load(gateway, model_ids, **kw) -> Dict:
     """Multi-tenant fleet traffic against a :class:`~pypardis_tpu_torch.
     serve.gateway.ModelGateway` (see :func:`_gateway_load` for every
-    knob)."""
-    return _gateway_load(gateway, model_ids, **kw)
+    knob), with the gateway's recorder exported for the run when the
+    ``PPTORCH_METRICS_*`` knobs ask."""
+    exporters = attach_exporters(getattr(gateway, "recorder", None))
+    try:
+        return _gateway_load(gateway, model_ids, **kw)
+    finally:
+        if exporters is not None:
+            exporters.close()
 
 
 def _gateway_load(

@@ -11,15 +11,17 @@ merge-rounds rung.  The JAX package's hint cache and its
 
 from __future__ import annotations
 
-import logging
-
+from ..obs import event as obs_event
+from .log import get_logger
 from .shaping import round_up
 
 
 def pair_overflow(total: int, budget: int) -> int:
-    """Exact budget to rerun with, or 0 when nothing overflowed."""
+    """Exact budget to rerun with, or 0 when nothing overflowed (an
+    overflow records a ``pair_overflow`` event)."""
     if budget and total > budget:
-        logging.getLogger("pypardis_tpu_torch").warning(
+        obs_event("pair_overflow", total=int(total), budget=int(budget))
+        get_logger().warning(
             "live tile-pair budget overflow (%d > %d); rerunning with an "
             "exact budget", total, budget,
         )
@@ -74,7 +76,8 @@ def run_ladders(run_step, pair_budget, merge_rounds):
             if rounds_retried:
                 raise unconverged_error(this_rounds)
             nxt = max(1, 4 * this_rounds)
-            logging.getLogger("pypardis_tpu_torch").warning(
+            obs_event("merge_unconverged", rounds=this_rounds, next=nxt)
+            get_logger().warning(
                 "label merge unconverged after %d rounds; retrying with "
                 "%d", this_rounds, nxt,
             )

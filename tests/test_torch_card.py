@@ -1373,3 +1373,131 @@ def test_gateway_eviction_gives_memory_back_and_readmits_bitwise(tmp_path):
     assert np.array_equal(after[1].view(np.int32), before[1].view(np.int32))
     olabs, od2 = back.oracle_predict(Q)
     assert np.array_equal(after[0], olabs)
+
+
+@pytest.mark.cuda
+def test_span_sync_on_covers_the_card_work():
+    """A span with ``sync_on`` closes after the work queued on the
+    tensor's stream, so it covers the CUDA events recorded around it;
+    ``sync=True`` synchronises the tracer's device."""
+    _need_card()
+    from pypardis_tpu_torch import obs
+
+    dev = torch.device("cuda")
+    a = torch.randn(4096, 4096, device=dev)
+    tr = obs.Tracer(device=dev)
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with tr.span("matmul") as sp:
+        s.record()
+        out = a
+        for _ in range(8):
+            out = out @ a
+        e.record()
+        sp.sync_on(out)
+    assert e.query()
+    assert tr.spans[-1].dur_s * 1e3 >= s.elapsed_time(e)
+    with tr.span("barrier", sync=True):
+        out = out @ a
+    assert torch.cuda.current_stream().query()
+
+
+@pytest.mark.cuda
+def test_fit_report_on_the_card():
+    """A fit on the card reports the H100 peak row (on an H100), a
+    positive model rate, its device watermark within the allocator's
+    peak, and the pipeline's spans."""
+    _need_card()
+    X, _ = make_blob_data(50_000, 16, n_centers=16, std=0.4)
+    m = DBSCAN(eps=2.4, min_samples=10, block=1024).fit(X)
+    r = m.report()
+    comp, res = r["compute"], r["resources"]
+    if "H100" in torch.cuda.get_device_name():
+        assert (comp["peak_source"], comp["peak_flops"]) == (
+            "table:h100", 989e12)
+    assert comp["achieved_flops_per_sec"] > 0
+    assert comp["live_pairs"] == m.metrics_["live_pairs"]
+    assert 0 < res["peak_device_bytes"] <= torch.cuda.max_memory_allocated()
+    assert r["run"]["backend"] == "cuda"
+    assert [s.name for s in m._recorder.tracer.spans] == [
+        "pipeline.layout", "pipeline.cluster", "cluster", "densify"]
+
+
+_CHECKED_CHILD = r"""
+import json, torch
+from pypardis_tpu_torch.csrc import _build
+
+assert _build.checked()
+lib = _build.load()
+L, nb, block, d = 4, 2, 32, 16
+C = nb * block
+g = torch.Generator(device="cuda").manual_seed(0)
+coords = torch.randn((d, L * C), generator=g, device="cuda")
+labels = torch.arange(L * C, dtype=torch.int32, device="cuda")
+tables = (torch.empty(L, dtype=torch.int64, device="cuda"),
+          torch.empty(L, dtype=torch.int32, device="cuda"),
+          torch.empty((L * nb, d), device="cuda"),
+          torch.empty((L * C, 4), device="cuda"))
+stream = torch.cuda.current_stream().cuda_stream
+
+
+def run(extents):
+    rc = lib.pp_query_tables(coords.data_ptr(), labels.data_ptr(), L, C,
+                             block, d, *(t.data_ptr() for t in tables),
+                             *extents, stream)
+    torch.cuda.synchronize()
+    return rc
+
+
+out = {"whole": run([t.numel() for t in tables])}
+print(json.dumps(out), flush=True)
+try:
+    run([L - 1] + [t.numel() for t in tables[1:]])
+    out["short"] = "no error"
+except RuntimeError as e:
+    out["short"] = str(e).splitlines()[0]
+print(json.dumps(out), flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_checked_build_traps_a_store_past_its_extent():
+    """The checked build's guards can fire: B5's table kernels told that
+    ``pad_keys`` holds one leaf fewer than the grid writes stop the
+    launch, where the whole extents pass.  The normal build ignores the
+    extents.  The checked library runs in a child process, as a trap
+    leaves its CUDA context unusable."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    _need_card()
+    from pypardis_tpu_torch.csrc import _build
+
+    if not _build.checked():
+        lib = _build.load()
+        L, C, d = 4, 64, 16
+        coords = torch.randn((d, L * C), device="cuda")
+        labels = torch.arange(L * C, dtype=torch.int32, device="cuda")
+        whole = ck.query_tables(coords, labels, block=32, nb=2)
+        tables = tuple(torch.empty_like(t) for t in whole)
+        rc = lib.pp_query_tables(
+            coords.data_ptr(), labels.data_ptr(), L, C, 32, 16,
+            *(t.data_ptr() for t in tables), 0, 0, 0, 0,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert all(torch.equal(a, b) for a, b in zip(tables, whole))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PPTORCH_KERNEL_CHECKS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-c", _CHECKED_CHILD], env=env,
+                          cwd=root, capture_output=True, text=True,
+                          timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert lines, proc.stderr[-4000:]
+    out = json.loads(lines[-1])
+    assert out["whole"] == 0, out
+    assert out.get("short", "no error") != "no error", (out, proc.stderr)

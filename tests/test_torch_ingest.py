@@ -337,6 +337,31 @@ def test_writer_thread_and_background_compaction_share_the_lock():
     _refit_equivalent(live)
 
 
+def test_compaction_publishes_under_the_harness_lock():
+    """Every republish of the live stats during a compaction runs under
+    the lock the harness's writers take: a publish outside it reads the
+    point arrays while a writer extends them (ROADMAP C7).  Recorded
+    without racing threads: each ``_publish`` call notes whether the
+    lock was held."""
+    X, _truth, _centers = make_separated_blob_data(
+        300, 3, n_centers=5, std=0.35, min_sep=6.3, spread=10.0, seed=8)
+    live = DBSCAN(eps=EPS, min_samples=MS, block=128, device="cpu").fit(
+        X).live(leaves=4, warm=False)
+    lock = threading.Lock()
+    comp = Compactor(live, lock=lock)
+    held = []
+    publish = live._publish
+
+    def noting():
+        held.append(lock.locked())
+        publish()
+
+    live._publish = noting
+    comp.compact()
+    assert held and all(held), held
+    assert live.stats["compactions"] == 1
+
+
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_mid_compaction_save_load_keeps_the_serving_generation(
         tmp_path, writer):

@@ -398,9 +398,13 @@ def test_queue_is_bounded_and_windowed(fitted):
         engine.drain()
         engine.submit(np.zeros((1, 3)))
     engine.drain()
-    assert len(engine._latencies) == 5
-    engine._latencies.extend([1.0] * 10_000)
-    assert len(engine._latencies) == engine._latencies.maxlen
+    hist = engine._lat_hist
+    assert hist.count == 5
+    assert engine.serving_stats()["latency_hist"]["count"] == 5
+    footprint = hist.nbytes
+    for _ in range(10_000):
+        hist.observe(1.0)
+    assert hist.count == 10_005 and hist.nbytes == footprint
 
 
 def test_deadline_fails_tickets(fitted):
