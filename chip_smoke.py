@@ -297,6 +297,35 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    prints phase 4's 1M walls from host input beside
    :data:`FIT_1M_HOST_S_BEFORE`.
 
+15. faults, retry, jobstate and resume (:func:`faults_phase`), on data
+   and models the script already has: (1) phase 4's 1M x 16-D data
+   through the host-stepped route (``PPTORCH_STEP_THRESHOLD=1``) twice:
+   labels and core byte-identical to phase 4's fused fit, B1 once, B2 =
+   passes - 1, a stepped batch in the report; both walls beside phase
+   4's; (2) ``PPTORCH_ROUND_BATCH=1`` with the plan
+   ``stepped.batch:2=error`` under ``train(resume=path)``: the fault
+   raises ``FaultInjected``, and a fresh ``train(resume=path)`` restores
+   at least one batch (``events.jobstate_restore`` >= 1) to (1)'s labels;
+   (3) a child process (``chip_smoke.py --faults-child PATH``) runs (2)'s
+   fit with ``PPTORCH_CKPT`` and ``stepped.batch:*=hang(1.0)``, and is
+   SIGKILLed once its snapshot exists (up to 3 attempts); the resume here
+   gives (1)'s labels; (4) 13.1's 20,000 x 16-D case over 8 partitions:
+   ``chained.partition:5=error`` with a jobstate raises and the resume
+   restores exactly 4 partitions, ``chained.partition:2=transfer_error``
+   is retried, ``chained.partition:3=oom`` raises, and
+   ``sharded.execute:1=oom`` (the device merge) degrades to
+   ``merge_host`` without a second dispatch, each equal to the clean
+   run, and no slab-builder thread outlives a failed attempt; (5) an allocation past the card's
+   free memory raises ``torch.OutOfMemoryError``, classified OOM and not
+   transient, and B1 right after it is bitwise its plain version on
+   phase 5's first 64 row tiles; (6) on phase 11's live model (phase 6's
+   1M model, written to in phases 11 and 12) ``serve.drain:1=hang(0.3)``
+   fails a 0.05 s ticket with ``DeadlineExceeded`` (``deadline_failures``
+   + 1), the next request is bitwise the card oracle, and
+   ``ingest.batch:1=error`` leaves the index's slab and B5's tables
+   bitwise as before.  Every report outside this phase (14.2's) must
+   count no injected fault, retry, giveup or degradation.
+
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits non-zero and prints
@@ -315,6 +344,9 @@ script) runs every gate-1 hold of the index (:func:`hold_index`: after
 each live commit, each served check, the compaction and the ingest
 harness) N times over, each failing the run on a difference: a search
 for a difference that does not show on every computation.
+``--faults`` builds them and runs phase 15 alone on its own fits
+(phase 4's 1M fit twice from host input, phase 5's B1 inputs, that
+model's live model and 13.1's 20,000-point case).
 ``python3 chip_smoke.py --b1`` builds the kernels and times B1 alone
 in its three modes at the 1M x 16-D inputs, with its bounds, floor,
 rescored share and frames' staging, then prints the 1M fits' sha256 in
@@ -4833,7 +4865,7 @@ def gateway_phase(torch, dev, sync, card="", sizes=GATEWAY_SIZES, live=None,
 # points, the rest core but for ~0.3 % noise) under the host merge.
 CHAINED_SIZES = {"small_n": 20_000, "small_eps": 2.0, "small_parts": 8,
                  "small_block": 256, "emb_n": 4096, "emb_eps": 2.0,
-                 "emb_parts": 4, "emb_block": 128, "n": 1_000_000,
+                 "emb_parts": 2, "emb_block": 128, "n": 1_000_000,
                  "eps": 2.4, "parts": 64, "block": 2048, "hold_tiles": 64,
                  "border_eps": 1.4}
 
@@ -5408,6 +5440,10 @@ def report_gates(torch, dev, rep, metrics, what):
     if phases > rep["run"]["total_s"] * 1.01:
         fail(f"14.2 {what}: the phases sum to {phases:.6f} s, past the "
              f"run's {rep['run']['total_s']:.6f} s")
+    fb = rep["faults"]
+    if (fb["injected"], fb["retried"], fb["giveups"], fb["degraded"]) != (
+            0, 0, 0, 0):
+        fail(f"14.2 {what}: a clean run's faults block is {fb}")
     peak = res["peak_device_bytes"]
     high = torch.cuda.max_memory_allocated(dev)
     if not 0 < peak <= high:
@@ -5546,6 +5582,405 @@ def report_phase(torch, dev, card, ck, sync_args, fit1m, chained, X200,
     return rec
 
 
+# Phase 15: faults, retry, jobstate and resume.  The 1M fit's stepped
+# route at a threshold below its capacity, the SIGKILL child's hang per
+# round batch, and where the snapshots go.
+FAULT_SIZES = {"step_threshold": 1, "kill_hang_s": 1.0, "kill_attempts": 3,
+               "drain_hang_s": 0.3, "drain_timeout_s": 0.05, "nq": 4096}
+FAULT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_faults")
+
+
+@contextlib.contextmanager
+def env_set(**kw):
+    """Set environment knobs for a block (None unsets), then restore."""
+    prev = {k: os.environ.get(k) for k in kw}
+    try:
+        for k, v in kw.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def builder_threads():
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("pptorch-slab-builder")]
+
+
+def faults_child(path):
+    """The SIGKILL child of 15.3 (``chip_smoke.py --faults-child PATH``):
+    phase 4's 1M x 16-D fit from host input with the knobs its parent
+    set (``PPTORCH_CKPT=PATH``, a hang before each round batch); it is
+    killed once its snapshot exists."""
+    from benchdata import make_blob_data
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.csrc import _build
+
+    _build.load()
+    X, _truth = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
+    log(f"child: fitting with PPTORCH_CKPT={os.environ.get('PPTORCH_CKPT')}")
+    DBSCAN(eps=2.4, min_samples=10, block=2048).fit(X)
+    log("child: the fit finished")
+
+
+def faults_phase(torch, dev, sync, card, main, b1_args, live, chained_case,
+                 sizes=FAULT_SIZES):
+    """Phase 15 (faults, retry, jobstate and resume), on data and models
+    the script already has.  ``main``: ``dict(X=, labels=, core=,
+    walls=)`` of phase 4's 1M x 16-D fused fits from host input;
+    ``b1_args``: phase 5's B1 inputs ``(a, centers)``; ``live``: phase
+    11's live model (its engine serves 15.6); ``chained_case``: 13.1's
+    20,000 x 16-D case ``(X, partitioner, kwargs)``.
+
+    (1) the stepped route (``PPTORCH_STEP_THRESHOLD`` 1) on the 1M data,
+    twice: labels and core bytes equal to phase 4's fused fit, B1 once, B2 = passes - 1, ``report()["stepped"]
+    ["batches"]`` >= 1; (2) ``PPTORCH_ROUND_BATCH=1`` and
+    ``stepped.batch:2=error`` under ``train(resume=)`` raise
+    ``FaultInjected``; a fresh ``train(resume=)`` restores >= 1 batch
+    (``events.jobstate_restore`` >= 1) to 15.1's labels; (3) a child
+    process runs that fit with ``PPTORCH_CKPT`` and a hang before each
+    batch and is SIGKILLed once its snapshot exists (up to 3 attempts);
+    the resume in process gives 15.1's labels; (4) the chained route on
+    13.1's case: partition 5's terminal error with a jobstate, then a
+    resume that restores exactly 4 partitions; a transfer error at
+    partition 2 retried (``faults.injected`` 1, ``retried`` >= 1); an
+    OOM at partition 3 raised; an OOM of the device merge
+    (``sharded.execute``) degrading to ``merge_host`` with no partition
+    dispatched again; each equal to the clean run, and no slab-builder
+    thread alive after a failed attempt; (5) an allocation past the
+    card's free memory raises ``torch.OutOfMemoryError``, classified OOM
+    and not transient, and B1 right after it is bitwise its plain
+    version on phase 5's first 64 row tiles; (6) on the live model's
+    engine ``serve.drain:1=hang`` fails a ticket with a deadline by
+    ``DeadlineExceeded`` (``deadline_failures`` + 1), the next request
+    is bitwise the card oracle, and ``ingest.batch:1=error`` leaves the
+    index's slab and B5's tables bitwise as before.  Returns the phase's
+    record."""
+    import signal
+
+    from pypardis_tpu_torch import DBSCAN, obs
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import counts_over_pairs
+    from pypardis_tpu_torch.parallel import sharded_dbscan
+    from pypardis_tpu_torch.serve.engine import DeadlineExceeded
+    from pypardis_tpu_torch.utils import faults
+    from pypardis_tpu_torch.utils.jobstate import JobState, fit_meta
+    from pypardis_tpu_torch.utils.retry import (
+        is_oom_error, is_transient_error,
+    )
+
+    rec = {"card": card}
+    t_phase = time.perf_counter()
+    os.makedirs(FAULT_DIR, exist_ok=True)
+    X = main["X"]
+    kw = dict(eps=2.4, min_samples=10, block=2048)
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def same(lab, core, want_lab, want_core, what):
+        ok = (lab.tobytes() == want_lab.tobytes()
+              and core.tobytes() == want_core.tobytes())
+        log(f"    {what}: labels and core byte-identical: {ok}")
+        if not ok:
+            fail(f"15: {what} differs")
+
+    def fit(resume=None):
+        model = DBSCAN(**kw)
+        ck.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        model.train(X, resume=resume)
+        sync()
+        return model, time.perf_counter() - t, dict(ck.LAUNCHES)
+
+    def launches_gate(model, la, what):
+        passes = int(model.metrics_["kernel_passes"])
+        b1, b2 = la["count_pairs"], la["minlab_pairs"]
+        others = {k: v for k, v in la.items()
+                  if k not in ("count_pairs", "minlab_pairs") and v}
+        log(f"    {what}: launches B1={b1} B2={b2}, passes {passes}, "
+            f"other kernels {others}")
+        if b1 != 1 or b2 != passes - 1 or others:
+            fail(f"15: {what}: launches B1={b1} B2={b2} against passes "
+                 f"{passes} (want B1=1, B2=passes-1, nothing else)")
+
+    # 15.1: the stepped route, two fits for two walls.
+    walls = {}
+    step_env = dict(PPTORCH_STEP_THRESHOLD=sizes["step_threshold"],
+                    PPTORCH_ROUND_BATCH=None)
+    for name in ("first", "second"):
+        with env_set(**step_env):
+            model, wall, la = fit()
+        st = model.report()["stepped"]
+        log(f"  15.1 {name}: {wall:.4f} s from host input on {card} "
+            f"(phase 4 fused: {main['walls']}); stepped {json.dumps(st)}")
+        same(model.labels_, model.core_sample_mask_, main["labels"],
+             main["core"], f"15.1 {name} stepped fit vs phase 4's fused fit")
+        launches_gate(model, la, f"15.1 {name}")
+        if st["batches"] < 1:
+            fail("15.1: the stepped route ran no batch")
+        walls[name] = wall
+        rec[f"stepped_{name}"] = dict(
+            wall_s=wall, stepped=st, passes=model.metrics_["kernel_passes"],
+            launches={k: v for k, v in la.items() if v})
+    stamp("15.1: the stepped route done")
+
+    # 15.2: resume in process, after the snapshots' cost: the same
+    # one-round-batch fit without and with a checkpoint (a (capk,)
+    # int32 copy to the host and an atomic .npz rewrite per batch), and
+    # one snapshot timed alone.
+    path = os.path.join(FAULT_DIR, f"resume_{os.getpid()}.npz")
+    with env_set(PPTORCH_STEP_THRESHOLD=sizes["step_threshold"],
+                 PPTORCH_ROUND_BATCH=1):
+        _m, wall_plain, _la = fit()
+        model, wall_ckpt, _la = fit(resume=path)
+        batches = model.report()["stepped"]["batches"]
+        os.remove(path)
+        capk = len(model._jobstate._stepped[0])
+        f = torch.arange(capk, dtype=torch.int32, device=dev)
+        js = JobState.open(path, model._jobstate.meta)
+        sync()
+        t = time.perf_counter()
+        js.stepped_note(f.cpu().numpy(), 1, 0)
+        note_s = time.perf_counter() - t
+        os.remove(path)
+        log(f"  15.2: a one-round-batch stepped fit {wall_plain:.4f} s "
+            f"without a checkpoint, {wall_ckpt:.4f} s with one ({batches}"
+            f" snapshots); one snapshot of {capk} slots {note_s * 1e3:.3f}"
+            f" ms (copy to the host and .npz write) on {card}")
+        rec["snapshot"] = dict(wall_plain_s=wall_plain,
+                               wall_ckpt_s=wall_ckpt, batches=batches,
+                               note_ms=note_s * 1e3, slots=capk)
+        with faults.plan("stepped.batch:2=error"):
+            try:
+                fit(resume=path)
+                fail("15.2: stepped.batch:2=error did not raise")
+            except faults.FaultInjected as e:
+                log(f"  15.2: the fault raised FaultInjected: {e}")
+        model, wall, la = fit(resume=path)
+    js = model._jobstate
+    r = model.report()
+    restores = r["metrics"]["counters"].get("events.jobstate_restore", 0)
+    log(f"  15.2: resumed in {wall:.4f} s, restored {js.restored_rounds} "
+        f"batches, events.jobstate_restore {restores}, stepped "
+        f"{json.dumps(r['stepped'])}")
+    same(model.labels_, model.core_sample_mask_, main["labels"],
+         main["core"], "15.2 the resumed fit vs 15.1")
+    launches_gate(model, la, "15.2 resumed")
+    if js.restored_rounds < 1 or restores < 1:
+        fail("15.2: the resume restored no batch")
+    rec["resume"] = dict(wall_s=wall, restored=js.restored_rounds,
+                         passes=model.metrics_["kernel_passes"],
+                         launches={k: v for k, v in la.items() if v})
+    os.remove(path)
+    stamp("15.2: resume in process done")
+
+    # 15.3: SIGKILL a child mid-fit, resume here.
+    path = os.path.join(FAULT_DIR, f"kill_{os.getpid()}.npz")
+    killed, attempts = False, 0
+    torch.cuda.empty_cache()
+    child_env = dict(os.environ, PPTORCH_CKPT=path,
+                     PPTORCH_STEP_THRESHOLD=str(sizes["step_threshold"]),
+                     PPTORCH_ROUND_BATCH="1",
+                     PPTORCH_FAULTS=f"stepped.batch:*=hang("
+                                    f"{sizes['kill_hang_s']})")
+    logf = path + ".log"
+    while not killed and attempts < sizes["kill_attempts"]:
+        attempts += 1
+        if os.path.exists(path):
+            os.remove(path)
+        with open(logf, "w") as lf:
+            child = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--faults-child",
+                 path], env=child_env, stdout=lf, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            t0 = time.perf_counter()
+            try:
+                while (not os.path.exists(path) and child.poll() is None
+                       and time.perf_counter() - t0 < 300):
+                    time.sleep(0.02)
+                if child.poll() is None and os.path.exists(path):
+                    child.send_signal(signal.SIGKILL)
+                    killed = child.wait(timeout=60) == -signal.SIGKILL
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+        log(f"  15.3 attempt {attempts}: the snapshot appeared after "
+            f"{time.perf_counter() - t0:.2f} s; child killed mid-fit: "
+            f"{killed} (exit {child.returncode})")
+    if not killed:
+        with open(logf) as lf:
+            fail(f"15.3: no child was killed mid-fit in {attempts} "
+                 f"attempts: {lf.read()[-2000:]}")
+    with env_set(PPTORCH_STEP_THRESHOLD=sizes["step_threshold"],
+                 PPTORCH_ROUND_BATCH=1):
+        model, wall, la = fit(resume=path)
+    log(f"  15.3: resumed in {wall:.4f} s from the killed child's snapshot,"
+        f" restored {model._jobstate.restored_rounds} batches")
+    same(model.labels_, model.core_sample_mask_, main["labels"],
+         main["core"], "15.3 resume after SIGKILL vs 15.1")
+    if model._jobstate.restored_rounds < 1:
+        fail("15.3: the resume restored no batch")
+    rec["sigkill"] = dict(attempts=attempts, wall_s=wall,
+                          restored=model._jobstate.restored_rounds)
+    for f in (path, logf):
+        if os.path.exists(f):
+            os.remove(f)
+    stamp("15.3: SIGKILL and resume done")
+
+    # 15.4: the chained route.
+    Xc, part, ckw = chained_case
+
+    def chained(plan, merge="device", jobstate=None):
+        r_ = obs.RunRecorder(device=dev)
+        ck.reset_launch_counts()
+        err = None
+        with obs.use_recorder(r_), faults.plan(plan):
+            try:
+                out = sharded_dbscan(Xc, part, merge=merge,
+                                     jobstate=jobstate, **ckw)
+            except faults.FaultInjected as e:
+                out, err = None, e
+        threads = builder_threads()
+        if threads:
+            fail(f"15.4 {plan}: builder threads alive after the attempt: "
+                 f"{threads}")
+        c = r_.metrics.as_dict()["counters"]
+        block = dict(
+            injected=int(c.get("faults.injected", 0)),
+            retried=int(sum(v for k, v in c.items() if k.startswith(
+                "retry.") and k.endswith(".attempts"))),
+            degraded_to=str(r_.metrics.gauge("faults.degraded_to", "")))
+        return out, err, block, dict(ck.LAUNCHES)
+
+    clean, _err, _block, clean_la = chained("")
+    path = os.path.join(FAULT_DIR, f"chained_{os.getpid()}.npz")
+    meta = fit_meta(Xc, eps=ckw["eps"], min_samples=ckw["min_samples"],
+                    metric="euclidean", block=ckw["block"], mode="kd")
+    out, err, block, _la = chained("chained.partition:5=error",
+                                   jobstate=JobState.open(path, meta))
+    if err is None:
+        fail("15.4: chained.partition:5=error did not raise")
+    js = JobState.open(path, meta, resume=True)
+    out, err, block, la = chained("", jobstate=js)
+    log(f"  15.4 resume: restored {js.restored_partitions} partitions, "
+        f"launches B1={la['count_pairs']} B2={la['minlab_pairs']} "
+        f"(passes {out[2]['partition_passes']})")
+    same(out[0], out[1], clean[0], clean[1], "15.4 resumed chained fit")
+    if js.restored_partitions != 4 or la["count_pairs"] != 4:
+        fail(f"15.4: the resume restored {js.restored_partitions} "
+             f"partitions and dispatched {la['count_pairs']} (want 4, 4)")
+    os.remove(path)
+    out, err, block, _la = chained("chained.partition:2=transfer_error")
+    log(f"  15.4 transfer_error: faults {block}")
+    same(out[0], out[1], clean[0], clean[1], "15.4 retried chained fit")
+    if block["injected"] != 1 or block["retried"] < 1:
+        fail(f"15.4: the transfer error was not retried: {block}")
+    # An OOM in a partition's dispatch raises (the host merge would not
+    # cure it); an OOM of the device merge finishes it on the host from
+    # the run's tables, every partition dispatched once.
+    out, err, block, _la = chained("chained.partition:3=oom")
+    log(f"  15.4 dispatch oom: raised {type(err).__name__}, faults {block}")
+    if err is None or block["injected"] != 1 or block["degraded_to"]:
+        fail(f"15.4: an OOM in a dispatch did not raise: {block}")
+    out, err, block, la = chained("sharded.execute:1=oom")
+    log(f"  15.4 merge oom: faults {block}, merge {out[2]['merge']}, "
+        f"launches B1={la['count_pairs']} (clean {clean_la['count_pairs']})")
+    same(out[0], out[1], clean[0], clean[1], "15.4 spilled chained fit")
+    if block["degraded_to"] != "merge_host" or out[2]["merge"] != "host":
+        fail(f"15.4: the merge's OOM did not spill to the host: {block}")
+    if la["count_pairs"] != clean_la["count_pairs"]:
+        fail("15.4: the spill dispatched the partitions again")
+    rec["chained"] = dict(restored=4, spill=block)
+    stamp("15.4: the chained route's resume, retry and spill done")
+
+    # 15.5: a real OOM is an OOM and not sticky.
+    free, total = torch.cuda.mem_get_info(dev)
+    try:
+        torch.empty(free + (4 << 30), dtype=torch.uint8, device=dev)
+        fail("15.5: an allocation past the free memory did not raise")
+    except torch.OutOfMemoryError as e:
+        oom, trans = is_oom_error(e), is_transient_error(e)
+        log(f"  15.5: torch.OutOfMemoryError for {free + (4 << 30)} bytes "
+            f"({free} free of {total}); is_oom_error {oom}, "
+            f"is_transient_error {trans}")
+        if not oom or trans:
+            fail("15.5: the real OOM is misclassified")
+    a, centers = b1_args
+    nt = a[0].shape[1] // a[5]
+    sub = min(64, nt)
+    rp = a[2]
+    rp_sub = torch.cat([rp[:sub + 1], rp[sub].repeat(nt - sub)])
+    a_sub = a[:2] + (rp_sub,) + a[3:]
+    got = ck.count_pairs(*a_sub, centers)
+    ok = torch.equal(got, counts_over_pairs(*a_sub))
+    log(f"  15.5: B1 after the OOM bitwise its plain version on the first "
+        f"{sub} row tiles: {ok}")
+    if not ok:
+        fail("15.5: B1 after the OOM differs from its plain version")
+    stamp("15.5: the real OOM done")
+
+    # 15.6: serving: a drain deadline and an ingest fault.
+    eng = live.engine
+    rng = np.random.default_rng(15)
+    Q = live.points()[rng.integers(0, len(live.points()), sizes["nq"])]
+    Q = Q + rng.normal(scale=0.05, size=Q.shape)
+    before = eng.serving_stats()["deadline_failures"]
+    with faults.plan(f"serve.drain:1=hang({sizes['drain_hang_s']})"):
+        t = eng.submit(Q, timeout_s=sizes["drain_timeout_s"])
+        eng.drain()
+    try:
+        t.result()
+        fail("15.6: the stalled ticket did not fail")
+    except DeadlineExceeded as e:
+        log(f"  15.6: the stalled ticket failed: {e}")
+    moved = eng.serving_stats()["deadline_failures"] - before
+    t = eng.submit(Q)
+    eng.drain()
+    want = index_oracle(torch, live.index, Q)
+    ok = (np.array_equal(t.labels, want[0]) and np.array_equal(
+        np.asarray(t.d2, np.float32).view(np.int32),
+        np.asarray(want[1], np.float32).view(np.int32)))
+    log(f"  15.6: deadline_failures +{moved}; the next request of "
+        f"{len(Q)} bitwise the card oracle: {ok}")
+    if moved != 1 or not ok:
+        fail("15.6: the drain deadline or the next request failed")
+    idx = live.index
+    snap = [x.clone() for x in idx.device_tensors()] + [
+        x.clone() for x in idx.kernel_tables()]
+    pts0 = live.points().copy()
+    with faults.plan("ingest.batch:1=error"):
+        try:
+            live.insert_batch(Q[:64])
+            fail("15.6: ingest.batch:1=error did not raise")
+        except faults.FaultInjected:
+            pass
+    now = list(idx.device_tensors()) + list(idx.kernel_tables())
+    same_t = all(torch.equal(x, y) for x, y in zip(snap, now))
+    hold_index(torch, ck, idx, dev, "15.6's failed ingest batch")
+    log(f"  15.6: after the failed ingest batch the slab and B5's tables "
+        f"are bitwise as before: {same_t}; points unchanged: "
+        f"{np.array_equal(live.points(), pts0)}")
+    if not same_t or not np.array_equal(live.points(), pts0):
+        fail("15.6: the failed ingest batch changed the live model")
+    rec["serving"] = dict(deadline_failures=moved)
+    rec["walls"] = walls
+    stamp("15.6: serving done")
+    return rec
+
+
 def main() -> None:
     import torch
 
@@ -5558,6 +5993,9 @@ def main() -> None:
               "needs an NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--faults-child"]:
+        faults_child(sys.argv[2])
+        return
     from benchdata import make_blob_data
     from pypardis_tpu_torch import DBSCAN
     from pypardis_tpu_torch.csrc import _build
@@ -5765,6 +6203,35 @@ def main() -> None:
              inp["tile"])
         hold("minlab_pairs", ck.minlab_pairs(*b), minlab_over_pairs(*b),
              what)
+
+    if "--faults" in sys.argv[1:]:
+        # Phase 15 alone, on its own fits: phase 4's 1M fused fit from
+        # host input (twice), phase 5's B1 inputs, the 1M model's live
+        # model and 13.1's 20k case.
+        t15 = time.perf_counter()
+        X, _truth = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
+        walls = []
+        for _ in range(2):
+            model = DBSCAN(eps=2.4, min_samples=10, block=2048)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.fit(X)
+            torch.cuda.synchronize()
+            walls.append(round(time.perf_counter() - t, 6))
+        main15 = dict(X=X, labels=model.labels_.copy(),
+                      core=model.core_sample_mask_.copy(), walls=walls)
+        pts, n, block = _stage(X, 2048, dev)
+        xs, mask, _owner = _pipeline_layout(pts, 2.4, n, block, sort=True)
+        inp = kernel_inputs(xs, mask, 2.4, block, 10)
+        b1_args = ((xs, inp["mi"], inp["rp"], inp["cols"], inp["e2"],
+                    inp["tile"]), inp["centers"])
+        rec15 = faults_phase(torch, dev, torch.cuda.synchronize, card,
+                             main15, b1_args, model.live(),
+                             chained_cpu_cases(CHAINED_SIZES)["small"])
+        log(f"phase 15 record: {json.dumps(rec15)}; phase 15 took "
+            f"{time.perf_counter() - t15:.1f} s")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
 
     if "--report" in sys.argv[1:]:
         # Phase 14 alone, on its own fits: phase 4's 1M fit (twice from
@@ -6000,6 +6467,9 @@ def main() -> None:
                                onoff, fp32_ms)
     # Phase 11 runs the live path on phase 6's model.
     live_fit = dict(model=serve_model, X=X, truth=truth)
+    # Phase 15 reuses phase 4's 1M fit, phase 5's B1 inputs and phase
+    # 11's live model.
+    main15 = dict(chained_main, walls=fits[1_000_000][:2])
     del serve_model, serve_X, served, onoff, main_fit, xs, inp
     phase("phase 9: metrics (cosine, haversine, cityblock) and the sweep")
     t9 = time.perf_counter()
@@ -6026,6 +6496,7 @@ def main() -> None:
     rec12 = gateway_phase(torch, dev, torch.cuda.synchronize, card,
                           live=live_fit["model"].live(), X=live_fit["X"],
                           truth=live_fit["truth"])
+    live15 = live_fit["model"].live()
     del live_fit
     log(f"phase 12 record: {json.dumps(rec12)}; phase 12 took "
         f"{time.perf_counter() - t12:.1f} s")
@@ -6050,10 +6521,17 @@ def main() -> None:
     rec14 = report_phase(torch, dev, card, ck, sync_args, fit1m,
                          reports["chained"], X200,
                          fit_walls=fits[1_000_000])
-    del sync_args
     log(f"phase 14 record: {json.dumps(rec14)}; phase 14 took "
         f"{time.perf_counter() - t14:.1f} s")
-    phase("phases 2-14 done")
+    phase("phase 15: faults, retry, jobstate and resume")
+    t15 = time.perf_counter()
+    rec15 = faults_phase(torch, dev, torch.cuda.synchronize, card, main15,
+                         sync_args, live15,
+                         chained_cpu_cases(CHAINED_SIZES)["small"])
+    del sync_args, main15, live15
+    log(f"phase 15 record: {json.dumps(rec15)}; phase 15 took "
+        f"{time.perf_counter() - t15:.1f} s")
+    phase("phases 2-15 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

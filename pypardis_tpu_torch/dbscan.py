@@ -50,6 +50,12 @@ spans, the ladders' events and resource watermarks, behind
 (:func:`~.obs.replay` reads it back), ``profile_dir=`` runs the fit
 under ``torch.profiler``, and ``PPTORCH_METRICS_PORT`` /
 ``PPTORCH_METRICS_SNAPSHOT`` export it live.
+
+A fit past ``PPTORCH_STEP_THRESHOLD`` kernel slots runs its rounds in
+batches on the host-stepped route, which ``train(resume=path)`` (or
+``PPTORCH_CKPT``) checkpoints and resumes byte-identically
+(:mod:`.utils.jobstate`); ``PPTORCH_FAULTS`` injects faults at named
+sites (:mod:`.utils.faults`) and ``report()["faults"]`` counts them.
 """
 
 from __future__ import annotations
@@ -73,7 +79,9 @@ from .ops.pipeline import (
     unpack_pipeline_result,
 )
 from .ops.sketch import check_sketch_spec, effective_k
+from .utils import faults
 from .utils.budget import run_pair_ladder
+from .utils.hints import dispatch_tag
 from .utils.log import get_logger, log_phase
 from .utils.profiling import PhaseTimer, trace
 from .utils.shaping import clamp_block, round_up, row_chunks
@@ -212,28 +220,33 @@ def _stage(points, block: int, device: torch.device):
 
 def _pad_and_run(points, eps, min_samples, block, precision="high",
                  backend="auto", device=None, sketch=None,
-                 metric="euclidean"):
+                 metric="euclidean", jobstate=None):
     """Centre, pad to a tile multiple, run the device pipeline through
     the pair-budget ladder, and return ``(roots, core, info)`` in input
     order (roots are root point indices, -1 for noise).  ``sketch`` is
     resolved once here (None reads ``PPTORCH_SKETCH``) and every rung of
     the ladder runs that k; ``metric`` is a pair metric (Euclidean or
-    cityblock, whose sketch is off)."""
+    cityblock, whose sketch is off).  The ladder's hint key is the JAX
+    package's (dispatch tag, slab shape, block, precision, eps, metric,
+    sketch k); ``jobstate`` reaches the stepped route."""
     metric = check_pair_metric(metric, check_precision(precision))
     points_t, n, block = _stage(points, block, resolve_device(device))
     k, cap = points_t.shape
     sketch_k = effective_k(sketch, k) if metric == "euclidean" else 0
+    hint_key = (dispatch_tag(cap // block), (k, cap), block, precision,
+                float(eps), metric, sketch_k)
 
     def run_step(pair_budget):
         packed, tiles = dbscan_device_pipeline(
             points_t, eps, n, min_samples, block=block,
             precision=precision, backend=backend, sort=n > 2 * block,
             pair_budget=pair_budget, sketch=sketch_k, metric=metric,
+            jobstate=jobstate,
         )
         _r, _c, total, budget, *_ = unpack_pipeline_result(packed)
         return (packed, tiles), total, budget
 
-    packed, tiles = run_pair_ladder(run_step)
+    packed, tiles = run_pair_ladder(run_step, hint_key=hint_key)
     roots, core, total, budget, passes, band_pairs, rescored = (
         unpack_pipeline_result(packed)
     )
@@ -472,6 +485,9 @@ class DBSCAN:
         self._serve_engine = None
         self._serve_core_points = None
         self._fit_generation = 0
+        # The most recent fit's checkpoint state (train(resume=) or
+        # PPTORCH_CKPT), None without either.
+        self._jobstate = None
 
     @property
     def _pair_metric(self) -> str:
@@ -538,27 +554,66 @@ class DBSCAN:
 
     # -- training ---------------------------------------------------------
 
-    def train(self, data) -> "DBSCAN":
+    def train(self, data, resume: Optional[str] = None) -> "DBSCAN":
         """Cluster a (key, vector) dataset; see :func:`_as_keys_points`
         for the accepted forms.  A cosine or haversine fit runs on the
         projected rows (:meth:`_driver_frame_rows`) at
-        :attr:`kernel_eps`; its labels are the metric's clustering.  An
-        eps=None model fits the density hierarchy instead
-        (:meth:`_fit_hierarchy`)."""
+        :attr:`kernel_eps` (and resumes through that frame); its labels
+        are the metric's clustering.  An eps=None model fits the density
+        hierarchy instead (:meth:`_fit_hierarchy`), which does not
+        resume.
+
+        ``resume=path`` makes the fit checkpoint-resumable
+        (:mod:`.utils.jobstate`): the host-stepped route snapshots its
+        propagation state to ``path`` at the ``PPTORCH_CKPT_EVERY_S``
+        cadence, and a fit that died is retrained with the same path to
+        replay only the unfinished batches, labels byte-identical to an
+        uninterrupted fit.  A snapshot of another fit (other data or
+        parameters) raises ``ValueError``.  ``PPTORCH_CKPT=<path>``
+        writes snapshots for fits that pass no ``resume``.  The open
+        :class:`~.utils.jobstate.JobState` stays on the model as
+        ``_jobstate`` (its ``restored_rounds``)."""
         if self.eps is None:
+            if resume is not None:
+                raise ValueError(
+                    "resume/checkpointing is not supported on the "
+                    "eps=None hierarchy path"
+                )
             return self._fit_hierarchy(data)
         if self._metric_norm in ("cosine", "haversine"):
             keys, points = _as_keys_points(data)
             with self._kernel_frame():
-                self._train_impl((keys, self._driver_frame_rows(points)))
+                self._train_impl(
+                    (keys, self._driver_frame_rows(points)), resume)
         else:
-            self._train_impl(data)
+            self._train_impl(data, resume)
         self.eps_ = float(self.eps)
         return self
 
-    def _train_impl(self, data) -> "DBSCAN":
+    def _open_jobstate(self, points, resume: Optional[str]):
+        """The fit's :class:`~.utils.jobstate.JobState` for ``resume`` or
+        ``PPTORCH_CKPT`` (None without either); its meta is the JAX
+        package's for the same fit (mode ``"auto"``, the JAX
+        constructor's default on the single-device route)."""
+        path = resume or os.environ.get("PPTORCH_CKPT")
+        if not path:
+            return None
+        from .utils.jobstate import JobState, fit_meta
+
+        metric = (self.metric if isinstance(self.metric, str)
+                  else getattr(self.metric, "__name__", "callable"))
+        return JobState.open(
+            path,
+            fit_meta(points, eps=self.eps, min_samples=self.min_samples,
+                     metric=metric, block=self.block, mode="auto"),
+            resume=resume is not None,
+        )
+
+    def _train_impl(self, data, resume: Optional[str] = None) -> "DBSCAN":
         """The metric-agnostic fit body (kernel-frame eps)."""
         keys, points = _as_keys_points(data)
+        faults.from_env()
+        self._jobstate = self._open_jobstate(points, resume)
         self._keys = keys
         self.data = points
         self._result_cache = None
@@ -580,7 +635,16 @@ class DBSCAN:
             # Inside the recorded region: a rejected input seals the
             # flight file with the error.
             check_finite(points)
-            self._train_single(points, timer)
+            try:
+                self._train_single(points, timer)
+            finally:
+                if self._jobstate is not None:
+                    # Persist what the cadence still held (a SIGKILL
+                    # needs no help: every boundary write is atomic).
+                    try:
+                        self._jobstate.flush(force=True)
+                    except OSError:
+                        pass
             self.metrics_.update(timer.as_dict())
             self.metrics_["total_s"] = time.perf_counter() - t0
             self.metrics_["points_per_sec"] = len(points) / max(
@@ -677,7 +741,7 @@ class DBSCAN:
                 points, self.eps, self.min_samples, self.block,
                 precision=self.precision, backend=self.kernel_backend,
                 device=self.device, sketch=self.sketch,
-                metric=self._pair_metric,
+                metric=self._pair_metric, jobstate=self._jobstate,
             )
         with timer.phase("densify"):
             labels = densify_labels(roots)

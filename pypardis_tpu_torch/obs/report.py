@@ -318,9 +318,8 @@ def build_run_report(
 
     # Fault-tolerance block, always present: injected faults, retries
     # spent and abandoned (the retry.<site> counters summed) and the
-    # degradation rung a terminal failure landed on ("" when none).
-    # All zero in the port until its fault and retry layers land
-    # (ROADMAP A16, item 3).
+    # degradation rung a terminal failure landed on ("" when none),
+    # written by utils/faults, utils/retry and the budget ladders.
     ctr = (
         recorder.metrics.counters_with_prefix("")
         if recorder is not None else {}
@@ -342,9 +341,8 @@ def build_run_report(
         ),
     }
 
-    # Host-stepped propagation breakdown (the stepped.* gauges):
-    # present only when a fit stepped (the JAX stepped route; the port
-    # has none yet).
+    # Host-stepped propagation breakdown (the stepped.* gauges of
+    # ops/pipeline._cluster_stepped): present only when a fit stepped.
     stepped = (
         {
             k[len("stepped."):]: v

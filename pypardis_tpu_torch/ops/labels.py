@@ -11,6 +11,14 @@ index, each round takes the minimum label among its core eps-neighbours
 or ``"default"`` the bf16 B2) and chases labels to the
 current root, until nothing changes.  PyTorch runs eagerly, so the JAX ``while_loop``s are Python
 loops that read one bool from the device per iteration.
+
+A fit is three stages (the JAX package's host-stepped split):
+:func:`dbscan_prepare` (pair list, frames, the counts pass, core, the
+initial state), :func:`dbscan_rounds` (propagation rounds) and
+:func:`dbscan_border` (the border pass after an exit by the round cap).
+:func:`dbscan_fixed_size` composes them for the fused route; the
+stepped route (``ops/pipeline._cluster_stepped``) runs the rounds in
+batches with a snapshot between them.
 """
 
 from __future__ import annotations
@@ -120,6 +128,149 @@ def finish_labels(f, border, core, mask):
     ).to(torch.int32)
 
 
+def dbscan_prepare(
+    points,
+    eps,
+    min_samples,
+    mask,
+    block: int = 1024,
+    precision: str = "high",
+    backend: str = "auto",
+    pair_budget: int | None = None,
+    sketch=None,
+    metric: str = "euclidean",
+):
+    """The first stage of a fit over a padded point set (the JAX
+    package's ``dbscan_prepare_pallas``): the slab with the sketch on,
+    the live tile-pair list, the row frames, the counts pass (B1, or B3
+    with the sketch), the core mask and the initial propagation state
+    ``f0`` (each core point its own index, INT32_MAX elsewhere).
+
+    Returns a dict the rounds and the border read: ``total`` and
+    ``budget`` of the pair list, and with ``total <= budget`` also
+    ``core``, ``f0`` and ``band`` (the counts pass's band telemetry).
+    Past the budget the list is truncated and no pass runs (``core`` is
+    None): the caller reruns with ``pair_budget >= total``.
+    """
+    validate_params(eps, min_samples)
+    mode = check_precision(precision)
+    metric = check_pair_metric(metric, mode)
+    resolve_backend(backend, points.device, metric)
+    d, n = points.shape
+    tile = _pallas_block(block, n, d, mode)
+    if n % tile != 0:
+        raise ValueError(f"tile {tile} does not divide n={n}")
+    points = points.contiguous()
+    k = (effective_k(check_sketch_spec(sketch), d)
+         if metric == "euclidean" else 0)
+    # One slab for every pass: each pass's band mask is the validity
+    # mask (the core mask lies inside it), so one band serves all.
+    slab = sketch_stage(points, mask, k, mode) if k else None
+    # One live tile-pair list for every pass: it covers the validity
+    # boxes, a superset of any pass's source subset (the core mask).
+    pairs, (total, budget) = kernel_pair_list(
+        points, eps, mask, block, mode, budget=pair_budget, sketch=k,
+        slab=slab, metric=metric,
+    )
+    st = dict(points=points, eps=eps, mask=mask, block=block, mode=mode,
+              metric=metric, k=k, slab=slab, pairs=pairs,
+              total=int(total), budget=int(budget), core=None)
+    if total > budget:
+        return st
+    # The row frames (the tile centres B1 recentres on at d <= 64 in every
+    # mode, and the bf16 passes' norms): every pass's rows are the valid
+    # ones.
+    st["frames"] = (pass_frames(points, mask, tile, mode, k)
+                    if metric == "euclidean" else (None, None))
+    counts = neighbor_counts_cuda(
+        points, eps, mask, block=block, precision=mode, pairs=pairs,
+        sketch=k, slab=slab, frames=st["frames"], metric=metric,
+    )
+    band = torch.zeros(2, dtype=torch.int64)
+    if isinstance(counts, tuple):
+        counts, band = counts
+    # A valid point always counts itself; the clamp keeps that exact
+    # when eps^2 sinks below the self-pair's rounding (kept from the JAX
+    # package, where the matmul expansion can miss it).
+    core = (torch.clamp_min(counts, 1) >= min_samples) & mask
+    idx = torch.arange(n, dtype=torch.int32, device=points.device)
+    st.update(core=core, f0=torch.where(core, idx, INT_INF),
+              band=band.cpu())
+    return st
+
+
+def truncated_result(st):
+    """``(labels, core, pair_stats)`` of a truncated pair list (``st``
+    past its budget): no pass ran, labels -1, passes 0; the caller
+    reruns with ``pair_budget >= total``."""
+    n, dev = st["mask"].shape[0], st["mask"].device
+    return (
+        torch.full((n,), -1, dtype=torch.int32, device=dev),
+        torch.zeros(n, dtype=torch.bool, device=dev),
+        torch.tensor([st["total"], st["budget"], 0, 0, 0],
+                     dtype=torch.int64),
+    )
+
+
+def _minlab(st, lab, live):
+    """One min-label pass (B2, or B4 with the sketch) over the prepared
+    pair list, rows ``live``."""
+    best = min_neighbor_label_cuda(
+        st["points"], lab, st["eps"], st["core"], block=st["block"],
+        precision=st["mode"], row_mask=st["mask"], pairs=st["pairs"],
+        sketch=st["k"], slab=st["slab"], frames=st["frames"],
+        live_rows=live, metric=st["metric"],
+    )
+    # The widened return's stats are zeros, as the JAX kernels': the
+    # counts pass measured the band.
+    return best[0] if isinstance(best, tuple) else best
+
+
+def dbscan_rounds(st, f, live, k_rounds: int, until_fixpoint: bool = True):
+    """Up to ``k_rounds`` propagation rounds from the state ``f`` (the
+    JAX package's ``dbscan_rounds_pallas``): per round one min-label pass
+    (B2 or B4), the minimum with ``f`` on core points and pointer jumping
+    to the current roots.
+
+    ``live``: the rows the passes still need, which B2 keeps in its
+    skip's bound: the valid ones, and after a pass only those with a
+    source within eps.  The sources (core), the pair list and with them
+    every verdict are the same in each pass, so a row that found no
+    source never finds one; it keeps INT32_MAX.  The set is not in a
+    snapshot: a resumed batch starts from the full validity mask, which
+    gives the same labels.
+
+    ``until_fixpoint`` stops after the first round that changes nothing
+    (the fused loop).  Without it every one of the ``k_rounds`` runs, past
+    the fixpoint too, as a JAX stepped batch is counted: propagation is
+    idempotent there, so ``f`` and ``g`` are the same bits and the
+    launches equal the JAX pass count.
+
+    Returns ``(f, g, live, changed, rounds)``: ``changed`` False means
+    the last round was a fixpoint, and then ``g`` is already the
+    border-attach pass (the least root among each row's core
+    neighbours)."""
+    core, mask = st["core"], st["mask"]
+    g = f
+    changed = True
+    rounds = 0
+    while rounds < k_rounds and (changed or not until_fixpoint):
+        g = _minlab(st, f, live)
+        live = mask & (g != INT_INF)
+        f_new = _pointer_jump(torch.where(core, torch.minimum(f, g), f), core)
+        changed = bool((f_new != f).any())
+        f = f_new
+        rounds += 1
+    return f, g, live, changed, rounds
+
+
+def dbscan_border(st, f, live):
+    """The border-attach pass after a non-converged exit (the JAX
+    package's ``dbscan_border_pallas``): the least root among each row's
+    core neighbours at the labels ``f``."""
+    return _minlab(st, f, live)
+
+
 def dbscan_fixed_size(
     points,
     eps,
@@ -133,7 +284,9 @@ def dbscan_fixed_size(
     sketch=None,
     metric: str = "euclidean",
 ):
-    """DBSCAN over a fixed-capacity padded point set.
+    """DBSCAN over a fixed-capacity padded point set: :func:`dbscan_prepare`,
+    :func:`dbscan_rounds` to the fixpoint (at most ``max_rounds``) and,
+    after an exit by ``max_rounds``, :func:`dbscan_border`.
 
     ``points``: (d, N) float32, N a multiple of the effective tile;
     ``mask``: (N,) bool validity.  Returns ``(labels, core,
@@ -162,91 +315,25 @@ def dbscan_fixed_size(
     pruned by the L1 box test, on any device; the sketch is off and
     ``"mixed"`` raises, as in the JAX package.
     """
-    validate_params(eps, min_samples)
-    mode = check_precision(precision)
-    metric = check_pair_metric(metric, mode)
-    resolve_backend(backend, points.device, metric)
-    d, n = points.shape
-    tile = _pallas_block(block, n, d, mode)
-    if n % tile != 0:
-        raise ValueError(f"tile {tile} does not divide n={n}")
-    points = points.contiguous()
-    k = (effective_k(check_sketch_spec(sketch), d)
-         if metric == "euclidean" else 0)
-    # One slab for every pass: each pass's band mask is the validity
-    # mask (the core mask lies inside it), so one band serves all.
-    slab = sketch_stage(points, mask, k, mode) if k else None
-    # One live tile-pair list for every pass: it covers the validity
-    # boxes, a superset of any pass's source subset (the core mask).
-    pairs, (total, budget) = kernel_pair_list(
-        points, eps, mask, block, mode, budget=pair_budget, sketch=k,
-        slab=slab, metric=metric,
+    st = dbscan_prepare(
+        points, eps, min_samples, mask, block=block, precision=precision,
+        backend=backend, pair_budget=pair_budget, sketch=sketch,
+        metric=metric,
     )
-    if total > budget:
-        # The list is truncated: the caller reruns with the exact total,
-        # so no pass runs on it.
-        return (
-            torch.full((n,), -1, dtype=torch.int32, device=points.device),
-            torch.zeros(n, dtype=torch.bool, device=points.device),
-            torch.tensor([total, budget, 0, 0, 0], dtype=torch.int64),
-        )
-    # The row frames (the tile centres B1 recentres on at d <= 64 in every
-    # mode, and the bf16 passes' norms): every pass's rows are the valid
-    # ones.
-    frames = (pass_frames(points, mask, tile, mode, k)
-              if metric == "euclidean" else (None, None))
-    counts = neighbor_counts_cuda(
-        points, eps, mask, block=block, precision=mode, pairs=pairs,
-        sketch=k, slab=slab, frames=frames, metric=metric,
-    )
-    band = torch.zeros(2, dtype=torch.int64)
-    if isinstance(counts, tuple):
-        counts, band = counts
-    # A valid point always counts itself; the clamp keeps that exact
-    # when eps^2 sinks below the self-pair's rounding (kept from the JAX
-    # package, where the matmul expansion can miss it).
-    core = (torch.clamp_min(counts, 1) >= min_samples) & mask
-
-    idx = torch.arange(n, dtype=torch.int32, device=points.device)
-    f = torch.where(core, idx, INT_INF)
-
-    def minlab(lab, live):
-        best = min_neighbor_label_cuda(
-            points, lab, eps, core, block=block, precision=mode,
-            row_mask=mask, pairs=pairs, sketch=k, slab=slab, frames=frames,
-            live_rows=live, metric=metric,
-        )
-        # The widened return's stats are zeros, as the JAX kernels':
-        # the counts pass measured the band.
-        return best[0] if isinstance(best, tuple) else best
-
-    g = f
-    # The rows the min-label passes still need, which B2 keeps in its
-    # skip's bound: the valid ones, and after a pass only those with a
-    # source within eps.  The sources (core), the pair list and with
-    # them every verdict are the same in each pass, so a row that found
-    # no source never finds one; it keeps INT32_MAX.
-    live = mask
-    changed = True
-    rounds = 0
-    while changed and rounds < max_rounds:
-        # Rows cover every valid point, so at convergence g is already
-        # the border-attach pass ("min root among my core neighbours").
-        g = minlab(f, live)
-        live = mask & (g != INT_INF)
-        f_new = _pointer_jump(torch.where(core, torch.minimum(f, g), f), core)
-        changed = bool((f_new != f).any())
-        f = f_new
-        rounds += 1
+    if st["core"] is None:
+        return truncated_result(st)
+    f, g, live, changed, rounds = dbscan_rounds(
+        st, st["f0"], mask, max_rounds)
     # Only an exit by max_rounds leaves g older than the final f.
-    border = minlab(f, live) if changed else g
-    labels = finish_labels(f, border, core, mask)
+    border = dbscan_border(st, f, live) if changed else g
+    labels = finish_labels(f, border, st["core"], mask)
     passes = 1 + rounds + int(changed)
     pair_stats = torch.cat([
-        torch.tensor([total, budget, passes], dtype=torch.int64),
-        band.cpu(),
+        torch.tensor([st["total"], st["budget"], passes],
+                     dtype=torch.int64),
+        st["band"],
     ])
-    return labels, core, pair_stats
+    return labels, st["core"], pair_stats
 
 
 def check_pair_metric(metric, mode: str) -> str:

@@ -10,7 +10,10 @@ staging copy and the packed result runs on the device:
   word first;
 * gather the points into sorted order in the ``(d, cap)`` layout;
 * segment-break padding, so spatially distant runs never share a tile;
-* :func:`~pypardis_tpu_torch.ops.labels.dbscan_fixed_size`;
+* :func:`~pypardis_tpu_torch.ops.labels.dbscan_fixed_size` (the fused
+  route), or past :data:`STEP_THRESHOLD` kernel slots the host-stepped
+  route (:func:`_cluster_stepped`: the prepare stage, the rounds in
+  batches, the border);
 * map kernel-slot root indices back to input order and pack ``(root,
   core)`` into one int32 row, fetched once beside the five int64 pair
   stats (``band_pairs`` passes 2^31 on a 1M x 512 fit, so the stats do
@@ -18,20 +21,38 @@ staging copy and the packed result runs on the device:
 
 The layout fixes the cluster numbering (ids follow the minimum core
 index in kernel-slot order), so it is ported operation for operation.
+Both routes run their dispatches under the transient ladder
+(:func:`_transient_retry`), with the ``pipeline.cluster`` and
+``stepped.batch`` fault sites inside it.
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
 
 from .cuda_kernels import _pallas_block
 from .distances import PAIR_GROUP, eps2_f32
-from .labels import dbscan_fixed_size
+from .labels import (
+    dbscan_border,
+    dbscan_fixed_size,
+    dbscan_prepare,
+    dbscan_rounds,
+    finish_labels,
+    truncated_result,
+)
 from .precision import PAIR_STATS_WIDTH, norm_precision_mode
 from ..obs import current as obs_current
+from ..obs import event as obs_event
+from ..obs import heartbeat as obs_heartbeat
 from ..obs import span as obs_span
 from ..partition import interleave_bit_words, morton_plan
+from ..utils import faults
+from ..utils.log import log_phase
+from ..utils.retry import DEFAULT_WAITS, Retrier
 
 _U32_ALL = 0xFFFFFFFF
 
@@ -195,6 +216,139 @@ def unpack_pipeline_result(packed):
     return (roots, core) + tuple(int(v) for v in stats)
 
 
+# Kernel capacities from here on run the host-stepped route: the rounds
+# in batches of ROUND_BATCH, each batch one call with its own retry
+# scope and snapshot, instead of one fused loop.  The JAX package's
+# threshold (2^25 kernel slots) and batch (8), read per fit from
+# PPTORCH_STEP_THRESHOLD and PPTORCH_ROUND_BATCH.
+STEP_THRESHOLD = 1 << 25
+MAX_ROUNDS = 64
+ROUND_BATCH = 8
+
+
+def _env_int(name: str, default: int) -> int:
+    env = os.environ.get(name)
+    return int(env) if env else int(default)
+
+
+def _transient_retry(stage, fn):
+    """Run a device stage under the transient ladder
+    (:class:`~pypardis_tpu_torch.utils.retry.Retrier` at
+    :data:`~pypardis_tpu_torch.utils.retry.DEFAULT_WAITS`, counters
+    ``retry.<stage>.*``).  Only the injected ``UNAVAILABLE`` signature is
+    transient on the card: a CUDA error raises at once."""
+    return Retrier(stage, waits=DEFAULT_WAITS).run(fn)
+
+
+def _cluster_stepped(xs, mask, owner, eps, *, cap, min_samples, block,
+                     precision, backend, pair_budget, sketch, metric,
+                     jobstate=None):
+    """The host-stepped route (the JAX package's ``_cluster_stepped``):
+    :func:`~.labels.dbscan_prepare` once (B1, or B3 with the sketch),
+    then :func:`~.labels.dbscan_rounds` in batches of ``batch_k`` rounds
+    (B2 or B4), each batch under the transient ladder with the
+    ``stepped.batch`` fault site, then :func:`~.labels.dbscan_border`
+    after a non-converged exit, and the pack.
+
+    A batch runs all its ``batch_k`` rounds, past the fixpoint too, so
+    the min-label launches are ``batches * batch_k`` (+1 for the border)
+    and the fit's passes the JAX count, ``1 + batches * batch_k + (0 if
+    converged else 1)``.  The loop is serial: the JAX package's
+    speculative dispatch of batch ``b + 1`` before ``b``'s flag is read
+    is not ported, because the port's rounds wait for the card inside
+    their pointer jumps, so it could overlap only the flag's read and
+    would cost the batch after the fixpoint.  ``stepped.speculate`` is
+    always False.
+
+    ``jobstate``: after each consumed batch, at the cadence, the state
+    ``f`` (one (capk,) copy to the host) is snapshotted under the
+    budget tag ``pair_budget or 0``.  A resume recomputes the prepare
+    stage (B1 once again), restores ``f`` and runs the remaining batches
+    from the full validity mask; it records the ``jobstate_restore``
+    event (``route="stepped"``; the JAX stepped route records none).
+
+    Gauges (``report()["stepped"]``): ``stepped.prepare_s``,
+    ``rounds_s``, ``border_s``, ``pack_s``, ``batches`` (consumed),
+    ``batch_size``, ``dispatched_batches``, ``speculate``,
+    ``converged``; the heartbeat ``stepped.rounds`` per batch.
+    """
+    t0 = time.perf_counter()
+    st = _transient_retry("prepare", lambda: dbscan_prepare(
+        xs, eps, min_samples, mask, block=block, precision=precision,
+        backend=backend, pair_budget=pair_budget, sketch=sketch,
+        metric=metric,
+    ))
+    if st["core"] is None:
+        return _pipeline_pack(*truncated_result(st), owner, cap=cap)
+    capk = xs.shape[1]
+    f, live = st["f0"], mask
+    budget_tag = int(pair_budget or 0)
+    resumed = 0
+    if jobstate is not None:
+        saved = jobstate.stepped_restore(budget_tag, capk)
+        if saved is not None:
+            f = torch.from_numpy(
+                np.asarray(saved[0], np.int32)).to(xs.device)
+            resumed = int(saved[1])
+            obs_event("jobstate_restore", route="stepped", batches=resumed)
+    prepare_s = time.perf_counter() - t0
+    batch_k = max(1, min(_env_int("PPTORCH_ROUND_BATCH", ROUND_BATCH),
+                         (1 << 27) // max(capk, 1)))
+    max_batches = max(-(-MAX_ROUNDS // batch_k) - resumed, 1)
+    batches = 0
+    converged = False
+    g = f
+    t_rounds = time.perf_counter()
+    for _ in range(max_batches):
+        def some_rounds(f=f, live=live):
+            faults.maybe_fail("stepped.batch")
+            return dbscan_rounds(st, f, live, batch_k, until_fixpoint=False)
+
+        f, g, live, changed, _r = _transient_retry("round", some_rounds)
+        batches += 1
+        obs_heartbeat("stepped.rounds", batches, max_batches, t_rounds)
+        if jobstate is not None and jobstate.due():
+            # The (capk,) copy is the snapshot's cost, paid only at the
+            # cadence.
+            jobstate.stepped_note(f.cpu().numpy(), resumed + batches,
+                                  budget_tag)
+        if not changed:  # the last round was a fixpoint
+            converged = True
+            break
+    rounds_s = time.perf_counter() - t_rounds
+    log_phase(
+        "stepped_rounds", batches=batches, batch_size=batch_k,
+        converged=converged, speculate=False, dispatched=batches,
+        seconds=round(rounds_s, 2),
+    )
+    border_s = 0.0
+    if not converged:
+        t_b = time.perf_counter()
+        g = _transient_retry("border", lambda: dbscan_border(st, f, live))
+        border_s = time.perf_counter() - t_b
+    passes = 1 + batches * batch_k + (0 if converged else 1)
+    pair_stats = torch.cat([
+        torch.tensor([st["total"], st["budget"], passes],
+                     dtype=torch.int64),
+        st["band"],
+    ])
+    t_p = time.perf_counter()
+    labels = finish_labels(f, g, st["core"], mask)
+    out = _transient_retry("pack", lambda: _pipeline_pack(
+        labels, st["core"], pair_stats, owner, cap=cap))
+    m = obs_current().metrics
+    m.set("stepped.prepare_s", round(prepare_s, 6))
+    m.set("stepped.rounds_s", round(rounds_s, 6))
+    m.set("stepped.border_s", round(border_s, 6))
+    m.set("stepped.pack_s", round(time.perf_counter() - t_p, 6))
+    m.set("stepped.batches", batches)
+    m.set("stepped.batch_size", batch_k)
+    m.set("stepped.dispatched_batches", batches)
+    m.set("stepped.speculate", False)
+    m.set("stepped.converged", converged)
+    return out
+
+
 def dbscan_device_pipeline(
     points_t,
     eps,
@@ -207,6 +361,7 @@ def dbscan_device_pipeline(
     pair_budget: int | None = None,
     sketch=None,
     metric: str = "euclidean",
+    jobstate=None,
 ):
     """``points_t``: (d, cap) float32, centred, zero-padded past ``n``,
     on the device that runs the fit.  ``sketch`` and ``metric``
@@ -220,11 +375,18 @@ def dbscan_device_pipeline(
     (the report's ``live_pair_fraction`` denominator: the segment break
     pads the kernel capacity past ``cap``).
 
+    A Euclidean fit whose kernel capacity reaches ``PPTORCH_STEP_THRESHOLD``
+    (default :data:`STEP_THRESHOLD`, read per call) takes the
+    host-stepped route (:func:`_cluster_stepped`, labels byte-identical
+    to the fused route's), which snapshots into ``jobstate`` and resumes
+    from it.  The fused route runs under the transient ladder with the
+    ``pipeline.cluster`` fault site inside it.
+
     Telemetry on the current recorder: the spans ``pipeline.layout``
     (waits for the layout's device work at its end) and
-    ``pipeline.cluster`` (``mode="fused"``; it ends with the packed
-    result on the host), and the tile count as the
-    ``pipeline.kernel_tiles`` gauge."""
+    ``pipeline.cluster`` (``mode="fused"``, or ``mode="stepped"`` with
+    its ``capacity``; it ends with the packed result on the host), and
+    the tile count as the ``pipeline.kernel_tiles`` gauge."""
     cap = points_t.shape[1]
     with obs_span("pipeline.layout", sort=bool(sort)) as sp:
         xs, mask, owner = _pipeline_layout(
@@ -235,14 +397,29 @@ def dbscan_device_pipeline(
     tile = _pallas_block(block, capk, d, norm_precision_mode(precision))
     tiles = max(1, capk // tile)
     obs_current().metrics.set("pipeline.kernel_tiles", tiles)
-    with obs_span("pipeline.cluster", mode="fused"):
+    if (capk >= _env_int("PPTORCH_STEP_THRESHOLD", STEP_THRESHOLD)
+            and metric == "euclidean"):
+        with obs_span("pipeline.cluster", mode="stepped") as sp:
+            row, stats = _cluster_stepped(
+                xs, mask, owner, eps, cap=cap, min_samples=min_samples,
+                block=block, precision=precision, backend=backend,
+                pair_budget=pair_budget, sketch=sketch, metric=metric,
+                jobstate=jobstate,
+            )
+            sp.set(capacity=int(capk))
+            return (row.numpy(), stats.numpy()), tiles
+
+    def run_cluster():
+        faults.maybe_fail("pipeline.cluster")
         roots_s, core_s, pair_stats = dbscan_fixed_size(
             xs, eps, min_samples, mask, block=block, precision=precision,
             backend=backend, pair_budget=pair_budget, sketch=sketch,
             metric=metric,
         )
-        row, stats = _pipeline_pack(roots_s, core_s, pair_stats, owner,
-                                    cap=cap)
+        return _pipeline_pack(roots_s, core_s, pair_stats, owner, cap=cap)
+
+    with obs_span("pipeline.cluster", mode="fused"):
+        row, stats = _transient_retry("cluster", run_cluster)
         return (row.numpy(), stats.numpy()), tiles
 
 

@@ -29,10 +29,14 @@ partition link clusters, and merged clusters take the least root id
 
 Every halo point is clustered again in every foreign partition, as in
 the JAX package's chained route (``owner_computes`` is reported False):
-``stats["duplicated_work_factor"]`` measures that cost.  The fused
-multi-device steps, owner-computes, the ring exchange, streaming
-input, the global-Morton mode and checkpoint-resume are later slices
-(ROADMAP A10-A12, A16) and raise ``NotImplementedError`` here.
+``stats["duplicated_work_factor"]`` measures that cost.  Each
+partition's dispatch is retried through transient faults, a jobstate
+resumes a killed fit from its finished partitions, and an OOM of the
+device merge finishes that merge on the host (see :func:`sharded_dbscan`).
+The fused multi-device steps, owner-computes, the ring exchange,
+streaming input and the global-Morton mode are later slices (ROADMAP
+A10-A12) and raise ``NotImplementedError`` here; the staging cache's
+evict-and-retry rung comes with that cache.
 """
 
 from __future__ import annotations
@@ -52,6 +56,8 @@ from ..ops.labels import dbscan_fixed_size
 from ..ops.sketch import sketch_dims
 from ..partition import expanded_members, spatial_order
 from ..utils.budget import run_ladders
+from ..utils.hints import dispatch_tag
+from ..utils.retry import is_degradable_error, note_degraded
 from ..utils.shaping import clamp_block, round_up, row_chunks
 from ..utils.validate import check_precision, norm_metric
 
@@ -87,17 +93,24 @@ def _recentre_rows(points, idx, center, chunk: int = 1 << 20):
     return sub
 
 
+def _sorted_members(points, idx, center):
+    """``(idx, rows)``: partition ``idx`` Morton-sorted in the recentred
+    float32 frame, and its recentred rows in that order.  The one
+    definition of a slab's order, which a restored partition's gids
+    (:func:`_replay_gids`) must reproduce."""
+    sub = _recentre_rows(points, idx, center)
+    order = spatial_order(sub)
+    return idx[order], sub[order]
+
+
 def _fill_slab(slab, mask, gid, j, points, idx, center):
-    """Morton-sort partition ``idx`` in the recentred float32 frame and
-    write it into slot ``j`` of the ``(P, k, cap)`` slab (the port's
-    ``(d, N)`` layout: the JAX package's ``(P, cap, k)`` rows
-    transposed, the same float32 bits) and its ``(P, cap)`` mask and
-    gid rows.  Returns the sorted index array."""
+    """Write partition ``idx`` (:func:`_sorted_members`'s order) into
+    slot ``j`` of the ``(P, k, cap)`` slab (the port's ``(d, N)``
+    layout: the JAX package's ``(P, cap, k)`` rows transposed, the same
+    float32 bits) and its ``(P, cap)`` mask and gid rows.  Returns the
+    sorted index array."""
     if len(idx):
-        sub = _recentre_rows(points, idx, center)
-        order = spatial_order(sub)
-        idx = idx[order]
-        rows = sub[order]
+        idx, rows = _sorted_members(points, idx, center)
         for s, e in row_chunks(len(idx), rows.shape[1]):
             slab[j, :, s:e] = rows[s:e].T
     mask[j, : len(idx)] = True
@@ -554,20 +567,54 @@ class _SlabRing:
         for t in tensors:
             t.record_stream(cur)
 
+    def close(self):
+        """Wait for the copies still reading the buffers, then drop both
+        (pinned on the card) buffers."""
+        for ev in self.pending:
+            if ev is not None:
+                ev.synchronize()
+        self.pending = [None, None]
+        self.host = []
+
+
+def _replay_gids(points, layout, p, device):
+    """Partition ``p``'s ``(cap + hcap,)`` gid row without its slab (a
+    partition restored from a snapshot): the owned and halo indices in
+    the order :func:`_partition_slab` sorts them, ``n`` past them."""
+    cap, n = layout["cap"], len(points)
+    row = np.full(cap + layout["hcap"], n, np.int32)
+    for idx, off in ((layout["part_idx"][p], 0), (layout["halo_idx"][p], cap)):
+        if len(idx):
+            row[off:off + len(idx)] = _sorted_members(
+                points, idx, layout["center"])[0]
+    return row, torch.from_numpy(row).to(device)
+
 
 def _chained_tables_overlap(
     points, layout, *, eps, min_samples, metric, precision, backend,
-    pair_budget, device, stage, passes,
+    pair_budget, device, stage, passes, jobstate=None,
 ):
     """The per-partition loop: each partition's slab built on the host
     (:func:`_partition_slab` into a :class:`_SlabRing` buffer), shipped
     and clustered on the card.
 
-    One background host thread builds and ships partition ``p + 1``'s
-    slab while the card clusters partition ``p``: the port's round loop
-    syncs the host every round, so the build cannot ride on
-    asynchronous dispatch as in the JAX package.  Each partition's slab
-    is freed once its tables are out.
+    One background host thread builds and ships the next partition's
+    slab while the card clusters this one: the port's round loop syncs
+    the host every round, so the build cannot ride on asynchronous
+    dispatch as in the JAX package.  Each partition's slab is freed once
+    its tables are out.
+
+    Fault tolerance (the JAX route's): each dispatch runs under a
+    :class:`~pypardis_tpu_torch.utils.retry.Retrier` with the
+    ``chained.partition`` fault site inside it; a retry re-dispatches
+    from the slab already on the device (the dispatch consumes nothing).
+    With ``jobstate`` the partitions snapshotted under this pair budget
+    (tag ``pair_budget or 0``) are restored, not built nor dispatched
+    (``jobstate_restore`` event, ``route="chained"``), and each
+    dispatched partition's tables are noted at the cadence.  On an error
+    that leaves the loop, the builder thread is joined and the ring's
+    buffers dropped before the error propagates, so no thread of a
+    failed attempt outlives it.
 
     Returns ``(glabs, cores, pstats, gid_o_host, gid_h_host, gid_dev,
     overlap_efficiency)``: per-partition labels, cores and pair stats,
@@ -576,44 +623,75 @@ def _chained_tables_overlap(
     :class:`_Spans`, CUDA-event spans on the card) over its wall
     seconds.  ``stage`` gains the build's seconds (``slab_build``), the
     busy seconds (``device``) and the loop's wall (``loop``)."""
+    from ..obs import event as obs_event
+    from ..utils import faults
+    from ..utils.retry import Retrier
+
     n, k = points.shape
     cap, hcap = layout["cap"], layout["hcap"]
     p_total = len(layout["part_idx"])
-    ring = _SlabRing(k, cap + hcap, device)
+    budget_tag = int(pair_budget or 0)
+    restored = (jobstate.chained_restore(budget_tag)
+                if jobstate is not None else {})
+    if restored:
+        obs_event("jobstate_restore", route="chained",
+                  partitions=len(restored))
+    live = [p for p in range(p_total) if p not in restored]
+    ring = _SlabRing(k, cap + hcap, device) if live else None
     gid_o_host = np.full((p_total, cap), n, np.int32)
     gid_h_host = np.full((p_total, hcap), n, np.int32)
     build_s = [0.0]
 
-    def build(p):
+    def build(p, i):
         t = time.perf_counter()
-        pts, msk, gid = ring.acquire(p)
+        pts, msk, gid = ring.acquire(i)
         _partition_slab(pts, msk, gid, points, layout, p)
         gid_o_host[p] = gid[:cap]
         gid_h_host[p] = gid[cap:]
-        out = ring.ship(p)
+        out = ring.ship(i)
         build_s[0] += time.perf_counter() - t
         return out
 
     spans = _Spans(device)
     glabs, cores, pstats, gid_dev = [], [], [], []
-    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-        nxt = pool.submit(build, 0)
-        slab, ev = nxt.result()
+    pool = concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="pptorch-slab-builder")
+    try:
+        nxt = pool.submit(build, live[0], 0) if live else None
         t_loop = time.perf_counter()
+        i = 0  # the next live partition's index in ``live``
         for p in range(p_total):
-            if p > 0:
-                slab, ev = nxt.result()
-            if p + 1 < p_total:
-                # THE overlap: partition p+1's build and copy run while
-                # the card clusters partition p.
-                nxt = pool.submit(build, p + 1)
+            if p in restored:
+                glab, cor, ps = restored[p]
+                row, gid = _replay_gids(points, layout, p, device)
+                gid_o_host[p], gid_h_host[p] = row[:cap], row[cap:]
+                glabs.append(torch.from_numpy(
+                    np.asarray(glab, np.int32)).to(device))
+                cores.append(torch.from_numpy(
+                    np.asarray(cor, bool)).to(device))
+                pstats.append(torch.from_numpy(np.asarray(ps, np.int64)))
+                gid_dev.append(gid)
+                obs_heartbeat("chained.partitions", p + 1, p_total, t_loop)
+                continue
+            slab, ev = nxt.result()
+            i += 1
+            if i < len(live):
+                # THE overlap: the next partition's build and copy run
+                # while the card clusters this one.
+                nxt = pool.submit(build, live[i], i)
             ring.wait(slab, ev)
             pts, msk, gid = slab
-            glab, cor, ps = spans.run(lambda: _cluster_partition(
-                pts, msk, gid, eps=eps, min_samples=min_samples,
-                metric=metric, block=layout["block"], precision=precision,
-                backend=backend, pair_budget=pair_budget,
-            ))
+
+            def one_partition():
+                faults.maybe_fail("chained.partition")
+                return spans.run(lambda: _cluster_partition(
+                    pts, msk, gid, eps=eps, min_samples=min_samples,
+                    metric=metric, block=layout["block"],
+                    precision=precision, backend=backend,
+                    pair_budget=pair_budget,
+                ))
+
+            glab, cor, ps = Retrier("chained.partition").run(one_partition)
             glabs.append(glab)
             cores.append(cor)
             pstats.append(ps)
@@ -624,13 +702,37 @@ def _chained_tables_overlap(
             # (the flight file always, a log line under
             # PPTORCH_HEARTBEAT).
             obs_heartbeat("chained.partitions", p + 1, p_total, t_loop)
+            if jobstate is not None and jobstate.due():
+                # The tables' copy to the host is the snapshot's cost,
+                # paid only at the cadence.
+                jobstate.chained_note(p, glab.cpu().numpy(),
+                                      cor.cpu().numpy(), ps.numpy(),
+                                      budget_tag)
         wall = time.perf_counter() - t_loop
+    finally:
+        # Join the builder (a build in flight finishes; none queued
+        # starts) and drop the pinned buffers, on success and on error.
+        pool.shutdown(wait=True, cancel_futures=True)
+        if ring is not None:
+            ring.close()
     busy = spans.seconds()
     stage["slab_build"] = stage.get("slab_build", 0.0) + build_s[0]
     stage["device"] = stage.get("device", 0.0) + busy
     stage["loop"] = stage.get("loop", 0.0) + wall
     eff = busy / wall if wall > 0 else 0.0
     return glabs, cores, pstats, gid_o_host, gid_h_host, gid_dev, eff
+
+
+def _sharded_hint_key(owned_shape, halo_cap, block, precision, eps, metric):
+    """Pair-budget hint key of the chained route (the JAX package's):
+    both capacities, the block, precision, eps, metric, the dispatch tag
+    and the resolved sketch k."""
+    nt = (int(owned_shape[-2]) + int(halo_cap)) // max(int(block), 1)
+    sk = sketch_dims(int(owned_shape[-1]), metric)
+    return (
+        "sharded", dispatch_tag(nt), tuple(owned_shape), int(halo_cap),
+        block, precision, float(eps), str(metric), sk,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -700,8 +802,21 @@ def sharded_dbscan(
     JAX signature and changes nothing: the JAX switch turns off an
     overlap that rides on asynchronous dispatch, which the port's
     builder thread does not.  ``halo="ring"``, ``stream``,
-    ``mode="global_morton"``, ``hcap``, ``jobstate`` and a mesh of more
-    than one device raise ``NotImplementedError``.  ``device``: None
+    ``mode="global_morton"``, ``hcap`` and a mesh of more than one
+    device raise ``NotImplementedError``.
+
+    Fault tolerance, as in the JAX package's chained route: each
+    partition's dispatch runs under a retry with the
+    ``chained.partition`` fault site; ``jobstate``
+    (:class:`~pypardis_tpu_torch.utils.jobstate.JobState`) restores the
+    partitions a killed run snapshotted and notes each finished one; an
+    OOM-class failure of the device merge itself (the
+    ``sharded.execute`` fault site) finishes that merge on the host from
+    the tables the run produced (``note_degraded("merge_host")``,
+    ``stats["merge"] == "host"``).  No other failure degrades: an OOM in
+    a partition's dispatch, which the host merge would not cure, and a
+    kernel error raise.  (The JAX chained route reruns the whole fit
+    under the host merge after an OOM anywhere in it.)  ``device``: None
     runs on the card (and raises without CUDA); ``"cpu"`` runs the
     kernels' plain versions.
 
@@ -719,7 +834,9 @@ def sharded_dbscan(
     heartbeat ``chained.partitions``.
     """
     from ..dbscan import resolve_device
+    from ..utils import faults
 
+    faults.from_env()
     if mode == "global_morton":
         _refuse("mode='global_morton'", "A12")
     if mode != "kd":
@@ -732,8 +849,6 @@ def sharded_dbscan(
         _refuse("stream=True", "A10/A11")
     if hcap is not None:
         _refuse("hcap (the ring halo's capacity)", "A10/A11")
-    if jobstate is not None:
-        _refuse("jobstate (checkpoint-resume)", "A16")
     if _mesh_size(mesh) > 1:
         _refuse("a mesh of more than one device", "A10/A11")
     metric = norm_metric(metric)
@@ -754,6 +869,22 @@ def sharded_dbscan(
             "host" if n >= MERGE_HOST_AUTO or memory_pressure()
             else "device"
         )
+    return _chained_run(
+        points, partitioner, eps, min_samples, metric=metric, block=block,
+        precision=precision, backend=backend, merge=merge,
+        pair_budget=pair_budget, merge_rounds=merge_rounds,
+        jobstate=jobstate, dev=dev)
+
+
+def _chained_run(points, partitioner, eps, min_samples, *, metric, block,
+                 precision, backend, merge, pair_budget, merge_rounds,
+                 jobstate, dev):
+    """The chained route under a resolved ``merge``: the layout, the
+    partition loop and the merge through the ladders (the body of
+    :func:`sharded_dbscan`)."""
+    from ..utils import faults
+
+    n, k = points.shape
     with obs_span("sharded.build_shards", halo="host"):
         layout, stats = _chained_layout(points, partitioner, eps, block,
                                         precision)
@@ -768,6 +899,7 @@ def sharded_dbscan(
                 points, layout, eps=eps, min_samples=min_samples,
                 metric=metric, precision=precision, backend=backend,
                 pair_budget=pb, device=dev, stage=stage, passes=passes,
+                jobstate=jobstate,
             ))
         eff_cell[0] = eff
         tables = _stack_tables(glabs, cores, pstats, layout["cap"])
@@ -779,6 +911,7 @@ def sharded_dbscan(
     # retry reuses its tables.
     memo = {}
     syncs = [0]
+    spilled = []
 
     def run_step(pb, mr):
         if "out" not in memo or memo["pb"] != pb:
@@ -786,22 +919,42 @@ def sharded_dbscan(
         (own_glab, own_core, halo_glab, pstats), gid_dev, gid_host = (
             memo["out"])
         total, budget = int(pstats[0]), int(pstats[1])
-        if total > budget or merge == "host":
+        if total > budget or merge == "host" or spilled:
             # The host union-find merge is exact: no rounds ladder.
             return (None, pstats), (total, budget), True
         t = time.perf_counter()
-        final, core, rounds, converged = _merge_from_tables(
-            own_glab, own_core, gid_dev[0], gid_dev[1], halo_glab,
-            n_points=n, merge_rounds=mr, syncs=syncs,
-        )
+        try:
+            faults.maybe_fail("sharded.execute")
+            final, core, rounds, converged = _merge_from_tables(
+                own_glab, own_core, gid_dev[0], gid_dev[1], halo_glab,
+                n_points=n, merge_rounds=mr, syncs=syncs,
+            )
+        except Exception as e:  # noqa: BLE001 — re-raised unless an OOM
+            if not is_degradable_error(e):
+                raise
+            # The degradation rung: an OOM-class failure of the device
+            # merge (its (N+1,) arrays are the fit's hungriest
+            # allocation) finishes on the host from the tables this run
+            # produced; the labels are byte-identical.  The partitions'
+            # dispatches are done and the builder thread joined.
+            note_degraded("merge_host", mode="kd", error=str(e)[:160])
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            spilled.append(True)
+            return (None, pstats), (total, budget), True
         stage["merge"] = stage.get("merge", 0.0) + time.perf_counter() - t
         return ((final, core, rounds), pstats), (total, budget), converged
 
     with obs_span("sharded.execute", halo="host", merge=merge,
                   overlap=True):
-        out, pstats = run_ladders(run_step, pair_budget, merge_rounds)
+        out, pstats = run_ladders(
+            run_step,
+            _sharded_hint_key((len(layout["part_idx"]), layout["cap"], k),
+                              layout["hcap"], block, precision, eps,
+                              metric) + (False,),
+            pair_budget, merge_rounds)
     t = time.perf_counter()
-    if merge == "host":
+    if merge == "host" or spilled:
         own_glab, own_core, halo_glab, _ps = memo["out"][0]
         gid_o, gid_h = memo["out"][2]
         with obs_span("sharded.merge_host"):

@@ -248,6 +248,11 @@ class QueryEngine:
         *i+1* is dispatched before batch *i* is finalized."""
         if not self._pending:
             return 0
+        from ..utils import faults
+
+        # The serve.drain fault site: a hang(Ns) stalls here, the stuck
+        # ticket the deadlines must fail rather than wait on.
+        faults.maybe_fail("serve.drain")
         t0 = time.perf_counter()
         batches = []
         cur, rows = [], 0

@@ -49,8 +49,8 @@ runs on the calling thread; it waits for its upload and its tables
 before the window closes, so the B5 a pump thread launches next reads
 finished tables whatever stream it runs on.
 
-Not yet ported: the ``gateway.admit`` fault site (``utils/faults``,
-ROADMAP A16).  ``gateway_load`` exports the gateway's recorder when the
+``gateway.admit`` is the fault site of every admission, upstream of the
+quota bucket.  ``gateway_load`` exports the gateway's recorder when the
 ``PPTORCH_METRICS_*`` knobs ask (:func:`~pypardis_tpu_torch.obs.
 attach_exporters`).
 """
@@ -455,9 +455,12 @@ class ModelGateway:
         return st
 
     def _admit(self, tenant: str) -> None:
-        # The JAX package's gateway.admit fault site fires here, upstream
-        # of the quota bucket and every engine; it comes with the port of
-        # utils/faults (ROADMAP A16).
+        from ..utils import faults
+
+        # The gateway.admit fault site, upstream of the quota bucket and
+        # every engine: an injected fault sheds at the front door and no
+        # serving state changes.
+        faults.maybe_fail("gateway.admit")
         st = self._tenant_state(tenant)
         bucket = self._quotas.get(tenant)
         if bucket is None:

@@ -19,9 +19,11 @@
   against the old generation and readers after it against the new one;
   writes that landed during the refit are replayed at the swap.
 
-Not yet ported: the compaction's checkpoint-resume (``ckpt=``) and the
-fault-injection sites (ROADMAP A16), and refits on the sharded routes
-(``fit_kw`` with ``mode``/``mesh``; A10-A12).
+The compaction's refit resumes from ``ckpt=`` (a jobstate file that a
+killed cycle over the same snapshot left; one from another snapshot is
+discarded), and each phase boundary is the ``compact.phase`` fault
+site.  Not yet ported: refits on the sharded routes (``fit_kw`` with
+``mode``/``mesh``; ROADMAP A10-A12).
 """
 
 from __future__ import annotations
@@ -226,6 +228,13 @@ class Compactor:
     A refit on the card runs on the calling thread's current stream; the
     swap makes the serving stream wait for the new generation's upload
     (:meth:`CorePointIndex.replace_generation`).
+
+    ``ckpt``: a path the refit checkpoints to (``DBSCAN.train(resume=)``);
+    a cycle killed in its refit resumes there, and the file is removed
+    once a cycle finishes (``stats["resumed_rounds"]`` counts the
+    batches a refit restored).  Each phase boundary is the
+    ``compact.phase`` fault site (occurrences 1..4 per cycle), fired
+    before ``phase_hook``.
     """
 
     PHASES = ("snapshot", "refit", "build", "swap")
@@ -237,11 +246,6 @@ class Compactor:
         fit_kw: Optional[Dict] = None,
         phase_hook: Optional[Callable[[str], None]] = None,
     ):
-        if ckpt is not None:
-            raise NotImplementedError(
-                "checkpoint-resumable compaction (ckpt=) needs the "
-                "jobstate machinery, not yet ported (ROADMAP A16)"
-            )
         fit_kw = dict(fit_kw or {})
         sharded = sorted({"mode", "mesh"} & set(fit_kw))
         if sharded:
@@ -250,6 +254,7 @@ class Compactor:
                 f"{sharded}) are not yet ported (ROADMAP A10-A12)"
             )
         self.live = live
+        self.ckpt = ckpt
         self.lock = lock if lock is not None else threading.Lock()
         self.slab_bytes = (
             int(slab_bytes) if slab_bytes is not None
@@ -263,7 +268,7 @@ class Compactor:
         self.fit_kw = fit_kw
         self._phase_hook = phase_hook
         self.stats: Dict = {
-            "compactions": 0, "compaction_s": 0.0,
+            "compactions": 0, "compaction_s": 0.0, "resumed_rounds": 0,
             "replayed_inserts": 0, "replayed_deletes": 0,
         }
         # Seconds each phase of the last cycle took, and every completed
@@ -297,6 +302,9 @@ class Compactor:
     # -- the cycle --------------------------------------------------------
 
     def _phase(self, name: str) -> None:
+        from ..utils import faults
+
+        faults.maybe_fail("compact.phase")
         if self._phase_hook is not None:
             self._phase_hook(name)
 
@@ -315,7 +323,7 @@ class Compactor:
             marks.append(time.perf_counter())
             try:
                 self._phase("refit")
-                labels, core = self._refit(snap)
+                labels, core, resumed = self._refit(snap)
                 marks.append(time.perf_counter())
                 self._phase("build")
                 fresh = self._build_generation(snap, labels, core)
@@ -328,6 +336,15 @@ class Compactor:
                 marks.append(time.perf_counter())
             finally:
                 live._compact_active = False
+            if self.ckpt:
+                # A finished cycle's snapshot must never be resumed by
+                # the next one (another point set: the fingerprint guard
+                # would refuse the whole refit).
+                from ..utils.jobstate import _norm_npz
+
+                p = _norm_npz(self.ckpt)
+                if os.path.exists(p):
+                    os.unlink(p)
             dt = marks[-1] - t0
             self.windows.append((t0, marks[-1]))
             self.phase_s = {
@@ -338,6 +355,7 @@ class Compactor:
             self.stats["compaction_s"] = round(
                 self.stats["compaction_s"] + dt, 6
             )
+            self.stats["resumed_rounds"] += int(resumed)
             self.stats["replayed_inserts"] += int(replayed[0])
             self.stats["replayed_deletes"] += int(replayed[1])
             # Under the lock: the note republishes the live stats, which
@@ -350,7 +368,10 @@ class Compactor:
 
     def _refit(self, snap):
         """Full refit of the snapshot's points from host input (the
-        fit the JAX package's compaction runs, byte for byte)."""
+        fit the JAX package's compaction runs, byte for byte),
+        checkpoint-resumable under ``ckpt``.  Returns ``(labels, core,
+        resumed)``, ``resumed`` the batches and partitions the refit
+        restored."""
         from ..dbscan import DBSCAN
 
         m = self.live.model
@@ -364,10 +385,24 @@ class Compactor:
         }
         kw.update(self.fit_kw)
         model = DBSCAN(**kw)
-        model.train(snap["points"])
+        if self.ckpt:
+            from ..utils.jobstate import discard_stale, fit_meta
+
+            discard_stale(self.ckpt, fit_meta(
+                snap["points"], eps=model.eps,
+                min_samples=model.min_samples,
+                metric=model.metric if isinstance(model.metric, str)
+                else getattr(model.metric, "__name__", "callable"),
+                block=model.block, mode="auto",
+            ))
+        model.train(snap["points"], resume=self.ckpt)
+        js = model._jobstate
+        resumed = 0 if js is None else (
+            int(js.restored_rounds) + int(js.restored_partitions))
         return (
             np.asarray(model.labels_, np.int32),
             np.asarray(model.core_sample_mask_, bool),
+            resumed,
         )
 
     def _build_generation(self, snap, labels, core):

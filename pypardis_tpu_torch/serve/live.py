@@ -279,12 +279,20 @@ class LiveModel:
         """The batched insert that :class:`~.ingest.IngestQueue`
         coalesces writes into: B rows cost one re-cluster dispatch and
         one index delta (``recluster_dispatches`` and ``index_epoch``
-        move by one)."""
+        move by one).  The ``ingest.batch`` fault site fires before any
+        state changes, so a failed batch leaves the model untouched."""
+        from ..utils import faults
+
+        faults.maybe_fail("ingest.batch")
         return self._do_insert(self._check_points(X))
 
     def delete_batch(self, ids) -> int:
         """Batched delete by stable ids: one blast radius over the
-        affected clusters, one re-cluster dispatch, one index delta."""
+        affected clusters, one re-cluster dispatch, one index delta
+        (the ``ingest.batch`` fault site fires first, as for inserts)."""
+        from ..utils import faults
+
+        faults.maybe_fail("ingest.batch")
         return self.delete(ids)
 
     def _do_insert(self, X, ids=None) -> np.ndarray:

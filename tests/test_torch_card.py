@@ -1501,3 +1501,61 @@ def test_checked_build_traps_a_store_past_its_extent():
     out = json.loads(lines[-1])
     assert out["whole"] == 0, out
     assert out.get("short", "no error") != "no error", (out, proc.stderr)
+
+
+_TRAP_RETRY_CHILD = _CHECKED_CHILD[:_CHECKED_CHILD.index('out = {"whole"')] + r"""
+import sys
+from pypardis_tpu_torch import obs
+from pypardis_tpu_torch.utils.retry import Retrier
+
+rec = obs.RunRecorder()
+calls = [0]
+
+
+def attempt():
+    calls[0] += 1
+    return run([L - 1] + [t.numel() for t in tables[1:]])
+
+
+err = "no error"
+with obs.use_recorder(rec):
+    try:
+        Retrier("trap", waits=(0.0, 0.0)).run(attempt)
+    except RuntimeError as e:
+        err = str(e).splitlines()[0]
+        print(str(e), file=sys.stderr, flush=True)
+print(json.dumps({
+    "attempts": calls[0], "error": err,
+    "retry_counters": sorted(k for k in rec.metrics.as_dict()["counters"]
+                             if k.startswith("retry.")),
+}), flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_a_trapping_kernel_under_a_retrier_is_attempted_once():
+    """A CUDA error is sticky: the checked build's trap (a store past
+    its extent, as above) inside a ``Retrier`` is attempted once, no
+    ``retry.*`` counter moves, and the CUDA error reaches the caller.
+    The checked library runs in a child process, as the trap leaves its
+    CUDA context unusable."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    _need_card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PPTORCH_KERNEL_CHECKS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-c", _TRAP_RETRY_CHILD],
+                          env=env, cwd=root, capture_output=True, text=True,
+                          timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert lines, proc.stderr[-4000:]
+    out = json.loads(lines[-1])
+    assert out["attempts"] == 1, out
+    assert out["retry_counters"] == [], out
+    assert out["error"] != "no error", (out, proc.stderr[-2000:])
+    assert "CUDA" in proc.stderr or "cuda" in proc.stderr, proc.stderr[-2000:]

@@ -5,9 +5,9 @@ package's gateway on the same fleet and the same sequence of operations.
 Each case of the JAX file has a counterpart here (eviction and
 readmission byte-identity with the exact LRU victims, pinned models, the
 epoch swap under ``gateway_load``, quota isolation, stale handles,
-unknown and double registrations, the live handle) except
-``test_admit_fault_site_sheds_upstream``: the ``gateway.admit`` fault
-site comes with the port of ``utils/faults`` (ROADMAP A16).  Then the
+unknown and double registrations, the live handle);
+``test_admit_fault_site_sheds_upstream``'s is in
+``tests/test_torch_faults.py``.  Then the
 two gateways run one sequence (registrations, serves, a budget, a
 readmission, quotas, a refresh): their ``gateway_report()``s are equal
 in every field but the latency ones, their answers are bitwise equal,

@@ -7,8 +7,9 @@ JAX side on the fused route, ``default_mesh(1)``; the port's on
 arrays, epoch and generation and the counters are byte-identical, and
 ``predict`` is bitwise the JAX engine's.  The cases are
 ``tests/test_ingest.py``'s that need no mesh; its fault-injection cases
-and the compaction's checkpoint-resume wait for ROADMAP A16, the mixed
-load harness for A15's second half, sharded refits for A10-A12.
+are in ``tests/test_torch_faults.py`` and the compaction's
+checkpoint-resume in ``tests/test_torch_jobstate.py``; sharded refits
+wait for A10-A12.
 """
 
 import threading
@@ -289,8 +290,8 @@ def test_background_compaction_and_unported_options():
     assert not comp.running and comp.stats["compactions"] == 1
     assert live.index.generation == 1
     _refit_equivalent(live)
-    with pytest.raises(NotImplementedError, match="A16"):
-        Compactor(live, ckpt="job.npz")
+    # ckpt= is ported (checkpoint-resumable refits): accepted.
+    assert Compactor(live, ckpt="job.npz").ckpt == "job.npz"
     for kw in ({"mode": "global_morton"}, {"mesh": None}):
         with pytest.raises(NotImplementedError, match="A10-A12"):
             Compactor(live, fit_kw=kw)

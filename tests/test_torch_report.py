@@ -377,6 +377,13 @@ def test_pair_overflow_event_recorded_in_both_packages(chained_stats):
         counts[name, "total"] = ev[0]["total"]
     assert counts["port"] == counts["jax"] == 1
     assert counts["port", "total"] == counts["jax", "total"]
+    # The rung's retry counts as the JAX ladder counts it (the report's
+    # faults block sums these counters).
+    retried = {name: {k: v for k, v in rec.metrics.as_dict()[
+        "counters"].items() if k.startswith("retry.")}
+        for name, (_stats, rec) in chained_stats[1].items()}
+    assert retried["port"] == retried["jax"] == {
+        "retry.pair_budget.attempts": 1}
 
 
 def test_merge_unconverged_event_recorded():

@@ -9,6 +9,7 @@ ladders; the slab layout; ``merge_occurrences``; the overlap and its
 buffer rotation; and the refusals."""
 
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -156,23 +157,40 @@ def _chain_data(n=256, k=2, step=0.09):
 @pytest.mark.parametrize("rounds", [1, 0])
 def test_merge_rounds_ladder_matches_jax(rounds):
     """At merge_rounds=1 both retry at 4x and converge to the same
-    labels; at 0 both retry at 1 and raise 'did not converge'."""
+    labels; at 0 both retry at 1 and raise 'did not converge'.  Both
+    count the rung's retries and giveups alike."""
+    from pypardis_tpu import obs as jax_obs
+    from pypardis_tpu_torch import obs
+
     X = _chain_data()
     kw = dict(eps=0.2, min_samples=2, block=64, merge="device",
               merge_rounds=rounds)
+    recs = {"jax": jax_obs.RunRecorder(), "port": obs.RunRecorder()}
 
     def port():
-        return sharded_dbscan(X, KDPartitioner(X, max_partitions=8),
-                              device="cpu", **kw)
+        with obs.use_recorder(recs["port"]):
+            return sharded_dbscan(X, KDPartitioner(X, max_partitions=8),
+                                  device="cpu", **kw)
+
+    def ladder_counters():
+        return [{k: v for k, v in recs[n].metrics.as_dict()[
+            "counters"].items() if k.startswith("retry.")}
+            for n in ("jax", "port")]
 
     try:
-        ref = _jax(X, kw)
+        with jax_obs.use_recorder(recs["jax"]):
+            ref = _jax(X, kw)
     except RuntimeError as e:
         assert "did not converge" in str(e)
         with pytest.raises(RuntimeError, match="did not converge"):
             port()
+        j, p = ladder_counters()
+        assert j == p == {"retry.merge_rounds.attempts": 1,
+                          "retry.merge_rounds.giveups": 1}
         return
     lab, core, stats = port()
+    j, p = ladder_counters()
+    assert j == p == {"retry.merge_rounds.attempts": 1}
     np.testing.assert_array_equal(lab, ref[0])
     np.testing.assert_array_equal(core, ref[1])
     assert stats["merge_rounds"] == ref[2]["merge_rounds"]
@@ -370,7 +388,8 @@ def test_runs_on_the_card_by_default(monkeypatch):
 
 @pytest.mark.parametrize("knob", [
     dict(halo="ring"), dict(stream=True), dict(mode="global_morton"),
-    dict(hcap=256), dict(jobstate=object()), dict(mesh=2),
+    dict(hcap=256), dict(mesh=SimpleNamespace(devices=np.zeros((2, 2)))),
+    dict(mesh=2),
 ])
 def test_refused_knobs_name_their_roadmap_item(knob):
     X, kw = _blobs750()
