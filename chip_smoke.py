@@ -325,6 +325,33 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ``ingest.batch:1=error`` leaves the index's slab and B5's tables
    bitwise as before.  Every report outside this phase (14.2's) must
    count no injected fault, retry, giveup or degradation.
+16. the global-Morton route's chained form (:func:`gm_phase`,
+   ``pypardis_tpu_torch.parallel.global_morton_dbscan(..., mesh=1,
+   chain=R)``): (1) 13.1's 20,000 x 16-D blobs over 4 ranges under
+   ``"high"``, ``"mixed"`` and ``"default"``, and its 4,096 x 512
+   embeddings over 2 ranges with the sketch on: the card's labels, core
+   flags and non-timing stats equal to the CPU's route (the CPU runs go
+   on in 13.1's child process after 13.1's; ``"mixed"``'s band stats
+   within 1e-3, phase 8's bar), the counts kernel once per range and
+   the min-label kernel once per propagation pass; (2) phase 4's 1M x
+   16-D blobs written once to a float32 ``np.memmap`` under
+   ``build/chip_smoke_gm/`` over 4 ranges: ``duplicated_work_factor``
+   1.0, boundary tiles, the input streamed, B1/B2 launches equal to the
+   ranges' passes, held against phase 4's single-device fit as 13.2 is
+   (:func:`hold_chained`), then B1 and one B2 pass bitwise their plain
+   versions over the owner-computes lists of the largest range slab
+   (:func:`gm_slab_hold`: the counts list's first 64 owned row tiles,
+   the propagation list's first 64 owned and 64 boundary row tiles);
+   the same at eps 1.4, which must hold border points; each prints its
+   wall beside 13.2's KD chained wall, the route's stage seconds, peak
+   host RSS and ``max_memory_allocated``; (3) phase 7's 100,000 x 512
+   embeddings over 2 ranges, sketch on: B3/B4 launched likewise and
+   held bitwise on the largest slab, labels held against the
+   single-device 100k fit; (4) on (1)'s 20k case,
+   ``gm.chained_range:1=transfer_error`` retried once to the clean
+   labels, and a run killed at its third propagation range under a
+   jobstate resumed byte-identically, its two restored ranges launching
+   no B1 and no B2.
 
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
@@ -346,7 +373,9 @@ harness) N times over, each failing the run on a difference: a search
 for a difference that does not show on every computation.
 ``--faults`` builds them and runs phase 15 alone on its own fits
 (phase 4's 1M fit twice from host input, phase 5's B1 inputs, that
-model's live model and 13.1's 20,000-point case).
+model's live model and 13.1's 20,000-point case).  ``--gm`` builds
+them and runs phase 16 alone (fitting the 1M single-device model it
+compares with; 16.1's CPU runs in a child process of their own).
 ``python3 chip_smoke.py --b1`` builds the kernels and times B1 alone
 in its three modes at the 1M x 16-D inputs, with its bounds, floor,
 rescored share and frames' staging, then prints the 1M fits' sha256 in
@@ -377,12 +406,14 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import gc
 import hashlib
 import json
 import os
 import subprocess
 import sys
 import time
+import tracemalloc
 
 import numpy as np
 
@@ -4913,23 +4944,26 @@ def chained_cpu_runs(cases):
 
 
 class ChainedCpuRefs:
-    """13.1's CPU runs in a child process (``chip_smoke.py
-    --chained-cpu-refs PATH SIZES``: no card, 4 threads, niced), started
-    before the phase so that they run beside its card work without
-    sharing this process's interpreter lock; :meth:`result` waits for
-    them.  The child writes ``PATH`` (``.npz``) under the checkout's
-    ``build/`` and is killed if this process exits first."""
+    """The CPU runs of 13.1 (``"kd"``) and 16.1 (``"gm"``) in a child
+    process (``chip_smoke.py --chained-cpu-refs PATH SIZES JOBS``: no
+    card, 4 threads, niced), started before phase 13 so that they run
+    beside the card's work without sharing this process's interpreter
+    lock; :meth:`result` waits for one job's runs.  The child writes one
+    ``.npz`` per job, in order, under the checkout's ``build/`` and is
+    killed if this process exits first."""
 
-    def __init__(self, sizes=CHAINED_SIZES):
+    def __init__(self, sizes=CHAINED_SIZES, jobs=("kd",)):
         root = os.path.dirname(os.path.abspath(__file__))
         self.dir = os.path.join(root, "build", "chip_smoke_refs")
         os.makedirs(self.dir, exist_ok=True)
-        self.path = os.path.join(self.dir, f"refs_{os.getpid()}.npz")
-        self.log = open(self.path + ".log", "w")
+        base = os.path.join(self.dir, f"refs_{os.getpid()}")
+        self.paths = {job: f"{base}_{job}.npz" for job in jobs}
+        self.log_path = base + ".log"
+        self.log = open(self.log_path, "w")
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="4")
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--chained-cpu-refs",
-             self.path, json.dumps(sizes)],
+             base, json.dumps(sizes), ",".join(jobs)],
             env=env, stdout=self.log, stderr=subprocess.STDOUT, cwd=root)
         atexit.register(self.stop)
 
@@ -4939,42 +4973,68 @@ class ChainedCpuRefs:
             self.proc.wait()
         self.log.close()
 
-    def result(self, cases):
-        """The child's ``{name: ((labels, core), seconds)}``, its points
-        checked to be ``cases``'."""
-        rc = self.proc.wait()
-        self.log.close()
+    def _tail(self):
+        with open(self.log_path) as f:
+            return f.read()[-2000:]
+
+    def result(self, cases, job="kd"):
+        """The child's ``{name: ((labels, core), seconds)}`` of ``job``
+        (``"gm"``: ``{name: ((labels, core, stats), seconds)}``, the
+        stats without their timings), its points checked to be
+        ``cases``'.  Reading the last job ends the child and removes its
+        files."""
+        path = self.paths.pop(job)
+        while not os.path.exists(path) and self.proc.poll() is None:
+            time.sleep(0.2)
+        if not os.path.exists(path):
+            fail(f"the CPU runs' process exited {self.proc.poll()} before "
+                 f"its {job} runs: {self._tail()}")
         try:
-            with open(self.path + ".log") as f:
-                tail = f.read()[-2000:]
-            if rc:
-                fail(f"13.1: the CPU runs' process exited {rc}: {tail}")
-            with np.load(self.path) as z:
+            with np.load(path) as z:
                 if str(z["digest"]) != cases_digest(cases):
-                    fail("13.1: the CPU runs' process made other points")
-                return {name: ((z[f"{name}_labels"], z[f"{name}_core"]),
-                               float(z[f"{name}_s"])) for name in cases}
+                    fail(f"{job}: the CPU runs' process made other points")
+                out = {}
+                for name in cases:
+                    res = (z[f"{name}_labels"], z[f"{name}_core"])
+                    if f"{name}_stats" in z.files:
+                        res += (json.loads(str(z[f"{name}_stats"])),)
+                    out[name] = (res, float(z[f"{name}_s"]))
+                return out
         finally:
-            for f in (self.path, self.path + ".log"):
-                if os.path.exists(f):
-                    os.remove(f)
-            with contextlib.suppress(OSError):
-                os.rmdir(self.dir)
+            os.remove(path)
+            if not self.paths:
+                rc = self.proc.wait()
+                self.log.close()
+                if rc:
+                    fail(f"the CPU runs' process exited {rc}: {self._tail()}")
+                os.remove(self.log_path)
+                with contextlib.suppress(OSError):
+                    os.rmdir(self.dir)
 
 
-def chained_cpu_refs_child(path, sizes):
-    """The child of :class:`ChainedCpuRefs`."""
+def chained_cpu_refs_child(base, sizes, jobs):
+    """The child of :class:`ChainedCpuRefs`: each job's CPU runs, written
+    to ``{base}_{job}.npz`` (atomically, so a reader never sees half)."""
     import torch
 
     os.nice(10)
     torch.set_num_threads(4)
-    cases = chained_cpu_cases(sizes)
-    runs = chained_cpu_runs(cases)
-    arrays = {"digest": np.array(cases_digest(cases))}
-    for name, ((lab, core), sec) in runs.items():
-        arrays.update({f"{name}_labels": lab, f"{name}_core": core,
-                       f"{name}_s": np.array(sec)})
-    np.savez(path, **arrays)
+    for job in jobs.split(","):
+        if job == "kd":
+            cases = chained_cpu_cases(sizes)
+            runs = chained_cpu_runs(cases)
+        else:
+            cases = gm_cpu_cases(sizes)
+            runs = gm_cpu_runs(cases)
+        arrays = {"digest": np.array(cases_digest(cases))}
+        for name, (res, sec) in runs.items():
+            arrays.update({f"{name}_labels": res[0], f"{name}_core": res[1],
+                           f"{name}_s": np.array(sec)})
+            if len(res) > 2:
+                arrays[f"{name}_stats"] = np.array(json.dumps(res[2]))
+        tmp = f"{base}_{job}.tmp.npz"
+        np.savez(tmp, **arrays)
+        os.replace(tmp, f"{base}_{job}.npz")
 
 
 def chained_launches(ck, stats, what, counts="count_pairs",
@@ -5981,12 +6041,471 @@ def faults_phase(torch, dev, sync, card, main, b1_args, live, chained_case,
     return rec
 
 
+# Phase 16: the global-Morton route's chained form.  16.1 reuses 13.1's
+# data (the 20,000 x 16-D separated blobs over small_ranges ranges in
+# each mode, the 4,096 x 512 embeddings over emb_ranges with the sketch
+# on); 16.2 phase 4's 1M x 16-D blobs from a float32 memmap under
+# build/, over `ranges` ranges at eps and at border_eps; 16.3 phase 7's
+# 100k x 512 embeddings over sk_ranges; 16.4 16.1's 20k case.
+GM_SIZES = {"small_ranges": 4, "gm_modes": ["high", "mixed", "default"],
+            "emb_ranges": 2, "n": 1_000_000, "eps": 2.4, "ranges": 4,
+            "block": 2048, "hold_tiles": 64, "border_eps": 1.4,
+            "sk_n": 100_000, "sk_eps": 2.0, "sk_ranges": 2,
+            "sk_block": 2048}
+GM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "chip_smoke_gm")
+# The B1/B2 (B3/B4) names of each precision mode's passes.
+GM_KERNELS = {"high": ("count_pairs", "minlab_pairs"),
+              "mixed": ("count_pairs_mixed", "minlab_pairs_mixed"),
+              "default": ("count_pairs_default", "minlab_pairs_default"),
+              "sketch": ("count_pairs_sketch", "minlab_pairs_sketch")}
+
+
+def gm_cpu_cases(sizes):
+    """16.1's cases from 13.1's data: ``{name: (X, chain, kwargs)}``,
+    the 20k case once per mode of ``gm_modes``."""
+    kd = chained_cpu_cases(sizes)
+    (Xs, _p, kw_s), (Xe, _pe, kw_e) = kd["small"], kd["emb"]
+    out = {f"small_{m}": (Xs, sizes["small_ranges"], dict(kw_s, precision=m))
+           for m in sizes["gm_modes"]}
+    out["emb"] = (Xe, sizes["emb_ranges"], dict(kw_e, precision="high"))
+    return out
+
+
+def gm_stats(stats):
+    """A chained GM fit's stats without its timings: what the card's run
+    and the CPU's must share."""
+    return {k: v for k, v in stats.items() if not k.endswith("_s")}
+
+
+def gm_cpu_runs(cases):
+    """Each case through the port's global-Morton chained route on the
+    CPU (the kernels' plain versions): ``{name: ((labels, core, stats),
+    seconds)}``."""
+    from pypardis_tpu_torch.parallel import global_morton_dbscan
+
+    out = {}
+    for name, (x, chain, kw) in cases.items():
+        t = time.perf_counter()
+        lab, core, st = global_morton_dbscan(x, mesh=1, chain=chain,
+                                             device="cpu", **kw)
+        out[name] = ((lab, core, gm_stats(st)), time.perf_counter() - t)
+    return out
+
+
+def gm_memmap(X, name):
+    """``X`` (float32) written once to a float32 ``np.memmap`` under
+    :data:`GM_DIR`, opened read-only: the route's disk-backed input."""
+    os.makedirs(GM_DIR, exist_ok=True)
+    path = os.path.join(GM_DIR, f"{name}_{os.getpid()}.f32")
+    mm = np.memmap(path, dtype=np.float32, mode="w+", shape=X.shape)
+    mm[:] = X
+    mm.flush()
+    del mm
+    atexit.register(lambda: os.path.exists(path) and os.remove(path))
+    return np.memmap(path, dtype=np.float32, mode="r", shape=X.shape), path
+
+
+def gm_launches(ck, stats, what, kernels, ranges):
+    """:func:`chained_launches` for the global-Morton route: each range
+    dispatched launches its counts kernel once and its min-label kernel
+    once per propagation pass (``stats["partition_passes"]``: 1 + the
+    range's min-label passes); every range ran."""
+    la = chained_launches(ck, stats, what, *kernels)
+    if la[kernels[0]] != ranges:
+        fail(f"{what}: {la[kernels[0]]} counts launches for {ranges} ranges")
+    return la
+
+
+def gm_largest_slab(torch, dev, points, eps, block, ranges, core_g):
+    """The chained route's largest range slab (most owned + boundary
+    rows), laid out by the route's own code (the streaming split,
+    ``_stream_range_plan``, ``_chain_boundary_tiles``, ``_range_slab``)
+    and put on the card, with each slot's owner core flag from
+    ``core_g`` (the fit's (N,) core mask)."""
+    from pypardis_tpu_torch.parallel import global_morton as gm
+    from pypardis_tpu_torch.partition import morton_range_split_streaming
+    from pypardis_tpu_torch.utils.shaping import clamp_block, round_up
+
+    n, _k = points.shape
+    block = clamp_block(block, -(-n // ranges))
+    with morton_range_split_streaming(points, ranges, eps=eps,
+                                      block=block) as sp:
+        plans = [gm._stream_range_plan(sp, s, block, eps)
+                 for s in range(ranges)]
+        cap = round_up(max([p[1] for p in plans] + [1]), block)
+        tiles, brows = gm._chain_boundary_tiles(sp, sp.starts, block, eps, n,
+                                                ranges)
+        bcap = round_up(max(max(len(t) for t in tiles), 1) * block, block)
+        rows = [int(sp.starts[s + 1] - sp.starts[s]) + brows[s]
+                for s in range(ranges)]
+        s = int(np.argmax(rows))
+        pts, msk, og, bg = gm._range_slab(sp, s, plans[s][0], tiles[s], cap,
+                                          bcap, block, n)
+    gid = np.concatenate([og, bg])
+    core_all = core_g[np.clip(gid, 0, n - 1)] & (gid < n)
+    return dict(range=s, block=block, cap=cap, bcap=bcap,
+                owned=int((og < n).sum()), boundary=int((bg < n).sum()),
+                pts=torch.from_numpy(pts).to(dev),
+                mask=torch.from_numpy(msk).to(dev),
+                core_all=torch.from_numpy(core_all).to(dev))
+
+
+def gm_slab_hold(torch, dev, slab, eps, tiles, what):
+    """The counts kernel (B1, or B3 with the sketch) and one min-label
+    pass (B2, or B4) against their plain versions on the route's largest
+    slab (:func:`gm_largest_slab`), on the same device tensors, over the
+    owner-computes lists: the counts list (owned row tiles) on its first
+    ``tiles`` row tiles, the propagation list (no boundary x boundary
+    tile pair) on its first ``tiles`` owned and first ``tiles`` boundary
+    row tiles at the round-1 labels (each owner core its own slot) with
+    every valid row live.  All exact.  Returns the record."""
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import (
+        INT_INF, eps2_f32, row_offsets,
+    )
+    from pypardis_tpu_torch.ops.labels import oc_extract
+
+    xs, mask, cap = slab["pts"], slab["mask"], slab["cap"]
+    ex = oc_extract(xs, eps, mask, owned=cap, block=slab["block"])
+    if ex["total"] > ex["budget"]:
+        ex = oc_extract(xs, eps, mask, owned=cap, block=slab["block"],
+                        pair_budget=ex["total"])
+    rows, cols = ex["pairs"]
+    tile, ont, k = ex["tile"], ex["ont"], ex["k"]
+    N = xs.shape[1]
+    nt = N // tile
+    sub = min(tiles, ont)
+    sel_c = rows < sub
+    sel_b = ~((rows >= ont) & (cols >= ont)) & (
+        (rows < sub) | ((rows >= ont) & (rows < ont + tiles)))
+    rp_c, cols_c = row_offsets(rows[sel_c], nt), cols[sel_c].contiguous()
+    rp_b, cols_b = row_offsets(rows[sel_b], nt), cols[sel_b].contiguous()
+    tix = torch.arange(N, device=dev) // tile
+    held_c = mask & (tix < sub)
+    held_b = mask & ((tix < sub) | ((tix >= ont) & (tix < ont + tiles)))
+    mi = mask.to(torch.int32)
+    e2 = eps2_f32(eps)
+    centers = ex["frames"][0]
+    f = torch.where(slab["core_all"], torch.arange(N, device=dev,
+                                                   dtype=torch.int32),
+                    INT_INF).contiguous()
+    if k:
+        names = GM_KERNELS["sketch"]
+        sk = (ex["slab"][0], k, e2, ex["slab"][1], tile)
+        a = (xs, mi, rp_c, cols_c) + sk
+        (kc, kst), (pc, pst) = (ck.count_pairs_sketch(*a, "high", centers),
+                                ck.PLAIN["count_pairs_sketch"](*a))
+        b = (xs, f, rp_b, cols_b) + sk
+        kb, pb = ck.minlab_pairs_sketch(*b), ck.PLAIN["minlab_pairs_sketch"](*b)
+        stats_off = int((kst != pst).sum())
+    else:
+        names = GM_KERNELS["high"]
+        a = (xs, mi, rp_c, cols_c, e2, tile)
+        kc, pc = ck.count_pairs(*a, centers), ck.PLAIN["count_pairs"](*a)
+        b = (xs, f, rp_b, cols_b, e2, tile)
+        kb = ck.minlab_pairs(*b, live_rows=mask)
+        pb = ck.PLAIN["minlab_pairs"](*b, live_rows=mask)
+        stats_off = 0
+    bad_c = int((kc[held_c] != pc[held_c]).sum())
+    bad_b = int((kb[held_b] != pb[held_b]).sum())
+    err = {names[0]: int((kc[held_c].long() - pc[held_c].long()).abs().max()),
+           names[1]: int((kb[held_b].long() - pb[held_b].long()).abs().max())}
+    relayed = int(((pb != INT_INF) & held_b & (tix >= ont)).sum())
+    log(f"    {what}: range {slab['range']}'s slab ({slab['owned']} owned of "
+        f"cap {cap}, {slab['boundary']} boundary of bcap {slab['bcap']}; "
+        f"tile {tile}, k {k}, {ex['total']} live tile pairs, "
+        f"{ex['hh_pairs']} boundary x boundary): {names[0]} on the first "
+        f"{sub} owned row tiles ({int(held_c.sum())} points) {bad_c} "
+        f"differ{', stats differ' if stats_off else ''}; {names[1]} "
+        f"(round 1) on {sub} owned + {min(tiles, nt - ont)} boundary row "
+        f"tiles ({int(held_b.sum())} points, {relayed} boundary rows "
+        f"reaching an owned source) {bad_b} differ")
+    if bad_c or bad_b or stats_off:
+        fail(f"{what}: the kernels disagree with their plain versions over "
+             f"the owner-computes lists")
+    if not int(held_b.sum()) or not relayed:
+        fail(f"{what}: the held rows reach no source across the boundary")
+    return {"range": slab["range"], "rows": N, "owned": slab["owned"],
+            "boundary": slab["boundary"], "tile": tile,
+            "tiles_held": sub, "points_held": int(held_b.sum()),
+            "max_abs_err": err}
+
+
+def gm_phase(torch, dev, sync, card="", sizes=GM_SIZES, main=None,
+             cpu_refs=None, kd_wall=None):
+    """Phase 16 (the global-Morton route's chained form on one card,
+    ``pypardis_tpu_torch.parallel.global_morton_dbscan(..., mesh=1,
+    chain=R)``); see the module docstring.  ``main``: ``dict(X=,
+    labels=, core=)`` of phase 4's 1M fit (None: fitted here);
+    ``cpu_refs``: a :class:`ChainedCpuRefs` with a ``"gm"`` job (None:
+    16.1's CPU runs go here first); ``kd_wall``: 13.2's KD chained wall
+    on the same data, printed beside 16.2's.  Returns the phase's
+    record."""
+    from benchdata import make_blob_data, make_embedding_data
+    from pypardis_tpu_torch import DBSCAN, obs
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.parallel import global_morton_dbscan
+    from pypardis_tpu_torch.utils import faults
+    from pypardis_tpu_torch.utils.jobstate import JobState, fit_meta
+
+    rec = {"card": card}
+    t_phase = time.perf_counter()
+    all_sizes = dict(CHAINED_SIZES, **sizes)
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def run(X, chain, **kw):
+        sync()
+        t = time.perf_counter()
+        out = global_morton_dbscan(X, mesh=1, chain=chain, device=dev, **kw)
+        sync()
+        return out, time.perf_counter() - t
+
+    # 16.1: the card against the port's CPU route.
+    cases = gm_cpu_cases(all_sizes)
+    cpu_now = None if cpu_refs else gm_cpu_runs(cases)
+    on_card = {}
+    for name, (x, chain, kw) in cases.items():
+        mode = kw["precision"]
+        ck.reset_launch_counts()
+        on_card[name] = run(x, chain, **kw)
+        (lab, _core, st), wall = on_card[name]
+        names = GM_KERNELS["sketch" if st["sketch_k"] else mode]
+        gm_launches(ck, st, f"16.1 {name}", names, chain)
+        log(f"  16.1 {name}: n={len(x)} d={x.shape[1]} over {chain} ranges,"
+            f" {mode}, sketch_k {st['sketch_k']}: card {wall:.4f} s; "
+            f"clusters {len(np.unique(lab[lab >= 0]))},"
+            f" boundary tiles {st['boundary_tiles']}, halo_factor "
+            f"{st['halo_factor']:.4f}, kernel passes {st['kernel_passes']}")
+    stamp("16.1: card runs done")
+
+    def close_16_1():
+        cpu = cpu_now or cpu_refs.result(cases, "gm")
+        for name, ((lab, core, st), _s) in on_card.items():
+            (c_lab, c_core, c_st), c_s = cpu[name]
+            st = json.loads(json.dumps(gm_stats(st)))
+            diff = sorted(k for k in set(c_st) | set(st)
+                          if c_st.get(k) != st.get(k))
+            # The bf16 B1's band stats on the card are within 1e-3 of its
+            # plain version's (phase 8's bar); everything else is exact.
+            band = [k for k in ("band_pairs", "rescored_tiles") if k in diff]
+            if cases[name][2]["precision"] == "mixed" and all(
+                    abs(st[k] - c_st[k]) <= 1e-3 * max(c_st[k], 1)
+                    for k in band):
+                diff = [k for k in diff if k not in band]
+            same = np.array_equal(lab, c_lab) and np.array_equal(core, c_core)
+            log(f"    16.1 {name}: card vs CPU ({c_s:.4f} s"
+                f"{' in a child process' if cpu_refs else ''}): labels and "
+                f"core byte-identical: {same}; stats that differ: {diff}; "
+                f"band_pairs card {st['band_pairs']} CPU {c_st['band_pairs']}")
+            if not same or diff:
+                fail(f"16.1 {name}: the card's chained GM fit differs from "
+                     f"the CPU's")
+        rec["small"] = {name: {"card_s": c[1], "cpu_s": cpu[name][1]}
+                        for name, c in on_card.items()}
+        stamp("16.1: done")
+
+    # 16.2: the main path at full width from a memmap.
+    n, eps, block = sizes["n"], sizes["eps"], sizes["block"]
+    if main is None:
+        X, _truth = make_blob_data(n, 16, n_centers=32, std=0.4)
+        single = DBSCAN(eps=eps, min_samples=10, block=block,
+                        device=dev).fit(X)
+        main = dict(X=X, labels=single.labels_,
+                    core=single.core_sample_mask_)
+    X = main["X"]
+    mm, mm_path = gm_memmap(X, "blobs1m")
+    if not np.array_equal(np.asarray(mm), X):
+        fail("16.2: the memmap does not hold phase 4's points")
+    rows = {}
+    for tag, e in (("main", eps), ("border", sizes["border_eps"])):
+        if tag == "main":
+            s_lab, s_core = main["labels"], main["core"]
+        else:
+            single = DBSCAN(eps=e, min_samples=10, block=block,
+                            device=dev).fit(X)
+            s_lab, s_core = single.labels_, single.core_sample_mask_
+        from pypardis_tpu_torch.obs.resources import host_rss_bytes
+
+        # Earlier phases' garbage is freed first, so that the peaks below
+        # are this fit's: the host's as the process's RSS (which reuses
+        # pages the process already holds) and, at border_eps only (the
+        # main fit's wall stays untraced), as the Python and numpy
+        # allocations traced during the fit; the card's as allocated
+        # bytes over those held before.
+        gc.collect()
+        recorder = obs.RunRecorder(device=dev)
+        sampler = obs.ResourceSampler(recorder, interval_s=0.05,
+                                      device=dev).start()
+        rss0 = host_rss_bytes()
+        on_cuda = dev.type == "cuda"
+        if on_cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        dev0 = torch.cuda.memory_allocated(dev) if on_cuda else 0
+        ck.reset_launch_counts()
+        if tag == "border":
+            tracemalloc.start()
+        try:
+            with obs.use_recorder(recorder):
+                (lab, core, st), wall = run(mm, sizes["ranges"], eps=e,
+                                            min_samples=10, block=block)
+            traced = tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+            sampler.stop()
+        peak_rss = recorder.metrics.as_dict()["gauges"].get(
+            "resources.peak_host_rss_bytes", 0)
+        peak_dev = (torch.cuda.max_memory_allocated(dev) - dev0 if on_cuda
+                    else 0)
+        what = f"16.2 n={n} d=16 eps={e}"
+        la = gm_launches(ck, st, what, GM_KERNELS["high"], sizes["ranges"])
+        if st["duplicated_work_factor"] != 1.0 or st["input"] != "stream" \
+                or st["boundary_tiles"] <= 0:
+            fail(f"{what}: duplicated_work_factor "
+                 f"{st['duplicated_work_factor']}, input {st['input']}, "
+                 f"boundary tiles {st['boundary_tiles']}")
+        ss = st["stage_s"]
+        log(f"  {what}, {sizes['ranges']} ranges from a float32 memmap: "
+            f"{wall:.4f} s on {card} (13.2's KD chained fit from host input"
+            f": {'%.4f s' % kd_wall if kd_wall else 'not run'}); gm_build_s "
+            f"{st['gm_build_s']} (split {ss['split']:.4f} s), gm_exchange_s "
+            f"{st['gm_exchange_s']}, gm_execute_s {st['gm_execute_s']} (host "
+            f"slab builds {ss['slab_build']:.4f} s, passes on the card "
+            f"{ss['device']:.4f} s by CUDA events), gm_merge_s "
+            f"{st['gm_merge_s']}; peak host RSS {peak_rss / 2**20:.1f} MiB "
+            f"({(peak_rss - rss0) / 2**20:.1f} MiB over the {rss0 / 2**20:.1f}"
+            f" MiB before), peak traced host allocations "
+            f"{traced / 2**20:.1f} MiB{' (not traced)' if not traced else ''}"
+            f", max_memory_allocated "
+            f"{peak_dev / 2**20:.1f} MiB over the {dev0 / 2**20:.1f} MiB "
+            f"before")
+        log(f"    owned_cap {st['owned_cap']}, halo_cap {st['halo_cap']}, "
+            f"boundary tiles {st['boundary_tiles']} ({st['boundary_rows']} "
+            f"rows, halo_factor {st['halo_factor']:.6f}), pad_waste "
+            f"{st['pad_waste']:.6f}, spill {st['spill_bytes']} bytes in "
+            f"{st['stream_buckets']} buckets, live pairs {st['live_pairs']},"
+            f" kernel passes (max) {st['kernel_passes']}, per range "
+            f"{st['partition_passes']}, tile {st['kernel_block']}")
+        clusters, borders, noise, differ = hold_chained(
+            torch, dev, X, e, lab, core, s_lab, s_core, what)
+        if tag == "border" and not borders:
+            fail(f"{what}: the data holds no border point, so the border "
+                 f"check proves nothing")
+        rows[tag] = {
+            "eps": e, "wall_s": wall, "kd_chained_wall_s": kd_wall,
+            **{k: st[k] for k in ("gm_build_s", "gm_exchange_s",
+                                  "gm_execute_s", "gm_merge_s",
+                                  "boundary_tiles", "halo_factor",
+                                  "owned_cap", "halo_cap", "live_pairs",
+                                  "kernel_passes", "partition_passes")},
+            "stage_s": ss, "peak_host_rss_bytes": int(peak_rss),
+            "host_rss_before_bytes": int(rss0),
+            "peak_traced_host_bytes": int(traced),
+            "max_memory_allocated_bytes": int(peak_dev),
+            "launches": {k: la[k] for k in GM_KERNELS["high"]},
+            "clusters": clusters, "borders": borders, "noise": noise,
+            "borders_differ": differ}
+        if tag == "main":
+            rows[tag]["slab_hold"] = gm_slab_hold(
+                torch, dev, gm_largest_slab(torch, dev, mm, e, block,
+                                            sizes["ranges"], core),
+                e, sizes["hold_tiles"], f"{what} largest slab")
+        del lab, core
+        stamp(f"16.2: eps {e} done")
+    rec.update(rows)
+    del mm
+    os.remove(mm_path)
+
+    # 16.3: the sketch at width.
+    Xe, _te = make_embedding_data(sizes["sk_n"], 512)
+    kw = dict(eps=sizes["sk_eps"], min_samples=10, block=sizes["sk_block"])
+    single = DBSCAN(device=dev, **kw).fit(Xe)
+    ck.reset_launch_counts()
+    (lab, core, st), wall = run(Xe, sizes["sk_ranges"], **kw)
+    what = f"16.3 n={len(Xe)} d=512"
+    la = gm_launches(ck, st, what, GM_KERNELS["sketch"], sizes["sk_ranges"])
+    log(f"  {what} over {sizes['sk_ranges']} ranges, sketch_k "
+        f"{st['sketch_k']}: {wall:.4f} s on {card}; boundary tiles "
+        f"{st['boundary_tiles']}, band_pairs {st['band_pairs']}, kernel "
+        f"passes {st['partition_passes']}")
+    if st["sketch_k"] <= 0:
+        fail(f"{what}: the sketch is off")
+    clusters, borders, noise, differ = hold_chained(
+        torch, dev, Xe, kw["eps"], lab, core, single.labels_,
+        single.core_sample_mask_, what)
+    rec["sketch"] = {"n": len(Xe), "wall_s": wall, "sketch_k": st["sketch_k"],
+                     "launches": {k: la[k] for k in GM_KERNELS["sketch"]},
+                     "clusters": clusters, "borders": borders,
+                     "borders_differ": differ,
+                     "slab_hold": gm_slab_hold(
+                         torch, dev, gm_largest_slab(
+                             torch, dev, Xe, kw["eps"], kw["block"],
+                             sizes["sk_ranges"], core),
+                         kw["eps"], sizes["hold_tiles"],
+                         f"{what} largest slab")}
+    del Xe, single, lab, core
+    stamp("16.3: done")
+
+    # 16.4: faults and resume on 16.1's 20k case.
+    x, chain, kw = cases["small_high"]
+    (clean, _s) = on_card["small_high"]
+    recorder = obs.RunRecorder(device=dev)
+    with obs.use_recorder(recorder), faults.plan(
+            "gm.chained_range:1=transfer_error"):
+        (lab, core, _st), _w = run(x, chain, **kw)
+    ev = recorder.event_counts()
+    retried = ev.get("retry.gm.chained_range", 0)
+    same = np.array_equal(lab, clean[0]) and np.array_equal(core, clean[1])
+    log(f"  16.4: gm.chained_range:1=transfer_error retried {retried} time, "
+        f"labels and core equal to the clean run: {same}")
+    if retried != 1 or ev.get("fault_injected") != 1 or not same:
+        fail("16.4: the transient fault was not retried once to the clean "
+             "labels")
+    os.makedirs(GM_DIR, exist_ok=True)
+    path = os.path.join(GM_DIR, f"resume_{os.getpid()}.npz")
+    meta = fit_meta(x, eps=kw["eps"], min_samples=kw["min_samples"],
+                    metric="euclidean", block=kw["block"],
+                    mode="global_morton")
+    js = JobState.open(path, meta, every_s=0)
+    try:
+        with faults.plan(f"gm.chained_range:{chain + 3}=error"):
+            run(x, chain, jobstate=js, **kw)
+        fail("16.4: the run that was to fail at its third range finished")
+    except faults.FaultInjected:
+        pass
+    js2 = JobState.open(path, meta, resume=True)
+    ck.reset_launch_counts()
+    (lab, core, st), wall = run(x, chain, jobstate=js2, **kw)
+    la = dict(ck.LAUNCHES)
+    os.remove(path)
+    ran = chain - js2.restored_partitions
+    want = {"count_pairs": ran,
+            "minlab_pairs": sum(p - 1 for p in st["partition_passes"])}
+    same = np.array_equal(lab, clean[0]) and np.array_equal(core, clean[1])
+    log(f"  16.4: resumed past {js2.restored_partitions} ranges in "
+        f"{wall:.4f} s: launches count_pairs={la['count_pairs']} "
+        f"minlab_pairs={la['minlab_pairs']} for the {ran} ranges run (want "
+        f"{want}); labels and core byte-identical to the clean run: {same}")
+    if js2.restored_partitions != 2 or len(st["partition_passes"]) != ran \
+            or {k: la[k] for k in want} != want or not same:
+        fail("16.4: the resumed run did not skip its restored ranges or "
+             "differs from the clean run")
+    rec["faults"] = {"retried": retried, "restored": js2.restored_partitions,
+                     "resume_launches": want}
+    stamp("16.4: done")
+    close_16_1()
+    return rec
+
+
 def main() -> None:
     import torch
 
     if sys.argv[1:2] == ["--chained-cpu-refs"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        chained_cpu_refs_child(sys.argv[2], json.loads(sys.argv[3]))
+        chained_cpu_refs_child(sys.argv[2], json.loads(sys.argv[3]),
+                               sys.argv[4] if len(sys.argv) > 4 else "kd")
         return
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False; this smoke run "
@@ -6138,6 +6657,16 @@ def main() -> None:
                               cpu_refs=ChainedCpuRefs())
         log(f"phase 13 record: {json.dumps(rec13)}; phase 13 took "
             f"{time.perf_counter() - t13:.1f} s")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
+
+    if "--gm" in sys.argv[1:]:
+        t16 = time.perf_counter()
+        rec16 = gm_phase(torch, dev, torch.cuda.synchronize, card,
+                         cpu_refs=ChainedCpuRefs(
+                             dict(CHAINED_SIZES, **GM_SIZES), jobs=("gm",)))
+        log(f"phase 16 record: {json.dumps(rec16)}; phase 16 took "
+            f"{time.perf_counter() - t16:.1f} s")
         log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
         return
 
@@ -6503,9 +7032,14 @@ def main() -> None:
     phase("phase 13: the KD route's chained form (sharded_dbscan)")
     t13 = time.perf_counter()
     reports = {}
+    # One child process runs 13.1's and 16.1's CPU runs in turn.
+    cpu_refs = ChainedCpuRefs(dict(CHAINED_SIZES, **GM_SIZES),
+                              jobs=("kd", "gm"))
     rec13 = chained_phase(torch, dev, torch.cuda.synchronize, card,
-                          main=chained_main, cpu_refs=ChainedCpuRefs(),
+                          main=chained_main, cpu_refs=cpu_refs,
                           reports=reports)
+    # Phase 16 holds the global-Morton route against phase 4's fit too.
+    gm_main = chained_main
     del chained_main
     # The chained route's B1/B2 launches per fit at 13.2's size, and
     # their largest error against the plain versions on its largest slab.
@@ -6531,7 +7065,27 @@ def main() -> None:
     del sync_args, main15, live15
     log(f"phase 15 record: {json.dumps(rec15)}; phase 15 took "
         f"{time.perf_counter() - t15:.1f} s")
-    phase("phases 2-15 done")
+    phase("phase 16: the global-Morton route's chained form "
+          "(global_morton_dbscan)")
+    t16 = time.perf_counter()
+    rec16 = gm_phase(torch, dev, torch.cuda.synchronize, card, main=gm_main,
+                     cpu_refs=cpu_refs, kd_wall=rec13["main"]["wall_s"])
+    del gm_main
+    # The global-Morton route's launches per fit (16.2's at 1M x 16-D,
+    # 16.3's at 100k x 512) and each kernel's largest error against its
+    # plain version over the owner-computes lists of its largest slab.
+    done = set()
+    for rec in kernels:
+        for part in ("main", "sketch"):
+            if (rec["name"] in rec16[part]["launches"]
+                    and rec["name"] not in done):
+                done.add(rec["name"])
+                rec["launches_gm"] = rec16[part]["launches"][rec["name"]]
+                rec["max_abs_err_gm"] = (
+                    rec16[part]["slab_hold"]["max_abs_err"][rec["name"]])
+    log(f"phase 16 record: {json.dumps(rec16)}; phase 16 took "
+        f"{time.perf_counter() - t16:.1f} s")
+    phase("phases 2-16 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -150,6 +150,21 @@ def _pallas_block(block: int, n: int, d: int, mode: str = "high") -> int:
     return b
 
 
+def gm_tile_aligned(block: int, n_total: int, owned: int, d: int,
+                    mode: str = "high") -> bool:
+    """Whether the tile of an ``owned + boundary`` slab of ``n_total``
+    rows divides both ``n_total`` and the ``owned`` prefix: the
+    owner-computes filters split the tile-pair list at ``owned // tile``,
+    and a tile straddling the split would mix owned and boundary rows.
+
+    A power-of-two ``block`` always aligns when ``owned`` and ``n_total``
+    are multiples of it (the global-Morton slab's are): the tile is
+    ``block`` halved while it stays above 128, so it divides ``block``
+    and with it both lengths."""
+    tile = _pallas_block(block, n_total, d, mode)
+    return n_total % tile == 0 and owned % tile == 0
+
+
 def _bounds_dn(pts_dn, mask, nt, block):
     """(nt, d) masked per-tile bounds straight off the (d, N) layout;
     empty tiles get inverted boxes so they always prune."""

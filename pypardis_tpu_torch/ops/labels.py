@@ -31,6 +31,7 @@ from ..utils.validate import (
 )
 from .cuda_kernels import (
     _pallas_block,
+    gm_tile_aligned,
     kernel_pair_list,
     min_neighbor_label_cuda,
     neighbor_counts_cuda,
@@ -334,6 +335,157 @@ def dbscan_fixed_size(
         st["band"],
     ])
     return labels, st["core"], pair_stats
+
+
+# ---------------------------------------------------------------------------
+# Owner-computes passes over an ``owned + boundary`` slab (the JAX
+# package's ``oc_*``), for the global-Morton route:
+#
+# * the counts pass counts owned ROWS against every column, so each owned
+#   point's core flag is exact (the boundary columns cover every
+#   candidate neighbour) and no boundary row is counted;
+# * the propagation takes the boundary slots' core flags from their
+#   owners and drops the (boundary row, boundary column) tile pairs:
+#   boundary cores relay labels between the owned clusters they touch,
+#   and each boundary-boundary edge is some other range's owned edge,
+#   which the host merge recovers from that range's tables.
+#
+# The JAX passes re-sort a filtered Pallas list to fixed shapes (a dump
+# row and a stable sort, ``_oc_sorted_pairs``); the port's pair list has
+# no fixed shape, and a boolean mask keeps its row-major order, which is
+# all the CSR offsets (``distances.row_offsets``) need.
+# ---------------------------------------------------------------------------
+
+
+def gm_backend(backend: str, metric: str, n_total: int, owned: int,
+               block: int, d: int, precision: str, device) -> str:
+    """The backend of a global-Morton ``owned + boundary`` slab of
+    ``n_total`` rows (:func:`resolve_backend`), after the tile check of
+    :func:`~.cuda_kernels.gm_tile_aligned`.  The JAX package sends a
+    misaligned slab to its XLA kernels; the port has no second kernel on
+    the card and never runs the plain versions there, so a misaligned
+    slab raises, on any device."""
+    kind = resolve_backend(backend, device, metric)
+    mode = check_precision(precision)
+    if not gm_tile_aligned(block, n_total, owned, d, mode):
+        raise ValueError(
+            f"block={block} cannot tile the global-Morton slab: its tile "
+            f"{_pallas_block(block, n_total, d, mode)} does not divide the "
+            f"owned prefix (owned={owned}) and the slab (total={n_total}); "
+            f"use a power-of-two block"
+        )
+    return kind
+
+
+def oc_extract(points, eps, mask, *, owned: int, block: int,
+               precision: str = "high", backend: str = "auto",
+               pair_budget: int | None = None, sketch=None):
+    """The owner-computes passes' shared pre-pass over a ``(d, owned +
+    boundary)`` slab: the sketch slab (k > 0), the live tile-pair list
+    over the whole slab and the row frames, each taken once over
+    ``mask`` as :func:`dbscan_prepare` takes them.  The passes filter the
+    list (:func:`oc_raw_counts`, :func:`oc_propagate`).
+
+    Returns a dict: ``total`` and ``budget`` are the FULL list's (the
+    overflow contract: past the budget no pass may run and the caller
+    reruns at ``total``); ``pairs`` the list, ``ont`` the owned tiles,
+    ``hh_pairs`` the list's (boundary, boundary) tile pairs.  The
+    Euclidean metric (the route refuses the others)."""
+    mode = check_precision(precision)
+    d, n = points.shape
+    gm_backend(backend, "euclidean", n, owned, block, d, mode,
+               points.device)
+    tile = _pallas_block(block, n, d, mode)
+    points = points.contiguous()
+    k = effective_k(check_sketch_spec(sketch), d)
+    slab = sketch_stage(points, mask, k, mode) if k else None
+    (rows, cols), (total, budget) = kernel_pair_list(
+        points, eps, mask, block, mode, budget=pair_budget, sketch=k,
+        slab=slab,
+    )
+    ont = owned // tile
+    ex = dict(points=points, eps=eps, mask=mask, block=block, mode=mode,
+              metric="euclidean", k=k, slab=slab, pairs=(rows, cols),
+              total=int(total), budget=int(budget), owned=int(owned),
+              tile=tile, ont=ont,
+              hh_pairs=int(((rows >= ont) & (cols >= ont)).sum()))
+    if total <= budget:
+        ex["frames"] = pass_frames(points, mask, tile, mode, k)
+    return ex
+
+
+def _kept(pairs, keep):
+    """The entries of a row-sorted pair list under ``keep``, in order."""
+    rows, cols = pairs
+    return rows[keep], cols[keep]
+
+
+def oc_raw_counts(ex):
+    """Owned-row raw neighbour counts (no ``min_samples``) over the
+    extracted slab ``ex`` (:func:`oc_extract`): B1, or B3 with the
+    sketch, over the pairs whose row tile is owned.  Returns
+    ``(counts[:owned], band)``, ``band`` the (2,) int64 band stats
+    (zeros off ``"mixed"`` and off the sketch)."""
+    rows, _cols = ex["pairs"]
+    counts = neighbor_counts_cuda(
+        ex["points"], ex["eps"], ex["mask"], block=ex["block"],
+        precision=ex["mode"], pairs=_kept(ex["pairs"], rows < ex["ont"]),
+        sketch=ex["k"], slab=ex["slab"], frames=ex["frames"],
+    )
+    band = torch.zeros(2, dtype=torch.int64)
+    if isinstance(counts, tuple):
+        counts, band = counts
+    return counts[:ex["owned"]], band.cpu()
+
+
+def oc_counts_banded(ex, min_samples):
+    """Owned-row core flags with a uniform ``(core, band)`` return:
+    :func:`oc_raw_counts` thresholded with the self-count clamp of
+    :func:`dbscan_prepare`."""
+    counts, band = oc_raw_counts(ex)
+    core = (torch.clamp_min(counts, 1) >= min_samples) & (
+        ex["mask"][:ex["owned"]])
+    return core, band
+
+
+def oc_counts(ex, min_samples):
+    """:func:`oc_counts_banded` in the kernel convention: ``core``, or
+    ``(core, band)`` under ``precision="mixed"``."""
+    core, band = oc_counts_banded(ex, min_samples)
+    return (core, band) if ex["mode"] == "mixed" else core
+
+
+def oc_propagate_banded(ex, core_all, max_rounds: int = 64):
+    """Min-label propagation with the boundary slots as relay-only nodes,
+    over the extracted slab ``ex``: the rounds of :func:`dbscan_rounds`
+    (B2, or B4 with the sketch) with ``core_all`` as the sources, the
+    owned slots' exact flags followed by the boundary slots' owners'
+    flags, over the pairs that are not (boundary row, boundary column).
+    Returns ``(labels, passes, band)``: per-slot root slot indices (-1
+    noise; a boundary slot's label is its occurrence-table entry), the
+    min-label passes run (the rounds, and the border pass after an exit
+    by ``max_rounds``) and the (2,) band stats, zeros as the JAX
+    kernels' min-label stats are."""
+    rows, cols = ex["pairs"]
+    ont = ex["ont"]
+    st = dict(ex, core=core_all,
+              pairs=_kept(ex["pairs"], ~((rows >= ont) & (cols >= ont))))
+    mask = ex["mask"]
+    idx = torch.arange(mask.shape[0], dtype=torch.int32, device=mask.device)
+    f0 = torch.where(core_all, idx, INT_INF)
+    f, g, live, changed, rounds = dbscan_rounds(st, f0, mask, max_rounds)
+    border = dbscan_border(st, f, live) if changed else g
+    labels = finish_labels(f, border, core_all, mask)
+    return labels, rounds + int(changed), torch.zeros(2, dtype=torch.int64)
+
+
+def oc_propagate(ex, core_all, max_rounds: int = 64):
+    """:func:`oc_propagate_banded` in the kernel convention: ``(labels,
+    passes)``, widened by the band under ``precision="mixed"``."""
+    labels, passes, band = oc_propagate_banded(ex, core_all, max_rounds)
+    if ex["mode"] == "mixed":
+        return labels, passes, band
+    return labels, passes
 
 
 def check_pair_metric(metric, mode: str) -> str:

@@ -33,10 +33,11 @@ the JAX package's chained route (``owner_computes`` is reported False):
 partition's dispatch is retried through transient faults, a jobstate
 resumes a killed fit from its finished partitions, and an OOM of the
 device merge finishes that merge on the host (see :func:`sharded_dbscan`).
-The fused multi-device steps, owner-computes, the ring exchange,
-streaming input and the global-Morton mode are later slices (ROADMAP
-A10-A12) and raise ``NotImplementedError`` here; the staging cache's
-evict-and-retry rung comes with that cache.
+The fused multi-device steps, owner-computes on this route, the ring
+exchange and streaming input are later slices (ROADMAP A10-A12) and
+raise ``NotImplementedError`` here (``mode="global_morton"`` runs the
+global-Morton route's chained form, :mod:`.global_morton`); the staging
+cache's evict-and-retry rung comes with that cache.
 """
 
 from __future__ import annotations
@@ -482,19 +483,21 @@ def _canonicalize_roots(labels, core) -> np.ndarray:
 
 
 def _exec_stats(stats, *, pstats, block, k, precision, n,
-                metric="euclidean"):
-    """The execution telemetry: ``owner_computes`` (False: every halo
+                metric="euclidean", oc_on=False):
+    """The execution telemetry: ``owner_computes`` (``oc_on``: each slab
+    counts only its owned rows; off, as on the KD route, every halo
     duplicate is clustered again), ``duplicated_work_factor`` (slots
-    clustered over dataset points), and from the binding partition's
-    pair stats the live pairs, kernel passes, band stats, the fit's tile
-    (the port's ``_pallas_block``) and the slab's tiles."""
+    whose core flag is computed, over dataset points), and from the pair
+    stats (a (5,) row or rows of them; each column's maximum binds) the
+    live pairs, kernel passes, band stats, the fit's tile (the port's
+    ``_pallas_block``) and the slab's tiles."""
     p_total = int(stats["n_shard_partitions"])
     cap = int(stats["owned_cap"])
     hcap = int(stats.get("halo_cap", 0))
-    stats["owner_computes"] = False
-    stats["duplicated_work_factor"] = float(p_total * (cap + hcap)) / max(
-        n, 1)
-    ps = [int(v) for v in pstats]
+    stats["owner_computes"] = bool(oc_on)
+    stats["duplicated_work_factor"] = float(
+        p_total * (cap if oc_on else cap + hcap)) / max(n, 1)
+    ps = [int(v) for v in _np(pstats).reshape(-1, 5).max(axis=0)]
     stats["live_pairs"] = ps[0]
     stats["kernel_passes"] = ps[2]
     stats["band_pairs"] = ps[3]
@@ -797,13 +800,15 @@ def sharded_dbscan(
     error; never a truncated or under-merged result.  A kernel that
     fails raises: there is no fallback to the plain versions.
 
-    ``owner_computes`` is accepted and reported False, as the JAX
-    package's chained route reports it.  ``overlap`` is accepted for the
-    JAX signature and changes nothing: the JAX switch turns off an
-    overlap that rides on asynchronous dispatch, which the port's
-    builder thread does not.  ``halo="ring"``, ``stream``,
-    ``mode="global_morton"``, ``hcap`` and a mesh of more than one
-    device raise ``NotImplementedError``.
+    ``mode="global_morton"`` runs :func:`~.global_morton.
+    global_morton_dbscan` (the partitioner unread, ``chain`` from
+    ``PPTORCH_GM_CHAIN``).  ``owner_computes`` is accepted and reported
+    False, as the JAX package's chained route reports it.  ``overlap``
+    is accepted for the JAX signature and changes nothing: the JAX
+    switch turns off an overlap that rides on asynchronous dispatch,
+    which the port's builder thread does not.  ``halo="ring"``,
+    ``stream``, ``hcap`` and a mesh of more than one device raise
+    ``NotImplementedError``.
 
     Fault tolerance, as in the JAX package's chained route: each
     partition's dispatch runs under a retry with the
@@ -838,7 +843,15 @@ def sharded_dbscan(
 
     faults.from_env()
     if mode == "global_morton":
-        _refuse("mode='global_morton'", "A12")
+        from .global_morton import global_morton_dbscan
+
+        # The partitioner and the KD knobs go unread, as in the JAX
+        # package; ``chain`` comes from PPTORCH_GM_CHAIN.
+        return global_morton_dbscan(
+            points, eps=eps, min_samples=min_samples, metric=metric,
+            block=block, mesh=mesh, precision=precision, backend=backend,
+            merge=merge, pair_budget=pair_budget, merge_rounds=merge_rounds,
+            stream=stream, jobstate=jobstate, device=device)
     if mode != "kd":
         raise ValueError(f"mode must be 'kd' or 'global_morton', got {mode!r}")
     if halo == "ring":

@@ -40,6 +40,10 @@ Injection sites, each inside the retry scope that owns recovery:
                        sits before the fused step that runs the
                        partitions and the merge; the port's before the
                        merge alone, the one part an OOM spill cures)
+``gm.execute``         each ladder attempt of the global-Morton chained
+                       route, before its passes
+``gm.chained_range``   each range's counts and propagation dispatch on
+                       that route (one per range and pass)
 ``serve.drain``        :meth:`QueryEngine.drain`
 ``ingest.batch``       ``LiveModel.insert_batch`` / ``delete_batch``,
                        fired before any state changes
@@ -48,9 +52,10 @@ Injection sites, each inside the retry scope that owns recovery:
 ``gateway.admit``      every gateway admission, upstream of the quota
 ===================== ====================================================
 
-The JAX package's other sites (``staging.device_put``, the ``gm.*``
-sites and ``dist.worker``) come with the layers that carry them
-(ROADMAP A10-A12 and the staging cache).
+The JAX package's other sites (``staging.device_put``, the mesh
+engine's ``gm.exchange``, ``gm.ring_round`` and ``gm.fixpoint_round``,
+and ``dist.worker``) come with the layers that carry them (ROADMAP
+A10-A12 and the staging cache).
 
 ``PPTORCH_FAULTS`` is read at import and again at the start of every
 fit (:func:`from_env`), so one process can set it for a single fit.
@@ -73,6 +78,8 @@ KNOWN_SITES = (
     "stepped.batch",
     "chained.partition",
     "sharded.execute",
+    "gm.execute",
+    "gm.chained_range",
     "serve.drain",
     "ingest.batch",
     "compact.phase",

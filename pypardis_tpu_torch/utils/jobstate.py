@@ -130,7 +130,11 @@ class JobState:
             except (TypeError, ValueError):
                 every_s = 0.0
         self.every_s = max(float(every_s), 0.0)
-        self._last_write = 0.0
+        # None until the first write: a file never written is always due
+        # (``time.monotonic()`` counts from an unspecified start, the
+        # host's boot on Linux, so a 0.0 start withheld the first
+        # snapshot on a host up for less than ``every_s``).
+        self._last_write: Optional[float] = None
         self.restored_partitions = 0
         self.restored_rounds = 0
         # chained: {p: (glab, core, pstats)}, one budget generation.
@@ -179,7 +183,10 @@ class JobState:
                 self._gm = (z["gm_lab"], int(z["gm_round"]))
 
     def due(self) -> bool:
-        """Whether the cadence allows another snapshot now."""
+        """Whether the cadence allows another snapshot now: always before
+        the first write, then ``every_s`` after the last one."""
+        if self._last_write is None:
+            return True
         return time.monotonic() - self._last_write >= self.every_s
 
     def flush(self, force: bool = False) -> None:

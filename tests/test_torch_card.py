@@ -1559,3 +1559,41 @@ def test_a_trapping_kernel_under_a_retrier_is_attempted_once():
     assert out["retry_counters"] == [], out
     assert out["error"] != "no error", (out, proc.stderr[-2000:])
     assert "CUDA" in proc.stderr or "cuda" in proc.stderr, proc.stderr[-2000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "mixed"])
+def test_global_morton_chained_route_on_card_equals_cpu(tmp_path, precision):
+    """The global-Morton route's chained form on 3,000 blobs (a float32
+    memmap, 4 ranges, eps 0.4, block 128): labels, core flags and the
+    non-timing stats on the card equal the port's CPU route (under
+    ``"mixed"`` the bf16 B1's band stats within 1e-3 of its plain
+    version's, as everywhere on the card); B1 runs once per range and
+    B2 once per propagation pass."""
+    from pypardis_tpu_torch.parallel import global_morton_dbscan
+
+    _need_card()
+    X, _ = make_blob_data(3000, 3, n_centers=6, spread=10.0, std=0.3,
+                          seed=3)
+    mm = np.memmap(tmp_path / "pts.f32", dtype=np.float32, mode="w+",
+                   shape=X.shape)
+    mm[:] = X
+    mm.flush()
+    kw = dict(eps=0.4, min_samples=5, block=128, mesh=1, chain=4,
+              precision=precision)
+    c_lab, c_core, c_st = global_morton_dbscan(mm, device="cpu", **kw)
+    ck.reset_launch_counts()
+    lab, core, st = global_morton_dbscan(mm, **kw)
+    np.testing.assert_array_equal(lab, c_lab)
+    np.testing.assert_array_equal(core, c_core)
+    assert st["boundary_tiles"] > 0 and len(np.unique(lab[lab >= 0])) > 1
+    band = ("band_pairs", "rescored_tiles") if precision == "mixed" else ()
+    for key, want in c_st.items():
+        if key in band:
+            assert abs(st[key] - want) <= 1e-3 * max(want, 1), key
+        elif not key.endswith("_s"):
+            assert st[key] == want, key
+    b1 = "count_pairs" if precision == "high" else "count_pairs_mixed"
+    b2 = "minlab_pairs" if precision == "high" else "minlab_pairs_mixed"
+    assert ck.LAUNCHES[b1] == len(st["partition_passes"]) == 4
+    assert ck.LAUNCHES[b2] == sum(p - 1 for p in st["partition_passes"])

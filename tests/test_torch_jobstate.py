@@ -306,6 +306,28 @@ def test_cadence_gates_the_writes(tmp_path, monkeypatch):
     assert js3.stepped_restore(0, 4)[1] == 2
 
 
+def test_first_snapshot_is_due_whatever_the_uptime(tmp_path, monkeypatch):
+    """``time.monotonic()`` counts from the host's boot: on a host up for
+    less than the cadence, a file never written must still be due, and
+    the first note must reach the disk."""
+    from pypardis_tpu_torch.utils import jobstate as jobstate_mod
+
+    clock = [5.0]
+    monkeypatch.setattr(jobstate_mod.time, "monotonic", lambda: clock[0])
+    js = JobState(str(tmp_path / "u.npz"), {"schema": "x"}, every_s=3600)
+    assert js.due()
+    js.chained_note(0, np.arange(4, dtype=np.int32), np.ones(4, bool),
+                    np.arange(5, dtype=np.int64), budget=0)
+    assert os.path.exists(js.path)
+    js2 = JobState.open(js.path, {"schema": "x"}, resume=True)
+    assert sorted(js2.chained_restore(0)) == [0]
+    # After the first write the cadence gates as before.
+    clock[0] = 5.0 + 3599.0
+    assert not js.due()
+    clock[0] = 5.0 + 3600.0
+    assert js.due()
+
+
 # -- the file format --------------------------------------------------------
 
 
