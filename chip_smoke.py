@@ -13,7 +13,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    kernels among them: the phase fails without them);
 2. each kernel (B1 ``count_pairs``, B2 ``minlab_pairs``) against its
    plain PyTorch version on the card, at d=16 and d=64 on guard-banded
-   and on natural blobs, at d=3 and d=96 on natural blobs, and at d=3,
+   and on natural blobs, at d=3 and d=96 on natural blobs, at d=3 and 16
+   with block 64 (a 64-row tile), and at d=3,
    16 and 64 on the adversarial geometry (near-eps pairs, duplicates, a
    1e3 offset) — the exact verdicts share their d^2 arithmetic, so the
    bar is exact equality; at d <= 64 (B1 on the tensor cores) also B1's
@@ -100,7 +101,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    must rule out); B3 timed with its ``rescored_pairs``, their share of
    ``band_pairs``, two bounds (:func:`b3_bounds`: the exact rescore's
    and the certified rescore's work) and the function's floor
-   (:func:`b3_floor`); over the first 32 row tiles both
+   (:func:`b3_floor`); over the first 16 row tiles (32 until phase 17
+   took their time) both
    against their plain versions (B3's ``rescored_pairs`` against the
    emulation's), B4 bitwise at the round-1, converged and
    descending labels with its evaluated count equal to
@@ -140,8 +142,9 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    kernels line's ``max_abs_err`` of each bf16 B1-B4 kernel is its
    largest difference in (4) or (6);
 9. the metrics and the sweep (:func:`metrics_phase`), each fit from host
-   input with its launches counted from 0: (1) cosine on phase 7's
-   1,000,000 x 512 data (eps :data:`COS_EPS`, sketch "auto"): B3 once
+   input with its launches counted from 0: (1) cosine on the first
+   500,000 rows of phase 7's 1,000,000 x 512 data (all of them until PR
+   20; eps :data:`COS_EPS`, sketch "auto"): B3 once
    and B4 per round, ARI against the truth, labels and core mask
    byte-identical to the Euclidean fit of ``_unit_rows(X)`` at
    ``kernel_eps``; B3/B4 bitwise their plain versions on unit rows
@@ -199,7 +202,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 
 11. live updates and ingest (:func:`live_phase`) on phase 6's model
    (1,000,000 x 16-D, eps 2.4, min_samples 10): ``model.live()``, then
-   a seeded write stream (128 single inserts and 4 ``insert_batch``es
+   a seeded write stream (64 single inserts, 128 until PR 20, and 4
+   ``insert_batch``es
    of 1,024 rows from the blob law, 4,096 rows from one blob, a clump
    of 12 points 20 eps past every centre, 64 noise points, a pour into
    the index leaf with the fewest free slots past its pads, a
@@ -273,9 +277,10 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    within eps of a core of both (the exact float32 verdict on the card);
    then B1 and one B2 round bitwise their plain versions on the first 64
    row tiles of the route's largest slab (owned rows, the gap up to the
-   owned capacity, the halo), on the same device tensors; (3) the same
-   data at eps 1.4 under the host merge, held the same way against a
-   single-device fit at that eps; it must hold border points.  (2) and
+   owned capacity, the halo), on the same device tensors; (3) the first
+   200,000 of the same points (the whole 1M until PR 20) at eps 1.4
+   under the host merge, held the same way against a single-device fit
+   at that eps; it must hold border points.  (2) and
    (3) print the fit's wall from host input split into the KD build, the
    halo sets, the host slab build, the per-partition device time
    (CUDA-event spans), the loop and the merge, with the halo and
@@ -342,7 +347,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    versions over the owner-computes lists of the largest range slab
    (:func:`gm_slab_hold`: the counts list's first 64 owned row tiles,
    the propagation list's first 64 owned and 64 boundary row tiles);
-   the same at eps 1.4, which must hold border points; each prints its
+   the same on the first 200,000 points (the whole 1M until PR 20) at
+   eps 1.4, which must hold border points; each prints its
    wall beside 13.2's KD chained wall, the route's stage seconds, peak
    host RSS and ``max_memory_allocated``; (3) phase 7's 100,000 x 512
    embeddings over 2 ranges, sketch on: B3/B4 launched likewise and
@@ -352,6 +358,36 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    labels, and a run killed at its third propagation range under a
    jobstate resumed byte-identically, its two restored ranges launching
    no B1 and no B2.
+17. the KD route's fused multi-device step (:func:`mesh_phase`,
+   ``DBSCAN(mesh=Mesh(["cuda:0"] * 4))`` and ``sharded_dbscan(...,
+   mesh=...)``: four shards on the one card, whose per-shard code,
+   reductions and merge run at full width; the phase prints the mesh
+   and the card count): (1) 13.1's 20,000 x 16-D blobs over 8
+   partitions (2 per shard) under ``"high"``, ``"mixed"`` and
+   ``"default"``, each under both merges, owner-computes on and (for
+   ``"high"`` and ``"default"``) off, and its 4,096 x 512 embeddings
+   over 2 partitions (2 empty slots) with the sketch on: the card's
+   labels, core flags and non-timing stats equal to the port's CPU
+   mesh route (the CPU runs go on in the child process of 13.1 and
+   16.1, started after phase 4; ``"mixed"``'s band stats within 1e-3),
+   the counts kernel once per partition slot and the min-label kernel
+   once per other pass; (2) phase 4's 1M x 16-D blobs,
+   ``max_partitions`` by default (4, one per shard), under the device
+   merge, then the host merge, then at eps 1.4 (which must hold border
+   points): ``owner_computes`` on, ``duplicated_work_factor`` = P x cap
+   / N, B1 launched once per partition and B2 once per propagation
+   pass, each fit held against the single-device fit
+   (:func:`hold_chained`), with its wall, stage seconds, merge rounds,
+   ``halo_factor``, peak host RSS and ``max_memory_allocated`` beside
+   phase 4's and 13.2's walls; B1 and one B2 pass bitwise their plain
+   versions over the owner-computes lists of the largest partition slab
+   built by the route's own ``build_shards`` (:func:`mesh_largest_slab`,
+   :func:`gm_slab_hold`); (3) phase 7's 100,000 x 512 embeddings, sketch
+   on: B3/B4 likewise, labels held against the single-device 100k fit;
+   (4) on (1)'s 20k case a ``pair_budget`` of 1 reruns once at the exact
+   total, ``merge_rounds=1`` on a line of points threading all 8
+   partitions retries once at 4x, and ``sharded.execute:1=oom``
+   finishes the merge on the host, each with (1)'s labels.
 
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
@@ -376,6 +412,9 @@ for a difference that does not show on every computation.
 model's live model and 13.1's 20,000-point case).  ``--gm`` builds
 them and runs phase 16 alone (fitting the 1M single-device model it
 compares with; 16.1's CPU runs in a child process of their own).
+``--mesh`` builds them and runs phase 17 alone (fitting the 1M, the
+1M at eps 1.4 and the 100k x 512 single-device models it compares
+with; 17.1's CPU runs in a child process of their own).
 ``python3 chip_smoke.py --b1`` builds the kernels and times B1 alone
 in its three modes at the 1M x 16-D inputs, with its bounds, floor,
 rescored share and frames' staging, then prints the 1M fits' sha256 in
@@ -1574,7 +1613,7 @@ def b1_rescored_hold(a, centers, rescored, what):
 
 # Sizes of phase 7; tests rehearse the phase at small ones on the CPU.
 SKETCH_SIZES = {"check_n": 20_000, "onoff_n": 100_000,
-                "main_n": 1_000_000, "sub_tiles": 32, "reps": 3}
+                "main_n": 1_000_000, "sub_tiles": 16, "reps": 2}
 
 
 def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
@@ -2815,7 +2854,7 @@ SWEEP_PAST_CAP = 2.4
 
 # Phase 9: the metrics and the sweep.  Sizes of the phase; a test
 # rehearses it at small ones on the CPU.
-METRIC_SIZES = {"cos_n": 1_000_000, "cos_serve_n": 200_000,
+METRIC_SIZES = {"cos_n": 500_000, "cos_serve_n": 200_000,
                 "check_n": 20_000, "hav_n": 1_000_000,
                 "l1_n": 1_000_000, "l1_fit_n": 200_000, "l1_sub_n": 20_000,
                 "queries": 4096,
@@ -3093,9 +3132,12 @@ def metrics_phase(torch, dev, median_ms, sync, sizes=METRIC_SIZES,
                real_pairs=f["real_pairs"], pass_pairs=int(pp))
         return wall
 
-    # 9.1: cosine at 1M x 512 (BASELINE config 4's data), sketch "auto".
+    # 9.1: cosine on the first cos_n rows of phase 7's 1M x 512 data
+    # (BASELINE config 4's; the whole 1M until phase 17 took its time),
+    # sketch "auto".
     n = sizes["cos_n"]
     X, truth = embedding or make_embedding_data(n, 512)
+    X, truth = X[:n], truth[:n]
     del embedding
     stamp("9.1: data made")
     cos = DBSCAN(eps=COS_EPS, min_samples=10, metric="cosine", block=block,
@@ -3824,7 +3866,7 @@ def refit_trace(torch, dev, live, block, trace_cap):
 # rehearses it at small ones on the CPU.
 LIVE_SIZES = {"n": 1_000_000, "d": 16, "centers": 32, "std": 0.4,
               "eps": 2.4, "min_samples": 10, "block": 2048,
-              "singles": 128, "batches": 4, "batch_rows": 1024,
+              "singles": 64, "batches": 4, "batch_rows": 1024,
               "blob_rows": 4096, "clump": 12, "deletes": 64,
               "queue_rows": 4096, "queue_batch": 1024, "replay_rows": 64,
               "replay_deletes": 16, "queries": 4096, "inserted_q": 1024,
@@ -4892,13 +4934,14 @@ def gateway_phase(torch, dev, sync, card="", sizes=GATEWAY_SIZES, live=None,
 # make_embedding_data(emb_n, 512) through B3/B4 (block 128 keeps the
 # CPU's plain sketch passes to ~15 s); 13.2: phase 4's data and fit, and
 # B1/B2 held on the first hold_tiles row tiles of its largest slab;
-# 13.3: the same data at border_eps (1.4: ~4 % of the points are border
-# points, the rest core but for ~0.3 % noise) under the host merge.
+# 13.3: the first border_n points of the same data at border_eps (1.4:
+# border points and noise) under the host merge (the whole 1M until
+# phase 17 took its time).
 CHAINED_SIZES = {"small_n": 20_000, "small_eps": 2.0, "small_parts": 8,
                  "small_block": 256, "emb_n": 4096, "emb_eps": 2.0,
                  "emb_parts": 2, "emb_block": 128, "n": 1_000_000,
                  "eps": 2.4, "parts": 64, "block": 2048, "hold_tiles": 64,
-                 "border_eps": 1.4}
+                 "border_eps": 1.4, "border_n": 200_000}
 
 
 def chained_cpu_cases(sizes):
@@ -4944,11 +4987,12 @@ def chained_cpu_runs(cases):
 
 
 class ChainedCpuRefs:
-    """The CPU runs of 13.1 (``"kd"``) and 16.1 (``"gm"``) in a child
-    process (``chip_smoke.py --chained-cpu-refs PATH SIZES JOBS``: no
-    card, 4 threads, niced), started before phase 13 so that they run
-    beside the card's work without sharing this process's interpreter
-    lock; :meth:`result` waits for one job's runs.  The child writes one
+    """The CPU runs of 13.1 (``"kd"``), 16.1 (``"gm"``) and 17.1
+    (``"mesh"``) in a child process (``chip_smoke.py --chained-cpu-refs
+    PATH SIZES JOBS``: no card, 4 threads, niced), started after phase 4
+    so that they run beside the card's work without sharing this
+    process's interpreter lock; :meth:`result` waits for one job's
+    runs.  The child writes one
     ``.npz`` per job, in order, under the checkout's ``build/`` and is
     killed if this process exits first."""
 
@@ -4979,8 +5023,9 @@ class ChainedCpuRefs:
 
     def result(self, cases, job="kd"):
         """The child's ``{name: ((labels, core), seconds)}`` of ``job``
-        (``"gm"``: ``{name: ((labels, core, stats), seconds)}``, the
-        stats without their timings), its points checked to be
+        (``"gm"``, ``"mesh"``: ``{name: ((labels, core, stats),
+        seconds)}``, the stats without their timings), its points
+        checked to be
         ``cases``'.  Reading the last job ends the child and removes its
         files."""
         path = self.paths.pop(job)
@@ -5023,9 +5068,12 @@ def chained_cpu_refs_child(base, sizes, jobs):
         if job == "kd":
             cases = chained_cpu_cases(sizes)
             runs = chained_cpu_runs(cases)
-        else:
+        elif job == "gm":
             cases = gm_cpu_cases(sizes)
             runs = gm_cpu_runs(cases)
+        else:
+            cases = mesh_cpu_cases(sizes)
+            runs = mesh_cpu_runs(cases)
         arrays = {"digest": np.array(cases_digest(cases))}
         for name, (res, sec) in runs.items():
             arrays.update({f"{name}_labels": res[0], f"{name}_core": res[1],
@@ -5263,16 +5311,17 @@ def chained_phase(torch, dev, sync, card="", sizes=CHAINED_SIZES,
     done (None: they run first, here).  Prints the fit's wall from host input
     split into the KD build, the halo sets, the host slab build, the
     per-partition device time (CUDA-event spans), the loop and the
-    merge, with the geometry, merge and overlap stats.  (3) The same
-    data at ``border_eps`` under ``merge="host"``, held against a
-    single-device fit at that eps: it must hold border points, and each
-    that another cluster takes must be an eps tie.  ``main``:
+    merge, with the geometry, merge and overlap stats.  (3) The first
+    ``border_n`` points of the same data (over their own
+    ``KDPartitioner``) at ``border_eps`` under ``merge="host"``, held
+    against a single-device fit at that eps: it must hold border points,
+    and each that another cluster takes must be an eps tie.  ``main``:
     ``dict(X=, labels=, core=)`` of phase 4's fit.  ``reports``: a dict
     that gains ``"chained"``, 13.2's report inputs
     (:func:`chained_fit_recorded`, for phase 14).  Returns the phase's
     record."""
     from benchdata import make_blob_data
-    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch import DBSCAN, KDPartitioner
     from pypardis_tpu_torch.ops import cuda_kernels as ck
     from pypardis_tpu_torch.parallel import sharded_dbscan
 
@@ -5397,19 +5446,24 @@ def chained_phase(torch, dev, sync, card="", sizes=CHAINED_SIZES,
         "13.2 largest slab")
     stamp("13.2: done")
 
-    # 13.3: border points at 1M, through the host merge.
-    b_eps = sizes["border_eps"]
+    # 13.3: border points, through the host merge.
+    b_eps, nb = sizes["border_eps"], sizes.get("border_n", n)
+    Xb = X[:nb]
+    t = time.perf_counter()
+    part_b = part if nb == n else KDPartitioner(
+        Xb, max_partitions=sizes["parts"])
+    kd_b = kd_s if nb == n else time.perf_counter() - t
     single = DBSCAN(eps=b_eps, min_samples=10, block=sizes["block"],
-                    device=dev).fit(X)
+                    device=dev).fit(Xb)
     ck.reset_launch_counts()
-    (lab, core, st), wall = run(X, part, eps=b_eps, min_samples=10,
+    (lab, core, st), wall = run(Xb, part_b, eps=b_eps, min_samples=10,
                                 block=sizes["block"], merge="host",
                                 device=dev)
-    chained_launches(ck, st, f"13.3 n={n} d=16 eps={b_eps}")
-    rec["border"] = {"n": n, "eps": b_eps, **split(
-        f"13.3 n={n} d=16 eps={b_eps}", st, wall, kd_s)}
+    chained_launches(ck, st, f"13.3 n={nb} d=16 eps={b_eps}")
+    rec["border"] = {"n": nb, "eps": b_eps, **split(
+        f"13.3 n={nb} d=16 eps={b_eps}", st, wall, kd_b)}
     clusters, borders, noise, differ = hold_chained(
-        torch, dev, X, b_eps, lab, core, single.labels_,
+        torch, dev, Xb, b_eps, lab, core, single.labels_,
         single.core_sample_mask_, "13.3")
     if not borders:
         fail("13.3: the data holds no border point, so the border check "
@@ -6045,11 +6099,13 @@ def faults_phase(torch, dev, sync, card, main, b1_args, live, chained_case,
 # data (the 20,000 x 16-D separated blobs over small_ranges ranges in
 # each mode, the 4,096 x 512 embeddings over emb_ranges with the sketch
 # on); 16.2 phase 4's 1M x 16-D blobs from a float32 memmap under
-# build/, over `ranges` ranges at eps and at border_eps; 16.3 phase 7's
+# build/, over `ranges` ranges at eps and (its first border_n points, the
+# whole 1M until phase 17 took its time) at border_eps; 16.3 phase 7's
 # 100k x 512 embeddings over sk_ranges; 16.4 16.1's 20k case.
 GM_SIZES = {"small_ranges": 4, "gm_modes": ["high", "mixed", "default"],
             "emb_ranges": 2, "n": 1_000_000, "eps": 2.4, "ranges": 4,
             "block": 2048, "hold_tiles": 64, "border_eps": 1.4,
+            "border_n": 200_000,
             "sk_n": 100_000, "sk_eps": 2.0, "sk_ranges": 2,
             "sk_block": 2048}
 GM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -6173,6 +6229,7 @@ def gm_slab_hold(torch, dev, slab, eps, tiles, what):
                         pair_budget=ex["total"])
     rows, cols = ex["pairs"]
     tile, ont, k = ex["tile"], ex["ont"], ex["k"]
+    unit, edge = slab.get("unit", "range"), slab.get("edge", "boundary")
     N = xs.shape[1]
     nt = N // tile
     sub = min(tiles, ont)
@@ -6212,36 +6269,38 @@ def gm_slab_hold(torch, dev, slab, eps, tiles, what):
     err = {names[0]: int((kc[held_c].long() - pc[held_c].long()).abs().max()),
            names[1]: int((kb[held_b].long() - pb[held_b].long()).abs().max())}
     relayed = int(((pb != INT_INF) & held_b & (tix >= ont)).sum())
-    log(f"    {what}: range {slab['range']}'s slab ({slab['owned']} owned of "
-        f"cap {cap}, {slab['boundary']} boundary of bcap {slab['bcap']}; "
+    log(f"    {what}: {unit} {slab['range']}'s slab ({slab['owned']} owned of "
+        f"cap {cap}, {slab['boundary']} {edge} of {slab['bcap']}; "
         f"tile {tile}, k {k}, {ex['total']} live tile pairs, "
         f"{ex['hh_pairs']} boundary x boundary): {names[0]} on the first "
         f"{sub} owned row tiles ({int(held_c.sum())} points) {bad_c} "
         f"differ{', stats differ' if stats_off else ''}; {names[1]} "
-        f"(round 1) on {sub} owned + {min(tiles, nt - ont)} boundary row "
-        f"tiles ({int(held_b.sum())} points, {relayed} boundary rows "
+        f"(round 1) on {sub} owned + {min(tiles, nt - ont)} {edge} row "
+        f"tiles ({int(held_b.sum())} points, {relayed} {edge} rows "
         f"reaching an owned source) {bad_b} differ")
     if bad_c or bad_b or stats_off:
         fail(f"{what}: the kernels disagree with their plain versions over "
              f"the owner-computes lists")
     if not int(held_b.sum()) or not relayed:
         fail(f"{what}: the held rows reach no source across the boundary")
-    return {"range": slab["range"], "rows": N, "owned": slab["owned"],
-            "boundary": slab["boundary"], "tile": tile,
+    return {unit: slab["range"], "rows": N, "owned": slab["owned"],
+            edge: slab["boundary"], "tile": tile,
             "tiles_held": sub, "points_held": int(held_b.sum()),
             "max_abs_err": err}
 
 
 def gm_phase(torch, dev, sync, card="", sizes=GM_SIZES, main=None,
-             cpu_refs=None, kd_wall=None):
+             cpu_refs=None, kd_wall=None, keep=None):
     """Phase 16 (the global-Morton route's chained form on one card,
     ``pypardis_tpu_torch.parallel.global_morton_dbscan(..., mesh=1,
     chain=R)``); see the module docstring.  ``main``: ``dict(X=,
     labels=, core=)`` of phase 4's 1M fit (None: fitted here);
     ``cpu_refs``: a :class:`ChainedCpuRefs` with a ``"gm"`` job (None:
     16.1's CPU runs go here first); ``kd_wall``: 13.2's KD chained wall
-    on the same data, printed beside 16.2's.  Returns the phase's
-    record."""
+    on the same data, printed beside 16.2's; ``keep``: a dict that gains
+    the single-device fits phase 17 holds its fits against (``"border"``:
+    16.2's at border_eps; ``"sketch"``: 16.3's data and fit).  Returns
+    the phase's record."""
     from benchdata import make_blob_data, make_embedding_data
     from pypardis_tpu_torch import DBSCAN, obs
     from pypardis_tpu_torch.ops import cuda_kernels as ck
@@ -6320,13 +6379,22 @@ def gm_phase(torch, dev, sync, card="", sizes=GM_SIZES, main=None,
     if not np.array_equal(np.asarray(mm), X):
         fail("16.2: the memmap does not hold phase 4's points")
     rows = {}
+    nb = sizes.get("border_n", n)
     for tag, e in (("main", eps), ("border", sizes["border_eps"])):
         if tag == "main":
             s_lab, s_core = main["labels"], main["core"]
+            Xt = X
         else:
+            # The first border_n points, from a memmap of their own.
+            del mm
+            os.remove(mm_path)
+            Xt = X[:nb]
+            mm, mm_path = gm_memmap(Xt, "blobs_border")
             single = DBSCAN(eps=e, min_samples=10, block=block,
-                            device=dev).fit(X)
+                            device=dev).fit(Xt)
             s_lab, s_core = single.labels_, single.core_sample_mask_
+            if keep is not None and nb == n:
+                keep["border"] = dict(eps=e, labels=s_lab, core=s_core)
         from pypardis_tpu_torch.obs.resources import host_rss_bytes
 
         # Earlier phases' garbage is freed first, so that the peaks below
@@ -6359,7 +6427,7 @@ def gm_phase(torch, dev, sync, card="", sizes=GM_SIZES, main=None,
             "resources.peak_host_rss_bytes", 0)
         peak_dev = (torch.cuda.max_memory_allocated(dev) - dev0 if on_cuda
                     else 0)
-        what = f"16.2 n={n} d=16 eps={e}"
+        what = f"16.2 n={len(Xt)} d=16 eps={e}"
         la = gm_launches(ck, st, what, GM_KERNELS["high"], sizes["ranges"])
         if st["duplicated_work_factor"] != 1.0 or st["input"] != "stream" \
                 or st["boundary_tiles"] <= 0:
@@ -6389,12 +6457,13 @@ def gm_phase(torch, dev, sync, card="", sizes=GM_SIZES, main=None,
             f" kernel passes (max) {st['kernel_passes']}, per range "
             f"{st['partition_passes']}, tile {st['kernel_block']}")
         clusters, borders, noise, differ = hold_chained(
-            torch, dev, X, e, lab, core, s_lab, s_core, what)
+            torch, dev, Xt, e, lab, core, s_lab, s_core, what)
         if tag == "border" and not borders:
             fail(f"{what}: the data holds no border point, so the border "
                  f"check proves nothing")
         rows[tag] = {
-            "eps": e, "wall_s": wall, "kd_chained_wall_s": kd_wall,
+            "n": len(Xt), "eps": e, "wall_s": wall,
+            "kd_chained_wall_s": kd_wall,
             **{k: st[k] for k in ("gm_build_s", "gm_exchange_s",
                                   "gm_execute_s", "gm_merge_s",
                                   "boundary_tiles", "halo_factor",
@@ -6422,6 +6491,9 @@ def gm_phase(torch, dev, sync, card="", sizes=GM_SIZES, main=None,
     Xe, _te = make_embedding_data(sizes["sk_n"], 512)
     kw = dict(eps=sizes["sk_eps"], min_samples=10, block=sizes["sk_block"])
     single = DBSCAN(device=dev, **kw).fit(Xe)
+    if keep is not None:
+        keep["sketch"] = dict(X=Xe, labels=single.labels_,
+                              core=single.core_sample_mask_)
     ck.reset_launch_counts()
     (lab, core, st), wall = run(Xe, sizes["sk_ranges"], **kw)
     what = f"16.3 n={len(Xe)} d=512"
@@ -6496,6 +6568,400 @@ def gm_phase(torch, dev, sync, card="", sizes=GM_SIZES, main=None,
                      "resume_launches": want}
     stamp("16.4: done")
     close_16_1()
+    return rec
+
+
+# Phase 17: the KD route's fused multi-device step on a mesh that repeats
+# the one card `mesh` times.  17.1 reuses 13.1's data (the 20,000 x 16-D
+# blobs over small_parts partitions, each `small_cases` entry a (mode,
+# merge, owner_computes) run; the 4,096 x 512 embeddings over emb_parts
+# partitions, fewer than the shards, so two slots are empty); 17.2 phase
+# 4's 1M x 16-D blobs at eps and border_eps; 17.3 phase 7's 100k x 512
+# embeddings; 17.4 17.1's first case and a line of chain_n points.
+MESH_SIZES = {"mesh": 4, "small_parts": 8,
+              "small_cases": [["high", "device", True],
+                              ["high", "host", False],
+                              ["mixed", "device", True],
+                              ["mixed", "host", True],
+                              ["default", "device", True],
+                              ["default", "host", False]],
+              "emb_parts": 2, "n": 1_000_000, "eps": 2.4, "block": 2048,
+              "hold_tiles": 64, "border_eps": 1.4, "sk_n": 100_000,
+              "sk_eps": 2.0, "sk_block": 2048, "chain_n": 4096}
+
+
+def mesh_cpu_cases(sizes):
+    """17.1's cases from 13.1's data: ``{name: (X, partitions,
+    kwargs)}``, the 20k case once per ``small_cases`` entry."""
+    kd = chained_cpu_cases(sizes)
+    (Xs, _p, kw_s), (Xe, _pe, kw_e) = kd["small"], kd["emb"]
+    out = {}
+    for mode, merge, oc in sizes["small_cases"]:
+        name = f"small_{mode}_{merge}_{'oc' if oc else 'dup'}"
+        out[name] = (Xs, sizes["small_parts"],
+                     dict(kw_s, precision=mode, merge=merge,
+                          owner_computes=bool(oc)))
+    out["emb"] = (Xe, sizes["emb_parts"], dict(kw_e, precision="high",
+                                               merge="device"))
+    return out
+
+
+def mesh_cpu_runs(cases, shards=MESH_SIZES["mesh"]):
+    """Each case through the port's fused step on a CPU mesh of
+    ``shards`` (the kernels' plain versions): ``{name: ((labels, core,
+    stats), seconds)}``."""
+    from pypardis_tpu_torch import KDPartitioner
+    from pypardis_tpu_torch.parallel import Mesh, sharded_dbscan
+
+    out = {}
+    for name, (x, parts, kw) in cases.items():
+        t = time.perf_counter()
+        lab, core, st = sharded_dbscan(
+            x, KDPartitioner(x, max_partitions=parts),
+            mesh=Mesh(["cpu"] * shards), device="cpu", **kw)
+        out[name] = ((lab, core, gm_stats(st)), time.perf_counter() - t)
+    return out
+
+
+def mesh_launches(ck, stats, what, kernels):
+    """:func:`chained_launches` for the fused step: each partition slot
+    (empty ones too) launches its counts kernel once and its min-label
+    kernel once per other pass; every slot ran."""
+    la = chained_launches(ck, stats, what, *kernels)
+    if la[kernels[0]] != stats["n_shard_partitions"]:
+        fail(f"{what}: {la[kernels[0]]} counts launches for "
+             f"{stats['n_shard_partitions']} partition slots")
+    return la
+
+
+def mesh_largest_slab(torch, dev, X, part, eps, block, shards, core_g):
+    """The fused step's largest partition slab (most owned + halo
+    points), laid out by the route's own code (``build_shards``'s
+    geometry and halo sets, and the one partition's owned rows, empty
+    rows up to ``cap``, then its halo, as ``_partition_slab`` fills
+    them: the same bits as ``build_shards``'s two slabs of it) and put
+    on the card, with each slot's owner core flag from ``core_g`` (the
+    fit's (N,) core mask): the slab :func:`gm_slab_hold` holds the
+    kernels on.  Only that partition is sorted and filled."""
+    from pypardis_tpu_torch.parallel import sharded
+    from pypardis_tpu_torch.utils.shaping import clamp_block
+
+    n, k = X.shape
+    block = clamp_block(block, max(len(p) for p in
+                                   part.partitions.values()))
+    center, labels = sharded._expanded_frame_meta(X, part)
+    _pr, _pt, part_idx, cap = sharded._layout_geometry(part, labels, shards,
+                                                       block)
+    halo_idx = sharded._halo_sets(X, part, eps, labels)
+    hcap = sharded._halo_cap(halo_idx, block)
+    p = int(np.argmax([len(o) + len(h) for o, h in zip(part_idx,
+                                                        halo_idx)]))
+    pts = np.empty((k, cap + hcap), np.float32)
+    msk = np.empty(cap + hcap, bool)
+    gid = np.empty(cap + hcap, np.int32)
+    sharded._partition_slab(pts, msk, gid, X, dict(
+        center=center, part_idx=part_idx, halo_idx=halo_idx, cap=cap), p)
+    core_all = core_g[np.clip(gid, 0, n - 1)] & (gid < n)
+    return dict(range=p, unit="partition", edge="halo", block=block,
+                cap=int(cap), bcap=int(hcap), owned=int(msk[:cap].sum()),
+                boundary=int(msk[cap:].sum()),
+                pts=torch.from_numpy(pts).to(dev),
+                mask=torch.from_numpy(msk).to(dev),
+                core_all=torch.from_numpy(core_all).to(dev))
+
+
+def mesh_phase(torch, dev, sync, card="", sizes=MESH_SIZES, main=None,
+               cpu_refs=None, walls=None, keep=None):
+    """Phase 17 (the KD route's fused multi-device step on a mesh of
+    ``sizes["mesh"]`` shards on the one card); see the module docstring.
+    ``main``: ``dict(X=, labels=, core=)`` of phase 4's 1M fit (None:
+    fitted here); ``cpu_refs``: a :class:`ChainedCpuRefs` with a
+    ``"mesh"`` job (None: 17.1's CPU runs go here first); ``walls``:
+    ``{"single": phase 4's 1M host-input wall, "chained": 13.2's}``,
+    printed beside 17.2's; ``keep``: phase 16's single-device fits
+    (``"border"``, ``"sketch"``; missing ones are fitted here).  Returns
+    the phase's record."""
+    from benchdata import make_embedding_data
+    from pypardis_tpu_torch import DBSCAN, KDPartitioner, obs
+    from pypardis_tpu_torch.obs.resources import host_rss_bytes
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.parallel import Mesh, sharded_dbscan
+    from pypardis_tpu_torch.utils import faults
+
+    rec = {"card": card}
+    walls = walls or {}
+    keep = keep or {}
+    t_phase = time.perf_counter()
+    all_sizes = dict(CHAINED_SIZES, **sizes)
+    mesh = Mesh([dev] * sizes["mesh"])
+    log(f"  mesh {mesh!r} on {torch.cuda.device_count()} card(s): "
+        f"{sizes['mesh']} shards, their devices {sorted(set(map(str, mesh.devices)))}")
+    rec["mesh"] = [str(d) for d in mesh.devices]
+    rec["cards"] = torch.cuda.device_count()
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def run(X, parts, **kw):
+        sync()
+        t = time.perf_counter()
+        out = sharded_dbscan(X, KDPartitioner(X, max_partitions=parts),
+                             mesh=mesh, device=dev, **kw)
+        sync()
+        return out, time.perf_counter() - t
+
+    # 17.1: the card against the port's CPU mesh route.
+    cases = mesh_cpu_cases(all_sizes)
+    cpu_now = None if cpu_refs else mesh_cpu_runs(cases, sizes["mesh"])
+    on_card = {}
+    for name, (x, parts, kw) in cases.items():
+        ck.reset_launch_counts()
+        on_card[name] = run(x, parts, **kw)
+        (lab, _core, st), wall = on_card[name]
+        names = GM_KERNELS["sketch" if st["sketch_k"] else kw["precision"]]
+        mesh_launches(ck, st, f"17.1 {name}", names)
+        log(f"  17.1 {name}: n={len(x)} d={x.shape[1]} over {parts} "
+            f"partitions ({st['n_shard_partitions']} slots), owner_computes"
+            f" {st['owner_computes']}, merge {st['merge']}, sketch_k "
+            f"{st['sketch_k']}: card {wall:.4f} s; clusters "
+            f"{len(np.unique(lab[lab >= 0]))}, halo_factor "
+            f"{st['halo_factor']:.4f}, merge_rounds {st.get('merge_rounds')}"
+            f", kernel passes {st['partition_passes']}")
+    stamp("17.1: card runs done")
+
+    def close_17_1():
+        cpu = cpu_now or cpu_refs.result(cases, "mesh")
+        for name, ((lab, core, st), _s) in on_card.items():
+            (c_lab, c_core, c_st), c_s = cpu[name]
+            st = json.loads(json.dumps(gm_stats(st)))
+            diff = sorted(k for k in set(c_st) | set(st)
+                          if c_st.get(k) != st.get(k))
+            band = [k for k in ("band_pairs", "rescored_tiles") if k in diff]
+            if cases[name][2]["precision"] == "mixed" and all(
+                    abs(st[k] - c_st[k]) <= 1e-3 * max(c_st[k], 1)
+                    for k in band):
+                diff = [k for k in diff if k not in band]
+            same = np.array_equal(lab, c_lab) and np.array_equal(core, c_core)
+            log(f"    17.1 {name}: card vs CPU ({c_s:.4f} s"
+                f"{' in a child process' if cpu_refs else ''}): labels and "
+                f"core byte-identical: {same}; stats that differ: {diff}; "
+                f"band_pairs card {st['band_pairs']} CPU {c_st['band_pairs']}")
+            if not same or diff:
+                fail(f"17.1 {name}: the card's mesh fit differs from the "
+                     f"CPU's")
+        rec["small"] = {name: {"card_s": c[1], "cpu_s": cpu[name][1]}
+                        for name, c in on_card.items()}
+        stamp("17.1: done")
+
+    # 17.2: the main path at full width through DBSCAN(mesh=...).
+    n, eps, block = sizes["n"], sizes["eps"], sizes["block"]
+    if main is None:
+        from benchdata import make_blob_data
+
+        X, _truth = make_blob_data(n, 16, n_centers=32, std=0.4)
+        single = DBSCAN(eps=eps, min_samples=10, block=block,
+                        device=dev).fit(X)
+        main = dict(X=X, labels=single.labels_,
+                    core=single.core_sample_mask_)
+    X = main["X"]
+    if "border" not in keep:
+        single = DBSCAN(eps=sizes["border_eps"], min_samples=10,
+                        block=block, device=dev).fit(X)
+        keep["border"] = dict(labels=single.labels_,
+                              core=single.core_sample_mask_)
+    rows = {}
+    for tag, e, merge in (("main", eps, "device"), ("host", eps, "host"),
+                          ("border", sizes["border_eps"], "host")):
+        ref = main if tag != "border" else keep["border"]
+        gc.collect()
+        recorder = obs.RunRecorder(device=dev)
+        sampler = obs.ResourceSampler(recorder, interval_s=0.05,
+                                      device=dev).start()
+        rss0 = host_rss_bytes()
+        on_cuda = dev.type == "cuda"
+        if on_cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        dev0 = torch.cuda.memory_allocated(dev) if on_cuda else 0
+        model = DBSCAN(eps=e, min_samples=10, block=block, mesh=mesh,
+                       merge=merge, device=dev)
+        ck.reset_launch_counts()
+        try:
+            with obs.use_recorder(recorder):
+                sync()
+                t = time.perf_counter()
+                model.fit(X)
+                sync()
+                wall = time.perf_counter() - t
+        finally:
+            sampler.stop()
+        peak_rss = recorder.metrics.as_dict()["gauges"].get(
+            "resources.peak_host_rss_bytes", 0)
+        peak_dev = (torch.cuda.max_memory_allocated(dev) - dev0 if on_cuda
+                    else 0)
+        st = model.metrics_
+        what = f"17.2 n={n} d=16 eps={e} merge={merge}"
+        la = mesh_launches(ck, st, what, GM_KERNELS["high"])
+        p_total = st["n_shard_partitions"]
+        if model.report()["run"]["n_devices"] != sizes["mesh"]:
+            fail(f"{what}: the fit did not take the mesh route")
+        want_dwf = float(p_total * st["owned_cap"]) / n
+        if (st["owner_computes"] is not True or p_total != sizes["mesh"]
+                or st["duplicated_work_factor"] != want_dwf
+                or st["merge"] != merge):
+            fail(f"{what}: owner_computes {st['owner_computes']}, "
+                 f"{p_total} partitions, duplicated_work_factor "
+                 f"{st['duplicated_work_factor']} (want {want_dwf}), merge "
+                 f"{st['merge']}")
+        ss = st["stage_s"]
+        log(f"  {what}, {p_total} partitions on {sizes['mesh']} shards: "
+            f"{wall:.4f} s from host input on {card} (phase 4's single-card"
+            f" fit {walls.get('single', 'not run')} s, 13.2's KD chained "
+            f"fit {walls.get('chained', 'not run')} s); phases "
+            f"{ {k: round(v, 4) for k, v in model.report()['phases'].items()} }"
+            f"; halo sets {ss['halo_sets']:.4f} s, slab build "
+            f"{ss['slab_build']:.4f} s, ship {ss['ship']:.4f} s, passes on "
+            f"the card {ss['device']:.4f} s (CUDA-event spans), loop "
+            f"{ss['loop']:.4f} s, merge {ss['merge']:.4f} s "
+            f"({st.get('merge_rounds')} rounds, "
+            f"{st.get('merge_host_syncs')} host syncs); peak host RSS "
+            f"{peak_rss / 2**20:.1f} MiB ({(peak_rss - rss0) / 2**20:.1f} MiB"
+            f" over the {rss0 / 2**20:.1f} MiB before), max_memory_allocated "
+            f"{peak_dev / 2**20:.1f} MiB over the {dev0 / 2**20:.1f} MiB "
+            f"before")
+        log(f"    owned_cap {st['owned_cap']}, halo_cap {st['halo_cap']}, "
+            f"halo_factor {st['halo_factor']:.6f}, duplicated_work_factor "
+            f"{st['duplicated_work_factor']:.6f}, pad_waste "
+            f"{st['pad_waste']:.6f}, live pairs {st['live_pairs']}, kernel "
+            f"passes {st['partition_passes']}, tile {st['kernel_block']}")
+        clusters, borders, noise, differ = hold_chained(
+            torch, dev, X, e, model.labels_, model.core_sample_mask_,
+            ref["labels"], ref["core"], what)
+        if tag == "border" and not borders:
+            fail(f"{what}: the data holds no border point, so the border "
+                 f"check proves nothing")
+        rows[tag] = {
+            "eps": e, "merge": merge, "wall_s": wall,
+            "single_wall_s": walls.get("single"),
+            "kd_chained_wall_s": walls.get("chained"),
+            **{k: st.get(k) for k in (
+                "n_shard_partitions", "owned_cap", "halo_cap", "halo_factor",
+                "duplicated_work_factor", "pad_waste", "merge_rounds",
+                "merge_host_syncs", "live_pairs", "kernel_passes",
+                "partition_passes")},
+            "stage_s": ss, "peak_host_rss_bytes": int(peak_rss),
+            "host_rss_before_bytes": int(rss0),
+            "max_memory_allocated_bytes": int(peak_dev),
+            "launches": {k: la[k] for k in GM_KERNELS["high"]},
+            "clusters": clusters, "borders": borders, "noise": noise,
+            "borders_differ": differ}
+        if tag == "main":
+            rows[tag]["slab_hold"] = gm_slab_hold(
+                torch, dev, mesh_largest_slab(
+                    torch, dev, X, model.partitioner_, e, block,
+                    sizes["mesh"], model.core_sample_mask_),
+                e, sizes["hold_tiles"], f"{what} largest slab")
+        del model
+        stamp(f"17.2: eps {e} merge {merge} done")
+    rec.update(rows)
+
+    # 17.3: the sketch at width.
+    kw = dict(eps=sizes["sk_eps"], min_samples=10, block=sizes["sk_block"])
+    if "sketch" not in keep:
+        Xe, _te = make_embedding_data(sizes["sk_n"], 512)
+        single = DBSCAN(device=dev, **kw).fit(Xe)
+        keep["sketch"] = dict(X=Xe, labels=single.labels_,
+                              core=single.core_sample_mask_)
+    Xe = keep["sketch"]["X"]
+    model = DBSCAN(mesh=mesh, device=dev, **kw)
+    ck.reset_launch_counts()
+    sync()
+    t = time.perf_counter()
+    model.fit(Xe)
+    sync()
+    wall = time.perf_counter() - t
+    st = model.metrics_
+    what = f"17.3 n={len(Xe)} d=512"
+    la = mesh_launches(ck, st, what, GM_KERNELS["sketch"])
+    ss = st["stage_s"]
+    log(f"  {what} over {st['n_shard_partitions']} partitions, sketch_k "
+        f"{st['sketch_k']}: {wall:.4f} s on {card}; halo_factor "
+        f"{st['halo_factor']:.6f}, halo sets {ss['halo_sets']:.4f} s, slab "
+        f"build {ss['slab_build']:.4f} s, passes on the card "
+        f"{ss['device']:.4f} s, band_pairs {st['band_pairs']}, kernel "
+        f"passes {st['partition_passes']}")
+    if st["sketch_k"] <= 0 or st["owner_computes"] is not True:
+        fail(f"{what}: sketch_k {st['sketch_k']}, owner_computes "
+             f"{st['owner_computes']}")
+    clusters, borders, noise, differ = hold_chained(
+        torch, dev, Xe, kw["eps"], model.labels_, model.core_sample_mask_,
+        keep["sketch"]["labels"], keep["sketch"]["core"], what)
+    rec["sketch"] = {
+        "n": len(Xe), "wall_s": wall, "sketch_k": st["sketch_k"],
+        "halo_factor": st["halo_factor"], "stage_s": ss,
+        "launches": {k: la[k] for k in GM_KERNELS["sketch"]},
+        "clusters": clusters, "borders": borders, "borders_differ": differ,
+        "slab_hold": gm_slab_hold(
+            torch, dev, mesh_largest_slab(
+                torch, dev, Xe, model.partitioner_, kw["eps"], kw["block"],
+                sizes["mesh"], model.core_sample_mask_),
+            kw["eps"], sizes["hold_tiles"], f"{what} largest slab")}
+    del Xe, model, keep["sketch"]
+    stamp("17.3: done")
+
+    # 17.4: the ladders and the spill on 17.1's first case.
+    first = next(iter(cases))
+    x, parts, kw = cases[first]
+    clean = on_card[first][0]
+
+    recorder = obs.RunRecorder(device=dev)
+    with obs.use_recorder(recorder):
+        (lab, core, st), wall = run(x, parts, **dict(kw, pair_budget=1))
+    tries = recorder.metrics.as_dict()["counters"].get(
+        "retry.pair_budget.attempts", 0)
+    same = np.array_equal(lab, clean[0]) and np.array_equal(core, clean[1])
+    p = st["n_shard_partitions"]
+    log(f"  17.4 {first} at pair_budget=1: {wall:.4f} s, reruns "
+        f"{tries}, passes {st['partition_passes']}, labels and core equal "
+        f"to 17.1's: {same}")
+    if tries != 1 or not same or st["partition_passes"][:p] != [0] * p:
+        fail("17.4: a too-small pair budget did not rerun once at the exact "
+             "total to the same labels")
+    rec["ladders"] = {"pair_budget_reruns": tries}
+    line = np.zeros((sizes["chain_n"], 2))
+    line[:, 0] = np.arange(sizes["chain_n"], dtype=np.float64) * 0.09
+    chain_kw = dict(eps=0.2, min_samples=2, block=256, merge="device")
+    (c_lab, c_core, c_st), _w = run(line, 8, **chain_kw)
+    recorder = obs.RunRecorder(device=dev)
+    with obs.use_recorder(recorder):
+        (lab, core, st), wall = run(line, 8, merge_rounds=1, **chain_kw)
+    tries = recorder.metrics.as_dict()["counters"].get(
+        "retry.merge_rounds.attempts", 0)
+    same = np.array_equal(lab, c_lab) and np.array_equal(core, c_core)
+    log(f"  17.4 a line of {len(line)} points over 8 partitions at "
+        f"merge_rounds=1: {wall:.4f} s, retries {tries}, merge_rounds "
+        f"{st['merge_rounds']} (the default run's {c_st['merge_rounds']}), "
+        f"one cluster: {bool(lab.max() == lab.min() >= 0)}, labels equal: "
+        f"{same}")
+    if tries != 1 or not same or st["merge_rounds"] <= 1 \
+            or not lab.max() == lab.min() >= 0:
+        fail("17.4: merge_rounds=1 did not retry once at 4x to the same "
+             "labels")
+    rec["ladders"]["merge_rounds_retries"] = tries
+    rec["ladders"]["merge_rounds"] = st["merge_rounds"]
+    recorder = obs.RunRecorder(device=dev)
+    with obs.use_recorder(recorder), faults.plan("sharded.execute:1=oom"):
+        (lab, core, st), wall = run(x, parts, **dict(kw, merge="device"))
+    degraded = recorder.event_counts().get("degraded", 0)
+    same = np.array_equal(lab, clean[0]) and np.array_equal(core, clean[1])
+    log(f"  17.4 {first} with sharded.execute:1=oom: {wall:.4f} s, merge "
+        f"{st['merge']}, degraded {degraded}, labels and core equal to "
+        f"17.1's: {same}")
+    if st["merge"] != "host" or degraded < 1 or not same:
+        fail("17.4: the injected OOM did not finish the merge on the host "
+             "to the same labels")
+    rec["ladders"]["oom_merge"] = st["merge"]
+    stamp("17.4: done")
+    close_17_1()
     return rec
 
 
@@ -6670,6 +7136,17 @@ def main() -> None:
         log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
         return
 
+    if "--mesh" in sys.argv[1:]:
+        t17 = time.perf_counter()
+        rec17 = mesh_phase(torch, dev, torch.cuda.synchronize, card,
+                           cpu_refs=ChainedCpuRefs(
+                               dict(CHAINED_SIZES, **MESH_SIZES),
+                               jobs=("mesh",)))
+        log(f"phase 17 record: {json.dumps(rec17)}; phase 17 took "
+            f"{time.perf_counter() - t17:.1f} s")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
+
     if "--b4" in sys.argv[1:]:
         records, _ = sketch_phase(torch, dev, median_ms,
                                   torch.cuda.synchronize,
@@ -6807,13 +7284,15 @@ def main() -> None:
         compare(kernel_inputs(xs, mask, eps, block, 10),
                 f"natural blobs d={d} n=60000")
     # The other register capacities: d <= 4, and d > 64 (row re-read
-    # from global memory).
-    for d, eps in ((3, 1.2), (96, 6.0)):
+    # from global memory); and tiles below 128 rows (block 64: B1's
+    # tensor-core slab of 64 columns).
+    for d, eps, blk in ((3, 1.2, 1024), (96, 6.0, 1024), (3, 1.2, 64),
+                        (16, 2.4, 64)):
         Xn, _ = make_blob_data(20_000, d, n_centers=8, std=0.4, seed=d)
-        pts, n, block = _stage(Xn, 1024, dev)
+        pts, n, block = _stage(Xn, blk, dev)
         xs, mask, _owner = _pipeline_layout(pts, eps, n, block, sort=True)
         compare(kernel_inputs(xs, mask, eps, block, 10),
-                f"natural blobs d={d} n=20000")
+                f"natural blobs d={d} n=20000 block={blk}")
     # The tensor-core B1 where its band is widest: near-eps pairs,
     # duplicates and a 1e3 offset.
     for d in (3, 16, 64):
@@ -6892,6 +7371,12 @@ def main() -> None:
             X200 = X  # phase 14.4 fits it with a flight file
         del Xd
 
+    # One child process runs 13.1's, 16.1's and 17.1's CPU runs in turn,
+    # from here on beside the card's work (it makes its own data).
+    cpu_refs = ChainedCpuRefs(dict(CHAINED_SIZES, **GM_SIZES, **{
+        k: v for k, v in MESH_SIZES.items() if k not in GM_SIZES}),
+        jobs=("kd", "gm", "mesh"))
+
     # Phase 5: the kernels alone at the 1M fit's own inputs (staged as
     # a host-input fit stages them).
     phase("phase 5: kernels at the 1M main-path inputs")
@@ -6943,9 +7428,10 @@ def main() -> None:
     sync_args = (a, inp["centers"])  # phase 14.1's B1 inputs
     ms = median_ms(lambda: ck.count_pairs(*a, inp["centers"]), 10)
     frames_ms = median_ms(lambda: ck.pass_frames(xs, mask, tile, "high"), 10)
-    # One timed call of the plain pass (≈ 5.4 s): the hold above warmed
-    # it on the first row tiles.
-    plain_ms = median_ms(cold(lambda: counts_over_pairs(*a)), 1)
+    # One timed call of the plain pass on the first row tiles (the whole
+    # list, ≈ 5.4 s, until phase 17 took its time): the hold above warmed
+    # it there.
+    plain_ms = median_ms(cold(lambda: counts_over_pairs(*a_sub)), 1)
     pairs = need["count_pairs"]
     t_bytes = (in_bytes + out_bytes
                + inp["centers"].numel() * 4) / PEAK_BYTES_PER_S
@@ -6954,7 +7440,8 @@ def main() -> None:
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     fp32_s = max(t_bytes, pairs * (3 * d + 1) / PEAK_FP32_FLOPS)
     floor_s = max(t_bytes, b1_floor(pairs, rescored, d))
-    log(f"  count_pairs: {ms:.4f} ms (plain {plain_ms:.2f} ms), bound "
+    log(f"  count_pairs: {ms:.4f} ms (plain {plain_ms:.2f} ms on the first "
+        f"{sub} of {nt} row tiles), bound "
         f"{bound_s * 1e3:.4f} ms by {bound_by} (all-FP32 work "
         f"{fp32_s * 1e3:.4f} ms, floor {floor_s * 1e3:.4f} ms); {pairs} point "
         f"pairs over {len(cols_t)} live tile pairs, {rescored} decided "
@@ -6966,8 +7453,9 @@ def main() -> None:
         "replaces": "pypardis_tpu/ops/pallas_kernels.py:202",
         "launches": int(main_launches["count_pairs"]),
         "max_abs_err": max_err["count_pairs"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-        "bound_by": bound_by,
+        "ms": ms, "plain_ms": plain_ms,
+        "plain_scope": f"first {sub} of {nt} row tiles",
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
         # No single PyTorch call computes a thresholded count or a
         # min-label over a tile-pair list.
         "library_ms": None,
@@ -7032,13 +7520,10 @@ def main() -> None:
     phase("phase 13: the KD route's chained form (sharded_dbscan)")
     t13 = time.perf_counter()
     reports = {}
-    # One child process runs 13.1's and 16.1's CPU runs in turn.
-    cpu_refs = ChainedCpuRefs(dict(CHAINED_SIZES, **GM_SIZES),
-                              jobs=("kd", "gm"))
     rec13 = chained_phase(torch, dev, torch.cuda.synchronize, card,
                           main=chained_main, cpu_refs=cpu_refs,
                           reports=reports)
-    # Phase 16 holds the global-Morton route against phase 4's fit too.
+    # Phases 16 and 17 hold their routes against phase 4's fit too.
     gm_main = chained_main
     del chained_main
     # The chained route's B1/B2 launches per fit at 13.2's size, and
@@ -7068,9 +7553,10 @@ def main() -> None:
     phase("phase 16: the global-Morton route's chained form "
           "(global_morton_dbscan)")
     t16 = time.perf_counter()
+    singles = {}
     rec16 = gm_phase(torch, dev, torch.cuda.synchronize, card, main=gm_main,
-                     cpu_refs=cpu_refs, kd_wall=rec13["main"]["wall_s"])
-    del gm_main
+                     cpu_refs=cpu_refs, kd_wall=rec13["main"]["wall_s"],
+                     keep=singles)
     # The global-Morton route's launches per fit (16.2's at 1M x 16-D,
     # 16.3's at 100k x 512) and each kernel's largest error against its
     # plain version over the owner-computes lists of its largest slab.
@@ -7085,7 +7571,31 @@ def main() -> None:
                     rec16[part]["slab_hold"]["max_abs_err"][rec["name"]])
     log(f"phase 16 record: {json.dumps(rec16)}; phase 16 took "
         f"{time.perf_counter() - t16:.1f} s")
-    phase("phases 2-16 done")
+    phase("phase 17: the KD route's fused multi-device step "
+          "(DBSCAN(mesh=...), sharded_dbscan on a mesh)")
+    t17 = time.perf_counter()
+    rec17 = mesh_phase(torch, dev, torch.cuda.synchronize, card,
+                       main=gm_main, cpu_refs=cpu_refs,
+                       walls={"single": fits[1_000_000][0],
+                              "chained": rec13["main"]["wall_s"]},
+                       keep=singles)
+    del gm_main, singles
+    # The fused step's launches per fit (17.2's at 1M x 16-D on the
+    # 4-shard mesh, 17.3's at 100k x 512) and each kernel's largest error
+    # against its plain version over the owner-computes lists of its
+    # largest partition slab.
+    done = set()
+    for rec in kernels:
+        for part in ("main", "sketch"):
+            if (rec["name"] in rec17[part]["launches"]
+                    and rec["name"] not in done):
+                done.add(rec["name"])
+                rec["launches_mesh"] = rec17[part]["launches"][rec["name"]]
+                rec["max_abs_err_mesh"] = (
+                    rec17[part]["slab_hold"]["max_abs_err"][rec["name"]])
+    log(f"phase 17 record: {json.dumps(rec17)}; phase 17 took "
+        f"{time.perf_counter() - t17:.1f} s")
+    phase("phases 2-17 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

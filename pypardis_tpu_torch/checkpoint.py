@@ -116,10 +116,9 @@ def save_model(model, path: str, *, live=None, index=None) -> None:
         "metric": model.metric
         if isinstance(model.metric, str)
         else getattr(model.metric, "__name__", "euclidean"),
-        # The JAX constructor's sharding knobs, at its defaults: the
-        # port's fit is single-device (ROADMAP A11).
-        "max_partitions": None,
-        "split_method": "min_var",
+        # The model's own sharding knobs, as the JAX package writes them.
+        "max_partitions": model.max_partitions,
+        "split_method": model.split_method,
         "block": model.block,
         "precision": model.precision,
         # The JAX package validates this against its own backends.
@@ -216,6 +215,8 @@ def load_model(path: str, device=None):
             eps=params["eps"],
             min_samples=params["min_samples"],
             metric=params["metric"],
+            max_partitions=params.get("max_partitions"),
+            split_method=params.get("split_method", "min_var"),
             block=params["block"],
             precision=params["precision"],
             # The stored backend names a JAX route ("auto"/"xla"/

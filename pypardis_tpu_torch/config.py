@@ -1,10 +1,11 @@
 """Config surface (counterpart of ``pypardis_tpu/config.py``).
 
-The single-device fit's constructor kwargs as serializable data.  The
-sharding knobs of the JAX package (``max_partitions``,
-``split_method``, ``owner_computes``) belong to the multi-GPU slice and
-are not fields yet; ``from_dict`` ignores them, so a JAX config dict
-loads here unchanged.
+The fit's constructor kwargs as serializable data, the JAX package's
+fields (the sharding knobs ``max_partitions``, ``split_method`` and
+``owner_computes`` among them) and the port's own (``device``,
+``sketch``, ``profile_dir``, ``flight``).  ``from_dict`` ignores keys
+it does not know, so a JAX config dict loads here unchanged; the mesh
+is not data and comes to :meth:`DBSCANConfig.build`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ class DBSCANConfig:
     eps: float = 0.5
     min_samples: int = 5
     metric: Any = "euclidean"
+    max_partitions: Optional[int] = None
+    split_method: str = "min_var"
     block: int = 1024
     precision: str = "high"
     kernel_backend: str = "auto"
@@ -32,11 +35,15 @@ class DBSCANConfig:
     # The flight recorder: a *.jsonl path or a directory (None defers
     # to PPTORCH_FLIGHT).
     flight: Optional[str] = None
+    # Owned-row clustering on the fused multi-device step (halo points
+    # relay labels, never clustered again); False clusters every halo
+    # duplicate again.
+    owner_computes: bool = True
 
-    def build(self):
+    def build(self, mesh=None):
         from .dbscan import DBSCAN
 
-        return DBSCAN(**dataclasses.asdict(self))
+        return DBSCAN(mesh=mesh, **dataclasses.asdict(self))
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)

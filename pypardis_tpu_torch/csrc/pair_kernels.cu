@@ -1037,7 +1037,10 @@ __host__ __device__ inline B1Smem b1_smem(int ks, int rb, int cw, bool exact) {
   s.hmax = o;  o += (size_t)(cw / 32) * 16;          // 32-column maxima
   s.vbits = o; o += (size_t)(cw / 32) * 4;           // column validity bits
   s.red = o;   o += 2 * B1_WARPS * 4;                // the sweep's maxima
-  // The exact fallback's FP32 rows (K each) and columns (K + 4 each).
+  // The exact fallback's FP32 rows (K each) and columns (K + 4 each),
+  // read as float4s: 16-byte aligned (the validity bits end off it when
+  // cw is not a multiple of 128, as at a 64- or 192-row tile).
+  o = (o + 15) & ~(size_t)15;
   s.xs = o;    if (exact) o += (size_t)rb * ks * 16 * 4;
   s.ys = o;    if (exact) o += (size_t)cw * (ks * 16 + 4) * 4;
   o = (o + 15) & ~(size_t)15;

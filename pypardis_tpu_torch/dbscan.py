@@ -37,9 +37,12 @@ takes its eps ladder from the same hierarchy.  A fitted model takes
 live inserts and deletes (``live``, ``insert``, ``delete``;
 :mod:`.serve.live`), its serving index edited in place, and many fitted
 models serve behind one :class:`~.serve.gateway.ModelGateway`.  The KD
-route's partitioned fit on one card is
-:func:`pypardis_tpu_torch.parallel.sharded_dbscan`; the multi-device
-fits are later slices of the port (ROADMAP A10-A12).
+route's partitioned fit is
+:func:`pypardis_tpu_torch.parallel.sharded_dbscan` (chained on one
+card, fused on a :class:`~.parallel.mesh.Mesh`); ``fit`` takes it with
+more than one device (see :class:`DBSCAN`).  The multi-process layer,
+the ring exchange and the global-Morton mesh engine are later slices
+of the port (ROADMAP A10's rest, A12).
 
 Every fit, sweep and eps=None fit records its telemetry on a fresh
 :class:`~.obs.RunRecorder`: phase spans and timings, the pipeline's
@@ -127,8 +130,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _as_float(data) -> np.ndarray:
-    """Float view of host input, preserving float32/float64."""
-    pts = np.asarray(data)
+    """Float view of host input, preserving float32/float64 (and a
+    memmap, which a mesh fit refuses rather than reads whole)."""
+    pts = data if isinstance(data, np.memmap) else np.asarray(data)
     if pts.dtype not in (np.float32, np.float64):
         pts = pts.astype(np.float64)
     return pts
@@ -417,6 +421,20 @@ class DBSCAN:
     directory for per-fit files of the crash-safe flight recorder (None
     defers to ``PPTORCH_FLIGHT``); ``profile_dir``: a directory each fit
     writes a ``torch.profiler`` Chrome trace into.
+
+    The sharding knobs are the JAX package's: with more than one device
+    (``mesh``, a :class:`~.parallel.mesh.Mesh`, or every visible card
+    when there is none) and at least two points per device, ``fit``
+    partitions the data with a :class:`~.partition.KDPartitioner` of at
+    most ``max_partitions`` leaves (default one per device; its
+    ``split_method``) and runs the fused multi-device step
+    (:func:`~.parallel.sharded_dbscan`): ``merge`` ``"auto"``,
+    ``"device"`` or ``"host"``, ``owner_computes`` (default True: halo
+    points are never clustered again).  ``overlap`` is accepted and
+    changes nothing (see :func:`~.parallel.sharded_dbscan`); ``mode``
+    ``"global_morton"`` on a mesh raises (ROADMAP A12), as do a memmap
+    or tensor input on a mesh.  A mesh's devices must be of the model's
+    ``device`` type.
     """
 
     def __init__(
@@ -432,6 +450,13 @@ class DBSCAN:
         sketch=None,
         profile_dir: Optional[str] = None,
         flight: Optional[str] = None,
+        max_partitions: Optional[int] = None,
+        split_method: str = "min_var",
+        mesh=None,
+        merge: Optional[str] = None,
+        owner_computes: bool = True,
+        overlap: Optional[bool] = None,
+        mode: Optional[str] = None,
     ):
         validate_params(eps, min_samples, allow_none_eps=True)
         self.eps = None if eps is None else float(eps)
@@ -454,6 +479,40 @@ class DBSCAN:
         resolve_backend(self.kernel_backend, self.device, self._pair_metric)
         self.profile_dir = profile_dir
         self.flight = flight
+        # The sharding knobs (the JAX package's, with its defaults): the
+        # KD partition count (None: one per mesh device), its split
+        # rule, the mesh, the label merge, owner-computes on the fused
+        # step, the overlap switch (accepted, see sharded_dbscan) and
+        # the mode (auto|kd|global_morton).
+        mode = "auto" if mode is None else mode
+        if mode not in ("auto", "kd", "global_morton"):
+            raise ValueError(
+                f"mode must be auto|kd|global_morton, got {mode!r}"
+            )
+        merge = "auto" if merge is None else merge
+        if merge not in ("auto", "device", "host"):
+            raise ValueError(f"merge must be auto|device|host, got {merge!r}")
+        if max_partitions is not None and int(max_partitions) < 1:
+            raise ValueError(
+                f"max_partitions must be >= 1, got {max_partitions}"
+            )
+        from .parallel.mesh import as_mesh
+
+        self.max_partitions = max_partitions
+        self.split_method = split_method
+        self.mesh = as_mesh(mesh)
+        if self.mesh is not None and self.mesh.device_type != self.device.type:
+            raise ValueError(
+                f"the mesh's devices are {self.mesh.device_type} but the "
+                f"model runs on {self.device.type}"
+            )
+        self.merge = merge
+        self.owner_computes = bool(owner_computes)
+        self.overlap = overlap
+        self.mode = mode
+        # The sharded fit's partitioner (None after a single-device fit):
+        # cluster_mapping() keys points by its partitions.
+        self.partitioner_ = None
         # Telemetry of the most recent fit, behind report(), summary()
         # and export_trace(); the sweep's and the hierarchy's blocks.
         self._recorder: Optional[obs.RunRecorder] = None
@@ -593,8 +652,7 @@ class DBSCAN:
     def _open_jobstate(self, points, resume: Optional[str]):
         """The fit's :class:`~.utils.jobstate.JobState` for ``resume`` or
         ``PPTORCH_CKPT`` (None without either); its meta is the JAX
-        package's for the same fit (mode ``"auto"``, the JAX
-        constructor's default on the single-device route)."""
+        package's for the same fit."""
         path = resume or os.environ.get("PPTORCH_CKPT")
         if not path:
             return None
@@ -605,7 +663,7 @@ class DBSCAN:
         return JobState.open(
             path,
             fit_meta(points, eps=self.eps, min_samples=self.min_samples,
-                     metric=metric, block=self.block, mode="auto"),
+                     metric=metric, block=self.block, mode=self.mode),
             resume=resume is not None,
         )
 
@@ -631,12 +689,17 @@ class DBSCAN:
             return self
         t0 = time.perf_counter()
         timer = PhaseTimer()
-        with self._run_telemetry(points):
+        n_devices = self._n_devices()
+        sharded = n_devices > 1 and len(points) >= 2 * n_devices
+        with self._run_telemetry(points, n_devices if sharded else 1):
             # Inside the recorded region: a rejected input seals the
             # flight file with the error.
             check_finite(points)
             try:
-                self._train_single(points, timer)
+                if sharded:
+                    self._train_sharded(points, n_devices, timer)
+                else:
+                    self._train_single(points, timer)
             finally:
                 if self._jobstate is not None:
                     # Persist what the cadence still held (a SIGKILL
@@ -672,10 +735,11 @@ class DBSCAN:
         self._serve_core_points = None
         self._live_model = None
         self._live_stats = None
+        self.partitioner_ = None
         self._fit_generation += 1
 
     @contextlib.contextmanager
-    def _run_telemetry(self, points):
+    def _run_telemetry(self, points, n_devices: int = 1):
         """One fit's telemetry, as the JAX package's ``train`` sets it
         up: the fit's :class:`~.obs.RunRecorder` (from
         :meth:`_reset_fit`) made current for the block, the flight file
@@ -687,7 +751,8 @@ class DBSCAN:
         ``status="error"`` and propagates.  The sampler is joined and
         the exporters closed either way."""
         rec = self._recorder
-        self._fit_info = {"n_dims": int(points.shape[1]), "n_devices": 1}
+        self._fit_info = {"n_dims": int(points.shape[1]),
+                          "n_devices": int(n_devices)}
         flight = obs.open_flight(self.flight)
         if flight is not None:
             rec.attach_flight(flight)
@@ -695,13 +760,13 @@ class DBSCAN:
                 params={
                     "eps": self.eps,
                     "min_samples": self.min_samples,
-                    "mode": "auto",
-                    "merge": "auto",
+                    "mode": self.mode,
+                    "merge": self.merge,
                     "block": self.block,
                 },
                 n_points=int(len(points)),
                 n_dims=int(points.shape[1]),
-                n_devices=1,
+                n_devices=int(n_devices),
                 n_processes=1,
                 process_index=0,
                 backend=self.device.type,
@@ -733,7 +798,81 @@ class DBSCAN:
                 flight.finish(status="ok")  # a no-op after an error
                 flight.close()
 
+    def _n_devices(self) -> int:
+        """The mesh's size, else the visible cards on the card, else 1."""
+        if self.mesh is not None:
+            return self.mesh.size
+        if self.device.type == "cuda":
+            return torch.cuda.device_count()
+        return 1
+
+    def _train_sharded(self, points, n_devices: int, timer) -> None:
+        """The partitioned fit on the mesh (the JAX package's host-input
+        ``_train_sharded``): the ``partition`` phase (the KD tree, its
+        per-level seconds and boxes), the fused step
+        (:func:`~.parallel.sharded_dbscan`), the densify, and the
+        reference's parity surface from the partitions."""
+        from .parallel import sharded as _sharded
+        from .parallel.mesh import default_mesh
+        from .partition import KDPartitioner, expanded_members
+
+        if self.mode == "global_morton":
+            _sharded._refuse("mode='global_morton' on a mesh (the "
+                             "global-Morton mesh engine)", "A12")
+        if isinstance(points, torch.Tensor):
+            _sharded._refuse("a tensor input on a mesh (the device-input "
+                             "route, device_input.py)", "A10's rest")
+        if isinstance(points, np.memmap):
+            _sharded._refuse("a memmap input on a mesh (the ring route's "
+                             "streaming build)", "A10's rest")
+        mesh = self.mesh if self.mesh is not None else default_mesh()
+        with timer.phase("partition"):
+            # max_partitions is a user-facing maximum: only the default
+            # takes one partition per device; the layout pads the
+            # partition axis with empty slots to a mesh multiple.
+            part = KDPartitioner(
+                points,
+                max_partitions=(n_devices if self.max_partitions is None
+                                else int(self.max_partitions)),
+                split_method=self.split_method,
+            )
+            self.partitioner_ = part
+            self.metrics_["partition_levels_s"] = [
+                round(float(t), 6) for t in part.level_times_s
+            ]
+            self.metrics_["partition_builder"] = part.builder
+            self.bounding_boxes = part.bounding_boxes
+            self.expanded_boxes = {
+                l: b.expand(2 * self.eps)
+                for l, b in part.bounding_boxes.items()
+            }
+        with timer.phase("cluster"):
+            labels, core, stats = _sharded.sharded_dbscan(
+                points, part, eps=self.eps, min_samples=self.min_samples,
+                metric=self._pair_metric, block=self.block, mesh=mesh,
+                precision=self.precision, backend=self.kernel_backend,
+                merge=self.merge, halo="host",
+                owner_computes=self.owner_computes, overlap=self.overlap,
+                jobstate=self._jobstate, device=self.device,
+                sketch=self.sketch,
+            )
+        with timer.phase("densify"):
+            self.labels_ = densify_labels(labels)
+        self.core_sample_mask_ = core
+        self.metrics_.update(stats)
+        self.metrics_["n_partitions"] = part.n_partitions
+        # The reference's parity surface: each partition's 2*eps-widened
+        # neighbourhood as point indices, and "partition:cluster" codes
+        # whose cluster id is the global dense label.
+        members = expanded_members(part.tree, np.asarray(points),
+                                   2 * self.eps)
+        self.neighbors = {l: members[l][0] for l in sorted(members)}
+        self.cluster_dict = _partition_cluster_dict(part.result,
+                                                    self.labels_)
+
     def _train_single(self, points, timer) -> None:
+        # A previous sharded fit's partitioner describes other data.
+        self.partitioner_ = None
         with timer.phase("cluster"):
             # _pad_and_run returns host arrays: the phase covers the
             # device work.
@@ -776,7 +915,7 @@ class DBSCAN:
         is clustered where it lies, without a host round trip (a cosine
         or haversine frame is projected on the host, see
         :meth:`_driver_frame_rows`)."""
-        if isinstance(X, torch.Tensor):
+        if isinstance(X, (torch.Tensor, np.memmap)):
             return self.train(X)
         return self.train(np.asarray(X))
 
@@ -1470,13 +1609,16 @@ class DBSCAN:
     def cluster_mapping(self) -> ClusterAggregator:
         """A :class:`ClusterAggregator` over the final labels (the
         reference's ``cluster_dict`` surface): each ``partition:cluster``
-        pair (partition 0 on one device) gets the next global id in
-        first-seen point order, as feeding the points one by one would;
-        ``cluster_dict`` is set from it."""
+        pair (a sharded fit's KD partition, else partition 0) gets the
+        next global id in first-seen point order, as feeding the points
+        one by one would; ``cluster_dict`` is set from it."""
         agg = ClusterAggregator()
         if self.labels_ is not None:
             labels = np.asarray(self.labels_)
-            codes = _cluster_codes(np.zeros(len(labels), np.int32), labels)
+            parts = (np.asarray(self.partitioner_.result)
+                     if self.partitioner_ is not None
+                     else np.zeros(len(labels), np.int32))
+            codes = _cluster_codes(parts, labels)
             uniq, first = np.unique(codes, return_index=True)
             for gid, c in enumerate(uniq[np.argsort(first, kind="stable")]):
                 agg[_code_key(c)] = gid
@@ -1494,10 +1636,7 @@ class DBSCAN:
         registry dump; ``serving`` once the model's engine has answered
         queries, ``live`` with a live model, ``sweep`` after
         :meth:`sweep` and ``hierarchy`` after an eps=None fit or
-        ``sweep(eps_list="auto")``.  JSON-serialisable throughout.
-        The parameters the port's constructor lacks (the sharding
-        knobs) carry the JAX package's defaults, which its single-device
-        fit runs as."""
+        ``sweep(eps_list="auto")``.  JSON-serialisable throughout."""
         self._require_fitted()
         eng = self._serve_engine
         serving = (
@@ -1511,15 +1650,15 @@ class DBSCAN:
                 "eps": self.eps,
                 "min_samples": self.min_samples,
                 "metric": self.metric,
-                "max_partitions": None,
-                "split_method": "min_var",
+                "max_partitions": self.max_partitions,
+                "split_method": self.split_method,
                 "block": self.block,
                 "precision": self.precision,
                 "kernel_backend": self.kernel_backend,
-                "merge": "auto",
-                "owner_computes": True,
-                "overlap": None,
-                "mode": "auto",
+                "merge": self.merge,
+                "owner_computes": self.owner_computes,
+                "overlap": self.overlap,
+                "mode": self.mode,
                 "flight": self.flight,
                 "auto": False,
                 "sketch": self.sketch,
@@ -1567,9 +1706,10 @@ class DBSCAN:
         save_model(self, path)
 
     @classmethod
-    def from_config(cls, config) -> "DBSCAN":
-        """The model a :class:`~.config.DBSCANConfig` describes."""
-        return config.build()
+    def from_config(cls, config, mesh=None) -> "DBSCAN":
+        """The model a :class:`~.config.DBSCANConfig` describes, on
+        ``mesh``."""
+        return config.build(mesh=mesh)
 
     @classmethod
     def load(cls, path: str, device=None) -> "DBSCAN":

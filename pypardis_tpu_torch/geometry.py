@@ -100,6 +100,56 @@ class BoundingBox:
         return f"BoundingBox(lower={self.lower}\n\tupper={self.upper})"
 
 
+class BoxStack:
+    """P bounding boxes as two (P, k) float64 arrays: the partition boxes
+    of a sharded fit in one piece (``KDPartitioner.box_stack``).  The
+    2*eps-widened stack (:meth:`expand`) frames the shard layout's halo
+    boxes in the JAX package's arithmetic, bit for bit."""
+
+    __slots__ = ("lower", "upper")
+
+    def __init__(self, lower, upper):
+        self.lower = np.asarray(lower, dtype=np.float64)
+        self.upper = np.asarray(upper, dtype=np.float64)
+        if self.lower.shape != self.upper.shape:
+            raise ValueError(
+                f"lower {self.lower.shape} and upper {self.upper.shape} "
+                f"differ in shape"
+            )
+
+    @classmethod
+    def from_boxes(cls, boxes) -> "BoxStack":
+        boxes = list(boxes)
+        return cls(np.stack([b.lower for b in boxes]),
+                   np.stack([b.upper for b in boxes]))
+
+    def __len__(self) -> int:
+        return self.lower.shape[0]
+
+    @property
+    def k(self) -> int:
+        return self.lower.shape[1]
+
+    def __getitem__(self, i: int) -> BoundingBox:
+        return BoundingBox(lower=self.lower[i], upper=self.upper[i])
+
+    def expand(self, eps=0) -> "BoxStack":
+        return BoxStack(self.lower - eps, self.upper + eps)
+
+    def membership(self, points, chunk: int = 1 << 16) -> np.ndarray:
+        """(N, k) points -> (N, P) bool, point n inside box p
+        (inclusive), in chunks of ``chunk`` points."""
+        points = np.asarray(points)
+        n = len(points)
+        out = np.empty((n, len(self)), bool)
+        for s in range(0, max(n, 1), chunk):
+            e = min(s + chunk, n)
+            c = points[s:e, None, :]
+            np.all((c >= self.lower[None]) & (c <= self.upper[None]),
+                   axis=-1, out=out[s:e])
+        return out
+
+
 def latlon_to_unit_sphere(points) -> np.ndarray:
     """(N, 2) [lat, lon] radians -> (N, 3) unit-sphere embedding, the
     haversine kernel frame: the chord ``2 sin(theta / 2)`` is monotone

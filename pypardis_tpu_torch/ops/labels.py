@@ -379,38 +379,43 @@ def gm_backend(backend: str, metric: str, n_total: int, owned: int,
 
 def oc_extract(points, eps, mask, *, owned: int, block: int,
                precision: str = "high", backend: str = "auto",
-               pair_budget: int | None = None, sketch=None):
+               pair_budget: int | None = None, sketch=None,
+               metric: str = "euclidean"):
     """The owner-computes passes' shared pre-pass over a ``(d, owned +
-    boundary)`` slab: the sketch slab (k > 0), the live tile-pair list
-    over the whole slab and the row frames, each taken once over
-    ``mask`` as :func:`dbscan_prepare` takes them.  The passes filter the
-    list (:func:`oc_raw_counts`, :func:`oc_propagate`).
+    boundary)`` slab (a global-Morton range's, or a KD partition's owned
+    + halo slab): the sketch slab (k > 0), the live tile-pair list over
+    the whole slab and the row frames, each taken once over ``mask`` as
+    :func:`dbscan_prepare` takes them.  The passes filter the list
+    (:func:`oc_raw_counts`, :func:`oc_propagate`).
 
     Returns a dict: ``total`` and ``budget`` are the FULL list's (the
     overflow contract: past the budget no pass may run and the caller
     reruns at ``total``); ``pairs`` the list, ``ont`` the owned tiles,
-    ``hh_pairs`` the list's (boundary, boundary) tile pairs.  The
-    Euclidean metric (the route refuses the others)."""
+    ``hh_pairs`` the list's (boundary, boundary) tile pairs.  ``metric``
+    is a pair metric (cityblock runs its torch passes with the sketch
+    off, as :func:`dbscan_prepare` runs it)."""
     mode = check_precision(precision)
+    metric = check_pair_metric(metric, mode)
     d, n = points.shape
-    gm_backend(backend, "euclidean", n, owned, block, d, mode,
-               points.device)
+    gm_backend(backend, metric, n, owned, block, d, mode, points.device)
     tile = _pallas_block(block, n, d, mode)
     points = points.contiguous()
-    k = effective_k(check_sketch_spec(sketch), d)
+    k = (effective_k(check_sketch_spec(sketch), d)
+         if metric == "euclidean" else 0)
     slab = sketch_stage(points, mask, k, mode) if k else None
     (rows, cols), (total, budget) = kernel_pair_list(
         points, eps, mask, block, mode, budget=pair_budget, sketch=k,
-        slab=slab,
+        slab=slab, metric=metric,
     )
     ont = owned // tile
     ex = dict(points=points, eps=eps, mask=mask, block=block, mode=mode,
-              metric="euclidean", k=k, slab=slab, pairs=(rows, cols),
+              metric=metric, k=k, slab=slab, pairs=(rows, cols),
               total=int(total), budget=int(budget), owned=int(owned),
               tile=tile, ont=ont,
               hh_pairs=int(((rows >= ont) & (cols >= ont)).sum()))
     if total <= budget:
-        ex["frames"] = pass_frames(points, mask, tile, mode, k)
+        ex["frames"] = (pass_frames(points, mask, tile, mode, k)
+                        if metric == "euclidean" else (None, None))
     return ex
 
 
@@ -431,6 +436,7 @@ def oc_raw_counts(ex):
         ex["points"], ex["eps"], ex["mask"], block=ex["block"],
         precision=ex["mode"], pairs=_kept(ex["pairs"], rows < ex["ont"]),
         sketch=ex["k"], slab=ex["slab"], frames=ex["frames"],
+        metric=ex["metric"],
     )
     band = torch.zeros(2, dtype=torch.int64)
     if isinstance(counts, tuple):

@@ -1,11 +1,13 @@
 """Partitioned fits and label merging (counterpart of
-``pypardis_tpu/parallel``): :func:`sharded_dbscan`, the KD route's
-chained form on one card, :func:`global_morton_dbscan`, the
-global-Morton route's chained form on one card, and the host merge's
-union-find.  The collectives and the fused multi-device steps are later
-slices (ROADMAP A10-A12)."""
+``pypardis_tpu/parallel``): :func:`sharded_dbscan`, the KD route (its
+chained form on one device, its fused step on a :class:`Mesh` of
+several), :func:`global_morton_dbscan`, the global-Morton route's
+chained form on one card, the device mesh and the host merge's
+union-find.  The multi-process layer, the ring exchange and the
+global-Morton mesh engine are later slices (ROADMAP A10's rest, A12)."""
 
 from .global_morton import global_morton_dbscan
+from .mesh import Mesh, default_mesh
 from .sharded import sharded_dbscan
 
-__all__ = ["global_morton_dbscan", "sharded_dbscan"]
+__all__ = ["Mesh", "default_mesh", "global_morton_dbscan", "sharded_dbscan"]

@@ -1,6 +1,6 @@
-"""The KD route on one card: per-partition fits over owned + halo slabs,
-then a label merge (counterpart of ``pypardis_tpu/parallel/sharded.py``,
-its single-device chained form).
+"""The KD route: per-partition fits over owned + halo slabs, then a
+label merge (counterpart of ``pypardis_tpu/parallel/sharded.py``): its
+chained form on one device and its fused step on a mesh.
 
 The reference's algorithm (its ``dbscan.py:104-165``): KD partitions,
 each partition's box widened by 2*eps, DBSCAN inside every widened box,
@@ -14,8 +14,8 @@ local roots map to global ids; and the merge reconciles them:
 
 * ``merge="device"``: min-label propagation over the bipartite
   point <-> cluster graph in torch on the card (:func:`_merge_from_tables`;
-  the JAX package's ``pmin``/``pmax`` over the mesh axis are the
-  identity on one card);
+  on a mesh over every shard's tables, which is what the JAX package's
+  ``pmin``/``pmax`` over the mesh axis compute);
 * ``merge="host"``: a union-find over the compact occurrence tables
   (:func:`~pypardis_tpu_torch.parallel.merge.merge_occurrences`).
 
@@ -27,15 +27,20 @@ duplicates that are core somewhere.  Only points core in their home
 partition link clusters, and merged clusters take the least root id
 (the reference's ``aggregator.py:38-45``).
 
-Every halo point is clustered again in every foreign partition, as in
-the JAX package's chained route (``owner_computes`` is reported False):
-``stats["duplicated_work_factor"]`` measures that cost.  Each
-partition's dispatch is retried through transient faults, a jobstate
-resumes a killed fit from its finished partitions, and an OOM of the
-device merge finishes that merge on the host (see :func:`sharded_dbscan`).
-The fused multi-device steps, owner-computes on this route, the ring
-exchange and streaming input are later slices (ROADMAP A10-A12) and
-raise ``NotImplementedError`` here (``mode="global_morton"`` runs the
+On one device (the chained route) every halo point is clustered again
+in every foreign partition, as in the JAX package (``owner_computes``
+is reported False): ``stats["duplicated_work_factor"]`` measures that
+cost.  Each partition's dispatch is retried through transient faults,
+and a jobstate resumes a killed fit from its finished partitions.  On a
+:class:`~.mesh.Mesh` of more than one device (the fused step) the
+partitions are sharded over the mesh and, with ``owner_computes``, each
+partition counts its owned rows only: the owners' core verdicts are
+gathered, the halo slots take them and relay labels between the owned
+clusters they touch (:func:`_mesh_run`).  On both an OOM of the device
+merge finishes that merge on the host (see :func:`sharded_dbscan`).
+The ring exchange, streaming input, device-resident input and the
+global-Morton mesh engine are later slices (ROADMAP A10's rest, A12)
+and raise ``NotImplementedError`` (``mode="global_morton"`` runs the
 global-Morton route's chained form, :mod:`.global_morton`); the staging
 cache's evict-and-retry rung comes with that cache.
 """
@@ -43,6 +48,7 @@ cache's evict-and-retry rung comes with that cache.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import time
 from typing import Optional
 
@@ -53,14 +59,20 @@ from ..obs import heartbeat as obs_heartbeat
 from ..obs import span as obs_span
 from ..ops.cuda_kernels import _pallas_block
 from ..ops.distances import INT_INF
-from ..ops.labels import dbscan_fixed_size
-from ..ops.sketch import sketch_dims
+from ..ops.labels import (
+    dbscan_fixed_size,
+    oc_counts_banded,
+    oc_extract,
+    oc_propagate_banded,
+)
+from ..ops.sketch import check_sketch_spec, effective_k, sketch_dims
 from ..partition import expanded_members, spatial_order
 from ..utils.budget import run_ladders
 from ..utils.hints import dispatch_tag
 from ..utils.retry import is_degradable_error, note_degraded
 from ..utils.shaping import clamp_block, round_up, row_chunks
 from ..utils.validate import check_precision, norm_metric
+from .mesh import as_mesh, gather, shard_max
 
 # Above this point count merge="auto" reconciles labels on the host: the
 # device merge holds several (N+1,) int32 arrays beside the slabs, the
@@ -119,6 +131,31 @@ def _fill_slab(slab, mask, gid, j, points, idx, center):
     return idx
 
 
+# Host threads that fill a stacked layout's partition slabs at once:
+# numpy's gathers, Morton keys and sorts release the interpreter lock,
+# so four partitions fill in about a third of the serial time (1M x
+# 16-D over 4 partitions).  Each thread holds one partition's recentred
+# rows and keys at a time.
+_LAYOUT_THREADS = 4
+
+
+def _fill_slabs(slab, mask, gid, points, idx_list, center):
+    """:func:`_fill_slab` for each index array of ``idx_list`` into slots
+    ``0..``, on up to :data:`_LAYOUT_THREADS` host threads (each slot is
+    written by one thread, so the bits are the serial fill's).  Returns
+    the sorted index arrays in slot order."""
+    def fill(j):
+        return _fill_slab(slab, mask, gid, j, points, idx_list[j], center)
+
+    workers = min(_LAYOUT_THREADS, len(idx_list))
+    if workers <= 1:
+        return [fill(j) for j in range(len(idx_list))]
+    with concurrent.futures.ThreadPoolExecutor(
+            max_workers=workers,
+            thread_name_prefix="pptorch-layout") as pool:
+        return list(pool.map(fill, range(len(idx_list))))
+
+
 def _layout_geometry(partitioner, labels, n_shards, block):
     """``(p_real, p_total, part_idx, cap)``: the partition count rounded
     up to the shard count, each partition's owned indices and the owned
@@ -155,10 +192,8 @@ def _owned_layout(points, center, partitioner, labels, n_shards, block):
     owned = np.zeros((p_total, k, cap), np.float32)
     owned_mask = np.zeros((p_total, cap), bool)
     owned_gid = np.full((p_total, cap), n, np.int32)
-    owned_idx = [
-        _fill_slab(owned, owned_mask, owned_gid, j, points, idx, center)
-        for j, idx in enumerate(part_idx)
-    ]
+    owned_idx = _fill_slabs(owned, owned_mask, owned_gid, points, part_idx,
+                            center)
     return owned_idx, (owned, owned_mask, owned_gid), cap, p_total
 
 
@@ -185,35 +220,44 @@ def _halo_stats(halo_idx, hcap, n, k):
     }
 
 
-def _halo_slabs(points, partitioner, eps, labels, center, p_total, block):
-    """``(P, k, hcap)`` halo slabs with masks and gids, and their stats."""
+def _halo_slabs(points, halo_idx, center, p_total, block):
+    """``(P, k, hcap)`` halo slabs of the halo sets ``halo_idx``
+    (:func:`_halo_sets`) with masks and gids, and their stats."""
     n, k = points.shape
-    halo_idx = _halo_sets(points, partitioner, eps, labels)
     hcap = _halo_cap(halo_idx, block)
     halo = np.zeros((p_total, k, hcap), np.float32)
     halo_mask = np.zeros((p_total, hcap), bool)
     halo_gid = np.full((p_total, hcap), n, np.int32)
-    for j, hi in enumerate(halo_idx):
-        _fill_slab(halo, halo_mask, halo_gid, j, points, hi, center)
+    _fill_slabs(halo, halo_mask, halo_gid, points, halo_idx, center)
     return (halo, halo_mask, halo_gid), _halo_stats(halo_idx, hcap, n, k)
 
 
-def build_shards(points, partitioner, eps, n_shards, block):
+def build_shards(points, partitioner, eps, n_shards, block, stage=None):
     """Lay out the points as ``(P, k, cap)`` owned and ``(P, k, hcap)``
-    halo slabs (numpy, on the host), with masks and global ids; padding
-    slots carry gid ``n``, the dump row of the merge's scatters.
-    Returns ``((owned, owned_mask, owned_gid, halo, halo_mask,
-    halo_gid), stats)``.  The chained route builds one partition's slab
-    at a time (:func:`_partition_slab`); this whole layout is the one
-    the stacked multi-device steps take (ROADMAP A10)."""
+    halo slabs (numpy, on the host), with masks and global ids; ``P`` is
+    the partition count rounded up to a multiple of ``n_shards`` (the
+    mesh size), the padding slots fully masked; padding rows and slots
+    carry gid ``n``, the dump row of the merge's scatters.  Returns
+    ``((owned, owned_mask, owned_gid, halo, halo_mask, halo_gid),
+    stats)``.  The chained route builds one partition's slab at a time
+    (:func:`_partition_slab`); this whole layout is the fused
+    multi-device step's (:func:`_mesh_run`).  ``stage`` (a dict) gains
+    the seconds of the halo sets (``halo_sets``) and of the rest
+    (``slab_build``)."""
     points = np.asarray(points)
+    t0 = time.perf_counter()
     center, labels = _expanded_frame_meta(points, partitioner)
     owned_idx, arrays_o, cap, p_total = _owned_layout(
         points, center, partitioner, labels, n_shards, block
     )
-    arrays_h, h_stats = _halo_slabs(
-        points, partitioner, eps, labels, center, p_total, block
-    )
+    t1 = time.perf_counter()
+    halo_idx = _halo_sets(points, partitioner, eps, labels)
+    t2 = time.perf_counter()
+    arrays_h, h_stats = _halo_slabs(points, halo_idx, center, p_total,
+                                    block)
+    if stage is not None:
+        stage["halo_sets"] = t2 - t1
+        stage["slab_build"] = (t1 - t0) + (time.perf_counter() - t2)
     stats = {**_owned_stats(owned_idx, cap, p_total, len(points)),
              **h_stats}
     return (*arrays_o, *arrays_h), stats
@@ -309,17 +353,23 @@ class _Spans:
             s.elapsed_time(e) for s, e in self.events) / 1e3
 
 
+def _global_labels(lab, gid):
+    """Local root slots -> global root ids through the slab's gids."""
+    return torch.where(lab >= 0, gid[lab.clamp_min(0).long()],
+                       -1).to(torch.int32)
+
+
 def _cluster_partition(pts, msk, gid, *, eps, min_samples, metric, block,
-                       precision, backend, pair_budget):
+                       precision, backend, pair_budget, sketch=None):
     """One partition's ``(k, cap + hcap)`` slab through
     ``dbscan_fixed_size``; local roots map to global ids.  Returns
     ``(glab, core, pair_stats)``."""
     lab, cor, ps = dbscan_fixed_size(
         pts, eps, min_samples, msk, block=block, precision=precision,
         backend=backend, pair_budget=pair_budget, metric=metric,
+        sketch=sketch,
     )
-    glab = torch.where(lab >= 0, gid[lab.clamp_min(0).long()], -1)
-    return glab.to(torch.int32), cor, ps
+    return _global_labels(lab, gid), cor, ps
 
 
 def _stack_tables(glabs, cores, pstats, cap):
@@ -410,20 +460,26 @@ def _merge_loop(lab_map, home_label, core_g, h_gid, h_lab, h_core,
 
 
 def _merge_from_tables(own_glab, own_core, og, hg, halo_glab, *, n_points,
-                       merge_rounds, syncs=None):
+                       merge_rounds, syncs=None, core_g=None):
     """The device merge: per-slot label tables -> ``(final, core,
     rounds, converged)``, ``final`` and ``core`` of shape ``(N,)`` on
     the tables' device.  Scatters run over ``(N+1,)`` int32 arrays whose
     last row is the dump row of padding slots.  ``syncs`` (a one-item
     list) counts the host syncs: one per round and one per pointer-jump
-    step."""
+    step.  ``core_g``: the ``(N+1,)`` flags the owner-computes step
+    already built (:func:`_replicated_core`) before its propagation.
+
+    On a mesh the tables are every shard's, stacked on one device: a
+    scatter-min over all shards' occurrences is the JAX step's ``pmin``
+    of the per-device scatter-mins, so the rounds are its rounds."""
     syncs = [0] if syncs is None else syncs
     n1 = n_points + 1
     dev = own_glab.device
     og_flat = og.reshape(-1).long()
     home_label = torch.full((n1,), -1, dtype=torch.int32, device=dev)
     home_label.scatter_reduce_(0, og_flat, own_glab.reshape(-1), "amax")
-    core_g = _replicated_core(own_core, og, n1)
+    if core_g is None:
+        core_g = _replicated_core(own_core, og, n1)
     home_label[n1 - 1] = -1
 
     h_gid = hg.reshape(-1).long()
@@ -483,7 +539,7 @@ def _canonicalize_roots(labels, core) -> np.ndarray:
 
 
 def _exec_stats(stats, *, pstats, block, k, precision, n,
-                metric="euclidean", oc_on=False):
+                metric="euclidean", oc_on=False, sketch=None):
     """The execution telemetry: ``owner_computes`` (``oc_on``: each slab
     counts only its owned rows; off, as on the KD route, every halo
     duplicate is clustered again), ``duplicated_work_factor`` (slots
@@ -505,7 +561,10 @@ def _exec_stats(stats, *, pstats, block, k, precision, n,
     stats["kernel_block"] = int(_pallas_block(
         block, max(cap + hcap, 1), int(k), check_precision(precision)))
     stats["kernel_tiles"] = -(-max(cap + hcap, 1) // stats["kernel_block"])
-    stats["sketch_k"] = int(sketch_dims(int(k), metric))
+    stats["sketch_k"] = int(
+        sketch_dims(int(k), metric) if sketch is None
+        else effective_k(check_sketch_spec(sketch), int(k))
+        if metric == "euclidean" else 0)
     return stats
 
 
@@ -595,7 +654,7 @@ def _replay_gids(points, layout, p, device):
 
 def _chained_tables_overlap(
     points, layout, *, eps, min_samples, metric, precision, backend,
-    pair_budget, device, stage, passes, jobstate=None,
+    pair_budget, device, stage, passes, jobstate=None, sketch=None,
 ):
     """The per-partition loop: each partition's slab built on the host
     (:func:`_partition_slab` into a :class:`_SlabRing` buffer), shipped
@@ -691,7 +750,7 @@ def _chained_tables_overlap(
                     pts, msk, gid, eps=eps, min_samples=min_samples,
                     metric=metric, block=layout["block"],
                     precision=precision, backend=backend,
-                    pair_budget=pair_budget,
+                    pair_budget=pair_budget, sketch=sketch,
                 ))
 
             glab, cor, ps = Retrier("chained.partition").run(one_partition)
@@ -746,7 +805,7 @@ def _sharded_hint_key(owned_shape, halo_cap, block, precision, eps, metric):
 def _refuse(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP {item}); the port runs the KD "
-        f"route's chained form on one card (mode='kd', halo='host')"
+        f"route with halo='host': chained on one device, fused on a mesh"
     )
 
 
@@ -779,69 +838,90 @@ def sharded_dbscan(
     mode: str = "kd",
     jobstate=None,
     device=None,
+    sketch=None,
 ):
-    """Cluster ``points`` (N, k) over ``partitioner``'s KD partitions on
-    one card.  Returns ``(labels, core, stats)``: labels are global root
-    ids (each cluster's least core-point index, -1 noise) in input order.
+    """Cluster ``points`` (N, k) over ``partitioner``'s KD partitions.
+    Returns ``(labels, core, stats)``: labels are global root ids (each
+    cluster's least core-point index, -1 noise) in input order.
 
-    The JAX package's ``sharded_dbscan(..., mesh=default_mesh(1))``:
-    per-partition fits over owned + halo slabs, then the label merge.
-    ``merge``: ``"device"`` (torch on the card), ``"host"`` (union-find
-    over the occurrence tables) or ``"auto"`` (host from
+    ``mesh``: None or a 1-device mesh runs the chained route on one card
+    (the JAX package's ``mesh=default_mesh(1)``): per-partition fits
+    over owned + halo slabs, partition ``p + 1``'s slab built and
+    shipped on a host thread while the card clusters partition ``p``
+    (``stats["overlap_efficiency"]`` with more than one partition), then
+    the label merge.  A :class:`~.mesh.Mesh` of more than one device
+    runs the fused multi-device step (the JAX ``_sharded_step_fused``):
+    the stacked layout (:func:`build_shards`, partitions padded to a
+    multiple of the mesh size with empty slots), each shard's partitions
+    on its device, and with ``owner_computes`` (the default there) only
+    owned rows counted, halo slots taking their owners' core verdicts
+    and relaying labels.  Shards run one after another from this thread:
+    the round loop reads a flag from the device every round, so on
+    distinct cards they do not overlap yet (ROADMAP A10's rest); on a
+    mesh that repeats one card that is what the card would do anyway.
+
+    ``merge``: ``"device"`` (torch, the tables of every shard on the
+    mesh's first device), ``"host"`` (union-find over the occurrence
+    tables; under owner-computes the host also relays the owners' core
+    verdicts between the two passes) or ``"auto"`` (host from
     :data:`MERGE_HOST_AUTO` points, or under host-RSS pressure,
     :func:`~pypardis_tpu_torch.obs.resources.memory_pressure`); labels
-    are byte-identical under both.  Partition ``p + 1``'s slab is built
-    and shipped on a host thread while the card clusters partition ``p``
-    (``stats["overlap_efficiency"]`` with more than one partition).
+    are byte-identical under both.
 
     ``pair_budget`` and ``merge_rounds`` run the ladders of
     :func:`~pypardis_tpu_torch.utils.budget.run_ladders`: one rerun at
-    the exact pair total, one merge retry at 4x the rounds, then an
-    error; never a truncated or under-merged result.  A kernel that
-    fails raises: there is no fallback to the plain versions.
+    the exact pair total (the budget is shared by every partition of
+    every shard, so the largest total binds), one merge retry at 4x the
+    rounds, then an error; never a truncated or under-merged result.  A
+    kernel that fails raises: there is no fallback to the plain
+    versions, and a layout whose tile cannot split the owned prefix
+    raises ``ValueError``.
 
     ``mode="global_morton"`` runs :func:`~.global_morton.
-    global_morton_dbscan` (the partitioner unread, ``chain`` from
-    ``PPTORCH_GM_CHAIN``).  ``owner_computes`` is accepted and reported
-    False, as the JAX package's chained route reports it.  ``overlap``
-    is accepted for the JAX signature and changes nothing: the JAX
-    switch turns off an overlap that rides on asynchronous dispatch,
-    which the port's builder thread does not.  ``halo="ring"``,
-    ``stream``, ``hcap`` and a mesh of more than one device raise
+    global_morton_dbscan` on one device (the partitioner unread,
+    ``chain`` from ``PPTORCH_GM_CHAIN``).  ``owner_computes`` is
+    reported False on the chained route, as the JAX package reports it.
+    ``overlap`` is accepted for the JAX signature and changes nothing:
+    the JAX switch turns off an overlap that rides on asynchronous
+    dispatch, which the port's builder thread does not.  ``halo="ring"``,
+    ``stream``, ``hcap`` and the global-Morton route on a mesh raise
     ``NotImplementedError``.
 
-    Fault tolerance, as in the JAX package's chained route: each
+    Fault tolerance, as in the JAX package: on the chained route each
     partition's dispatch runs under a retry with the
-    ``chained.partition`` fault site; ``jobstate``
+    ``chained.partition`` fault site and ``jobstate``
     (:class:`~pypardis_tpu_torch.utils.jobstate.JobState`) restores the
-    partitions a killed run snapshotted and notes each finished one; an
+    partitions a killed run snapshotted; the fused step takes
+    ``jobstate`` and snapshots nothing, as in JAX.  On both, an
     OOM-class failure of the device merge itself (the
     ``sharded.execute`` fault site) finishes that merge on the host from
     the tables the run produced (``note_degraded("merge_host")``,
     ``stats["merge"] == "host"``).  No other failure degrades: an OOM in
-    a partition's dispatch, which the host merge would not cure, and a
-    kernel error raise.  (The JAX chained route reruns the whole fit
-    under the host merge after an OOM anywhere in it.)  ``device``: None
-    runs on the card (and raises without CUDA); ``"cpu"`` runs the
-    kernels' plain versions.
+    a partition's clustering, which the host merge would not cure, and
+    a kernel error raise.  (The JAX routes rerun the whole fit under the
+    host merge after an OOM anywhere in it.)  ``device``: None runs on
+    the card (and raises without CUDA); ``"cpu"`` runs the kernels'
+    plain versions; a mesh's devices must be of its type.  ``sketch``:
+    the fits' sketch spec (None reads ``PPTORCH_SKETCH``).
 
     Stats beyond the JAX package's: ``stage_s`` (seconds of the halo
-    sets, the host slab build, the per-partition busy time, the
-    clustering loop's wall and the merge), ``partition_passes`` (each
-    partition dispatch's kernel passes, every ladder attempt, 0 where
-    its pair list overflowed) and, under the device merge,
-    ``merge_host_syncs``.
+    sets, the host slab build, the copies to the mesh (``ship``), the
+    per-partition busy time (``device``), the clustering loop's wall
+    and the merge), ``partition_passes`` (each partition's kernel
+    passes, every ladder attempt, 0 where its pair list overflowed) and,
+    under the device merge, ``merge_host_syncs``.
 
     Telemetry on the current recorder, as in the JAX package: the spans
     ``sharded.build_shards`` (the geometry and halo sets),
     ``sharded.execute`` (the partitions and the device merge, through
-    the ladders) and ``sharded.merge_host``, the ladders' events and the
-    heartbeat ``chained.partitions``.
+    the ladders) and ``sharded.merge_host``, the ladders' events and, on
+    the chained route, the heartbeat ``chained.partitions``.
     """
     from ..dbscan import resolve_device
     from ..utils import faults
 
     faults.from_env()
+    n_mesh = _mesh_size(mesh)
     if mode == "global_morton":
         from .global_morton import global_morton_dbscan
 
@@ -862,12 +942,17 @@ def sharded_dbscan(
         _refuse("stream=True", "A10/A11")
     if hcap is not None:
         _refuse("hcap (the ring halo's capacity)", "A10/A11")
-    if _mesh_size(mesh) > 1:
-        _refuse("a mesh of more than one device", "A10/A11")
     metric = norm_metric(metric)
     if merge not in ("auto", "device", "host"):
         raise ValueError(f"merge must be auto|device|host, got {merge!r}")
     dev = resolve_device(device)
+    if n_mesh > 1:
+        mesh = as_mesh(mesh)
+        if mesh.device_type != dev.type:
+            raise ValueError(
+                f"the mesh's devices are {mesh.device_type} but the fit "
+                f"runs on {dev.type}"
+            )
     if isinstance(points, torch.Tensor):
         points = points.detach().cpu().numpy()
     points = np.asarray(points)
@@ -882,16 +967,22 @@ def sharded_dbscan(
             "host" if n >= MERGE_HOST_AUTO or memory_pressure()
             else "device"
         )
+    if n_mesh > 1:
+        return _mesh_run(
+            points, partitioner, eps, min_samples, metric=metric,
+            block=block, mesh=mesh, precision=precision, backend=backend,
+            merge=merge, pair_budget=pair_budget, merge_rounds=merge_rounds,
+            owner_computes=owner_computes, sketch=sketch, dev=dev)
     return _chained_run(
         points, partitioner, eps, min_samples, metric=metric, block=block,
         precision=precision, backend=backend, merge=merge,
         pair_budget=pair_budget, merge_rounds=merge_rounds,
-        jobstate=jobstate, dev=dev)
+        jobstate=jobstate, dev=dev, sketch=sketch)
 
 
 def _chained_run(points, partitioner, eps, min_samples, *, metric, block,
                  precision, backend, merge, pair_budget, merge_rounds,
-                 jobstate, dev):
+                 jobstate, dev, sketch=None):
     """The chained route under a resolved ``merge``: the layout, the
     partition loop and the merge through the ladders (the body of
     :func:`sharded_dbscan`)."""
@@ -912,7 +1003,7 @@ def _chained_run(points, partitioner, eps, min_samples, *, metric, block,
                 points, layout, eps=eps, min_samples=min_samples,
                 metric=metric, precision=precision, backend=backend,
                 pair_budget=pb, device=dev, stage=stage, passes=passes,
-                jobstate=jobstate,
+                jobstate=jobstate, sketch=sketch,
             ))
         eff_cell[0] = eff
         tables = _stack_tables(glabs, cores, pstats, layout["cap"])
@@ -983,7 +1074,335 @@ def _chained_run(points, partitioner, eps, min_samples, *, metric, block,
     if len(layout["part_idx"]) > 1:
         stats["overlap_efficiency"] = round(float(eff_cell[0]), 4)
     _exec_stats(stats, pstats=pstats, block=block, k=k,
-                precision=precision, n=n, metric=metric)
+                precision=precision, n=n, metric=metric, sketch=sketch)
+    stats["stage_s"] = stage
+    stats["partition_passes"] = passes
+    return _canonicalize_roots(final.astype(np.int32), core), core, stats
+
+
+# ---------------------------------------------------------------------------
+# the fused multi-device step (a mesh of more than one device)
+# ---------------------------------------------------------------------------
+
+
+def _on(device):
+    """The context a shard's work runs in: its card as the current CUDA
+    device (so events and streams are its own), nothing on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _check_mesh_tile(block, cap, hcap, k, mode, oc_on):
+    """The KD layout's tile (``_pallas_block`` over ``cap + hcap`` rows)
+    must divide the slab, and under owner-computes the owned prefix too:
+    the owner-computes filters split the tile-pair list at ``cap //
+    tile``.  A misaligned layout raises; nothing runs the plain versions
+    in its place."""
+    n = cap + hcap
+    tile = _pallas_block(block, n, k, mode)
+    if n % tile or (oc_on and cap % tile):
+        raise ValueError(
+            f"block={block} cannot tile the KD shard layout: its tile "
+            f"{tile} does not divide the owned capacity (cap={cap}) and "
+            f"the slab (cap + hcap={n}); use a power-of-two block"
+        )
+
+
+def _ship_shards(arrays, mesh):
+    """Each shard's partitions as ``(k, cap + hcap)`` slabs, masks and
+    gids on the shard's device: partition ``j`` lives on shard ``j //
+    L`` (``L`` = partitions per shard), as the JAX layout shards its
+    leading axis.  Returns a list (one per shard) of ``(pts, msk, gid)``
+    lists."""
+    owned, om, og, halo, hm, hg = arrays
+    per = owned.shape[0] // mesh.size
+    shards = []
+    for s in range(mesh.size):
+        dev = mesh.device(s)
+        slabs = []
+        for j in range(s * per, (s + 1) * per):
+            slabs.append(tuple(
+                torch.from_numpy(np.concatenate(pair, axis=-1)).to(dev)
+                for pair in ((owned[j], halo[j]), (om[j], hm[j]),
+                             (og[j], hg[j]))))
+        shards.append(slabs)
+    return shards
+
+
+def _legacy_shard(slabs, *, cluster_kw, spans, passes):
+    """The owner-computes-off body of one shard (the JAX
+    ``_device_cluster_merge``'s clustering): every partition's whole
+    owned + halo slab through ``dbscan_fixed_size``, halo duplicates
+    clustered again.  Returns ``(glabs, cores, stats row)``, the row the
+    column maximum over the shard's partitions."""
+    glabs, cores, rows = [], [], []
+    for pts, msk, gid in slabs:
+        glab, cor, ps = spans.run(
+            lambda: _cluster_partition(pts, msk, gid, **cluster_kw))
+        glabs.append(glab)
+        cores.append(cor)
+        rows.append(ps)
+        passes.append(int(ps[2]))
+    return glabs, cores, torch.stack(rows).max(dim=0).values
+
+
+def _oc_counts_shard(slabs, *, cap, min_samples, oc_kw, spans):
+    """Owner-computes pass 1 of one shard (the JAX ``_oc_counts_device``):
+    each partition's pair list over its whole slab, then its owned rows'
+    counts (B1, or B3 with the sketch).  Returns ``(own_cores, extracted,
+    band)``; a partition whose list passed its budget gets no pass
+    (``None`` core) and the caller reruns at the exact total."""
+    cores, extracted, bands = [], [], []
+    for pts, msk, _gid in slabs:
+        def counts():
+            ex = oc_extract(pts, oc_kw["eps"], msk, owned=cap,
+                            **{k: v for k, v in oc_kw.items()
+                               if k != "eps"})
+            if ex["total"] > ex["budget"]:
+                return ex, None, torch.zeros(2, dtype=torch.int64)
+            core, band = oc_counts_banded(ex, min_samples)
+            return ex, core, band
+
+        ex, core, band = spans.run(counts)
+        extracted.append(ex)
+        cores.append(core)
+        bands.append(band)
+    return cores, extracted, torch.stack(bands).max(dim=0).values
+
+
+def _oc_tables_shard(slabs, core_alls, extracted, counts_band, *, spans,
+                     passes):
+    """Owner-computes pass 2 of one shard (the JAX ``_oc_tables_device``):
+    relay propagation with the owners' core flags (halo slots relay
+    labels, no halo x halo tile pair runs), local roots mapped to global
+    ids.  Returns ``(glabs, stats row)``: the row's live pairs are each
+    list less its halo x halo pairs, its passes ``1 + the most min-label
+    passes`` and its band the counts pass's plus the propagation's, as
+    the JAX row."""
+    glabs, lives, budgets, props, bands = [], [], [], [], []
+    for (_pts, _msk, gid), core_all, ex in zip(slabs, core_alls, extracted):
+        lab, p_i, band_i = spans.run(lambda: oc_propagate_banded(ex,
+                                                                 core_all))
+        glabs.append(_global_labels(lab, gid))
+        lives.append(ex["total"] - ex["hh_pairs"])
+        budgets.append(ex["budget"])
+        props.append(int(p_i))
+        bands.append(band_i)
+        passes.append(1 + int(p_i))
+    band = torch.stack(bands).max(dim=0).values + counts_band
+    row = torch.cat([torch.tensor([max(lives), max(budgets),
+                                   1 + max(props)], dtype=torch.int64),
+                     band.to(torch.int64)])
+    return glabs, row
+
+
+def _overflow_row(extracted):
+    """A shard's stats row after an overflowed pass 1: no pass ran."""
+    return torch.tensor(
+        [max(e["total"] - e["hh_pairs"] for e in extracted),
+         max(e["budget"] for e in extracted), 0, 0, 0], dtype=torch.int64)
+
+
+def _core_on(core_g, device, cache):
+    """``core_g`` on ``device``: one copy per distinct card (none on the
+    card that holds it), never one per shard."""
+    key = str(device)
+    if key not in cache:
+        cache[key] = core_g.to(device)
+    return cache[key]
+
+
+def _mesh_cluster(shards, og_np, hg_np, *, mesh, oc_on, relay, n, cap,
+                  min_samples, cluster_kw, spans, passes):
+    """The per-shard clustering of the fused step, shard after shard.
+
+    ``oc_on`` off: every partition's slab clustered whole.  On: pass 1
+    (owned-row counts), the owners' verdicts gathered into the ``(N+1,)``
+    ``core_g`` (``relay="device"``: on the mesh's first device, the JAX
+    ``pmax``; ``"host"``: in numpy, the JAX ``_oc_host_tables`` relay),
+    each shard's halo slots reading their flags on its own device, then
+    pass 2 (relay propagation).
+
+    Returns ``(tables, stats_rows, (total, budget), core_g)``:
+    ``tables`` per shard ``[(glab, core), ...]`` (None after an
+    overflow), ``stats_rows`` one (5,) row per shard, ``(total,
+    budget)`` the largest full pair list against its budget (the
+    ladder's), ``core_g`` the device relay's flags (else None)."""
+    rows, tables = [], []
+    if not oc_on:
+        overflow = (0, 0)
+        for s, slabs in enumerate(shards):
+            with _on(mesh.device(s)):
+                glabs, cores, row = _legacy_shard(
+                    slabs, cluster_kw=cluster_kw, spans=spans,
+                    passes=passes)
+            tables.append(list(zip(glabs, cores)))
+            rows.append(row)
+            overflow = max(overflow, (int(row[0]), int(row[1])))
+        return tables, rows, overflow, None
+    oc_kw = {k: v for k, v in cluster_kw.items() if k != "min_samples"}
+    counted = []
+    for s, slabs in enumerate(shards):
+        with _on(mesh.device(s)):
+            counted.append(_oc_counts_shard(
+                slabs, cap=cap, min_samples=min_samples, oc_kw=oc_kw,
+                spans=spans))
+    exs = [e for _c, ex, _b in counted for e in ex]
+    total = max(e["total"] for e in exs)
+    budget = max(e["budget"] for e in exs)
+    if total > budget:
+        passes.extend([0] * len(exs))
+        return None, [_overflow_row(ex) for _c, ex, _b in counted], (
+            total, budget), None
+    own_cores = [c for cores, _e, _b in counted for c in cores]
+    dev0 = mesh.device(0)
+    core_g = None
+    if relay == "device":
+        core_g = _replicated_core(
+            gather(own_cores, dev0),
+            torch.from_numpy(og_np).to(dev0), n + 1)
+    else:
+        core_full = np.zeros(n + 1, bool)
+        sel = og_np.reshape(-1) < n
+        core_full[og_np.reshape(-1)[sel]] = torch.stack(
+            [c.cpu() for c in own_cores]).numpy().reshape(-1)[sel]
+        halo_core_np = core_full[np.clip(hg_np, 0, n)] & (hg_np < n)
+    copies = {}
+    j = 0
+    for s, (slabs, (cores, ex, band)) in enumerate(zip(shards, counted)):
+        dev = mesh.device(s)
+        with _on(dev):
+            core_alls = []
+            for (_pts, msk, gid), own in zip(slabs, cores):
+                hgid, hmsk = gid[cap:], msk[cap:]
+                if relay == "device":
+                    halo_core = (_core_on(core_g, dev, copies)[
+                        hgid.clamp(0, n).long()] & (hgid < n) & hmsk)
+                else:
+                    halo_core = torch.from_numpy(halo_core_np[j]).to(dev)
+                core_alls.append(torch.cat([own, halo_core]))
+                j += 1
+            glabs, row = _oc_tables_shard(slabs, core_alls, ex, band,
+                                          spans=spans, passes=passes)
+        tables.append(list(zip(glabs, cores)))
+        rows.append(row)
+    return tables, rows, (total, budget), core_g
+
+
+def _stacked_tables(tables, cap, device):
+    """Per-shard ``(glab, core)`` lists -> ``(own_glab, own_core,
+    halo_glab)`` of shapes ``(P, cap)``, ``(P, cap)``, ``(P, hcap)`` on
+    ``device``, partitions in shard order (the JAX layout's)."""
+    flat = [t for shard in tables for t in shard]
+    return (gather([g[:cap] for g, _c in flat], device),
+            gather([c[:cap] for _g, c in flat], device),
+            gather([g[cap:] for g, _c in flat], device))
+
+
+def _mesh_run(points, partitioner, eps, min_samples, *, metric, block,
+              mesh, precision, backend, merge, pair_budget, merge_rounds,
+              owner_computes, sketch, dev):
+    """The fused multi-device step (the JAX package's
+    ``_sharded_step_fused`` and ``sharded_step_local`` /
+    ``_oc_host_tables`` with their driver): the stacked layout on the
+    host, each shard's partitions on its device, the per-shard passes
+    and the merge, through the ladders.  See :func:`sharded_dbscan`."""
+    from ..utils import faults
+
+    n, k = points.shape
+    mode = check_precision(precision)
+    block = clamp_block(block, max(len(p) for p in
+                                   partitioner.partitions.values()))
+    stage = {}
+    with obs_span("sharded.build_shards", halo="host"):
+        arrays, stats = build_shards(points, partitioner, eps, mesh.size,
+                                     block, stage=stage)
+    p_total, cap, hcap = (int(stats["n_shard_partitions"]),
+                          int(stats["owned_cap"]), int(stats["halo_cap"]))
+    # The JAX _oc_applies: owner-computes runs on every mesh of more than
+    # one device (only the 1-device chained route reports it off).
+    oc_on = bool(owner_computes)
+    _check_mesh_tile(block, cap, hcap, k, mode, oc_on)
+    t = time.perf_counter()
+    shards = _ship_shards(arrays, mesh)
+    stage["ship"] = time.perf_counter() - t
+    og_np, hg_np = arrays[2], arrays[5]
+    del arrays
+    dev0 = mesh.device(0)
+    cluster_kw = dict(eps=eps, min_samples=min_samples, metric=metric,
+                      block=block, precision=precision, backend=backend,
+                      sketch=sketch)
+    passes, syncs, spilled, memo = [], [0], [], {}
+
+    def cluster(pb):
+        spans = _Spans(dev0)
+        t_loop = time.perf_counter()
+        out = _mesh_cluster(
+            shards, og_np, hg_np, mesh=mesh, oc_on=oc_on,
+            relay="host" if merge == "host" else "device", n=n, cap=cap,
+            min_samples=min_samples,
+            cluster_kw=dict(cluster_kw, pair_budget=pb), spans=spans,
+            passes=passes)
+        stage["device"] = stage.get("device", 0.0) + spans.seconds()
+        stage["loop"] = (stage.get("loop", 0.0)
+                         + time.perf_counter() - t_loop)
+        return out
+
+    def run_step(pb, mr):
+        if "out" not in memo or memo["pb"] != pb:
+            memo.update(pb=pb, out=cluster(pb))
+        tables, rows, (total, budget), core_g = memo["out"]
+        # Each column's maximum over the shards (the JAX rows' pmax).
+        pstats = shard_max([r.cpu() for r in rows], torch.device("cpu"))
+        if total > budget or merge == "host" or spilled:
+            # The host union-find merge is exact: no rounds ladder.
+            return (None, pstats), (total, budget), True
+        t = time.perf_counter()
+        try:
+            faults.maybe_fail("sharded.execute")
+            own_glab, own_core, halo_glab = _stacked_tables(tables, cap,
+                                                            dev0)
+            final, core, rounds, converged = _merge_from_tables(
+                own_glab, own_core, torch.from_numpy(og_np).to(dev0),
+                torch.from_numpy(hg_np).to(dev0), halo_glab, n_points=n,
+                merge_rounds=mr, syncs=syncs, core_g=core_g)
+        except Exception as e:  # noqa: BLE001 — re-raised unless an OOM
+            if not is_degradable_error(e):
+                raise
+            # The degradation rung, as on the chained route: an OOM of
+            # the device merge finishes on the host from these tables.
+            note_degraded("merge_host", mode="kd", error=str(e)[:160])
+            if dev0.type == "cuda":
+                torch.cuda.empty_cache()
+            spilled.append(True)
+            return (None, pstats), (total, budget), True
+        stage["merge"] = stage.get("merge", 0.0) + time.perf_counter() - t
+        return ((final, core, rounds), pstats), (total, budget), converged
+
+    with obs_span("sharded.execute", halo="host", merge=merge):
+        out, pstats = run_ladders(
+            run_step,
+            _sharded_hint_key((p_total, cap, k), hcap, block, precision,
+                              eps, metric) + (oc_on,),
+            pair_budget, merge_rounds)
+    t = time.perf_counter()
+    if merge == "host" or spilled:
+        with obs_span("sharded.merge_host"):
+            own_glab, own_core, halo_glab = _stacked_tables(
+                memo["out"][0], cap, torch.device("cpu"))
+            final, core = _host_merge_finish(n, og_np, own_glab, own_core,
+                                             hg_np, halo_glab)
+        stats = dict(stats, merge="host")
+    else:
+        final, core, rounds = out
+        final, core = _np(final), _np(core)
+        stats = dict(stats, merge="device", merge_rounds=int(rounds),
+                     merge_converged=True, merge_host_syncs=syncs[0])
+    stage["merge"] = stage.get("merge", 0.0) + time.perf_counter() - t
+    _exec_stats(stats, pstats=pstats, block=block, k=k, precision=precision,
+                n=n, metric=metric, oc_on=oc_on, sketch=sketch)
     stats["stage_s"] = stage
     stats["partition_passes"] = passes
     return _canonicalize_roots(final.astype(np.int32), core), core, stats

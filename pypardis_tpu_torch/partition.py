@@ -18,9 +18,9 @@ packing fixes the sort order and with it the cluster numbering, and the
 KD tree fixes which leaf slab a core point lands in.  Numpy reductions
 can differ in the last ulp between memory layouts, so the partitioner
 keeps its points C-contiguous, as the reference does.  The range
-split's partitioner (``MortonRangePartitioner``), ``BoxStack`` and the
-streaming split's multi-process spill belong to the multi-GPU slices
-(ROADMAP A10-A12).
+split's partitioner (``MortonRangePartitioner``) and the streaming
+split's multi-process spill belong to later multi-GPU slices (ROADMAP
+A10's rest, A12).
 """
 
 from __future__ import annotations
@@ -28,12 +28,13 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
+import time
 from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
 
-from .geometry import BoundingBox
+from .geometry import BoundingBox, BoxStack
 from .utils.validate import check_query_points
 
 _VALID_SPLIT_METHODS = ("min_var", "rotation", "mean_var", "median_search")
@@ -276,6 +277,11 @@ class KDPartitioner:
         self.bounding_boxes: Dict[int, BoundingBox] = {}
         self.partitions: Dict[int, np.ndarray] = {}
         self.tree = []
+        # The node-at-a-time breadth-first builder (the JAX package's
+        # "legacy" one) and its per-level seconds, which a sharded fit
+        # reports as partition_levels_s.
+        self.builder = "legacy"
+        self.level_times_s: list = []
         self._create_partitions(global_box)
         self.result = np.empty(len(points), dtype=np.int32)
         for label, idx in self.partitions.items():
@@ -307,6 +313,7 @@ class KDPartitioner:
         next_label = 1
         todo = deque([(0, 0)])  # (label, depth)
         while todo and next_label < self.max_partitions:
+            t_level = time.perf_counter()
             level = deque()
             while todo and next_label < self.max_partitions:
                 label, depth = todo.popleft()
@@ -335,10 +342,16 @@ class KDPartitioner:
                 level.append((label, depth + 1))
                 level.append((right_label, depth + 1))
             todo.extend(level)
+            self.level_times_s.append(time.perf_counter() - t_level)
 
     @property
     def n_partitions(self) -> int:
         return len(self.partitions)
+
+    def box_stack(self) -> BoxStack:
+        """The partition boxes in label order as one :class:`BoxStack`."""
+        labels = sorted(self.bounding_boxes)
+        return BoxStack.from_boxes(self.bounding_boxes[l] for l in labels)
 
     def partition_sizes(self) -> np.ndarray:
         labels = sorted(self.partitions)

@@ -23,7 +23,7 @@ classifiers of :mod:`.retry` treat an injected fault as the real one):
 * ``transfer_error``: raises :class:`FaultInjected` whose message
   carries ``UNAVAILABLE``, the one transient signature the port retries;
 * ``oom``: raises with ``RESOURCE_EXHAUSTED ... Out of memory``:
-  degradable at ``sharded.execute`` (the chained route's device merge
+  degradable at ``sharded.execute`` (the KD route's device merge
   finishes on the host), raised everywhere else;
 * ``error``: a terminal failure (the giveup paths, and the jobstate's
   kill window without a subprocess);
@@ -36,10 +36,11 @@ Injection sites, each inside the retry scope that owns recovery:
 ``pipeline.cluster``   fused single-card cluster dispatch
 ``stepped.batch``      host-stepped propagation round batches
 ``chained.partition``  the chained route's per-partition dispatches
-``sharded.execute``    the chained route's device merge (the JAX site
-                       sits before the fused step that runs the
-                       partitions and the merge; the port's before the
-                       merge alone, the one part an OOM spill cures)
+``sharded.execute``    the KD route's device merge, chained or fused
+                       (the JAX site sits before the fused step that
+                       runs the partitions and the merge; the port's
+                       before the merge alone, the one part an OOM
+                       spill cures)
 ``gm.execute``         each ladder attempt of the global-Morton chained
                        route, before its passes
 ``gm.chained_range``   each range's counts and propagation dispatch on

@@ -46,6 +46,28 @@ def _need_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "mixed", "default"])
+@pytest.mark.parametrize("block", [64, 192])
+def test_fits_at_tiles_below_and_off_128_rows_equal_the_cpu(block,
+                                                            precision):
+    """A 64- or 192-row tile gives B1's tensor-core kernel a column slab
+    whose validity bits end off 16 bytes; its float4 exact-fallback
+    operands must still be aligned (a misaligned-address fault before the
+    repair).  The fit on the card equals the plain-version fit on the
+    CPU in every mode (``"default"``: the same bf16 verdicts)."""
+    _need_card()
+    X, _ = make_blob_data(6000, 16, n_centers=8, spread=20.0, std=0.4,
+                          seed=11)
+    kw = dict(eps=2.4, min_samples=10, block=block, precision=precision)
+    gpu = DBSCAN(**kw).fit(X)
+    cpu = DBSCAN(device="cpu", **kw).fit(X)
+    assert gpu.metrics_["kernel_block"] == block
+    np.testing.assert_array_equal(gpu.labels_, cpu.labels_)
+    np.testing.assert_array_equal(gpu.core_sample_mask_,
+                                  cpu.core_sample_mask_)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,eps", [(3, 1.2), (16, 2.4), (64, 4.8),
                                    (96, 6.0)])
 def test_kernels_equal_plain_versions_on_card(d, eps):
@@ -1597,3 +1619,64 @@ def test_global_morton_chained_route_on_card_equals_cpu(tmp_path, precision):
     b2 = "minlab_pairs" if precision == "high" else "minlab_pairs_mixed"
     assert ck.LAUNCHES[b1] == len(st["partition_passes"]) == 4
     assert ck.LAUNCHES[b2] == sum(p - 1 for p in st["partition_passes"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oc", [True, False])
+@pytest.mark.parametrize("merge", ["device", "host"])
+def test_fused_step_on_a_one_card_mesh_equals_cpu(monkeypatch, merge, oc):
+    """The KD route's fused step on ``Mesh(["cuda:0"] * 4)`` (4,000 3-D
+    blobs, eps 0.4, block 64, eight partitions): labels, core flags and
+    the non-timing stats equal the port's CPU mesh route; every shard's
+    slabs, label and core tables and the owners' ``core_g`` lie on
+    cuda:0; B1 runs once per partition and B2 once per propagation
+    pass."""
+    from pypardis_tpu_torch.parallel import Mesh, sharded, sharded_dbscan
+    from pypardis_tpu_torch.partition import KDPartitioner
+
+    _need_card()
+    X, _ = make_blob_data(4000, 3, n_centers=10, spread=10.0, std=0.3,
+                          seed=5)
+    X = X.astype(np.float32)
+    kw = dict(eps=0.4, min_samples=5, block=64, merge=merge,
+              owner_computes=oc)
+    c_lab, c_core, c_st = sharded_dbscan(
+        X, KDPartitioner(X, max_partitions=8), mesh=Mesh(["cpu"] * 4),
+        device="cpu", **kw)
+    seen = []
+    ship, cluster = sharded._ship_shards, sharded._mesh_cluster
+
+    def spy_ship(*a, **k):
+        out = ship(*a, **k)
+        seen.extend(t.device for shard in out for slab in shard
+                    for t in slab)
+        return out
+
+    def spy_cluster(*a, **k):
+        out = cluster(*a, **k)
+        tables, _rows, _ov, core_g = out
+        seen.extend(t.device for shard in tables for pair in shard
+                    for t in pair)
+        if core_g is not None:
+            seen.append(core_g.device)
+        return out
+
+    monkeypatch.setattr(sharded, "_ship_shards", spy_ship)
+    monkeypatch.setattr(sharded, "_mesh_cluster", spy_cluster)
+    ck.reset_launch_counts()
+    lab, core, st = sharded_dbscan(
+        X, KDPartitioner(X, max_partitions=8), mesh=Mesh(["cuda:0"] * 4),
+        **kw)
+    np.testing.assert_array_equal(lab, c_lab)
+    np.testing.assert_array_equal(core, c_core)
+    for key, want in c_st.items():
+        if key not in ("stage_s",):
+            assert st[key] == want, key
+    # Eight partitions' slabs (points, mask, gids), their (label, core)
+    # tables and, under the device merge with owner-computes, core_g.
+    assert len(seen) == 8 * 3 + 8 * 2 + int(oc and merge == "device")
+    assert set(seen) == {torch.device("cuda", 0)}
+    assert ck.LAUNCHES["count_pairs"] == st["n_shard_partitions"] == 8
+    # Each partition's passes: one counts pass, the rest min-label.
+    assert ck.LAUNCHES["minlab_pairs"] == sum(
+        p - 1 for p in st["partition_passes"])

@@ -287,3 +287,37 @@ def test_partition_trees_cross_load(tmp_path, direction):
         assert np.array_equal(tree.bounding_boxes[label].lower, box.lower)
     with pytest.raises(ValueError, match="dimensionality"):
         tree.route(Q[:, :2])
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_mesh_fitted_models_cross_load(tmp_path, data, direction):
+    """A model fitted on a 4-device mesh checkpoints its own sharding
+    knobs and every partition box; either package loads the other's and
+    serves identically."""
+    from pypardis_tpu_torch.parallel import Mesh
+
+    X, Q = data
+    kw = dict(eps=0.5, min_samples=6, max_partitions=6,
+              split_method="rotation")
+    path = str(tmp_path / "mesh_model.npz")
+    if direction == "jax_to_port":
+        src = JaxDBSCAN(kernel_backend="xla", mesh=default_mesh(4),
+                        **kw).fit(X)
+        jckpt.save_model(src, path)
+        back = load_model(path, device="cpu")
+    else:
+        src = DBSCAN(mesh=Mesh(["cpu"] * 4), device="cpu", **kw).fit(X)
+        save_model(src, path)
+        back = JaxDBSCAN.load(path)
+    assert len(src.bounding_boxes) == 6
+    assert (back.max_partitions, back.split_method) == (6, "rotation")
+    assert back.assignments() == src.assignments()
+    assert np.array_equal(back.core_sample_mask_, src.core_sample_mask_)
+    for l, box in src.bounding_boxes.items():
+        assert np.array_equal(back.bounding_boxes[l].lower, box.lower)
+        assert np.array_equal(back.bounding_boxes[l].upper, box.upper)
+    assert back.metrics_["n_partitions"] == 6
+    _same(back.query_engine(leaves=4, block=32, qblock=32).predict(
+              Q, return_distance=True),
+          src.query_engine(leaves=4, block=32, qblock=32).predict(
+              Q, return_distance=True))

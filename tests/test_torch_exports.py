@@ -69,3 +69,34 @@ def test_parallel_exports_sharded_dbscan():
 
     assert parallel.sharded_dbscan is sharded_dbscan
     assert "sharded_dbscan" in parallel.__all__
+
+
+def test_config_sharding_fields_round_trip_and_build_on_a_mesh():
+    """``DBSCANConfig``'s sharding knobs are the JAX config's fields
+    with its defaults; they survive ``to_dict``/``from_dict`` (a JAX
+    config's dict loads too) and ``build(mesh=)`` puts the model on the
+    mesh."""
+    import dataclasses
+
+    from pypardis_tpu.config import DBSCANConfig as JaxConfig
+    from pypardis_tpu_torch.parallel import Mesh
+
+    jax_fields = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    port_fields = {f.name: f.default for f in dataclasses.fields(
+        DBSCANConfig)}
+    for k in ("max_partitions", "split_method", "owner_computes"):
+        assert port_fields[k] == jax_fields[k], k
+    cfg = DBSCANConfig(eps=0.6, min_samples=4, max_partitions=6,
+                       split_method="mean_var", owner_computes=False,
+                       device="cpu")
+    back = DBSCANConfig.from_dict(cfg.to_dict())
+    assert back == cfg
+    assert DBSCANConfig.from_dict(JaxConfig(max_partitions=3).to_dict(
+    )).max_partitions == 3
+    mesh = Mesh(["cpu"] * 4)
+    for model in (cfg.build(mesh=mesh), DBSCAN.from_config(cfg, mesh=mesh)):
+        assert model.mesh == mesh and model._n_devices() == 4
+        assert (model.max_partitions, model.split_method,
+                model.owner_computes) == (6, "mean_var", False)
+    assert cfg.build().mesh is None
+

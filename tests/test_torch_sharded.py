@@ -9,7 +9,6 @@ ladders; the slab layout; ``merge_occurrences``; the overlap and its
 buffer rotation; and the refusals."""
 
 import time
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -23,7 +22,7 @@ from pypardis_tpu.parallel import merge as jax_merge
 from pypardis_tpu.parallel import sharded as jax_sharded
 from pypardis_tpu.partition import KDPartitioner as JaxKD
 from pypardis_tpu_torch.parallel import merge as t_merge
-from pypardis_tpu_torch.parallel import sharded, sharded_dbscan
+from pypardis_tpu_torch.parallel import Mesh, sharded, sharded_dbscan
 from pypardis_tpu_torch.partition import KDPartitioner
 
 # Stats the JAX route and the port must report alike.
@@ -388,8 +387,8 @@ def test_runs_on_the_card_by_default(monkeypatch):
 
 @pytest.mark.parametrize("knob", [
     dict(halo="ring"), dict(stream=True), dict(mode="global_morton"),
-    dict(hcap=256), dict(mesh=SimpleNamespace(devices=np.zeros((2, 2)))),
-    dict(mesh=2),
+    dict(hcap=256), dict(mesh=Mesh(["cpu"] * 4), halo="ring"),
+    dict(mesh=Mesh(["cpu"] * 2), stream=True),
 ])
 def test_refused_knobs_name_their_roadmap_item(knob):
     X, kw = _blobs750()
