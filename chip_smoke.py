@@ -388,6 +388,35 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    total, ``merge_rounds=1`` on a line of points threading all 8
    partitions retries once at 4x, and ``sharded.execute:1=oom``
    finishes the merge on the host, each with (1)'s labels.
+18. the KD route's ring exchange, its streaming build and the
+   device-input route (:func:`ring_phase`, ``sharded_dbscan(...,
+   halo="ring")`` and ``DBSCAN(mesh=...).fit`` of a memmap and of a
+   CUDA tensor, on phase 17's four shards of the one card: each ring
+   hop hands a buffer to the next shard on the same device): (1)
+   13.1's 20,000 x 16-D blobs over 8 partitions and its 4,096 x 512
+   embeddings over 2, each under both merges: the card's labels, core
+   flags and non-timing stats equal to the port's CPU ring (the CPU
+   runs in the child process of 13.1), launches as in phase 17; (2)
+   phase 4's 1M x 16-D blobs over 4 partitions, three ways: the ring
+   from host input (labels and core byte-identical to 17.2's host-halo
+   fit), a float32 memmap of them through the stream (byte-identical to
+   the in-RAM ring; its host memory, traced while it builds alone, below
+   the in-RAM layout's: :func:`layout_host_peaks`) and a CUDA tensor
+   through the device-input route (held against phase 4's fit of the
+   same tensor as phase 17 holds its fits, with no floating tensor of
+   N rows brought to the host, :class:`HostFetchSpy`), each with its
+   wall beside 17.2's, the stage seconds (``exchange`` by CUDA events),
+   ``halo_cap``, ``halo_bytes`` and the ``ring.hcap`` retries; B1 and
+   one B2 pass bitwise their plain versions over the owner-computes
+   lists of the ring's largest slab, laid out by the route's own code
+   (:func:`ring_largest_slab`); (3) phase 7's 100,000 x 512 embeddings
+   through the ring, where the ``hcap`` ladder climbs (at least one
+   retry, one ``halo_overflow`` event each), labels byte-identical to
+   17.3's host-halo fit, B3/B4 held likewise; (4) an explicit ``hcap``
+   of one block on (1)'s first case raises "ring halo buffer overflow
+   at hcap=...; pass a larger hcap" with one giveup.  The kernels'
+   line gains ``launches_ring`` and ``max_abs_err_ring`` (0) for
+   B1-B4.
 
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
@@ -414,7 +443,10 @@ them and runs phase 16 alone (fitting the 1M single-device model it
 compares with; 16.1's CPU runs in a child process of their own).
 ``--mesh`` builds them and runs phase 17 alone (fitting the 1M, the
 1M at eps 1.4 and the 100k x 512 single-device models it compares
-with; 17.1's CPU runs in a child process of their own).
+with; 17.1's CPU runs in a child process of their own).  ``--ring``
+builds them and runs phase 18 alone (fitting the 1M single-device
+model from a CUDA tensor and the 1M and 100k x 512 host-halo mesh fits
+it compares with; 18.1's CPU runs in a child process of their own).
 ``python3 chip_smoke.py --b1`` builds the kernels and times B1 alone
 in its three modes at the 1M x 16-D inputs, with its bounds, floor,
 rescored share and frames' staging, then prints the 1M fits' sha256 in
@@ -4987,12 +5019,12 @@ def chained_cpu_runs(cases):
 
 
 class ChainedCpuRefs:
-    """The CPU runs of 13.1 (``"kd"``), 16.1 (``"gm"``) and 17.1
-    (``"mesh"``) in a child process (``chip_smoke.py --chained-cpu-refs
-    PATH SIZES JOBS``: no card, 4 threads, niced), started after phase 4
-    so that they run beside the card's work without sharing this
-    process's interpreter lock; :meth:`result` waits for one job's
-    runs.  The child writes one
+    """The CPU runs of 13.1 (``"kd"``), 16.1 (``"gm"``), 17.1
+    (``"mesh"``) and 18.1 (``"ring"``) in a child process
+    (``chip_smoke.py --chained-cpu-refs PATH SIZES JOBS``: no card, 4
+    threads, niced), started after phase 4 so that they run beside the
+    card's work without sharing this process's interpreter lock;
+    :meth:`result` waits for one job's runs.  The child writes one
     ``.npz`` per job, in order, under the checkout's ``build/`` and is
     killed if this process exits first."""
 
@@ -5023,7 +5055,7 @@ class ChainedCpuRefs:
 
     def result(self, cases, job="kd"):
         """The child's ``{name: ((labels, core), seconds)}`` of ``job``
-        (``"gm"``, ``"mesh"``: ``{name: ((labels, core, stats),
+        (``"gm"``, ``"mesh"``, ``"ring"``: ``{name: ((labels, core, stats),
         seconds)}``, the stats without their timings), its points
         checked to be
         ``cases``'.  Reading the last job ends the child and removes its
@@ -5065,15 +5097,13 @@ def chained_cpu_refs_child(base, sizes, jobs):
     os.nice(10)
     torch.set_num_threads(4)
     for job in jobs.split(","):
-        if job == "kd":
-            cases = chained_cpu_cases(sizes)
-            runs = chained_cpu_runs(cases)
-        elif job == "gm":
-            cases = gm_cpu_cases(sizes)
-            runs = gm_cpu_runs(cases)
-        else:
-            cases = mesh_cpu_cases(sizes)
-            runs = mesh_cpu_runs(cases)
+        cases_of, runs_of = {
+            "kd": (chained_cpu_cases, chained_cpu_runs),
+            "gm": (gm_cpu_cases, gm_cpu_runs),
+            "mesh": (mesh_cpu_cases, mesh_cpu_runs),
+            "ring": (ring_cpu_cases, ring_cpu_runs)}[job]
+        cases = cases_of(sizes)
+        runs = runs_of(cases)
         arrays = {"digest": np.array(cases_digest(cases))}
         for name, (res, sec) in runs.items():
             arrays.update({f"{name}_labels": res[0], f"{name}_core": res[1],
@@ -6649,7 +6679,7 @@ def mesh_largest_slab(torch, dev, X, part, eps, block, shards, core_g):
     n, k = X.shape
     block = clamp_block(block, max(len(p) for p in
                                    part.partitions.values()))
-    center, labels = sharded._expanded_frame_meta(X, part)
+    center, _lo, _hi, labels = sharded._expanded_frame_meta(X, part, eps)
     _pr, _pt, part_idx, cap = sharded._layout_geometry(part, labels, shards,
                                                        block)
     halo_idx = sharded._halo_sets(X, part, eps, labels)
@@ -6679,8 +6709,10 @@ def mesh_phase(torch, dev, sync, card="", sizes=MESH_SIZES, main=None,
     ``"mesh"`` job (None: 17.1's CPU runs go here first); ``walls``:
     ``{"single": phase 4's 1M host-input wall, "chained": 13.2's}``,
     printed beside 17.2's; ``keep``: phase 16's single-device fits
-    (``"border"``, ``"sketch"``; missing ones are fitted here).  Returns
-    the phase's record."""
+    (``"border"``, ``"sketch"``; missing ones are fitted here), which
+    gains 17.2's device-merge fit (``"mesh_main"``) and 17.3's
+    (``"mesh_sketch"``, with its points) for phase 18.  Returns the
+    phase's record."""
     from benchdata import make_embedding_data
     from pypardis_tpu_torch import DBSCAN, KDPartitioner, obs
     from pypardis_tpu_torch.obs.resources import host_rss_bytes
@@ -6690,7 +6722,7 @@ def mesh_phase(torch, dev, sync, card="", sizes=MESH_SIZES, main=None,
 
     rec = {"card": card}
     walls = walls or {}
-    keep = keep or {}
+    keep = {} if keep is None else keep
     t_phase = time.perf_counter()
     all_sizes = dict(CHAINED_SIZES, **sizes)
     mesh = Mesh([dev] * sizes["mesh"])
@@ -6855,6 +6887,10 @@ def mesh_phase(torch, dev, sync, card="", sizes=MESH_SIZES, main=None,
             "clusters": clusters, "borders": borders, "noise": noise,
             "borders_differ": differ}
         if tag == "main":
+            # Phase 18 holds its ring fits against this one.
+            keep["mesh_main"] = dict(labels=model.labels_,
+                                     core=model.core_sample_mask_,
+                                     wall_s=wall, stage_s=ss)
             rows[tag]["slab_hold"] = gm_slab_hold(
                 torch, dev, mesh_largest_slab(
                     torch, dev, X, model.partitioner_, e, block,
@@ -6905,6 +6941,9 @@ def mesh_phase(torch, dev, sync, card="", sizes=MESH_SIZES, main=None,
                 torch, dev, Xe, model.partitioner_, kw["eps"], kw["block"],
                 sizes["mesh"], model.core_sample_mask_),
             kw["eps"], sizes["hold_tiles"], f"{what} largest slab")}
+    keep["mesh_sketch"] = dict(X=Xe, labels=model.labels_,
+                               core=model.core_sample_mask_, wall_s=wall,
+                               stage_s=ss)
     del Xe, model, keep["sketch"]
     stamp("17.3: done")
 
@@ -6962,6 +7001,456 @@ def mesh_phase(torch, dev, sync, card="", sizes=MESH_SIZES, main=None,
     rec["ladders"]["oom_merge"] = st["merge"]
     stamp("17.4: done")
     close_17_1()
+    return rec
+
+
+# Phase 18: the KD route's ring exchange, its streaming build and the
+# device-input route, on a mesh that repeats the one card `mesh` times.
+# 18.1 reuses 13.1's data (the 20,000 x 16-D blobs over small_parts
+# partitions, the 4,096 x 512 embeddings over emb_parts), each under
+# every merge of ring_merges; 18.2 phase 4's 1M x 16-D blobs over `mesh`
+# partitions: the ring from host input, a float32 memmap of them through
+# the streaming build and a CUDA tensor of them through the device-input
+# route; 18.3 phase 7's 100k x 512 embeddings, where the hcap ladder
+# climbs (halo_factor 3.0 at 17.3); 18.4 18.1's first case at an explicit
+# hcap of one block.
+RING_SIZES = {"mesh": 4, "small_parts": 8,
+              "ring_merges": ["device", "host"], "emb_parts": 2,
+              "n": 1_000_000, "eps": 2.4, "block": 2048, "hold_tiles": 64,
+              "sk_n": 100_000, "sk_eps": 2.0, "sk_block": 2048}
+
+
+def ring_cpu_cases(sizes):
+    """18.1's cases from 13.1's data: ``{name: (X, partitions,
+    kwargs)}``, each case once per merge of ``ring_merges``."""
+    kd = chained_cpu_cases(sizes)
+    out = {}
+    for merge in sizes["ring_merges"]:
+        for case, parts in (("small", sizes["small_parts"]),
+                            ("emb", sizes["emb_parts"])):
+            x, _p, kw = kd[case]
+            out[f"{case}_{merge}"] = (x, parts, dict(kw, merge=merge))
+    return out
+
+
+def ring_cpu_runs(cases, shards=RING_SIZES["mesh"]):
+    """Each case through the port's ring route on a CPU mesh of
+    ``shards`` (the kernels' plain versions): ``{name: ((labels, core,
+    stats), seconds)}``."""
+    from pypardis_tpu_torch import KDPartitioner
+    from pypardis_tpu_torch.parallel import Mesh, sharded_dbscan
+
+    out = {}
+    for name, (x, parts, kw) in cases.items():
+        t = time.perf_counter()
+        lab, core, st = sharded_dbscan(
+            x, KDPartitioner(x, max_partitions=parts),
+            mesh=Mesh(["cpu"] * shards), device="cpu", halo="ring", **kw)
+        out[name] = ((lab, core, gm_stats(st)), time.perf_counter() - t)
+    return out
+
+
+def ring_largest_slab(torch, dev, X, part, eps, block, mesh, hcap, core_g):
+    """The ring route's largest partition slab (most owned + halo
+    points), laid out by the route's own code: ``build_owned_shards``,
+    the shards shipped to the mesh and ``ring_exchange_step`` at the
+    ``hcap`` the fit held with; the owned rows, then the ring halo, as
+    the route concatenates them.  Each slot's owner core flag comes from
+    ``core_g`` (the fit's (N,) core mask).  The slab
+    :func:`gm_slab_hold` holds the kernels on."""
+    from pypardis_tpu_torch.parallel import sharded
+    from pypardis_tpu_torch.utils.shaping import clamp_block
+
+    n = len(X)
+    block = clamp_block(block, max(len(p) for p in
+                                   part.partitions.values()))
+    arrays, lo, hi, _labels, stats = sharded.build_owned_shards(
+        X, part, eps, mesh.size, block)
+    shards = sharded._with_boxes(sharded._ship_owned(arrays, mesh), lo, hi,
+                                 mesh)
+    del arrays
+    halos = sharded.ring_exchange_step(shards, mesh=mesh, hcap=hcap)
+    slabs = [s for shard in sharded._ring_slabs(shards, halos)
+             for s in shard]
+    del shards, halos
+    cap = int(stats["owned_cap"])
+    p = int(np.argmax([int(m.sum()) for _x, m, _g in slabs]))
+    pts, msk, gid = slabs[p]
+    del slabs
+    g = gid.long()
+    core_all = (torch.from_numpy(core_g).to(dev)[g.clamp_max(n - 1)]
+                & (g < n))
+    return dict(range=p, unit="partition", edge="halo", block=block,
+                cap=cap, bcap=int(hcap), owned=int(msk[:cap].sum()),
+                boundary=int(msk[cap:].sum()), pts=pts, mask=msk,
+                core_all=core_all)
+
+
+class HostFetchSpy:
+    """Records every floating tensor of at least ``n`` rows that reaches
+    the host while it is on: ``.cpu()``, ``.to("cpu")`` of a CUDA
+    tensor, and ``.numpy()``, ``__array__`` or ``.tolist()`` of any.  The
+    device-input route's gate: no ``(N, k)`` copy of the coordinates."""
+
+    NAMES = ("cpu", "to", "numpy", "__array__", "tolist")
+
+    def __init__(self, torch, n):
+        self.torch, self.n, self.seen, self.orig = torch, n, [], {}
+
+    def _wrap(self, name, f):
+        spy = self
+
+        def g(t, *a, **k):
+            if t.is_floating_point() and t.dim() and t.shape[0] >= spy.n:
+                target = a[0] if a else k.get("device", "")
+                host = (name in ("numpy", "__array__", "tolist")
+                        or (t.is_cuda and (name == "cpu" or str(
+                            target).startswith("cpu"))))
+                if host:
+                    spy.seen.append((name, tuple(t.shape)))
+            return f(t, *a, **k)
+        return g
+
+    def __enter__(self):
+        T = self.torch.Tensor
+        for name in self.NAMES:
+            self.orig[name] = getattr(T, name)
+            setattr(T, name, self._wrap(name, self.orig[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, f in self.orig.items():
+            setattr(self.torch.Tensor, name, f)
+        return False
+
+
+def layout_host_peaks(torch, X, mm, part, eps, block, mesh, cap):
+    """The host memory each owned layout holds at its peak, as Python
+    and numpy allocations traced (``tracemalloc``) while it runs alone,
+    outside the timed fits: the in-RAM ``build_owned_shards`` against
+    the stream's ``build_owned_shards_streaming`` from ``mm``, beside
+    one partition's ``(k, cap)`` slab, mask and gids.  The stream must
+    hold less (its claim: one partition of host RAM at a time, plus the
+    index lists the partitioner already holds).  Returns the record."""
+    from pypardis_tpu_torch.parallel import sharded
+    from pypardis_tpu_torch.utils.shaping import clamp_block
+
+    block = clamp_block(block, max(len(p) for p in
+                                   part.partitions.values()))
+    peaks = {}
+    for tag in ("in_ram", "stream"):
+        gc.collect()
+        tracemalloc.start()
+        try:
+            out = (sharded.build_owned_shards(X, part, eps, mesh.size, block)
+                   if tag == "in_ram" else
+                   sharded.build_owned_shards_streaming(mm, part, eps, block,
+                                                        mesh))
+            peaks[tag] = tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+        del out
+    one = cap * (X.shape[1] * 4 + 1 + 4)
+    log(f"    18.2 host memory of the owned layout at its peak (traced): "
+        f"in RAM {peaks['in_ram'] / 2**20:.1f} MiB, streamed "
+        f"{peaks['stream'] / 2**20:.1f} MiB; one partition's slab "
+        f"{one / 2**20:.1f} MiB")
+    if peaks["stream"] >= peaks["in_ram"]:
+        fail("18.2: the streaming build held as much host memory as the "
+             "in-RAM layout")
+    return dict(peaks, one_partition=one)
+
+
+def ring_phase(torch, dev, sync, card="", sizes=RING_SIZES, main=None,
+               cpu_refs=None, keep=None):
+    """Phase 18 (the KD route's ring exchange, its streaming build and
+    the device-input route on a mesh of ``sizes["mesh"]`` shards on the
+    one card); see the module docstring.  ``main``: ``dict(X=,
+    tensor_labels=, tensor_core=)``, phase 4's 1M data and its fit from
+    a CUDA tensor (None: fitted here); ``cpu_refs``: a
+    :class:`ChainedCpuRefs` with a ``"ring"`` job (None: 18.1's CPU runs
+    go here first); ``keep``: phase 17's host-halo mesh fits
+    (``"mesh_main"``, ``"mesh_sketch"``; missing ones are fitted here).
+    Returns the phase's record."""
+    from benchdata import make_embedding_data
+    from pypardis_tpu_torch import DBSCAN, KDPartitioner, obs
+    from pypardis_tpu_torch.obs.resources import host_rss_bytes
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.labels import densify_labels
+    from pypardis_tpu_torch.parallel import Mesh, sharded_dbscan
+
+    rec = {"card": card}
+    keep = {} if keep is None else keep
+    t_phase = time.perf_counter()
+    all_sizes = dict(CHAINED_SIZES, **sizes)
+    mesh = Mesh([dev] * sizes["mesh"])
+    log(f"  mesh {mesh!r} on {torch.cuda.device_count()} card(s): each "
+        f"ring hop hands a buffer to the next shard on the same device")
+    rec["mesh"] = [str(d) for d in mesh.devices]
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def ring(X, parts, **kw):
+        sync()
+        t = time.perf_counter()
+        out = sharded_dbscan(X, KDPartitioner(X, max_partitions=parts),
+                             mesh=mesh, device=dev, halo="ring", **kw)
+        sync()
+        return out, time.perf_counter() - t
+
+    def retries(recorder):
+        """The ``ring.hcap`` retries and giveups a recorder counted."""
+        c = recorder.metrics.as_dict()["counters"]
+        return (int(c.get("retry.ring.hcap.attempts", 0)),
+                int(c.get("retry.ring.hcap.giveups", 0)))
+
+    def stages(st):
+        return {k: round(v, 4) for k, v in st["stage_s"].items()}
+
+    # 18.1: the card against the port's CPU ring.
+    cases = ring_cpu_cases(all_sizes)
+    cpu_now = None if cpu_refs else ring_cpu_runs(cases, sizes["mesh"])
+    on_card = {}
+    for name, (x, parts, kw) in cases.items():
+        ck.reset_launch_counts()
+        on_card[name] = ring(x, parts, **kw)
+        (lab, _core, st), wall = on_card[name]
+        names = GM_KERNELS["sketch" if st["sketch_k"] else "high"]
+        mesh_launches(ck, st, f"18.1 {name}", names)
+        log(f"  18.1 {name}: n={len(x)} d={x.shape[1]} over {parts} "
+            f"partitions ({st['n_shard_partitions']} slots), merge "
+            f"{st.get('merge', 'device')}, owner_computes "
+            f"{st['owner_computes']}, sketch_k {st['sketch_k']}: card "
+            f"{wall:.4f} s; clusters {len(np.unique(lab[lab >= 0]))}, "
+            f"halo_cap {st['halo_cap']}, halo_bytes {st['halo_bytes']}, "
+            f"merge_rounds {st.get('merge_rounds')}, stages {stages(st)}")
+    cpu = cpu_now or cpu_refs.result(cases, "ring")
+    for name, ((lab, core, st), _s) in on_card.items():
+        (c_lab, c_core, c_st), c_s = cpu[name]
+        st = json.loads(json.dumps(gm_stats(st)))
+        diff = sorted(k for k in set(c_st) | set(st)
+                      if c_st.get(k) != st.get(k))
+        same = np.array_equal(lab, c_lab) and np.array_equal(core, c_core)
+        log(f"    18.1 {name}: card vs CPU ({c_s:.4f} s"
+            f"{' in a child process' if cpu_refs else ''}): labels and "
+            f"core byte-identical: {same}; stats that differ: {diff}")
+        if not same or diff:
+            fail(f"18.1 {name}: the card's ring fit differs from the CPU's")
+    rec["small"] = {name: {"card_s": c[1], "cpu_s": cpu[name][1]}
+                    for name, c in on_card.items()}
+    stamp("18.1: done")
+
+    # 18.2: the three inputs at full width.
+    n, eps, block = sizes["n"], sizes["eps"], sizes["block"]
+    if main is None:
+        from benchdata import make_blob_data
+
+        X, _truth = make_blob_data(n, 16, n_centers=32, std=0.4)
+        single = DBSCAN(eps=eps, min_samples=10, block=block,
+                        device=dev).fit(torch.from_numpy(X).to(dev))
+        main = dict(X=X, tensor_labels=single.labels_,
+                    tensor_core=single.core_sample_mask_)
+        del single
+    X = main["X"]
+    if "mesh_main" not in keep:
+        sync()
+        t = time.perf_counter()
+        host = DBSCAN(eps=eps, min_samples=10, block=block, mesh=mesh,
+                      merge="device", device=dev).fit(X)
+        sync()
+        keep["mesh_main"] = dict(labels=host.labels_,
+                                 core=host.core_sample_mask_,
+                                 wall_s=time.perf_counter() - t,
+                                 stage_s=host.metrics_["stage_s"])
+        del host
+    ref = keep["mesh_main"]
+    mm, mm_path = gm_memmap(X, "ring")
+    rows, ring_fit = {}, None
+    for tag in ("ring", "stream", "device"):
+        gc.collect()
+        recorder = obs.RunRecorder(device=dev)
+        sampler = obs.ResourceSampler(recorder, interval_s=0.05,
+                                      device=dev).start()
+        rss0 = host_rss_bytes()
+        dev0 = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            dev0 = torch.cuda.memory_allocated(dev)
+        Xd = torch.from_numpy(X).to(dev) if tag == "device" else None
+        sync()
+        ck.reset_launch_counts()
+        spy, counted = HostFetchSpy(torch, n), recorder
+        try:
+            with obs.use_recorder(recorder):
+                t = time.perf_counter()
+                if tag == "ring":
+                    lab, core, st = sharded_dbscan(
+                        X, KDPartitioner(X, max_partitions=sizes["mesh"]),
+                        eps=eps, min_samples=10, block=block, mesh=mesh,
+                        device=dev, halo="ring", merge="device")
+                    lab = densify_labels(lab)
+                else:
+                    model = DBSCAN(eps=eps, min_samples=10, block=block,
+                                   mesh=mesh, merge="device", device=dev)
+                    if tag == "device":
+                        with spy:
+                            model.fit(Xd)
+                    else:
+                        model.fit(mm)
+                    lab, core = model.labels_, model.core_sample_mask_
+                    st = model.metrics_
+                    # A fit records its retries on its own recorder.
+                    counted = model._recorder
+                    del model
+                sync()
+                wall = time.perf_counter() - t
+        finally:
+            sampler.stop()
+        peak_rss = recorder.metrics.as_dict()["gauges"].get(
+            "resources.peak_host_rss_bytes", 0)
+        peak_dev = (torch.cuda.max_memory_allocated(dev) - dev0
+                    if dev.type == "cuda" else 0)
+        what = f"18.2 {tag} n={n} d=16 eps={eps}"
+        la = mesh_launches(ck, st, what, GM_KERNELS["high"])
+        hc = retries(counted)
+        ss = st["stage_s"]
+        log(f"  {what}: {wall:.4f} s on {card} (17.2's host-halo fit "
+            f"{ref['wall_s']:.4f} s); stages {stages(st)} (17.2's "
+            f"{ {k: round(v, 4) for k, v in ref['stage_s'].items()} }); "
+            f"owned_cap {st['owned_cap']}, halo_cap {st['halo_cap']}, "
+            f"halo_bytes {st['halo_bytes']}, ring.hcap retries {hc[0]}, "
+            f"merge_rounds {st.get('merge_rounds')}, input "
+            f"{st.get('input', 'host')}; peak host RSS "
+            f"{peak_rss / 2**20:.1f} MiB ({(peak_rss - rss0) / 2**20:.1f} "
+            f"MiB over the {rss0 / 2**20:.1f} MiB before), "
+            f"max_memory_allocated {peak_dev / 2**20:.1f} MiB")
+        if st.get("halo_exchange") != "ring" or st["n_shard_partitions"] \
+                != sizes["mesh"] or st["owner_computes"] is not True:
+            fail(f"{what}: halo_exchange {st.get('halo_exchange')}, "
+                 f"{st['n_shard_partitions']} partitions, owner_computes "
+                 f"{st['owner_computes']}")
+        if tag == "ring":
+            same = (np.array_equal(lab, ref["labels"])
+                    and np.array_equal(core, ref["core"]))
+            log(f"    {what}: labels and core byte-identical to 17.2's "
+                f"host-halo fit: {same}")
+            if not same:
+                fail(f"{what}: the ring differs from the host halo")
+            ring_fit = (lab, core, st)
+        elif tag == "stream":
+            same = (np.array_equal(lab, ring_fit[0])
+                    and np.array_equal(core, ring_fit[1]))
+            log(f"    {what}: labels and core byte-identical to the in-RAM "
+                f"ring: {same}")
+            if not same or st.get("input") != "stream":
+                fail(f"{what}: the stream differs from the in-RAM ring")
+        else:
+            log(f"    {what}: floating tensors of >= {n} rows brought to "
+                f"the host: {spy.seen}")
+            if spy.seen or st.get("input") != "device":
+                fail(f"{what}: the device-input route copied the "
+                     f"coordinates to the host ({spy.seen}) or did not run "
+                     f"(input {st.get('input')})")
+            # Against the single-device fit of the same tensor: both
+            # recentre on the tensor's float32 mean taken on the card.
+            hold_chained(torch, dev, X, eps, lab, core,
+                         main["tensor_labels"], main["tensor_core"], what)
+            del Xd
+        rows[tag] = {
+            "wall_s": wall, "host_halo_wall_s": ref["wall_s"],
+            "stage_s": ss, "host_halo_stage_s": ref["stage_s"],
+            **{k: st.get(k) for k in (
+                "owned_cap", "halo_cap", "halo_bytes", "merge_rounds",
+                "live_pairs", "partition_passes", "input")},
+            "hcap_retries": hc[0],
+            "peak_host_rss_bytes": int(peak_rss),
+            "host_rss_rise_bytes": int(peak_rss - rss0),
+            "max_memory_allocated_bytes": int(peak_dev),
+            "launches": {k: la[k] for k in GM_KERNELS["high"]}}
+        stamp(f"18.2: {tag} done")
+    part = KDPartitioner(X, max_partitions=sizes["mesh"])
+    rows["ring"]["slab_hold"] = gm_slab_hold(
+        torch, dev, ring_largest_slab(
+            torch, dev, X, part, eps, block, mesh, ring_fit[2]["halo_cap"],
+            ring_fit[1]),
+        eps, sizes["hold_tiles"], "18.2 ring largest slab")
+    rows["stream"]["traced_host_bytes"] = layout_host_peaks(
+        torch, X, mm, part, eps, block, mesh, ring_fit[2]["owned_cap"])
+    rec.update(main=rows["ring"], stream=rows["stream"],
+               device=rows["device"])
+    del mm
+    os.remove(mm_path)
+    stamp("18.2: done")
+
+    # 18.3: the hcap ladder at 512-D.
+    kw = dict(eps=sizes["sk_eps"], min_samples=10, block=sizes["sk_block"])
+    if "mesh_sketch" not in keep:
+        Xe, _te = make_embedding_data(sizes["sk_n"], 512)
+        host = DBSCAN(mesh=mesh, device=dev, **kw).fit(Xe)
+        keep["mesh_sketch"] = dict(X=Xe, labels=host.labels_,
+                                   core=host.core_sample_mask_,
+                                   wall_s=None, stage_s={})
+        del host
+    sk = keep["mesh_sketch"]
+    Xe = sk["X"]
+    recorder = obs.RunRecorder(device=dev)
+    ck.reset_launch_counts()
+    with obs.use_recorder(recorder):
+        (lab, core, st), wall = ring(Xe, sizes["mesh"], merge="device", **kw)
+    hc = retries(recorder)
+    overflows = recorder.event_counts().get("halo_overflow", 0)
+    what = f"18.3 n={len(Xe)} d=512"
+    la = mesh_launches(ck, st, what, GM_KERNELS["sketch"])
+    lab = densify_labels(lab)
+    same = np.array_equal(lab, sk["labels"]) and np.array_equal(core,
+                                                                sk["core"])
+    start = st["halo_cap"] >> hc[0]
+    log(f"  {what} over {st['n_shard_partitions']} partitions, sketch_k "
+        f"{st['sketch_k']}: {wall:.4f} s on {card} (17.3's host-halo fit "
+        f"{sk['wall_s']} s); the hcap ladder: {start} -> {st['halo_cap']} "
+        f"in {hc[0]} ring.hcap retries ({overflows} halo_overflow events), "
+        f"owned_cap {st['owned_cap']}, halo_bytes {st['halo_bytes']}; "
+        f"stages {stages(st)}; labels and core byte-identical to 17.3's: "
+        f"{same}")
+    if not same or st["sketch_k"] <= 0 or hc[0] < 1 or overflows != hc[0]:
+        fail(f"{what}: the ring differs from the host halo or its ladder "
+             f"did not climb (retries {hc[0]}, overflows {overflows})")
+    rec["sketch"] = {
+        "n": len(Xe), "wall_s": wall, "host_halo_wall_s": sk["wall_s"],
+        "sketch_k": st["sketch_k"], "hcap_start": start,
+        "halo_cap": st["halo_cap"], "hcap_retries": hc[0],
+        "halo_bytes": st["halo_bytes"], "stage_s": st["stage_s"],
+        "launches": {k: la[k] for k in GM_KERNELS["sketch"]},
+        "slab_hold": gm_slab_hold(
+            torch, dev, ring_largest_slab(
+                torch, dev, Xe, KDPartitioner(Xe,
+                                              max_partitions=sizes["mesh"]),
+                kw["eps"], kw["block"], mesh, st["halo_cap"], core),
+            kw["eps"], sizes["hold_tiles"], f"{what} largest slab")}
+    del Xe, keep["mesh_sketch"]
+    stamp("18.3: done")
+
+    # 18.4: an explicit hcap too small to hold.
+    first = next(iter(cases))
+    x, parts, kw = cases[first]
+    recorder = obs.RunRecorder(device=dev)
+    err = None
+    try:
+        with obs.use_recorder(recorder):
+            ring(x, parts, hcap=kw["block"], **kw)
+    except RuntimeError as e:
+        err = str(e)
+    hc = retries(recorder)
+    want = (f"ring halo buffer overflow at hcap={kw['block']}; pass a "
+            f"larger hcap")
+    log(f"  18.4 {first} at hcap={kw['block']}: raised {err!r}, "
+        f"ring.hcap retries {hc[0]}, giveups {hc[1]}")
+    if err != want or hc != (0, 1):
+        fail("18.4: a too-small explicit hcap did not raise its named "
+             "error once")
+    rec["hcap_error"] = err
+    stamp("18.4: done")
     return rec
 
 
@@ -7144,6 +7633,17 @@ def main() -> None:
                                jobs=("mesh",)))
         log(f"phase 17 record: {json.dumps(rec17)}; phase 17 took "
             f"{time.perf_counter() - t17:.1f} s")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
+
+    if "--ring" in sys.argv[1:]:
+        t18 = time.perf_counter()
+        rec18 = ring_phase(torch, dev, torch.cuda.synchronize, card,
+                           cpu_refs=ChainedCpuRefs(
+                               dict(CHAINED_SIZES, **RING_SIZES),
+                               jobs=("ring",)))
+        log(f"phase 18 record: {json.dumps(rec18)}; phase 18 took "
+            f"{time.perf_counter() - t18:.1f} s")
         log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
         return
 
@@ -7367,6 +7867,11 @@ def main() -> None:
             f"labels identical: {np.array_equal(runs[0][2], runs[2][2])}, "
             f"ARI {ari(runs[0][2], runs[2][2]):.6f}")
         fits[n] = [round(r[1], 6) for r in runs]
+        if n == 1_000_000:
+            # Phase 18 holds the device-input route against the fit from
+            # the same tensor (its frame: the tensor's own mean).
+            chained_main.update(tensor_labels=runs[2][2],
+                                tensor_core=runs[2][3])
         if n == 200_000:
             X200 = X  # phase 14.4 fits it with a flight file
         del Xd
@@ -7374,8 +7879,8 @@ def main() -> None:
     # One child process runs 13.1's, 16.1's and 17.1's CPU runs in turn,
     # from here on beside the card's work (it makes its own data).
     cpu_refs = ChainedCpuRefs(dict(CHAINED_SIZES, **GM_SIZES, **{
-        k: v for k, v in MESH_SIZES.items() if k not in GM_SIZES}),
-        jobs=("kd", "gm", "mesh"))
+        k: v for k, v in {**MESH_SIZES, **RING_SIZES}.items()
+        if k not in GM_SIZES}), jobs=("kd", "gm", "mesh", "ring"))
 
     # Phase 5: the kernels alone at the 1M fit's own inputs (staged as
     # a host-input fit stages them).
@@ -7579,7 +8084,6 @@ def main() -> None:
                        walls={"single": fits[1_000_000][0],
                               "chained": rec13["main"]["wall_s"]},
                        keep=singles)
-    del gm_main, singles
     # The fused step's launches per fit (17.2's at 1M x 16-D on the
     # 4-shard mesh, 17.3's at 100k x 512) and each kernel's largest error
     # against its plain version over the owner-computes lists of its
@@ -7595,7 +8099,29 @@ def main() -> None:
                     rec17[part]["slab_hold"]["max_abs_err"][rec["name"]])
     log(f"phase 17 record: {json.dumps(rec17)}; phase 17 took "
         f"{time.perf_counter() - t17:.1f} s")
-    phase("phases 2-17 done")
+    phase("phase 18: the KD route's ring exchange, its streaming build and "
+          "the device-input route (sharded_dbscan(halo='ring'), "
+          "DBSCAN(mesh=...).fit(memmap | tensor))")
+    t18 = time.perf_counter()
+    rec18 = ring_phase(torch, dev, torch.cuda.synchronize, card,
+                       main=gm_main, cpu_refs=cpu_refs, keep=singles)
+    del gm_main, singles
+    # The ring route's launches per fit (18.2's at 1M x 16-D from host
+    # input, 18.3's at 100k x 512) and each kernel's largest error
+    # against its plain version over the owner-computes lists of its
+    # largest ring slab.
+    done = set()
+    for rec in kernels:
+        for part in ("main", "sketch"):
+            if (rec["name"] in rec18[part]["launches"]
+                    and rec["name"] not in done):
+                done.add(rec["name"])
+                rec["launches_ring"] = rec18[part]["launches"][rec["name"]]
+                rec["max_abs_err_ring"] = (
+                    rec18[part]["slab_hold"]["max_abs_err"][rec["name"]])
+    log(f"phase 18 record: {json.dumps(rec18)}; phase 18 took "
+        f"{time.perf_counter() - t18:.1f} s")
+    phase("phases 2-18 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

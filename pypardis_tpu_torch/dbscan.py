@@ -40,9 +40,11 @@ models serve behind one :class:`~.serve.gateway.ModelGateway`.  The KD
 route's partitioned fit is
 :func:`pypardis_tpu_torch.parallel.sharded_dbscan` (chained on one
 card, fused on a :class:`~.parallel.mesh.Mesh`); ``fit`` takes it with
-more than one device (see :class:`DBSCAN`).  The multi-process layer,
-the ring exchange and the global-Morton mesh engine are later slices
-of the port (ROADMAP A10's rest, A12).
+more than one device (see :class:`DBSCAN`): a memmap through the ring
+exchange's streaming build, a tensor through the device-input route
+(:func:`~.parallel.sharded.sharded_dbscan_device`).  The multi-process
+layer and the global-Morton mesh engine are later slices of the port
+(ROADMAP A10's rest, A12).
 
 Every fit, sweep and eps=None fit records its telemetry on a fresh
 :class:`~.obs.RunRecorder`: phase spans and timings, the pipeline's
@@ -131,7 +133,7 @@ def resolve_device(device=None) -> torch.device:
 
 def _as_float(data) -> np.ndarray:
     """Float view of host input, preserving float32/float64 (and a
-    memmap, which a mesh fit refuses rather than reads whole)."""
+    memmap, which a mesh fit streams rather than reads whole)."""
     pts = data if isinstance(data, np.memmap) else np.asarray(data)
     if pts.dtype not in (np.float32, np.float64):
         pts = pts.astype(np.float64)
@@ -286,6 +288,18 @@ def _code_key(code) -> str:
     return f"{int(code) >> 32}:{int(code) & 0xFFFFFFFF}"
 
 
+def _expanded_neighbors(tree, points, eps) -> Dict:
+    """{partition label -> indices of the points in its 2*eps-widened
+    box} by a replay of the split tree on the host (a tensor is fetched
+    once)."""
+    from .partition import expanded_members
+
+    if isinstance(points, torch.Tensor):
+        points = points.cpu().numpy()
+    members = expanded_members(tree, np.asarray(points), 2 * eps)
+    return {l: members[l][0] for l in sorted(members)}
+
+
 def _partition_cluster_dict(parts: np.ndarray, labels: np.ndarray) -> Dict:
     """``{"partition:cluster": global id}`` parity codes (the reference's
     ``cluster_dict``): the global dense label doubles as the
@@ -431,10 +445,14 @@ class DBSCAN:
     (:func:`~.parallel.sharded_dbscan`): ``merge`` ``"auto"``,
     ``"device"`` or ``"host"``, ``owner_computes`` (default True: halo
     points are never clustered again).  ``overlap`` is accepted and
-    changes nothing (see :func:`~.parallel.sharded_dbscan`); ``mode``
-    ``"global_morton"`` on a mesh raises (ROADMAP A12), as do a memmap
-    or tensor input on a mesh.  A mesh's devices must be of the model's
-    ``device`` type.
+    changes nothing (see :func:`~.parallel.sharded_dbscan`).  A memmap
+    takes the ring route's streaming build (``halo="ring"``); a tensor
+    takes the device-input route
+    (:func:`~.parallel.sharded.sharded_dbscan_device`; a tensor on
+    another device type moves to the mesh's first device), whose
+    ``neighbors`` are computed on first access.  ``mode``
+    ``"global_morton"`` on a mesh raises (ROADMAP A12).  A mesh's
+    devices must be of the model's ``device`` type.
     """
 
     def __init__(
@@ -528,7 +546,8 @@ class DBSCAN:
         self._result_cache = None
         self.bounding_boxes: Optional[Dict[int, BoundingBox]] = None
         self.expanded_boxes: Optional[Dict[int, BoundingBox]] = None
-        self.neighbors = None
+        self._neighbors = None
+        self._neighbors_lazy = False
         self.cluster_dict = None
         self.labels_: Optional[np.ndarray] = None
         self.core_sample_mask_: Optional[np.ndarray] = None
@@ -547,6 +566,32 @@ class DBSCAN:
         # The most recent fit's checkpoint state (train(resume=) or
         # PPTORCH_CKPT), None without either.
         self._jobstate = None
+
+    @property
+    def neighbors(self):
+        """{partition label -> indices of the points in its
+        2*eps-widened box}, the reference's per-partition neighbourhood
+        as index arrays, with one meaning on every route.  After a fit
+        from a tensor on a mesh (:meth:`_train_sharded_device`) it is
+        computed on first access, as in the JAX package: the split tree
+        is replayed on the host, which fetches the coordinates once (a
+        transfer the fit itself never makes).  It reads ``self.data``:
+        a model whose ``data`` was cleared raises instead."""
+        if self._neighbors is None and self._neighbors_lazy:
+            if self.data is None or self.partitioner_ is None:
+                raise RuntimeError(
+                    "neighbors needs the training data; model.data was "
+                    "cleared after a device-resident fit"
+                )
+            self._neighbors = _expanded_neighbors(
+                self.partitioner_.tree, self.data, self.eps)
+            self._neighbors_lazy = False
+        return self._neighbors
+
+    @neighbors.setter
+    def neighbors(self, value):
+        self._neighbors = value
+        self._neighbors_lazy = False
 
     @property
     def _pair_metric(self) -> str:
@@ -814,18 +859,19 @@ class DBSCAN:
         reference's parity surface from the partitions."""
         from .parallel import sharded as _sharded
         from .parallel.mesh import default_mesh
-        from .partition import KDPartitioner, expanded_members
+        from .partition import KDPartitioner
 
         if self.mode == "global_morton":
             _sharded._refuse("mode='global_morton' on a mesh (the "
                              "global-Morton mesh engine)", "A12")
-        if isinstance(points, torch.Tensor):
-            _sharded._refuse("a tensor input on a mesh (the device-input "
-                             "route, device_input.py)", "A10's rest")
-        if isinstance(points, np.memmap):
-            _sharded._refuse("a memmap input on a mesh (the ring route's "
-                             "streaming build)", "A10's rest")
         mesh = self.mesh if self.mesh is not None else default_mesh()
+        if isinstance(points, torch.Tensor):
+            # A tensor is clustered where it lies (one on another device
+            # type moves to the mesh's first device, as a single-device
+            # fit moves it): the device-input route.
+            self._train_sharded_device(points.to(mesh.device(0)), mesh,
+                                       timer)
+            return
         with timer.phase("partition"):
             # max_partitions is a user-facing maximum: only the default
             # takes one partition per device; the layout pads the
@@ -847,11 +893,15 @@ class DBSCAN:
                 for l, b in part.bounding_boxes.items()
             }
         with timer.phase("cluster"):
+            # A memmap takes the ring route, whose streaming build never
+            # holds the dataset in host RAM (the reference's data larger
+            # than one worker).
             labels, core, stats = _sharded.sharded_dbscan(
                 points, part, eps=self.eps, min_samples=self.min_samples,
                 metric=self._pair_metric, block=self.block, mesh=mesh,
                 precision=self.precision, backend=self.kernel_backend,
-                merge=self.merge, halo="host",
+                merge=self.merge,
+                halo="ring" if isinstance(points, np.memmap) else "host",
                 owner_computes=self.owner_computes, overlap=self.overlap,
                 jobstate=self._jobstate, device=self.device,
                 sketch=self.sketch,
@@ -864,11 +914,69 @@ class DBSCAN:
         # The reference's parity surface: each partition's 2*eps-widened
         # neighbourhood as point indices, and "partition:cluster" codes
         # whose cluster id is the global dense label.
-        members = expanded_members(part.tree, np.asarray(points),
-                                   2 * self.eps)
-        self.neighbors = {l: members[l][0] for l in sorted(members)}
+        self.neighbors = _expanded_neighbors(part.tree, points, self.eps)
         self.cluster_dict = _partition_cluster_dict(part.result,
                                                     self.labels_)
+
+    def _train_sharded_device(self, points, mesh, timer) -> None:
+        """The partitioned fit of a tensor on the mesh's device type (the
+        JAX package's ``_train_sharded_device``): the KD split planes
+        from a host subsample, then routing, layout, the ring exchange,
+        clustering and the merge on the device
+        (:func:`~.parallel.sharded.sharded_dbscan_device`).  The host
+        gets the subsample, the ``(P,)`` counts, the ``(N,)`` labels,
+        core flags and partition ids: never the ``(N, k)``
+        coordinates."""
+        from .parallel.sharded import sharded_dbscan_device
+
+        with timer.phase("cluster"):
+            labels, core, stats, part, pid = sharded_dbscan_device(
+                points, eps=self.eps, min_samples=self.min_samples,
+                metric=self._pair_metric, block=self.block, mesh=mesh,
+                precision=self.precision, backend=self.kernel_backend,
+                max_partitions=self.max_partitions,
+                split_method=self.split_method, merge=self.merge,
+                owner_computes=self.owner_computes, device=self.device,
+                sketch=self.sketch,
+            )
+        with timer.phase("densify"):
+            self.labels_ = densify_labels(labels)
+        self.core_sample_mask_ = core
+        self.metrics_.update(stats)
+        self.metrics_["partition_levels_s"] = [
+            round(float(t), 6) for t in part.level_times_s
+        ]
+        self.metrics_["partition_builder"] = part.builder
+        # The subsample's partitioner becomes the full data's: result and
+        # partitions from the routed ids, by one stable argsort.
+        pid_np = pid.cpu().numpy()
+        part.result = pid_np
+        order = np.argsort(pid_np, kind="stable")
+        uniq, starts = np.unique(pid_np[order], return_index=True)
+        bounds = np.append(starts, len(order))
+        part.partitions = {
+            int(l): order[s:e]
+            for l, s, e in zip(uniq, bounds[:-1], bounds[1:])
+        }
+        self.partitioner_ = part
+        self.metrics_["n_partitions"] = len(part.partitions)
+        # The boxes replay the split planes from an all-space root, so
+        # every routed point lies in its partition's box (the
+        # subsample's extents would leave out the full data's extremes).
+        boxes = {0: BoundingBox(k=points.shape[1], all_space=True)}
+        for parent, axis, boundary, _left, right in part.tree:
+            boxes[parent], boxes[right] = boxes[parent].split(axis,
+                                                              boundary)
+        part.bounding_boxes = boxes
+        self.bounding_boxes = boxes
+        self.expanded_boxes = {
+            l: b.expand(2 * self.eps) for l, b in boxes.items()
+        }
+        # ``neighbors`` keeps its meaning on this route, computed on first
+        # access: it needs the host coordinates the fit never fetches.
+        self.neighbors = None
+        self._neighbors_lazy = True
+        self.cluster_dict = _partition_cluster_dict(pid_np, self.labels_)
 
     def _train_single(self, points, timer) -> None:
         # A previous sharded fit's partitioner describes other data.

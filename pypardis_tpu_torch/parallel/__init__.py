@@ -2,12 +2,19 @@
 ``pypardis_tpu/parallel``): :func:`sharded_dbscan`, the KD route (its
 chained form on one device, its fused step on a :class:`Mesh` of
 several), :func:`global_morton_dbscan`, the global-Morton route's
-chained form on one card, the device mesh and the host merge's
-union-find.  The multi-process layer, the ring exchange and the
-global-Morton mesh engine are later slices (ROADMAP A10's rest, A12)."""
+chained form on one card, the device mesh, the ring halo exchange,
+:func:`sharded_dbscan_device` (a tensor already on the device) and the
+host merge's union-find.  The multi-process layer and the global-Morton
+mesh engine are later slices (ROADMAP A10's rest, A12)."""
 
 from .global_morton import global_morton_dbscan
 from .mesh import Mesh, default_mesh
-from .sharded import sharded_dbscan
+from .sharded import sharded_dbscan, sharded_dbscan_device
 
-__all__ = ["Mesh", "default_mesh", "global_morton_dbscan", "sharded_dbscan"]
+__all__ = [
+    "Mesh",
+    "default_mesh",
+    "global_morton_dbscan",
+    "sharded_dbscan",
+    "sharded_dbscan_device",
+]

@@ -38,11 +38,18 @@ partition counts its owned rows only: the owners' core verdicts are
 gathered, the halo slots take them and relay labels between the owned
 clusters they touch (:func:`_mesh_run`).  On both an OOM of the device
 merge finishes that merge on the host (see :func:`sharded_dbscan`).
-The ring exchange, streaming input, device-resident input and the
-global-Morton mesh engine are later slices (ROADMAP A10's rest, A12)
-and raise ``NotImplementedError`` (``mode="global_morton"`` runs the
-global-Morton route's chained form, :mod:`.global_morton`); the staging
-cache's evict-and-retry rung comes with that cache.
+
+``halo="ring"`` lays out only the owned slabs and collects each
+partition's halo on the mesh (:mod:`.halo`), with an ``hcap`` ladder
+around the same passes and merges (:func:`_ring_ladder`); a memmap
+streams into the shards one partition at a time
+(:func:`build_owned_shards_streaming`); a tensor already on the device
+is routed and laid out there (:func:`sharded_dbscan_device`,
+:mod:`.device_input`).  The global-Morton mesh engine is a later slice
+(ROADMAP A12) and raises ``NotImplementedError`` (``mode=
+"global_morton"`` runs the global-Morton route's chained form,
+:mod:`.global_morton`); the staging cache and its evict-and-retry rung
+come with that cache.
 """
 
 from __future__ import annotations
@@ -55,6 +62,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..geometry import BoxStack
+from ..obs import event as obs_event
 from ..obs import heartbeat as obs_heartbeat
 from ..obs import span as obs_span
 from ..ops.cuda_kernels import _pallas_block
@@ -69,10 +78,16 @@ from ..ops.sketch import check_sketch_spec, effective_k, sketch_dims
 from ..partition import expanded_members, spatial_order
 from ..utils.budget import run_ladders
 from ..utils.hints import dispatch_tag
-from ..utils.retry import is_degradable_error, note_degraded
+from ..utils.retry import (
+    is_degradable_error,
+    note_degraded,
+    note_giveup,
+    note_retry,
+)
 from ..utils.shaping import clamp_block, round_up, row_chunks
 from ..utils.validate import check_precision, norm_metric
-from .mesh import as_mesh, gather, shard_max
+from .halo import ring_halo_exchange_multi
+from .mesh import Mesh, as_mesh, gather, shard_max
 
 # Above this point count merge="auto" reconciles labels on the host: the
 # device merge holds several (N+1,) int32 arrays beside the slabs, the
@@ -87,13 +102,25 @@ MERGE_HOST_AUTO = 32_000_000
 # ---------------------------------------------------------------------------
 
 
-def _expanded_frame_meta(points, partitioner):
-    """The frame every slab shares: ``(center, labels)``, the float64
-    dataset mean and the sorted partition labels.  (The JAX function
-    also returns the 2*eps-widened boxes, which only its ring route
-    reads.)"""
-    center = np.asarray(points).mean(axis=0, dtype=np.float64)
-    return center, sorted(partitioner.partitions)
+def _expanded_frame_meta(points, partitioner, eps):
+    """The frame every slab shares: ``(center, exp_lo, exp_hi,
+    labels)``, the float64 dataset mean, each sorted partition's
+    2*eps-widened box recentred on it as float32 ``(P, k)`` bounds, and
+    the sorted partition labels.  The ring filter decides halo
+    membership in these numbers; the bounds are widened by 4 ULPs of
+    their own magnitude, so a point the float64 box keeps cannot fall
+    one float32 ULP outside after recentring (the JAX package's
+    arithmetic, bit for bit)."""
+    points = np.asarray(points)
+    center = points.mean(axis=0, dtype=np.float64)
+    labels = sorted(partitioner.partitions)
+    exp = BoxStack.from_boxes(
+        partitioner.bounding_boxes[l] for l in labels).expand(2 * eps)
+    exp_lo = (exp.lower - center).astype(np.float32)
+    exp_hi = (exp.upper - center).astype(np.float32)
+    exp_lo = exp_lo - 4 * np.spacing(np.abs(exp_lo), dtype=np.float32)
+    exp_hi = exp_hi + 4 * np.spacing(np.abs(exp_hi), dtype=np.float32)
+    return center, exp_lo, exp_hi, labels
 
 
 def _recentre_rows(points, idx, center, chunk: int = 1 << 20):
@@ -197,6 +224,73 @@ def _owned_layout(points, center, partitioner, labels, n_shards, block):
     return owned_idx, (owned, owned_mask, owned_gid), cap, p_total
 
 
+def _pad_inverted_boxes(exp_lo, exp_hi, p_total):
+    """The widened boxes padded to ``p_total`` with inverted ``(+3e38,
+    -3e38)`` boxes: a padding slot's ring filter matches nothing."""
+    pad = p_total - exp_lo.shape[0]
+    if pad > 0:
+        k = exp_lo.shape[1]
+        exp_lo = np.concatenate([exp_lo, np.full((pad, k), np.float32(3e38))])
+        exp_hi = np.concatenate([exp_hi,
+                                 np.full((pad, k), np.float32(-3e38))])
+    return exp_lo, exp_hi
+
+
+def build_owned_shards(points, partitioner, eps, n_shards, block):
+    """The ring route's layout: the ``(P, k, cap)`` owned slabs, masks
+    and gids of :func:`build_shards` (numpy, on the host) and the
+    ``(P, k)`` widened boxes, padding slots inverted; no halo is built
+    on the host (the ring exchange collects it).  Returns ``(arrays,
+    exp_lo, exp_hi, labels, stats)``."""
+    points = np.asarray(points)
+    center, exp_lo, exp_hi, labels = _expanded_frame_meta(
+        points, partitioner, eps)
+    owned_idx, arrays, cap, p_total = _owned_layout(
+        points, center, partitioner, labels, n_shards, block)
+    exp_lo, exp_hi = _pad_inverted_boxes(exp_lo, exp_hi, p_total)
+    return (arrays, exp_lo, exp_hi, labels,
+            _owned_stats(owned_idx, cap, p_total, len(points)))
+
+
+def build_owned_shards_streaming(points, partitioner, eps, block, mesh):
+    """:func:`build_owned_shards` for data that host RAM must not hold
+    (an ``np.memmap`` over a file, or any row-indexable ``(N, k)``
+    array): each partition's slab is gathered from ``points`` in chunks
+    (:func:`_fill_slab`), copied to its shard's device and dropped
+    before the next, and each shard's ``(L, k, cap)`` slab is
+    concatenated on its device.  Peak anonymous host memory is one
+    partition's slab and its sort, plus the partition index lists.
+
+    Returns ``(shards, exp_lo, exp_hi, labels, stats)``: ``shards`` one
+    ``(owned, mask, gid)`` per shard on its device, the rest as
+    :func:`build_owned_shards` returns them, with ``stats["input"] ==
+    "stream"``."""
+    n, k = points.shape
+    center, exp_lo, exp_hi, labels = _expanded_frame_meta(
+        points, partitioner, eps)
+    p_real, p_total, part_idx, cap = _layout_geometry(
+        partitioner, labels, mesh.size, block)
+    per = p_total // mesh.size
+    exp_lo, exp_hi = _pad_inverted_boxes(exp_lo, exp_hi, p_total)
+    shards = []
+    for s in range(mesh.size):
+        dev = mesh.device(s)
+        pieces = ([], [], [])
+        for p in range(s * per, (s + 1) * per):
+            ow = np.zeros((1, k, cap), np.float32)
+            ms = np.zeros((1, cap), bool)
+            gd = np.full((1, cap), n, np.int32)
+            if p < p_real:
+                _fill_slab(ow, ms, gd, 0, points, part_idx[p], center)
+            for piece, host in zip(pieces, (ow, ms, gd)):
+                piece.append(torch.from_numpy(host).to(dev))
+            del ow, ms, gd
+        shards.append(tuple(torch.cat(piece) for piece in pieces))
+        del pieces
+    stats = dict(_owned_stats(part_idx, cap, p_total, n), input="stream")
+    return shards, exp_lo, exp_hi, labels, stats
+
+
 def _halo_sets(points, partitioner, eps, labels):
     """Each partition's halo: the points inside its 2*eps-widened box
     that it does not own (a replay of the split tree with widened
@@ -246,7 +340,8 @@ def build_shards(points, partitioner, eps, n_shards, block, stage=None):
     (``slab_build``)."""
     points = np.asarray(points)
     t0 = time.perf_counter()
-    center, labels = _expanded_frame_meta(points, partitioner)
+    center, _lo, _hi, labels = _expanded_frame_meta(points, partitioner,
+                                                    eps)
     owned_idx, arrays_o, cap, p_total = _owned_layout(
         points, center, partitioner, labels, n_shards, block
     )
@@ -287,7 +382,8 @@ def _chained_layout(points, partitioner, eps, block, precision):
     n, k = points.shape
     block = clamp_block(block, max(len(p) for p in
                                    partitioner.partitions.values()))
-    center, labels = _expanded_frame_meta(points, partitioner)
+    center, _lo, _hi, labels = _expanded_frame_meta(points, partitioner,
+                                                    eps)
     _p_real, p_total, part_idx, cap = _layout_geometry(
         partitioner, labels, 1, block)
     t = time.perf_counter()
@@ -349,6 +445,9 @@ class _Spans:
         return out
 
     def seconds(self) -> float:
+        """The busy seconds so far (waits for the last span to end)."""
+        if self.events:
+            self.events[-1][1].synchronize()
         return self.host_s + sum(
             s.elapsed_time(e) for s, e in self.events) / 1e3
 
@@ -471,7 +570,9 @@ def _merge_from_tables(own_glab, own_core, og, hg, halo_glab, *, n_points,
 
     On a mesh the tables are every shard's, stacked on one device: a
     scatter-min over all shards' occurrences is the JAX step's ``pmin``
-    of the per-device scatter-mins, so the rounds are its rounds."""
+    of the per-device scatter-mins, so the rounds are its rounds.  Halo
+    gids past ``n_points`` (padding, and the ring's empty slots) hit
+    the dump row."""
     syncs = [0] if syncs is None else syncs
     n1 = n_points + 1
     dev = own_glab.device
@@ -482,7 +583,9 @@ def _merge_from_tables(own_glab, own_core, og, hg, halo_glab, *, n_points,
         core_g = _replicated_core(own_core, og, n1)
     home_label[n1 - 1] = -1
 
-    h_gid = hg.reshape(-1).long()
+    # An empty ring-halo slot's gid (INT32_MAX) reads as the dump row:
+    # the JAX scatters drop it out of bounds.
+    h_gid = hg.reshape(-1).long().clamp_max(n_points)
     h_lab = halo_glab.reshape(-1)
     h_core = core_g[h_gid.clamp(0, n1 - 1)] & (h_gid < n_points)
     lab_map = torch.arange(n1, dtype=torch.int32, device=dev)
@@ -685,7 +788,6 @@ def _chained_tables_overlap(
     :class:`_Spans`, CUDA-event spans on the card) over its wall
     seconds.  ``stage`` gains the build's seconds (``slab_build``), the
     busy seconds (``device``) and the loop's wall (``loop``)."""
-    from ..obs import event as obs_event
     from ..utils import faults
     from ..utils.retry import Retrier
 
@@ -805,7 +907,8 @@ def _sharded_hint_key(owned_shape, halo_cap, block, precision, eps, metric):
 def _refuse(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP {item}); the port runs the KD "
-        f"route with halo='host': chained on one device, fused on a mesh"
+        f"route: chained on one device, fused on a mesh, with host or "
+        f"ring halos"
     )
 
 
@@ -883,8 +986,25 @@ def sharded_dbscan(
     reported False on the chained route, as the JAX package reports it.
     ``overlap`` is accepted for the JAX signature and changes nothing:
     the JAX switch turns off an overlap that rides on asynchronous
-    dispatch, which the port's builder thread does not.  ``halo="ring"``,
-    ``stream``, ``hcap`` and the global-Morton route on a mesh raise
+    dispatch, which the port's slab-building thread does not.
+
+    ``halo``: ``"host"`` builds each partition's halo on the host (the
+    routes above); ``"ring"`` lays out only the owned slabs
+    (:func:`build_owned_shards`), ships each shard's to its device and
+    collects the halos there by the ring exchange
+    (:func:`ring_exchange_step`; a mesh of None runs it on a 1-device
+    mesh of ``device``), then runs the fused step's passes and merge on
+    the owned + ring-halo slabs (owner-computes off on a 1-device mesh
+    of several partitions, the JAX ``_oc_applies``).  ``hcap`` caps the
+    ring's halo buffer per partition (rounded up to ``block``) and an
+    overflow raises; None starts at half the owned capacity and doubles
+    on overflow, up to 4 attempts (:func:`_ring_ladder`).  ``hcap`` is
+    unread under ``halo="host"``, as in JAX.  ``stream``: build the
+    owned slabs one partition at a time from ``points``
+    (:func:`build_owned_shards_streaming`), so an ``np.memmap`` larger
+    than host RAM clusters from disk; it needs ``halo="ring"`` (a
+    ``ValueError`` otherwise), and None turns it on for a memmap under
+    the ring.  The global-Morton route on a mesh raises
     ``NotImplementedError``.
 
     Fault tolerance, as in the JAX package: on the chained route each
@@ -906,15 +1026,18 @@ def sharded_dbscan(
 
     Stats beyond the JAX package's: ``stage_s`` (seconds of the halo
     sets, the host slab build, the copies to the mesh (``ship``), the
-    per-partition busy time (``device``), the clustering loop's wall
-    and the merge), ``partition_passes`` (each partition's kernel
+    ring exchange (``exchange``, every ``hcap`` attempt; CUDA events on
+    the card), the per-partition busy time (``device``), the clustering
+    loop's wall and the merge), ``partition_passes`` (each partition's kernel
     passes, every ladder attempt, 0 where its pair list overflowed) and,
     under the device merge, ``merge_host_syncs``.
 
     Telemetry on the current recorder, as in the JAX package: the spans
     ``sharded.build_shards`` (the geometry and halo sets),
     ``sharded.execute`` (the partitions and the device merge, through
-    the ladders) and ``sharded.merge_host``, the ladders' events and, on
+    the ladders; on the ring also the exchange) and
+    ``sharded.merge_host``, the ladders' events (the ring's
+    ``halo_overflow`` and its ``ring.hcap`` retries among them) and, on
     the chained route, the heartbeat ``chained.partitions``.
     """
     from ..dbscan import resolve_device
@@ -934,25 +1057,26 @@ def sharded_dbscan(
             stream=stream, jobstate=jobstate, device=device)
     if mode != "kd":
         raise ValueError(f"mode must be 'kd' or 'global_morton', got {mode!r}")
-    if halo == "ring":
-        _refuse("halo='ring'", "A10/A11")
-    if halo != "host":
+    if halo not in ("host", "ring"):
         raise ValueError(f"halo must be 'host' or 'ring', got {halo!r}")
-    if stream:
-        _refuse("stream=True", "A10/A11")
-    if hcap is not None:
-        _refuse("hcap (the ring halo's capacity)", "A10/A11")
     metric = norm_metric(metric)
     if merge not in ("auto", "device", "host"):
         raise ValueError(f"merge must be auto|device|host, got {merge!r}")
     dev = resolve_device(device)
-    if n_mesh > 1:
-        mesh = as_mesh(mesh)
+    if n_mesh > 1 or halo == "ring":
+        mesh = as_mesh(mesh) if mesh is not None else Mesh([dev])
         if mesh.device_type != dev.type:
             raise ValueError(
                 f"the mesh's devices are {mesh.device_type} but the fit "
                 f"runs on {dev.type}"
             )
+    if stream is None:
+        stream = halo == "ring" and isinstance(points, np.memmap)
+    if stream and halo != "ring":
+        raise ValueError(
+            "stream=True requires halo='ring': the streaming build never "
+            "materializes host halo slabs"
+        )
     if isinstance(points, torch.Tensor):
         points = points.detach().cpu().numpy()
     points = np.asarray(points)
@@ -967,12 +1091,16 @@ def sharded_dbscan(
             "host" if n >= MERGE_HOST_AUTO or memory_pressure()
             else "device"
         )
+    kw = dict(metric=metric, block=block, mesh=mesh, precision=precision,
+              backend=backend, merge=merge, pair_budget=pair_budget,
+              merge_rounds=merge_rounds, owner_computes=owner_computes,
+              sketch=sketch)
+    if halo == "ring":
+        return _ring_run(points, partitioner, eps, min_samples, hcap=hcap,
+                         stream=stream, **kw)
     if n_mesh > 1:
-        return _mesh_run(
-            points, partitioner, eps, min_samples, metric=metric,
-            block=block, mesh=mesh, precision=precision, backend=backend,
-            merge=merge, pair_budget=pair_budget, merge_rounds=merge_rounds,
-            owner_computes=owner_computes, sketch=sketch, dev=dev)
+        return _mesh_run(points, partitioner, eps, min_samples, dev=dev,
+                         **kw)
     return _chained_run(
         points, partitioner, eps, min_samples, metric=metric, block=block,
         precision=precision, backend=backend, merge=merge,
@@ -1214,7 +1342,14 @@ def _core_on(core_g, device, cache):
     return cache[key]
 
 
-def _mesh_cluster(shards, og_np, hg_np, *, mesh, oc_on, relay, n, cap,
+def _on_device(table, device):
+    """A gid table (numpy or a tensor) as a tensor on ``device``."""
+    if isinstance(table, torch.Tensor):
+        return table.to(device)
+    return torch.from_numpy(table).to(device)
+
+
+def _mesh_cluster(shards, og, hg, *, mesh, oc_on, relay, n, cap,
                   min_samples, cluster_kw, spans, passes):
     """The per-shard clustering of the fused step, shard after shard.
 
@@ -1225,7 +1360,9 @@ def _mesh_cluster(shards, og_np, hg_np, *, mesh, oc_on, relay, n, cap,
     each shard's halo slots reading their flags on its own device, then
     pass 2 (relay propagation).
 
-    Returns ``(tables, stats_rows, (total, budget), core_g)``:
+    ``og``/``hg``: the stacked ``(P, cap)`` owned and ``(P, hcap)`` halo
+    gids, numpy or tensors.  Returns ``(tables, stats_rows, (total,
+    budget), core_g)``:
     ``tables`` per shard ``[(glab, core), ...]`` (None after an
     overflow), ``stats_rows`` one (5,) row per shard, ``(total,
     budget)`` the largest full pair list against its budget (the
@@ -1261,9 +1398,9 @@ def _mesh_cluster(shards, og_np, hg_np, *, mesh, oc_on, relay, n, cap,
     core_g = None
     if relay == "device":
         core_g = _replicated_core(
-            gather(own_cores, dev0),
-            torch.from_numpy(og_np).to(dev0), n + 1)
+            gather(own_cores, dev0), _on_device(og, dev0), n + 1)
     else:
+        og_np, hg_np = _np(og), _np(hg)
         core_full = np.zeros(n + 1, bool)
         sel = og_np.reshape(-1) < n
         core_full[og_np.reshape(-1)[sel]] = torch.stack(
@@ -1301,46 +1438,29 @@ def _stacked_tables(tables, cap, device):
             gather([g[cap:] for g, _c in flat], device))
 
 
-def _mesh_run(points, partitioner, eps, min_samples, *, metric, block,
-              mesh, precision, backend, merge, pair_budget, merge_rounds,
-              owner_computes, sketch, dev):
-    """The fused multi-device step (the JAX package's
-    ``_sharded_step_fused`` and ``sharded_step_local`` /
-    ``_oc_host_tables`` with their driver): the stacked layout on the
-    host, each shard's partitions on its device, the per-shard passes
-    and the merge, through the ladders.  See :func:`sharded_dbscan`."""
+def _mesh_ladders(shards, og, hg, *, n, cap, mesh, oc_on, merge,
+                  cluster_kw, pair_budget, merge_rounds, hint_key, stage,
+                  passes, syncs):
+    """The fused step's passes (:func:`_mesh_cluster`) and the device
+    merge through the ladders (:func:`~pypardis_tpu_torch.utils.budget.
+    run_ladders`), shared by the host-halo and ring layouts.  ``shards``:
+    one list of ``(pts, msk, gid)`` slabs per shard on its device;
+    ``og``/``hg``: the stacked gid tables.  Returns ``(out, pstats,
+    tables)``: ``out`` the device merge's ``(final, core, rounds)``, or
+    None when the host finishes the merge (``merge="host"``, or an
+    OOM-class failure of the device merge), and then ``tables`` the
+    per-shard ``(glab, core)`` lists it reads."""
     from ..utils import faults
 
-    n, k = points.shape
-    mode = check_precision(precision)
-    block = clamp_block(block, max(len(p) for p in
-                                   partitioner.partitions.values()))
-    stage = {}
-    with obs_span("sharded.build_shards", halo="host"):
-        arrays, stats = build_shards(points, partitioner, eps, mesh.size,
-                                     block, stage=stage)
-    p_total, cap, hcap = (int(stats["n_shard_partitions"]),
-                          int(stats["owned_cap"]), int(stats["halo_cap"]))
-    # The JAX _oc_applies: owner-computes runs on every mesh of more than
-    # one device (only the 1-device chained route reports it off).
-    oc_on = bool(owner_computes)
-    _check_mesh_tile(block, cap, hcap, k, mode, oc_on)
-    t = time.perf_counter()
-    shards = _ship_shards(arrays, mesh)
-    stage["ship"] = time.perf_counter() - t
-    og_np, hg_np = arrays[2], arrays[5]
-    del arrays
     dev0 = mesh.device(0)
-    cluster_kw = dict(eps=eps, min_samples=min_samples, metric=metric,
-                      block=block, precision=precision, backend=backend,
-                      sketch=sketch)
-    passes, syncs, spilled, memo = [], [0], [], {}
+    min_samples = cluster_kw["min_samples"]
+    spilled, memo = [], {}
 
     def cluster(pb):
         spans = _Spans(dev0)
         t_loop = time.perf_counter()
         out = _mesh_cluster(
-            shards, og_np, hg_np, mesh=mesh, oc_on=oc_on,
+            shards, og, hg, mesh=mesh, oc_on=oc_on,
             relay="host" if merge == "host" else "device", n=n, cap=cap,
             min_samples=min_samples,
             cluster_kw=dict(cluster_kw, pair_budget=pb), spans=spans,
@@ -1365,8 +1485,8 @@ def _mesh_run(points, partitioner, eps, min_samples, *, metric, block,
             own_glab, own_core, halo_glab = _stacked_tables(tables, cap,
                                                             dev0)
             final, core, rounds, converged = _merge_from_tables(
-                own_glab, own_core, torch.from_numpy(og_np).to(dev0),
-                torch.from_numpy(hg_np).to(dev0), halo_glab, n_points=n,
+                own_glab, own_core, _on_device(og, dev0),
+                _on_device(hg, dev0), halo_glab, n_points=n,
                 merge_rounds=mr, syncs=syncs, core_g=core_g)
         except Exception as e:  # noqa: BLE001 — re-raised unless an OOM
             if not is_degradable_error(e):
@@ -1381,19 +1501,22 @@ def _mesh_run(points, partitioner, eps, min_samples, *, metric, block,
         stage["merge"] = stage.get("merge", 0.0) + time.perf_counter() - t
         return ((final, core, rounds), pstats), (total, budget), converged
 
-    with obs_span("sharded.execute", halo="host", merge=merge):
-        out, pstats = run_ladders(
-            run_step,
-            _sharded_hint_key((p_total, cap, k), hcap, block, precision,
-                              eps, metric) + (oc_on,),
-            pair_budget, merge_rounds)
+    out, pstats = run_ladders(run_step, hint_key, pair_budget, merge_rounds)
+    return out, pstats, memo["out"][0] if out is None else None
+
+
+def _mesh_finish(out, tables, og, hg, *, n, cap, stats, stage, syncs):
+    """The merge's end: the host union-find over ``tables`` (when
+    :func:`_mesh_ladders` left it to the host) or the device merge's
+    outputs fetched.  Returns ``(final, core, stats)`` as numpy, the
+    stats with the merge's own."""
     t = time.perf_counter()
-    if merge == "host" or spilled:
+    if out is None:
         with obs_span("sharded.merge_host"):
             own_glab, own_core, halo_glab = _stacked_tables(
-                memo["out"][0], cap, torch.device("cpu"))
-            final, core = _host_merge_finish(n, og_np, own_glab, own_core,
-                                             hg_np, halo_glab)
+                tables, cap, torch.device("cpu"))
+            final, core = _host_merge_finish(n, og, own_glab, own_core,
+                                             hg, halo_glab)
         stats = dict(stats, merge="host")
     else:
         final, core, rounds = out
@@ -1401,8 +1524,375 @@ def _mesh_run(points, partitioner, eps, min_samples, *, metric, block,
         stats = dict(stats, merge="device", merge_rounds=int(rounds),
                      merge_converged=True, merge_host_syncs=syncs[0])
     stage["merge"] = stage.get("merge", 0.0) + time.perf_counter() - t
+    return final, core, stats
+
+
+def _mesh_run(points, partitioner, eps, min_samples, *, metric, block,
+              mesh, precision, backend, merge, pair_budget, merge_rounds,
+              owner_computes, sketch, dev):
+    """The fused multi-device step (the JAX package's
+    ``_sharded_step_fused`` and ``sharded_step_local`` /
+    ``_oc_host_tables`` with their caller): the stacked layout on the
+    host, each shard's partitions on its device, the per-shard passes
+    and the merge, through the ladders.  See :func:`sharded_dbscan`."""
+    n, k = points.shape
+    mode = check_precision(precision)
+    block = clamp_block(block, max(len(p) for p in
+                                   partitioner.partitions.values()))
+    stage = {}
+    with obs_span("sharded.build_shards", halo="host"):
+        arrays, stats = build_shards(points, partitioner, eps, mesh.size,
+                                     block, stage=stage)
+    p_total, cap, hcap = (int(stats["n_shard_partitions"]),
+                          int(stats["owned_cap"]), int(stats["halo_cap"]))
+    # The JAX _oc_applies: owner-computes runs on every mesh of more than
+    # one device (only the 1-device chained route reports it off).
+    oc_on = bool(owner_computes)
+    _check_mesh_tile(block, cap, hcap, k, mode, oc_on)
+    t = time.perf_counter()
+    shards = _ship_shards(arrays, mesh)
+    stage["ship"] = time.perf_counter() - t
+    og, hg = arrays[2], arrays[5]
+    del arrays
+    passes, syncs = [], [0]
+    with obs_span("sharded.execute", halo="host", merge=merge):
+        out, pstats, tables = _mesh_ladders(
+            shards, og, hg, n=n, cap=cap, mesh=mesh, oc_on=oc_on,
+            merge=merge,
+            cluster_kw=dict(eps=eps, min_samples=min_samples,
+                            metric=metric, block=block,
+                            precision=precision, backend=backend,
+                            sketch=sketch),
+            pair_budget=pair_budget, merge_rounds=merge_rounds,
+            hint_key=_sharded_hint_key((p_total, cap, k), hcap, block,
+                                       precision, eps, metric) + (oc_on,),
+            stage=stage, passes=passes, syncs=syncs)
+    final, core, stats = _mesh_finish(out, tables, og, hg, n=n, cap=cap,
+                                      stats=stats, stage=stage, syncs=syncs)
     _exec_stats(stats, pstats=pstats, block=block, k=k, precision=precision,
                 n=n, metric=metric, oc_on=oc_on, sketch=sketch)
     stats["stage_s"] = stage
     stats["partition_passes"] = passes
     return _canonicalize_roots(final.astype(np.int32), core), core, stats
+
+
+# ---------------------------------------------------------------------------
+# the ring route: owned slabs on the mesh, halos by the ring exchange
+# ---------------------------------------------------------------------------
+
+
+def _ring_halo_bytes(stats, hcap, k):
+    """The float32 halo-buffer bytes a ring fit fills (capacity, not
+    occupancy: the exchange fills fixed-size buffers)."""
+    return int(stats["n_shard_partitions"]) * int(hcap) * int(k) * 4
+
+
+def _oc_applies(owner_computes, mesh, p_total) -> bool:
+    """Whether the owner-computes step runs (the JAX rule): everywhere
+    but a 1-device mesh of several partitions."""
+    return bool(owner_computes) and not (mesh.size == 1
+                                         and int(p_total) > 1)
+
+
+def _with_boxes(owned, exp_lo, exp_hi, mesh):
+    """Per-shard ``(owned, mask, gid)`` tensors with their shard's
+    ``(L, k)`` widened boxes as float32 tensors on its device."""
+    per = exp_lo.shape[0] // mesh.size
+    return [(o, m, g,
+             *(torch.as_tensor(np.ascontiguousarray(b[s * per:(s + 1) * per]),
+                               dtype=torch.float32).to(mesh.device(s))
+               for b in (exp_lo, exp_hi)))
+            for s, (o, m, g) in enumerate(owned)]
+
+
+def _ship_owned(arrays, mesh):
+    """:func:`build_owned_shards`' ``(P, k, cap)`` slabs, masks and gids
+    as one ``(L, k, cap)`` / ``(L, cap)`` triple per shard on its device
+    (partition ``j`` on shard ``j // L``)."""
+    per = arrays[0].shape[0] // mesh.size
+    return [tuple(torch.from_numpy(a[s * per:(s + 1) * per]).to(
+        mesh.device(s)) for a in arrays) for s in range(mesh.size)]
+
+
+def ring_exchange_step(shards, *, mesh, hcap, stage=None):
+    """The ring halo exchange (the JAX ``ring_exchange_step``):
+    ``shards`` holds one ``(owned, mask, gid, exp_lo, exp_hi)`` per
+    shard on its device (:func:`~.halo.ring_halo_exchange_multi`'s
+    shapes).  Returns one ``(halo, halo_mask, halo_gid, overflow)`` per
+    shard.  ``stage`` (a dict) gains the exchange's seconds under
+    ``"exchange"``: CUDA events on the card (the exchange queues without
+    a sync), the host clock on the CPU."""
+    spans = _Spans(mesh.device(0))
+    out = spans.run(lambda: ring_halo_exchange_multi(
+        *([sh[i] for sh in shards] for i in range(5)), int(hcap), mesh))
+    if stage is not None:
+        stage["exchange"] = stage.get("exchange", 0.0) + spans.seconds()
+    return out
+
+
+def _ring_slabs(shards, halos):
+    """Each shard's partitions as ``(k, cap + hcap)`` slabs of owned and
+    ring-halo rows, with masks and gids, on the shard's device."""
+    out = []
+    for (o, m, g, _lo, _hi), (h, hm, hg, _over) in zip(shards, halos):
+        out.append([(torch.cat([o[j], h[j]], dim=1),
+                     torch.cat([m[j], hm[j]]), torch.cat([g[j], hg[j]]))
+                    for j in range(o.shape[0])])
+    return out
+
+
+def _ring_ladder(shards, *, n, k, cap, p_total, mesh, oc_on, merge, hcap,
+                 cluster_kw, pair_budget, merge_rounds, stage, passes,
+                 syncs):
+    """The ``hcap`` ladder around the fused step's ladders (the JAX
+    ``_ring_ladder``): the ring exchange at ``hcap`` (rounded up to the
+    block; None starts at ``round_up(max(block, cap // 2), block)``),
+    then the passes and the merge (:func:`_mesh_ladders`) on the owned +
+    halo slabs.  The overflow is read right after the exchange (one
+    sync, before any pass; the JAX ladder raises ``_HaloOverflow`` out
+    of its cluster step instead, with the same counts): a
+    ``halo_overflow`` event, and without an explicit ``hcap`` a
+    ``ring.hcap`` retry at twice the capacity, up to 4 attempts; then
+    ``note_giveup`` and a ``RuntimeError``.  Returns ``(out, pstats,
+    tables, og, hg, hcap)``: :func:`_mesh_ladders`' outputs, the stacked
+    gid tables on the mesh's first device and the capacity that held."""
+    block = cluster_kw["block"]
+    mode = check_precision(cluster_kw["precision"])
+    explicit = hcap is not None
+    this_hcap = (round_up(int(hcap), block) if explicit
+                 else round_up(max(block, cap // 2), block))
+    attempts = 1 if explicit else 4
+    dev0 = mesh.device(0)
+    while True:
+        _check_mesh_tile(block, cap, this_hcap, k, mode, oc_on)
+        halos = ring_exchange_step(shards, mesh=mesh, hcap=this_hcap,
+                                   stage=stage)
+        if sum(int(h[3].sum()) for h in halos):
+            obs_event("halo_overflow", hcap=this_hcap, retry=attempts > 1)
+            attempts -= 1
+            if attempts <= 0:
+                err = RuntimeError(
+                    f"ring halo buffer overflow at hcap={this_hcap}; "
+                    f"pass a larger hcap"
+                    if explicit
+                    else f"ring halo buffer overflow persisted up to "
+                    f"hcap={this_hcap}"
+                )
+                note_giveup("ring.hcap", err)
+                raise err
+            note_retry("ring.hcap", 0.0,
+                       RuntimeError(f"halo overflow at hcap={this_hcap}"))
+            this_hcap *= 2
+            continue
+        og = gather([sh[2] for sh in shards], dev0).reshape(p_total, cap)
+        hg = gather([h[2] for h in halos], dev0).reshape(p_total, this_hcap)
+        # hcap changes the tile count, so it keys the hint too.
+        hint_key = _sharded_hint_key(
+            (p_total, cap, k), this_hcap, block, cluster_kw["precision"],
+            cluster_kw["eps"], cluster_kw["metric"]) + (bool(oc_on),)
+        out, pstats, tables = _mesh_ladders(
+            _ring_slabs(shards, halos), og, hg, n=n, cap=cap, mesh=mesh,
+            oc_on=oc_on, merge=merge, cluster_kw=cluster_kw,
+            pair_budget=pair_budget, merge_rounds=merge_rounds,
+            hint_key=hint_key, stage=stage, passes=passes, syncs=syncs)
+        return out, pstats, tables, og, hg, this_hcap
+
+
+def _ring_execute(shards, stats, *, n, k, mesh, owner_computes, merge,
+                  hcap, cluster_kw, pair_budget, merge_rounds, stage,
+                  span_kw):
+    """The ring's execution and finish over laid-out ``shards`` (one
+    ``(owned, mask, gid, exp_lo, exp_hi)`` per shard on its device),
+    shared by the host-input and device-input routes: the ladders under
+    the ``sharded.execute`` span, the merge's end, the JAX ring stats
+    (``halo_exchange``, the ``halo_cap`` that held, ``halo_bytes``; no
+    ``halo_factor``: the host never sees the halo sets) and the
+    execution stats.  Returns ``(labels, core, stats)``."""
+    p_total, cap = int(stats["n_shard_partitions"]), int(stats["owned_cap"])
+    oc_on = _oc_applies(owner_computes, mesh, p_total)
+    passes, syncs = [], [0]
+    with obs_span("sharded.execute", halo="ring", merge=merge, **span_kw):
+        out, pstats, tables, og, hg, used = _ring_ladder(
+            shards, n=n, k=k, cap=cap, p_total=p_total, mesh=mesh,
+            oc_on=oc_on, merge=merge, hcap=hcap, cluster_kw=cluster_kw,
+            pair_budget=pair_budget, merge_rounds=merge_rounds,
+            stage=stage, passes=passes, syncs=syncs)
+    stats = dict(stats, halo_exchange="ring", halo_cap=used,
+                 halo_bytes=_ring_halo_bytes(stats, used, k))
+    final, core, stats = _mesh_finish(out, tables, og, hg, n=n, cap=cap,
+                                      stats=stats, stage=stage, syncs=syncs)
+    if stats["merge"] == "device":
+        # The JAX ring route reports its device merge without the key.
+        del stats["merge"]
+    _exec_stats(stats, pstats=pstats, block=cluster_kw["block"], k=k,
+                precision=cluster_kw["precision"], n=n,
+                metric=cluster_kw["metric"], oc_on=oc_on,
+                sketch=cluster_kw["sketch"])
+    stats["stage_s"] = stage
+    stats["partition_passes"] = passes
+    return _canonicalize_roots(final.astype(np.int32), core), core, stats
+
+
+def _ring_run(points, partitioner, eps, min_samples, *, metric, block, mesh,
+              precision, backend, merge, pair_budget, merge_rounds,
+              owner_computes, sketch, hcap, stream):
+    """The ring route from host input (``halo="ring"``): the owned
+    layout, in RAM (:func:`build_owned_shards`, then shipped) or
+    streamed (:func:`build_owned_shards_streaming`), then
+    :func:`_ring_execute`.  See :func:`sharded_dbscan`."""
+    n, k = points.shape
+    block = clamp_block(block, max(len(p) for p in
+                                   partitioner.partitions.values()))
+    stage = {}
+    with obs_span("sharded.build_shards", halo="ring", stream=bool(stream)):
+        t = time.perf_counter()
+        if stream:
+            owned, exp_lo, exp_hi, _labels, stats = (
+                build_owned_shards_streaming(points, partitioner, eps,
+                                             block, mesh))
+            stage["slab_build"] = time.perf_counter() - t
+        else:
+            arrays, exp_lo, exp_hi, _labels, stats = build_owned_shards(
+                points, partitioner, eps, mesh.size, block)
+            stage["slab_build"] = time.perf_counter() - t
+            t = time.perf_counter()
+            owned = _ship_owned(arrays, mesh)
+            del arrays
+            stage["ship"] = time.perf_counter() - t
+        shards = _with_boxes(owned, exp_lo, exp_hi, mesh)
+    return _ring_execute(
+        shards, stats, n=n, k=k, mesh=mesh, owner_computes=owner_computes,
+        merge=merge, hcap=hcap,
+        cluster_kw=dict(eps=eps, min_samples=min_samples, metric=metric,
+                        block=block, precision=precision, backend=backend,
+                        sketch=sketch),
+        pair_budget=pair_budget, merge_rounds=merge_rounds, stage=stage,
+        span_kw={})
+
+
+def sharded_dbscan_device(
+    points,
+    eps: float,
+    min_samples: int,
+    metric="euclidean",
+    block: int = 1024,
+    mesh=None,
+    precision: str = "high",
+    backend: str = "auto",
+    hcap: Optional[int] = None,
+    pair_budget: Optional[int] = None,
+    merge_rounds: int = 32,
+    max_partitions: Optional[int] = None,
+    split_method: str = "min_var",
+    sample_size: int = 262_144,
+    seed: int = 0,
+    merge: str = "auto",
+    owner_computes: bool = True,
+    device=None,
+    sketch=None,
+):
+    """Cluster an ``(N, k)`` tensor that lies on the mesh's device type
+    without bringing its coordinates to the host (the JAX
+    ``sharded_dbscan_device``, the counterpart of the reference's
+    ``train(rdd)`` on distributed data).
+
+    The KD split planes come from a seeded host subsample
+    (``sample_size`` rows, ``seed``; only those rows are fetched); the
+    routing, the Morton slab layout and the boxes run on the device
+    (:mod:`.device_input`), the boxes are widened by 2*eps and 4 ULPs in
+    float32, and the ring route clusters and merges
+    (:func:`_ring_execute`, the ``hcap`` ladder included).  The host
+    sees the subsample, the ``(P,)`` counts, the gid and label tables
+    and the ``(N,)`` results.  ``merge`` as in :func:`sharded_dbscan`;
+    ``"host"`` fetches only the occurrence tables.
+
+    ``mesh``: a :class:`~.mesh.Mesh` (None: :func:`~.mesh.default_mesh`
+    on the card, one CPU device under ``device="cpu"``).  A tensor on
+    another device type than the mesh's is moved to the mesh's first
+    device, as a single-device fit moves it.  Partition ``j`` lives on
+    shard ``j // L``.  Returns ``(labels, core, stats, partitioner,
+    pid)``: ``pid`` the ``(N,)`` int32 routed partition of each point,
+    on the device; ``partitioner`` the subsample's ``KDPartitioner``,
+    whose tree routed the points."""
+    from ..dbscan import resolve_device
+    from ..partition import KDPartitioner
+    from .device_input import (
+        device_owned_layout,
+        device_partition_counts,
+        device_route,
+        tree_arrays,
+    )
+    from .mesh import default_mesh
+
+    metric = norm_metric(metric)
+    if merge not in ("auto", "device", "host"):
+        raise ValueError(f"merge must be auto|device|host, got {merge!r}")
+    dev = resolve_device(device)
+    if mesh is None:
+        mesh = default_mesh() if dev.type == "cuda" else Mesh([dev])
+    mesh = as_mesh(mesh)
+    if mesh.device_type != dev.type:
+        raise ValueError(
+            f"the mesh's devices are {mesh.device_type} but the fit runs on "
+            f"{dev.type}"
+        )
+    if not isinstance(points, torch.Tensor):
+        raise TypeError("sharded_dbscan_device takes a torch.Tensor")
+    if points.device.type != mesh.device_type:
+        points = points.to(mesh.device(0))
+    n, k = points.shape
+    stage = {}
+    t = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    if n > sample_size:
+        sel = np.sort(rng.choice(n, size=sample_size, replace=False))
+        sample = points[torch.from_numpy(sel).to(points.device)]
+    else:
+        sample = points
+    part = KDPartitioner(
+        sample.cpu().numpy(),
+        max_partitions=(mesh.size if max_partitions is None
+                        else int(max_partitions)),
+        split_method=split_method, sample_size=None)
+    p_total = round_up(max(part.n_partitions, mesh.size), mesh.size)
+    with obs_span("sharded.build_shards", halo="ring", input="device"):
+        pid = device_route(points, *tree_arrays(part.tree))
+        counts = device_partition_counts(pid, p_total=p_total)
+        sizes = [int(c) for c in counts.cpu()]
+        block = clamp_block(block, max(sizes))
+        cap = round_up(max(max(sizes), 1), block)
+        owned, msk, gid, lo, hi = device_owned_layout(
+            points, pid, counts, p_total=p_total, cap=cap)
+        two_eps = torch.tensor(2 * eps, dtype=torch.float32,
+                               device=lo.device)
+        inf = torch.tensor(float("inf"), dtype=torch.float32,
+                           device=lo.device)
+        exp_lo, exp_hi = lo - two_eps, hi + two_eps
+        exp_lo = exp_lo - 4 * (torch.nextafter(exp_lo.abs(), inf)
+                               - exp_lo.abs())
+        exp_hi = exp_hi + 4 * (torch.nextafter(exp_hi.abs(), inf)
+                               - exp_hi.abs())
+        per = p_total // mesh.size
+        shards = [tuple(a[s * per:(s + 1) * per].to(mesh.device(s))
+                        for a in (owned, msk, gid, exp_lo, exp_hi))
+                  for s in range(mesh.size)]
+        del owned, msk, gid
+    stage["slab_build"] = time.perf_counter() - t
+    if merge == "auto":
+        merge = "host" if n >= MERGE_HOST_AUTO else "device"
+    stats = {
+        "owned_cap": cap,
+        "n_shard_partitions": p_total,
+        "pad_waste": float(p_total * cap) / max(n, 1) - 1.0,
+        "partition_sizes": sizes,
+        "input": "device",
+    }
+    labels, core, stats = _ring_execute(
+        shards, stats, n=n, k=k, mesh=mesh, owner_computes=owner_computes,
+        merge=merge, hcap=hcap,
+        cluster_kw=dict(eps=eps, min_samples=min_samples, metric=metric,
+                        block=block, precision=precision, backend=backend,
+                        sketch=sketch),
+        pair_budget=pair_budget, merge_rounds=merge_rounds, stage=stage,
+        span_kw={"input": "device"})
+    return labels, core, stats, part, pid

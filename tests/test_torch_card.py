@@ -1680,3 +1680,106 @@ def test_fused_step_on_a_one_card_mesh_equals_cpu(monkeypatch, merge, oc):
     # Each partition's passes: one counts pass, the rest min-label.
     assert ck.LAUNCHES["minlab_pairs"] == sum(
         p - 1 for p in st["partition_passes"])
+
+
+def _ring_blobs():
+    X, _ = make_blob_data(4000, 3, n_centers=10, spread=10.0, std=0.3,
+                          seed=5)
+    return X.astype(np.float32), dict(eps=0.4, min_samples=5, block=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oc", [True, False])
+@pytest.mark.parametrize("merge", ["device", "host"])
+def test_ring_on_a_one_card_mesh_equals_cpu(merge, oc):
+    """The ring route on ``Mesh(["cuda:0"] * 4)`` (eight partitions):
+    labels, core flags and the non-timing stats equal the port's CPU
+    ring; the exchange's buffers lie on cuda:0 and bitwise equal the CPU
+    exchange's."""
+    from pypardis_tpu_torch.parallel import Mesh, sharded, sharded_dbscan
+    from pypardis_tpu_torch.partition import KDPartitioner
+
+    _need_card()
+    X, kw = _ring_blobs()
+    kw.update(merge=merge, owner_computes=oc, halo="ring")
+    c_lab, c_core, c_st = sharded_dbscan(
+        X, KDPartitioner(X, max_partitions=8), mesh=Mesh(["cpu"] * 4),
+        device="cpu", **kw)
+    ck.reset_launch_counts()
+    lab, core, st = sharded_dbscan(
+        X, KDPartitioner(X, max_partitions=8), mesh=Mesh(["cuda:0"] * 4),
+        **kw)
+    np.testing.assert_array_equal(lab, c_lab)
+    np.testing.assert_array_equal(core, c_core)
+    for key, want in c_st.items():
+        if key != "stage_s":
+            assert st[key] == want, key
+    assert ck.LAUNCHES["count_pairs"] == 8
+    part = KDPartitioner(X, max_partitions=8)
+    arrays, lo, hi, _l, _s = sharded.build_owned_shards(X, part, 0.4, 4, 64)
+    halos = {}
+    for dev in ("cpu", "cuda:0"):
+        mesh = Mesh([dev] * 4)
+        shards = sharded._with_boxes(sharded._ship_owned(arrays, mesh), lo,
+                                     hi, mesh)
+        halos[dev] = sharded.ring_exchange_step(shards, mesh=mesh,
+                                                hcap=st["halo_cap"])
+    for got, want in zip(halos["cuda:0"], halos["cpu"]):
+        for g, w in zip(got, want):
+            assert g.device == torch.device("cuda", 0)
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_stream_on_a_one_card_mesh_equals_cpu(tmp_path):
+    """A memmap through ``DBSCAN(mesh=Mesh(["cuda:0"] * 4))`` streams
+    into the card's shards: the CPU mesh fit's labels, ``input`` stream."""
+    from pypardis_tpu_torch.parallel import Mesh
+
+    _need_card()
+    X, kw = _ring_blobs()
+    path = tmp_path / "x.npy"
+    np.save(path, X)
+    mm = np.load(path, mmap_mode="r")
+    want = DBSCAN(mesh=Mesh(["cpu"] * 4), device="cpu", **kw).fit(mm)
+    got = DBSCAN(mesh=Mesh(["cuda:0"] * 4), **kw).fit(mm)
+    np.testing.assert_array_equal(got.labels_, want.labels_)
+    np.testing.assert_array_equal(got.core_sample_mask_,
+                                  want.core_sample_mask_)
+    assert got.metrics_["input"] == "stream"
+    assert got.metrics_["halo_cap"] == want.metrics_["halo_cap"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["cuda", "cpu"])
+def test_device_input_on_a_one_card_mesh_equals_cpu(where):
+    """A tensor through ``DBSCAN(mesh=Mesh(["cuda:0"] * 4))``: on the card
+    it takes the device-input route where it lies; a CPU tensor moves to
+    the mesh's card first (the single-device rule) and takes the same
+    route.  Labels, routed partitions and core flags equal the CPU mesh
+    fit's; no CPU mesh takes a CUDA tensor's route elsewhere: on a CPU
+    mesh a CUDA tensor moves to the CPU."""
+    from pypardis_tpu_torch.parallel import Mesh
+
+    _need_card()
+    # An integer lattice of 2,048 points: every order sums its columns
+    # exactly, so the card and the CPU recentre alike.
+    g = np.arange(16, dtype=np.float32)
+    X = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    X = np.ascontiguousarray(X[np.random.default_rng(0).choice(
+        len(X), 2048, replace=False)])
+    kw = dict(eps=1.5, min_samples=4, block=64)
+    want = DBSCAN(mesh=Mesh(["cpu"] * 4), device="cpu", **kw).fit(
+        torch.from_numpy(X))
+    Xt = torch.from_numpy(X).to(where)
+    got = DBSCAN(mesh=Mesh(["cuda:0"] * 4), **kw).fit(Xt)
+    np.testing.assert_array_equal(got.labels_, want.labels_)
+    np.testing.assert_array_equal(got.core_sample_mask_,
+                                  want.core_sample_mask_)
+    np.testing.assert_array_equal(got.partitioner_.result,
+                                  want.partitioner_.result)
+    assert got.metrics_["input"] == want.metrics_["input"] == "device"
+    if where == "cuda":
+        back = DBSCAN(mesh=Mesh(["cpu"] * 4), device="cpu", **kw).fit(Xt)
+        np.testing.assert_array_equal(back.labels_, want.labels_)
+        assert back.metrics_["input"] == "device"

@@ -3,7 +3,8 @@ held to before it runs, against the JAX package on the CPU:
 ``Mesh``/``default_mesh`` and the cross-shard reductions,
 ``BoxStack``/``KDPartitioner.box_stack`` and the stacked layout at P =
 4 and 8 (padded slots included), bitwise; the refusals of
-``sharded_dbscan`` and ``DBSCAN`` on a mesh, the tile rule, the single
+``sharded_dbscan`` and ``DBSCAN`` on a mesh (the ring's knobs and
+inputs, which run), the tile rule, the single
 route for small inputs and the constructor's defaults.  The step's
 results are held in ``tests/test_torch_mesh_parity.py`` and
 ``tests/test_torch_mesh_fits.py``."""
@@ -176,13 +177,31 @@ def test_build_shards_is_the_jax_layout_on_a_mesh(blobs, P, parts):
 # -- refusals and the tile rule ----------------------------------------------
 
 
-@pytest.mark.parametrize("knob", [
-    dict(halo="ring"), dict(stream=True), dict(hcap=256),
-    dict(mode="global_morton"),
-])
+@pytest.mark.parametrize("knob", [dict(mode="global_morton")])
 def test_refused_knobs_on_a_mesh_name_their_roadmap_item(blobs, knob):
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         _port(blobs[:800], 4, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(halo="ring"), dict(halo="ring", stream=True),
+    dict(halo="ring", hcap=256), dict(hcap=256),
+])
+def test_ring_knobs_run_on_a_mesh(blobs, knob):
+    """The ring's knobs run on a mesh (the ring, its streaming build and
+    an explicit ``hcap``; ``hcap`` is unread under the host halo, as in
+    JAX), each to the host-halo route's labels."""
+    want = _port(blobs[:800], 4)
+    got = _port(blobs[:800], 4, **knob)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2].get("halo_exchange") == knob.get("halo")
+    assert (got[2].get("input") == "stream") == bool(knob.get("stream"))
+
+
+def test_stream_needs_the_ring_on_a_mesh(blobs):
+    with pytest.raises(ValueError, match="stream=True requires halo='ring'"):
+        _port(blobs[:800], 4, stream=True)
 
 
 def test_a_mesh_of_the_wrong_type_raises(blobs):
@@ -230,20 +249,30 @@ def test_a_single_fit_after_a_mesh_fit_drops_the_partitioner(blobs):
     assert m.partitioner_ is None
 
 
-@pytest.mark.parametrize("how", ["memmap", "tensor", "global_morton"])
+@pytest.mark.parametrize("how", ["global_morton"])
 def test_mesh_fits_refuse_the_unported_routes(blobs, tmp_path, how):
-    X = blobs
-    kw = dict(KW)
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        DBSCAN(mesh=_mesh(4), device="cpu", mode=how, **KW).fit(blobs)
+
+
+@pytest.mark.parametrize("how", ["memmap", "tensor"])
+def test_mesh_fits_take_the_ring_routes(blobs, tmp_path, how):
+    """A memmap streams through the ring, a tensor takes the
+    device-input route; both to the host-input fit's clustering."""
     if how == "memmap":
         X = np.lib.format.open_memmap(str(tmp_path / "x.npy"), mode="w+",
                                       dtype=np.float32, shape=blobs.shape)
         X[:] = blobs
-    elif how == "tensor":
-        X = torch.from_numpy(blobs)
     else:
-        kw["mode"] = "global_morton"
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        DBSCAN(mesh=_mesh(4), device="cpu", **kw).fit(X)
+        X = torch.from_numpy(blobs)
+    want = DBSCAN(mesh=_mesh(4), device="cpu", **KW).fit(blobs)
+    got = DBSCAN(mesh=_mesh(4), device="cpu", **KW).fit(X)
+    np.testing.assert_array_equal(got.labels_, want.labels_)
+    np.testing.assert_array_equal(got.core_sample_mask_,
+                                  want.core_sample_mask_)
+    assert got.metrics_["input"] == {"memmap": "stream",
+                                     "tensor": "device"}[how]
+    assert got.metrics_["halo_exchange"] == "ring"
 
 
 @pytest.mark.parametrize("bad", [

@@ -385,16 +385,42 @@ def test_runs_on_the_card_by_default(monkeypatch):
         sharded_dbscan(X, KDPartitioner(X, max_partitions=8), **kw)
 
 
-@pytest.mark.parametrize("knob", [
-    dict(halo="ring"), dict(stream=True), dict(mode="global_morton"),
-    dict(hcap=256), dict(mesh=Mesh(["cpu"] * 4), halo="ring"),
-    dict(mesh=Mesh(["cpu"] * 2), stream=True),
-])
+@pytest.mark.parametrize("knob", [dict(mode="global_morton")])
 def test_refused_knobs_name_their_roadmap_item(knob):
     X, kw = _blobs750()
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         sharded_dbscan(X, KDPartitioner(X, max_partitions=8),
                        device="cpu", **kw, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(halo="ring"), dict(halo="ring", stream=True), dict(hcap=256),
+    dict(mesh=Mesh(["cpu"] * 4), halo="ring"),
+    dict(mesh=Mesh(["cpu"] * 2), halo="ring", stream=True),
+])
+def test_ring_knobs_run(knob):
+    """The ring (a mesh of None runs it on one CPU device), its
+    streaming build and ``hcap`` (unread under the host halo) run, each
+    to the chained route's labels."""
+    X, kw = _blobs750()
+    part = KDPartitioner(X, max_partitions=8)
+    want = sharded_dbscan(X, part, device="cpu", **kw)
+    got = sharded_dbscan(X, part, device="cpu", **kw, **knob)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    ring = knob.get("halo") == "ring"
+    assert got[2].get("halo_exchange") == ("ring" if ring else None)
+    if ring and "mesh" not in knob:
+        # One device, eight partitions: owner-computes off (the JAX rule).
+        assert got[2]["owner_computes"] is False
+
+
+def test_stream_needs_the_ring():
+    X, kw = _blobs750()
+    for mesh in (None, Mesh(["cpu"] * 2)):
+        with pytest.raises(ValueError, match="requires halo='ring'"):
+            sharded_dbscan(X, KDPartitioner(X, max_partitions=8),
+                           device="cpu", mesh=mesh, stream=True, **kw)
 
 
 @pytest.mark.parametrize("bad", [
