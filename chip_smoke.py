@@ -270,7 +270,7 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    the sketch on (B3/B4 likewise), byte-identical to the CPU's (the CPU
    runs go on in a child process beside (2) and (3) and are held at the
    phase's end); (2) phase 4's 1M x 16-D data over
-   ``KDPartitioner(max_partitions=64)`` with the defaults (device
+   ``KDPartitioner(max_partitions=16)`` with the defaults (device
    merge): B1/B2 launches equal to the partitions' passes, the core
    mask byte-identical to phase 4's single-device fit, the noise and the
    core clustering identical, and each border point in another cluster
@@ -418,6 +418,30 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    line gains ``launches_ring`` and ``max_abs_err_ring`` (0) for
    B1-B4.
 
+Phase 19 holds the staging cache (:mod:`pypardis_tpu_torch.parallel.
+staging`); every phase before it starts with the cache cleared, so its
+cold fits stay cold (phase 4 clears before each fit).  (1) Phase 4's 1M
+x 16-D host input: the fingerprint's host milliseconds, a cold fit and
+a warm one (labels and core byte-identical; the warm fit stages 0
+bytes, reuses the cold fit's staged bytes and launches what it
+launched), a warm fit at min_samples 20 and a miss at eps 1.4, each
+equal to a fit with the cache off, and an input mutated in place that
+misses.  (2) Phase 7.3's 1M x 512 host fits run under a raised
+``PPTORCH_LAYOUT_CACHE_MAX``; their third fit is the warm refit (under
+TF32, byte-identical to the first, the same launches, the layout
+reused), reported here.  (3) A 200,000-point sweep at eps [1.0, 1.15],
+then a sweep at 0.9 from the cached graph (equal pairs, no bytes
+shipped, labels equal to a fit at 0.9).  (4) The KD routes' warm refits, gated
+in their phases: 13.1's four chained refits of its 20,000 points
+(staged 0, reused the first fit's bytes), 17.2's host-merge refit
+(warm) and its eps 1.4 fit (the owned slabs reused, only the halos
+shipped), 18.2's ring fit refitted warm; then ``staging.device_put:1=
+oom`` injected into a 20,000-point 4-shard fit recovers (one retry,
+labels equal).  (5) A second index build over the same model reuses
+the first's tensors, 4,096 predicts launch B5, a live insert's delta
+bytes equal its delta route's, and a gateway eviction empties the
+model's route.  The kernels' line gains ``launches_warm``.
+
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits non-zero and prints
@@ -447,6 +471,8 @@ with; 17.1's CPU runs in a child process of their own).  ``--ring``
 builds them and runs phase 18 alone (fitting the 1M single-device
 model from a CUDA tensor and the 1M and 100k x 512 host-halo mesh fits
 it compares with; 18.1's CPU runs in a child process of their own).
+``--staging`` builds them and runs phase 19 alone (fitting its own
+data; 19.2 and the KD routes' records come only with the whole run).
 ``python3 chip_smoke.py --b1`` builds the kernels and times B1 alone
 in its three modes at the 1M x 16-D inputs, with its bounds, floor,
 rescored share and frames' staging, then prints the 1M fits' sha256 in
@@ -1339,6 +1365,7 @@ def b2_timings(torch, dev, median_ms, sync, sizes=B2_SIZES):
         INT_INF, eps2_f32, row_offsets,
     )
     from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
+    from pypardis_tpu_torch.parallel import staging
 
     X, _truth = make_blob_data(1_000_000, 16, n_centers=32, std=0.4)
     pts, n, block = _stage(X, 2048, dev)
@@ -1645,7 +1672,8 @@ def b1_rescored_hold(a, centers, rescored, what):
 
 # Sizes of phase 7; tests rehearse the phase at small ones on the CPU.
 SKETCH_SIZES = {"check_n": 20_000, "onoff_n": 100_000,
-                "main_n": 1_000_000, "sub_tiles": 16, "reps": 2}
+                "main_n": 1_000_000, "sub_tiles": 16, "reps": 2,
+                "layout_cache_max": 8 << 30}
 
 
 def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
@@ -1662,6 +1690,7 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     )
     from pypardis_tpu_torch.ops.labels import _pointer_jump
     from pypardis_tpu_torch.ops.pipeline import _pipeline_layout
+    from pypardis_tpu_torch.parallel import staging
 
     names = ("count_pairs_sketch", "minlab_pairs_sketch")
     max_err = dict.fromkeys(names, 0)
@@ -2003,16 +2032,24 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
         fail("the sketched fit differs from the unsketched fit")
     onoff = dict(X=X, truth=truth, model=on)
 
-    # 7.3: the slice's path at full size.
+    # 7.3: the slice's path at full size.  The host fits run with the
+    # staging cache's layout cap raised past the 1M x 512 layout, so the
+    # repeat from host input is warm (phase 19.2): it reuses the first
+    # fit's sorted layout and ships nothing.
     n = sizes["main_n"]
     X, truth = make_embedding_data(n, 512)
     Xd = torch.from_numpy(X).to(dev)
-    runs = [fit(X, None, f"n={n} d=512 from host"),
-            fit(Xd, None, f"n={n} d=512 from cuda")]
-    # 7.5: the repeat from the tensor runs under a global TF32 setting,
-    # which must not reach the slab's product: byte-identical.
-    runs.append(fit(Xd, None, f"n={n} d=512 from cuda under "
-                    f"set_float32_matmul_precision('high')", tf32=True))
+    with env_set(PPTORCH_LAYOUT_CACHE_MAX=sizes.get("layout_cache_max",
+                                                    8 << 30)):
+        staging.clear()
+        runs = [fit(X, None, f"n={n} d=512 from host"),
+                fit(Xd, None, f"n={n} d=512 from cuda")]
+        # 7.5: the repeat, warm from host input, runs under a global TF32
+        # setting, which must not reach the slab's product:
+        # byte-identical.
+        runs.append(fit(X, None, f"n={n} d=512 from host, warm, under "
+                        f"set_float32_matmul_precision('high')", tf32=True))
+        staging.clear()
     for model, _w, _l in runs:
         m = model.metrics_
         a = ari(model.labels_, truth)
@@ -2022,14 +2059,26 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
             fail(f"ARI {a} < 0.99 at n={n} x 512")
         if m["sketch_k"] != 128:
             fail(f"sketch_k {m['sketch_k']} != 128 at d=512")
-    (m1, _w, _l), (m2, _w2, _l2) = runs[1], runs[2]
-    if not (np.array_equal(m1.labels_, m2.labels_)
-            and np.array_equal(m1.core_sample_mask_, m2.core_sample_mask_)):
-        fail("repeated cuda-tensor fits differ at 512-D (the repeat under "
-             "a global TF32 setting)")
-    log(f"  n={n}: repeated fits byte-identical (the repeat under TF32); "
-        f"host vs cuda-tensor labels identical: "
-        f"{np.array_equal(runs[0][0].labels_, m1.labels_)}")
+    (m0, w0, l0), (m1, _w, _l), (m2, w2, l2) = runs
+    if not (np.array_equal(m0.labels_, m2.labels_)
+            and np.array_equal(m0.core_sample_mask_, m2.core_sample_mask_)):
+        fail("repeated host fits differ at 512-D (the warm repeat under a "
+             "global TF32 setting)")
+    c_m, w_m = m0.metrics_, m2.metrics_
+    # (A cold fit whose pair budget overflowed reran on its own cached
+    # layout: its reuse is not 0 then, and is not gated.)
+    if (not c_m["staged_bytes"] or w_m["staged_bytes"]
+            or w_m["staged_bytes_reused"] != c_m["staged_bytes"]
+            or l2 != l0):
+        fail(f"the warm 512-D refit was not a staging hit launching what "
+             f"the cold fit launched (cold staged {c_m['staged_bytes']}, "
+             f"warm staged {w_m['staged_bytes']} reused "
+             f"{w_m['staged_bytes_reused']}; launches {l0} / {l2})")
+    log(f"  n={n}: repeated host fits byte-identical (the warm repeat "
+        f"under TF32: {w2:.4f} s against {w0:.4f} s cold, "
+        f"{w_m['staged_bytes_reused']} layout bytes reused); host vs "
+        f"cuda-tensor labels identical: "
+        f"{np.array_equal(m0.labels_, m1.labels_)}")
     main_launches = runs[0][2]
     del Xd
 
@@ -2039,6 +2088,9 @@ def sketch_phase(torch, dev, median_ms, sync, sizes=SKETCH_SIZES):
     # the largest error in units of 2^-24 sum |p|.
     kernels[0]["mma_probe_term3_share"], kernels[0]["mma_probe_err_u"] = probe
     onoff["main"] = (X, truth)
+    onoff["warm512"] = {"n": n, "cold_s": w0, "warm_s": w2,
+                        "staged_bytes": c_m["staged_bytes"],
+                        "launches_cold": l0, "launches_warm": l2}
     return kernels, onoff
 
 
@@ -4968,11 +5020,13 @@ def gateway_phase(torch, dev, sync, card="", sizes=GATEWAY_SIZES, live=None,
 # B1/B2 held on the first hold_tiles row tiles of its largest slab;
 # 13.3: the first border_n points of the same data at border_eps (1.4:
 # border points and noise) under the host merge (the whole 1M until
-# phase 17 took its time).
+# phase 17 took its time).  13.2 and 13.3 run over 16 KD partitions (64
+# until phase 19 took their time: the host's per-partition sorts made
+# 13.2 16.7-36.9 s a fit).
 CHAINED_SIZES = {"small_n": 20_000, "small_eps": 2.0, "small_parts": 8,
                  "small_block": 256, "emb_n": 4096, "emb_eps": 2.0,
                  "emb_parts": 2, "emb_block": 128, "n": 1_000_000,
-                 "eps": 2.4, "parts": 64, "block": 2048, "hold_tiles": 64,
+                 "eps": 2.4, "parts": 16, "block": 2048, "hold_tiles": 64,
                  "border_eps": 1.4, "border_n": 200_000}
 
 
@@ -5353,7 +5407,7 @@ def chained_phase(torch, dev, sync, card="", sizes=CHAINED_SIZES,
     from benchdata import make_blob_data
     from pypardis_tpu_torch import DBSCAN, KDPartitioner
     from pypardis_tpu_torch.ops import cuda_kernels as ck
-    from pypardis_tpu_torch.parallel import sharded_dbscan
+    from pypardis_tpu_torch.parallel import sharded_dbscan, staging
 
     rec = {"card": card}
     t_phase = time.perf_counter()
@@ -5408,6 +5462,7 @@ def chained_phase(torch, dev, sync, card="", sizes=CHAINED_SIZES,
     cases = chained_cpu_cases(sizes)
     (Xs, part_s, kw_s), (Xe, part_e, kw_e) = cases["small"], cases["emb"]
     cpu_now = None if cpu_refs else chained_cpu_runs(cases)
+    staging.clear()  # a cold first fit
     ck.reset_launch_counts()
     ref, ref_s = run(Xs, part_s, device=dev, **kw_s)
     chained_launches(ck, ref[2], f"13.1 n={len(Xs)} d=16")
@@ -5421,6 +5476,19 @@ def chained_phase(torch, dev, sync, card="", sizes=CHAINED_SIZES,
         for overlap in (True, False):
             variants[merge, overlap] = run(
                 Xs, part_s, device=dev, merge=merge, overlap=overlap, **kw_s)
+    # The variants refit ``ref``'s data: warm (the staging cache's
+    # chained routes hold its slabs), building and shipping nothing.
+    cold_b = ref[2]["staged_bytes"]
+    warm = {f"{m}/{o}": (out[2]["staged_bytes"],
+                         out[2]["staged_bytes_reused"], s_)
+            for (m, o), (out, s_) in variants.items()}
+    log(f"  13.1 staging: the first fit staged {cold_b} bytes "
+        f"({ref_s:.4f} s); the refits (staged, reused, s): {warm}")
+    if not cold_b or any(
+            st_ or re_ != cold_b for st_, re_, _s in warm.values()):
+        fail("13.1: the chained refits were not warm staging hits")
+    rec["staging"] = {"cold_staged_bytes": cold_b, "cold_s": ref_s,
+                      "warm": warm}
     ck.reset_launch_counts()
     emb, emb_s = run(Xe, part_e, device=dev, **kw_e)
     chained_launches(ck, emb[2], f"13.1 n={len(Xe)} d=512",
@@ -6158,10 +6226,16 @@ def gm_cpu_cases(sizes):
     return out
 
 
+# The staging cache's counters: what the cache held before a fit, not
+# what the fit computed (a warm run reuses what a cold one ships).
+STAGING_COUNTERS = ("staged_bytes", "staged_bytes_reused")
+
+
 def gm_stats(stats):
-    """A chained GM fit's stats without its timings: what the card's run
-    and the CPU's must share."""
-    return {k: v for k, v in stats.items() if not k.endswith("_s")}
+    """A chained GM fit's stats without its timings and the staging
+    cache's counters: what the card's run and the CPU's must share."""
+    return {k: v for k, v in stats.items()
+            if not k.endswith("_s") and k not in STAGING_COUNTERS}
 
 
 def gm_cpu_runs(cases):
@@ -6883,6 +6957,8 @@ def mesh_phase(torch, dev, sync, card="", sizes=MESH_SIZES, main=None,
             "stage_s": ss, "peak_host_rss_bytes": int(peak_rss),
             "host_rss_before_bytes": int(rss0),
             "max_memory_allocated_bytes": int(peak_dev),
+            "staged_bytes": st["staged_bytes"],
+            "staged_bytes_reused": st["staged_bytes_reused"],
             "launches": {k: la[k] for k in GM_KERNELS["high"]},
             "clusters": clusters, "borders": borders, "noise": noise,
             "borders_differ": differ}
@@ -6899,6 +6975,17 @@ def mesh_phase(torch, dev, sync, card="", sizes=MESH_SIZES, main=None,
         del model
         stamp(f"17.2: eps {e} merge {merge} done")
     rec.update(rows)
+    # The staging cache: the host-merge fit refits the device-merge fit's
+    # data warm (its owned and halo slabs cached), the border fit at
+    # another eps re-ships only the halo slabs.
+    sb = {t: (rows[t]["staged_bytes"], rows[t]["staged_bytes_reused"],
+              rows[t]["wall_s"]) for t in rows}
+    log(f"  17.2 staging (staged, reused, s): {sb}")
+    cold_b = sb["main"][0]
+    if (not cold_b or sb["host"][:2] != (0, cold_b)
+            or not 0 < sb["border"][1] < cold_b or not sb["border"][0]):
+        fail(f"17.2: the refits were not the staging cache's hits: {sb}")
+    rec["staging"] = sb
 
     # 17.3: the sketch at width.
     kw = dict(eps=sizes["sk_eps"], min_samples=10, block=sizes["sk_block"])
@@ -7370,6 +7457,32 @@ def ring_phase(torch, dev, sync, card="", sizes=RING_SIZES, main=None,
             "launches": {k: la[k] for k in GM_KERNELS["high"]}}
         stamp(f"18.2: {tag} done")
     part = KDPartitioner(X, max_partitions=sizes["mesh"])
+    # The ring fit again, warm: its owned slabs come from the staging
+    # cache's ring_owned route (the stream and the tensor cache nothing).
+    ck.reset_launch_counts()
+    sync()
+    t = time.perf_counter()
+    w_lab, w_core, w_st = sharded_dbscan(
+        X, part, eps=eps, min_samples=10, block=block, mesh=mesh,
+        device=dev, halo="ring", merge="device")
+    sync()
+    w_wall = time.perf_counter() - t
+    w_la = mesh_launches(ck, w_st, "18.2 ring warm", GM_KERNELS["high"])
+    cold_b = ring_fit[2]["staged_bytes"]
+    log(f"  18.2 ring warm: {w_wall:.4f} s on {card} (cold "
+        f"{rows['ring']['wall_s']:.4f} s), staged {w_st['staged_bytes']}, "
+        f"reused {w_st['staged_bytes_reused']} of the cold fit's {cold_b} "
+        f"bytes, stages {stages(w_st)}")
+    if (not np.array_equal(densify_labels(w_lab), ring_fit[0])
+            or not np.array_equal(w_core, ring_fit[1])
+            or w_st["staged_bytes"] or not cold_b
+            or w_st["staged_bytes_reused"] != cold_b
+            or {k: w_la[k] for k in GM_KERNELS["high"]}
+            != rows["ring"]["launches"]):
+        fail("18.2: the warm ring refit was not a staging hit equal to the "
+             "cold fit")
+    rec["staging"] = {"cold_staged_bytes": cold_b,
+                      "cold_s": rows["ring"]["wall_s"], "warm_s": w_wall}
     rows["ring"]["slab_hold"] = gm_slab_hold(
         torch, dev, ring_largest_slab(
             torch, dev, X, part, eps, block, mesh, ring_fit[2]["halo_cap"],
@@ -7454,6 +7567,266 @@ def ring_phase(torch, dev, sync, card="", sizes=RING_SIZES, main=None,
     return rec
 
 
+STAGING_SIZES = {"n": 1_000_000, "eps": 2.4, "block": 2048, "other_ms": 20,
+                 "miss_eps": 1.4, "fp_reps": 3, "sweep_n": 200_000,
+                 "sweep_eps": [1.0, 1.15], "warm_eps": 0.9, "small_n": 20_000,
+                 "mesh": 4, "live_rows": 8}
+
+
+def staging_phase(torch, dev, sync, card="", sizes=STAGING_SIZES, main=None,
+                  warm512=None, warm_routes=None):
+    """Phase 19 (the staging cache); see the module docstring.  ``main``:
+    phase 4's 1M x 16-D host input (None: made here); ``warm512``: phase
+    7.3's cold and warm 1M x 512 host fits (19.2, reported here);
+    ``warm_routes``: the KD routes' warm refits of phases 13.1, 17.2 and
+    18.2 (19.4, reported here).  Returns the phase's record, whose
+    ``launches_warm`` the kernels' line reads."""
+    from benchdata import make_blob_data, make_separated_blob_data
+    import tempfile
+
+    from pypardis_tpu_torch import DBSCAN, KDPartitioner, obs
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.parallel import Mesh, sharded_dbscan, staging
+    from pypardis_tpu_torch.serve import ModelGateway, build_index
+    from pypardis_tpu_torch.utils import faults
+
+    rec = {"card": card}
+    t_phase = time.perf_counter()
+    n, eps, block = sizes["n"], sizes["eps"], sizes["block"]
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def fit(X, what, **kw):
+        model = DBSCAN(**{**dict(eps=eps, min_samples=10, block=block,
+                                 device=dev), **kw})
+        ck.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        model.fit(X)
+        sync()
+        wall = time.perf_counter() - t
+        m = model.metrics_
+        out = dict(labels=model.labels_, core=model.core_sample_mask_,
+                   wall_s=wall, launches=dict(ck.LAUNCHES),
+                   staged=int(m["staged_bytes"]),
+                   reused=int(m["staged_bytes_reused"]), model=model)
+        log(f"    {what}: {wall:.4f} s, staged_bytes {out['staged']}, "
+            f"staged_bytes_reused {out['reused']}, launches "
+            f"B1={out['launches']['count_pairs']} "
+            f"B2={out['launches']['minlab_pairs']}")
+        return out
+
+    def same(a, b, what):
+        if not (np.array_equal(a["labels"], b["labels"])
+                and np.array_equal(a["core"], b["core"])):
+            fail(f"{what}: labels or core differ")
+
+    def uncached(X, what, **kw):
+        """A fit with the cache off: the reference a warm fit must equal."""
+        with env_set(PPTORCH_LAYOUT_CACHE="0"):
+            return fit(X, what + " (cache off)", **kw)
+
+    # 19.1: the single-card layout cache on phase 4's data.
+    X = main if main is not None else make_blob_data(n, 16, n_centers=32,
+                                                     std=0.4)[0]
+    fp_ms = {}
+    for arr in (X, X.astype(np.float64)):
+        times = []
+        for _ in range(sizes["fp_reps"]):
+            t = time.perf_counter()
+            staging.points_fingerprint(arr)
+            times.append(time.perf_counter() - t)
+        fp_ms[str(arr.dtype)] = float(np.median(times)) * 1e3
+        log(f"  19.1 n={len(X)} d=16: the fingerprint (crc32 over "
+            f"{arr.nbytes} bytes of {arr.dtype}) "
+            f"{fp_ms[str(arr.dtype)]:.3f} ms (median of {len(times)}, "
+            f"host)")
+        del arr
+    staging.clear()
+    c = fit(X, "19.1 cold")
+    w = fit(X, "19.1 warm")
+    same(w, c, "19.1 warm vs cold")
+    if not c["staged"]:
+        fail("19.1: the cold fit staged nothing")
+    if w["staged"] or w["reused"] != c["staged"]:
+        fail(f"19.1: the warm fit staged {w['staged']} and reused "
+             f"{w['reused']} bytes (the cold fit staged {c['staged']})")
+    if w["launches"] != c["launches"]:
+        fail(f"19.1: the warm fit launched {w['launches']}, the cold "
+             f"{c['launches']}")
+    if w["launches"]["count_pairs"] < 1 or w["launches"]["minlab_pairs"] < 1:
+        fail("19.1: a kernel of the warm path was never launched")
+    ms = sizes["other_ms"]
+    wm = fit(X, f"19.1 warm at min_samples={ms}", min_samples=ms)
+    if wm["staged"] or wm["reused"] != c["staged"]:
+        fail(f"19.1: min_samples={ms} did not reuse the layout")
+    same(wm, uncached(X, f"19.1 min_samples={ms}", min_samples=ms),
+         f"19.1 min_samples={ms}")
+    me = fit(X, f"19.1 eps={sizes['miss_eps']}", eps=sizes["miss_eps"])
+    if me["reused"] or not me["staged"]:
+        fail(f"19.1: eps={sizes['miss_eps']} did not miss the layout")
+    same(me, uncached(X, f"19.1 eps={sizes['miss_eps']}",
+                  eps=sizes["miss_eps"]), f"19.1 eps={sizes['miss_eps']}")
+    fit(X, "19.1 eps=2.4 again (a miss: eps 1.4's layout replaced it)")
+    Xm = X.copy()
+    fit(Xm, "19.1 a copy (same content: a hit)")
+    Xm[:1000] += 50.0  # in place: the same array object
+    mm = fit(Xm, "19.1 mutated in place")
+    if mm["reused"]:
+        fail("19.1: an input mutated in place was served from the cache")
+    same(mm, uncached(Xm, "19.1 mutated"), "19.1 mutated in place")
+    del Xm
+    rec["layout"] = {
+        "n": len(X), "fingerprint_ms": fp_ms, "cold_s": c["wall_s"],
+        "warm_s": w["wall_s"], "other_ms_warm_s": wm["wall_s"],
+        "miss_eps_s": me["wall_s"], "staged_bytes": c["staged"],
+        "launches_cold": c["launches"], "launches_warm": w["launches"]}
+    log(f"  19.1: cold {c['wall_s']:.4f} s, warm {w['wall_s']:.4f} s on "
+        f"{card} (the layout's {c['staged']} bytes reused)")
+    staging.clear()
+    stamp("19.1: done")
+
+    # 19.2: phase 7.3's 1M x 512 refit (the layout cached under a raised
+    # PPTORCH_LAYOUT_CACHE_MAX).
+    if warm512 is not None:
+        rec["layout_512"] = warm512
+        log(f"  19.2 (phase 7.3) n={warm512['n']} d=512: cold "
+            f"{warm512['cold_s']:.4f} s, warm {warm512['warm_s']:.4f} s on "
+            f"{card}; {warm512['staged_bytes']} bytes reused; launches "
+            f"{warm512['launches_warm']}")
+
+    # 19.3: a second sweep under the first sweep's eps ceiling.
+    Xs, _t = make_blob_data(sizes["sweep_n"], 16, n_centers=32, std=0.4,
+                            seed=5)
+    staging.clear()
+    sync()
+    t = time.perf_counter()
+    first = DBSCAN(eps=eps, min_samples=10, block=block,
+                   device=dev).sweep(Xs, sizes["sweep_eps"])
+    sync()
+    s1 = time.perf_counter() - t
+    ms_list = [10]
+    sweeper = DBSCAN(eps=eps, min_samples=10, block=block, device=dev)
+    t = time.perf_counter()
+    second = sweeper.sweep(Xs, [sizes["warm_eps"]], ms_list)
+    sync()
+    s2 = time.perf_counter() - t
+    reused = int(sweeper.metrics_["staged_bytes_reused"])
+    if first.stats["degraded"] or not first.stats["graph_pairs"]:
+        fail(f"19.3: the first sweep built no graph "
+             f"({first.stats['degraded']})")
+    if sweeper.metrics_["staged_bytes"]:
+        fail("19.3: the covered sweep shipped its graph again")
+    ref = fit(Xs, f"19.3 the fit at eps={sizes['warm_eps']}",
+              eps=sizes["warm_eps"])
+    got = dict(labels=second.labels(sizes["warm_eps"], 10),
+               core=second.core(sizes["warm_eps"], 10))
+    same(got, ref, f"19.3 warm sweep eps={sizes['warm_eps']}")
+    if (reused <= 0 or second.stats["graph_pairs"]
+            != first.stats["graph_pairs"]):
+        fail(f"19.3: the second sweep did not reuse the first's graph "
+             f"(reused {reused}, graph pairs "
+             f"{second.stats['graph_pairs']} against "
+             f"{first.stats['graph_pairs']})")
+    rec["sweep"] = {"n": len(Xs), "first_s": s1, "second_s": s2,
+                    "graph_pairs": first.stats["graph_pairs"],
+                    "reused_bytes": reused}
+    log(f"  19.3 n={len(Xs)}: sweep {sizes['sweep_eps']} {s1:.4f} s, then "
+        f"[{sizes['warm_eps']}] {s2:.4f} s from the cached graph "
+        f"({first.stats['graph_pairs']} pairs, {reused} bytes reused)")
+    staging.clear()
+    stamp("19.3: done")
+
+    # 19.4: the KD routes' warm refits (phases 13.1, 17.2, 18.2) and the
+    # staging.device_put OOM rung on a 20k mesh fit.
+    rec["kd"] = warm_routes or {}
+    for where, r in rec["kd"].items():
+        log(f"  19.4 {where}: {r}")
+    Xk, _tk, _ck = make_separated_blob_data(
+        sizes["small_n"], 16, n_centers=8, min_sep=12.0, spread=12.0,
+        seed=13)
+    mesh = Mesh([dev] * sizes["mesh"])
+    kw = dict(eps=2.0, min_samples=10, block=256, mesh=mesh, device=dev)
+    staging.clear()
+    clean = sharded_dbscan(Xk, KDPartitioner(Xk, max_partitions=8), **kw)
+    staging.clear()
+    recorder = obs.RunRecorder()
+    with obs.use_recorder(recorder), \
+            faults.plan("staging.device_put:1=oom"):
+        hurt = sharded_dbscan(Xk, KDPartitioner(Xk, max_partitions=8), **kw)
+    c_ = recorder.metrics.as_dict()["counters"]
+    injected = int(c_.get("faults.injected", 0))
+    retried = int(c_.get("retry.staging.device_put.attempts", 0))
+    same(dict(labels=hurt[0], core=hurt[1]),
+         dict(labels=clean[0], core=clean[1]), "19.4 staging.device_put oom")
+    if injected != 1 or retried < 1:
+        fail(f"19.4: the injected OOM did not recover through the staging "
+             f"rung (injected {injected}, retried {retried})")
+    rec["oom"] = {"injected": injected, "retried": retried}
+    log(f"  19.4 staging.device_put:1=oom on a {len(Xk)}-point mesh fit: "
+        f"injected {injected}, retried {retried}, labels equal the clean "
+        f"fit's")
+    staging.clear()
+    stamp("19.4: done")
+
+    # 19.5: the serving route.
+    model = ref["model"]
+    staging.clear()
+    ck.reset_launch_counts()
+    idx1 = build_index(model)
+    idx2 = build_index(model)
+    tables = ck.LAUNCHES["query_tables"]
+    if (not idx1.stats["staged_bytes"] or idx2.stats["staged_bytes"]
+            or idx2.stats["staged_bytes_reused"]
+            != idx1.stats["staged_bytes"]):
+        fail(f"19.5: the second index build did not reuse the first's "
+             f"tensors ({idx1.stats}, {idx2.stats})")
+    eng = model.query_engine()
+    ck.reset_launch_counts()
+    eng.predict(Xs[:4096])
+    b5 = ck.LAUNCHES["query_leaf"]
+    if b5 < 1:
+        fail("19.5: predict on the warm index never launched B5")
+    live = model.live()
+    # Next to core points: the inserted rows are cores, so the commit
+    # ships index columns.
+    live.insert(Xs[model.core_sample_mask_][:sizes["live_rows"]] + 0.01)
+    delta = live.index.delta_bytes
+    route_delta = staging.route_delta_nbytes(live.index.delta_route)
+    if not delta or route_delta != delta:
+        fail(f"19.5: the live commit's delta bytes {delta} are not the "
+             f"delta route's {route_delta}")
+    spill = tempfile.TemporaryDirectory()
+    gw = ModelGateway(budget_bytes=1 << 40, spill_dir=spill.name)
+    h = gw.register("staged", model)
+    route = h.index.staging_route
+    before = staging.route_nbytes(route)
+    gw._evict(h)
+    after = staging.route_nbytes(route)
+    spill.cleanup()
+    if not before or after:
+        fail(f"19.5: the gateway's eviction left {after} of {before} bytes "
+             f"on its route")
+    rec["serve"] = {"index_staged_bytes": idx1.stats["staged_bytes"],
+                    "warm_build_reused": idx2.stats["staged_bytes_reused"],
+                    "query_tables": tables, "query_leaf": b5,
+                    "delta_bytes": delta, "route_bytes_before_evict": before}
+    log(f"  19.5: a warm second index build reused "
+        f"{idx2.stats['staged_bytes_reused']} bytes (query_tables "
+        f"launches {tables}), 4096 predicts launched B5 {b5} times; a live "
+        f"commit shipped {delta} delta bytes, its route counted "
+        f"{route_delta}; the gateway's eviction emptied {route} "
+        f"({before} -> {after} bytes)")
+    del idx1, idx2, eng, live, gw, h
+    staging.clear()
+    rec["launches_warm"] = dict(rec["layout"]["launches_warm"],
+                                query_leaf=b5)
+    rec["seconds"] = time.perf_counter() - t_phase
+    stamp("19.5: done")
+    return rec
+
+
 def main() -> None:
     import torch
 
@@ -7487,7 +7860,12 @@ def main() -> None:
         global HOLD_REPS
         HOLD_REPS = int(sys.argv[sys.argv.index("--hold-reps") + 1])
 
+    from pypardis_tpu_torch.parallel import staging
+
     def phase(title):
+        # Every phase starts with an empty staging cache: its cold fits
+        # stay cold, and no phase holds the last one's tensors.
+        staging.clear()
         log(f"[{time.perf_counter() - t_start:.1f} s] {title}")
 
     # Phase 1: the card and the build.
@@ -7644,6 +8022,14 @@ def main() -> None:
                                jobs=("ring",)))
         log(f"phase 18 record: {json.dumps(rec18)}; phase 18 took "
             f"{time.perf_counter() - t18:.1f} s")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
+
+    if "--staging" in sys.argv[1:]:
+        t19 = time.perf_counter()
+        rec19 = staging_phase(torch, dev, torch.cuda.synchronize, card)
+        log(f"phase 19 record: {json.dumps(rec19)}; phase 19 took "
+            f"{time.perf_counter() - t19:.1f} s")
         log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
         return
 
@@ -7828,6 +8214,8 @@ def main() -> None:
         for source in ("host", "host", "cuda", "cuda"):
             model = DBSCAN(eps=2.4, min_samples=10, block=2048,
                            precision="high")
+            # Cold fits: phase 19 times the warm ones.
+            staging.clear()
             ck.reset_launch_counts()
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -7854,6 +8242,7 @@ def main() -> None:
                 main_launches = launches
                 serve_model, serve_X = model, X
                 fit1m = fit_record(model, wall)  # phase 14 reads it
+                x1m = X  # phase 19 refits it
                 # Phase 13 holds the chained route against this fit.
                 chained_main = dict(X=X, labels=model.labels_.copy(),
                                     core=model.core_sample_mask_.copy())
@@ -7982,6 +8371,7 @@ def main() -> None:
     kernels += records
     phase("phase 8: precision modes, the bf16 tensor-core kernels")
     embedding = onoff.pop("main")
+    warm512 = onoff.pop("warm512")
     main_fit = dict(X=X, truth=truth, model=serve_model, xs=xs, mask=mask)
     fp32_ms = {k["name"]: k["ms"] for k in kernels[:2]}
     kernels += precision_phase(torch, dev, median_ms,
@@ -8121,7 +8511,28 @@ def main() -> None:
                     rec18[part]["slab_hold"]["max_abs_err"][rec["name"]])
     log(f"phase 18 record: {json.dumps(rec18)}; phase 18 took "
         f"{time.perf_counter() - t18:.1f} s")
-    phase("phases 2-18 done")
+    phase("phase 19: the staging cache (warm refits of the single-card, "
+          "sweep, KD and serving routes)")
+    t19 = time.perf_counter()
+    rec19 = staging_phase(
+        torch, dev, torch.cuda.synchronize, card, main=x1m, warm512=warm512,
+        warm_routes={"13.1": rec13["staging"], "17.2": rec17["staging"],
+                     "18.2": rec18["staging"]})
+    del x1m
+    # Each kernel's launches in a warm fit (19.1's 1M x 16-D refit, 7.3's
+    # 1M x 512 refit, 19.5's predicts on a warm index): a warm fit
+    # launches what a cold one does.
+    warm = {k: v for launches in (rec19["launches_warm"],
+                                  warm512["launches_warm"])
+            for k, v in launches.items() if v}
+    done = set()
+    for rec in kernels:
+        if rec["name"] in warm and rec["name"] not in done:
+            done.add(rec["name"])
+            rec["launches_warm"] = warm[rec["name"]]
+    log(f"phase 19 record: {json.dumps(rec19)}; phase 19 took "
+        f"{time.perf_counter() - t19:.1f} s")
+    phase("phases 2-19 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

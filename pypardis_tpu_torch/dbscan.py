@@ -79,6 +79,7 @@ from .geometry import BoundingBox, latlon_to_unit_sphere
 from .ops.cuda_kernels import _pallas_block
 from .ops.labels import check_pair_metric, densify_labels, resolve_backend
 from .ops.pipeline import (
+    LAYOUT_ROUTE,
     _pipeline_pack,
     dbscan_device_pipeline,
     unpack_pipeline_result,
@@ -89,6 +90,7 @@ from .utils.budget import run_pair_ladder
 from .utils.hints import dispatch_tag
 from .utils.log import get_logger, log_phase
 from .utils.profiling import PhaseTimer, trace
+from .utils.retry import DEFAULT_WAITS, Retrier, is_transient_error
 from .utils.shaping import clamp_block, round_up, row_chunks
 from .utils.validate import (
     check_finite,
@@ -189,6 +191,41 @@ def _as_keys_points(data):
     return np.arange(len(pts)), pts
 
 
+# One host staging buffer, reused across fits of the same padded shape
+# (the JAX package's): a fit borrows it, fills it and copies it to the
+# device, then returns it.  Only the most recent shape is kept (at 10M x
+# 16-D it is 640 MB of host memory).  A second fit while it is out
+# allocates a fresh one.
+_staging: dict = {}
+
+
+def _staging_buffer(k: int, cap: int) -> np.ndarray:
+    """Borrow the ``(k, cap)`` float32 staging buffer (return it with
+    :func:`_staging_return` once its device copy is made)."""
+    buf = _staging.pop((k, cap), None)
+    if buf is None:
+        buf = np.empty((k, cap), np.float32)
+    return buf
+
+
+def _staging_return(buf: np.ndarray) -> None:
+    _staging.clear()
+    _staging[buf.shape] = buf
+
+
+def _layout_cacheable(cap: int, k: int) -> bool:
+    """Whether the single-card fit may keep its sorted layout on the
+    device between fits (the staging cache's ``pipeline_layout`` route).
+    The layout can reach 2x cap rows after the segment break, so the
+    cache is capped: ``PPTORCH_LAYOUT_CACHE_MAX`` bytes of coordinates
+    (default 512 MB, the JAX package's), and ``PPTORCH_LAYOUT_CACHE=0``
+    turns it off."""
+    if os.environ.get("PPTORCH_LAYOUT_CACHE", "1") == "0":
+        return False
+    max_bytes = int(os.environ.get("PPTORCH_LAYOUT_CACHE_MAX", 1 << 29))
+    return 2 * cap * k * 4 <= max_bytes
+
+
 def _stage(points, block: int, device: torch.device):
     """Centre the (N, k) input and lay it out as the ``(k, cap)`` float32
     pipeline input on ``device``, zero-padded to ``cap = round_up(N,
@@ -196,16 +233,18 @@ def _stage(points, block: int, device: torch.device):
     clamped block.
 
     Host input centres on a float64 mean (chunked, no dataset-sized f64
-    temp): centring keeps magnitudes small at GPS-scale coordinates.  A
-    tensor centres on its own device in its own dtype (an integer one in
+    temp) into the borrowed staging buffer (:func:`_staging_buffer`),
+    copied to ``device`` as a tensor of its own (on the CPU too, where
+    the buffer's next fit would otherwise rewrite it) and returned:
+    centring keeps magnitudes small at GPS-scale coordinates.  A tensor
+    centres on its own device in its own dtype (an integer one in
     float64), then casts.
     """
     n, k = points.shape
     block = clamp_block(block, n)
-    points_t = torch.zeros(
-        (k, round_up(n, block)), dtype=torch.float32, device=device
-    )
+    cap = round_up(n, block)
     if isinstance(points, torch.Tensor):
+        points_t = torch.zeros((k, cap), dtype=torch.float32, device=device)
         x = points.to(device)
         if not x.is_floating_point():
             # torch has no mean of an integer tensor; promote as jnp.mean
@@ -214,14 +253,18 @@ def _stage(points, block: int, device: torch.device):
         points_t[:, :n] = (x - x.mean(dim=0)).to(torch.float32).T
         return points_t, n, block
     center = points.mean(axis=0, dtype=np.float64)
-    staged = np.empty((k, n), np.float32)
-    for s, e in row_chunks(n, k):
-        np.subtract(
-            points[s:e].T, center[:, None], out=staged[:, s:e],
-            casting="unsafe",
-        )
-    points_t[:, :n] = torch.from_numpy(staged).to(device)
-    return points_t, n, block
+    buf = _staging_buffer(k, cap)
+    try:
+        buf[:, n:] = 0.0
+        for s, e in row_chunks(n, k):
+            np.subtract(
+                points[s:e].T, center[:, None], out=buf[:, s:e],
+                casting="unsafe",
+            )
+        # From pageable memory the copy is complete when it returns.
+        return torch.from_numpy(buf).to(device, copy=True), n, block
+    finally:
+        _staging_return(buf)
 
 
 def _pad_and_run(points, eps, min_samples, block, precision="high",
@@ -234,21 +277,62 @@ def _pad_and_run(points, eps, min_samples, block, precision="high",
     the ladder runs that k; ``metric`` is a pair metric (Euclidean or
     cityblock, whose sketch is off).  The ladder's hint key is the JAX
     package's (dispatch tag, slab shape, block, precision, eps, metric,
-    sketch k); ``jobstate`` reaches the stepped route."""
+    sketch k); ``jobstate`` reaches the stepped route.
+
+    Host input goes through the staging cache's ``pipeline_layout``
+    route (:func:`_layout_cacheable`): its key is the JAX package's
+    (the input's content fingerprint, block, cap, the sort flag,
+    precision, eps) and the device, and staging is lazy, so a hit
+    centres, copies and sorts nothing.  A tensor is never cached (nor
+    fingerprinted).  A transient failure that outlives the pipeline's
+    own retries evicts the route and restages (``retry.restage``).
+    ``info`` carries the fit's ``staged_bytes`` and
+    ``staged_bytes_reused``."""
+    from .parallel import staging
+
     metric = check_pair_metric(metric, check_precision(precision))
-    points_t, n, block = _stage(points, block, resolve_device(device))
-    k, cap = points_t.shape
+    dev = resolve_device(device)
+    staging.begin_fit()
+    n, k = points.shape
+    block = clamp_block(block, n)
+    cap = round_up(n, block)
+    sort = n > 2 * block
+    layout_key = None
+    if not isinstance(points, torch.Tensor) and _layout_cacheable(cap, k):
+        layout_key = (staging.points_fingerprint(points), block, cap, sort,
+                      precision, float(eps), str(dev))
+    staged = []
+
+    def points_t():
+        # Lazy: a layout-cache hit never calls it.
+        if not staged:
+            staged.append(_stage(points, block, dev)[0])
+        return staged[0]
+
     sketch_k = effective_k(sketch, k) if metric == "euclidean" else 0
     hint_key = (dispatch_tag(cap // block), (k, cap), block, precision,
                 float(eps), metric, sketch_k)
 
+    def restageable(e: BaseException) -> bool:
+        if not is_transient_error(e):
+            return False
+        # The retry rebuilds the layout: a cached one is never served
+        # to the attempt after a failure.
+        staging.device_evict(LAYOUT_ROUTE)
+        staged.clear()
+        return True
+
     def run_step(pair_budget):
-        packed, tiles = dbscan_device_pipeline(
-            points_t, eps, n, min_samples, block=block,
-            precision=precision, backend=backend, sort=n > 2 * block,
-            pair_budget=pair_budget, sketch=sketch_k, metric=metric,
-            jobstate=jobstate,
-        )
+        def run():
+            return dbscan_device_pipeline(
+                points_t, eps, n, min_samples, block=block,
+                precision=precision, backend=backend, sort=sort,
+                pair_budget=pair_budget, sketch=sketch_k, metric=metric,
+                jobstate=jobstate, layout_key=layout_key,
+            )
+
+        packed, tiles = Retrier("restage", waits=DEFAULT_WAITS).run(
+            run, retryable=restageable)
         _r, _c, total, budget, *_ = unpack_pipeline_result(packed)
         return (packed, tiles), total, budget
 
@@ -256,6 +340,7 @@ def _pad_and_run(points, eps, min_samples, block, precision="high",
     roots, core, total, budget, passes, band_pairs, rescored = (
         unpack_pipeline_result(packed)
     )
+    reused, shipped = staging.fit_stats()
     tile = int(_pallas_block(block, cap, k, precision))
     info = {
         "live_pairs": int(total),
@@ -272,6 +357,10 @@ def _pad_and_run(points, eps, min_samples, block, precision="high",
         "rescored_tiles": int(rescored),
         # The resolved random-projection width (0 = off).
         "sketch_k": int(sketch_k),
+        # The staging cache's bytes: shipped to the device, and served
+        # from it (a warm refit of the same data reuses its layout).
+        "staged_bytes": int(shipped),
+        "staged_bytes_reused": int(reused),
     }
     return roots[:n], core[:n], info
 
@@ -1134,6 +1223,7 @@ class DBSCAN:
                 len(configs) * len(points) / max(wall, 1e-9)
             )
             self.metrics_["live_pairs"] = int(sweep["graph_pairs"])
+            self._staging_metrics()
             sweep["sweep_wall_s"] = round(wall, 6)
             # An estimate from the sweep's own walls, taking a fit as one
             # graph build plus one relabel (no fit is run to measure it).
@@ -1155,7 +1245,10 @@ class DBSCAN:
         """The graph and one relabel per config (kernel frame), or the
         per-config fits when the graph is past its cap or the mode is
         ``"default"``."""
+        from .parallel import staging
+
         eps_k = [_kernel_eps(self._metric_norm, e) for e, _ in configs]
+        staging.begin_fit()
         if self.precision == "default":
             return self._sweep_refit(points, configs, timer)
         try:
@@ -1169,10 +1262,16 @@ class DBSCAN:
             return self._sweep_refit(points, configs, timer)
         labels_out, core_out, per_cfg, relabel_s = {}, {}, [], []
         passes_total = 0
-        for cfg, e_k in zip(configs, eps_k):
+        reused_before = staging.fit_stats()[0]
+        for i, (cfg, e_k) in enumerate(zip(configs, eps_k)):
             t_c = time.perf_counter()
+            if i:
+                # Configs 2..k re-threshold the graph the first config
+                # staged: their reuse counts as a warm hit's.
+                staging.touch_route(staging.SWEEP_GRAPH_ROUTE)
             with timer.phase("relabel"):
                 roots, cor, passes = relabel(e_k, cfg[1])
+            reused_now = staging.fit_stats()[0]
             with timer.phase("densify"):
                 dense = densify_labels(roots)
             labels_out[cfg] = dense
@@ -1184,7 +1283,9 @@ class DBSCAN:
                 "eps": cfg[0], "min_samples": cfg[1],
                 "relabel_s": round(dt, 6),
                 "n_clusters": int(dense.max()) + 1, "passes": int(passes),
+                "staged_bytes_reused": int(reused_now - reused_before),
             })
+            reused_before = reused_now
         self.metrics_["kernel_passes"] = passes_total + 1
         self.metrics_["n_partitions"] = 1
         sweep = {
@@ -1210,42 +1311,92 @@ class DBSCAN:
         core)`` mapping slot-space results to input rows as a fit's
         pack does.  The build is ``timer``'s ``graph`` phase; an
         emission overflow records ``pair_overflow`` (``route=
-        "sweep_graph"``) before its exact-total retry."""
+        "sweep_graph"``) before its exact-total retry.
+
+        Host input goes through the staging cache (the JAX package's
+        routes): the graph through the eps-free ``sweep_graph`` route
+        (:func:`~.parallel.staging.device_get_cover`: a later sweep, or
+        eps=None fit, whose ceiling is at most the cached one rebuilds
+        nothing), the layout through ``pipeline_layout`` at eps_max,
+        each key with the device.  A tensor is never cached."""
         from .ops.distances import sweep_max_edges
         from .ops.pipeline import sweep_config_pack, sweep_graph_pipeline
+        from .parallel import staging
 
         t_b = time.perf_counter()
-        with timer.phase("graph"):
-            points_t, n, block = _stage(points, self.block, self.device)
-            cap_edges = sweep_max_edges()
-            eb = None
-            for attempt in (0, 1):
-                graph, mask_k, owner, cap, stats = sweep_graph_pipeline(
-                    points_t, eps_max, n, metric=self._pair_metric,
-                    block=block, precision=self.precision,
-                    sort=n > 2 * block, edge_budget=eb, edge_cap=cap_edges,
+        n, k = points.shape
+        block = clamp_block(self.block, n)
+        cap = round_up(n, block)
+        sort = n > 2 * block
+        layout_key = route_key = cached = None
+        if (not isinstance(points, torch.Tensor)
+                and _layout_cacheable(cap, k)):
+            fp = staging.points_fingerprint(points)
+            dev_s = str(self.device)
+            layout_key = (fp, block, cap, sort, self.precision,
+                          float(eps_max), dev_s)
+            route_key = ("fused", fp, block, cap, sort, self.precision,
+                         str(self.metric), dev_s)
+            cached = staging.device_get_cover(
+                staging.SWEEP_GRAPH_ROUTE, route_key, eps_max)
+        cap_edges = sweep_max_edges()
+        if cached is not None:
+            graph, mask_k, owner = cached[0][:3], cached[0][3], cached[0][4]
+            stats, cap = cached[1]["stats"], int(cached[1]["cap"])
+            need_e = int(stats[0])
+            if need_e > cap_edges:
+                # The cap binds a cached graph too.
+                raise SweepGraphOverflow(
+                    f"neighbour-pair graph needs more than {cap_edges} "
+                    f"edges, the sweep cap (PPTORCH_SWEEP_MAX_PAIRS)"
                 )
-                need_e, got_e = stats[0], stats[1]
-                if need_e > cap_edges:
-                    raise SweepGraphOverflow(
-                        f"neighbour-pair graph needs more than {cap_edges} "
-                        f"edges, the sweep cap (PPTORCH_SWEEP_MAX_PAIRS)"
+        else:
+            with timer.phase("graph"):
+                staged = []
+
+                def points_t():
+                    if not staged:
+                        staged.append(_stage(points, self.block,
+                                             self.device)[0])
+                    return staged[0]
+
+                eb = None
+                for attempt in (0, 1):
+                    graph, mask_k, owner, cap, stats = sweep_graph_pipeline(
+                        points_t, eps_max, n, metric=self._pair_metric,
+                        block=block, precision=self.precision, sort=sort,
+                        edge_budget=eb, edge_cap=cap_edges,
+                        layout_key=layout_key,
                     )
-                if need_e <= got_e:
-                    break
-                if attempt:
-                    raise SweepGraphOverflow(
-                        f"graph emission overflow persisted after an "
-                        f"exact-total retry ({need_e}/{got_e})"
+                    need_e, got_e = stats[0], stats[1]
+                    if need_e > cap_edges:
+                        raise SweepGraphOverflow(
+                            f"neighbour-pair graph needs more than "
+                            f"{cap_edges} edges, the sweep cap "
+                            f"(PPTORCH_SWEEP_MAX_PAIRS)"
+                        )
+                    if need_e <= got_e:
+                        break
+                    if attempt:
+                        raise SweepGraphOverflow(
+                            f"graph emission overflow persisted after an "
+                            f"exact-total retry ({need_e}/{got_e})"
+                        )
+                    obs.event("pair_overflow", total=int(need_e),
+                              budget=int(got_e), route="sweep_graph")
+                    eb = round_up(need_e, 4096)
+                del staged
+                if route_key is not None:
+                    staging.device_put_cached(
+                        staging.SWEEP_GRAPH_ROUTE, route_key,
+                        (*graph, mask_k, owner),
+                        aux={"eps_max": float(eps_max), "cap": cap,
+                             "stats": [int(v) for v in stats]},
                     )
-                obs.event("pair_overflow", total=int(need_e),
-                          budget=int(got_e), route="sweep_graph")
-                eb = round_up(need_e, 4096)
-            del points_t
-            gi, gj, dv = (t[:need_e] for t in graph)
-            gi, gj = gi.long(), gj.long()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        gi, gj, dv = (t[:need_e] for t in graph)
+        gi, gj = gi.long(), gj.long()
         metric = self._pair_metric
 
         def relabel(eps_c, ms_c):
@@ -1277,6 +1428,16 @@ class DBSCAN:
             "n_ids": int(mask_k.shape[0]), "finalize": finalize,
         }
         return relabel, gstats, ghandle
+
+    def _staging_metrics(self) -> None:
+        """The staging cache's counters of this sweep or eps=None fit
+        (those of its last fit, after per-config refits, as in the JAX
+        package) into ``metrics_``, unless a fit set them."""
+        from .parallel import staging
+
+        reused, shipped = staging.fit_stats()
+        self.metrics_.setdefault("staged_bytes_reused", int(reused))
+        self.metrics_.setdefault("staged_bytes", int(shipped))
 
     def _sweep_refit(self, points, configs, timer):
         """Per-config fits (one distance pass each) on the kernel-frame
@@ -1392,6 +1553,9 @@ class DBSCAN:
 
         ms = int(self.min_samples if ms is None else ms)
         eps_max = self._hier_ceiling(points)
+        from .parallel import staging
+
+        staging.begin_fit()
         _relabel, gstats, gh = self._sweep_graph_fused(
             points, eps_max, timer)
         km = self._pair_metric
@@ -1491,6 +1655,7 @@ class DBSCAN:
                 self.metrics_["total_s"], 1e-9
             )
             self.metrics_["live_pairs"] = int(ctx["gstats"]["graph_pairs"])
+            self._staging_metrics()
             self.metrics_["n_partitions"] = 1
             self.metrics_["kernel_passes"] = 2
             ctx["stages"].update(cut_s=t_cut - t, relabel_s=t_rel - t_cut)

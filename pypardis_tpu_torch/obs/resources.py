@@ -8,7 +8,8 @@ always joined by the fit, that samples
   the fallback),
 * the fit device's live bytes (``torch.cuda.memory_allocated``; 0 on
   the CPU),
-* the staging pool's bytes (0: the port has no staging cache yet),
+* the staging economy's pooled bytes
+  (:func:`~..parallel.staging.pool_nbytes`),
 
 and keeps the peaks in the fit's registry as ``resources.*`` gauges
 (``report()["resources"]``, finite on every route), streaming each raw
@@ -66,9 +67,11 @@ def device_live_bytes(device=None) -> int:
 
 
 def staging_pool_bytes() -> int:
-    """Bytes held by the staging economy.  The port has no staging
-    cache until ROADMAP A16's item 10 ports it, so this is 0."""
-    return 0
+    """Bytes held by the staging economy (host pool + device cache,
+    :func:`~..parallel.staging.pool_nbytes`)."""
+    from ..parallel import staging
+
+    return int(staging.pool_nbytes())
 
 
 def rss_soft_limit() -> int:

@@ -9,7 +9,9 @@ staging copy and the packed result runs on the device:
 * lexsort the words: stable ``torch.sort`` passes, least-significant
   word first;
 * gather the points into sorted order in the ``(d, cap)`` layout;
-* segment-break padding, so spatially distant runs never share a tile;
+* segment-break padding, so spatially distant runs never share a tile
+  (the layout is kept across fits through the staging cache's
+  ``pipeline_layout`` route, :func:`cached_layout`);
 * :func:`~pypardis_tpu_torch.ops.labels.dbscan_fixed_size` (the fused
   route), or past :data:`STEP_THRESHOLD` kernel slots the host-stepped
   route (:func:`_cluster_stepped`: the prepare stage, the rounds in
@@ -183,6 +185,40 @@ def _pipeline_layout(points_t, eps, n, block: int, sort: bool,
     if cap >= 16 * block and d <= 64:
         return _segment_break_layout(xs, mask, perm, eps, block=align, bt=bt)
     return xs, mask, perm
+
+
+LAYOUT_ROUTE = "pipeline_layout"
+
+
+def cached_layout(points_t, eps, n, *, block: int, sort: bool,
+                  precision: str = "high", layout_key=None):
+    """:func:`_pipeline_layout` through the staging cache's
+    ``pipeline_layout`` route (the JAX package's): with a ``layout_key``
+    a hit returns the cached ``(xs, mask, owner)`` and builds nothing,
+    else the layout is built from ``points_t`` (a tensor, or a
+    zero-argument callable making it, called only on a miss) and cached
+    with ``aux={"cap": cap}``.  Nothing downstream writes into these
+    tensors, so later fits share them.  Returns ``(xs, mask, owner, cap,
+    hit)``, ``owner`` int32 either way."""
+    from ..parallel import staging
+
+    if layout_key is not None:
+        cached = staging.device_get(LAYOUT_ROUTE, layout_key)
+        if cached is not None:
+            (xs, mask, owner), aux = cached
+            return xs, mask, owner, int(aux["cap"]), True
+    if callable(points_t):
+        points_t = points_t()
+    cap = points_t.shape[1]
+    xs, mask, owner = _pipeline_layout(points_t, eps, n, block=block,
+                                       sort=sort, precision=precision)
+    # int32 as in the JAX layout (cap < 2^30, see _pipeline_pack): the
+    # cached bytes are the JAX route's.
+    owner = owner.to(torch.int32)
+    if layout_key is not None:
+        staging.device_put_cached(LAYOUT_ROUTE, layout_key,
+                                  (xs, mask, owner), aux={"cap": cap})
+    return xs, mask, owner, cap, False
 
 
 def _pipeline_pack(roots_s, core_s, pair_stats, owner, *, cap):
@@ -362,9 +398,12 @@ def dbscan_device_pipeline(
     sketch=None,
     metric: str = "euclidean",
     jobstate=None,
+    layout_key=None,
 ):
     """``points_t``: (d, cap) float32, centred, zero-padded past ``n``,
-    on the device that runs the fit.  ``sketch`` and ``metric``
+    on the device that runs the fit, or a zero-argument callable making
+    it, called only when the layout is built (``layout_key``: see
+    :func:`cached_layout`).  ``sketch`` and ``metric``
     (Euclidean or cityblock): handed to
     :func:`~pypardis_tpu_torch.ops.labels.dbscan_fixed_size`; the
     layout is the same for both metrics, as in the JAX package (its
@@ -387,11 +426,12 @@ def dbscan_device_pipeline(
     ``pipeline.cluster`` (``mode="fused"``, or ``mode="stepped"`` with
     its ``capacity``; it ends with the packed result on the host), and
     the tile count as the ``pipeline.kernel_tiles`` gauge."""
-    cap = points_t.shape[1]
     with obs_span("pipeline.layout", sort=bool(sort)) as sp:
-        xs, mask, owner = _pipeline_layout(
-            points_t, eps, n, block=block, sort=sort, precision=precision
+        xs, mask, owner, cap, hit = cached_layout(
+            points_t, eps, n, block=block, sort=sort, precision=precision,
+            layout_key=layout_key,
         )
+        sp.set(cached=hit)
         sp.sync_on(xs)
     d, capk = xs.shape
     tile = _pallas_block(block, capk, d, norm_precision_mode(precision))
@@ -445,20 +485,24 @@ def dbscan_device_pipeline(
 def sweep_graph_pipeline(points_t, eps, n, metric: str = "euclidean",
                          block: int = 1024, precision: str = "high",
                          sort: bool = True, edge_budget: int | None = None,
-                         edge_cap: int | None = None):
+                         edge_cap: int | None = None, layout_key=None):
     """Layout at the sweep's ``eps`` (its eps_max) and the graph over it.
     Returns ``((gi, gj, dval), mask_k, owner, cap, stats)``: the graph
     in kernel-slot space on the points' device and the ``[edge_total,
     edge_budget, tile_total, tile_budget]`` of
     :func:`~.distances.neighbor_pair_graph` (an edge total past its
-    budget invalidates the graph; ``edge_cap`` is its ``cap``)."""
+    budget invalidates the graph; ``edge_cap`` is its ``cap``).
+    ``points_t`` and ``layout_key`` as in :func:`dbscan_device_pipeline`
+    (the same ``pipeline_layout`` route: a sweep after a fit at the same
+    eps ceiling lays out nothing)."""
     from .distances import neighbor_pair_graph
 
-    cap = points_t.shape[1]
     with obs_span("sweep.layout", sort=bool(sort)) as sp:
-        xs, mask_k, owner = _pipeline_layout(
-            points_t, eps, n, block=block, sort=sort, precision=precision
+        xs, mask_k, owner, cap, hit = cached_layout(
+            points_t, eps, n, block=block, sort=sort, precision=precision,
+            layout_key=layout_key,
         )
+        sp.set(cached=hit)
         sp.sync_on(xs)
     d, capk = xs.shape
     tile = _pallas_block(block, capk, d, norm_precision_mode(precision))

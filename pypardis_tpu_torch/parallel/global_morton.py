@@ -57,6 +57,7 @@ from ..utils.hints import dispatch_tag
 from ..utils.retry import Retrier
 from ..utils.shaping import clamp_block, round_up
 from ..utils.validate import check_precision, norm_metric, validate_params
+from . import staging
 from .merge import merge_occurrences
 from .sharded import (
     _Spans,
@@ -545,10 +546,11 @@ def _gm_chained_dbscan(points, eps, min_samples, *, block, precision,
         _exec_stats(stats, oc_on=True, pstats=pstats, block=block, k=k,
                     precision=mode, n=n)
         stats["duplicated_work_factor"] = 1.0
-        # The staging cache's counters (ROADMAP A16 item 10): nothing is
-        # staged or reused yet.
-        stats["staged_bytes_reused"] = 0
-        stats["staged_bytes"] = 0
+        # The staging cache's counters: this route caches nothing (its
+        # ranges visit the card once), as in the JAX package.
+        reused, shipped = staging.fit_stats()
+        stats["staged_bytes_reused"] = int(reused)
+        stats["staged_bytes"] = int(shipped)
         stats["stage_s"] = stage
         stats["partition_passes"] = passes
         return _canonicalize_roots(labels, core), core, stats
@@ -603,7 +605,8 @@ def global_morton_dbscan(
     :func:`~pypardis_tpu_torch.utils.budget.run_ladders`.
 
     ``stats`` carries every key of the JAX chained route's (the staging
-    counters read 0: ROADMAP A16 item 10), ``gm_total_s``, and the
+    counters from :func:`~.staging.fit_stats`: the route caches nothing,
+    so a fit reuses nothing), ``gm_total_s``, and the
     port's own ``stage_s`` (the split, the host slab builds and the
     passes' device time from CUDA events) and ``partition_passes`` (per
     range dispatched, every ladder attempt: 1 for its counts pass if it
@@ -646,6 +649,7 @@ def global_morton_dbscan(
         points = np.asarray(points)
     n = points.shape[0]
     t0 = time.perf_counter()
+    staging.begin_fit()
     block_c = clamp_block(block, -(-n // int(chain)))
     labels, core, stats = _gm_chained_dbscan(
         points, eps, min_samples, block=block_c, precision=precision,

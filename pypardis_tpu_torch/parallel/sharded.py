@@ -48,8 +48,18 @@ is routed and laid out there (:func:`sharded_dbscan_device`,
 :mod:`.device_input`).  The global-Morton mesh engine is a later slice
 (ROADMAP A12) and raises ``NotImplementedError`` (``mode=
 "global_morton"`` runs the global-Morton route's chained form,
-:mod:`.global_morton`); the staging cache and its evict-and-retry rung
-come with that cache.
+:mod:`.global_morton`).
+
+Host input goes through the staging cache (:mod:`.staging`): the slabs a
+fit ships stay on the device, keyed by the content of the input and the
+partition tree, the shard count, the block and the devices, owned slabs
+without eps and halo slabs with it (``host_owned``/``host_halo`` on the
+fused step, ``ring_owned`` on the ring, ``chained_owned``/
+``chained_halo`` on the chained route).  A warm refit of the same data
+builds and ships none of them; after an eps change only the halos.
+Every copy runs under :func:`~.staging.transfer` (the
+``staging.device_put`` fault site; an OOM there evicts the cache and
+retries).  The streaming build and a tensor's route cache nothing.
 """
 
 from __future__ import annotations
@@ -63,9 +73,11 @@ import numpy as np
 import torch
 
 from ..geometry import BoxStack
+from ..obs import current as obs_current
 from ..obs import event as obs_event
 from ..obs import heartbeat as obs_heartbeat
 from ..obs import span as obs_span
+from ..obs import use_recorder
 from ..ops.cuda_kernels import _pallas_block
 from ..ops.distances import INT_INF
 from ..ops.labels import (
@@ -86,6 +98,7 @@ from ..utils.retry import (
 )
 from ..utils.shaping import clamp_block, round_up, row_chunks
 from ..utils.validate import check_precision, norm_metric
+from . import staging
 from .halo import ring_halo_exchange_multi
 from .mesh import Mesh, as_mesh, gather, shard_max
 
@@ -209,16 +222,35 @@ def _owned_stats(owned_idx, cap, p_total, n):
     }
 
 
-def _owned_layout(points, center, partitioner, labels, n_shards, block):
+def _alloc_filled(shape, dtype, fill):
+    return np.full(shape, fill, dtype)
+
+
+def _staged_alloc(bufs: list):
+    """An allocator drawing from the staging pool; every buffer it hands
+    out lands in ``bufs``, for :func:`~.staging.give_back_after_put`."""
+
+    def alloc(shape, dtype, fill):
+        a = staging.borrow(shape, dtype)
+        a.fill(fill)
+        bufs.append(a)
+        return a
+
+    return alloc
+
+
+def _owned_layout(points, center, partitioner, labels, n_shards, block,
+                  alloc=_alloc_filled):
     """``(P, k, cap)`` owned slabs, Morton-sorted per partition, with
-    their ``(P, cap)`` masks and gids (``n`` in padding slots)."""
+    their ``(P, cap)`` masks and gids (``n`` in padding slots), in
+    buffers from ``alloc(shape, dtype, fill)``."""
     n, k = points.shape
     _p_real, p_total, part_idx, cap = _layout_geometry(
         partitioner, labels, n_shards, block
     )
-    owned = np.zeros((p_total, k, cap), np.float32)
-    owned_mask = np.zeros((p_total, cap), bool)
-    owned_gid = np.full((p_total, cap), n, np.int32)
+    owned = alloc((p_total, k, cap), np.float32, 0.0)
+    owned_mask = alloc((p_total, cap), bool, False)
+    owned_gid = alloc((p_total, cap), np.int32, n)
     owned_idx = _fill_slabs(owned, owned_mask, owned_gid, points, part_idx,
                             center)
     return owned_idx, (owned, owned_mask, owned_gid), cap, p_total
@@ -314,14 +346,15 @@ def _halo_stats(halo_idx, hcap, n, k):
     }
 
 
-def _halo_slabs(points, halo_idx, center, p_total, block):
+def _halo_slabs(points, halo_idx, center, p_total, block,
+                alloc=_alloc_filled):
     """``(P, k, hcap)`` halo slabs of the halo sets ``halo_idx``
     (:func:`_halo_sets`) with masks and gids, and their stats."""
     n, k = points.shape
     hcap = _halo_cap(halo_idx, block)
-    halo = np.zeros((p_total, k, hcap), np.float32)
-    halo_mask = np.zeros((p_total, hcap), bool)
-    halo_gid = np.full((p_total, hcap), n, np.int32)
+    halo = alloc((p_total, k, hcap), np.float32, 0.0)
+    halo_mask = alloc((p_total, hcap), bool, False)
+    halo_gid = alloc((p_total, hcap), np.int32, n)
     _fill_slabs(halo, halo_mask, halo_gid, points, halo_idx, center)
     return (halo, halo_mask, halo_gid), _halo_stats(halo_idx, hcap, n, k)
 
@@ -399,19 +432,26 @@ def _chained_layout(points, partitioner, eps, block, precision):
     return layout, stats
 
 
+def _fill_rows(pts, msk, gid, points, idx, center):
+    """Fill one partition's owned or halo rows: ``pts`` ``(k, rows)``,
+    ``msk`` and ``gid`` overwritten whole, partition ``idx`` Morton-
+    sorted from row 0, empty rows past it carrying gid ``n``."""
+    pts.fill(0.0)
+    msk.fill(False)
+    gid.fill(len(points))
+    _fill_slab(pts[None], msk[None], gid[None], 0, points, idx, center)
+
+
 def _partition_slab(pts, msk, gid, points, layout, p):
     """Fill partition ``p``'s ``(k, cap + hcap)`` slab ``pts``, its mask
     ``msk`` and gids ``gid`` (numpy, overwritten whole): the owned points
     Morton-sorted from row 0, empty rows up to ``cap``, then the halo
     points Morton-sorted from row ``cap``; empty rows carry gid ``n``."""
     cap = layout["cap"]
-    pts.fill(0.0)
-    msk.fill(False)
-    gid.fill(len(points))
     for idx, rows in ((layout["part_idx"][p], slice(None, cap)),
                       (layout["halo_idx"][p], slice(cap, None))):
-        _fill_slab(pts[None, :, rows], msk[None, rows], gid[None, rows], 0,
-                   points, idx, layout["center"])
+        _fill_rows(pts[:, rows], msk[rows], gid[rows], points, idx,
+                   layout["center"])
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +663,21 @@ def _host_merge_finish(n, og, own_glab, own_core, halo_gid, halo_glab):
     return labels, core
 
 
+def _sharding_cache_key(points, partitioner, n_shards, block, devices):
+    """The content key under which a KD route's device slabs are reused
+    (the JAX package's): the input's and the partition tree's
+    fingerprints, the shard count, the block and the devices the slabs
+    live on, as strings (``Mesh(["cuda:0"] * 4)`` is a key of its own).
+    Identity is never trusted: an input mutated in place rebuilds."""
+    return (
+        staging.points_fingerprint(points),
+        staging.partitioner_fingerprint(partitioner),
+        int(n_shards),
+        int(block),
+        tuple(str(d) for d in devices),
+    )
+
+
 def _np(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
@@ -646,7 +701,8 @@ def _exec_stats(stats, *, pstats, block, k, precision, n,
     """The execution telemetry: ``owner_computes`` (``oc_on``: each slab
     counts only its owned rows; off, as on the KD route, every halo
     duplicate is clustered again), ``duplicated_work_factor`` (slots
-    whose core flag is computed, over dataset points), and from the pair
+    whose core flag is computed, over dataset points), the staging
+    cache's ``staged_bytes_reused`` and ``staged_bytes``, and from the pair
     stats (a (5,) row or rows of them; each column's maximum binds) the
     live pairs, kernel passes, band stats, the fit's tile (the port's
     ``_pallas_block``) and the slab's tiles."""
@@ -656,6 +712,9 @@ def _exec_stats(stats, *, pstats, block, k, precision, n,
     stats["owner_computes"] = bool(oc_on)
     stats["duplicated_work_factor"] = float(
         p_total * (cap if oc_on else cap + hcap)) / max(n, 1)
+    reused, shipped = staging.fit_stats()
+    stats["staged_bytes_reused"] = int(reused)
+    stats["staged_bytes"] = int(shipped)
     ps = [int(v) for v in _np(pstats).reshape(-1, 5).max(axis=0)]
     stats["live_pairs"] = ps[0]
     stats["kernel_passes"] = ps[2]
@@ -755,9 +814,15 @@ def _replay_gids(points, layout, p, device):
     return row, torch.from_numpy(row).to(device)
 
 
+# The staging cache's routes of the chained route: each partition's
+# owned ``(pts, mask, gid)`` keyed without eps, its halo with it.
+CHAINED_OWNED, CHAINED_HALO = "chained_owned", "chained_halo"
+
+
 def _chained_tables_overlap(
     points, layout, *, eps, min_samples, metric, precision, backend,
     pair_budget, device, stage, passes, jobstate=None, sketch=None,
+    base_key=None,
 ):
     """The per-partition loop: each partition's slab built on the host
     (:func:`_partition_slab` into a :class:`_SlabRing` buffer), shipped
@@ -769,6 +834,17 @@ def _chained_tables_overlap(
     dispatch as in the JAX package.  Each partition's slab is freed once
     its tables are out.
 
+    With ``base_key`` (:func:`_sharding_cache_key`) the partitions'
+    device slabs go through the staging cache, as in the JAX package:
+    their owned rows on ``chained_owned`` (keyed without eps) and halo
+    rows on ``chained_halo`` (keyed with it).  A warm refit builds and
+    ships nothing and clusters each partition's cached owned and halo
+    rows joined on the device; after an eps change the host builds and
+    ships the halos alone.  A cold fit caches clones of its slabs'
+    owned and halo rows (a partition slab outlives nothing else).  The
+    host merge's gid tables of a cached part are one fetch from the
+    device.
+
     Fault tolerance (the JAX route's): each dispatch runs under a
     :class:`~pypardis_tpu_torch.utils.retry.Retrier` with the
     ``chained.partition`` fault site inside it; a retry re-dispatches
@@ -776,10 +852,11 @@ def _chained_tables_overlap(
     With ``jobstate`` the partitions snapshotted under this pair budget
     (tag ``pair_budget or 0``) are restored, not built nor dispatched
     (``jobstate_restore`` event, ``route="chained"``), and each
-    dispatched partition's tables are noted at the cadence.  On an error
-    that leaves the loop, the builder thread is joined and the ring's
-    buffers dropped before the error propagates, so no thread of a
-    failed attempt outlives it.
+    dispatched partition's tables are noted at the cadence; a fit that
+    restored partitions caches nothing.  On an error that leaves the
+    loop, the builder thread is joined and the ring's buffers dropped
+    before the error propagates, so no thread of a failed attempt
+    outlives it, and nothing is cached.
 
     Returns ``(glabs, cores, pstats, gid_o_host, gid_h_host, gid_dev,
     overlap_efficiency)``: per-partition labels, cores and pair stats,
@@ -801,23 +878,51 @@ def _chained_tables_overlap(
         obs_event("jobstate_restore", route="chained",
                   partitions=len(restored))
     live = [p for p in range(p_total) if p not in restored]
-    ring = _SlabRing(k, cap + hcap, device) if live else None
+    own_c = halo_c = None
+    if base_key is not None:
+        hit = staging.device_get(CHAINED_OWNED, base_key)
+        if hit is not None:
+            own_c = [hit[0][3 * p:3 * p + 3] for p in range(p_total)]
+        hit = staging.device_get(CHAINED_HALO, base_key + (float(eps),))
+        if hit is not None:
+            halo_c = [hit[0][3 * p:3 * p + 3] for p in range(p_total)]
+    # What the host builds per partition: the whole slab (cold), its
+    # owned or halo rows alone (the other part cached), or nothing.
+    built = ("slab" if own_c is None and halo_c is None
+             else "owned" if own_c is None
+             else "halo" if halo_c is None else None)
+    rows = {"slab": cap + hcap, "owned": cap, "halo": hcap}.get(built)
+    ring = _SlabRing(k, rows, device) if live and built else None
+    caching = base_key is not None and not restored
     gid_o_host = np.full((p_total, cap), n, np.int32)
     gid_h_host = np.full((p_total, hcap), n, np.int32)
     build_s = [0.0]
+    # The builder thread's retries and faults count on the fit's recorder.
+    recorder = obs_current()
 
     def build(p, i):
+        if ring is None:
+            return None
         t = time.perf_counter()
         pts, msk, gid = ring.acquire(i)
-        _partition_slab(pts, msk, gid, points, layout, p)
-        gid_o_host[p] = gid[:cap]
-        gid_h_host[p] = gid[cap:]
-        out = ring.ship(i)
+        if built == "slab":
+            _partition_slab(pts, msk, gid, points, layout, p)
+            gid_o_host[p] = gid[:cap]
+            gid_h_host[p] = gid[cap:]
+        else:
+            owned = built == "owned"
+            _fill_rows(pts, msk, gid, points,
+                       layout["part_idx" if owned else "halo_idx"][p],
+                       layout["center"])
+            (gid_o_host if owned else gid_h_host)[p] = gid
+        with use_recorder(recorder):
+            out = staging.transfer(lambda: ring.ship(i))
         build_s[0] += time.perf_counter() - t
         return out
 
     spans = _Spans(device)
     glabs, cores, pstats, gid_dev = [], [], [], []
+    new_own, new_halo = [], []
     pool = concurrent.futures.ThreadPoolExecutor(
         max_workers=1, thread_name_prefix="pptorch-slab-builder")
     try:
@@ -837,14 +942,30 @@ def _chained_tables_overlap(
                 gid_dev.append(gid)
                 obs_heartbeat("chained.partitions", p + 1, p_total, t_loop)
                 continue
-            slab, ev = nxt.result()
+            shipped = nxt.result()
             i += 1
             if i < len(live):
                 # THE overlap: the next partition's build and copy run
                 # while the card clusters this one.
                 nxt = pool.submit(build, live[i], i)
-            ring.wait(slab, ev)
-            pts, msk, gid = slab
+            if shipped is not None:
+                ring.wait(*shipped)
+            if built == "slab":
+                pts, msk, gid = shipped[0]
+                if caching:
+                    new_own.append(tuple(
+                        t[..., :cap].clone() for t in shipped[0]))
+                    new_halo.append(tuple(
+                        t[..., cap:].clone() for t in shipped[0]))
+            else:
+                own = own_c[p] if own_c is not None else shipped[0]
+                halo = halo_c[p] if halo_c is not None else shipped[0]
+                if built and caching:
+                    (new_own if built == "owned" else new_halo).append(
+                        shipped[0])
+                pts, msk, gid = (torch.cat([o, h], dim=-1)
+                                 for o, h in zip(own, halo))
+            del shipped
 
             def one_partition():
                 faults.maybe_fail("chained.partition")
@@ -861,7 +982,7 @@ def _chained_tables_overlap(
             pstats.append(ps)
             passes.append(int(ps[2]))
             gid_dev.append(gid)
-            del slab, pts, msk
+            del pts, msk
             # Per-partition progress with a partitions-remaining ETA
             # (the flight file always, a log line under
             # PPTORCH_HEARTBEAT).
@@ -879,6 +1000,18 @@ def _chained_tables_overlap(
         pool.shutdown(wait=True, cancel_futures=True)
         if ring is not None:
             ring.close()
+    # The host merge's gid tables of the cached parts: one fetch each.
+    for cached, host in ((own_c, gid_o_host), (halo_c, gid_h_host)):
+        if cached is not None and live:
+            got = torch.stack([cached[p][2] for p in live]).cpu().numpy()
+            host[live] = got
+    if caching:
+        for route, key, fresh in (
+                (CHAINED_OWNED, base_key, new_own),
+                (CHAINED_HALO, base_key + (float(eps),), new_halo)):
+            if fresh:
+                staging.device_put_cached(
+                    route, key, tuple(t for tr in fresh for t in tr))
     busy = spans.seconds()
     stage["slab_build"] = stage.get("slab_build", 0.0) + build_s[0]
     stage["device"] = stage.get("device", 0.0) + busy
@@ -1095,6 +1228,7 @@ def sharded_dbscan(
               backend=backend, merge=merge, pair_budget=pair_budget,
               merge_rounds=merge_rounds, owner_computes=owner_computes,
               sketch=sketch)
+    staging.begin_fit()
     if halo == "ring":
         return _ring_run(points, partitioner, eps, min_samples, hcap=hcap,
                          stream=stream, **kw)
@@ -1121,6 +1255,7 @@ def _chained_run(points, partitioner, eps, min_samples, *, metric, block,
         layout, stats = _chained_layout(points, partitioner, eps, block,
                                         precision)
     block = layout["block"]
+    base_key = _sharding_cache_key(points, partitioner, 1, block, [dev])
     stage = {"halo_sets": layout["halo_sets_s"]}
     passes = []
     eff_cell = [0.0]
@@ -1131,7 +1266,7 @@ def _chained_run(points, partitioner, eps, min_samples, *, metric, block,
                 points, layout, eps=eps, min_samples=min_samples,
                 metric=metric, precision=precision, backend=backend,
                 pair_budget=pb, device=dev, stage=stage, passes=passes,
-                jobstate=jobstate, sketch=sketch,
+                jobstate=jobstate, sketch=sketch, base_key=base_key,
             ))
         eff_cell[0] = eff
         tables = _stack_tables(glabs, cores, pstats, layout["cap"])
@@ -1238,25 +1373,86 @@ def _check_mesh_tile(block, cap, hcap, k, mode, oc_on):
         )
 
 
-def _ship_shards(arrays, mesh):
+def _joined_slabs(owned, halos):
     """Each shard's partitions as ``(k, cap + hcap)`` slabs, masks and
-    gids on the shard's device: partition ``j`` lives on shard ``j //
-    L`` (``L`` = partitions per shard), as the JAX layout shards its
-    leading axis.  Returns a list (one per shard) of ``(pts, msk, gid)``
-    lists."""
-    owned, om, og, halo, hm, hg = arrays
-    per = owned.shape[0] // mesh.size
-    shards = []
-    for s in range(mesh.size):
-        dev = mesh.device(s)
-        slabs = []
-        for j in range(s * per, (s + 1) * per):
-            slabs.append(tuple(
-                torch.from_numpy(np.concatenate(pair, axis=-1)).to(dev)
-                for pair in ((owned[j], halo[j]), (om[j], hm[j]),
-                             (og[j], hg[j]))))
-        shards.append(slabs)
+    gids on the shard's device, joined there from its ``(L, k, cap)``
+    owned and ``(L, k, hcap)`` halo triples (:func:`_mesh_build_cached`):
+    partition ``j`` lives on shard ``j // L``, as the JAX layout shards
+    its leading axis.  Returns a list (one per shard) of ``(pts, msk,
+    gid)`` lists."""
+    return [[tuple(torch.cat([o[j], h[j]], dim=-1) for o, h in zip(ow, ha))
+             for j in range(ow[0].shape[0])]
+            for ow, ha in zip(owned, halos)]
+
+
+HOST_OWNED, HOST_HALO, RING_OWNED = "host_owned", "host_halo", "ring_owned"
+
+
+def _per_shard(flat):
+    """A cached flat tuple of per-shard triples, as triples."""
+    return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+
+
+def _ship_cached(route, key, arrays, mesh, aux):
+    """Ship ``(P, ...)`` host arrays as per-shard triples
+    (:func:`_ship_owned`) under the staging cache's transfer (its
+    ``staging.device_put`` site and OOM rung), cached on ``route``."""
+    shards = staging.transfer(lambda: _ship_owned(arrays, mesh))
+    staging.device_put_cached(route, key,
+                              tuple(t for tr in shards for t in tr), aux=aux)
     return shards
+
+
+def _mesh_build_cached(points, partitioner, eps, mesh, block, stage):
+    """The fused step's layout through the staging cache (the JAX
+    ``_host_build_cached``): the owned slabs on ``host_owned`` (keyed
+    without eps) and the halo slabs on ``host_halo`` (keyed with it),
+    each a per-shard triple on its device.  A hit builds and ships
+    nothing; after an eps change only the halo sets and slabs are built.
+    Returns ``(owned, halos, stats, bufs)``: ``bufs`` the pool buffers
+    the build borrowed (:func:`~.staging.give_back_after_put` them once
+    the fit's results are on the host).  ``stage`` gains the seconds of
+    the halo sets (``halo_sets``), the host build (``slab_build``) and
+    the copies (``ship``), 0 for a part that hit."""
+    devices = [mesh.device(s) for s in range(mesh.size)]
+    base = _sharding_cache_key(points, partitioner, mesh.size, block,
+                               devices)
+    cached_o = staging.device_get(HOST_OWNED, base)
+    cached_h = staging.device_get(HOST_HALO, base + (float(eps),))
+    bufs = []
+    for key in ("halo_sets", "slab_build", "ship"):
+        stage.setdefault(key, 0.0)
+    if cached_o is None or cached_h is None:
+        center, _lo, _hi, labels = _expanded_frame_meta(points, partitioner,
+                                                        eps)
+    if cached_o is None:
+        t = time.perf_counter()
+        owned_idx, arrays, cap, p_total = _owned_layout(
+            points, center, partitioner, labels, mesh.size, block,
+            alloc=_staged_alloc(bufs))
+        o_stats = _owned_stats(owned_idx, cap, p_total, len(points))
+        t1 = time.perf_counter()
+        owned = _ship_cached(HOST_OWNED, base, arrays, mesh, o_stats)
+        stage["slab_build"] += t1 - t
+        stage["ship"] += time.perf_counter() - t1
+    else:
+        owned, o_stats = _per_shard(cached_o[0]), cached_o[1]
+    if cached_h is None:
+        t = time.perf_counter()
+        halo_idx = _halo_sets(points, partitioner, eps, labels)
+        t1 = time.perf_counter()
+        arrays, h_stats = _halo_slabs(
+            points, halo_idx, center, int(o_stats["n_shard_partitions"]),
+            block, alloc=_staged_alloc(bufs))
+        t2 = time.perf_counter()
+        halos = _ship_cached(HOST_HALO, base + (float(eps),), arrays, mesh,
+                             h_stats)
+        stage["halo_sets"] += t1 - t
+        stage["slab_build"] += t2 - t1
+        stage["ship"] += time.perf_counter() - t2
+    else:
+        halos, h_stats = _per_shard(cached_h[0]), cached_h[1]
+    return owned, halos, {**o_stats, **h_stats}, bufs
 
 
 def _legacy_shard(slabs, *, cluster_kw, spans, passes):
@@ -1541,19 +1737,19 @@ def _mesh_run(points, partitioner, eps, min_samples, *, metric, block,
                                    partitioner.partitions.values()))
     stage = {}
     with obs_span("sharded.build_shards", halo="host"):
-        arrays, stats = build_shards(points, partitioner, eps, mesh.size,
-                                     block, stage=stage)
+        owned, halos, stats, bufs = _mesh_build_cached(
+            points, partitioner, eps, mesh, block, stage)
     p_total, cap, hcap = (int(stats["n_shard_partitions"]),
                           int(stats["owned_cap"]), int(stats["halo_cap"]))
     # The JAX _oc_applies: owner-computes runs on every mesh of more than
     # one device (only the 1-device chained route reports it off).
     oc_on = bool(owner_computes)
     _check_mesh_tile(block, cap, hcap, k, mode, oc_on)
-    t = time.perf_counter()
-    shards = _ship_shards(arrays, mesh)
-    stage["ship"] = time.perf_counter() - t
-    og, hg = arrays[2], arrays[5]
-    del arrays
+    shards = _joined_slabs(owned, halos)
+    dev0 = mesh.device(0)
+    og = gather([o[2] for o in owned], dev0).reshape(p_total, cap)
+    hg = gather([h[2] for h in halos], dev0).reshape(p_total, hcap)
+    del owned, halos
     passes, syncs = [], [0]
     with obs_span("sharded.execute", halo="host", merge=merge):
         out, pstats, tables = _mesh_ladders(
@@ -1569,6 +1765,7 @@ def _mesh_run(points, partitioner, eps, min_samples, *, metric, block,
             stage=stage, passes=passes, syncs=syncs)
     final, core, stats = _mesh_finish(out, tables, og, hg, n=n, cap=cap,
                                       stats=stats, stage=stage, syncs=syncs)
+    staging.give_back_after_put(bufs, dev0)
     _exec_stats(stats, pstats=pstats, block=block, k=k, precision=precision,
                 n=n, metric=metric, oc_on=oc_on, sketch=sketch)
     stats["stage_s"] = stage
@@ -1633,12 +1830,7 @@ def ring_exchange_step(shards, *, mesh, hcap, stage=None):
 def _ring_slabs(shards, halos):
     """Each shard's partitions as ``(k, cap + hcap)`` slabs of owned and
     ring-halo rows, with masks and gids, on the shard's device."""
-    out = []
-    for (o, m, g, _lo, _hi), (h, hm, hg, _over) in zip(shards, halos):
-        out.append([(torch.cat([o[j], h[j]], dim=1),
-                     torch.cat([m[j], hm[j]]), torch.cat([g[j], hg[j]]))
-                    for j in range(o.shape[0])])
-    return out
+    return _joined_slabs([sh[:3] for sh in shards], [h[:3] for h in halos])
 
 
 def _ring_ladder(shards, *, n, k, cap, p_total, mesh, oc_on, merge, hcap,
@@ -1737,9 +1929,9 @@ def _ring_run(points, partitioner, eps, min_samples, *, metric, block, mesh,
               precision, backend, merge, pair_budget, merge_rounds,
               owner_computes, sketch, hcap, stream):
     """The ring route from host input (``halo="ring"``): the owned
-    layout, in RAM (:func:`build_owned_shards`, then shipped) or
-    streamed (:func:`build_owned_shards_streaming`), then
-    :func:`_ring_execute`.  See :func:`sharded_dbscan`."""
+    layout, in RAM through the staging cache (:func:`_ring_build_cached`)
+    or streamed (:func:`build_owned_shards_streaming`, never cached),
+    then :func:`_ring_execute`.  See :func:`sharded_dbscan`."""
     n, k = points.shape
     block = clamp_block(block, max(len(p) for p in
                                    partitioner.partitions.values()))
@@ -1752,15 +1944,10 @@ def _ring_run(points, partitioner, eps, min_samples, *, metric, block, mesh,
                                              block, mesh))
             stage["slab_build"] = time.perf_counter() - t
         else:
-            arrays, exp_lo, exp_hi, _labels, stats = build_owned_shards(
-                points, partitioner, eps, mesh.size, block)
-            stage["slab_build"] = time.perf_counter() - t
-            t = time.perf_counter()
-            owned = _ship_owned(arrays, mesh)
-            del arrays
-            stage["ship"] = time.perf_counter() - t
+            owned, exp_lo, exp_hi, stats, bufs = _ring_build_cached(
+                points, partitioner, eps, mesh, block, stage)
         shards = _with_boxes(owned, exp_lo, exp_hi, mesh)
-    return _ring_execute(
+    out = _ring_execute(
         shards, stats, n=n, k=k, mesh=mesh, owner_computes=owner_computes,
         merge=merge, hcap=hcap,
         cluster_kw=dict(eps=eps, min_samples=min_samples, metric=metric,
@@ -1768,6 +1955,43 @@ def _ring_run(points, partitioner, eps, min_samples, *, metric, block, mesh,
                         sketch=sketch),
         pair_budget=pair_budget, merge_rounds=merge_rounds, stage=stage,
         span_kw={})
+    if not stream:
+        staging.give_back_after_put(bufs, mesh.device(0))
+    return out
+
+
+def _ring_build_cached(points, partitioner, eps, mesh, block, stage):
+    """The ring route's owned slabs through the staging cache's
+    ``ring_owned`` route (the JAX ``_ring_build_cached``; keyed without
+    eps); the widened boxes are eps's and rebuilt every fit.  Returns
+    ``(owned, exp_lo, exp_hi, stats, bufs)`` as :func:`build_owned_shards`
+    and :func:`_ship_owned` give them, ``bufs`` the borrowed pool
+    buffers.  ``stage`` gains ``slab_build`` and ``ship`` (0 on a
+    hit)."""
+    devices = [mesh.device(s) for s in range(mesh.size)]
+    base = _sharding_cache_key(points, partitioner, mesh.size, block,
+                               devices)
+    t = time.perf_counter()
+    center, exp_lo, exp_hi, labels = _expanded_frame_meta(points, partitioner,
+                                                          eps)
+    cached = staging.device_get(RING_OWNED, base)
+    bufs = []
+    stage["ship"] = 0.0
+    if cached is None:
+        owned_idx, arrays, cap, p_total = _owned_layout(
+            points, center, partitioner, labels, mesh.size, block,
+            alloc=_staged_alloc(bufs))
+        stats = _owned_stats(owned_idx, cap, p_total, len(points))
+        t1 = time.perf_counter()
+        owned = _ship_cached(RING_OWNED, base, arrays, mesh, stats)
+        stage["ship"] = time.perf_counter() - t1
+        stage["slab_build"] = t1 - t
+    else:
+        owned, stats = _per_shard(cached[0]), cached[1]
+        stage["slab_build"] = time.perf_counter() - t
+    exp_lo, exp_hi = _pad_inverted_boxes(exp_lo, exp_hi,
+                                         int(stats["n_shard_partitions"]))
+    return owned, exp_lo, exp_hi, dict(stats), bufs
 
 
 def sharded_dbscan_device(
@@ -1841,6 +2065,9 @@ def sharded_dbscan_device(
     if points.device.type != mesh.device_type:
         points = points.to(mesh.device(0))
     n, k = points.shape
+    # The route caches nothing (a tensor is never fingerprinted), as in
+    # the JAX package: its counters read this fit's zeros.
+    staging.begin_fit()
     stage = {}
     t = time.perf_counter()
     rng = np.random.default_rng(seed)

@@ -40,6 +40,7 @@ from ..obs import RunRecorder
 from ..obs.registry import sanitize_segment
 from ..ops.precision import norm_precision_mode
 from ..ops.query import INT_INF, unpack_query_result
+from ..parallel import staging
 from .index import CorePointIndex, build_index
 
 
@@ -97,13 +98,17 @@ class QueryTicket:
 
 
 class _Inflight:
-    __slots__ = ("packed", "ready", "rowmap", "tickets", "n_rows", "fill")
+    __slots__ = ("packed", "ready", "rowmap", "tickets", "n_rows", "fill",
+                 "qbuf")
 
-    def __init__(self, packed, rowmap, tickets, n_rows, fill, ready=None):
+    def __init__(self, packed, rowmap, tickets, n_rows, fill, ready=None,
+                 qbuf=None):
         # ``packed`` is on the host; on a card index it is a pinned buffer
-        # whose copy completes at the CUDA event ``ready``.
+        # whose copy completes at the CUDA event ``ready``.  ``qbuf`` is
+        # the batch's pooled query buffer, given back once it is folded.
         self.packed = packed
         self.ready = ready
+        self.qbuf = qbuf
         self.rowmap = rowmap
         self.tickets = tickets
         self.n_rows = n_rows
@@ -308,7 +313,7 @@ class QueryEngine:
         fill = sum(len(a) for a in rowmap) / max(
             qbuf.shape[0] * qbuf.shape[2], 1
         )
-        return _Inflight(packed, rowmap, tickets, n_rows, fill, ready)
+        return _Inflight(packed, rowmap, tickets, n_rows, fill, ready, qbuf)
 
     def _finalize(self, fl: _Inflight) -> int:
         # The batch's own copy is its sync point (a batch with no
@@ -320,6 +325,10 @@ class QueryEngine:
         labs, d2 = (None, None) if fl.packed is None else (
             unpack_query_result(fl.packed)
         )
+        if fl.qbuf is not None:
+            # The batch's result is on the host: nothing reads its query
+            # buffer any more, which rejoins the staging pool.
+            staging.give_back([fl.qbuf])
         best_d2, best_lab = fold_leaves(fl.n_rows, fl.rowmap, labs, d2)
         within = best_d2 <= np.float32(self.index.eps2)
         labels = np.where(within, best_lab, -1).astype(np.int32)
@@ -392,7 +401,13 @@ class QueryEngine:
             "n_core": int(self.index.n_core),
             "n_leaves": int(st.get("n_leaves", 0)),
             "index_bytes": int(st.get("index_bytes", 0)),
-            "index_device_bytes": int(self.index.index_device_bytes),
+            # The index's slabs as its staging route holds them, and
+            # B5's tables; the live deltas shipped on its delta route.
+            "index_device_bytes": int(
+                staging.route_nbytes(self.index.staging_route)
+                + staging.tensors_nbytes(self.index._tables or ())),
+            "index_delta_bytes": int(
+                staging.route_delta_nbytes(self.index.delta_route)),
             "backend": self.backend,
             "precision": self.precision,
             "shed_total": int(self._shed),

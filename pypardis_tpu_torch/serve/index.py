@@ -89,9 +89,15 @@ class CorePointIndex:
         from ..dbscan import resolve_device
 
         # The model handle: names the fitted model this index serves in
-        # a multi-model plane (:class:`~.gateway.ModelGateway`).  The port
-        # has no staging cache, so it routes nothing.
+        # a multi-model plane (:class:`~.gateway.ModelGateway`), and its
+        # staging route: ``serve_index`` without a handle, its own route
+        # with one, so the resident indexes of many models never evict
+        # each other through the cache's one entry a route.
         self.handle = None if handle is None else str(handle)
+        self.staging_route = (
+            "serve_index" if self.handle is None
+            else f"serve_index.{self.handle}"
+        )
         self.eps = float(eps)
         self.eps2 = eps2_f32(eps)
         self.center = np.asarray(center, np.float64)
@@ -249,7 +255,15 @@ class CorePointIndex:
                 coords.nbytes + slab_labels.nbytes + blo.nbytes + bhi.nbytes
             ),
         }
+        from ..parallel import staging
+
+        # The upload through the index's staging route: a rebuilt index
+        # over the same cores (a second engine, a reload) ships nothing.
+        staging.begin_fit()
         idx.device_tensors()
+        reused, shipped = staging.fit_stats()
+        idx.stats["staged_bytes_reused"] = int(reused)
+        idx.stats["staged_bytes"] = int(shipped)
         idx.stats["build_s"] = round(time.perf_counter() - t0, 6)
         return idx
 
@@ -292,12 +306,34 @@ class CorePointIndex:
 
     # -- device residency -------------------------------------------------
 
+    @property
+    def delta_route(self) -> str:
+        """The staging route counting this index's live deltas (per
+        handle, as :attr:`staging_route`)."""
+        return self.staging_route + "_delta"
+
+    def _content_key(self):
+        """The staging key of these slabs: the host mirrors' content
+        (coords and labels, which determine the bounds), the block and
+        the device."""
+        from ..parallel import staging
+
+        return (
+            staging.points_fingerprint(self.coords),
+            staging.points_fingerprint(self.labels),
+            self.block,
+            str(self.device),
+        )
+
     def device_tensors(self):
         """``(coords, labels, blo, bhi)`` on the index's device, uploaded
-        on first use and kept for the index's life.  On the card the
-        upload also builds B5's per-index tables (:meth:`kernel_tables`)
-        on the current stream, so every later batch's B5 finds them.  A
-        released index (:meth:`release`) raises."""
+        on first use through the index's staging route
+        (:attr:`staging_route`, content-keyed: an index over the same
+        slabs reuses the tensors another one uploaded) and kept for the
+        index's life.  On the card the upload also builds B5's per-index
+        tables (:meth:`kernel_tables`) on the current stream, so every
+        later batch's B5 finds them.  A released index (:meth:`release`)
+        raises."""
         if self._released:
             raise RuntimeError(
                 "this index was released (its device tensors were freed, "
@@ -305,13 +341,21 @@ class CorePointIndex:
                 "serve it again"
             )
         if self._dev is None:
-            # A copy on the CPU too: the live path edits the host mirrors
-            # first and ships the delta at its commit.
-            self._dev = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(
-                    self.device, copy=True)
-                for a in (self.coords, self.labels, self.blo, self.bhi)
-            )
+            from ..parallel import staging
+
+            key = self._content_key()
+            cached = staging.device_get(self.staging_route, key)
+            if cached is not None:
+                self._dev = tuple(cached[0])
+            else:
+                # A copy on the CPU too: the live path edits the host
+                # mirrors first and ships the delta at its commit.
+                self._dev = staging.device_put_cached(
+                    self.staging_route, key, staging.transfer(lambda: tuple(
+                        torch.from_numpy(np.ascontiguousarray(a)).to(
+                            self.device, copy=True)
+                        for a in (self.coords, self.labels, self.blo,
+                                  self.bhi))))
             if self.device.type == "cuda":
                 self._rebuild_tables()
         return self._dev
@@ -353,7 +397,12 @@ class CorePointIndex:
                 "cannot release an index with a delta update open; "
                 "commit_update() first"
             )
+        from ..parallel import staging
+
         freed = self.index_device_bytes
+        if self._dev is not None and staging.device_holds(
+                self.staging_route, self._dev):
+            staging.device_evict(self.staging_route)
         self._dev = None
         self._tables = None
         self._ready = None
@@ -362,12 +411,13 @@ class CorePointIndex:
 
     @property
     def index_device_bytes(self) -> int:
-        """Bytes the index holds on its device (0 before the upload),
-        B5's tables included."""
+        """Bytes the index holds on its device (0 before the upload): its
+        slabs, as its staging route counts them, and B5's tables."""
+        from ..parallel import staging
+
         if self._dev is None:
             return 0
-        return int(sum(t.numel() * t.element_size()
-                       for t in self._dev + tuple(self._tables or ())))
+        return staging.tensors_nbytes(self._dev + tuple(self._tables or ()))
 
     # -- live updates -----------------------------------------------------
 
@@ -564,11 +614,18 @@ class CorePointIndex:
 
     def commit_update(self) -> int:
         """Close the mutation batch: recompute the touched block bounds,
-        ship one device delta (the scattered columns by ``index_copy_``,
+        ship one device delta (the scattered columns by ``index_copy``,
         appended slabs by ``torch.cat``, the relabel LUT as a gather on
-        the device, the touched bound rows in place; never the whole
-        index), rebuild B5's tables over the new slab on the same stream,
-        and bump the epoch.  Returns the delta bytes shipped."""
+        the device, the touched bound rows by ``index_copy``; never the
+        whole index), rebuild B5's tables over the new slab on the same
+        stream, and bump the epoch.  Returns the delta bytes shipped.
+
+        The new generation is new tensors (a copy on the device, never a
+        write into the old ones, which another index over the same slabs
+        may share through the staging cache); it replaces the route's
+        entry (:func:`~..parallel.staging.device_replace`) under a key of
+        its own epoch, so a commit pays no fingerprint, and its bytes
+        count on :attr:`delta_route`."""
         p = self._pending
         if p is None:
             raise RuntimeError("no index update open; call begin_update()")
@@ -580,6 +637,8 @@ class CorePointIndex:
         self._recompute_bounds(touched_blocks)
         delta = 0
         if self._dev is not None:
+            from ..parallel import staging
+
             coords_d, labels_d, blo_d, bhi_d = self._dev
             dev = coords_d.device
 
@@ -598,25 +657,30 @@ class CorePointIndex:
             scat = cols[cols < old_w]
             if len(scat):
                 ji = put(scat)
-                coords_d.index_copy_(1, ji, put(self.coords[:, scat]))
-                labels_d.index_copy_(0, ji, put(self.labels[scat]))
+                coords_d = coords_d.index_copy(1, ji,
+                                               put(self.coords[:, scat]))
+                labels_d = labels_d.index_copy(0, ji, put(self.labels[scat]))
                 delta += self.coords[:, scat].nbytes + self.labels[scat].nbytes
             if lut is not None:
                 lut_d = put(lut)
-                labels_d.copy_(torch.where(
+                labels_d = torch.where(
                     labels_d == INT_INF, labels_d,
                     lut_d[labels_d.clamp(0, len(lut) - 1).long()],
-                ))
+                )
                 delta += lut.nbytes
             brows = np.asarray(
                 sorted(b for b in touched_blocks if b < old_rows), np.int64
             )
             if len(brows):
                 jb = put(brows)
-                blo_d[jb] = put(self.blo[brows])
-                bhi_d[jb] = put(self.bhi[brows])
+                blo_d = blo_d.index_copy(0, jb, put(self.blo[brows]))
+                bhi_d = bhi_d.index_copy(0, jb, put(self.bhi[brows]))
                 delta += 2 * self.blo[brows].nbytes
             self._dev = (coords_d, labels_d, blo_d, bhi_d)
+            staging.device_replace(
+                self.staging_route, ("delta", self.epoch + 1),
+                self._dev, staged_nbytes=delta, delta_route=self.delta_route,
+            )
             if dev.type == "cuda":
                 self._rebuild_tables()
         self.epoch += 1
@@ -637,12 +701,19 @@ class CorePointIndex:
         (``build(center=self.center)``) so queries centred before the
         swap stay valid; the caller drains in-flight tickets first.  The
         current stream waits for ``fresh``'s upload, which may have run
-        on another thread's stream."""
+        on another thread's stream.  The old generation's staging entry
+        is evicted (unless ``fresh``'s upload, on the same route, has
+        replaced it already), so its device memory goes."""
         if self._pending is not None:
             raise RuntimeError(
                 "cannot swap index generations with a delta update open; "
                 "commit_update() first"
             )
+        from ..parallel import staging
+
+        if self._dev is not None and staging.device_holds(
+                self.staging_route, self._dev):
+            staging.device_evict(self.staging_route)
         for attr in ("center", "tree", "coords", "labels", "blo", "bhi",
                      "block", "qblock", "n_core", "leaf_slabs", "gids",
                      "unit_norm", "projection", "_dev", "_tables"):
@@ -704,18 +775,23 @@ class CorePointIndex:
     def assemble(self, qf32: np.ndarray):
         """Pack routed queries into padded tiles.
 
-        Returns ``(qbuf, tile_leaf, rowmap)``: ``qbuf`` a fresh ``(nqt,
-        d, qb)`` float32 array (pad rows at PAD_COORD), ``tile_leaf`` the
-        leaf of each tile and ``rowmap[t]`` the query indices tile ``t``
-        answers for.  The tile count rounds up to a power of two, as the
-        JAX package's does."""
+        Returns ``(qbuf, tile_leaf, rowmap)``: ``qbuf`` an ``(nqt, d,
+        qb)`` float32 buffer borrowed from the staging host pool (pad rows
+        at PAD_COORD; give it back with ``staging.give_back`` once the
+        batch's result is on the host, as the engine does), ``tile_leaf``
+        the leaf of each tile and ``rowmap[t]`` the query indices tile
+        ``t`` answers for.  The tile count rounds up to a power of two,
+        as the JAX package's does."""
+        from ..parallel import staging
+
         qb = self.qblock
         tiles = []
         for leaf, arr in self.route(qf32):
             for s in range(0, len(arr), qb):
                 tiles.append((leaf, arr[s:s + qb]))
         nqt = 1 << (max(len(tiles), 1) - 1).bit_length()
-        qbuf = np.full((nqt, self.d, qb), PAD_COORD, np.float32)
+        qbuf = staging.borrow((nqt, self.d, qb), np.float32)
+        qbuf.fill(PAD_COORD)
         tile_leaf = np.zeros(nqt, np.int32)
         rowmap = []
         for t, (leaf, arr) in enumerate(tiles):

@@ -58,6 +58,7 @@ from ..ops.incremental import (
     count_within_eps,
     label_lut,
 )
+from ..parallel import staging
 from ..parallel.merge import resolve_label_edges
 from ..partition import KDPartitioner, expanded_members, route_tree
 from ..utils.validate import check_query_points
@@ -690,6 +691,10 @@ class LiveModel:
             "n_leaves": int(self.n_leaves),
             "index_epoch": int(self.index.epoch),
             "index_delta_bytes": int(self.index.delta_bytes),
+            # The same deltas as the index's staging delta route counts
+            # them (every index of this handle since the cache's clear).
+            "index_delta_route_bytes": int(
+                staging.route_delta_nbytes(self.index.delta_route)),
             "insert_p50_ms": _pct(self._ins_ms, 50),
             "insert_p99_ms": _pct(self._ins_ms, 99),
             "delete_p50_ms": _pct(self._del_ms, 50),

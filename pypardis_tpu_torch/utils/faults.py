@@ -51,12 +51,14 @@ Injection sites, each inside the retry scope that owns recovery:
 ``compact.phase``      each compaction phase boundary (snapshot / refit
                        / build / swap: occurrences 1..4 per cycle)
 ``gateway.admit``      every gateway admission, upstream of the quota
+``staging.device_put`` every host-to-device copy of the staging cache's
+                       routes (:func:`~..parallel.staging.transfer`): an
+                       ``oom`` there evicts the cache and retries
 ===================== ====================================================
 
-The JAX package's other sites (``staging.device_put``, the mesh
-engine's ``gm.exchange``, ``gm.ring_round`` and ``gm.fixpoint_round``,
-and ``dist.worker``) come with the layers that carry them (ROADMAP
-A10-A12 and the staging cache).
+The JAX package's other sites (the mesh engine's ``gm.exchange``,
+``gm.ring_round`` and ``gm.fixpoint_round``, and ``dist.worker``) come
+with the layers that carry them (ROADMAP A10-A12).
 
 ``PPTORCH_FAULTS`` is read at import and again at the start of every
 fit (:func:`from_env`), so one process can set it for a single fit.
@@ -85,6 +87,7 @@ KNOWN_SITES = (
     "ingest.batch",
     "compact.phase",
     "gateway.admit",
+    "staging.device_put",
 )
 
 _ENTRY_RE = re.compile(

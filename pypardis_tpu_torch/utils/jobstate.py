@@ -41,32 +41,11 @@ from __future__ import annotations
 import json
 import os
 import time
-import zlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 SCHEMA = "pypardis_tpu/jobstate@1"
-
-# Bytes per crc32 call of the fingerprint (the JAX staging layer's).
-_CRC_CHUNK = 1 << 24
-
-
-def points_fingerprint(points) -> Tuple:
-    """Content fingerprint of the input (the JAX package's
-    ``parallel/staging.points_fingerprint``): shape, dtype and a chunked
-    crc32 of every byte.  A tensor is copied to the host once."""
-    if hasattr(points, "detach"):
-        points = points.detach().cpu().numpy()
-    points = np.asarray(points)
-    flat = points.reshape(-1)
-    crc = 0
-    step = max(1, _CRC_CHUNK // max(points.itemsize, 1))
-    for s in range(0, flat.shape[0], step):
-        crc = zlib.crc32(
-            np.ascontiguousarray(flat[s:s + step]).view(np.uint8), crc
-        )
-    return (points.shape, str(points.dtype), crc)
 
 
 def _norm_npz(path: str) -> str:
@@ -75,7 +54,11 @@ def _norm_npz(path: str) -> str:
 
 def fit_meta(points, *, eps, min_samples, metric, block, mode) -> Dict:
     """The fit fingerprint a snapshot is bound to (the JAX package's
-    dict for the same points and parameters)."""
+    dict for the same points and parameters), over the staging cache's
+    :func:`~..parallel.staging.points_fingerprint` (imported here: the
+    parallel package imports this one)."""
+    from ..parallel.staging import points_fingerprint
+
     fp = list(points_fingerprint(points))
     fp[0] = list(fp[0])  # shape tuple -> list (json round-trip)
     return {

@@ -33,6 +33,9 @@ What the port retries, and what it never retries:
   allocator refused an allocation and the context lives.  The spill
   rung calls ``torch.cuda.empty_cache()`` before the host finishes the
   merge.
+* :func:`is_recoverable_oom`: ``torch.OutOfMemoryError`` and the
+  injected ``oom`` signature, never another error that names CUDA: the
+  staging transfer retries these after evicting its cache.
 * :func:`is_degradable_error`: OOM-class only.  A persistent transient
   means the runtime is down and a ``ValueError`` means the inputs are
   wrong; a cheaper mode cures neither.
@@ -79,6 +82,17 @@ def is_oom_error(e: BaseException) -> bool:
     msg = f"{type(e).__name__}: {e}".lower()
     return "resource_exhausted" in msg or "out of memory" in msg \
         or "oom" in msg.split(":")[0]
+
+
+def is_recoverable_oom(e: BaseException) -> bool:
+    """An OOM the caching allocator can recover from once memory is
+    freed: ``torch.OutOfMemoryError`` and the injected ``oom`` signature;
+    an error naming CUDA otherwise (a kernel's ``cudaErrorMemoryAllocation``
+    among them) is not."""
+    if isinstance(e, torch.OutOfMemoryError):
+        return True
+    low = f"{type(e).__name__}: {e}".lower()
+    return is_oom_error(e) and not any(mark in low for mark in _CUDA_MARKS)
 
 
 def is_degradable_error(e: BaseException) -> bool:
@@ -173,12 +187,14 @@ class Retrier:
         fn: Callable,
         *,
         retryable: Optional[Callable[[BaseException], bool]] = None,
+        on_retry: Optional[Callable[[BaseException], None]] = None,
     ):
         """Call ``fn()`` with up to ``len(waits)`` retries.
         ``retryable`` (default :func:`is_transient_error`) classifies the
-        exceptions worth a retry; any other re-raises at once.  (The JAX
-        ``on_retry`` hook, the staging cache's eviction, comes with that
-        cache, ROADMAP A16 item 10.)"""
+        exceptions worth a retry; any other re-raises at once.
+        ``on_retry(error)`` runs before each retry: the recovery action
+        (the staging cache evicts its device tensors there, so a retried
+        OOM has the memory they held)."""
         if retryable is None:
             retryable = is_transient_error
         t0 = time.perf_counter()
@@ -194,6 +210,8 @@ class Retrier:
                 ):
                     break
                 note_retry(self.site, wait, last)
+                if on_retry is not None:
+                    on_retry(last)
                 if wait > 0:
                     time.sleep(wait)
             try:

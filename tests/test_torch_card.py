@@ -1644,10 +1644,10 @@ def test_fused_step_on_a_one_card_mesh_equals_cpu(monkeypatch, merge, oc):
         X, KDPartitioner(X, max_partitions=8), mesh=Mesh(["cpu"] * 4),
         device="cpu", **kw)
     seen = []
-    ship, cluster = sharded._ship_shards, sharded._mesh_cluster
+    join, cluster = sharded._joined_slabs, sharded._mesh_cluster
 
-    def spy_ship(*a, **k):
-        out = ship(*a, **k)
+    def spy_join(*a, **k):
+        out = join(*a, **k)
         seen.extend(t.device for shard in out for slab in shard
                     for t in slab)
         return out
@@ -1661,7 +1661,7 @@ def test_fused_step_on_a_one_card_mesh_equals_cpu(monkeypatch, merge, oc):
             seen.append(core_g.device)
         return out
 
-    monkeypatch.setattr(sharded, "_ship_shards", spy_ship)
+    monkeypatch.setattr(sharded, "_joined_slabs", spy_join)
     monkeypatch.setattr(sharded, "_mesh_cluster", spy_cluster)
     ck.reset_launch_counts()
     lab, core, st = sharded_dbscan(
@@ -1670,7 +1670,8 @@ def test_fused_step_on_a_one_card_mesh_equals_cpu(monkeypatch, merge, oc):
     np.testing.assert_array_equal(lab, c_lab)
     np.testing.assert_array_equal(core, c_core)
     for key, want in c_st.items():
-        if key not in ("stage_s",):
+        # (The staging counters say what each cache held before the fit.)
+        if key not in ("stage_s", "staged_bytes", "staged_bytes_reused"):
             assert st[key] == want, key
     # Eight partitions' slabs (points, mask, gids), their (label, core)
     # tables and, under the device merge with owner-computes, core_g.
@@ -1712,7 +1713,8 @@ def test_ring_on_a_one_card_mesh_equals_cpu(merge, oc):
     np.testing.assert_array_equal(lab, c_lab)
     np.testing.assert_array_equal(core, c_core)
     for key, want in c_st.items():
-        if key != "stage_s":
+        # (The staging counters say what each cache held before the fit.)
+        if key not in ("stage_s", "staged_bytes", "staged_bytes_reused"):
             assert st[key] == want, key
     assert ck.LAUNCHES["count_pairs"] == 8
     part = KDPartitioner(X, max_partitions=8)
@@ -1783,3 +1785,48 @@ def test_device_input_on_a_one_card_mesh_equals_cpu(where):
         back = DBSCAN(mesh=Mesh(["cpu"] * 4), device="cpu", **kw).fit(Xt)
         np.testing.assert_array_equal(back.labels_, want.labels_)
         assert back.metrics_["input"] == "device"
+
+
+@pytest.mark.cuda
+def test_staging_cache_warm_card_fits_and_a_cpu_fit_after_them():
+    """The staging cache on the card: a warm single-card fit and a warm
+    chained refit on ``Mesh(["cuda:0"] * 4)`` ship nothing and equal the
+    cold fits; a CPU fit of the same data after them misses (the keys
+    hold the device) and equals them; an injected ``staging.device_put``
+    OOM recovers on the card."""
+    from pypardis_tpu_torch import KDPartitioner
+    from pypardis_tpu_torch.parallel import Mesh, sharded_dbscan, staging
+    from pypardis_tpu_torch.utils import faults
+
+    _need_card()
+    X, _t, _c = make_separated_blob_data(20_000, 16, n_centers=8,
+                                         min_sep=12.0, spread=12.0, seed=13)
+    kw = dict(eps=2.0, min_samples=10, block=256)
+    staging.clear()
+    cold = DBSCAN(**kw).fit(X)
+    warm = DBSCAN(**kw).fit(X)
+    assert warm.metrics_["staged_bytes"] == 0
+    assert warm.metrics_["staged_bytes_reused"] == \
+        cold.metrics_["staged_bytes"] > 0
+    cpu = DBSCAN(device="cpu", **kw).fit(X)
+    assert cpu.metrics_["staged_bytes_reused"] == 0
+    for m in (warm, cpu):
+        np.testing.assert_array_equal(m.labels_, cold.labels_)
+        np.testing.assert_array_equal(m.core_sample_mask_,
+                                      cold.core_sample_mask_)
+    mesh = Mesh(["cuda:0"] * 4)
+    runs = [sharded_dbscan(X, KDPartitioner(X, max_partitions=8), mesh=mesh,
+                           **kw) for _ in range(2)]
+    assert runs[1][2]["staged_bytes"] == 0
+    assert runs[1][2]["staged_bytes_reused"] == runs[0][2]["staged_bytes"]
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    on_cpu = sharded_dbscan(X, KDPartitioner(X, max_partitions=8),
+                            mesh=Mesh(["cpu"] * 4), device="cpu", **kw)
+    assert on_cpu[2]["staged_bytes_reused"] == 0
+    np.testing.assert_array_equal(on_cpu[0], runs[0][0])
+    staging.clear()
+    with faults.plan("staging.device_put:1=oom"):
+        hurt = sharded_dbscan(X, KDPartitioner(X, max_partitions=8),
+                              mesh=mesh, **kw)
+    np.testing.assert_array_equal(hurt[0], runs[0][0])
+    staging.clear()

@@ -32,6 +32,7 @@ from pypardis_tpu.utils import retry as jax_retry
 from pypardis_tpu_torch import DBSCAN, obs
 from pypardis_tpu_torch.parallel import sharded
 from pypardis_tpu_torch.parallel import sharded_dbscan
+from pypardis_tpu_torch.parallel import staging as port_staging
 from pypardis_tpu_torch.partition import KDPartitioner
 from pypardis_tpu_torch.utils import faults, retry
 from pypardis_tpu_torch.utils.faults import FaultInjected
@@ -55,10 +56,12 @@ def _clean_slate():
     faults.clear()
     jax_faults.clear()
     staging.clear()
+    port_staging.clear()
     yield
     faults.clear()
     jax_faults.clear()
     staging.clear()
+    port_staging.clear()
 
 
 @pytest.fixture(scope="module")
@@ -410,6 +413,8 @@ def test_device_merge_oom_spills_to_host(blob_data, jax_runs,
                            merge="host", device="cpu", **KW)
     (jl, jc, js), _jrec = jax_runs["dispatch_oom"]
     assert js["merge"] == "host"
+    # A cold fit: the clean run left its slabs in the staging cache.
+    port_staging.clear()
     built = _count_builds(monkeypatch)
     rec = obs.RunRecorder()
     with obs.use_recorder(rec), faults.plan("sharded.execute:1=oom"):
@@ -522,6 +527,8 @@ def test_a_retried_partition_is_not_rebuilt(blob_data, monkeypatch):
     clean, _c, _s = sharded_dbscan(X, KDPartitioner(X, max_partitions=8),
                                    device="cpu", **KW)
     built.clear()
+    # A cold fit: the clean run left its slabs in the staging cache.
+    port_staging.clear()
     with faults.plan("chained.partition:2=transfer_error"):
         lab, _c, _s = sharded_dbscan(X, KDPartitioner(X, max_partitions=8),
                                      device="cpu", **KW)

@@ -31,6 +31,7 @@ from pypardis_tpu import obs as jobs
 from pypardis_tpu.parallel import default_mesh, staging
 from pypardis_tpu_torch import DBSCAN, KDPartitioner, obs
 from pypardis_tpu_torch.parallel import sharded_dbscan
+from pypardis_tpu_torch.parallel import staging as port_staging
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(eps=0.4, min_samples=5, block=64)
@@ -261,7 +262,8 @@ def test_chained_route_heartbeats_land_in_the_flight_file(
     hb = [r for r in recs if r["k"] == "hb"]
     assert [(r["stage"], r["done"], r["total"]) for r in hb] == [
         ("chained.partitions", p + 1, 4) for p in range(4)]
-    assert any(r["k"] == "note" and r["nbytes"] == 12 for r in recs)
+    # (The fit's own staging notes ride in the file beside it.)
+    assert any(r["k"] == "note" and r.get("nbytes") == 12 for r in recs)
     assert "heartbeat chained.partitions 4/4" in caplog.text
     rp = obs.replay(path)
     assert rp.heartbeats["chained.partitions"]["done"] == 4
@@ -281,6 +283,9 @@ def test_sampler_never_leaks_threads(blobs):
 @pytest.mark.parametrize("route", ["fit", "sweep", "eps_none", "chained"])
 def test_resources_finite_on_all_routes(blobs, route):
     X = blobs[:800]
+    # A cold cache: the staging watermark is then the pool as the fit
+    # leaves it (the cache only grows during a cold fit).
+    port_staging.clear()
     if route == "chained":
         rec = obs.RunRecorder()
         sampler = obs.ResourceSampler(rec).start()
@@ -304,7 +309,8 @@ def test_resources_finite_on_all_routes(blobs, route):
                 "staging_pool_bytes", "samples"):
         assert np.isfinite(float(res[key])), key
     assert res["peak_host_rss_bytes"] > 0 and res["samples"] >= 1
-    assert res["peak_device_bytes"] == 0 and res["staging_pool_bytes"] == 0
+    assert res["peak_device_bytes"] == 0
+    assert res["staging_pool_bytes"] == port_staging.pool_nbytes()
 
 
 def test_memory_pressure_and_its_event(monkeypatch):

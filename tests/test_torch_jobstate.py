@@ -30,6 +30,7 @@ from pypardis_tpu.serve import Compactor as JaxCompactor
 from pypardis_tpu.utils import jobstate as jax_jobstate
 from pypardis_tpu_torch import DBSCAN
 from pypardis_tpu_torch.parallel import sharded_dbscan
+from pypardis_tpu_torch.parallel import staging as port_staging
 from pypardis_tpu_torch.partition import KDPartitioner
 from pypardis_tpu_torch.serve import Compactor
 from pypardis_tpu_torch.utils import faults
@@ -56,9 +57,11 @@ def _few_threads():
 def _clean_slate():
     faults.clear()
     staging.clear()
+    port_staging.clear()
     yield
     faults.clear()
     staging.clear()
+    port_staging.clear()
 
 
 @pytest.fixture(scope="module")

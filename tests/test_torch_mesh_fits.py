@@ -26,6 +26,7 @@ from pypardis_tpu import obs as jax_obs
 from pypardis_tpu.parallel import default_mesh, staging
 from pypardis_tpu_torch import DBSCAN, obs
 from pypardis_tpu_torch.parallel import Mesh
+from pypardis_tpu_torch.parallel import staging as port_staging
 from pypardis_tpu_torch.utils import faults
 from test_torch_mesh_parity import _jax, _port, _same_result
 
@@ -67,9 +68,11 @@ def blobs():
 
 @pytest.fixture(scope="module")
 def fitted_model():
-    """``tests/test_obs.py``'s fixture on an 8-device mesh."""
+    """``tests/test_obs.py``'s fixture on an 8-device mesh, fitted cold
+    (the port's staging cache cleared first)."""
     X, _ = make_blobs(n_samples=2000, centers=8, n_features=4,
                       cluster_std=0.3, random_state=3)
+    port_staging.clear()
     return DBSCAN(mesh=_mesh(8), device="cpu", eps=0.4, min_samples=5,
                   block=64).fit(X)
 
@@ -161,7 +164,7 @@ def test_report_compute_and_perf_contract_sections(fitted_model):
     sh = r["sharding"]
     assert sh["owner_computes"] is True
     assert 1.0 <= sh["duplicated_work_factor"] < 1.0 + sh["pad_waste"] + 0.5
-    # The staging cache is not ported: nothing is reused.
+    # A cold fit reuses nothing from the staging cache.
     assert sh["staged_bytes_reused"] == 0
     assert "compute:" in fitted_model.summary()
 

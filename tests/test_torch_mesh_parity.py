@@ -43,9 +43,7 @@ SAME_STATS = (
     "live_pairs", "kernel_passes", "band_pairs", "rescored_tiles",
     "kernel_block", "kernel_tiles", "sketch_k",
 )
-# The JAX staging cache's counters (not ported) and the port's own
-# telemetry.
-JAX_ONLY = {"staged_bytes_reused", "staged_bytes"}
+# The port's own telemetry.
 PORT_ONLY = {"stage_s", "partition_passes", "merge_host_syncs"}
 
 
@@ -92,7 +90,7 @@ def _same_result(got, want, band_rtol=0.0):
     assert lab.dtype == j_lab.dtype and core.dtype == j_core.dtype
     np.testing.assert_array_equal(lab, j_lab)
     np.testing.assert_array_equal(core, j_core)
-    assert set(stats) - PORT_ONLY == set(j_stats) - JAX_ONLY
+    assert set(stats) - PORT_ONLY == set(j_stats)
     for key in SAME_STATS:
         assert (key in stats) == (key in j_stats), key
         if key not in j_stats:

@@ -10,9 +10,9 @@ data (the JAX one on the fused route, ``default_mesh(1)``,
 report's keys, params, run, sharding, compute counts, events, phase
 names and span tree, timings aside.  The JAX fit is warmed first and
 its staging cache cleared, so it has no first-compile event and runs
-its layout as the port does; the JAX staging economy's
-``staged_bytes``/``staged_bytes_reused`` (not ported, ROADMAP A16 item
-10) are left out of the sharding comparison.  The integration cases
+its layout as the port does; the staging caches'
+``staged_bytes``/``staged_bytes_reused`` (what each cache held before
+the fit) are left out of the sharding comparison.  The integration cases
 are ``tests/test_obs.py``'s that need no mesh.
 """
 

@@ -43,7 +43,6 @@ SAME_STATS = (
     "live_pairs", "kernel_passes", "band_pairs", "rescored_tiles",
     "kernel_block", "kernel_tiles", "sketch_k", "input",
 )
-JAX_ONLY = {"staged_bytes_reused", "staged_bytes"}
 PORT_ONLY = {"stage_s", "partition_passes", "merge_host_syncs"}
 
 
@@ -90,7 +89,7 @@ def _same_result(got, want):
     assert lab.dtype == j_lab.dtype and core.dtype == j_core.dtype
     np.testing.assert_array_equal(lab, j_lab)
     np.testing.assert_array_equal(core, j_core)
-    assert set(stats) - PORT_ONLY == set(j_stats) - JAX_ONLY
+    assert set(stats) - PORT_ONLY == set(j_stats)
     for key in SAME_STATS:
         assert (key in stats) == (key in j_stats), key
         if key in j_stats:
