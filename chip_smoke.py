@@ -101,8 +101,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    must rule out); B3 timed with its ``rescored_pairs``, their share of
    ``band_pairs``, two bounds (:func:`b3_bounds`: the exact rescore's
    and the certified rescore's work) and the function's floor
-   (:func:`b3_floor`); over the first 16 row tiles (32 until phase 17
-   took their time) both
+   (:func:`b3_floor`); over the first 8 row tiles (32 until phase 17
+   and 16 until phase 20 took their time) both
    against their plain versions (B3's ``rescored_pairs`` against the
    emulation's), B4 bitwise at the round-1, converged and
    descending labels with its evaluated count equal to
@@ -149,8 +149,9 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    byte-identical to the Euclidean fit of ``_unit_rows(X)`` at
    ``kernel_eps``; B3/B4 bitwise their plain versions on unit rows
    (20,000 x 512, k = 128), timed; 4,096 queries through the engine of
-   a cosine model fitted on the first 200,000 rows (the 512-D index
-   build is host work, ~36 s at 1M; one B5 launch), answers bitwise
+   a cosine model fitted on the first 100,000 rows (200,000 until phase
+   20 took their time; the 512-D index build is host work, ~36 s at 1M;
+   one B5 launch), answers bitwise
    :func:`card_oracle` over all
    cores (which equals the numpy oracle on 8 rows over 65,536 cores), B5
    bitwise its plain version on the batch's first tiles, timed; (2)
@@ -251,7 +252,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ``StaleModelHandle`` until ``refresh``; an insert on the live handle
    is served at once and its ``refresh`` refused; ``gateway_load`` (4
    tenants x 2 clients at 120 Hz of 64 rows, Zipf 1.2, 2 % live writes,
-   15 s, ``m2`` refreshed to a refit on new data at 6 s) drops nothing,
+   10 s (15 s until phase 20 took their time), ``m2`` refreshed to a
+   refit on new data at 6 s) drops nothing,
    evicts, readmits and swaps once, ``m2`` then gives the refreshed
    model's labels and answers bitwise the oracle over its new
    generation, B5 launches = the engines' batches and
@@ -442,6 +444,36 @@ the first's tensors, 4,096 predicts launch B5, a live insert's delta
 bytes equal its delta route's, and a gateway eviction empties the
 model's route.  The kernels' line gains ``launches_warm``.
 
+Phase 20 runs the global-Morton mesh engine (:func:`gmmesh_phase`,
+``DBSCAN(mode="global_morton", mesh=Mesh(["cuda:0"] * 4))`` and
+``global_morton_dbscan(..., mesh=...)``, the shards one after another on
+the one card, each ring hop a buffer handed to the next shard on the
+same device): (1) 13.1's 20,000 x 16-D blobs over 4 and 8 shards under
+both merges, with the overlapped counts on and off: labels, core flags
+and non-timing stats equal to the port's CPU mesh engine (its runs in
+the child process of 13.1), the counts kernel once per owned-slab pass
+and once per shard's cluster pass, the min-label kernel once per
+propagation pass; (2) phase 4's 1M x 16-D blobs over 4 shards under the
+device merge, then the host merge (a warm refit: it stages nothing and
+reuses ``gm_owned`` and ``gm_boundary``), each held against the
+single-device fit (:func:`hold_chained`), the two byte-identical, with
+the engine's ``gm_*_s`` split, ``exchange_overlap_efficiency``,
+``fixpoint_rounds``, ``halo_factor`` and ``sent_tiles`` beside 17.2's
+and 18.2's walls; B1's owned-slab and boundary-delta launches and one
+B2 pass bitwise their plain versions over the first 64 owned and 64
+boundary row tiles of the largest combined slab
+(:func:`gmmesh_slab_hold`); (3) phase 7's 100,000 x 512 embeddings with
+the sketch: ``sent_tiles`` against ``sent_tiles_box``, B3/B4 likewise on
+16 row tiles; (4) the 1M on a one-card mesh with ``chain=0``,
+byte-identical to (2) and to 16.2's chained fit; (5) the first 200,000
+points from a float32 memmap: ``build_morton_shards_streaming`` bitwise
+``build_morton_shards``, the fits byte-identical; (6) on (1)'s data over
+4 shards an explicit ``btcap=1`` raises naming the need, injected
+``gm.ring_round`` and ``gm.fixpoint_round`` transfer errors retry once
+to the clean labels, a warm refit reuses both routes and an eps change
+the owned slabs only.  The kernels' line gains ``launches_gmmesh`` and
+``max_abs_err_gmmesh`` (0) for B1-B4.
+
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits non-zero and prints
@@ -465,6 +497,9 @@ for a difference that does not show on every computation.
 model's live model and 13.1's 20,000-point case).  ``--gm`` builds
 them and runs phase 16 alone (fitting the 1M single-device model it
 compares with; 16.1's CPU runs in a child process of their own).
+``--gmmesh`` builds them and runs phase 20 alone (fitting the 1M and
+the 100k x 512 single-device models it compares with; 20.1's CPU runs in
+a child process of their own).
 ``--mesh`` builds them and runs phase 17 alone (fitting the 1M, the
 1M at eps 1.4 and the 100k x 512 single-device models it compares
 with; 17.1's CPU runs in a child process of their own).  ``--ring``
@@ -1672,7 +1707,7 @@ def b1_rescored_hold(a, centers, rescored, what):
 
 # Sizes of phase 7; tests rehearse the phase at small ones on the CPU.
 SKETCH_SIZES = {"check_n": 20_000, "onoff_n": 100_000,
-                "main_n": 1_000_000, "sub_tiles": 16, "reps": 2,
+                "main_n": 1_000_000, "sub_tiles": 8, "reps": 2,
                 "layout_cache_max": 8 << 30}
 
 
@@ -2938,7 +2973,7 @@ SWEEP_PAST_CAP = 2.4
 
 # Phase 9: the metrics and the sweep.  Sizes of the phase; a test
 # rehearses it at small ones on the CPU.
-METRIC_SIZES = {"cos_n": 500_000, "cos_serve_n": 200_000,
+METRIC_SIZES = {"cos_n": 500_000, "cos_serve_n": 100_000,
                 "check_n": 20_000, "hav_n": 1_000_000,
                 "l1_n": 1_000_000, "l1_fit_n": 200_000, "l1_sub_n": 20_000,
                 "queries": 4096,
@@ -4514,7 +4549,7 @@ GATEWAY_SIZES = {"n": 1_000_000, "d": 16, "centers": 32, "std": 0.4,
                  "tenants": 4, "clients_per_tenant": 2,
                  "fleet_rate_hz": 120.0, "fleet_batch_rows": 64,
                  "zipf_s": 1.2, "write_fraction": 0.02,
-                 "fleet_duration_s": 15.0, "refresh_at_s": 6.0}
+                 "fleet_duration_s": 10.0, "refresh_at_s": 6.0}
 
 
 def gateway_phase(torch, dev, sync, card="", sizes=GATEWAY_SIZES, live=None,
@@ -5155,7 +5190,8 @@ def chained_cpu_refs_child(base, sizes, jobs):
             "kd": (chained_cpu_cases, chained_cpu_runs),
             "gm": (gm_cpu_cases, gm_cpu_runs),
             "mesh": (mesh_cpu_cases, mesh_cpu_runs),
-            "ring": (ring_cpu_cases, ring_cpu_runs)}[job]
+            "ring": (ring_cpu_cases, ring_cpu_runs),
+            "gmmesh": (gmmesh_cpu_cases, gmmesh_cpu_runs)}[job]
         cases = cases_of(sizes)
         runs = runs_of(cases)
         arrays = {"digest": np.array(cases_digest(cases))}
@@ -6533,6 +6569,9 @@ def gm_phase(torch, dev, sync, card="", sizes=GM_SIZES, main=None,
                     else 0)
         what = f"16.2 n={len(Xt)} d=16 eps={e}"
         la = gm_launches(ck, st, what, GM_KERNELS["high"], sizes["ranges"])
+        if tag == "main" and keep is not None:
+            # Phase 20.4 holds the mesh engine's one-card form against it.
+            keep["gm_chained"] = (lab, core)
         if st["duplicated_work_factor"] != 1.0 or st["input"] != "stream" \
                 or st["boundary_tiles"] <= 0:
             fail(f"{what}: duplicated_work_factor "
@@ -7541,7 +7580,7 @@ def ring_phase(torch, dev, sync, card="", sizes=RING_SIZES, main=None,
                                               max_partitions=sizes["mesh"]),
                 kw["eps"], kw["block"], mesh, st["halo_cap"], core),
             kw["eps"], sizes["hold_tiles"], f"{what} largest slab")}
-    del Xe, keep["mesh_sketch"]
+    del Xe  # phase 20.3 fits keep["mesh_sketch"] again
     stamp("18.3: done")
 
     # 18.4: an explicit hcap too small to hold.
@@ -7827,6 +7866,539 @@ def staging_phase(torch, dev, sync, card="", sizes=STAGING_SIZES, main=None,
     return rec
 
 
+# Phase 20: the global-Morton mesh engine on a mesh that repeats the one
+# card `mesh` times.  20.1 reuses 13.1's 20,000 x 16-D blobs (eps 2.0,
+# block 256) over 4 and 8 shards, each (shards, merge, overlap) case of
+# gm_cases; 20.2 phase 4's 1M x 16-D blobs over `mesh` shards under both
+# merges; 20.3 phase 7's 100k x 512 embeddings with the sketch; 20.4 the
+# 1M on a one-card mesh with chain 0; 20.5 the first stream_n points of
+# phase 4's data from a float32 memmap; 20.6 20.1's data over 4 shards.
+GMMESH_SIZES = {"gm_cases": [[4, "device", 1], [4, "host", 0],
+                             [8, "device", 0], [8, "host", 1]],
+                "mesh": 4, "n": 1_000_000, "eps": 2.4, "block": 2048,
+                "hold_tiles": 64, "stream_n": 200_000, "sk_n": 100_000,
+                "sk_eps": 2.0, "sk_block": 2048, "sk_hold_tiles": 16}
+
+
+@contextlib.contextmanager
+def gm_overlap(on):
+    """``PPTORCH_GM_OVERLAP`` set to ``on`` for the block."""
+    prev = os.environ.get("PPTORCH_GM_OVERLAP")
+    os.environ["PPTORCH_GM_OVERLAP"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("PPTORCH_GM_OVERLAP", None)
+        else:
+            os.environ["PPTORCH_GM_OVERLAP"] = prev
+
+
+def gmmesh_cpu_cases(sizes):
+    """20.1's cases from 13.1's 20k data: ``{name: (X, shards,
+    kwargs)}``, ``kwargs["overlap"]`` the overlap switch."""
+    Xs, _p, kw_s = chained_cpu_cases(sizes)["small"]
+    return {f"p{p}_{merge}_{'overlap' if ov else 'serial'}":
+            (Xs, p, dict(kw_s, merge=merge, overlap=ov))
+            for p, merge, ov in sizes["gm_cases"]}
+
+
+def gmmesh_stats(stats):
+    """A mesh-engine fit's stats without timings, the staging counters,
+    the overlap's timed efficiency and the parity extras."""
+    return {k: v for k, v in gm_stats(stats).items()
+            if k not in ("parity", "exchange_overlap_efficiency")}
+
+
+def gmmesh_fit(x, mesh, device, **kw):
+    """``global_morton_dbscan`` with ``kw["overlap"]`` as the overlap."""
+    from pypardis_tpu_torch.parallel import global_morton_dbscan
+
+    kw = dict(kw)
+    with gm_overlap(kw.pop("overlap", 1)):
+        return global_morton_dbscan(x, mesh=mesh, device=device, **kw)
+
+
+def gmmesh_cpu_runs(cases):
+    """Each case through the port's mesh engine on a CPU mesh (the
+    kernels' plain versions): ``{name: ((labels, core, stats),
+    seconds)}``."""
+    from pypardis_tpu_torch.parallel import Mesh
+
+    out = {}
+    for name, (x, shards, kw) in cases.items():
+        t = time.perf_counter()
+        lab, core, st = gmmesh_fit(x, Mesh(["cpu"] * shards), "cpu", **kw)
+        out[name] = ((lab, core, gmmesh_stats(st)), time.perf_counter() - t)
+    return out
+
+
+def gmmesh_launches(ck, stats, what, kernels):
+    """The mesh engine's launches against its passes: the counts kernel
+    once per overlapped owned-slab pass (``stage_s["owned_passes"]``)
+    and once per shard's cluster pass (the fused counts or the boundary
+    delta), the min-label kernel once per propagation pass
+    (``stats["partition_passes"]``: 1 + the shard's min-label passes);
+    no other kernel."""
+    la = dict(ck.LAUNCHES)
+    ran = [p for p in stats["partition_passes"] if p]
+    owned = int(stats["stage_s"].get("owned_passes", 0))
+    want = {kernels[0]: owned + len(ran), kernels[1]: sum(p - 1 for p in ran)}
+    others = {k: v for k, v in la.items() if k not in want and v}
+    log(f"    {what}: launches {kernels[0]}={la[kernels[0]]} "
+        f"{kernels[1]}={la[kernels[1]]} for {owned} owned-slab passes and "
+        f"{len(ran)} shard passes, passes {stats['partition_passes']} (want "
+        f"{want}); other kernels {others}")
+    if la[kernels[0]] < 1 or la[kernels[1]] < 1:
+        fail(f"{what}: a kernel of the mesh engine was never launched")
+    if {k: la[k] for k in want} != want or others:
+        fail(f"{what}: launches do not match the shards' passes")
+    return la
+
+
+def gmmesh_slab_hold(torch, dev, X, eps, block, mesh, core_g, tiles, what):
+    """The mesh engine's three launches on its largest combined slab (the
+    shard with the most owned + boundary rows, from the route's own
+    cached build and exchange) against their plain versions, exactly:
+    the counts kernel (B1, or B3 with the sketch) over the owned slab's
+    own list (the overlapped owned pass) on its first ``tiles`` row
+    tiles, over the combined slab's (owned row, boundary column) list
+    (the boundary delta) on the same rows, and one min-label pass (B2,
+    or B4) over the propagation list on the first ``tiles`` owned and
+    ``tiles`` boundary row tiles at the round-1 labels.  Returns the
+    record with each kernel's largest error."""
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.ops.distances import (
+        INT_INF, eps2_f32, row_offsets,
+    )
+    from pypardis_tpu_torch.ops.labels import oc_extract
+    from pypardis_tpu_torch.ops.sketch import sketch_dims
+    from pypardis_tpu_torch.parallel import global_morton as gm
+    from pypardis_tpu_torch.utils.shaping import clamp_block
+
+    n, k = X.shape
+    block = clamp_block(block, -(-n // mesh.size))
+    arrays, _aux, _b, base = gm.build_morton_shards(X, mesh.size, block,
+                                                    mesh, eps=eps)
+    (bnd, bmsk, bgid), _x = gm._gm_boundary_tiles(
+        arrays, eps, mesh=mesh, block=block, btcap=None, base=base,
+        sketch=int(sketch_dims(k)))
+    owned, omsk, ogid = arrays
+    s = int(np.argmax([int(omsk[i].sum()) + int(bmsk[i].sum())
+                       for i in range(mesh.size)]))
+    cap = owned[s].shape[1]
+    xs = torch.cat([owned[s], bnd[s]], dim=1)
+    mask = torch.cat([omsk[s], bmsk[s]])
+    gid = torch.cat([ogid[s], bgid[s]])
+
+    def extract(pts, msk):
+        ex = oc_extract(pts, eps, msk, owned=cap, block=block)
+        if ex["total"] > ex["budget"]:
+            ex = oc_extract(pts, eps, msk, owned=cap, block=block,
+                            pair_budget=ex["total"])
+        return ex
+
+    ex, own = extract(xs, mask), extract(owned[s], omsk[s])
+    rows, cols = ex["pairs"]
+    tile, ont, kk = ex["tile"], ex["ont"], ex["k"]
+    N = xs.shape[1]
+    nt = N // tile
+    sub = min(tiles, ont)
+    e2 = eps2_f32(eps)
+    names = GM_KERNELS["sketch" if kk else "high"]
+    tix = torch.arange(N, device=dev) // tile
+    held_c = mask & (tix < sub)
+    held_b = mask & ((tix < sub) | ((tix >= ont) & (tix < ont + tiles)))
+    core_all = torch.from_numpy(
+        core_g[np.clip(gid.cpu().numpy(), 0, n - 1)]).to(dev) & (gid < n)
+    f = torch.where(core_all, torch.arange(N, device=dev, dtype=torch.int32),
+                    INT_INF).contiguous()
+
+    def counts(ex_, pts, msk, sel):
+        r, c = ex_["pairs"]
+        nt_ = pts.shape[1] // tile
+        a = (pts, msk.to(torch.int32), row_offsets(r[sel], nt_),
+             c[sel].contiguous())
+        centers = ex_["frames"][0]
+        if kk:
+            a = a + (ex_["slab"][0], kk, e2, ex_["slab"][1], tile)
+            (kc, kst), (pc, pst) = (ck.count_pairs_sketch(*a, "high", centers),
+                                    ck.PLAIN["count_pairs_sketch"](*a))
+            return kc, pc, int((kst != pst).sum())
+        a = a + (e2, tile)
+        return ck.count_pairs(*a, centers), ck.PLAIN["count_pairs"](*a), 0
+
+    o_rows, _o_cols = own["pairs"]
+    k_own, p_own, st_own = counts(own, owned[s], omsk[s], o_rows < sub)
+    k_del, p_del, st_del = counts(ex, xs, mask,
+                                  (rows < sub) & (cols >= ont))
+    sel_b = ~((rows >= ont) & (cols >= ont)) & (
+        (rows < sub) | ((rows >= ont) & (rows < ont + tiles)))
+    b = (xs, f, row_offsets(rows[sel_b], nt), cols[sel_b].contiguous())
+    if kk:
+        b = b + (ex["slab"][0], kk, e2, ex["slab"][1], tile)
+        kb, pb = ck.minlab_pairs_sketch(*b), ck.PLAIN["minlab_pairs_sketch"](*b)
+    else:
+        b = b + (e2, tile)
+        kb = ck.minlab_pairs(*b, live_rows=mask)
+        pb = ck.PLAIN["minlab_pairs"](*b, live_rows=mask)
+    held_o = held_c[:cap]
+    err_c = max(int((k_own[held_o].long() - p_own[held_o].long()).abs().max()),
+                int((k_del[held_c].long() - p_del[held_c].long()).abs().max()))
+    err_b = int((kb[held_b].long() - pb[held_b].long()).abs().max())
+    bad = (int((k_own[held_o] != p_own[held_o]).sum()),
+           int((k_del[held_c] != p_del[held_c]).sum()),
+           int((kb[held_b] != pb[held_b]).sum()))
+    delta_hits = int(p_del[held_c].sum())
+    relayed = int(((pb != INT_INF) & held_b & (tix >= ont)).sum())
+    log(f"    {what}: shard {s}'s combined slab ({int(omsk[s].sum())} owned "
+        f"of cap {cap}, {int(bmsk[s].sum())} boundary rows in "
+        f"{bnd[s].shape[1] // block} tiles; tile {tile}, k {kk}, "
+        f"{ex['total']} live tile pairs, {ex['hh_pairs']} boundary x "
+        f"boundary): {names[0]} on the first {sub} owned row tiles "
+        f"({int(held_c.sum())} points) over the owned slab's list "
+        f"{bad[0]} differ, over the boundary-delta list {bad[1]} differ "
+        f"({delta_hits} boundary neighbours counted){', stats differ' if st_own or st_del else ''}"
+        f"; {names[1]} (round 1) on {sub} owned + {min(tiles, nt - ont)} "
+        f"boundary row tiles ({int(held_b.sum())} points, {relayed} "
+        f"boundary rows reaching an owned source) {bad[2]} differ")
+    if any(bad) or st_own or st_del:
+        fail(f"{what}: the kernels disagree with their plain versions over "
+             f"the mesh engine's lists")
+    if not delta_hits or not relayed:
+        fail(f"{what}: the held rows count or reach nothing across the "
+             f"boundary")
+    return {"shard": s, "rows": N, "owned": int(omsk[s].sum()),
+            "boundary": int(bmsk[s].sum()), "tile": tile, "tiles_held": sub,
+            "points_held": int(held_b.sum()), "delta_neighbours": delta_hits,
+            "max_abs_err": {names[0]: err_c, names[1]: err_b}}
+
+
+def gmmesh_phase(torch, dev, sync, card="", sizes=GMMESH_SIZES, main=None,
+                 cpu_refs=None, walls=None, keep=None):
+    """Phase 20 (the global-Morton mesh engine,
+    ``global_morton_dbscan(..., mesh=Mesh(["cuda:0"] * P))`` and
+    ``DBSCAN(mode="global_morton", mesh=...)``); see the module
+    docstring.  ``main``: ``dict(X=, labels=, core=)`` of phase 4's 1M
+    fit (None: fitted here); ``cpu_refs``: a :class:`ChainedCpuRefs`
+    with a ``"gmmesh"`` job (None: 20.1's CPU runs go here first);
+    ``walls``: the 1M walls printed beside 20.2's (17.2's fused step,
+    18.2's ring); ``keep``: phase 16-18's fits (``"gm_chained"``: 16.2's
+    labels, ``"mesh_sketch"``: 17.3's 100k x 512 data and fit; missing
+    ones are fitted here).  Returns the phase's record."""
+    from benchdata import make_embedding_data
+    from pypardis_tpu_torch import DBSCAN, obs
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.parallel import (
+        Mesh, global_morton_dbscan, staging,
+    )
+    from pypardis_tpu_torch.parallel import global_morton as gm
+    from pypardis_tpu_torch.ops.labels import densify_labels
+    from pypardis_tpu_torch.utils import faults
+    from pypardis_tpu_torch.utils.shaping import clamp_block
+
+    rec = {"card": card}
+    walls = walls or {}
+    keep = {} if keep is None else keep
+    t_phase = time.perf_counter()
+    all_sizes = dict(CHAINED_SIZES, **sizes)
+    mesh = Mesh([dev] * sizes["mesh"])
+    log(f"  mesh {mesh!r} on {torch.cuda.device_count()} card(s): "
+        f"copies between distinct cards and shards running at once are "
+        f"not measured here")
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    # 20.1: the card against the port's CPU mesh engine.
+    cases = gmmesh_cpu_cases(all_sizes)
+    cpu_now = None if cpu_refs else gmmesh_cpu_runs(cases)
+    on_card = {}
+    for name, (x, shards, kw) in cases.items():
+        ck.reset_launch_counts()
+        on_card[name] = timed(lambda: gmmesh_fit(
+            x, Mesh([dev] * shards), dev, **kw))
+        (lab, _core, st), wall = on_card[name]
+        gmmesh_launches(ck, st, f"20.1 {name}", GM_KERNELS["high"])
+        log(f"  20.1 {name}: n={len(x)} d={x.shape[1]} over {shards} "
+            f"shards: card {wall:.4f} s; clusters "
+            f"{len(np.unique(lab[lab >= 0]))}, boundary tiles "
+            f"{st['boundary_tiles']} ({st['boundary_rows']} rows), sent "
+            f"{st['sent_tiles']}, fixpoint_rounds {st['fixpoint_rounds']}, "
+            f"exchange_overlap_efficiency "
+            f"{st['exchange_overlap_efficiency']}")
+    stamp("20.1: card runs done")
+
+    def close_20_1():
+        cpu = cpu_now or cpu_refs.result(cases, "gmmesh")
+        for name, ((lab, core, st), _s) in on_card.items():
+            (c_lab, c_core, c_st), c_s = cpu[name]
+            st = json.loads(json.dumps(gmmesh_stats(st)))
+            diff = sorted(k for k in set(c_st) | set(st)
+                          if c_st.get(k) != st.get(k))
+            same = np.array_equal(lab, c_lab) and np.array_equal(core, c_core)
+            log(f"    20.1 {name}: card vs CPU ({c_s:.4f} s"
+                f"{' in a child process' if cpu_refs else ''}): labels and "
+                f"core byte-identical: {same}; stats that differ: {diff}")
+            if not same or diff:
+                fail(f"20.1 {name}: the card's mesh engine differs from the "
+                     f"CPU's")
+        rec["small"] = {name: {"card_s": c[1], "cpu_s": cpu[name][1]}
+                        for name, c in on_card.items()}
+        stamp("20.1: done")
+
+    # 20.2: the main path at full width through DBSCAN(mode=..., mesh=...).
+    n, eps, block = sizes["n"], sizes["eps"], sizes["block"]
+    if main is None:
+        from benchdata import make_blob_data
+
+        X, _truth = make_blob_data(n, 16, n_centers=32, std=0.4)
+        single = DBSCAN(eps=eps, min_samples=10, block=block,
+                        device=dev).fit(X)
+        main = dict(X=X, labels=single.labels_,
+                    core=single.core_sample_mask_)
+    X = main["X"]
+    rows, fits = {}, {}
+    for merge in ("device", "host"):
+        model = DBSCAN(eps=eps, min_samples=10, block=block, mesh=mesh,
+                       merge=merge, mode="global_morton", device=dev)
+        ck.reset_launch_counts()
+        _m, wall = timed(lambda: model.fit(X))
+        st = model.metrics_
+        what = f"20.2 n={n} d=16 eps={eps} merge={merge}"
+        la = gmmesh_launches(ck, st, what, GM_KERNELS["high"])
+        if (st.get("mode") != "global_morton" or st["merge"] != merge
+                or st["duplicated_work_factor"] != 1.0
+                or st["ring_rounds"] != sizes["mesh"] - 1
+                or model.report()["run"]["n_devices"] != sizes["mesh"]):
+            fail(f"{what}: mode {st.get('mode')}, merge {st['merge']}, "
+                 f"duplicated_work_factor {st['duplicated_work_factor']}, "
+                 f"ring_rounds {st['ring_rounds']}")
+        ss = st["stage_s"]
+        log(f"  {what} over {sizes['mesh']} shards: {wall:.4f} s from host "
+            f"input on {card} (17.2's fused KD step "
+            f"{walls.get('17.2', 'not run')} s, 18.2's KD ring "
+            f"{walls.get('18.2', 'not run')} s; one card, so the shards run "
+            f"one after another); gm_build_s {st['gm_build_s']}, "
+            f"gm_exchange_s {st['gm_exchange_s']}, gm_execute_s "
+            f"{st['gm_execute_s']}, gm_merge_s {st['gm_merge_s']}, "
+            f"exchange_overlap_efficiency "
+            f"{st['exchange_overlap_efficiency']} (one stream: the ring "
+            f"queues behind the owned counts), passes on the card "
+            f"{ss['device']:.4f} s (CUDA-event spans)")
+        log(f"    owned_cap {st['owned_cap']}, halo_cap {st['halo_cap']}, "
+            f"boundary tiles {st['boundary_tiles']} ({st['boundary_rows']} "
+            f"rows, halo_factor {st['halo_factor']:.6f}), sent_tiles "
+            f"{st['sent_tiles']}, boundary_tile_caps "
+            f"{st['boundary_tile_caps']}, fixpoint_rounds "
+            f"{st['fixpoint_rounds']}, pad_waste {st['pad_waste']:.6f}, "
+            f"live pairs {st['live_pairs']}, kernel passes "
+            f"{st['partition_passes']}, staged {st['staged_bytes']} bytes, "
+            f"reused {st['staged_bytes_reused']}")
+        clusters, borders, noise, differ = hold_chained(
+            torch, dev, X, eps, model.labels_, model.core_sample_mask_,
+            main["labels"], main["core"], what)
+        fits[merge] = (model.labels_, model.core_sample_mask_)
+        rows[merge] = {
+            "wall_s": wall, "fused_kd_wall_s": walls.get("17.2"),
+            "ring_kd_wall_s": walls.get("18.2"),
+            **{k: st.get(k) for k in (
+                "gm_build_s", "gm_exchange_s", "gm_execute_s", "gm_merge_s",
+                "exchange_overlap_efficiency", "fixpoint_rounds",
+                "boundary_tiles", "boundary_rows", "halo_factor",
+                "sent_tiles", "halo_cap", "owned_cap", "live_pairs",
+                "partition_passes", "staged_bytes", "staged_bytes_reused")},
+            "stage_s": ss,
+            "launches": {k: la[k] for k in GM_KERNELS["high"]},
+            "clusters": clusters, "borders": borders, "noise": noise,
+            "borders_differ": differ}
+        if merge == "device":
+            rows[merge]["slab_hold"] = gmmesh_slab_hold(
+                torch, dev, X, eps, block, mesh, model.core_sample_mask_,
+                sizes["hold_tiles"], f"{what} largest combined slab")
+        del model
+        stamp(f"20.2: merge {merge} done")
+    same = all(np.array_equal(a, b) for a, b in zip(fits["device"],
+                                                    fits["host"]))
+    warm = (rows["host"]["staged_bytes"], rows["host"]["staged_bytes_reused"])
+    log(f"  20.2: the device and host merges byte-identical: {same}; the "
+        f"host-merge fit refits warm (staged, reused) {warm} after the "
+        f"device fit's {rows['device']['staged_bytes']} staged bytes")
+    if not same:
+        fail("20.2: the two merges' labels differ")
+    if warm != (0, rows["device"]["staged_bytes"]):
+        fail("20.2: the warm refit did not reuse gm_owned and gm_boundary")
+    rec["main"], rec["host"] = rows["device"], rows["host"]
+    rec["main"]["merges_identical"] = same
+
+    # 20.4: the unchained one-card form of the same fit.
+    one, wall = timed(lambda: global_morton_dbscan(
+        X, eps=eps, min_samples=10, block=block, mesh=Mesh([dev]), chain=0,
+        device=dev))
+    lab1, core1, st1 = one
+    ref = fits["device"]
+    same_mesh = (np.array_equal(densify_labels(lab1), ref[0])
+                 and np.array_equal(core1, ref[1]))
+    chained = keep.get("gm_chained")
+    same_chain = (chained is not None and np.array_equal(lab1, chained[0])
+                  and np.array_equal(core1, chained[1]))
+    log(f"  20.4 n={n} on a one-card mesh, chain 0: {wall:.4f} s, "
+        f"gm_build_s {st1['gm_build_s']}, gm_execute_s {st1['gm_execute_s']}"
+        f", boundary tiles {st1['boundary_tiles']}, ring_rounds "
+        f"{st1['ring_rounds']}; byte-identical to 20.2's mesh fit: "
+        f"{same_mesh}, to 16.2's chained fit: "
+        f"{same_chain if chained is not None else 'not run'}")
+    hold_chained(torch, dev, X, eps, densify_labels(lab1), core1,
+                 main["labels"], main["core"], "20.4")
+    if not same_mesh or (chained is not None and not same_chain) \
+            or st1["ring_rounds"] != 0:
+        fail("20.4: the one-card form differs from the mesh or chained fit")
+    rec["one_card"] = {"wall_s": wall, "gm_build_s": st1["gm_build_s"],
+                       "gm_execute_s": st1["gm_execute_s"],
+                       "same_as_mesh": same_mesh, "same_as_chained": same_chain}
+    del one, lab1, core1
+    stamp("20.4: done")
+
+    # 20.5: the streaming build against the in-RAM build.
+    ns = sizes["stream_n"]
+    Xs = np.ascontiguousarray(X[:ns])
+    mm, mm_path = gm_memmap(Xs, "gmmesh_stream")
+    bs = clamp_block(block, -(-ns // sizes["mesh"]))
+    staging.clear()
+    (t_in, _a, _b, _k), s_in = timed(lambda: gm.build_morton_shards(
+        Xs, sizes["mesh"], bs, mesh, eps=eps))
+    staging.clear()
+    (t_st, a_st, _b, _k), s_st = timed(
+        lambda: gm.build_morton_shards_streaming(mm, sizes["mesh"], bs, mesh,
+                                                 eps=eps))
+    same_b = all(torch.equal(p, q) for tin, tst in zip(t_in, t_st)
+                 for p, q in zip(tin, tst))
+    staging.clear()
+    in_fit = global_morton_dbscan(Xs, eps=eps, min_samples=10, block=block,
+                                  mesh=mesh, device=dev)
+    staging.clear()
+    st_fit, wall = timed(lambda: global_morton_dbscan(
+        mm, eps=eps, min_samples=10, block=block, mesh=mesh, device=dev))
+    same_f = (np.array_equal(in_fit[0], st_fit[0])
+              and np.array_equal(in_fit[1], st_fit[1]))
+    log(f"  20.5 n={ns} from a float32 memmap over {sizes['mesh']} shards: "
+        f"the streamed build ({s_st:.4f} s, {a_st['stream_buckets']} "
+        f"buckets, spill {a_st['spill_bytes']} bytes) bitwise the in-RAM "
+        f"build ({s_in:.4f} s): {same_b}; the streamed fit ({wall:.4f} s, "
+        f"input {st_fit[2]['input']}) byte-identical to the in-RAM fit: "
+        f"{same_f}")
+    if not same_b or not same_f or st_fit[2]["input"] != "stream":
+        fail("20.5: the streaming build differs from the in-RAM build")
+    rec["stream"] = {"n": ns, "stream_build_s": s_st, "inram_build_s": s_in,
+                     "fit_s": wall}
+    del mm, t_in, t_st, in_fit, st_fit, Xs
+    os.remove(mm_path)
+    stamp("20.5: done")
+
+    # 20.3: the sketch at width.
+    kw = dict(eps=sizes["sk_eps"], min_samples=10, block=sizes["sk_block"])
+    if "mesh_sketch" not in keep:
+        Xe, _te = make_embedding_data(sizes["sk_n"], 512)
+        single = DBSCAN(device=dev, **kw).fit(Xe)
+        keep["mesh_sketch"] = dict(X=Xe, labels=single.labels_,
+                                   core=single.core_sample_mask_)
+        del single
+    sk = keep["mesh_sketch"]
+    Xe = sk["X"]
+    model = DBSCAN(mesh=mesh, mode="global_morton", device=dev, **kw)
+    ck.reset_launch_counts()
+    _m, wall = timed(lambda: model.fit(Xe))
+    st = model.metrics_
+    what = f"20.3 n={len(Xe)} d=512"
+    la = gmmesh_launches(ck, st, what, GM_KERNELS["sketch"])
+    log(f"  {what} over {sizes['mesh']} shards, sketch_k {st['sketch_k']}: "
+        f"{wall:.4f} s on {card}; sent_tiles {st['sent_tiles']} against "
+        f"{st['sent_tiles_box']} by the full-d boxes alone "
+        f"(boundary_bytes {st['boundary_tile_bytes']} against "
+        f"{st['boundary_bytes_box']}), boundary tiles kept "
+        f"{st['boundary_tiles']} ({st['boundary_rows']} rows, halo_factor "
+        f"{st['halo_factor']:.6f}), gm_build_s {st['gm_build_s']}, "
+        f"gm_exchange_s {st['gm_exchange_s']}, gm_execute_s "
+        f"{st['gm_execute_s']}, band_pairs {st['band_pairs']}")
+    if st["sketch_k"] <= 0 or st["sent_tiles"] > st["sent_tiles_box"]:
+        fail(f"{what}: sketch_k {st['sketch_k']}, sent_tiles "
+             f"{st['sent_tiles']} > sent_tiles_box {st['sent_tiles_box']}")
+    clusters, borders, noise, differ = hold_chained(
+        torch, dev, Xe, kw["eps"], model.labels_, model.core_sample_mask_,
+        sk["labels"], sk["core"], what)
+    rec["sketch"] = {
+        "n": len(Xe), "wall_s": wall, "sketch_k": st["sketch_k"],
+        **{k: st[k] for k in ("sent_tiles", "sent_tiles_box",
+                              "boundary_tiles", "halo_factor", "gm_build_s",
+                              "gm_exchange_s", "gm_execute_s", "gm_merge_s")},
+        "launches": {k: la[k] for k in GM_KERNELS["sketch"]},
+        "clusters": clusters, "borders_differ": differ,
+        "slab_hold": gmmesh_slab_hold(
+            torch, dev, Xe, kw["eps"], kw["block"], mesh,
+            model.core_sample_mask_, sizes["sk_hold_tiles"],
+            f"{what} largest combined slab")}
+    del Xe, model, keep["mesh_sketch"]
+    stamp("20.3: done")
+
+    # 20.6: the capacity contract, the retried sites and the cache on
+    # 20.1's data over 4 shards.
+    x, _shards, kw = cases[next(iter(cases))]
+    kw = {k: v for k, v in kw.items() if k != "overlap"}
+    m4 = Mesh([dev] * 4)
+    staging.clear()
+    try:
+        global_morton_dbscan(x, mesh=m4, device=dev, btcap=1, **kw)
+        fail("20.6: btcap=1 did not raise")
+    except RuntimeError as e:
+        msg = str(e)
+    log(f"  20.6 btcap=1 raises: {msg[:160]}")
+    if "needs" not in msg or "PPTORCH_GM_BTCAP" not in msg:
+        fail("20.6: the too-small btcap's error does not name the need")
+    staging.clear()
+    clean = global_morton_dbscan(x, mesh=m4, device=dev,
+                                 **dict(kw, merge="device"))
+    retried = {}
+    for site in ("gm.ring_round", "gm.fixpoint_round"):
+        staging.clear()
+        recorder = obs.RunRecorder(device=dev)
+        with obs.use_recorder(recorder), faults.plan(
+                f"{site}:1=transfer_error"):
+            lab, core, _st = global_morton_dbscan(
+                x, mesh=m4, device=dev, **dict(kw, merge="device"))
+        ev = recorder.event_counts()
+        retried[site] = ev.get(f"retry.{site}", 0)
+        same = np.array_equal(lab, clean[0]) and np.array_equal(core,
+                                                                clean[1])
+        log(f"  20.6 {site}:1=transfer_error retried {retried[site]} time, "
+            f"labels and core equal to the clean run: {same}")
+        if retried[site] != 1 or ev.get("fault_injected") != 1 or not same:
+            fail(f"20.6: {site}'s transient fault was not retried once to "
+                 f"the clean labels")
+    staging.clear()
+    sb = []
+    for e in (kw["eps"], kw["eps"], 0.95 * kw["eps"]):
+        st = global_morton_dbscan(x, mesh=m4, device=dev,
+                                  **dict(kw, eps=e))[2]
+        sb.append((st["staged_bytes"], st["staged_bytes_reused"]))
+    log(f"  20.6 staging (staged, reused): cold {sb[0]}, warm refit {sb[1]}"
+        f", eps x 0.95 {sb[2]}")
+    if sb[1] != (0, sb[0][0]) or not 0 < sb[2][1] < sb[0][0] \
+            or not sb[2][0]:
+        fail("20.6: the warm refit did not reuse gm_owned and gm_boundary, "
+             "or the eps change did not reuse the owned slabs only")
+    rec["checks"] = {"retried": retried, "staging": sb}
+    stamp("20.6: done")
+    close_20_1()
+    return rec
+
+
 def main() -> None:
     import torch
 
@@ -8022,6 +8594,17 @@ def main() -> None:
                                jobs=("ring",)))
         log(f"phase 18 record: {json.dumps(rec18)}; phase 18 took "
             f"{time.perf_counter() - t18:.1f} s")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
+
+    if "--gmmesh" in sys.argv[1:]:
+        t20 = time.perf_counter()
+        rec20 = gmmesh_phase(torch, dev, torch.cuda.synchronize, card,
+                             cpu_refs=ChainedCpuRefs(
+                                 dict(CHAINED_SIZES, **GMMESH_SIZES),
+                                 jobs=("gmmesh",)))
+        log(f"phase 20 record: {json.dumps(rec20)}; phase 20 took "
+            f"{time.perf_counter() - t20:.1f} s")
         log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
         return
 
@@ -8269,7 +8852,8 @@ def main() -> None:
     # from here on beside the card's work (it makes its own data).
     cpu_refs = ChainedCpuRefs(dict(CHAINED_SIZES, **GM_SIZES, **{
         k: v for k, v in {**MESH_SIZES, **RING_SIZES}.items()
-        if k not in GM_SIZES}), jobs=("kd", "gm", "mesh", "ring"))
+        if k not in GM_SIZES}, gm_cases=GMMESH_SIZES["gm_cases"]),
+        jobs=("kd", "gm", "mesh", "ring", "gmmesh"))
 
     # Phase 5: the kernels alone at the 1M fit's own inputs (staged as
     # a host-input fit stages them).
@@ -8495,7 +9079,6 @@ def main() -> None:
     t18 = time.perf_counter()
     rec18 = ring_phase(torch, dev, torch.cuda.synchronize, card,
                        main=gm_main, cpu_refs=cpu_refs, keep=singles)
-    del gm_main, singles
     # The ring route's launches per fit (18.2's at 1M x 16-D from host
     # input, 18.3's at 100k x 512) and each kernel's largest error
     # against its plain version over the owner-computes lists of its
@@ -8532,7 +9115,31 @@ def main() -> None:
             rec["launches_warm"] = warm[rec["name"]]
     log(f"phase 19 record: {json.dumps(rec19)}; phase 19 took "
         f"{time.perf_counter() - t19:.1f} s")
-    phase("phases 2-19 done")
+    phase("phase 20: the global-Morton mesh engine (DBSCAN(mode="
+          "'global_morton', mesh=...), global_morton_dbscan on a mesh)")
+    t20 = time.perf_counter()
+    rec20 = gmmesh_phase(
+        torch, dev, torch.cuda.synchronize, card, main=gm_main,
+        cpu_refs=cpu_refs, keep=singles,
+        walls={"17.2": rec17["main"]["wall_s"],
+               "18.2": rec18["main"].get("wall_s")})
+    del gm_main, singles
+    # The mesh engine's launches per fit (20.2's at 1M x 16-D on the
+    # 4-shard mesh, 20.3's at 100k x 512) and each kernel's largest error
+    # against its plain version over the owned-slab, boundary-delta and
+    # propagation lists of its largest combined slab.
+    done = set()
+    for rec in kernels:
+        for part in ("main", "sketch"):
+            if (rec["name"] in rec20[part]["launches"]
+                    and rec["name"] not in done):
+                done.add(rec["name"])
+                rec["launches_gmmesh"] = rec20[part]["launches"][rec["name"]]
+                rec["max_abs_err_gmmesh"] = (
+                    rec20[part]["slab_hold"]["max_abs_err"][rec["name"]])
+    log(f"phase 20 record: {json.dumps(rec20)}; phase 20 took "
+        f"{time.perf_counter() - t20:.1f} s")
+    phase("phases 2-20 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

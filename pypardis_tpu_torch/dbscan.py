@@ -42,9 +42,10 @@ route's partitioned fit is
 card, fused on a :class:`~.parallel.mesh.Mesh`); ``fit`` takes it with
 more than one device (see :class:`DBSCAN`): a memmap through the ring
 exchange's streaming build, a tensor through the device-input route
-(:func:`~.parallel.sharded.sharded_dbscan_device`).  The multi-process
-layer and the global-Morton mesh engine are later slices of the port
-(ROADMAP A10's rest, A12).
+(:func:`~.parallel.sharded.sharded_dbscan_device`); ``mode=
+"global_morton"`` takes the global-Morton mesh engine
+(:func:`~.parallel.global_morton_dbscan`).  The multi-process layer is a
+later slice of the port (ROADMAP A10's rest).
 
 Every fit, sweep and eps=None fit records its telemetry on a fresh
 :class:`~.obs.RunRecorder`: phase spans and timings, the pipeline's
@@ -539,9 +540,13 @@ class DBSCAN:
     takes the device-input route
     (:func:`~.parallel.sharded.sharded_dbscan_device`; a tensor on
     another device type moves to the mesh's first device), whose
-    ``neighbors`` are computed on first access.  ``mode``
-    ``"global_morton"`` on a mesh raises (ROADMAP A12).  A mesh's
-    devices must be of the model's ``device`` type.
+    ``neighbors`` are computed on first access.  ``mode=
+    "global_morton"`` runs the global-Morton mesh engine instead
+    (:meth:`_train_sharded_global_morton`): host input only (a tensor
+    raises ``ValueError``), a memmap streaming; an OOM-class failure of
+    that engine falls back to the KD route (``degraded_to ==
+    "kd_owner_computes"``, the same labels).  A mesh's devices must be
+    of the model's ``device`` type.
     """
 
     def __init__(
@@ -884,6 +889,8 @@ class DBSCAN:
         as ``run.*`` gauges; an exception seals the flight file with
         ``status="error"`` and propagates.  The sampler is joined and
         the exporters closed either way."""
+        from .parallel.dist import process_index
+
         rec = self._recorder
         self._fit_info = {"n_dims": int(points.shape[1]),
                           "n_devices": int(n_devices)}
@@ -902,7 +909,7 @@ class DBSCAN:
                 n_dims=int(points.shape[1]),
                 n_devices=int(n_devices),
                 n_processes=1,
-                process_index=0,
+                process_index=process_index(),
                 backend=self.device.type,
             )
         exporters = obs.attach_exporters(rec)
@@ -950,10 +957,31 @@ class DBSCAN:
         from .parallel.mesh import default_mesh
         from .partition import KDPartitioner
 
-        if self.mode == "global_morton":
-            _sharded._refuse("mode='global_morton' on a mesh (the "
-                             "global-Morton mesh engine)", "A12")
         mesh = self.mesh if self.mesh is not None else default_mesh()
+        if self.mode == "global_morton":
+            if isinstance(points, torch.Tensor):
+                raise ValueError(
+                    "mode='global_morton' needs host-resident input: the "
+                    "global Morton keying runs on the host (a tensor on "
+                    "the device takes the KD ring route)"
+                )
+            try:
+                self._train_sharded_global_morton(points, mesh, timer)
+                return
+            except Exception as e:  # noqa: BLE001 — re-raised unless OOM
+                from .utils.retry import is_degradable_error, note_degraded
+
+                if not is_degradable_error(e):
+                    raise
+                # The terminal rung: the KD owner-computes route clusters
+                # the same data with smaller peak allocations, to the
+                # same labels.
+                note_degraded("kd_owner_computes", mode="global_morton",
+                              error=str(e)[:160])
+                get_logger().warning(
+                    "global-Morton engine failed terminally (%s); falling "
+                    "back to the KD owner-computes route (the same "
+                    "labels)", e)
         if isinstance(points, torch.Tensor):
             # A tensor is clustered where it lies (one on another device
             # type moves to the mesh's first device, as a single-device
@@ -1006,6 +1034,65 @@ class DBSCAN:
         self.neighbors = _expanded_neighbors(part.tree, points, self.eps)
         self.cluster_dict = _partition_cluster_dict(part.result,
                                                     self.labels_)
+
+    def _train_sharded_global_morton(self, points, mesh, timer) -> None:
+        """The zero-duplication global-Morton fit on the mesh (the JAX
+        package's ``_train_sharded_global_morton``): the engine
+        (:func:`~.parallel.global_morton_dbscan`) inside the ``cluster``
+        phase (there is no KD partition phase: the Morton keying is the
+        build), the densify, and the parity surface over the ranges:
+        ``partitioner_`` a :class:`~.partition.MortonRangePartitioner`,
+        ``bounding_boxes`` the ranges' extents and ``neighbors`` each
+        shard's OWNED rows (no expanded membership exists here).  A
+        streamed memmap keeps no order, so it gets the ranges' boxes and
+        no partitioner."""
+        from .parallel.global_morton import global_morton_dbscan
+        from .partition import MortonRangePartitioner
+
+        with timer.phase("cluster"):
+            labels, core, stats = global_morton_dbscan(
+                points, eps=self.eps, min_samples=self.min_samples,
+                metric=self._pair_metric, block=self.block, mesh=mesh,
+                precision=self.precision, backend=self.kernel_backend,
+                merge=self.merge, jobstate=self._jobstate,
+                device=self.device,
+            )
+        parity = stats.pop("parity", None)
+        with timer.phase("densify"):
+            self.labels_ = densify_labels(labels)
+        self.core_sample_mask_ = core
+        self.metrics_.update(stats)
+        self.metrics_["partition_builder"] = "morton_range"
+        self.metrics_["partition_levels_s"] = []
+        if parity is None:
+            return
+        starts = np.asarray(parity["starts"], dtype=np.int64)
+        lo = np.asarray(parity["box_lo"])
+        hi = np.asarray(parity["box_hi"])
+        boxes = {
+            s: BoundingBox(lower=lo[s], upper=hi[s])
+            for s in range(min(len(lo), len(starts) - 1))
+            if starts[s + 1] > starts[s]
+        }
+        self.metrics_["n_partitions"] = len(starts) - 1
+        if boxes:
+            self.bounding_boxes = boxes
+            self.expanded_boxes = {
+                l: b.expand(2 * self.eps) for l, b in boxes.items()
+            }
+        if "order" in parity:
+            part = MortonRangePartitioner(parity["order"], starts, boxes)
+            self.partitioner_ = part
+            self.metrics_["n_partitions"] = part.n_partitions
+            self.neighbors = {s: part.partitions[s] for s in part.partitions}
+            self.cluster_dict = _partition_cluster_dict(part.result,
+                                                        self.labels_)
+        else:
+            # The streaming build: ranges and boxes only (the O(N)
+            # permutation is what it avoids).
+            self.partitioner_ = None
+            self.neighbors = None
+            self.cluster_dict = {}
 
     def _train_sharded_device(self, points, mesh, timer) -> None:
         """The partitioned fit of a tensor on the mesh's device type (the

@@ -108,6 +108,54 @@ def _box_gap_live(rlo, rhi, clo, chi, thr, metric="euclidean"):
     return (gap * gap).sum(dim=-1) <= thr
 
 
+def cross_tile_live(lo_r, hi_r, lo_c, hi_c, eps, metric="euclidean"):
+    """(nt_r,) bool: row tile i's box lies within eps of ANY column box
+    (the JAX ``cross_tile_live``).  The global-Morton engine's boundary
+    test: row boxes are one shard's tiles, column boxes the other
+    shards' (gathered).  A column tile whose box clears eps of every row
+    box holds no eps-neighbour of a row point, so the row's shard never
+    needs it.  Inverted (+BIG, -BIG) boxes (empty tiles, padding, a
+    shard's own tiles) are never live: their squared gap overflows to
+    inf.  Chunked so the (chunk, nc, d) gap stays at :data:`_CHUNK_ELEMS`
+    elements."""
+    nt, d = lo_r.shape
+    nc = lo_c.shape[0]
+    out = torch.zeros(nt, dtype=torch.bool, device=lo_r.device)
+    if nt == 0 or nc == 0:
+        return out
+    thr = eps_threshold(eps, metric)
+    chunk = max(1, min(nt, -(-_CHUNK_ELEMS // max(nc * d, 1))))
+    for s in range(0, nt, chunk):
+        out[s:s + chunk] = _box_gap_live(
+            lo_r[s:s + chunk], hi_r[s:s + chunk], lo_c[None], hi_c[None],
+            thr, metric).any(dim=1)
+    return out
+
+
+def sketch_slab_t(tiles_t, q):
+    """``(nt, d, g)`` tiles x ``(d, k)`` projection -> ``(nt, k + 1, g)``
+    sketch slabs (the JAX ``_sketch_slab_t``): rows ``0..k-1`` the
+    projection ``Q^T x``, row ``k`` the residual norm ``sqrt(max(|x|^2 -
+    |Q^T x|^2, 0))``.  Each column depends on its own point only.  The
+    projection is a float64 product rounded once to float32, as the
+    kernels' :func:`~.cuda_kernels.sketch_stage` computes it (the JAX
+    HIGHEST float32 product may differ in the last bits; the gate band
+    certifies either rounding)."""
+    q64 = torch.as_tensor(np.asarray(q), dtype=torch.float64,
+                          device=tiles_t.device)
+    nt, d, g = tiles_t.shape
+    proj = torch.empty((nt, q64.shape[1], g), dtype=torch.float32,
+                       device=tiles_t.device)
+    step = max(1, (1 << 24) // max(d * g, 1))
+    for s in range(0, nt, step):
+        proj[s:s + step] = torch.einsum(
+            "dk,tdg->tkg", q64, tiles_t[s:s + step].double()).float()
+    full = (tiles_t * tiles_t).sum(dim=1, keepdim=True)
+    res = torch.sqrt(torch.clamp_min(
+        full - (proj * proj).sum(dim=1, keepdim=True), 0.0))
+    return torch.cat([proj, res], dim=1)
+
+
 def live_tile_pairs(lo, hi, eps, lo_col=None, hi_col=None, budget=None,
                     metric="euclidean"):
     """Row-major list of tile pairs whose bounding boxes lie within eps

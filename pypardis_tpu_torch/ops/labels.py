@@ -425,16 +425,12 @@ def _kept(pairs, keep):
     return rows[keep], cols[keep]
 
 
-def oc_raw_counts(ex):
-    """Owned-row raw neighbour counts (no ``min_samples``) over the
-    extracted slab ``ex`` (:func:`oc_extract`): B1, or B3 with the
-    sketch, over the pairs whose row tile is owned.  Returns
-    ``(counts[:owned], band)``, ``band`` the (2,) int64 band stats
-    (zeros off ``"mixed"`` and off the sketch)."""
-    rows, _cols = ex["pairs"]
+def _owned_counts(ex, keep):
+    """Raw counts over the pairs of ``ex`` under ``keep``: B1, or B3 with
+    the sketch.  Returns ``(counts[:owned], band)``."""
     counts = neighbor_counts_cuda(
         ex["points"], ex["eps"], ex["mask"], block=ex["block"],
-        precision=ex["mode"], pairs=_kept(ex["pairs"], rows < ex["ont"]),
+        precision=ex["mode"], pairs=_kept(ex["pairs"], keep),
         sketch=ex["k"], slab=ex["slab"], frames=ex["frames"],
         metric=ex["metric"],
     )
@@ -442,6 +438,28 @@ def oc_raw_counts(ex):
     if isinstance(counts, tuple):
         counts, band = counts
     return counts[:ex["owned"]], band.cpu()
+
+
+def oc_raw_counts(ex):
+    """Owned-row raw neighbour counts (no ``min_samples``) over the
+    extracted slab ``ex`` (:func:`oc_extract`): B1, or B3 with the
+    sketch, over the pairs whose row tile is owned.  Returns
+    ``(counts[:owned], band)``, ``band`` the (2,) int64 band stats
+    (zeros off ``"mixed"`` and off the sketch)."""
+    rows, _cols = ex["pairs"]
+    return _owned_counts(ex, rows < ex["ont"])
+
+
+def oc_counts_delta(ex):
+    """Owned rows x boundary columns counts over the extracted ``owned +
+    boundary`` slab ``ex``: the pairs of :func:`oc_raw_counts`' list
+    whose column tile is a boundary tile.  The global-Morton engine's
+    overlapped counts pass adds it to an owned-slab pass run before the
+    exchange; the two column sets are disjoint, so ``owned + delta`` is
+    the fused counts bitwise.  Returns ``(counts[:owned], band)``."""
+    rows, cols = ex["pairs"]
+    ont = ex["ont"]
+    return _owned_counts(ex, (rows < ont) & (cols >= ont))
 
 
 def oc_counts_banded(ex, min_samples):

@@ -45,10 +45,9 @@ around the same passes and merges (:func:`_ring_ladder`); a memmap
 streams into the shards one partition at a time
 (:func:`build_owned_shards_streaming`); a tensor already on the device
 is routed and laid out there (:func:`sharded_dbscan_device`,
-:mod:`.device_input`).  The global-Morton mesh engine is a later slice
-(ROADMAP A12) and raises ``NotImplementedError`` (``mode=
-"global_morton"`` runs the global-Morton route's chained form,
-:mod:`.global_morton`).
+:mod:`.device_input`).  ``mode="global_morton"`` hands the fit to the
+global-Morton route (:mod:`.global_morton`: its mesh engine, or its
+chained form on one card).
 
 Host input goes through the staging cache (:mod:`.staging`): the slabs a
 fit ships stay on the device, keyed by the content of the input and the
@@ -1114,8 +1113,9 @@ def sharded_dbscan(
     raises ``ValueError``.
 
     ``mode="global_morton"`` runs :func:`~.global_morton.
-    global_morton_dbscan` on one device (the partitioner unread,
-    ``chain`` from ``PPTORCH_GM_CHAIN``).  ``owner_computes`` is
+    global_morton_dbscan` on ``mesh`` (the partitioner unread, ``chain``
+    from ``PPTORCH_GM_CHAIN``): its mesh engine, or on one device with
+    ``chain > 1`` its chained form.  ``owner_computes`` is
     reported False on the chained route, as the JAX package reports it.
     ``overlap`` is accepted for the JAX signature and changes nothing:
     the JAX switch turns off an overlap that rides on asynchronous
@@ -1137,8 +1137,7 @@ def sharded_dbscan(
     (:func:`build_owned_shards_streaming`), so an ``np.memmap`` larger
     than host RAM clusters from disk; it needs ``halo="ring"`` (a
     ``ValueError`` otherwise), and None turns it on for a memmap under
-    the ring.  The global-Morton route on a mesh raises
-    ``NotImplementedError``.
+    the ring.
 
     Fault tolerance, as in the JAX package: on the chained route each
     partition's dispatch runs under a retry with the

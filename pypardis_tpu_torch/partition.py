@@ -11,16 +11,16 @@
 * the global Morton range split: in RAM (:func:`morton_range_split`)
   and as an external sample-sort over row chunks with an on-disk spill
   (:func:`morton_range_split_streaming`, :class:`MortonStreamSplit`),
-  the products the global-Morton route reads.
+  the products the global-Morton route reads, and
+  :class:`MortonRangePartitioner`, its ranges as a partitioner.
 
 Everything here must stay byte-identical to the JAX package: the bit
 packing fixes the sort order and with it the cluster numbering, and the
 KD tree fixes which leaf slab a core point lands in.  Numpy reductions
 can differ in the last ulp between memory layouts, so the partitioner
-keeps its points C-contiguous, as the reference does.  The range
-split's partitioner (``MortonRangePartitioner``) and the streaming
-split's multi-process spill belong to later multi-GPU slices (ROADMAP
-A10's rest, A12).
+keeps its points C-contiguous, as the reference does.  The streaming
+split's multi-process spill belongs to the process layer (ROADMAP A10's
+rest).
 """
 
 from __future__ import annotations
@@ -557,6 +557,41 @@ def _accum_tile_boxes(tlo, thi, rows, gpos: int, block: int) -> None:
         t = (gpos + pos) // block
         np.minimum(tlo[t], rows[pos:].min(axis=0), out=tlo[t])
         np.maximum(thi[t], rows[pos:].max(axis=0), out=thi[t])
+
+
+class MortonRangePartitioner:
+    """The global-Morton engine's partition surface (the JAX
+    ``MortonRangePartitioner``): ``partitions``, ``result``,
+    ``bounding_boxes`` and ``n_partitions`` over the Morton ranges, so
+    ``DBSCAN``'s inspection attributes and ``cluster_mapping()`` read as
+    on the KD route.  There is no split tree (``tree == []``) and no
+    ``route()``: a range is a property of the fitted data's order, not a
+    region new points can be routed into."""
+
+    def __init__(self, order: np.ndarray, starts: np.ndarray,
+                 bounding_boxes: Dict[int, BoundingBox]):
+        order = np.asarray(order, dtype=np.int32)
+        starts = np.asarray(starts, dtype=np.int64)
+        self.tree: list = []
+        self.builder = "morton_range"
+        self.level_times_s: list = []
+        self.split_method = "morton_range"
+        self.bounding_boxes = dict(bounding_boxes)
+        self.partitions = {
+            s: order[starts[s]:starts[s + 1]].copy()
+            for s in range(len(starts) - 1)
+        }
+        self.result = np.empty(len(order), dtype=np.int32)
+        for s, idx in self.partitions.items():
+            self.result[idx] = s
+
+    @property
+    def n_partitions(self) -> int:
+        return len(self.partitions)
+
+    def partition_sizes(self) -> np.ndarray:
+        labels = sorted(self.partitions)
+        return np.array([len(self.partitions[l]) for l in labels])
 
 
 class MortonStreamSplit:

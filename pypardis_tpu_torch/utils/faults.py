@@ -41,10 +41,15 @@ Injection sites, each inside the retry scope that owns recovery:
                        runs the partitions and the merge; the port's
                        before the merge alone, the one part an OOM
                        spill cures)
-``gm.execute``         each ladder attempt of the global-Morton chained
-                       route, before its passes
+``gm.execute``         each ladder attempt of the global-Morton route
+                       (mesh engine and chained form), before its passes
 ``gm.chained_range``   each range's counts and propagation dispatch on
-                       that route (one per range and pass)
+                       the chained form (one per range and pass)
+``gm.exchange``        the mesh engine's boundary exchange, once per fit
+                       before its cache lookup (an ``oom`` there is the
+                       ``kd_owner_computes`` rung of ``DBSCAN``)
+``gm.ring_round``      each ring round of the boundary exchange
+``gm.fixpoint_round``  each round of the mesh engine's device fixpoint
 ``serve.drain``        :meth:`QueryEngine.drain`
 ``ingest.batch``       ``LiveModel.insert_batch`` / ``delete_batch``,
                        fired before any state changes
@@ -56,9 +61,8 @@ Injection sites, each inside the retry scope that owns recovery:
                        ``oom`` there evicts the cache and retries
 ===================== ====================================================
 
-The JAX package's other sites (the mesh engine's ``gm.exchange``,
-``gm.ring_round`` and ``gm.fixpoint_round``, and ``dist.worker``) come
-with the layers that carry them (ROADMAP A10-A12).
+The JAX package's other site, ``dist.worker``, comes with the process
+layer (ROADMAP A10, §A item 5).
 
 ``PPTORCH_FAULTS`` is read at import and again at the start of every
 fit (:func:`from_env`), so one process can set it for a single fit.
@@ -83,6 +87,9 @@ KNOWN_SITES = (
     "sharded.execute",
     "gm.execute",
     "gm.chained_range",
+    "gm.exchange",
+    "gm.ring_round",
+    "gm.fixpoint_round",
     "serve.drain",
     "ingest.batch",
     "compact.phase",

@@ -19,9 +19,10 @@ What is snapshotted, per route:
   propagation is monotone toward its unique fixpoint, so resuming from
   any intermediate state of the same pair tables reaches the same
   labels;
-* **global-Morton fixpoint** (``gm_note`` / ``gm_restore``): the file
-  format is ported; nothing in the port calls it until that route is
-  (ROADMAP A12).
+* **global-Morton fixpoint** (``gm_note`` / ``gm_restore``): the mesh
+  engine's device fixpoint (``parallel/global_morton._gm_fixpoint``)
+  notes its ``(N+1,)`` ``lab_map`` after each round at the cadence, and
+  a resumed fit starts its rounds from it.
 
 Every payload is keyed by the **pair budget** it was computed under:
 tables from a budget that later overflowed are never consumed, a

@@ -1622,6 +1622,37 @@ def test_global_morton_chained_route_on_card_equals_cpu(tmp_path, precision):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["device", "host"])
+def test_global_morton_mesh_engine_on_card_equals_cpu(merge):
+    """The global-Morton mesh engine on four shards of one card (3,000 x
+    16-D blobs, eps 2.0, block 128, the overlap on): labels, core flags
+    and the non-timing stats equal the same call on a CPU mesh; B1 runs
+    once per owned-slab pass and once per shard's boundary delta, B2
+    once per propagation pass."""
+    from pypardis_tpu_torch.parallel import Mesh, global_morton_dbscan
+
+    _need_card()
+    X, _ = make_blob_data(3000, 16, n_centers=8, spread=10.0, std=1.0,
+                          seed=5)
+    kw = dict(eps=2.0, min_samples=5, block=128, merge=merge)
+    c_lab, c_core, c_st = global_morton_dbscan(
+        X, mesh=Mesh(["cpu"] * 4), device="cpu", **kw)
+    ck.reset_launch_counts()
+    lab, core, st = global_morton_dbscan(X, mesh=Mesh(["cuda:0"] * 4), **kw)
+    np.testing.assert_array_equal(lab, c_lab)
+    np.testing.assert_array_equal(core, c_core)
+    assert st["boundary_tiles"] > 0 and st["ring_rounds"] == 3
+    for key, want in c_st.items():
+        if not key.endswith("_s") and key not in (
+                "exchange_overlap_efficiency", "stage_s", "parity"):
+            assert st[key] == want, key
+    ran = [p for p in st["partition_passes"] if p]
+    assert ck.LAUNCHES["count_pairs"] == st["stage_s"]["owned_passes"] \
+        + len(ran) == 8
+    assert ck.LAUNCHES["minlab_pairs"] == sum(p - 1 for p in ran)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("oc", [True, False])
 @pytest.mark.parametrize("merge", ["device", "host"])
 def test_fused_step_on_a_one_card_mesh_equals_cpu(monkeypatch, merge, oc):

@@ -9,7 +9,8 @@ in-RAM and streaming splits, each range's break plan and boundary
 cover, the owner-computes passes on a real range slab, and the route's
 labels, core flags and stats (timings aside).  Then the env and
 ``sharded_dbscan`` spellings, the spill's cleanup, retry and resume at
-``gm.chained_range``, the refusals and the tile rule.
+``gm.chained_range``, the refused metrics, the knobs the mesh engine
+lifted (held against the JAX engine) and the tile rule.
 
 One documented difference: under ``precision="mixed"`` the JAX
 package's CPU pass tests its band on the exact d^2, the port's B1 (and
@@ -525,16 +526,46 @@ def test_a_tiny_pair_budget_reruns_at_the_exact_total(references):
 # -- what the slice does not cover --------------------------------------------
 
 
+def _cityblock_callable():
+    from scipy.spatial.distance import cityblock
+
+    return cityblock
+
+
 @pytest.mark.parametrize("knob", [
-    dict(mesh=2), dict(chain=1), dict(chain=None), dict(btcap=4),
-    dict(merge="device"), dict(metric="cityblock"),
+    dict(metric="cityblock"), dict(metric="manhattan"), dict(metric="l1"),
+    dict(metric=_cityblock_callable()),
 ])
 def test_refusals_name_their_roadmap_item(mm_points, monkeypatch, knob):
+    """The engine's non-Euclidean metrics (every cityblock spelling) stay
+    refused on both forms, naming their item."""
+    monkeypatch.delenv("PPTORCH_GM_CHAIN", raising=False)
+    _mm, X = mm_points
+    for chain in (4, None):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            global_morton_dbscan(X, device="cpu", chain=chain, **KW, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(mesh=2), dict(chain=1), dict(chain=None), dict(btcap=4),
+    dict(merge="device"),
+])
+def test_knobs_the_mesh_engine_lifted_run_as_in_jax(mm_points, monkeypatch,
+                                                   knob):
+    """The knobs the chained form once refused: a mesh of two devices,
+    ``chain`` 1 or unset (the engine on one device), and ``btcap`` or
+    ``merge="device"`` beside ``chain=4`` (unread on the chained form, as
+    in JAX).  Each runs to the JAX engine's labels for the same call."""
     monkeypatch.delenv("PPTORCH_GM_CHAIN", raising=False)
     _mm, X = mm_points
     kw = dict(dict(chain=4), **knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        global_morton_dbscan(X, device="cpu", **KW, **kw)
+    jkw = dict(kw, mesh=default_mesh(kw.get("mesh", 1)))
+    j_lab, j_core, _js = jax_gm.global_morton_dbscan(X, **KW, **jkw)
+    lab, core, st = global_morton_dbscan(X, device="cpu", **KW, **kw)
+    np.testing.assert_array_equal(lab, j_lab)
+    np.testing.assert_array_equal(core, j_core)
+    assert st["n_shard_partitions"] == _js["n_shard_partitions"]
+    assert st.get("chained", False) == _js.get("chained", False)
 
 
 def test_runs_on_the_card_by_default(mm_points, monkeypatch):

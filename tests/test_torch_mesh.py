@@ -177,10 +177,15 @@ def test_build_shards_is_the_jax_layout_on_a_mesh(blobs, P, parts):
 # -- refusals and the tile rule ----------------------------------------------
 
 
-@pytest.mark.parametrize("knob", [dict(mode="global_morton")])
+@pytest.mark.parametrize("knob", [dict(mode="global_morton",
+                                       metric="cityblock")])
 def test_refused_knobs_on_a_mesh_name_their_roadmap_item(blobs, knob):
+    """The global-Morton mesh engine runs on a mesh now
+    (``tests/test_torch_gm_mesh.py``); its non-Euclidean metrics stay
+    refused."""
+    kw = dict(KW, **knob)
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        _port(blobs[:800], 4, **knob)
+        _port(blobs[:800], 4, kw=kw)
 
 
 @pytest.mark.parametrize("knob", [
@@ -251,8 +256,12 @@ def test_a_single_fit_after_a_mesh_fit_drops_the_partitioner(blobs):
 
 @pytest.mark.parametrize("how", ["global_morton"])
 def test_mesh_fits_refuse_the_unported_routes(blobs, tmp_path, how):
+    """``mode="global_morton"`` fits on a mesh now; its cityblock metric
+    is what stays refused (ROADMAP A12), and the refusal is not taken
+    for an OOM: no KD fallback hides it."""
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        DBSCAN(mesh=_mesh(4), device="cpu", mode=how, **KW).fit(blobs)
+        DBSCAN(mesh=_mesh(4), device="cpu", mode=how, metric="cityblock",
+               **KW).fit(blobs)
 
 
 @pytest.mark.parametrize("how", ["memmap", "tensor"])

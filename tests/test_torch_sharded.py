@@ -386,7 +386,8 @@ def test_runs_on_the_card_by_default(monkeypatch):
         sharded_dbscan(X, KDPartitioner(X, max_partitions=8), **kw)
 
 
-@pytest.mark.parametrize("knob", [dict(mode="global_morton")])
+@pytest.mark.parametrize("knob", [dict(mode="global_morton",
+                                       metric="cityblock")])
 def test_refused_knobs_name_their_roadmap_item(knob):
     X, kw = _blobs750()
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
