@@ -143,8 +143,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    largest difference in (4) or (6);
 9. the metrics and the sweep (:func:`metrics_phase`), each fit from host
    input with its launches counted from 0: (1) cosine on the first
-   500,000 rows of phase 7's 1,000,000 x 512 data (all of them until PR
-   20; eps :data:`COS_EPS`, sketch "auto"): B3 once
+   250,000 rows of phase 7's 1,000,000 x 512 data (eps :data:`COS_EPS`,
+   sketch "auto"): B3 once
    and B4 per round, ARI against the truth, labels and core mask
    byte-identical to the Euclidean fit of ``_unit_rows(X)`` at
    ``kernel_eps``; B3/B4 bitwise their plain versions on unit rows
@@ -203,8 +203,7 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 
 11. live updates and ingest (:func:`live_phase`) on phase 6's model
    (1,000,000 x 16-D, eps 2.4, min_samples 10): ``model.live()``, then
-   a seeded write stream (64 single inserts, 128 until PR 20, and 4
-   ``insert_batch``es
+   a seeded write stream (32 single inserts, 4 ``insert_batch``es
    of 1,024 rows from the blob law, 4,096 rows from one blob, a clump
    of 12 points 20 eps past every centre, 64 noise points, a pour into
    the index leaf with the fewest free slots past its pads, a
@@ -474,6 +473,33 @@ to the clean labels, a warm refit reuses both routes and an eps change
 the owned slabs only.  The kernels' line gains ``launches_gmmesh`` and
 ``max_abs_err_gmmesh`` (0) for B1-B4.
 
+Phase 21 runs sweeps and the eps-free hierarchy on a mesh
+(:func:`sweepmesh_phase`, ``DBSCAN(mesh=Mesh(["cuda:0"] * 4)).sweep``,
+``sweep(eps_list="auto")``'s hierarchy and ``DBSCAN(eps=None,
+mesh=...)``), and cityblock on the global-Morton engine: (1) 13.1's
+20,000 x 16-D blobs over 4 and 8 shards, the KD and global-Morton
+sweeps over 4 eps x 2 min_samples and an eps=None fit on each route,
+the engine's cityblock fits under both merges and its chained form over
+4 ranges: labels, core flags, ``eps_``, ``graph_pairs`` and the
+engine's stats counts equal to the port's CPU runs (in the child
+process of 13.1); (2) phase 4's 1M x 16-D blobs through the KD and the
+global-Morton sweeps on the 4-shard mesh over phase 9.4's grid (8 eps
+x 2 min_samples to eps 1.15) from host input: one distance pass, the
+largest and the smallest config byte-identical to mesh fits at them,
+every config canon-equal to the same sweep on one card from host input
+(the same frame; a border in another cluster passes only as a tie of
+the border rule, each explained) and against 9.4's single-card labels
+from a tensor (a point whose core flag differs traced to the d^2 that
+decides its count, within ``exact_slack`` of eps^2; the ARI printed),
+with ``graph_pairs``,
+``graph_build_s``, the relabels and the graph's device bytes; (3) an
+eps=None fit of the same rows on the global-Morton mesh, canon-equal to
+a single-card fit at its own ``eps_``, beside phase 10's ``eps_``; (4)
+a global-Morton cityblock fit of the first 200,000 rows on the mesh
+(the L1 passes alone, unsketched), held against 9.3's single-card
+cityblock fit.  The kernels' line gains ``launches_sweepmesh``: B1's
+and B2's launches in (2)'s four mesh fits.
+
 The script prints its total seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits non-zero and prints
@@ -500,6 +526,9 @@ compares with; 16.1's CPU runs in a child process of their own).
 ``--gmmesh`` builds them and runs phase 20 alone (fitting the 1M and
 the 100k x 512 single-device models it compares with; 20.1's CPU runs in
 a child process of their own).
+``--sweepmesh`` builds them and runs phase 21 alone (fitting the
+single-card 1M sweep and cityblock models it compares with; 21.1's CPU
+runs in a child process of their own).
 ``--mesh`` builds them and runs phase 17 alone (fitting the 1M, the
 1M at eps 1.4 and the 100k x 512 single-device models it compares
 with; 17.1's CPU runs in a child process of their own).  ``--ring``
@@ -2973,7 +3002,7 @@ SWEEP_PAST_CAP = 2.4
 
 # Phase 9: the metrics and the sweep.  Sizes of the phase; a test
 # rehearses it at small ones on the CPU.
-METRIC_SIZES = {"cos_n": 500_000, "cos_serve_n": 100_000,
+METRIC_SIZES = {"cos_n": 250_000, "cos_serve_n": 100_000,
                 "check_n": 20_000, "hav_n": 1_000_000,
                 "l1_n": 1_000_000, "l1_fit_n": 200_000, "l1_sub_n": 20_000,
                 "queries": 4096,
@@ -3045,12 +3074,14 @@ def card_oracle(torch, qf32, coords, labels, eps2):
 
 
 def metrics_phase(torch, dev, median_ms, sync, sizes=METRIC_SIZES,
-                  embedding=None):
+                  embedding=None, keep=None):
     """Phase 9 (the metrics and the sweep); see the module docstring.
     ``embedding``: phase 7's ``make_embedding_data(1M, 512)`` as ``(X,
-    truth)``, made here when None.  Returns the kernels' records at the
-    slice's new shapes and the phase's own record (walls, the L1 pass,
-    the sweep)."""
+    truth)``, made here when None; ``keep`` (a dict) gains ``"l1"`` (9.3's
+    cityblock fit's labels and core flags) and ``"sweep"`` (9.4's per
+    config), which phase 21 holds its mesh routes against.  Returns the
+    kernels' records at the slice's new shapes and the phase's own record
+    (walls, the L1 pass, the sweep)."""
     from benchdata import make_blob_data, make_embedding_data
     from pypardis_tpu_torch import DBSCAN
     from pypardis_tpu_torch.dbscan import _stage, _unit_rows
@@ -3421,6 +3452,8 @@ def metrics_phase(torch, dev, median_ms, sync, sizes=METRIC_SIZES,
         fail("the cityblock fit's L1 passes do not match its passes")
     if a < 0.99:
         fail(f"cityblock ARI {a} < 0.99")
+    if keep is not None:
+        keep["l1"] = dict(labels=l1.labels_, core=l1.core_sample_mask_)
     stamp("9.3: fitted")
     # Card against CPU on a subsample, at the least block (128): the
     # CPU's plain pass over 1024-wide tiles would take ~15 s at 20k.
@@ -3476,6 +3509,9 @@ def metrics_phase(torch, dev, median_ms, sync, sizes=METRIC_SIZES,
         if not (np.array_equal(res.labels(*cfg), fit.labels_)
                 and np.array_equal(res.core(*cfg), fit.core_sample_mask_)):
             fail(f"sweep config {cfg} differs from its fit")
+    if keep is not None:
+        keep["sweep"] = {c: (res.labels(*c), res.core(*c))
+                         for c in res.configs}
     stamp("9.4: sweep and its fits")
     log(f"    every config byte-identical to its fit from the tensor; the "
         f"{len(res)} fits took {fit_s:.4f} s against the sweep's "
@@ -3985,7 +4021,7 @@ def refit_trace(torch, dev, live, block, trace_cap):
 # rehearses it at small ones on the CPU.
 LIVE_SIZES = {"n": 1_000_000, "d": 16, "centers": 32, "std": 0.4,
               "eps": 2.4, "min_samples": 10, "block": 2048,
-              "singles": 64, "batches": 4, "batch_rows": 1024,
+              "singles": 32, "batches": 4, "batch_rows": 1024,
               "blob_rows": 4096, "clump": 12, "deletes": 64,
               "queue_rows": 4096, "queue_batch": 1024, "replay_rows": 64,
               "replay_deletes": 16, "queries": 4096, "inserted_q": 1024,
@@ -5191,7 +5227,8 @@ def chained_cpu_refs_child(base, sizes, jobs):
             "gm": (gm_cpu_cases, gm_cpu_runs),
             "mesh": (mesh_cpu_cases, mesh_cpu_runs),
             "ring": (ring_cpu_cases, ring_cpu_runs),
-            "gmmesh": (gmmesh_cpu_cases, gmmesh_cpu_runs)}[job]
+            "gmmesh": (gmmesh_cpu_cases, gmmesh_cpu_runs),
+            "sweepmesh": (sweepmesh_cpu_cases, sweepmesh_cpu_runs)}[job]
         cases = cases_of(sizes)
         runs = runs_of(cases)
         arrays = {"digest": np.array(cases_digest(cases))}
@@ -5225,12 +5262,14 @@ def chained_launches(ck, stats, what, counts="count_pairs",
     return la
 
 
-def f32_within(torch, x, rows, cand, e2, chunk=1 << 22):
+def f32_within(torch, x, rows, cand, e2, chunk=1 << 22, l1=False):
     """Per row of ``rows`` (indices into the recentred float32 rows
     ``x``, on the card), whether it lies within eps of any row in
     ``cand``: d^2 summed axis by axis with each operation rounded on its
     own, the kernels' exact verdict (``ops/distances._pair_d2``), against
-    the float32 eps^2 ``e2``; ``chunk`` bounds the pairs held at once."""
+    the float32 eps^2 ``e2``; with ``l1`` the absolute differences
+    summed so (``_pair_l1``) against the float32 eps ``e2``; ``chunk``
+    bounds the pairs held at once."""
     out = torch.zeros(len(rows), dtype=torch.bool, device=x.device)
     step = max(1, chunk // max(len(cand), 1))
     for s in range(0, len(rows), step):
@@ -5238,19 +5277,21 @@ def f32_within(torch, x, rows, cand, e2, chunk=1 << 22):
         acc = torch.zeros(df.shape[:2], dtype=torch.float32,
                           device=x.device)
         for a in range(x.shape[1]):
-            acc = acc + df[:, :, a] * df[:, :, a]
+            acc = acc + (df[:, :, a].abs() if l1
+                         else df[:, :, a] * df[:, :, a])
         out[s:s + step] = (acc <= e2).any(1)
     return out
 
 
-def hold_chained(torch, dev, X, eps, lab, core, s_lab, s_core, what):
+def hold_chained(torch, dev, X, eps, lab, core, s_lab, s_core, what,
+                 metric="euclidean"):
     """A chained fit's ``(lab, core)`` against the single-device fit's
     ``(s_lab, s_core)`` on the same data: the core mask and the noise
     byte-identical, the core points clustered alike (a bijection of
     labels), and every border point whose cluster differs within eps of
     a core of both clusters (an eps tie: either attach is right), by the
-    exact float32 verdict on the card; any other difference fails.
-    Returns ``(clusters, borders, noise, differ)``."""
+    exact float32 verdict of ``metric`` on the card; any other
+    difference fails.  Returns ``(clusters, borders, noise, differ)``."""
     from pypardis_tpu_torch.ops.distances import eps2_f32
 
     s_lab, s_core = np.asarray(s_lab), np.asarray(s_core)
@@ -5272,13 +5313,14 @@ def hold_chained(torch, dev, X, eps, lab, core, s_lab, s_core, what):
     if len(differ):
         center = X.mean(axis=0, dtype=np.float64)
         xr = torch.from_numpy((X - center).astype(np.float32)).to(dev)
-        e2 = eps2_f32(eps)
+        l1 = metric == "cityblock"
+        e2 = float(np.float32(eps)) if l1 else eps2_f32(eps)
         for c_of in (lab[differ], mapped[mapped != lab[border]]):
             for c in np.unique(c_of).tolist():
                 rows = torch.from_numpy(differ[c_of == c]).to(dev)
                 cand = torch.from_numpy(
                     np.flatnonzero(core & (lab == c))).to(dev)
-                ok = (f32_within(torch, xr, rows, cand, e2)
+                ok = (f32_within(torch, xr, rows, cand, e2, l1=l1)
                       if len(cand) else torch.zeros_like(rows, dtype=bool))
                 if not bool(ok.all()):
                     b = int(rows[~ok][0])
@@ -8399,6 +8441,518 @@ def gmmesh_phase(torch, dev, sync, card="", sizes=GMMESH_SIZES, main=None,
     return rec
 
 
+# Phase 21: sweeps and the eps-free hierarchy on a mesh that repeats the
+# one card `mesh` times, and cityblock on the global-Morton engine.  21.1
+# reuses 13.1's 20,000 x 16-D blobs (block 256) on each of `shards`: the
+# KD and global-Morton sweeps over sweep_eps x sweep_ms, an eps=None fit
+# on each route under the ceiling hier_max, and the engine's
+# cityblock fits of l1_cases and its chained form over l1_chain ranges;
+# 21.2 phase 4's 1M x 16-D blobs over `mesh` shards through both sweeps
+# on phase 9.4's grid; 21.3 an eps=None fit of the same rows on the
+# global-Morton mesh at phase 10's ceiling; 21.4 the first l1_n of them
+# through the engine's cityblock fit.  (At 20k the graph holds 2,535,752
+# edges at eps 1.6 and 6,932,162 at 1.8.)
+SWEEPMESH_SIZES = {"shards": [4, 8], "sweep_eps": [1.0, 1.2, 1.4, 1.6],
+                   "sweep_ms": [5, 10], "hier_max": 1.4,
+                   "l1_eps": L1_EPS,
+                   "l1_cases": [[4, "device"], [4, "host"], [8, "device"]],
+                   "l1_chain": 4, "mesh": 4, "n": 1_000_000, "block": 2048,
+                   "eps_max": SWEEP_EPS_MAX, "edges": SWEEP_EDGES,
+                   "l1_n": 200_000, "trace_cap": 64}
+# The routes a model takes on a mesh, by the mode it is given.
+SWEEP_ROUTES = {"kd": {}, "global_morton": {"mode": "global_morton"}}
+# The sizes 21.1's CPU runs read (the child process's job "sweepmesh").
+SWEEPMESH_CPU_KEYS = ("shards", "sweep_eps", "sweep_ms", "hier_max",
+                      "l1_eps", "l1_cases", "l1_chain")
+
+
+@contextlib.contextmanager
+def hier_ceiling(eps_max):
+    """``PPTORCH_HIER_EPS_MAX`` set to ``eps_max`` for the block."""
+    prev = os.environ.get("PPTORCH_HIER_EPS_MAX")
+    os.environ["PPTORCH_HIER_EPS_MAX"] = repr(float(eps_max))
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("PPTORCH_HIER_EPS_MAX", None)
+        else:
+            os.environ["PPTORCH_HIER_EPS_MAX"] = prev
+
+
+def sweepmesh_cpu_cases(sizes):
+    """21.1's runs on 13.1's 20k data: ``{name: (X, (kind, shards,
+    route or merge), kwargs)}``."""
+    Xs, _p, kw_s = chained_cpu_cases(sizes)["small"]
+    kw = dict(block=kw_s["block"], eps_list=list(sizes["sweep_eps"]),
+              ms_list=list(sizes["sweep_ms"]), hier_max=sizes["hier_max"],
+              l1_eps=sizes["l1_eps"])
+    cases = {}
+    for p in sizes["shards"]:
+        for route in SWEEP_ROUTES:
+            cases[f"p{p}_{route}_sweep"] = (Xs, ("sweep", p, route), kw)
+            cases[f"p{p}_{route}_hier"] = (Xs, ("hier", p, route), kw)
+    for p, merge in sizes["l1_cases"]:
+        cases[f"p{p}_l1_{merge}"] = (Xs, ("l1", p, merge), kw)
+    cases[f"chain{sizes['l1_chain']}_l1"] = (
+        Xs, ("l1_chain", sizes["l1_chain"], "host"), kw)
+    return cases
+
+
+def sweepmesh_run(x, spec, kw, device):
+    """One 21.1 run of ``spec`` on ``device`` (``"cpu"``: the kernels'
+    plain versions; a mesh repeats the device): ``(labels, core, stats)``,
+    a sweep's labels and core flags one row per config and its stats
+    those the card's run and the CPU's must share.  Each run starts from
+    an empty staging cache, so each builds its graph cold."""
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.parallel import Mesh, global_morton_dbscan, staging
+
+    staging.clear()
+    kind, p, arg = spec
+    mesh = Mesh([device] * p)
+    if kind == "sweep":
+        m = DBSCAN(eps=max(kw["eps_list"]), min_samples=kw["ms_list"][0],
+                   block=kw["block"], mesh=mesh, device=device,
+                   **SWEEP_ROUTES[arg])
+        res = m.sweep(x, kw["eps_list"], kw["ms_list"])
+        st = res.stats
+        return (np.stack([res.labels(*c) for c in res.configs]),
+                np.stack([res.core(*c) for c in res.configs]),
+                {"configs": [list(c) for c in res.configs],
+                 "n_partitions": m.metrics_["n_partitions"],
+                 **{k: st[k] for k in ("mode", "distance_passes",
+                                       "graph_pairs", "owner_computes",
+                                       "n_devices", "degraded")}})
+    if kind == "hier":
+        with hier_ceiling(kw["hier_max"]):
+            m = DBSCAN(eps=None, min_samples=10, block=kw["block"],
+                       mesh=mesh, device=device,
+                       **SWEEP_ROUTES[arg]).fit(x)
+        h = m._hier_stats
+        return (m.labels_, m.core_sample_mask_,
+                {"eps_": m.eps_, **{k: h[k] for k in (
+                    "mode", "n_devices", "graph_pairs", "mst_edges",
+                    "selected_clusters", "eps_max")}})
+    l1 = dict(eps=kw["l1_eps"], min_samples=10, metric="cityblock",
+              block=kw["block"], device=device)
+    if kind == "l1":
+        lab, core, st = global_morton_dbscan(x, mesh=mesh, merge=arg, **l1)
+    else:
+        lab, core, st = global_morton_dbscan(x, mesh=1, chain=p, **l1)
+    return lab, core, gmmesh_stats(st)
+
+
+def sweepmesh_cpu_runs(cases):
+    """Each 21.1 run on a CPU mesh: ``{name: ((labels, core, stats),
+    seconds)}``."""
+    out = {}
+    for name, (x, spec, kw) in cases.items():
+        t = time.perf_counter()
+        res = sweepmesh_run(x, spec, kw, "cpu")
+        out[name] = (res, time.perf_counter() - t)
+    return out
+
+
+def hold_same_frame(torch, dev, X, eps, lab, core, h_lab, h_core, what,
+                    tie_cap=4096):
+    """A mesh route's ``(lab, core)`` against a single-card run of the
+    same rows from host input (the same float64-mean frame), after
+    ``_canonicalize_roots``: the core flags and the noise byte-identical,
+    every core point's label identical, and every border whose label
+    differs a tie of the border rule, which each side resolves in its
+    own order: within eps of a core of both clusters, and on the mesh
+    in the cluster whose least core gid is the least among the clusters
+    of its cores within eps (``ops/labels.graph_dbscan``; the single card
+    takes the least root in Morton slot order), by the exact float32
+    verdict on the card.  Any other difference fails.  Returns
+    ``(borders that differ, ARI)``."""
+    from pypardis_tpu_torch.ops.distances import eps2_f32
+    from pypardis_tpu_torch.parallel.sharded import _canonicalize_roots
+
+    core, h_core = np.asarray(core, bool), np.asarray(h_core, bool)
+    if not np.array_equal(core, h_core):
+        fail(f"{what}: core flags differ from the host-input single-card "
+             f"run in {int((core != h_core).sum())} points")
+    lab, h_lab = np.asarray(lab), np.asarray(h_lab)
+    if not np.array_equal(lab < 0, h_lab < 0):
+        fail(f"{what}: noise differs from the host-input single-card run")
+    cl = _canonicalize_roots(lab, core).astype(np.int64)
+    ch = _canonicalize_roots(h_lab, h_core).astype(np.int64)
+    if not np.array_equal(cl[core], ch[core]):
+        fail(f"{what}: the core points' canonical labels differ from the "
+             f"host-input single-card run")
+    differ = np.flatnonzero(cl != ch)
+    if len(differ) > tie_cap:
+        fail(f"{what}: {len(differ)} borders differ from the host-input "
+             f"single-card run (more than {tie_cap})")
+    if len(differ):
+        xr = torch.from_numpy((X - X.mean(axis=0, dtype=np.float64))
+                              .astype(np.float32)).to(dev)
+        e2 = eps2_f32(eps)
+        cand = torch.from_numpy(np.flatnonzero(core)).to(dev)
+        croot = torch.from_numpy(cl[core]).to(dev)
+        big = torch.iinfo(torch.int64).max
+        step = max(1, (1 << 22) // max(len(cand), 1))
+        for s in range(0, len(differ), step):
+            rows = torch.from_numpy(differ[s:s + step]).to(dev)
+            df = xr[cand][None, :, :] - xr[rows][:, None, :]
+            acc = torch.zeros(df.shape[:2], dtype=torch.float32, device=dev)
+            for a in range(xr.shape[1]):
+                acc = acc + df[:, :, a] * df[:, :, a]
+            within = acc <= e2
+            least = torch.where(within, croot[None, :],
+                                torch.full_like(croot[None, :], big)).amin(1)
+            want_m = torch.from_numpy(cl[differ[s:s + step]]).to(dev)
+            want_h = torch.from_numpy(ch[differ[s:s + step]]).to(dev)
+            has_h = (within & (croot[None, :] == want_h[:, None])).any(1)
+            bad = (least != want_m) | ~has_h
+            if bool(bad.any()):
+                b = int(rows[bad][0])
+                fail(f"{what}: border point {b} differs from the host-input "
+                     f"single-card run and is not a tie of the border rule")
+        del xr
+    a = ari(lab, h_lab)
+    log(f"    {what} vs the host-input single-card run: core flags, noise "
+        f"and the core points' canonical labels identical; {len(differ)} "
+        f"borders in another cluster, each a tie of the border rule; ARI "
+        f"{a!r}")
+    return len(differ), a
+
+
+def trace_frame_flips(torch, dev, X, eps, ms, lab, core, s_lab, s_core,
+                      what, trace_cap):
+    """A mesh route's ``(lab, core)`` against a single-card fit of the
+    same rows in another frame (a CUDA tensor's float32 mean).  Every
+    point whose core flag differs has its ``ms``-th nearest row (itself
+    included) at a float32 d^2 within ``ops/precision.exact_slack`` of
+    eps^2: the pair that decides its count.  Every point that is noise
+    in one and a border in the other has a core of either fit whose d^2
+    lies within ``exact_slack`` of eps^2, or one within eps whose core
+    flag differs.  One decisive flip can join two clusters, so the ARI
+    is printed, not gated.  Returns ``(points traced, ARI)``."""
+    from pypardis_tpu_torch.ops.distances import eps2_f32
+    from pypardis_tpu_torch.ops.precision import exact_slack
+
+    core, s_core = np.asarray(core, bool), np.asarray(s_core, bool)
+    lab, s_lab = np.asarray(lab), np.asarray(s_lab)
+    flip = np.flatnonzero(core != s_core)
+    noise = np.flatnonzero(((lab < 0) != (s_lab < 0)) & ~core & ~s_core)
+    a = ari(lab, s_lab)
+    if len(flip) + len(noise) > trace_cap:
+        fail(f"{what}: ARI {a!r} against the single-card fit from a tensor, "
+             f"{len(flip)} core flags and {len(noise)} noise points differ")
+    if len(flip) or len(noise):
+        e2 = eps2_f32(eps)
+        xr = torch.from_numpy((X - X.mean(axis=0, dtype=np.float64))
+                              .astype(np.float32)).to(dev)
+        norms = torch.sqrt((xr * xr).sum(dim=1))
+        either = torch.from_numpy(core | s_core).to(dev)
+        flipped = torch.from_numpy(core != s_core).to(dev)
+
+        def d2_row(p):
+            acc = torch.zeros(len(xr), dtype=torch.float32, device=dev)
+            for ax in range(xr.shape[1]):
+                dd = xr[:, ax] - xr[p, ax]
+                acc = acc + dd * dd
+            return acc
+
+        for p in flip.tolist():
+            acc = d2_row(p)
+            kth, q = torch.kthvalue(acc, int(ms))
+            if abs(float(kth) - e2) > exact_slack(float(norms[p]),
+                                                  float(norms[q])):
+                fail(f"{what}: point {p}'s core flag differs from the "
+                     f"single-card fit but its count's deciding d2 "
+                     f"{float(kth)!r} is not within exact_slack of eps^2")
+        for p in noise.tolist():
+            acc = d2_row(p)
+            slack = (2.0 ** -16) * (norms + norms[p]) ** 2
+            near = either & ((acc - e2).abs() <= slack)
+            via_flip = flipped & (acc <= e2 + slack)
+            if not bool((near | via_flip).any()):
+                fail(f"{what}: point {p} is noise in one fit only but has "
+                     f"no core pair within exact_slack of eps^2")
+        del xr
+    log(f"    {what} vs the single-card fit from a tensor: ARI {a!r}; "
+        f"{len(flip)} core flags and {len(noise)} noise points differ, "
+        f"each traced to a pair within exact_slack of eps^2")
+    return len(flip) + len(noise), a
+
+
+def sweepmesh_phase(torch, dev, sync, card="", sizes=SWEEPMESH_SIZES,
+                    main=None, cpu_refs=None, keep=None, hier_eps=None):
+    """Phase 21 (sweeps and the eps-free hierarchy on a mesh,
+    ``DBSCAN(mesh=Mesh(["cuda:0"] * P)).sweep`` and ``DBSCAN(eps=None,
+    mesh=...)``, and cityblock on the global-Morton engine); see the
+    module docstring.  ``main``: ``dict(X=)`` of phase 4's 1M data (None:
+    made here); ``cpu_refs``: a :class:`ChainedCpuRefs` with a
+    ``"sweepmesh"`` job (None: 21.1's CPU runs go here first); ``keep``:
+    phase 9's ``"sweep"`` (9.4's single-card labels and core flags per
+    config, from a CUDA tensor) and ``"l1"`` (9.3's single-card cityblock
+    fit of the first l1_n rows; missing ones are made here);
+    ``hier_eps``: phase 10's ``eps_`` (None: not run).  Returns the
+    phase's record."""
+    from pypardis_tpu_torch import DBSCAN
+    from pypardis_tpu_torch.ops import cuda_kernels as ck
+    from pypardis_tpu_torch.parallel import (
+        Mesh, global_morton_dbscan, staging,
+    )
+    from pypardis_tpu_torch.parallel.sharded import _canonicalize_roots
+
+    rec = {"card": card}
+    keep = {} if keep is None else keep
+    t_phase = time.perf_counter()
+    all_sizes = dict(CHAINED_SIZES, **sizes)
+    mesh = Mesh([dev] * sizes["mesh"])
+    log(f"  mesh {mesh!r} on {torch.cuda.device_count()} card(s): "
+        f"copies between distinct cards and shards running at once are "
+        f"not measured here")
+
+    def stamp(what):
+        log(f"  [{time.perf_counter() - t_phase:.1f} s] {what}")
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    # 21.1: the card against the port's CPU runs.
+    cases = sweepmesh_cpu_cases(all_sizes)
+    cpu_now = None if cpu_refs else sweepmesh_cpu_runs(cases)
+    on_card = {}
+    for name, (x, spec, kw) in cases.items():
+        ck.reset_launch_counts()
+        on_card[name] = timed(lambda: sweepmesh_run(x, spec, kw, dev))
+        (lab, _core, st), wall = on_card[name]
+        launched = {k: v for k, v in {**ck.LAUNCHES, **ck.L1_PASSES}.items()
+                    if v}
+        log(f"  21.1 {name}: n={len(x)} card {wall:.4f} s; "
+            f"{json.dumps(st)[:300]}; launches {launched}")
+        if spec[0] == "sweep" and (st["distance_passes"] != 1
+                                   or st["mode"] != spec[2]
+                                   or st["n_devices"] != spec[1]):
+            fail(f"21.1 {name}: the sweep did not take its route in one "
+                 f"distance pass")
+        if spec[0] == "hier" and st["mode"] != spec[2]:
+            fail(f"21.1 {name}: the eps=None fit did not take its route")
+        if spec[0] != "sweep" and spec[0] != "hier" and (
+                not launched.get("count_pairs_l1")
+                or set(launched) - set(ck.L1_PASSES)):
+            fail(f"21.1 {name}: the cityblock fit did not run the L1 "
+                 f"passes alone")
+    stamp("21.1: card runs done")
+
+    def close_21_1():
+        cpu = cpu_now or cpu_refs.result(cases, "sweepmesh")
+        for name, ((lab, core, st), _s) in on_card.items():
+            (c_lab, c_core, c_st), c_s = cpu[name]
+            st = json.loads(json.dumps(st))
+            diff = sorted(k for k in set(c_st) | set(st)
+                          if c_st.get(k) != st.get(k))
+            same = np.array_equal(lab, c_lab) and np.array_equal(core, c_core)
+            log(f"    21.1 {name}: card vs CPU ({c_s:.4f} s"
+                f"{' in a child process' if cpu_refs else ''}): labels and "
+                f"core byte-identical: {same}; stats that differ: {diff}")
+            if not same or diff:
+                fail(f"21.1 {name}: the card's run differs from the CPU's")
+        rec["small"] = {name: {"card_s": c[1], "cpu_s": cpu[name][1]}
+                        for name, c in on_card.items()}
+        stamp("21.1: done")
+
+    # 21.2: both sweeps at 1M on phase 9.4's grid.
+    n, block = sizes["n"], sizes["block"]
+    if main is None:
+        from benchdata import make_blob_data
+
+        X, _truth = make_blob_data(n, 16, n_centers=32, std=0.4)
+        main = dict(X=X)
+    X = main["X"]
+    eps_list = [round(sizes["eps_max"] * (i + 1) / 8, 6) for i in range(8)]
+    ms_list = [5, 10]
+    single = keep.get("sweep")
+    if single is None:
+        Xd = torch.from_numpy(X).to(dev)
+        res1 = DBSCAN(eps=sizes["eps_max"], min_samples=10, block=block,
+                      device=dev).sweep(Xd, eps_list, ms_list)
+        single = {c: (res1.labels(*c), res1.core(*c)) for c in res1.configs}
+        del Xd, res1
+        staging.clear()
+    # The same sweep on one card from host input: the mesh routes' own
+    # float64-mean frame, so every config is held to it canonically.
+    res1, host_wall = timed(lambda: DBSCAN(
+        eps=sizes["eps_max"], min_samples=10, block=block,
+        device=dev).sweep(X, eps_list, ms_list))
+    host1 = {c: (res1.labels(*c), res1.core(*c)) for c in res1.configs}
+    log(f"  21.2 the single-card sweep from host input: {host_wall:.4f} s "
+        f"on {card}, graph_pairs {res1.stats['graph_pairs']}")
+    del res1
+    staging.clear()
+    rows, fit_launches = {}, {}
+    for route, extra in SWEEP_ROUTES.items():
+        model = DBSCAN(eps=sizes["eps_max"], min_samples=10, block=block,
+                       mesh=mesh, device=dev, **extra)
+        ck.reset_launch_counts()
+        sync()
+        cuda_mem = dev.type == "cuda"
+        if cuda_mem:
+            mem0 = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        res, wall = timed(lambda: model.sweep(X, eps_list, ms_list))
+        peak = (torch.cuda.max_memory_allocated(dev) - mem0 if cuda_mem
+                else "not measured")
+        st, mt = res.stats, model.metrics_
+        what = f"21.2 {route} sweep n={n} d=16"
+        graph_dev = staging.route_nbytes(staging.SWEEP_GRAPH_ROUTE)
+        launched = {k: v for k, v in ck.LAUNCHES.items() if v}
+        log(f"  {what} over {sizes['mesh']} shards: {len(res)} configs in "
+            f"{wall:.4f} s from host input on {card}; mode {st['mode']}, "
+            f"distance_passes {st['distance_passes']}, graph_pairs "
+            f"{st['graph_pairs']} (9.4's single-card graph "
+            f"{sizes['edges']}), graph_build_s {st['graph_build_s']}, "
+            f"relabel {round(sum(st['relabel_s']), 6)} s "
+            f"({[round(v, 4) for v in st['relabel_s']]}), the graph's "
+            f"device bytes {graph_dev} (peak over the sweep {peak}); "
+            f"boundary_tiles {mt.get('boundary_tiles')}, halo_factor "
+            f"{mt.get('halo_factor')}, n_partitions {mt['n_partitions']}; "
+            f"kernel launches {launched}")
+        if (st["distance_passes"] != 1 or st["mode"] != route
+                or st["degraded"] is not None
+                or st["n_devices"] != sizes["mesh"] or not st["owner_computes"]
+                or model.report()["run"]["n_devices"] != sizes["mesh"]):
+            fail(f"{what}: mode {st['mode']}, distance_passes "
+                 f"{st['distance_passes']}, degraded {st['degraded']}")
+        traced, ties = {}, {}
+        for cfg in res.configs:
+            lab, cor = res.labels(*cfg), res.core(*cfg)
+            key = f"{cfg[0]}/{cfg[1]}"
+            ties[key] = hold_same_frame(
+                torch, dev, X, cfg[0], lab, cor, *host1[cfg],
+                f"{what} config {cfg}")
+            traced[key] = trace_frame_flips(
+                torch, dev, X, cfg[0], cfg[1], lab, cor, *single[cfg],
+                f"{what} config {cfg}", sizes["trace_cap"])
+        stamp(f"21.2: {route} sweep held against the host-input sweep and "
+              f"9.4's configs")
+        fits = {}
+        ck.reset_launch_counts()
+        for cfg in (max(res.configs), min(res.configs)):
+            cfg = (cfg[0], 10)
+            fit, f_wall = timed(lambda: DBSCAN(
+                eps=cfg[0], min_samples=cfg[1], block=block, mesh=mesh,
+                device=dev, **extra).fit(X))
+            same = (np.array_equal(fit.labels_, res.labels(*cfg))
+                    and np.array_equal(fit.core_sample_mask_,
+                                       res.core(*cfg)))
+            fits[f"{cfg[0]}/{cfg[1]}"] = f_wall
+            log(f"    the {route} fit at {cfg} ({f_wall:.4f} s) "
+                f"byte-identical to the sweep's config: {same}")
+            if not same:
+                fail(f"{what}: config {cfg} differs from the fit at it")
+        la = dict(ck.LAUNCHES)
+        if not (la["count_pairs"] and la["minlab_pairs"]):
+            fail(f"{what}: the fits at two configs launched no B1/B2")
+        fit_launches[route] = la
+        canon_same = all(
+            np.array_equal(_canonicalize_roots(res.labels(*c),
+                                               res.core(*c)),
+                           _canonicalize_roots(single[c][0], single[c][1]))
+            for c in res.configs)
+        rows[route] = {
+            "wall_s": wall, "configs": len(res),
+            "graph_pairs": st["graph_pairs"], "graph_bytes": st["graph_bytes"],
+            "graph_build_s": st["graph_build_s"],
+            "relabel_s": round(sum(st["relabel_s"]), 6),
+            "graph_device_bytes": graph_dev, "peak_bytes": peak,
+            "boundary_tiles": mt.get("boundary_tiles"),
+            "halo_factor": mt.get("halo_factor"),
+            "traced": traced, "border_ties": ties,
+            "canon_identical_tensor": canon_same,
+            "host_sweep_s": host_wall,
+            "fits_s": fits,
+            "launches": {k: la[k] for k in GM_KERNELS["high"]}}
+        del model, res
+        staging.clear()
+        stamp(f"21.2: {route} done")
+    rec["sweep"] = rows
+
+    # 21.3: eps=None on the global-Morton mesh from host input.
+    model = DBSCAN(eps=None, min_samples=10, block=block, mesh=mesh,
+                   mode="global_morton", device=dev)
+    with hier_ceiling(sizes["eps_max"]):
+        _m, wall = timed(lambda: model.fit(X))
+    h = model._hier_stats
+    what = f"21.3 eps=None n={n} d=16 global_morton"
+    log(f"  {what} over {sizes['mesh']} shards, eps_max {h['eps_max']}: "
+        f"{wall:.4f} s on {card}; eps_ {model.eps_!r}, mode {h['mode']}, "
+        f"graph {h['graph_build_s']} s ({h['graph_pairs']} edges), prepare "
+        f"{h['prepare_s']} s, core pass {h['core_pass_s']} s, MST "
+        f"{h['mst_s']} s, condensation {h['condense_s']} s, cut "
+        f"{h['cut_s']} s, relabel {h['relabel_s']} s")
+    if h["mode"] != "global_morton" or h["n_devices"] != sizes["mesh"]:
+        fail(f"{what}: the fit took the {h['mode']} route")
+    ref, f_wall = timed(lambda: DBSCAN(eps=model.eps_, min_samples=10,
+                                       block=block, device=dev).fit(X))
+    hold_chained(torch, dev, X, model.eps_, model.labels_,
+                 model.core_sample_mask_, ref.labels_, ref.core_sample_mask_,
+                 f"{what} against the single-card fit at its eps_ "
+                 f"({f_wall:.4f} s)")
+    if hier_eps is None:
+        moved = "phase 10 not run"
+    elif hier_eps == model.eps_:
+        moved = f"equal to phase 10's {hier_eps!r}"
+    else:
+        moved = (f"phase 10's {hier_eps!r} (d2 {np.float32(hier_eps) ** 2!r})"
+                 f" against {model.eps_!r} (d2 "
+                 f"{np.float32(model.eps_) ** 2!r}): the cut moved")
+    log(f"    eps_ {moved}")
+    rec["hier"] = {"wall_s": wall, "eps_": model.eps_,
+                   "phase10_eps_": hier_eps,
+                   **{k: h[k] for k in ("graph_pairs", "graph_build_s",
+                                        "prepare_s", "core_pass_s", "mst_s",
+                                        "condense_s", "cut_s", "relabel_s")}}
+    del model, ref
+    staging.clear()
+    stamp("21.3: done")
+
+    # 21.4: cityblock on the global-Morton mesh.
+    nl = sizes["l1_n"]
+    X1 = np.ascontiguousarray(X[:nl])
+    l1 = keep.get("l1")
+    if l1 is None:
+        one = DBSCAN(eps=sizes["l1_eps"], min_samples=10, metric="cityblock",
+                     block=block, device=dev).fit(X1)
+        l1 = dict(labels=one.labels_, core=one.core_sample_mask_)
+    model = DBSCAN(eps=sizes["l1_eps"], min_samples=10, metric="cityblock",
+                   block=block, mesh=mesh, mode="global_morton", device=dev)
+    ck.reset_launch_counts()
+    _m, wall = timed(lambda: model.fit(X1))
+    mt = model.metrics_
+    what = f"21.4 cityblock n={nl} d=16 global_morton"
+    log(f"  {what} over {sizes['mesh']} shards: {wall:.4f} s on {card}; "
+        f"L1 passes {dict(ck.L1_PASSES)}, kernel passes "
+        f"{mt['partition_passes']}, boundary tiles {mt['boundary_tiles']}, "
+        f"sketch_k {mt['sketch_k']}, gm_execute_s {mt['gm_execute_s']}")
+    if (mt.get("mode") != "global_morton" or mt["sketch_k"]
+            or not ck.L1_PASSES["count_pairs_l1"]
+            or any(ck.LAUNCHES.values())):
+        fail(f"{what}: not the unsketched L1 passes on the mesh engine")
+    clusters, borders, noise, differ = hold_chained(
+        torch, dev, X1, sizes["l1_eps"], model.labels_,
+        model.core_sample_mask_, l1["labels"], l1["core"], what,
+        metric="cityblock")
+    rec["cityblock"] = {"n": nl, "wall_s": wall,
+                        "l1_passes": dict(ck.L1_PASSES),
+                        "clusters": clusters, "borders_differ": differ}
+    del model, X1
+    stamp("21.4: done")
+    close_21_1()
+    rec["fit_launches"] = fit_launches
+    return rec
+
+
 def main() -> None:
     import torch
 
@@ -8605,6 +9159,19 @@ def main() -> None:
                                  jobs=("gmmesh",)))
         log(f"phase 20 record: {json.dumps(rec20)}; phase 20 took "
             f"{time.perf_counter() - t20:.1f} s")
+        log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+        return
+
+    if "--sweepmesh" in sys.argv[1:]:
+        t21 = time.perf_counter()
+        rec21 = sweepmesh_phase(torch, dev, torch.cuda.synchronize, card,
+                                cpu_refs=ChainedCpuRefs(
+                                    dict(CHAINED_SIZES, **{
+                                        k: SWEEPMESH_SIZES[k]
+                                        for k in SWEEPMESH_CPU_KEYS}),
+                                    jobs=("sweepmesh",)))
+        log(f"phase 21 record: {json.dumps(rec21)}; phase 21 took "
+            f"{time.perf_counter() - t21:.1f} s")
         log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
         return
 
@@ -8852,8 +9419,9 @@ def main() -> None:
     # from here on beside the card's work (it makes its own data).
     cpu_refs = ChainedCpuRefs(dict(CHAINED_SIZES, **GM_SIZES, **{
         k: v for k, v in {**MESH_SIZES, **RING_SIZES}.items()
-        if k not in GM_SIZES}, gm_cases=GMMESH_SIZES["gm_cases"]),
-        jobs=("kd", "gm", "mesh", "ring", "gmmesh"))
+        if k not in GM_SIZES}, gm_cases=GMMESH_SIZES["gm_cases"], **{
+        k: SWEEPMESH_SIZES[k] for k in SWEEPMESH_CPU_KEYS}),
+        jobs=("kd", "gm", "mesh", "ring", "gmmesh", "sweepmesh"))
 
     # Phase 5: the kernels alone at the 1M fit's own inputs (staged as
     # a host-input fit stages them).
@@ -8969,9 +9537,10 @@ def main() -> None:
     del serve_model, serve_X, served, onoff, main_fit, xs, inp
     phase("phase 9: metrics (cosine, haversine, cityblock) and the sweep")
     t9 = time.perf_counter()
+    keep9 = {}
     records, rec9 = metrics_phase(torch, dev, median_ms,
                                   torch.cuda.synchronize,
-                                  embedding=embedding)
+                                  embedding=embedding, keep=keep9)
     del embedding
     kernels += records
     log(f"phase 9 record: {json.dumps(rec9)}; phase 9 took "
@@ -9123,7 +9692,7 @@ def main() -> None:
         cpu_refs=cpu_refs, keep=singles,
         walls={"17.2": rec17["main"]["wall_s"],
                "18.2": rec18["main"].get("wall_s")})
-    del gm_main, singles
+    del singles
     # The mesh engine's launches per fit (20.2's at 1M x 16-D on the
     # 4-shard mesh, 20.3's at 100k x 512) and each kernel's largest error
     # against its plain version over the owned-slab, boundary-delta and
@@ -9139,7 +9708,25 @@ def main() -> None:
                     rec20[part]["slab_hold"]["max_abs_err"][rec["name"]])
     log(f"phase 20 record: {json.dumps(rec20)}; phase 20 took "
         f"{time.perf_counter() - t20:.1f} s")
-    phase("phases 2-20 done")
+    phase("phase 21: sweeps and the eps-free hierarchy on a mesh "
+          "(DBSCAN(mesh=...).sweep, DBSCAN(eps=None, mesh=...)), cityblock "
+          "on the global-Morton engine")
+    t21 = time.perf_counter()
+    rec21 = sweepmesh_phase(
+        torch, dev, torch.cuda.synchronize, card, main=gm_main,
+        cpu_refs=cpu_refs, keep=keep9, hier_eps=rec10["fit"]["eps_"])
+    del gm_main, keep9
+    # B1/B2 launched by 21.2's four fits (the largest and the smallest
+    # config on each route, the 1M x 16-D data on the 4-shard mesh).
+    done = set()
+    for rec in kernels:
+        if rec["name"] in GM_KERNELS["high"] and rec["name"] not in done:
+            done.add(rec["name"])
+            rec["launches_sweepmesh"] = sum(
+                la[rec["name"]] for la in rec21["fit_launches"].values())
+    log(f"phase 21 record: {json.dumps(rec21)}; phase 21 took "
+        f"{time.perf_counter() - t21:.1f} s")
+    phase("phases 2-21 done")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

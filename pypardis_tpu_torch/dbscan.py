@@ -44,8 +44,13 @@ more than one device (see :class:`DBSCAN`): a memmap through the ring
 exchange's streaming build, a tensor through the device-input route
 (:func:`~.parallel.sharded.sharded_dbscan_device`); ``mode=
 "global_morton"`` takes the global-Morton mesh engine
-(:func:`~.parallel.global_morton_dbscan`).  The multi-process layer is a
-later slice of the port (ROADMAP A10's rest).
+(:func:`~.parallel.global_morton_dbscan`: Euclidean, cityblock, and
+cosine and haversine through their frames).  A sweep and an eps=None fit route as ``fit`` does:
+host input on more than one device builds the global neighbour-pair
+graph on the KD route (:func:`~.parallel.sharded.sweep_graph_sharded`)
+or, under ``mode="global_morton"``, the global-Morton route
+(:func:`~.parallel.global_morton.sweep_graph_global_morton`).  The
+multi-process layer is a later slice of the port (ROADMAP A10's rest).
 
 Every fit, sweep and eps=None fit records its telemetry on a fresh
 :class:`~.obs.RunRecorder`: phase spans and timings, the pipeline's
@@ -86,6 +91,7 @@ from .ops.pipeline import (
     unpack_pipeline_result,
 )
 from .ops.sketch import check_sketch_spec, effective_k
+from .parallel.sharded import SweepGraphOverflow
 from .utils import faults
 from .utils.budget import run_pair_ladder
 from .utils.hints import dispatch_tag
@@ -100,11 +106,6 @@ from .utils.validate import (
     check_precision,
     validate_params,
 )
-
-
-class SweepGraphOverflow(RuntimeError):
-    """The sweep graph is past its cap or still overflowed after the
-    exact-total retry; the sweep runs per-config fits instead."""
 
 
 def _kernel_eps(metric_norm: str, eps) -> float:
@@ -266,6 +267,22 @@ def _stage(points, block: int, device: torch.device):
         return torch.from_numpy(buf).to(device, copy=True), n, block
     finally:
         _staging_return(buf)
+
+
+def _graph_under_ceiling(gh, gstats, thr_max):
+    """The hierarchy's graph handle and stats at its own ceiling
+    ``thr_max`` (a float32 threshold): a graph served from the cache may
+    have been built at a higher one, and the core distances and the MST
+    read every edge they are given, so only the edges with ``dv <=
+    thr_max`` are kept, exactly those a cold build at the ceiling
+    emits.  A graph built at the ceiling comes back as it is."""
+    keep = gh["dv"] <= thr_max
+    kept = int(keep.sum())
+    if kept == int(gh["dv"].numel()):
+        return gh, gstats
+    gh = dict(gh, gi=gh["gi"][keep], gj=gh["gj"][keep], dv=gh["dv"][keep])
+    gstats = dict(gstats, graph_pairs=kept, graph_bytes=kept * 12)
+    return gh, gstats
 
 
 def _pad_and_run(points, eps, min_samples, block, precision="high",
@@ -1232,6 +1249,20 @@ class DBSCAN:
         fit's tile frames.  The model is left fitted at the last
         config.
 
+        The route is ``fit``'s (the JAX package's): host input of at
+        least two points per device on more than one device builds the
+        graph over the KD route's owner-computes slabs, halos at
+        ``2 * eps_max`` (``stats["mode"] == "kd"``), or under
+        ``mode="global_morton"`` over the Morton ranges and their
+        boundary tiles; each config's labels are then the sharded fit's
+        (min-core-gid roots) and ``stats`` carries ``owner_computes``,
+        ``dispatch`` and ``n_devices``.  A tensor, or one device, takes
+        the single-card graph.  A graph past the cap, or an OOM-class
+        error while it is built, runs per-config fits on the model's
+        route (``note_degraded("sweep_refit")``); a later sweep or
+        eps=None fit on the same data and route whose ceiling is at most
+        the cached one reuses the graph.
+
         ``eps_list="auto"`` takes the eps ladder from the density
         hierarchy (:meth:`_sweep_auto_run`): the top
         ``PPTORCH_HIER_LADDER_K`` (default 8) stability cuts of the
@@ -1321,6 +1352,7 @@ class DBSCAN:
                 len(configs) * solo / max(wall, 1e-9), 4
             )
             self._sweep_stats = sweep
+            self._fit_info["n_devices"] = int(sweep["n_devices"])
             log_phase(
                 "sweep", n=len(points), k=len(configs),
                 distance_passes=sweep["distance_passes"],
@@ -1328,20 +1360,59 @@ class DBSCAN:
             )
         return SweepResult(configs, labels, core, per_cfg, sweep)
 
+    def _sharded_gate(self, points):
+        """``(run_mode, n_devices)`` of a sweep or eps=None fit, as the
+        JAX package routes them: host input of at least two points per
+        device on more than one device takes the KD graph, or under
+        ``mode="global_morton"`` the global-Morton graph; a tensor and a
+        single device take the fused graph on one device."""
+        n_devices = self._n_devices()
+        if (not isinstance(points, torch.Tensor) and n_devices > 1
+                and len(points) >= 2 * n_devices):
+            return ("global_morton" if self.mode == "global_morton"
+                    else "kd"), n_devices
+        return "fused", 1
+
+    def _graph_route(self, run_mode, points, eps_max, timer, n_devices):
+        """The graph at ``eps_max`` on ``run_mode``'s route: ``(relabel,
+        gstats, ghandle)`` (see :meth:`_sweep_graph_fused`)."""
+        if run_mode == "global_morton":
+            return self._sweep_graph_global(points, eps_max, timer)
+        if run_mode == "kd":
+            return self._sweep_graph_kd(points, eps_max, timer, n_devices)
+        return self._sweep_graph_fused(points, eps_max, timer)
+
+    def _graph_metrics(self, gstats) -> None:
+        """The graph's partition gauges into ``metrics_``, as the JAX
+        package reports them."""
+        self.metrics_["n_partitions"] = int(gstats.get("n_partitions", 1))
+        for k_ in ("boundary_tiles", "boundary_tile_bytes", "halo_factor",
+                   "halo_bytes", "partition_sizes"):
+            if k_ in gstats:
+                self.metrics_[k_] = gstats[k_]
+
     def _sweep_run(self, points, configs, timer):
         """The graph and one relabel per config (kernel frame), or the
-        per-config fits when the graph is past its cap or the mode is
-        ``"default"``."""
+        per-config fits when the graph is past its cap, an OOM-class
+        error stops it (``note_degraded("sweep_refit")``, as in the JAX
+        package) or the mode is ``"default"``.  The route is the JAX
+        package's (:meth:`_sharded_gate`)."""
         from .parallel import staging
+        from .utils.retry import is_degradable_error, note_degraded
 
         eps_k = [_kernel_eps(self._metric_norm, e) for e, _ in configs]
         staging.begin_fit()
         if self.precision == "default":
             return self._sweep_refit(points, configs, timer)
+        run_mode, n_devices = self._sharded_gate(points)
         try:
-            relabel, gstats, _gh = self._sweep_graph_fused(
-                points, max(eps_k), timer)
-        except SweepGraphOverflow as e:
+            relabel, gstats, _gh = self._graph_route(
+                run_mode, points, max(eps_k), timer, n_devices)
+        except Exception as e:  # noqa: BLE001 — re-raised unless degradable
+            if not (isinstance(e, SweepGraphOverflow)
+                    or is_degradable_error(e)):
+                raise
+            note_degraded("sweep_refit", error=str(e)[:160])
             get_logger().warning(
                 "sweep graph unavailable (%s); running per-config fits: "
                 "labels stay exact, one distance pass per config", e,
@@ -1374,7 +1445,7 @@ class DBSCAN:
             })
             reused_before = reused_now
         self.metrics_["kernel_passes"] = passes_total + 1
-        self.metrics_["n_partitions"] = 1
+        self._graph_metrics(gstats)
         sweep = {
             "k": len(configs),
             "configs": [[e, m] for e, m in configs],
@@ -1383,11 +1454,22 @@ class DBSCAN:
             "graph_bytes": gstats["graph_bytes"],
             "graph_build_s": round(gstats["build_s"], 6),
             "relabel_s": relabel_s,
-            "mode": "fused",
+            **self._route_block(run_mode, n_devices, gstats, len(points)),
             "degraded": None,
-            "n_devices": 1,
         }
         return labels_out, core_out, per_cfg, sweep
+
+    def _route_block(self, run_mode, n_devices, gstats, n) -> Dict:
+        """The sweep block's route keys (the JAX package's): ``mode``,
+        ``owner_computes`` (every route but the fused one), ``dispatch``
+        and ``n_devices``."""
+        return {
+            "mode": run_mode,
+            "owner_computes": run_mode != "fused",
+            "dispatch": dispatch_tag(
+                int(gstats.get("owned_cap", n)) // max(self.block, 1)),
+            "n_devices": int(n_devices),
+        }
 
     def _sweep_graph_fused(self, points, eps_max, timer):
         """Layout and graph at ``eps_max`` (kernel frame) with the
@@ -1516,6 +1598,132 @@ class DBSCAN:
         }
         return relabel, gstats, ghandle
 
+    def _graph_mesh(self):
+        """The mesh a sharded graph runs on: the model's, else every
+        visible card."""
+        from .parallel.mesh import default_mesh
+
+        return self.mesh if self.mesh is not None else default_mesh()
+
+    def _sweep_graph_kd(self, points, eps_max, timer, n_devices):
+        """The KD route's graph (the JAX ``_sweep_graph_kd``): the
+        partition, the parity surface at the graph's halo radius (the
+        boxes widened by 2 * eps_max: every config under the ceiling is
+        covered) and :func:`~.parallel.sharded.sweep_graph_sharded`'s
+        owner-computes slabs at eps_max."""
+        from .parallel.sharded import sweep_graph_sharded
+        from .partition import KDPartitioner
+
+        with timer.phase("partition"):
+            part = KDPartitioner(
+                points,
+                max_partitions=(n_devices if self.max_partitions is None
+                                else int(self.max_partitions)),
+                split_method=self.split_method,
+            )
+            self.partitioner_ = part
+            self.metrics_["partition_levels_s"] = [
+                round(float(t), 6) for t in part.level_times_s
+            ]
+            self.metrics_["partition_builder"] = part.builder
+            self.bounding_boxes = part.bounding_boxes
+            self.expanded_boxes = {
+                l: b.expand(2 * eps_max)
+                for l, b in part.bounding_boxes.items()
+            }
+        mesh = self._graph_mesh()
+        return self._global_relabel(
+            "kd", points, eps_max, timer, mesh,
+            lambda: sweep_graph_sharded(
+                points, part, eps_max, block=self.block, mesh=mesh,
+                metric=self._pair_metric, device=self.device),
+            (self.max_partitions, self.split_method))
+
+    def _sweep_graph_global(self, points, eps_max, timer):
+        """The global-Morton route's graph (the JAX
+        ``_sweep_graph_global``): Morton ranges and the boundary tiles at
+        eps_max (:func:`~.parallel.global_morton.
+        sweep_graph_global_morton`), no duplicated rows.  A tensor input
+        raises ``ValueError``, as the fit does."""
+        from .parallel.global_morton import sweep_graph_global_morton
+
+        if isinstance(points, torch.Tensor):
+            raise ValueError(
+                "mode='global_morton' needs host-resident input (the same "
+                "restriction as the fit)"
+            )
+        mesh = self._graph_mesh()
+        out = self._global_relabel(
+            "global_morton", points, eps_max, timer, mesh,
+            lambda: sweep_graph_global_morton(
+                points, eps_max, block=self.block, mesh=mesh,
+                metric=self._pair_metric, device=self.device))
+        self.metrics_["partition_builder"] = "morton_range"
+        self.metrics_["partition_levels_s"] = []
+        return out
+
+    def _global_relabel(self, run_mode, points, eps_max, timer, mesh, build,
+                        extra_key=()):
+        """A global-id graph and its per-config relabel (the JAX
+        ``_global_relabel``): ``build()`` (in ``timer``'s ``graph``
+        phase) returns ``((gi, gj, dval), gstats)`` on the mesh's first
+        device; the graph goes on the ``sweep_graph`` staging route, and
+        the relabel is :func:`~.ops.labels.graph_dbscan` on that device,
+        whose roots are the least core gid of each cluster (the sharded
+        routes' canonical labels).  The route's key holds the input's
+        fingerprint besides the JAX key's ``(mode, n, block, precision,
+        metric)``, and its entry the ceiling it was built at, so a later
+        sweep or eps=None fit under that ceiling builds nothing (a
+        cached graph counts whole against ``PPTORCH_SWEEP_MAX_PAIRS``,
+        as a fresh one does once its slabs are joined).
+        Returns ``(relabel, gstats, ghandle)``; the handle's
+        ``finalize`` is the identity slice."""
+        from .ops.distances import sweep_max_edges
+        from .ops.labels import graph_dbscan
+        from .parallel import staging
+
+        t_b = time.perf_counter()
+        n = len(points)
+        key = (run_mode, staging.points_fingerprint(points), n,
+               int(self.block), self.precision, str(self.metric),
+               tuple(str(mesh.device(s)) for s in range(mesh.size)),
+               *extra_key)
+        cached = staging.device_get_cover(staging.SWEEP_GRAPH_ROUTE, key,
+                                          eps_max)
+        if cached is not None:
+            (gi, gj, dv), gstats = cached[0], dict(cached[1]["stats"])
+            if gstats["graph_pairs"] > sweep_max_edges():
+                raise SweepGraphOverflow(
+                    f"the cached neighbour-pair graph holds "
+                    f"{gstats['graph_pairs']} edges, past the sweep cap "
+                    f"(PPTORCH_SWEEP_MAX_PAIRS)"
+                )
+        else:
+            with timer.phase("graph"):
+                (gi, gj, dv), gstats = build()
+                staging.device_put_cached(
+                    staging.SWEEP_GRAPH_ROUTE, key, (gi, gj, dv),
+                    aux={"eps_max": float(eps_max), "stats": dict(gstats)})
+                if gi.device.type == "cuda":
+                    torch.cuda.synchronize(gi.device)
+        gi_l, gj_l = gi.long(), gj.long()
+        mask = torch.ones(n, dtype=torch.bool, device=gi.device)
+        metric = self._pair_metric
+
+        def relabel(eps_c, ms_c):
+            lab, cor, passes = graph_dbscan(gi_l, gj_l, dv, mask, eps_c,
+                                            ms_c, metric=metric)
+            return lab.cpu().numpy(), cor.cpu().numpy(), int(passes)
+
+        def finalize(lab, cor):
+            return (lab[:n].cpu().numpy().astype(np.int32),
+                    cor[:n].cpu().numpy().astype(bool))
+
+        gstats["build_s"] = time.perf_counter() - t_b
+        ghandle = {"gi": gi_l, "gj": gj_l, "dv": dv, "mask": mask,
+                   "n_ids": n, "finalize": finalize}
+        return relabel, gstats, ghandle
+
     def _staging_metrics(self) -> None:
         """The staging cache's counters of this sweep or eps=None fit
         (those of its last fit, after per-config refits, as in the JAX
@@ -1528,7 +1736,8 @@ class DBSCAN:
 
     def _sweep_refit(self, points, configs, timer):
         """Per-config fits (one distance pass each) on the kernel-frame
-        points: the sweep's label-safe fallback."""
+        points, on the model's route (its mesh and sharding knobs): the
+        sweep's label-safe fallback."""
         labels_out, core_out, per_cfg, relabel_s = {}, {}, [], []
         for cfg in configs:
             e_u, ms = cfg
@@ -1538,7 +1747,10 @@ class DBSCAN:
                 metric=self._pair_metric, block=self.block,
                 precision=self.precision,
                 kernel_backend=self.kernel_backend, device=self.device,
-                sketch=self.sketch,
+                sketch=self.sketch, max_partitions=self.max_partitions,
+                split_method=self.split_method, mesh=self.mesh,
+                merge=self.merge, owner_computes=self.owner_computes,
+                overlap=self.overlap, mode=self.mode,
             )
             with timer.phase("refit"):
                 m.train(points)
@@ -1559,9 +1771,11 @@ class DBSCAN:
             "graph_bytes": 0,
             "graph_build_s": 0.0,
             "relabel_s": relabel_s,
-            "mode": "fused",
+            "mode": self.mode,
+            "owner_computes": False,
+            "dispatch": dispatch_tag(None),
             "degraded": "per_config_refit",
-            "n_devices": 1,
+            "n_devices": int(self._n_devices()),
         }
         return labels_out, core_out, per_cfg, sweep
 
@@ -1631,11 +1845,12 @@ class DBSCAN:
 
     def _hier_run(self, points, timer, ms: Optional[int] = None):
         """Graph and hierarchy (kernel frame), the eps-free front half
-        of :meth:`_sweep_run`.  Returns a context dict: ``hier`` (the
-        ``ms`` hierarchy), ``build`` (ms -> another hierarchy over the
-        same prepared slab: core pass and MST, no new distance work),
-        ``gh``, ``gstats``, ``eps_max_k`` and ``stages`` (seconds of the
-        graph build and the prepare)."""
+        of :meth:`_sweep_run`, on its route (:meth:`_sharded_gate`).
+        Returns a context dict: ``hier`` (the ``ms`` hierarchy),
+        ``build`` (ms -> another hierarchy over the same prepared slab:
+        core pass and MST, no new distance work), ``gh``, ``gstats``,
+        ``run_mode``, ``n_devices``, ``eps_max_k`` and ``stages``
+        (seconds of the graph build and the prepare)."""
         from .ops import hierarchy as _hier
 
         ms = int(self.min_samples if ms is None else ms)
@@ -1643,11 +1858,13 @@ class DBSCAN:
         from .parallel import staging
 
         staging.begin_fit()
-        _relabel, gstats, gh = self._sweep_graph_fused(
-            points, eps_max, timer)
+        run_mode, n_devices = self._sharded_gate(points)
+        _relabel, gstats, gh = self._graph_route(
+            run_mode, points, eps_max, timer, n_devices)
         km = self._pair_metric
         eps_f = np.float32(eps_max)
         thr_max = float(eps_f * eps_f if km == "euclidean" else eps_f)
+        gh, gstats = _graph_under_ceiling(gh, gstats, thr_max)
         with timer.phase("hierarchy"):
             t0 = time.perf_counter()
             state = _hier.hierarchy_prepare(gh["gi"], gh["gj"], gh["dv"])
@@ -1664,6 +1881,7 @@ class DBSCAN:
             hier = build(ms)
         return {
             "hier": hier, "build": build, "gh": gh, "gstats": gstats,
+            "run_mode": run_mode, "n_devices": int(n_devices),
             "eps_max_k": float(eps_max),
             "stages": {"graph_build_s": gstats["build_s"],
                        "prepare_s": t1 - t0},
@@ -1678,11 +1896,16 @@ class DBSCAN:
         )
 
     def _hier_guarded(self, points, timer, ms: Optional[int] = None):
-        """:meth:`_hier_run`, a graph past its cap raising the no-refit
-        error."""
+        """:meth:`_hier_run`, a graph past its cap or an OOM-class error
+        raising the no-refit error, as in the JAX package."""
+        from .utils.retry import is_degradable_error
+
         try:
             return self._hier_run(points, timer, ms)
-        except SweepGraphOverflow as e:
+        except Exception as e:  # noqa: BLE001 — re-raised unless degradable
+            if not (isinstance(e, SweepGraphOverflow)
+                    or is_degradable_error(e)):
+                raise
             raise self._hier_no_refit(e) from e
 
     def _fit_hierarchy(self, data) -> "DBSCAN":
@@ -1743,8 +1966,10 @@ class DBSCAN:
             )
             self.metrics_["live_pairs"] = int(ctx["gstats"]["graph_pairs"])
             self._staging_metrics()
-            self.metrics_["n_partitions"] = 1
+            self.metrics_["n_partitions"] = int(
+                ctx["gstats"].get("n_partitions", 1))
             self.metrics_["kernel_passes"] = 2
+            self._fit_info["n_devices"] = ctx["n_devices"]
             ctx["stages"].update(cut_s=t_cut - t, relabel_s=t_rel - t_cut)
             self._hier_stats = self._hier_block(ctx, eps_selected=eps_u)
             log_phase(
@@ -1767,8 +1992,8 @@ class DBSCAN:
             graph_pairs=int(gstats["graph_pairs"]),
             graph_bytes=int(gstats["graph_bytes"]),
             graph_build_s=round(float(gstats["build_s"]), 6),
-            mode="fused",
-            n_devices=1,
+            mode=ctx["run_mode"],
+            n_devices=int(ctx["n_devices"]),
             eps_max=self._user_eps_from_kernel(ctx["eps_max_k"]),
             eps_selected=float(eps_selected),
             min_samples=int(ctx["hier"].min_samples),
@@ -1828,9 +2053,9 @@ class DBSCAN:
                 "n_clusters": int(dense.max()) + 1, "passes": 1,
             })
         self.metrics_["kernel_passes"] = len(configs) + 1
-        self.metrics_["n_partitions"] = 1
-        ctx["stages"]["relabel_s"] = sum(relabel_s)
         gstats = ctx["gstats"]
+        self._graph_metrics(gstats)
+        ctx["stages"]["relabel_s"] = sum(relabel_s)
         self._hier_stats = self._hier_block(
             ctx, eps_selected=eps_sel, ladder=ladder
         )
@@ -1842,9 +2067,9 @@ class DBSCAN:
             "graph_bytes": int(gstats["graph_bytes"]),
             "graph_build_s": round(float(gstats["build_s"]), 6),
             "relabel_s": relabel_s,
-            "mode": "fused",
+            **self._route_block(ctx["run_mode"], ctx["n_devices"], gstats,
+                                len(points)),
             "degraded": None,
-            "n_devices": 1,
             "eps_source": "hierarchy_auto",
             "ladder": [float(e) for e in ladder],
             "hierarchy": self._hier_stats,

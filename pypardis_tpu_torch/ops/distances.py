@@ -1084,7 +1084,8 @@ def default_edge_budget(n: int) -> int:
 def neighbor_pair_graph(points, mask, eps, metric: str = "euclidean",
                         tile: int = 1024, budget: int | None = None,
                         pair_budget: int | None = None,
-                        cap: int | None = None):
+                        cap: int | None = None,
+                        row_tiles: int | None = None):
     """Every ``(i, j, dval)`` with ``dval`` within eps over the live tile
     pairs, into a budgeted slab.
 
@@ -1099,7 +1100,11 @@ def neighbor_pair_graph(points, mask, eps, metric: str = "euclidean",
     budget is extracted again at its exact total before any edge is
     emitted, so the edge total is always exact.  With ``cap`` the
     emission stops once the total passes it (the caller then gives the
-    graph up): ``edge_total`` is only known to exceed ``cap`` then.  One
+    graph up): ``edge_total`` is only known to exceed ``cap`` then.
+    ``row_tiles`` restricts the emitting rows to the first ``row_tiles``
+    tiles (owner-computes: the owned prefix emits, boundary and halo
+    slots are column evidence only); the tile totals stay the whole
+    list's and the default ``budget`` sizes for the emitting rows.  One
     route: torch ops on the tensor's device.
     """
     d, n = points.shape
@@ -1118,7 +1123,12 @@ def neighbor_pair_graph(points, mask, eps, metric: str = "euclidean",
         rows, cols, tile_total = live_tile_pairs(
             lo, hi, eps, budget=pair_budget, metric=metric
         )
-    budget = default_edge_budget(n) if budget is None else int(budget)
+    rt = nt if row_tiles is None else min(int(row_tiles), nt)
+    if rt < nt:
+        keep = rows < rt
+        rows, cols = rows[keep], cols[keep]
+    budget = (default_edge_budget(rt * tile) if budget is None
+              else int(budget))
     gi = torch.zeros(budget, dtype=torch.int32, device=dev)
     gj = torch.zeros(budget, dtype=torch.int32, device=dev)
     dv = torch.full((budget,), float("inf"), dtype=torch.float32,

@@ -50,8 +50,10 @@ process drives every shard, one after another.
 
 Labels are the JAX route's, byte for byte, on both forms, and those of
 the fused single-card fit after :func:`~.sharded._canonicalize_roots`.
-Metrics other than the Euclidean raise ``NotImplementedError`` (ROADMAP
-A12).
+Both forms run the Euclidean and the cityblock metric (the L1 passes,
+the sketch off); the tile selections stay Euclidean box gaps, which
+bound the cityblock distance from below too.  :func:`sweep_graph_global_morton`
+is the sweep's one distance pass over the same shards.
 """
 
 from __future__ import annotations
@@ -312,14 +314,14 @@ def _stats_row(ex, passes, band):
 
 
 def _gm_chain_counts(pts, msk, *, owned, eps, min_samples, block, precision,
-                     backend, pair_budget):
+                     backend, pair_budget, metric="euclidean"):
     """One range's owner-computes counts pass: owned rows count against
     owned and boundary columns.  Returns ``(own_core (owned,) or None,
     stats row, (total, budget))``, the last the full list's: ``None``
     and 0 passes where it passed its budget (no kernel ran)."""
     ex = oc_extract(pts, eps, msk, owned=owned, block=block,
                     precision=precision, backend=backend,
-                    pair_budget=pair_budget)
+                    pair_budget=pair_budget, metric=metric)
     if ex["total"] > ex["budget"]:
         return None, _stats_row(ex, 0, (0, 0)), (ex["total"], ex["budget"])
     core, band = oc_counts_banded(ex, min_samples)
@@ -327,7 +329,7 @@ def _gm_chain_counts(pts, msk, *, owned, eps, min_samples, block, precision,
 
 
 def _gm_chain_propagate(pts, msk, core_all, gid, *, owned, eps, block,
-                        precision, backend, pair_budget):
+                        precision, backend, pair_budget, metric="euclidean"):
     """One range's relay propagation with host-supplied core flags.
     Returns ``(glabel (rows,), stats row)``: global root-gid labels over
     the owned and boundary slots (the occurrence tables' wire format);
@@ -335,7 +337,7 @@ def _gm_chain_propagate(pts, msk, core_all, gid, *, owned, eps, block,
     on an overflow, which pass A would have met first."""
     ex = oc_extract(pts, eps, msk, owned=owned, block=block,
                     precision=precision, backend=backend,
-                    pair_budget=pair_budget)
+                    pair_budget=pair_budget, metric=metric)
     if ex["total"] > ex["budget"]:
         raise RuntimeError("the propagation's pair list passed its budget "
                            "after the counts pass's fitted")
@@ -351,7 +353,7 @@ def _gm_chain_propagate(pts, msk, core_all, gid, *, owned, eps, block,
 
 def _gm_chained_dbscan(points, eps, min_samples, *, block, precision,
                        backend, pair_budget, merge_rounds, n_ranges, device,
-                       jobstate=None):
+                       jobstate=None, metric="euclidean"):
     """Chained single-card global-Morton clustering of a streamed
     dataset: its Morton ranges visit the card one at a time (see the
     module's docstring).  Returns ``(labels, core, stats)``.
@@ -396,7 +398,7 @@ def _gm_chained_dbscan(points, eps, min_samples, *, block, precision,
         mode = check_precision(precision)
         hint_key = (
             "gm_chain", dispatch_tag((cap + bcap) // block),
-            (n_ranges, cap, k), bcap, block, mode, float(eps), "euclidean",
+            (n_ranges, cap, k), bcap, block, mode, float(eps), metric,
         )
         t_exec_cell = [0.0]
         spans = _Spans(dev)
@@ -446,7 +448,7 @@ def _gm_chained_dbscan(points, eps, min_samples, *, block, precision,
                             pts, msk, owned=cap, eps=float(eps),
                             min_samples=int(min_samples), block=block,
                             precision=mode, backend=backend,
-                            pair_budget=pb))
+                            pair_budget=pb, metric=metric))
 
                     core, ps, tb = Retrier("gm.chained_range").run(
                         one_counts)
@@ -495,7 +497,8 @@ def _gm_chained_dbscan(points, eps, min_samples, *, block, precision,
                             return spans.run(lambda: _gm_chain_propagate(
                                 pts, msk, core_all, gid_t, owned=cap,
                                 eps=float(eps), block=block, precision=mode,
-                                backend=backend, pair_budget=pb))
+                                backend=backend, pair_budget=pb,
+                                metric=metric))
 
                         glab, ps = Retrier("gm.chained_range").run(one_prop)
                         glab_r = glab.cpu().numpy()
@@ -569,7 +572,7 @@ def _gm_chained_dbscan(points, eps, min_samples, *, block, precision,
             "exchange_overlap_efficiency": 0.0,
         }
         _exec_stats(stats, oc_on=True, pstats=pstats, block=block, k=k,
-                    precision=mode, n=n)
+                    precision=mode, n=n, metric=metric)
         stats["duplicated_work_factor"] = 1.0
         # The staging cache's counters: this route caches nothing (its
         # ranges visit the card once), as in the JAX package.
@@ -1049,7 +1052,8 @@ def _gm_boundary_tiles(arrays, eps, *, mesh, block, btcap, base,
 
 def _oc_kwargs(oc_kw, pair_budget):
     return dict(block=oc_kw["block"], precision=oc_kw["precision"],
-                backend=oc_kw["backend"], pair_budget=pair_budget)
+                backend=oc_kw["backend"], metric=oc_kw["metric"],
+                pair_budget=pair_budget)
 
 
 def _gm_owned_counts_step(owned, omsk, *, oc_kw, pair_budget, mesh, spans):
@@ -1235,9 +1239,9 @@ def _gm_fixpoint(home_label, core_g, bgid, b_glab, *, n_points,
     return lab_map, rounds, converged
 
 
-def _gm_mesh_dbscan(points, eps, min_samples, *, block, mesh, precision,
-                    backend, merge, pair_budget, merge_rounds, btcap, stream,
-                    chain, jobstate, dev):
+def _gm_mesh_dbscan(points, eps, min_samples, *, metric, block, mesh,
+                    precision, backend, merge, pair_budget, merge_rounds,
+                    btcap, stream, chain, jobstate, dev):
     """The mesh engine (the body of the JAX ``global_morton_dbscan`` on a
     mesh): see :func:`global_morton_dbscan`."""
     from ..obs.resources import memory_pressure
@@ -1270,23 +1274,26 @@ def _gm_mesh_dbscan(points, eps, min_samples, *, block, mesh, precision,
     t_build = time.perf_counter() - t0
     owned, omsk, ogid = arrays
     cap = int(bstats["owned_cap"])
-    # The ring's sketch tightening rides the sketch the kernels run.
-    sk_gm = int(sketch_dims(k, "euclidean"))
+    # The ring's sketch tightening rides the sketch the kernels run (0
+    # for cityblock, whose passes run unsketched).
+    sk_gm = int(sketch_dims(k, metric))
     oc_kw = dict(eps=float(eps), block=block, precision=mode,
-                 backend=backend)
+                 backend=backend, metric=metric)
     spans = _Spans(dev0)
     passes = []
     # The exchange/compute overlap: the owned x owned counts (most of the
     # counts pass) go before the exchange, the boundary delta after it;
     # owned + delta is the fused counts bitwise (disjoint column sets).
+    # The JAX gate: the owned slab runs the kernels or the pair-list
+    # dispatch, both Euclidean only; cityblock's passes count in one go.
     overlap = (os.environ.get("PPTORCH_GM_OVERLAP", "1") != "0"
-               and n_shards > 1)
+               and n_shards > 1 and metric == "euclidean")
     counts_ready = [None]
     t_counts0 = 0.0
     owned_counts = ostats = None
     if overlap:
         okey = ("gm_owned", dispatch_tag(cap // block), (n_shards, cap, k),
-                block, mode, float(eps), "euclidean")
+                block, mode, float(eps), metric)
         pb_env = os.environ.get("PPTORCH_PAIR_BUDGET")
         pb_owned = (int(pb_env) if pb_env
                     else pair_budget if pair_budget is not None
@@ -1336,7 +1343,7 @@ def _gm_mesh_dbscan(points, eps, min_samples, *, block, mesh, precision,
     ring_wall = float(xstats.pop("ring_wall_s", 0.0) or 0.0)
     brows = int(bnd[0].shape[1])
     # The combined slab's tile must split it at the owned prefix (raises).
-    gm_backend(backend, "euclidean", cap + brows, cap, block, k, mode, dev0)
+    gm_backend(backend, metric, cap + brows, cap, block, k, mode, dev0)
     t_hidden = overlap_eff = 0.0
     if overlap:
         t_done = (counts_ready[0] if counts_ready[0] is not None
@@ -1346,8 +1353,7 @@ def _gm_mesh_dbscan(points, eps, min_samples, *, block, mesh, precision,
         overlap_eff = t_hidden / ring_wall if ring_wall > 1e-9 else 0.0
     t_exchange = max(t_exchange_raw - t_hidden, 0.0)
     hint_key = ("gm", dispatch_tag((cap + brows) // block),
-                (n_shards, cap, k), brows, block, mode, float(eps),
-                "euclidean")
+                (n_shards, cap, k), brows, block, mode, float(eps), metric)
     stats = {k_: bstats[k_]
              for k_ in ("owned_cap", "n_shard_partitions", "pad_waste",
                         "partition_sizes", "parity", "input",
@@ -1450,7 +1456,8 @@ def _gm_mesh_dbscan(points, eps, min_samples, *, block, mesh, precision,
                     torch.cuda.empty_cache()
                 staging.give_back_after_put(host_bufs, dev0)
                 return global_morton_dbscan(
-                    points, eps=eps, min_samples=min_samples, block=block,
+                    points, eps=eps, min_samples=min_samples, metric=metric,
+                    block=block,
                     mesh=mesh, precision=precision, backend=backend,
                     merge="host", pair_budget=pair_budget,
                     merge_rounds=merge_rounds, btcap=btcap, stream=stream,
@@ -1477,7 +1484,7 @@ def _gm_mesh_dbscan(points, eps, min_samples, *, block, mesh, precision,
         exchange_overlap_efficiency=round(float(overlap_eff), 6),
     )
     _exec_stats(stats, oc_on=True, pstats=pstats, block=block, k=k,
-                precision=mode, n=n)
+                precision=mode, n=n, metric=metric)
     stats["duplicated_work_factor"] = 1.0
     stats["stage_s"] = stage
     stats["partition_passes"] = passes
@@ -1488,14 +1495,6 @@ def _gm_mesh_dbscan(points, eps, min_samples, *, block, mesh, precision,
 # ---------------------------------------------------------------------------
 # the driver
 # ---------------------------------------------------------------------------
-
-
-def _refuse(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP {item}); the port runs the "
-        f"global-Morton route's mesh engine and its chained form on one "
-        f"card with the Euclidean metric"
-    )
 
 
 def _as_gm_mesh(mesh, dev):
@@ -1584,11 +1583,15 @@ def global_morton_dbscan(
     ``gm.chained_range`` on the chained form); ``jobstate`` snapshots
     and resumes the device fixpoint.
 
+    ``metric``: ``"euclidean"`` or ``"cityblock"`` (the L1 passes, the
+    sketch and the overlap off, as in the JAX engine); cosine and
+    haversine reach the engine through
+    :class:`~pypardis_tpu_torch.DBSCAN`'s frames, and passed here they
+    raise ``ValueError``, as the JAX normalizer does.
     ``device``: None runs on the card (and raises without CUDA);
     ``"cpu"`` runs the kernels' plain versions.  There is no fallback: a
     misaligned slab (a non-power-of-two ``block``) and a kernel failure
-    raise, and a metric other than the Euclidean raises
-    ``NotImplementedError`` (ROADMAP A12).
+    raise.
     """
     from ..dbscan import resolve_device
 
@@ -1596,9 +1599,7 @@ def global_morton_dbscan(
     validate_params(eps, min_samples)
     if merge not in ("auto", "device", "host"):
         raise ValueError(f"merge must be auto|device|host, got {merge!r}")
-    if norm_metric(metric) != "euclidean":
-        _refuse(f"metric={norm_metric(metric)!r} on the global-Morton route",
-                "A12")
+    metric = norm_metric(metric)
     dev = resolve_device(device)
     if isinstance(points, torch.Tensor):
         points = points.detach().cpu().numpy()
@@ -1621,12 +1622,114 @@ def global_morton_dbscan(
             points, eps, min_samples, block=block_c, precision=precision,
             backend=backend, pair_budget=pair_budget,
             merge_rounds=merge_rounds, n_ranges=int(chain), device=dev,
-            jobstate=jobstate,
+            jobstate=jobstate, metric=metric,
         )
         stats["gm_total_s"] = round(time.perf_counter() - t0, 6)
         return labels, core, stats
     return _gm_mesh_dbscan(
-        points, eps, min_samples, block=block, mesh=_as_gm_mesh(mesh, dev),
+        points, eps, min_samples, metric=metric, block=block,
+        mesh=_as_gm_mesh(mesh, dev),
         precision=precision, backend=backend, merge=merge,
         pair_budget=pair_budget, merge_rounds=merge_rounds, btcap=btcap,
         stream=stream, chain=chain, jobstate=jobstate, dev=dev)
+
+
+# ---------------------------------------------------------------------------
+# the sweep's graph over the Morton ranges
+# ---------------------------------------------------------------------------
+
+
+def sweep_graph_global_morton(points, eps, *, block: int = 1024, mesh=None,
+                              metric: str = "euclidean",
+                              btcap: Optional[int] = None,
+                              edge_budget: Optional[int] = None,
+                              pair_budget: Optional[int] = None,
+                              cap_edges: Optional[int] = None, device=None):
+    """ONE distance pass at ``eps`` (the sweep's eps_max) over the
+    global-Morton shards: the global neighbour-pair graph (the JAX
+    ``sweep_graph_global_morton``).
+
+    The range build is the eps-free ``gm_owned`` route (a sweep after a
+    fit restages nothing) and the boundary tiles ride the ring at eps_max
+    (:func:`_gm_boundary_tiles`, route ``gm_boundary``, on more than one
+    shard): a tile within eps_c of a shard's rows is within eps_max of
+    them, so every config's neighbours are covered.  Each shard's owned
+    rows emit on its device over its owned + boundary slab
+    (:func:`~.sharded._sweep_slab_graph`), the boundary slots are column
+    evidence only, and the pieces are joined on the mesh's first device:
+    no duplicated rows, each directed edge emitted once by its owner.
+
+    Returns ``((gi, gj, dval), stats)``: int32 / int32 / float32 tensors
+    in global-id space on the mesh's first device, and the JAX stats
+    (``halo_exchange="morton_ring"``, the boundary-tile gauges,
+    ``duplicated_work_factor == 1.0``).  A boundary slab that is not a
+    whole number of ``block`` rows raises ``RuntimeError``.  ``mesh``,
+    ``device`` and ``btcap`` as in :func:`global_morton_dbscan`; the
+    graph's d^2 is exact in every precision mode, so the function takes
+    no ``precision``."""
+    from ..dbscan import resolve_device
+    from ..ops.distances import sweep_max_edges
+    from .sharded import _gather_graph, _on, _sweep_slab_graph
+
+    mesh = _as_gm_mesh(mesh, resolve_device(device))
+    metric = norm_metric(metric)
+    points = np.asarray(points)
+    n = points.shape[0]
+    n_shards = mesh.size
+    block = clamp_block(block, -(-n // max(n_shards, 1)))
+    if cap_edges is None:
+        cap_edges = sweep_max_edges()
+    with obs_span("sweep.build", mode="global_morton"):
+        arrays, bstats, host_bufs, base = build_morton_shards(
+            points, n_shards, block, mesh, eps=eps)
+    owned, omsk, ogid = arrays
+    cap = int(bstats["owned_cap"])
+    if n_shards > 1:
+        with obs_span("sweep.exchange", mode="global_morton"):
+            (bnd, bmsk, bgid), xstats = _gm_boundary_tiles(
+                arrays, eps, mesh=mesh, block=block, btcap=btcap, base=base)
+        brows = int(bnd[0].shape[1])
+        if brows % block:
+            raise RuntimeError(
+                f"boundary rows {brows} not a multiple of block {block}")
+    else:
+        brows = 0
+        xstats = {"boundary_tiles": 0, "boundary_rows": 0,
+                  "boundary_tile_bytes": 0, "ring_rounds": 0}
+    parts = []
+    eb, pb = edge_budget, pair_budget
+    with obs_span("sweep.extract", mode="global_morton", shards=n_shards):
+        for s in range(n_shards):
+            if brows:
+                pts = torch.cat([owned[s], bnd[s]], dim=1)
+                msk = torch.cat([omsk[s], bmsk[s]])
+                gid = torch.cat([ogid[s], bgid[s]])
+            else:
+                pts, msk, gid = owned[s], omsk[s], ogid[s]
+            with _on(mesh.device(s)):
+                gi, gj, dv, eb, pb = _sweep_slab_graph(
+                    pts, msk, gid, eps, owned_rows=cap, metric=metric,
+                    block=block, edge_budget=eb, pair_budget=pb,
+                    cap_edges=cap_edges)
+            parts.append((gi, gj, dv))
+    dev0 = mesh.device(0)
+    graph = _gather_graph(parts, dev0, cap_edges)
+    del parts
+    staging.give_back_after_put(host_bufs, dev0)
+    pairs = int(graph[0].numel())
+    stats = {
+        "mode": "global_morton",
+        "halo_exchange": "morton_ring",
+        "owner_computes": True,
+        "duplicated_work_factor": 1.0,
+        "graph_pairs": pairs,
+        "graph_bytes": pairs * 12,
+        "n_partitions": int(n_shards),
+        **{k_: bstats[k_] for k_ in (
+            "owned_cap", "pad_waste", "partition_sizes",
+            "n_shard_partitions") if k_ in bstats},
+        **{k_: xstats[k_] for k_ in (
+            "boundary_tiles", "boundary_rows", "boundary_tile_bytes",
+            "ring_rounds") if k_ in xstats},
+    }
+    return graph, stats

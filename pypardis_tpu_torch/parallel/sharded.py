@@ -2122,3 +2122,154 @@ def sharded_dbscan_device(
         pair_budget=pair_budget, merge_rounds=merge_rounds, stage=stage,
         span_kw={"input": "device"})
     return labels, core, stats, part, pid
+
+
+# ---------------------------------------------------------------------------
+# the sweep's graph on a mesh
+# ---------------------------------------------------------------------------
+
+
+class SweepGraphOverflow(RuntimeError):
+    """The sweep graph is past its cap or still overflowed after the
+    exact-total retry.  A partial graph would miss edges, so nothing
+    relabels from one: ``DBSCAN.sweep`` runs per-config fits instead."""
+
+
+def _sweep_slab_graph(pts, msk, gids, eps, *, owned_rows, metric, block,
+                      edge_budget, pair_budget, cap_edges):
+    """One slab's directed edges at ``eps`` in global-id space (the JAX
+    ``_sweep_slab_graph``), on the slab's device.
+
+    ``pts``/``msk``: the ``(k, rows)`` slab (the owned prefix, then its
+    halo or boundary slots) and its mask; ``gids``: slab slot -> global
+    id.  Only the first ``owned_rows`` rows emit.  The exact-total
+    ladder: the cap is checked before the no-overflow break, one retry
+    at the exact total (a ``pair_overflow`` event, ``route=
+    "sweep_graph"``), and past either :class:`SweepGraphOverflow`.
+    Returns ``(gi, gj, dval, edge_budget, pair_budget)``: int32 / int32
+    / float32 tensors with the ``+inf`` padding dropped, and the grown
+    budgets so that the next slab starts where this one ended."""
+    from ..ops.distances import default_edge_budget, neighbor_pair_graph
+
+    eb = int(edge_budget or default_edge_budget(owned_rows))
+    pb = pair_budget
+    for attempt in (0, 1):
+        gi, gj, dv, st = neighbor_pair_graph(
+            pts, msk, eps, metric=metric, tile=block, budget=eb,
+            pair_budget=pb, cap=cap_edges, row_tiles=owned_rows // block)
+        need_e, got_e = int(st[0]), int(st[1])
+        pb = int(st[3])
+        if need_e > cap_edges:
+            raise SweepGraphOverflow(
+                f"neighbour-pair graph needs more than {cap_edges} edges "
+                f"on one slab, the sweep cap (PPTORCH_SWEEP_MAX_PAIRS); the "
+                f"sweep runs per-config fits instead"
+            )
+        if need_e <= got_e:
+            break
+        if attempt:
+            raise SweepGraphOverflow(
+                f"graph emission overflow persisted after an exact-total "
+                f"retry (edges {need_e}/{got_e})"
+            )
+        obs_event("pair_overflow", total=need_e, budget=got_e,
+                  route="sweep_graph")
+        eb = round_up(max(need_e, 1), 4096)
+    g = gids.long()
+    return (g[gi[:need_e].long()].int(), g[gj[:need_e].long()].int(),
+            dv[:need_e], eb, pb)
+
+
+def _gather_graph(parts, device, cap_edges):
+    """The slabs' ``(gi, gj, dval)`` pieces joined on ``device``: each
+    piece is copied there once and the host sees none of them.  The
+    joined graph lands whole on one device, so the sweep cap binds its
+    total as it binds each slab and a cached graph (the JAX package
+    checks each slab only): past it, :class:`SweepGraphOverflow`."""
+    total = sum(int(p[0].numel()) for p in parts)
+    if total > cap_edges:
+        raise SweepGraphOverflow(
+            f"neighbour-pair graph holds {total} edges over its slabs, past "
+            f"the sweep cap of {cap_edges} (PPTORCH_SWEEP_MAX_PAIRS); the "
+            f"sweep runs per-config fits instead"
+        )
+    if not parts:
+        return (torch.empty(0, dtype=torch.int32, device=device),
+                torch.empty(0, dtype=torch.int32, device=device),
+                torch.empty(0, dtype=torch.float32, device=device))
+    return tuple(torch.cat([p[i].to(device) for p in parts])
+                 for i in range(3))
+
+
+def sweep_graph_sharded(points, partitioner, eps, *, block: int = 1024,
+                        mesh=None, metric: str = "euclidean",
+                        edge_budget: Optional[int] = None,
+                        pair_budget: Optional[int] = None,
+                        cap_edges: Optional[int] = None, device=None):
+    """ONE distance pass at ``eps`` (the sweep's eps_max) over the KD
+    owner-computes slabs: the global neighbour-pair graph (the JAX
+    ``sweep_graph_sharded``).
+
+    The slabs come through the fused step's staging route
+    (:func:`_mesh_build_cached`: owned slabs keyed without eps, so a
+    sweep after a fit, or a second sweep, re-ships only halos), and the
+    2*eps_max halo holds every neighbour within eps_c <= eps_max of an
+    owned point.  Each partition's owned rows emit on its shard's device
+    and its halo slots are column evidence only, so each directed edge
+    is emitted exactly once, by its row's owner, and per-config counts
+    over the graph are the owner-computes counts.  The pieces are joined
+    on the mesh's first device.
+
+    Returns ``((gi, gj, dval), stats)``: int32 / int32 / float32 tensors
+    in global-id space on the mesh's first device, and the JAX stats
+    (``mode``, ``owner_computes``, ``graph_pairs``, ``graph_bytes``,
+    ``n_partitions`` and the layout's gauges).  The spans are
+    ``sweep.build`` and ``sweep.extract``.  The graph's d^2 is the pair
+    passes' exact arithmetic in every precision mode, so the function
+    takes no ``precision``.  ``mesh`` None is every
+    visible card (one CPU device under ``device="cpu"``); ``device`` as
+    in :func:`sharded_dbscan`."""
+    from ..dbscan import resolve_device
+    from ..ops.distances import sweep_max_edges
+    from .global_morton import _as_gm_mesh
+
+    mesh = _as_gm_mesh(mesh, resolve_device(device))
+    points = np.asarray(points)
+    metric = norm_metric(metric)
+    if cap_edges is None:
+        cap_edges = sweep_max_edges()
+    stage = {}
+    with obs_span("sweep.build", mode="kd"):
+        owned, halos, bstats, bufs = _mesh_build_cached(
+            points, partitioner, eps, mesh, block, stage)
+    cap = int(bstats["owned_cap"])
+    blk = min(block, cap)
+    dev0 = mesh.device(0)
+    parts = []
+    eb, pb = edge_budget, pair_budget
+    p_total = int(bstats["n_shard_partitions"])
+    with obs_span("sweep.extract", mode="kd", shards=p_total):
+        for s, slabs in enumerate(_joined_slabs(owned, halos)):
+            with _on(mesh.device(s)):
+                for pts, msk, gid in slabs:
+                    gi, gj, dv, eb, pb = _sweep_slab_graph(
+                        pts, msk, gid, eps, owned_rows=cap, metric=metric,
+                        block=blk, edge_budget=eb, pair_budget=pb,
+                        cap_edges=cap_edges)
+                    parts.append((gi, gj, dv))
+    graph = _gather_graph(parts, dev0, cap_edges)
+    del parts
+    staging.give_back_after_put(bufs, dev0)
+    pairs = int(graph[0].numel())
+    stats = {
+        "mode": "kd",
+        "owner_computes": True,
+        "graph_pairs": pairs,
+        "graph_bytes": pairs * 12,
+        "n_partitions": p_total,
+        **{k_: bstats[k_] for k_ in (
+            "owned_cap", "halo_cap", "halo_factor", "halo_bytes",
+            "pad_waste", "partition_sizes", "n_shard_partitions")
+           if k_ in bstats},
+    }
+    return graph, stats

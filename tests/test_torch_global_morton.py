@@ -9,7 +9,7 @@ in-RAM and streaming splits, each range's break plan and boundary
 cover, the owner-computes passes on a real range slab, and the route's
 labels, core flags and stats (timings aside).  Then the env and
 ``sharded_dbscan`` spellings, the spill's cleanup, retry and resume at
-``gm.chained_range``, the refused metrics, the knobs the mesh engine
+``gm.chained_range``, the cityblock spellings, the knobs the mesh engine
 lifted (held against the JAX engine) and the tile rule.
 
 One documented difference: under ``precision="mixed"`` the JAX
@@ -536,14 +536,22 @@ def _cityblock_callable():
     dict(metric="cityblock"), dict(metric="manhattan"), dict(metric="l1"),
     dict(metric=_cityblock_callable()),
 ])
-def test_refusals_name_their_roadmap_item(mm_points, monkeypatch, knob):
-    """The engine's non-Euclidean metrics (every cityblock spelling) stay
-    refused on both forms, naming their item."""
+def test_cityblock_spellings_match_jax_on_both_forms(mm_points, monkeypatch,
+                                                     knob):
+    """Every cityblock spelling runs on both forms (the chained ranges
+    and the engine on one device) to the JAX engine's labels and core
+    flags for the same call."""
     monkeypatch.delenv("PPTORCH_GM_CHAIN", raising=False)
+    monkeypatch.delenv("PYPARDIS_GM_CHAIN", raising=False)
     _mm, X = mm_points
     for chain in (4, None):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            global_morton_dbscan(X, device="cpu", chain=chain, **KW, **knob)
+        lab, core, st = global_morton_dbscan(X, device="cpu", chain=chain,
+                                             **KW, **knob)
+        j_lab, j_core, _js = jax_gm.global_morton_dbscan(
+            X, mesh=default_mesh(1), chain=chain, metric="cityblock", **KW)
+        np.testing.assert_array_equal(lab, j_lab, err_msg=str(chain))
+        np.testing.assert_array_equal(core, j_core, err_msg=str(chain))
+        assert st["mode"] == "global_morton"
 
 
 @pytest.mark.parametrize("knob", [

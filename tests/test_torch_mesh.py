@@ -2,9 +2,9 @@
 held to before it runs, against the JAX package on the CPU:
 ``Mesh``/``default_mesh`` and the cross-shard reductions,
 ``BoxStack``/``KDPartitioner.box_stack`` and the stacked layout at P =
-4 and 8 (padded slots included), bitwise; the refusals of
-``sharded_dbscan`` and ``DBSCAN`` on a mesh (the ring's knobs and
-inputs, which run), the tile rule, the single
+4 and 8 (padded slots included), bitwise; the mode dispatch, the
+refusals of ``sharded_dbscan`` and ``DBSCAN`` on a mesh (the ring's
+knobs and inputs, which run), the tile rule, the single
 route for small inputs and the constructor's defaults.  The step's
 results are held in ``tests/test_torch_mesh_parity.py`` and
 ``tests/test_torch_mesh_fits.py``."""
@@ -174,18 +174,24 @@ def test_build_shards_is_the_jax_layout_on_a_mesh(blobs, P, parts):
     assert tst["partition_sizes"][parts:] == [0] * (p_total - parts)
 
 
-# -- refusals and the tile rule ----------------------------------------------
+# -- the mode dispatch and the tile rule ----------------------------------------------
 
 
-@pytest.mark.parametrize("knob", [dict(mode="global_morton",
-                                       metric="cityblock")])
-def test_refused_knobs_on_a_mesh_name_their_roadmap_item(blobs, knob):
-    """The global-Morton mesh engine runs on a mesh now
-    (``tests/test_torch_gm_mesh.py``); its non-Euclidean metrics stay
-    refused."""
-    kw = dict(KW, **knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        _port(blobs[:800], 4, kw=kw)
+def test_mode_dispatch_runs_global_morton_cityblock_on_a_mesh(blobs):
+    """``sharded_dbscan(mode="global_morton", metric="cityblock")`` on a
+    mesh dispatches to the global-Morton engine, to the JAX route's
+    labels and core flags (``tests/test_torch_gm_metrics.py`` holds the
+    engine called directly)."""
+    from pypardis_tpu.parallel import default_mesh as jax_default_mesh
+
+    kw = dict(KW, mode="global_morton", metric="cityblock")
+    X = blobs[:800]
+    lab, core, st = _port(X, 4, kw=kw)
+    j_lab, j_core, _js = jax_sharded.sharded_dbscan(
+        X, JaxKD(X, max_partitions=8), mesh=jax_default_mesh(4), **kw)
+    np.testing.assert_array_equal(lab, np.asarray(j_lab))
+    np.testing.assert_array_equal(core, np.asarray(j_core))
+    assert st["mode"] == "global_morton"
 
 
 @pytest.mark.parametrize("knob", [
@@ -252,16 +258,6 @@ def test_a_single_fit_after_a_mesh_fit_drops_the_partitioner(blobs):
     assert m.partitioner_ is not None
     m.fit(blobs[:6])
     assert m.partitioner_ is None
-
-
-@pytest.mark.parametrize("how", ["global_morton"])
-def test_mesh_fits_refuse_the_unported_routes(blobs, tmp_path, how):
-    """``mode="global_morton"`` fits on a mesh now; its cityblock metric
-    is what stays refused (ROADMAP A12), and the refusal is not taken
-    for an OOM: no KD fallback hides it."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        DBSCAN(mesh=_mesh(4), device="cpu", mode=how, metric="cityblock",
-               **KW).fit(blobs)
 
 
 @pytest.mark.parametrize("how", ["memmap", "tensor"])

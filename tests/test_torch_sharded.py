@@ -386,13 +386,21 @@ def test_runs_on_the_card_by_default(monkeypatch):
         sharded_dbscan(X, KDPartitioner(X, max_partitions=8), **kw)
 
 
-@pytest.mark.parametrize("knob", [dict(mode="global_morton",
-                                       metric="cityblock")])
-def test_refused_knobs_name_their_roadmap_item(knob):
+def test_mode_dispatch_runs_global_morton_cityblock_as_in_jax(monkeypatch):
+    """``sharded_dbscan(mode="global_morton", metric="cityblock")`` on one
+    device dispatches to the global-Morton engine, to the JAX route's
+    labels and core flags."""
+    knob = dict(mode="global_morton", metric="cityblock")
+    monkeypatch.delenv("PPTORCH_GM_CHAIN", raising=False)
+    monkeypatch.delenv("PYPARDIS_GM_CHAIN", raising=False)
     X, kw = _blobs750()
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        sharded_dbscan(X, KDPartitioner(X, max_partitions=8),
-                       device="cpu", **kw, **knob)
+    lab, core, st = sharded_dbscan(X, KDPartitioner(X, max_partitions=8),
+                                   device="cpu", **kw, **knob)
+    j_lab, j_core, _js = jax_sharded.sharded_dbscan(
+        X, JaxKD(X, max_partitions=8), mesh=default_mesh(1), **kw, **knob)
+    np.testing.assert_array_equal(lab, np.asarray(j_lab))
+    np.testing.assert_array_equal(core, np.asarray(j_core))
+    assert st["mode"] == "global_morton"
 
 
 @pytest.mark.parametrize("knob", [

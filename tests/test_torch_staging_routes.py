@@ -203,22 +203,27 @@ def test_eps_change_staging_reuse_is_correct(blobs):
 
 
 def test_kd_sharded_byte_parity_and_staging_reuse(blobs):
-    """The JAX KD sweep's reuse contract on the port's sweep (a model
-    with a mesh sweeps on one device, ROADMAP A13's rest): configs 2..k
-    reuse the device-resident graph, each config equals a fit at it,
-    and the per-config reuse pattern is the JAX sweep's."""
+    """The JAX KD sweep's contract on the port's sweep: a model with a
+    mesh sweeps on the KD route (owner-computes slabs on every shard),
+    configs 2..k reuse the device-resident graph, each config equals
+    the port's sharded fit at it, and the per-config reuse pattern is
+    the JAX sweep's."""
     ms_list = [5, 8]
-    m = DBSCAN(eps=0.4, min_samples=5, block=128, mesh=Mesh(["cpu"] * 8),
-               device="cpu")
+    mesh = Mesh(["cpu"] * 8)
+    m = DBSCAN(eps=0.4, min_samples=5, block=128, mesh=mesh, device="cpu")
     res = m.sweep(blobs, EPS_LIST, ms_list)
     assert res.stats["distance_passes"] == 1
+    assert res.stats["mode"] == "kd"
+    assert res.stats["owner_computes"] is True
     assert res.per_config[0]["staged_bytes_reused"] == 0
     for cfg in res.per_config[1:]:
         assert cfg["staged_bytes_reused"] > 0, cfg
     for (e, ms), lab in res:
-        fit = DBSCAN(eps=e, min_samples=ms, block=128,
+        fit = DBSCAN(eps=e, min_samples=ms, block=128, mesh=mesh,
                      device="cpu").fit(blobs)
         np.testing.assert_array_equal(lab, fit.labels_)
+        np.testing.assert_array_equal(res.core(e, ms),
+                                      fit.core_sample_mask_)
     jres = JaxDBSCAN(eps=0.4, min_samples=5, block=128,
                      mesh=default_mesh(8)).sweep(blobs, EPS_LIST, ms_list)
     assert ([c["staged_bytes_reused"] > 0 for c in res.per_config]
